@@ -5,20 +5,32 @@
 Phases (each prints one JSON line with its seconds):
   1. device and build: the card's name and power limit, nvcc of every
      ``lightcompress_tpu_torch/ops/csrc/*.cu`` (all started together);
-  2. every kernel against its plain PyTorch version at every Llama-3-8B
+  2. every W4 kernel against its plain PyTorch version at every Llama-3-8B
      linear shape, with times (kernel, plain, a library matmul, the bound);
+     then every decode-attention kernel against its plain version at the
+     engine's shapes (8 slots, 8 KV heads of 4 query heads, head_dim 128,
+     ragged lengths), with times (kernel, plain, a library attention, the
+     bound);
   3. the W4A8 engine at full Llama-3-8B width and depth (random weights from
      a seed): one batched prefill of 8 prompts (1024 rows) and 32 greedy
      tokens each;
   4. the W4A16 engine on the same packed weights: 4 prompts, 16 tokens;
      then torch.profiler over four W4A8 decode steps (device time by
      kernel, idle share);
-  5. the engine's prefill logits against a forward of the same serving
-     weights through the plain versions, and a small Llama through the
-     engine on the card against the same on the CPU (the path the CPU
-     tests hold to the JAX package);
-  6. the kernel summary line;
-  7. the result line.
+  5. the kv4 engine (``kv_bits="auto"`` at max_len 4096: the bd4 nibble
+     cache and kernel #20) on 8 prompts of 1500-2000 tokens, 32 tokens
+     each, and torch.profiler over its decode steps; the kv4 engine at
+     max_len 8192 (kernel #21) on 8 prompts of 3000-4000 tokens, 16 tokens
+     each; the kv8 engine with ``attn_impl="pallas"`` (kernel #17) on the
+     prompts of phase 3;
+  6. the engine's prefill logits against a forward of the same serving
+     weights through the plain versions, and a small Llama through each
+     engine route on the card against the same on the CPU (the paths the
+     CPU tests hold to the JAX package);
+  7. the kernel summary line;
+  8. the result line.
+Each engine phase sets every launch count to 0 just before it runs and
+reads the counts just after.
 Any failure raises and the script exits non-zero.  Without a CUDA device
 it exits non-zero before printing any result.
 """
@@ -31,6 +43,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -38,6 +51,7 @@ import torch
 from lightcompress_tpu_torch.models import arch as A
 from lightcompress_tpu_torch.models import ArchSpec, Llama, init_params
 from lightcompress_tpu_torch.ops import _build
+from lightcompress_tpu_torch.ops import attention as AT
 from lightcompress_tpu_torch.ops import w4_matmul as W
 from lightcompress_tpu_torch.ops.qlinear import dequant_weight, quantize_linear
 from lightcompress_tpu_torch.quant import QuantSpec
@@ -45,6 +59,9 @@ from lightcompress_tpu_torch.serving import (LLMEngine, SamplingParams,
                                              build_serving_weights,
                                              head_logits)
 from lightcompress_tpu_torch.serving.engine import Request
+from lightcompress_tpu_torch.serving.kv_cache import (
+    KVCache, append_kv4_bd, append_kv_quantized, append_slots, quantize_kv,
+    quantize_kv4, unpack_kv4)
 
 SEED = 0
 # meta-llama/Meta-Llama-3-8B config.json
@@ -75,7 +92,25 @@ KERNEL_INFO = {
     "w4a8_matmul_prefill": dict(
         source="lightcompress_tpu_torch/ops/csrc/w4_matmul.cu",
         replaces="lightcompress_tpu/ops/pallas_matmul.py:1332"),
+    "decode_attention_bd4": dict(
+        source="lightcompress_tpu_torch/ops/csrc/decode_attention.cu",
+        replaces="lightcompress_tpu/ops/pallas_attention.py:564"),
+    "decode_attention_bd4_flash": dict(
+        source="lightcompress_tpu_torch/ops/csrc/decode_attention.cu",
+        replaces="lightcompress_tpu/ops/pallas_attention.py:699"),
+    "decode_attention_i8": dict(
+        source="lightcompress_tpu_torch/ops/csrc/decode_attention.cu",
+        replaces="lightcompress_tpu/ops/pallas_attention.py:118"),
 }
+KERNELS = W.KERNELS + AT.KERNELS
+ATTN = [k.__name__ for k in AT.KERNELS]
+# decode attention at the engine's shapes: 8 slots, Llama-3-8B's 8 KV heads
+# of 4 query heads each, head_dim 128
+ATT_B, ATT_H, ATT_G, ATT_D = 8, 8, 4, 128
+# m and d: f32 sums in another order; the normalized context: an ulp of
+# exp can flip one int8 probability code (a step of max(pv)/127)
+TOL_MD = 1e-5
+TOL_CTX = 2e-2
 
 
 def emit(obj) -> None:
@@ -188,9 +223,147 @@ def phase_kernels(dev) -> dict:
     return {"phase": "kernels", "rows": rows, "seconds": time.time() - t0}
 
 
-def make_prompts(n: int, vocab: int):
+def attn_bound(kname: str, lengths: torch.Tensor):
+    """Least time of one decode-attention call: the bytes of the valid
+    columns only (codes and scales of K and V; the kernels skip masked
+    columns, which contribute exactly 0), q, the fresh token (#17) and the
+    outputs, against the int8 dot operations (QK and PV, 2*D each per
+    query row and column) at the int8 peak."""
+    B, H, G, D = ATT_B, ATT_H, ATT_G, ATT_D
+    cols = H * int(lengths.sum())
+    per_col = (2 * D + 4) if kname == "decode_attention_i8" else (D + 4)
+    nbytes = cols * per_col + B * H * G * D * 2 + B * 4
+    if kname == "decode_attention_i8":
+        cols += B * H  # the fresh token's column
+        nbytes += 2 * B * H * (D + 2) + B * H * G * D * 4
+    else:
+        nbytes += B * H * G * (D + 2) * 4  # ctx, m, d
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = 4 * G * D * cols / PEAK_OPS["int8"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def ragged_lengths(S: int, dev) -> torch.Tensor:
+    """8 slots: empty, at the buffer's end, and ragged between."""
+    return torch.tensor([0, S, 1, S // 2 + 3, S - 5, 17, S // 3, 3 * S // 4],
+                        dtype=torch.int32, device=dev)
+
+
+def ctx_error(out, ref):
+    """(max |err|, max |ref|) of the normalized context; ``out`` and
+    ``ref`` are #17's context or the bd4 kernels' (ctx, m, d), whose m and
+    d must agree to TOL_MD relative."""
+    if isinstance(out, tuple):
+        (c, m, d), (rc, rm, rd) = out, ref
+        if not (((m - rm).abs() <= TOL_MD * rm.abs()).all()
+                and ((d - rd).abs() <= TOL_MD * rd.abs()).all()):
+            raise AssertionError("bd4 kernel: m or d off its plain version")
+        out = c / d.clamp_min(1e-30)[..., None]
+        ref = rc / rd.clamp_min(1e-30)[..., None]
+    if not torch.isfinite(out).all():
+        raise AssertionError("attention kernel output is not finite")
+    return float((out - ref).abs().max()), float(ref.abs().max())
+
+
+def attn_case(kname: str, S: int, dev, gen):
+    """Inputs of one decode-attention kernel at buffer S: (wrapper call,
+    plain call, the bare kernel launch on prepared operands, the library
+    yardstick call, lengths)."""
+    B, H, G, D = ATT_B, ATT_H, ATT_G, ATT_D
+    q = torch.randn((B, H, G, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k = torch.randn((B, H, S, D), generator=gen, device=dev) * 2
+    v = torch.randn((B, H, S, D), generator=gen, device=dev)
+    L = ragged_lengths(S, dev)
+    q8, qs = AT.quantize_q(q)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = AT._lib()
+    if kname == "decode_attention_i8":
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        kn, kns = quantize_kv(torch.randn((B, H, 1, D), generator=gen,
+                                          device=dev) * 2)
+        vn, vns = quantize_kv(torch.randn((B, H, 1, D), generator=gen,
+                                          device=dev))
+        args = (q, kq, ks, vq, vs, kn[:, :, 0].contiguous(),
+                kns[:, :, 0].contiguous(), vn[:, :, 0].contiguous(),
+                vns[:, :, 0].contiguous(), L)
+        out = torch.empty((B, H, G, D), dtype=torch.float32, device=dev)
+        ptrs = [t.data_ptr() for t in (q8, qs, *args[1:], out)]
+        bare = lambda: AT._launch(lib.lc_attn_i8, *ptrs, B, H, G, S,
+                                  stream)
+        kf, vf = (c.float() * s[..., None].float() for c, s in ((kq, ks),
+                                                                 (vq, vs)))
+        run = lambda: AT.decode_attention_i8(*args)
+        plain = lambda: AT.decode_attention_i8_plain(*args)
+    else:
+        k4, ks = quantize_kv4(k)
+        v4, vs = quantize_kv4(v)
+        kt4 = k4.transpose(2, 3).reshape(B, H * D // 2, S).contiguous()
+        vt4 = v4.transpose(1, 2).reshape(B, S, H * D // 2).contiguous()
+        args = (q, kt4, ks, vt4, vs, L)
+        outs = [torch.empty(s, dtype=torch.float32, device=dev)
+                for s in ((B, H, G, D), (B, H, G), (B, H, G))]
+        ptrs = [t.data_ptr() for t in (q8, qs, *args[1:], *outs)]
+        if kname == "decode_attention_bd4":
+            bare = lambda: AT._launch(lib.lc_attn_bd4, *ptrs, B, H, G, S,
+                                      stream)
+        else:
+            sb = AT.flash_block(S, AT.S_BLOCK)
+            bare = lambda: AT._launch(lib.lc_attn_bd4_flash, *ptrs, B, H,
+                                      G, S, sb, stream)
+        kf, vf = (unpack_kv4(c) * s[..., None].float() for c, s in ((k4, ks),
+                                                                     (v4, vs)))
+        run = lambda: getattr(AT, kname)(*args)
+        plain = lambda: getattr(AT, kname + "_plain")(*args)
+    kf, vf = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
+    mask = (torch.arange(S, device=dev)[None] < L[:, None])[:, None, None]
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, kf, vf, attn_mask=mask)
+    return run, plain, bare, library, L
+
+
+def phase_attn_kernels(dev) -> dict:
+    """#20 at buffer 4096, #21 at 8192, #17 at 512 and 4096 against their
+    plain versions; times of the bare kernel (operands prepared), of the
+    whole wrapper (with the query's int8 quantization), of the plain
+    version, and of the library yardstick: PyTorch's
+    scaled_dot_product_attention of the bf16 q over the pre-dequantized
+    bf16 K/V (another function over 2-4 times the bytes; the port never
+    calls it)."""
+    t0 = time.time()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    pad = torch.empty(PAD, dtype=torch.uint8, device=dev)
+    rows = []
+    for kname, S in (("decode_attention_bd4", 4096),
+                     ("decode_attention_bd4_flash", 8192),
+                     ("decode_attention_i8", 512),
+                     ("decode_attention_i8", 4096)):
+        run, plain, bare, library, L = attn_case(kname, S, dev, gen)
+        err, scale = ctx_error(run(), plain())
+        torch.cuda.synchronize()
+        if not err <= TOL_CTX * scale:
+            raise AssertionError(f"{kname} S={S}: max|err| {err} > "
+                                 f"{TOL_CTX} * {scale}")
+        b_ms, b_by = attn_bound(kname, L)
+        rows.append({
+            "kernel": kname, "S": S, "lengths": L.tolist(),
+            "max_abs_err": err, "max_abs_ref": scale, "tol": TOL_CTX,
+            "kernel_ms": time_ms(bare, 20, pad),
+            "wrapper_ms": time_ms(run, 20, pad),
+            "plain_ms": time_ms(plain, 3, pad),
+            "library_ms": time_ms(library, 20, pad),
+            "bound_ms": b_ms, "bound_by": b_by})
+    return {"phase": "attn_kernels", "rows": rows,
+            "seconds": time.time() - t0}
+
+
+def make_prompts(n: int, vocab: int, lo: int = 100, hi: int = 128):
+    """``n`` prompts of ``lo`` to ``hi`` tokens drawn from the seed."""
     rng = np.random.RandomState(SEED)
-    return [rng.randint(0, vocab, size=rng.randint(100, 129)).tolist()
+    return [rng.randint(0, vocab, size=rng.randint(lo, hi + 1)).tolist()
             for _ in range(n)]
 
 
@@ -232,32 +405,64 @@ def timed_engine(eng: LLMEngine):
     return stats
 
 
-def run_engine(sw, prompts, n_new: int, dev) -> tuple:
-    eng = LLMEngine(sw, max_slots=8, max_len=512, kv_bits=8,
-                    prefill_buckets=(128,), seed=SEED, device=dev)
+def engine(sw, dev, **kw) -> LLMEngine:
+    """The engine with the smoke's defaults (8 slots, max_len 512, kv8,
+    prefill bucket 128) updated by ``kw``."""
+    opts = dict(max_slots=8, max_len=512, kv_bits=8, prefill_buckets=(128,))
+    opts.update(kw)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # attn_impl="pallas" is probe-only
+        return LLMEngine(sw, seed=SEED, device=dev, **opts)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def run_engine(sw, prompts, n_new: int, dev, **kw) -> tuple:
+    eng = engine(sw, dev, **kw)
     stats = timed_engine(eng)
-    W.reset_launch_counts()
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.time()
     outs = eng.generate(prompts, SamplingParams(max_new_tokens=n_new))
     torch.cuda.synchronize()
-    launches = {k.__name__: k.launches for k in W.KERNELS}
+    launches = {k.__name__: k.launches for k in KERNELS}
     vocab = sw.arch.vocab_size
     if len(outs) != len(prompts) or any(
             len(o) != n_new or not all(0 <= t < vocab for t in o)
             for o in outs):
         raise AssertionError("engine output has the wrong shape or range")
-    return outs, launches, dict(stats, generate_s=time.time() - t0,
-                                decode_tok_s=stats["decode_tokens"]
-                                / stats["decode_s"])
+    plens = [len(p) for p in prompts]
+    return outs, launches, dict(
+        stats, generate_s=time.time() - t0,
+        decode_tok_s=stats["decode_tokens"] / stats["decode_s"],
+        attn_impl=eng.attn_impl, kv_bits=eng.kv_bits, buf_len=eng.buf_len,
+        prompt_tokens=[min(plens), max(plens)],
+        context_max=max(plens) + n_new - 1)
 
 
-def phase_profile(sw, prompts, dev, steps: int = 4) -> dict:
+def engine_phase(name: str, sw, prompts, n_new: int, dev, attn: str,
+                 **kw) -> dict:
+    """One engine phase: its attention kernel ``attn`` (None: the plain
+    ``xla`` route) launched, the other attention kernels not."""
+    t0 = time.time()
+    _, launches, stats = run_engine(sw, prompts, n_new, dev, **kw)
+    for k in ATTN:
+        if (launches[k] > 0) != (k == attn):
+            raise AssertionError(f"{name}: {k} launched {launches[k]} "
+                                 f"times")
+    emit({"phase": name, "launches": launches, **stats,
+          "seconds": time.time() - t0})
+    return launches
+
+
+def phase_profile(sw, prompts, dev, steps: int = 4, **kw) -> dict:
     """torch.profiler over a few decode steps with all 8 slots active:
     device busy time per kernel name, and the device's idle share of the
     steps' wall time (one stream, so kernel times do not overlap)."""
-    eng = LLMEngine(sw, max_slots=8, max_len=512, prefill_buckets=(128,),
-                    seed=SEED, device=dev)
+    eng = engine(sw, dev, **kw)
     eng._admit([(i, Request(i, np.asarray(p), steps + 1))
                 for i, p in enumerate(prompts)], SamplingParams())
     active = torch.ones(8, dtype=torch.bool, device=dev)
@@ -284,6 +489,8 @@ def phase_profile(sw, prompts, dev, steps: int = 4) -> dict:
     busy_ms = sum(v[0] for v in kern.values()) / 1e3 / steps
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:12]
     return {"phase": "profile_decode", "act_bits": sw.act_bits,
+            "kv_bits": eng.kv_bits, "attn_impl": eng.attn_impl,
+            "lengths": eng.lengths.tolist(),
             "steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
             "device_busy_ms_per_step": busy_ms,
             "idle_share": 1.0 - busy_ms / (wall * 1e3 / steps),
@@ -351,12 +558,73 @@ SMALL = ArchSpec(family="llama", vocab_size=256, hidden_size=1024,
                  rms_eps=1e-5)
 
 
+# the engine routes of small_vs_cpu: kv8 (plain xla attention), kv4 at
+# buffers 4096 (#20) and 8192 (#21), kv8 with attn_impl="pallas" (#17)
+SMALL_ROUTES = {
+    "kv8": dict(max_len=256),
+    "kv4_4096": dict(kv_bits="auto", max_len=4096),
+    "kv4_8192": dict(kv_bits=4, max_len=8192),
+    "pallas": dict(max_len=256, attn_impl="pallas"),
+}
+
+
+def small_route(sw, prompts, forced, d, kw):
+    """Prefill and teacher-forced decode of one route on device ``d``:
+    (stacked logits on the CPU, the engine, the prefill cache on the
+    CPU)."""
+    eng = engine(sw, d, max_slots=len(prompts), **kw)
+    ids, tl = padded(prompts, 128, d)
+    out = [eng._prefill_batch(ids, torch.arange(len(prompts), device=d),
+                              tl, 128)]
+    cache = [t.cpu() for t in (eng.cache.k, eng.cache.v, eng.cache.k_scale,
+                               eng.cache.v_scale)]
+    active = torch.ones(len(prompts), dtype=torch.bool, device=d)
+    for t in forced:
+        out.append(eng._decode_step(torch.from_numpy(t).to(d), active))
+    return torch.stack(out).float().cpu(), eng, cache
+
+
+def writers_match(dev, eng: LLMEngine) -> bool:
+    """The cache writers of ``eng``'s cache layout on the card and on the
+    CPU, fed the same K/V (a prefill of 100 tokens into each slot, then
+    one decode token per slot, one of them at the buffer's end), write the
+    same bytes."""
+    S, H, T, D = (eng.max_slots, eng.arch.num_kv_heads, eng.buf_len,
+                  eng.arch.head_dim)
+    bits, layout = eng.cache.bits, eng.cache.layout
+    g = torch.Generator().manual_seed(SEED)
+    k, v = (torch.randn((S, H, 100, D), generator=g).to(torch.bfloat16)
+            for _ in range(2))
+    kn, vn = (torch.randn((S, H, 1, D), generator=g) for _ in range(2))
+    lengths = torch.full((S,), 100)
+    lengths[-1] = T
+    out = []
+    for d in ("cpu", dev):
+        c = KVCache.create(1, S, H, T, D, bits=bits, layout=layout,
+                           device=d)
+        append_slots(c, 0, torch.arange(S, device=d), k.to(d), v.to(d))
+        if layout == "bd4":
+            append_kv4_bd(c, 0, *quantize_kv4(kn.to(d)),
+                          *quantize_kv4(vn.to(d)), lengths.to(d))
+        else:
+            append_kv_quantized(c, 0, *quantize_kv(kn.to(d)),
+                                *quantize_kv(vn.to(d)), lengths.to(d))
+        out.append([t.cpu() for t in (c.k, c.v, c.k_scale, c.v_scale)])
+    return all(torch.equal(a, b) for a, b in zip(*out))
+
+
 def phase_small_vs_cpu(dev, steps: int = 3) -> dict:
-    """A small Llama at W4A8 through the engine on the card and on the CPU:
-    the same weight and head codes, then the prefill logits and ``steps``
-    teacher-forced decode steps with corr >= 0.999 for every row.  The
-    sums run in other orders, which the int8 act quant turns into rare
-    one-step code flips."""
+    """A small Llama at W4A8 through each engine route on the card and on
+    the CPU: the same weight and head codes; cache writers that turn the
+    same K/V into the same bytes; then the prefill logits and ``steps``
+    teacher-forced decode steps with corr >= 0.999 for every row.
+
+    The engines' own prefill caches differ in a few codes: RMSNorm and
+    the prefill attention sum in other orders on the card, and the int8
+    act quant and the KV quant turn a last-bit difference into a code
+    step now and then.  Each layer's share of differing cache entries is
+    reported and held under 10% (a wrong layout would scramble nearly
+    all of them)."""
     t0 = time.time()
     gen = torch.Generator(device="cpu")
     gen.manual_seed(SEED)
@@ -364,44 +632,60 @@ def phase_small_vs_cpu(dev, steps: int = 3) -> dict:
     prompts = make_prompts(4, SMALL.vocab_size)
     forced = np.random.RandomState(SEED + 1).randint(
         0, SMALL.vocab_size, (steps, len(prompts)))
-    sws, logits = {}, {}
-    for d in ("cpu", dev):
-        sws[d] = sw = build_serving_weights(model, WSPEC, act_bits=8,
-                                            device=d)
-        eng = LLMEngine(sw, max_slots=len(prompts), max_len=256,
-                        prefill_buckets=(128,), seed=SEED, device=d)
-        ids, tl = padded(prompts, 128, d)
-        out = [eng._prefill_batch(ids, torch.arange(len(prompts), device=d),
-                                  tl, 128)]
-        active = torch.ones(len(prompts), dtype=torch.bool, device=d)
-        for t in range(steps):
-            out.append(eng._decode_step(torch.from_numpy(forced[t]).to(d),
-                                        active))
-        logits[d] = torch.stack(out).float().cpu()
+    sws = {d: build_serving_weights(model, WSPEC, act_bits=8, device=d)
+           for d in ("cpu", dev)}
     same_codes = torch.equal(sws["cpu"].lm_head, sws[dev].lm_head.cpu()) \
         and all(torch.equal(getattr(a[n], f), getattr(b[n], f).cpu())
                 for a, b in zip(sws["cpu"].blocks, sws[dev].blocks)
                 for n in ("attn.q", "attn.k", "attn.v", "attn.o",
                           "mlp.gate", "mlp.up", "mlp.down")
                 for f in ("codes", "scales", "zeros"))
-    a, b = logits["cpu"].flatten(0, 1), logits[dev].flatten(0, 1)
-    corr = min(float(torch.corrcoef(torch.stack([x, y]))[0, 1])
-               for x, y in zip(a, b))
+    routes, ok = {}, same_codes
+    for name, kw in SMALL_ROUTES.items():
+        (la, _, ca), (lb, eng, cb) = (small_route(sws[d], prompts, forced, d,
+                                                  kw) for d in ("cpu", dev))
+        a, b = la.flatten(0, 1), lb.flatten(0, 1)
+        corr = min(float(torch.corrcoef(torch.stack([x, y]))[0, 1])
+                   for x, y in zip(a, b))
+        # per layer, per tensor (k, v, k_scale, v_scale): differing
+        # entries over entries either cache wrote
+        share = [[float((x[li] != y[li]).sum()
+                        / ((x[li] != 0) | (y[li] != 0)).sum())
+                  for x, y in zip(ca, cb)] for li in range(ca[0].shape[0])]
+        routes[name] = {"attn_impl": eng.attn_impl, "buf_len": eng.buf_len,
+                        "min_corr": corr, "cache_diff_share": share,
+                        "writers_match": writers_match(dev, eng),
+                        "finite": bool(torch.isfinite(b).all())}
+        ok = ok and corr >= 0.999 and routes[name]["finite"] \
+            and routes[name]["writers_match"] \
+            and max(max(r) for r in share) < 0.1
     res = {"phase": "small_vs_cpu", "same_codes": same_codes,
-           "min_corr": corr, "finite": bool(torch.isfinite(b).all()),
-           "seconds": time.time() - t0}
-    if not (same_codes and corr >= 0.999 and res["finite"]):
+           "routes": routes, "seconds": time.time() - t0}
+    if not ok:
         raise AssertionError(f"small model, card vs CPU: {res}")
     return res
 
 
-def summarize(rows, launches) -> list:
-    """One entry per kernel: times summed over one block's seven linears
-    at the kernel's main-path M (8 for decode, 1024 for prefill)."""
+def summarize(rows, attn_rows, launches) -> list:
+    """One entry per kernel: for a W4 kernel, times summed over one
+    block's seven linears at the kernel's main-path M (8 for decode, 1024
+    for prefill); for an attention kernel, one call at the buffer of its
+    engine phase (#20 4096, #21 8192, #17 512)."""
     main_m = {"w4a16_matmul": 8, "w4a8_matmul_decode": 8,
               "w4a8_matmul_prefill": 1024}
+    main_s = {"decode_attention_bd4": 4096,
+              "decode_attention_bd4_flash": 8192, "decode_attention_i8": 512}
     out = []
     for kname, info in KERNEL_INFO.items():
+        if kname in main_s:
+            r = next(r for r in attn_rows if r["kernel"] == kname
+                     and r["S"] == main_s[kname])
+            out.append(dict(
+                name=kname, route="cuda", **info, launches=launches[kname],
+                max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], library_ms=r["library_ms"]))
+            continue
         rs = [r for r in rows if r["kernel"] == kname
               and r["M"] == main_m[kname]]
         by_ops = sum(r["bound_by"] == "operations" for r in rs)
@@ -427,6 +711,8 @@ def main() -> int:
     emit(phase_build())
     kern = phase_kernels(dev)
     emit(kern)
+    attn = phase_attn_kernels(dev)
+    emit(attn)
 
     t0 = time.time()
     gen = torch.Generator(device=dev)
@@ -436,26 +722,34 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    setup_s = time.time() - t0
-    prompts = make_prompts(8, LLAMA3_8B.vocab_size)
-    t0 = time.time()
-    _, l8, s8 = run_engine(sw8, prompts, 32, dev)
+    emit({"phase": "setup", "seconds": time.time() - t0})
+    vocab = LLAMA3_8B.vocab_size
+    prompts = make_prompts(8, vocab)
+    runs = [engine_phase("engine_w4a8", sw8, prompts, 32, dev, None)]
     for k in ("w4a8_matmul_decode", "w4a8_matmul_prefill"):
-        if l8[k] <= 0:
+        if runs[0][k] <= 0:
             raise AssertionError(f"the W4A8 engine never launched {k}")
-    emit({"phase": "engine_w4a8", "setup_s": setup_s, "launches": l8,
-          **s8, "seconds": time.time() - t0})
-
-    t0 = time.time()
     sw16 = dataclasses.replace(sw8, act_bits=16)
-    _, l16, s16 = run_engine(sw16, prompts[:4], 16, dev)
-    if l16["w4a16_matmul"] <= 0:
+    runs.append(engine_phase("engine_w4a16", sw16, prompts[:4], 16, dev,
+                             None))
+    if runs[1]["w4a16_matmul"] <= 0:
         raise AssertionError("the W4A16 engine never launched w4a16_matmul")
-    emit({"phase": "engine_w4a16", "launches": l16, **s16,
-          "seconds": time.time() - t0})
-
     t0 = time.time()
     emit(dict(phase_profile(sw8, prompts, dev), seconds=time.time() - t0))
+
+    kv4 = dict(kv_bits="auto", max_len=4096, prefill_buckets=(2048,))
+    prompts_kv4 = make_prompts(8, vocab, 1500, 2000)
+    runs.append(engine_phase("engine_kv4", sw8, prompts_kv4, 32, dev,
+                             "decode_attention_bd4", **kv4))
+    t0 = time.time()
+    emit(dict(phase_profile(sw8, prompts_kv4, dev, **kv4),
+              seconds=time.time() - t0))
+    runs.append(engine_phase(
+        "engine_kv4_long", sw8, make_prompts(8, vocab, 3000, 4000), 16, dev,
+        "decode_attention_bd4_flash", kv_bits=4, max_len=8192,
+        prefill_buckets=(4096,)))
+    runs.append(engine_phase("engine_pallas", sw8, prompts, 16, dev,
+                             "decode_attention_i8", attn_impl="pallas"))
 
     t0 = time.time()
     with torch.no_grad():
@@ -470,9 +764,9 @@ def main() -> int:
         raise AssertionError(f"engine vs plain: corr {corr}, argmax {same}")
     emit(phase_small_vs_cpu(dev))
 
-    # the main path's launches: both engine phases
-    launches = {k: l8[k] + l16[k] for k in l8}
-    emit({"kernels": summarize(kern["rows"], launches)})
+    # the main path's launches: every engine phase
+    launches = {k: sum(r[k] for r in runs) for k in runs[0]}
+    emit({"kernels": summarize(kern["rows"], attn["rows"], launches)})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

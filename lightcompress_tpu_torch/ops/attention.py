@@ -1,0 +1,380 @@
+"""Decode attention over the quantized slot caches: the three Hopper kernels
+of the serving path with their plain PyTorch versions (port of
+lightcompress_tpu/ops/pallas_attention.py, kernels #17, #20 and #21).
+
+* ``decode_attention_bd4`` (#20) and ``decode_attention_bd4_flash`` (#21):
+  one-token GQA decode over the nibble-packed kv4 ``bd4`` slabs (K
+  feature-major (B, H*D/2, S), V time-major (B, S, H*D/2), bf16 scales
+  (B, H, S)); they return the *unnormalized* context (B, H, G, D) f32 with
+  the softmax max ``m`` and denominator ``d`` (B, H, G), for
+  ``bd_merge_new_token`` to fold the fresh token in.  #21 splits S into
+  ``s_block`` columns and carries (o, m, d) across the blocks; each block
+  requantizes its probabilities with its own scale.
+* ``decode_attention_i8`` (#17): the same over the int8 ``hhd`` cache
+  (B, H, S, D) with the fresh token as an extra softmax column; returns
+  the normalized context.
+
+Arithmetic (the JAX kernels', in this order): q is quantized per (b, h, g)
+to int8 (``quantize_q``); scores are int32 dots, then
+``(f32(s) * (qs * D**-0.5)) * ks``; columns at or past a slot's length are
+masked; the max is floored at -1e30 (bd4); ``pv = exp(s - m) * vs``;
+``ps = max(max(pv), 1e-20) / 127``; ``p8 = round_half_even(pv / ps)``; the
+PV dot is an int32 sum times ``ps``.  Masked columns contribute exactly 0,
+so the kernels skip them.
+
+A tensor on the CPU takes the plain version; a CUDA tensor launches the
+kernel (``csrc/decode_attention.cu``) or raises.  Each wrapper counts its
+kernel launches in its ``launches`` attribute.  The plain versions take
+the integer dots in f64, exact like the kernels' int32 sums.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from ..device import div
+from . import _build
+from .w4_matmul import quantize_act_per_token
+
+# the kernels' supported shapes (Llama-3 GQA): head_dim and group sizes
+KERNEL_HEAD_DIM = 128
+KERNEL_GROUPS = (1, 2, 4, 8)
+S_BLOCK = 512
+
+Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def quantize_q(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(b, h, g) symmetric int8 of the decode query (..., D) ->
+    (int8 codes, f32 scale (...)): the per-token act quant (amax/127
+    clamped at 1e-8) over each query row."""
+    q8, qs = quantize_act_per_token(q.reshape(-1, q.shape[-1]))
+    return q8.reshape(q.shape), qs.reshape(q.shape[:-1])
+
+
+def _lengths(lengths: Optional[torch.Tensor], B: int, S: int,
+             device: torch.device) -> torch.Tensor:
+    if lengths is None:
+        return torch.full((B,), S, dtype=torch.int32, device=device)
+    return lengths.to(device=device, dtype=torch.int32).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the CPU route and the on-card reference)
+# ---------------------------------------------------------------------------
+
+def _bd4_planes(kt4: torch.Tensor, vt4: torch.Tensor, H: int):
+    """Sign-extended f64 code planes: K (B, H, D/2, S) lo/hi and V
+    (B, H, S, D/2) lo/hi."""
+    B, HD2, S = kt4.shape
+    ki, vi = kt4.to(torch.int32), vt4.to(torch.int32)
+
+    def planes(p):
+        return (((p & 0xF) ^ 8) - 8).double(), \
+            ((((p >> 4) & 0xF) ^ 8) - 8).double()
+
+    klo, khi = planes(ki.reshape(B, H, HD2 // H, S))
+    vlo, vhi = planes(vi.reshape(B, S, H, HD2 // H).transpose(1, 2))
+    return klo, khi, vlo, vhi
+
+
+def _block_partials(q8, qsc, klo, khi, ks, vlo, vhi, vs, valid, m_floor):
+    """One column range of a bd4 kernel: returns (m_new, e, ctx) with
+    m_new = max(m_floor, max(s), -1e30), e = exp(s - m_new) and ctx the
+    range's requantized PV; m_floor is the running max (-1e30 at first)."""
+    D2 = klo.shape[2]
+    qd = q8.double()
+    sc = torch.matmul(qd[..., :D2], klo) + torch.matmul(qd[..., D2:], khi)
+    scf = (sc.float() * qsc[..., None]) * ks.float()[:, :, None, :]
+    scf = scf.masked_fill(~valid, float("-inf"))
+    blk = torch.clamp(scf.amax(dim=-1), min=-1e30)
+    m_new = torch.maximum(m_floor, blk)
+    e = torch.exp(scf - m_new[..., None])
+    pv = e * vs.float()[:, :, None, :]
+    ps = div(torch.clamp(pv.amax(dim=-1, keepdim=True), min=1e-20), 127.0)
+    p8 = torch.round(pv / ps).double()
+    clo = torch.matmul(p8, vlo).float() * ps
+    chi = torch.matmul(p8, vhi).float() * ps
+    return m_new, e, torch.cat([clo, chi], dim=-1)
+
+
+def decode_attention_bd4_plain(q, kt4, ks, vt4, vs, lengths=None
+                               ) -> Partials:
+    """Plain #20: (ctx unnormalized, m, d) over the whole buffer."""
+    B, H, G, D = q.shape
+    S = kt4.shape[2]
+    q8, qs = quantize_q(q)
+    qsc = qs * D ** -0.5
+    klo, khi, vlo, vhi = _bd4_planes(kt4, vt4, H)
+    L = _lengths(lengths, B, S, q.device)
+    valid = (torch.arange(S, device=q.device)[None, :]
+             < L[:, None])[:, None, None, :]
+    floor = torch.full((B, H, G), -1e30, device=q.device)
+    m, e, ctx = _block_partials(q8, qsc, klo, khi, ks, vlo, vhi, vs, valid,
+                                floor)
+    return ctx, m, e.sum(dim=-1)
+
+
+def flash_block(S: int, s_block: int) -> int:
+    """The column block #21 uses: ``s_block``, halved until it divides S
+    (the JAX wrapper's rule)."""
+    s_block = min(s_block, S)
+    while S % s_block:
+        s_block //= 2
+    return s_block
+
+
+def decode_attention_bd4_flash_plain(q, kt4, ks, vt4, vs, lengths=None,
+                                     s_block: int = S_BLOCK) -> Partials:
+    """Plain #21: the column blocks in order, (o, m, d) carried as
+    ``m' = max(m, max(s_blk)); a = exp(m - m'); d' = d*a + sum(e);
+    o' = o*a + ctx_blk``."""
+    B, H, G, D = q.shape
+    S = kt4.shape[2]
+    sb = flash_block(S, s_block)
+    q8, qs = quantize_q(q)
+    qsc = qs * D ** -0.5
+    klo, khi, vlo, vhi = _bd4_planes(kt4, vt4, H)
+    L = _lengths(lengths, B, S, q.device)
+    col = torch.arange(S, device=q.device)
+    o = torch.zeros((B, H, G, D), device=q.device)
+    m = torch.full((B, H, G), -1e30, device=q.device)
+    d = torch.zeros((B, H, G), device=q.device)
+    for s0 in range(0, S, sb):
+        sl = slice(s0, s0 + sb)
+        valid = (col[sl][None, :] < L[:, None])[:, None, None, :]
+        m_new, e, ctx = _block_partials(
+            q8, qsc, klo[..., sl], khi[..., sl], ks[..., sl], vlo[:, :, sl],
+            vhi[:, :, sl], vs[..., sl], valid, m)
+        alpha = torch.exp(m - m_new)
+        o = o * alpha[..., None] + ctx
+        d = d * alpha + e.sum(dim=-1)
+        m = m_new
+    return o, m, d
+
+
+def decode_attention_i8_plain(q, kq, ks, vq, vs, k_new, kns, v_new, vns,
+                              lengths=None) -> torch.Tensor:
+    """Plain #17: masked int8 attention over the read-only cache plus the
+    fresh token as one more column (not requantized); normalized."""
+    B, H, G, D = q.shape
+    S = kq.shape[2]
+    q8, qs = quantize_q(q)
+    qsc = qs * D ** -0.5
+    qd = q8.double()
+    sc = torch.matmul(qd, kq.double().transpose(-1, -2))
+    scf = (sc.float() * qsc[..., None]) * ks.float()[:, :, None, :]
+    L = _lengths(lengths, B, S, q.device)
+    valid = torch.arange(S, device=q.device)[None, :] < L[:, None]
+    scf = scf.masked_fill(~valid[:, None, None, :], float("-inf"))
+    scn = torch.matmul(qd, k_new.double()[..., None])[..., 0]
+    scnf = (scn.float() * qsc) * kns.float()[..., None]
+    m = torch.maximum(scf.amax(dim=-1), scnf)
+    e = torch.exp(scf - m[..., None])
+    en = torch.exp(scnf - m)
+    denom = e.sum(dim=-1) + en
+    pv = e * vs.float()[:, :, None, :]
+    pvn = en * vns.float()[..., None]
+    ps = div(torch.clamp(pv.amax(dim=-1, keepdim=True), min=1e-20), 127.0)
+    p8 = torch.round(pv / ps).double()
+    ctx = torch.matmul(p8, vq.double()).float() * ps
+    ctx = ctx + pvn[..., None] * v_new.float()[:, :, None, :]
+    return ctx / denom[..., None]
+
+
+def bd_merge_new_token(q, qctx: Partials, k_new, v_new, kns, vns,
+                       scale: float) -> torch.Tensor:
+    """Fold the fresh token (int8 k_new/v_new (B, H, D), scales (B, H))
+    into a bd4 kernel's partials; returns the normalized (B, H, G, D) f32.
+    Plain torch (XLA in the JAX package): no S dimension."""
+    ctx, m, denom = qctx
+    qf = q.float()
+    s_new = torch.matmul(qf, k_new.float()[..., None])[..., 0]
+    s_new = s_new * kns.float()[:, :, None] * scale
+    m_all = torch.maximum(m, s_new)
+    w_old = torch.exp(m - m_all)
+    w_new = torch.exp(s_new - m_all)
+    d_all = denom * w_old + w_new
+    vn = v_new.float() * vns.float()[..., None]
+    out = ctx * w_old[..., None] + w_new[..., None] * vn[:, :, None, :]
+    return out / d_all[..., None]
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("decode_attention")
+    lib.lc_attn_bd4.argtypes = [_P] * 10 + [_I] * 4 + [_P]
+    lib.lc_attn_bd4_flash.argtypes = [_P] * 10 + [_I] * 5 + [_P]
+    lib.lc_attn_i8.argtypes = [_P] * 12 + [_I] * 4 + [_P]
+    for fn in (lib.lc_attn_bd4, lib.lc_attn_bd4_flash, lib.lc_attn_i8):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch(fn, *args) -> None:
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {rc}")
+
+
+def _check(q: torch.Tensor, S: int, tensors, scales) -> None:
+    """Device, type and layout checks of the card route."""
+    B, H, G, D = q.shape
+    for t in tensors + scales:
+        if t.device != q.device:
+            raise ValueError("all operands must be on one device")
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if D != KERNEL_HEAD_DIM or G not in KERNEL_GROUPS:
+        raise ValueError(f"the kernels take head_dim {KERNEL_HEAD_DIM} and "
+                         f"groups {KERNEL_GROUPS}, got D={D} G={G}")
+    if S % 16:
+        raise ValueError(f"the kernels need S % 16 == 0, got {S}")
+    for t in tensors:
+        if t.dtype != torch.int8 or not t.is_contiguous() or \
+                t.data_ptr() % 16:
+            raise ValueError("the kernels take contiguous, 16-byte aligned "
+                             "int8 codes")
+    for t in scales:
+        if t.dtype != torch.bfloat16 or not t.is_contiguous():
+            raise ValueError("the kernels take contiguous bf16 scales")
+
+
+def _check_bd4(q, kt4, ks, vt4, vs) -> int:
+    B, H, G, D = q.shape
+    S = kt4.shape[-1]
+    if kt4.shape != (B, H * D // 2, S) or vt4.shape != (B, S, H * D // 2) \
+            or ks.shape != (B, H, S) or vs.shape != (B, H, S):
+        raise ValueError(f"bd4 slabs must be (B, H*D/2, S), (B, S, H*D/2) "
+                         f"and scales (B, H, S); got {tuple(kt4.shape)}, "
+                         f"{tuple(vt4.shape)}, {tuple(ks.shape)}")
+    if q.device.type == "cuda":
+        _check(q, S, [kt4, vt4], [ks, vs])
+    return S
+
+
+def _bd4_outputs(q):
+    B, H, G, D = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    return (torch.empty((B, H, G, D), **f32), torch.empty((B, H, G), **f32),
+            torch.empty((B, H, G), **f32))
+
+
+def decode_attention_bd4(q: torch.Tensor, kt4: torch.Tensor,
+                         ks: torch.Tensor, vt4: torch.Tensor,
+                         vs: torch.Tensor,
+                         lengths: Optional[torch.Tensor] = None) -> Partials:
+    """#20: q (B, H, G, D) over the bd4 slabs of one layer; columns
+    ``< lengths`` (all when None).  Returns (ctx unnormalized, m, d)."""
+    S = _check_bd4(q, kt4, ks, vt4, vs)
+    if q.device.type == "cpu":
+        return decode_attention_bd4_plain(q, kt4, ks, vt4, vs, lengths)
+    B, H, G, D = q.shape
+    q8, qs = quantize_q(q)
+    L = _lengths(lengths, B, S, q.device)
+    ctx, m, d = _bd4_outputs(q)
+    with torch.cuda.device(q.device):
+        _launch(_lib().lc_attn_bd4, q8.data_ptr(), qs.data_ptr(),
+                kt4.data_ptr(), ks.data_ptr(), vt4.data_ptr(), vs.data_ptr(),
+                L.data_ptr(), ctx.data_ptr(), m.data_ptr(),
+                d.data_ptr(), B, H, G, S, _stream(q.device))
+    decode_attention_bd4.launches += 1
+    return ctx, m, d
+
+
+def decode_attention_bd4_flash(q: torch.Tensor, kt4: torch.Tensor,
+                               ks: torch.Tensor, vt4: torch.Tensor,
+                               vs: torch.Tensor,
+                               lengths: Optional[torch.Tensor] = None,
+                               s_block: int = S_BLOCK) -> Partials:
+    """#21: #20's contract, S split into ``s_block`` column blocks (halved
+    until it divides S)."""
+    S = _check_bd4(q, kt4, ks, vt4, vs)
+    if q.device.type == "cpu":
+        return decode_attention_bd4_flash_plain(q, kt4, ks, vt4, vs, lengths,
+                                                s_block)
+    sb = flash_block(S, s_block)
+    if sb % 16:
+        raise ValueError(f"the flash kernel needs s_block % 16 == 0, got {sb}")
+    B, H, G, D = q.shape
+    q8, qs = quantize_q(q)
+    L = _lengths(lengths, B, S, q.device)
+    ctx, m, d = _bd4_outputs(q)
+    with torch.cuda.device(q.device):
+        _launch(_lib().lc_attn_bd4_flash, q8.data_ptr(), qs.data_ptr(),
+                kt4.data_ptr(), ks.data_ptr(), vt4.data_ptr(), vs.data_ptr(),
+                L.data_ptr(), ctx.data_ptr(), m.data_ptr(),
+                d.data_ptr(), B, H, G, S, sb, _stream(q.device))
+    decode_attention_bd4_flash.launches += 1
+    return ctx, m, d
+
+
+def decode_attention_i8(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
+                        vq: torch.Tensor, vs: torch.Tensor,
+                        k_new: Optional[torch.Tensor] = None,
+                        kns: Optional[torch.Tensor] = None,
+                        v_new: Optional[torch.Tensor] = None,
+                        vns: Optional[torch.Tensor] = None,
+                        lengths: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """#17: q (B, H, G, D) over the int8 cache (B, H, S, D) with bf16
+    per-token scales (B, H, S), plus the fresh token k_new/v_new (B, H, D)
+    int8 with scales (B, H); columns ``< lengths`` of the cache (all when
+    None).  Returns the normalized (B, H, G, D) f32.  Only the engine's
+    append form is ported: the fresh token is required."""
+    if k_new is None or kns is None or v_new is None or vns is None:
+        raise NotImplementedError("decode_attention_i8 without the fresh "
+                                  "token (the no-append form) is not ported")
+    B, H, G, D = q.shape
+    S = kq.shape[2]
+    if kq.shape != (B, H, S, D) or vq.shape != kq.shape or \
+            ks.shape != (B, H, S) or vs.shape != (B, H, S) or \
+            k_new.shape != (B, H, D) or v_new.shape != (B, H, D) or \
+            kns.shape != (B, H) or vns.shape != (B, H):
+        raise ValueError("decode_attention_i8 takes q (B, H, G, D), cache "
+                         "(B, H, S, D) with scales (B, H, S) and the fresh "
+                         "token (B, H, D) with scales (B, H)")
+    if q.device.type == "cpu":
+        return decode_attention_i8_plain(q, kq, ks, vq, vs, k_new, kns,
+                                         v_new, vns, lengths)
+    k_new, v_new, kns, vns = (t.contiguous() for t in (k_new, v_new, kns,
+                                                        vns))
+    _check(q, S, [kq, vq, k_new, v_new], [ks, vs, kns, vns])
+    q8, qs = quantize_q(q)
+    L = _lengths(lengths, B, S, q.device)
+    out = torch.empty((B, H, G, D), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        _launch(_lib().lc_attn_i8, q8.data_ptr(), qs.data_ptr(),
+                kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
+                k_new.data_ptr(), kns.data_ptr(), v_new.data_ptr(),
+                vns.data_ptr(), L.data_ptr(), out.data_ptr(), B, H, G,
+                S, _stream(q.device))
+    decode_attention_i8.launches += 1
+    return out
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+KERNELS = (decode_attention_i8, decode_attention_bd4,
+           decode_attention_bd4_flash)
+for _k in KERNELS:
+    _k.launches = 0
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0

@@ -1,34 +1,59 @@
-"""Serving engine: continuous batching over W4 weights and an int8 slot KV
-cache (port of lightcompress_tpu/serving/engine.py, dense Llama).
+"""Serving engine: continuous batching over W4 weights and a quantized
+slot KV cache (port of lightcompress_tpu/serving/engine.py, dense Llama).
 
 Slots share one batched decode step; new requests are admitted into free
 slots between steps, one batched prefill per length bucket; finished
-sequences retire at once.  Decode attention is the JAX engine's default
-int8 route (``xla8a``): the fresh token is quantized and written into the
-cache first, then one masked attention runs over the whole buffer where
-``col <= length``.  Prefill attention is plain torch ops.  The cache is
-updated in place.
+sequences retire at once.  Prefill attention is plain torch ops.  The cache
+is updated in place.  Decode attention takes one of three routes
+(``attn_impl``, picked as the JAX engine picks on a TPU):
+
+* ``xla`` (kv8, the default): append-first masked attention (``xla8a``),
+  plain torch: the fresh token is quantized and written into the cache
+  first, then one attention runs over the buffer where ``col <= length``;
+* ``bd4`` (kv4): the nibble-packed ``bd4`` cache stays read-only while
+  kernel #20 (buffer < 8192) or #21 (from 8192) attends over
+  ``col < length``; the fresh token, quantized to int8, is merged in by
+  ``bd_merge_new_token``, then written to the cache as int4;
+* ``pallas`` (kv8, probe-only in the JAX engine): kernel #17 over the
+  read-only int8 cache with the fresh token as an in-register column, then
+  the token is written.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import Dict, List, Optional, Sequence, Tuple
+import warnings
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models import arch as A
-from .kv_cache import (KVCache, append_kv_quantized, append_slots,
-                       quantize_kv)
+from ..ops.attention import (bd_merge_new_token, decode_attention_bd4,
+                             decode_attention_bd4_flash, decode_attention_i8)
+from .kv_cache import (KVCache, append_kv4_bd, append_kv_quantized,
+                       append_slots, quantize_kv, quantize_kv4)
 from .quantized_model import ServingWeights, apply_qlinear, head_logits
 from .sampler import SamplingParams, sample
 
 # rows per batched prefill: a bucket's prompts are split so that
 # n_prompts * T stays within this (the JAX engine's default cap)
 PREFILL_ROWS = 4096
+# bd4 buffers are a multiple of the flash kernel's column block; from this
+# length on the bd4 route takes the flash kernel (#21)
+BD4_ALIGN = 512
+BD4_FLASH_MIN = 8192
+# (kv_bits, attn_impl) pairs the port serves
+ROUTES = {(8, "xla"), (8, "pallas"), (4, "bd4")}
+
+
+def pick_attn_impl(kv_bits: Union[int, str]) -> str:
+    """The JAX engine's ``pick_attn_impl`` for a per-step dense engine on a
+    TPU, at any ``max_len``: kv4 -> the bd4 kernels, everything else ->
+    ``xla`` ("auto" is resolved by the engine first)."""
+    return "bd4" if kv_bits == 4 else "xla"
 
 
 @dataclasses.dataclass
@@ -73,12 +98,31 @@ def _block_apply(sw: ServingWeights, entry, x: torch.Tensor, cos, sin,
     return _mlp_tail(sw, entry, h, ab), k, v
 
 
+def _attend_xla8a(qg, kq, ks, vq, vs, cache: KVCache, li: int,
+                  lengths: torch.Tensor) -> torch.Tensor:
+    """Append-first masked attention: write the fresh K/V at each slot's
+    length, then attend over the full buffer with ``col <= length``."""
+    append_kv_quantized(cache, li, kq, ks, vq, vs, lengths)
+    qg = qg.to(torch.bfloat16)
+    hd = qg.shape[-1]
+    kc, vc = cache.k[li], cache.v[li]  # (S, nkv, T, hd) int8
+    ksc, vsc = cache.k_scale[li], cache.v_scale[li]  # (S, nkv, T) bf16
+    sc = torch.matmul(qg, kc.to(torch.bfloat16).transpose(-1, -2))
+    sc = sc.float() * ksc[:, :, None, :].float() * hd ** -0.5
+    col = torch.arange(kc.shape[2], device=qg.device)
+    vis = col[None, None, None, :] <= lengths[:, None, None, None]
+    sc = sc.masked_fill(~vis, float("-inf"))
+    probs = torch.softmax(sc, dim=-1)
+    pv = (probs * vsc[:, :, None, :].float()).to(torch.bfloat16)
+    return torch.matmul(pv, vc.to(torch.bfloat16))  # (S, nkv, G, hd)
+
+
 def _block_apply_decode(sw: ServingWeights, entry, x: torch.Tensor, cos,
-                        sin, cache: KVCache, li: int,
-                        lengths: torch.Tensor) -> torch.Tensor:
-    """Append-first masked decode attention (``xla8a``) for one block on
-    (S, 1, H): quantize and write the fresh K/V at each slot's length, then
-    attend over the full buffer with ``col <= length``."""
+                        sin, cache: KVCache, li: int, lengths: torch.Tensor,
+                        impl: str) -> torch.Tensor:
+    """One decode block on (S, 1, H) through the attention route ``impl``
+    (module docstring); the fresh token ends up in the cache at each
+    slot's length."""
     arch, ab = sw.arch, sw.act_bits
     S = x.shape[0]
     nh, nkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
@@ -90,19 +134,26 @@ def _block_apply_decode(sw: ServingWeights, entry, x: torch.Tensor, cos,
     q, k = A.apply_rope(q, k, cos, sin)
     kq, ks = quantize_kv(k)
     vq, vs = quantize_kv(v)
-    append_kv_quantized(cache, li, kq, ks, vq, vs, lengths)
     # q head h attends kv head h // groups -> (S, nkv, G, hd)
-    qg = q[:, :, 0, :].reshape(S, nkv, nh // nkv, hd).to(torch.bfloat16)
-    kc, vc = cache.k[li], cache.v[li]  # (S, nkv, T, hd) int8
-    ksc, vsc = cache.k_scale[li], cache.v_scale[li]  # (S, nkv, T) bf16
-    sc = torch.matmul(qg, kc.to(torch.bfloat16).transpose(-1, -2))
-    sc = sc.float() * ksc[:, :, None, :].float() * hd ** -0.5
-    col = torch.arange(kc.shape[2], device=x.device)
-    vis = col[None, None, None, :] <= lengths[:, None, None, None]
-    sc = sc.masked_fill(~vis, float("-inf"))
-    probs = torch.softmax(sc, dim=-1)
-    pv = (probs * vsc[:, :, None, :].float()).to(torch.bfloat16)
-    ctx = torch.matmul(pv, vc.to(torch.bfloat16))  # (S, nkv, G, hd)
+    qg = q[:, :, 0, :].reshape(S, nkv, nh // nkv, hd)
+    if impl == "xla":
+        ctx = _attend_xla8a(qg, kq, ks, vq, vs, cache, li, lengths)
+    elif impl == "pallas":
+        ctx = decode_attention_i8(
+            qg, cache.k[li], cache.k_scale[li], cache.v[li],
+            cache.v_scale[li], kq[:, :, 0], ks[:, :, 0], vq[:, :, 0],
+            vs[:, :, 0], lengths)
+        append_kv_quantized(cache, li, kq, ks, vq, vs, lengths)
+    else:  # bd4: the int8 token is merged, the int4 token is cached
+        kernel = (decode_attention_bd4_flash
+                  if cache.k.shape[-1] >= BD4_FLASH_MIN
+                  else decode_attention_bd4)
+        qctx = kernel(qg, cache.k[li], cache.k_scale[li], cache.v[li],
+                      cache.v_scale[li], lengths)
+        ctx = bd_merge_new_token(qg, qctx, kq[:, :, 0], vq[:, :, 0],
+                                 ks[:, :, 0], vs[:, :, 0], hd ** -0.5)
+        append_kv4_bd(cache, li, *quantize_kv4(k), *quantize_kv4(v),
+                      lengths)
     ctx = ctx.reshape(S, 1, nh * hd).to(x.dtype)
     h = x + apply_qlinear(entry["attn.o"], ctx, act_bits=ab)
     return _mlp_tail(sw, entry, h, ab)
@@ -111,18 +162,35 @@ def _block_apply_decode(sw: ServingWeights, entry, x: torch.Tensor, cos,
 class LLMEngine:
     """Continuous-batching engine over ``ServingWeights`` on ``device``
     (the card unless ``device="cpu"``).  The weights must already be on
-    that device."""
+    that device.
+
+    ``kv_bits`` 8, 4 or "auto" (4 from ``max_len`` 4096 on, as in the JAX
+    engine); ``attn_impl`` "auto", "xla", "bd4" or "pallas" (module
+    docstring).  Other JAX routes raise ``NotImplementedError``."""
 
     def __init__(self, weights: ServingWeights, max_slots: int = 8,
-                 max_len: int = 1024, kv_bits: int = 8,
+                 max_len: int = 1024, kv_bits: Union[int, str] = 8,
                  prefill_buckets: Sequence[int] = (64, 128, 256, 512),
-                 seed: int = 0, device: DeviceLike = None):
+                 seed: int = 0, attn_impl: str = "auto",
+                 device: DeviceLike = None):
         self.device = resolve_device(device)
         if weights.embed.device.type != self.device.type:
             raise ValueError(f"weights are on {weights.embed.device}, the "
                              f"engine on {self.device}")
-        if kv_bits != 8:
-            raise ValueError("the ported engine serves the int8 KV cache")
+        if kv_bits == "auto":
+            kv_bits = 4 if max_len >= 4096 else 8
+        if attn_impl == "auto":
+            attn_impl = pick_attn_impl(kv_bits)
+        elif attn_impl == "pallas":
+            warnings.warn(
+                "attn_impl='pallas' is probe-only (loses to the auto-picked "
+                "path engine-side at every measured shape; REPORT r4); use "
+                "attn_impl='auto'", stacklevel=2)
+        if (kv_bits, attn_impl) not in ROUTES:
+            raise NotImplementedError(
+                f"kv_bits={kv_bits} with attn_impl={attn_impl!r} is not "
+                f"ported; the port serves {sorted(ROUTES)}")
+        self.attn_impl = attn_impl
         self.sw = weights
         self.arch = weights.arch
         self.max_slots = max_slots
@@ -137,9 +205,15 @@ class LLMEngine:
     def reset(self):
         a = self.arch
         if self.cache is None:
+            layout = "bd4" if self.attn_impl == "bd4" else "hhd"
+            # the physical time axis: bd4 buffers round up to the flash
+            # block; the lengths mask keeps the logical max_len
+            self.buf_len = (-(-self.max_len // BD4_ALIGN) * BD4_ALIGN
+                            if layout == "bd4" else self.max_len)
             self.cache = KVCache.create(
-                a.num_layers, self.max_slots, a.num_kv_heads, self.max_len,
-                a.head_dim, bits=self.kv_bits, device=self.device)
+                a.num_layers, self.max_slots, a.num_kv_heads, self.buf_len,
+                a.head_dim, bits=self.kv_bits, layout=layout,
+                device=self.device)
         else:
             self.cache.zero_()
         self.lengths = torch.zeros((self.max_slots,), dtype=torch.int64,
@@ -189,7 +263,7 @@ class LLMEngine:
         cos, sin = A.rope_cos_sin(arch, lengths[:, None])  # (S, 1, D)
         for li, entry in enumerate(sw.blocks):
             x = _block_apply_decode(sw, entry, x, cos, sin, self.cache, li,
-                                    lengths)
+                                    lengths, self.attn_impl)
         xl = A.rmsnorm(x, sw.norm.get("weight"), arch.rms_eps)
         logits = head_logits(sw, xl)[:, 0]
         self.lengths = torch.where(active_mask, lengths + 1, lengths)

@@ -1,9 +1,12 @@
-"""Slot KV cache (port of lightcompress_tpu/serving/kv_cache.py, the dense
-``hhd`` layout at 8 and 16 bits).
+"""Slot KV cache (port of lightcompress_tpu/serving/kv_cache.py: the dense
+``hhd`` layout at 8 and 16 bits and the nibble-packed ``bd4`` slabs).
 
-Layout (L, S, H, T, D) per slot, int8 with a bf16 scale per (head, token)
-or bf16 passthrough.  Appends write in place into the preallocated buffers
-(the JAX package's dynamic_update_slice loops, with donation, do the same).
+``hhd``: (L, S, H, T, D) per slot, int8 with a bf16 scale per (head, token)
+or bf16 passthrough.  ``bd4`` (kv4, for ``ops.attention``'s bd4 kernels):
+K feature-major (L, S, H*D/2, T), V time-major (L, S, T, H*D/2), int8
+bytes holding two int4 codes (``quantize_kv4``), bf16 scales (L, S, H, T).
+Appends write in place into the preallocated buffers (the JAX package's
+dynamic_update_slice loops, with donation, do the same).
 """
 
 from __future__ import annotations
@@ -18,31 +21,48 @@ from ..device import DeviceLike, div, resolve_device
 
 @dataclasses.dataclass
 class KVCache:
-    k: torch.Tensor  # (L, S, H, T, D) int8 | bf16
-    v: torch.Tensor
-    k_scale: Optional[torch.Tensor]  # (L, S, H, T) bf16 (int8 only)
+    k: torch.Tensor  # (L, S, H, T, D) int8 | bf16; bd4: (L, S, H*D/2, T)
+    v: torch.Tensor  # bd4: (L, S, T, H*D/2)
+    k_scale: Optional[torch.Tensor]  # (L, S, H, T) bf16 (int8, int4 only)
     v_scale: Optional[torch.Tensor]
     bits: int = 8
+    layout: str = "hhd"  # "hhd" | "bd4"
 
     @staticmethod
     def create(n_layers: int, n_slots: int, n_kv_heads: int, max_len: int,
-               head_dim: int, bits: int = 8,
+               head_dim: int, bits: int = 8, layout: str = "hhd",
                device: DeviceLike = None) -> "KVCache":
         dev = resolve_device(device)
-        shape = (n_layers, n_slots, n_kv_heads, max_len, head_dim)
-        if bits == 8:
+        sshape = (n_layers, n_slots, n_kv_heads, max_len)
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        if layout == "bd4":
+            if bits != 4 or head_dim % 2:
+                raise ValueError("the bd4 layout holds int4 codes of an "
+                                 "even head_dim")
+            hd2 = n_kv_heads * head_dim // 2
             return KVCache(
-                torch.zeros(shape, dtype=torch.int8, device=dev),
-                torch.zeros(shape, dtype=torch.int8, device=dev),
-                torch.zeros(shape[:-1], dtype=torch.bfloat16, device=dev),
-                torch.zeros(shape[:-1], dtype=torch.bfloat16, device=dev),
-                8)
+                zeros((n_layers, n_slots, hd2, max_len), torch.int8),
+                zeros((n_layers, n_slots, max_len, hd2), torch.int8),
+                zeros(sshape, torch.bfloat16), zeros(sshape, torch.bfloat16),
+                4, "bd4")
+        if layout != "hhd":
+            raise ValueError(f"unknown cache layout {layout!r}")
+        shape = sshape + (head_dim,)
+        if bits == 8:
+            return KVCache(zeros(shape, torch.int8), zeros(shape, torch.int8),
+                           zeros(sshape, torch.bfloat16),
+                           zeros(sshape, torch.bfloat16), 8)
+        if bits == 4:
+            raise NotImplementedError(
+                "the kv4 hhd cache (the JAX XLA unpack route) is not ported; "
+                "kv4 takes layout='bd4'")
         if bits != 16:
-            raise ValueError("the slot cache holds int8 or bf16")
-        return KVCache(
-            torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-            torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-            None, None, 16)
+            raise ValueError("the slot cache holds int4, int8 or bf16")
+        return KVCache(zeros(shape, torch.bfloat16),
+                       zeros(shape, torch.bfloat16), None, None, 16)
 
     def zero_(self) -> "KVCache":
         for t in (self.k, self.v, self.k_scale, self.v_scale):
@@ -60,11 +80,39 @@ def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), scale
 
 
+def quantize_kv4(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(..., token) symmetric int4 over head_dim, half-plane packed:
+    x (..., T, D) -> codes (..., T, D/2) int8 and a bf16 scale amax/7.
+    Codes lie in [-8, 7]; the low nibble holds feature d (d < D/2), the
+    high nibble feature d + D/2."""
+    amax = x.float().abs().amax(dim=-1).clamp_min(1e-6)
+    scale = div(amax, 7.0).to(torch.bfloat16)
+    q = torch.round(x.float() / scale[..., None].float()).clamp(-8, 7)
+    q = q.to(torch.int32)
+    half = q.shape[-1] // 2
+    packed = (q[..., :half] & 0xF) | ((q[..., half:] & 0xF) << 4)
+    return packed.to(torch.int8), scale  # 128..255 wrap as in the JAX cast
+
+
+def kv4_planes(packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., D/2) int8 nibble pairs -> (lo, hi) f32 code planes, each
+    (..., D/2), sign-extended."""
+    p = packed.to(torch.int32)
+    lo = ((p & 0xF) ^ 0x8) - 8
+    hi = (((p >> 4) & 0xF) ^ 0x8) - 8
+    return lo.float(), hi.float()
+
+
+def unpack_kv4(packed: torch.Tensor) -> torch.Tensor:
+    """(..., D/2) int8 nibble pairs -> (..., D) f32 codes, [lo | hi]."""
+    return torch.cat(kv4_planes(packed), dim=-1)
+
+
 def _quantized(cache: KVCache, k: torch.Tensor, v: torch.Tensor):
+    if cache.bits == 4:
+        return (*quantize_kv4(k), *quantize_kv4(v))
     if cache.bits == 8:
-        kq, ks = quantize_kv(k)
-        vq, vs = quantize_kv(v)
-        return kq, ks, vq, vs
+        return (*quantize_kv(k), *quantize_kv(v))
     return k.to(cache.k.dtype), None, v.to(cache.v.dtype), None
 
 
@@ -74,37 +122,67 @@ def append_slots(cache: KVCache, layer: int, slots: torch.Tensor,
     Repeated slots (row padding) write identical values."""
     T = k_new.shape[2]
     kq, ks, vq, vs = _quantized(cache, k_new, v_new)
-    cache.k[layer, slots, :, :T] = kq
-    cache.v[layer, slots, :, :T] = vq
+    if cache.layout == "bd4":
+        N, H, _, D2 = kq.shape
+        cache.k[layer, slots, :, :T] = kq.transpose(2, 3).reshape(
+            N, H * D2, T)
+        cache.v[layer, slots, :T] = vq.transpose(1, 2).reshape(N, T, H * D2)
+    else:
+        cache.k[layer, slots, :, :T] = kq
+        cache.v[layer, slots, :, :T] = vq
     if ks is not None:
         cache.k_scale[layer, slots, :, :T] = ks
         cache.v_scale[layer, slots, :, :T] = vs
     return cache
 
 
+def _positions(cache: KVCache, lengths: torch.Tensor) -> torch.Tensor:
+    """Each slot's write position; as with dynamic_update_slice, a position
+    past the buffer clamps to its last column."""
+    return lengths.clamp(max=cache.k_scale.shape[3] - 1)
+
+
 def append_kv_quantized(cache: KVCache, layer: int, kq, ks, vq, vs,
                         lengths: torch.Tensor) -> KVCache:
     """Decode: write every slot's one fresh token, already quantized
-    ((S, H, 1, D) codes, (S, H, 1) scales), at that slot's length.  As
-    with dynamic_update_slice, a position past the buffer clamps to its
-    last row."""
+    ((S, H, 1, D) codes, (S, H, 1) scales), at that slot's length (int8
+    ``hhd`` cache)."""
     S = kq.shape[0]
-    pos = lengths.clamp(max=cache.k.shape[3] - 1)
+    pos = _positions(cache, lengths)
     rows = torch.arange(S, device=lengths.device)
     cache.k[layer, rows, :, pos] = kq[:, :, 0].to(cache.k.dtype)
     cache.v[layer, rows, :, pos] = vq[:, :, 0].to(cache.v.dtype)
-    if cache.bits == 8:
-        cache.k_scale[layer, rows, :, pos] = ks[:, :, 0]
-        cache.v_scale[layer, rows, :, pos] = vs[:, :, 0]
+    cache.k_scale[layer, rows, :, pos] = ks[:, :, 0]
+    cache.v_scale[layer, rows, :, pos] = vs[:, :, 0]
+    return cache
+
+
+def append_kv4_bd(cache: KVCache, layer: int, k4: torch.Tensor,
+                  ks: torch.Tensor, v4: torch.Tensor, vs: torch.Tensor,
+                  lengths: torch.Tensor) -> KVCache:
+    """Decode: write one nibble-packed token per slot into the bd4 slabs.
+    k4/v4 (S, H, 1, D/2) int8 (``quantize_kv4`` codes); ks/vs (S, H, 1)."""
+    S, H, _, D2 = k4.shape
+    pos = _positions(cache, lengths)
+    rows = torch.arange(S, device=lengths.device)
+    cache.k[layer, rows, :, pos] = k4.reshape(S, H * D2)
+    cache.v[layer, rows, pos, :] = v4.reshape(S, H * D2)
+    cache.k_scale[layer, rows, :, pos] = ks[:, :, 0]
+    cache.v_scale[layer, rows, :, pos] = vs[:, :, 0]
     return cache
 
 
 def read_kv_slot(cache: KVCache, layer: int, slot: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dequantized (1, H, T, D) bf16 views of one slot of one layer."""
-    ks, vs = cache.k[layer, slot][None], cache.v[layer, slot][None]
-    if cache.bits == 8:
-        k = ks.float() * cache.k_scale[layer, slot][None, ..., None].float()
-        v = vs.float() * cache.v_scale[layer, slot][None, ..., None].float()
-        return k.to(torch.bfloat16), v.to(torch.bfloat16)
-    return ks, vs
+    k, v = cache.k[layer, slot], cache.v[layer, slot]
+    if cache.bits == 16:
+        return k[None], v[None]
+    ksc = cache.k_scale[layer, slot][..., None].float()
+    vsc = cache.v_scale[layer, slot][..., None].float()
+    if cache.layout == "bd4":
+        H, T = ksc.shape[:2]
+        k = unpack_kv4(k.reshape(H, -1, T).transpose(1, 2))
+        v = unpack_kv4(v.reshape(T, H, -1).transpose(0, 1))
+    k, v = k.float() * ksc, v.float() * vsc
+    return k[None].to(torch.bfloat16), v[None].to(torch.bfloat16)

@@ -115,3 +115,110 @@ def test_engine_on_card_matches_cpu(dev):
     a, b = logits["cpu"], logits[str(dev)]
     for i in range(4):
         assert torch.corrcoef(torch.stack([a[i], b[i]]))[0, 1] >= 0.999
+
+
+# ---------------------------------------------------------------------------
+# decode attention (#17, #20, #21)
+# ---------------------------------------------------------------------------
+
+ATT_H, ATT_G, ATT_D = 8, 4, 128
+
+
+def _ragged(B, S, dev):
+    """Lengths with an empty slot, a full one and ragged ones between."""
+    lens = [0, S, 1, S // 2 + 3, S - 5, 17, S // 3, 100]
+    return torch.tensor(lens[:B] if B > 1 else [S - 7], device=dev)
+
+
+def _attn_inputs(dev, B, S, seed):
+    from lightcompress_tpu_torch.serving.kv_cache import quantize_kv4
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q = torch.randn((B, ATT_H, ATT_G, ATT_D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k = torch.randn((B, ATT_H, S, ATT_D), generator=gen, device=dev) * 2
+    v = torch.randn((B, ATT_H, S, ATT_D), generator=gen, device=dev)
+    return q, k, v, quantize_kv4
+
+
+def _bd4_slabs(k, v, quantize_kv4):
+    B, H, S, D = k.shape
+    k4, ks = quantize_kv4(k)
+    v4, vs = quantize_kv4(v)
+    kt4 = k4.transpose(2, 3).reshape(B, H * D // 2, S).contiguous()
+    vt4 = v4.transpose(1, 2).reshape(B, S, H * D // 2).contiguous()
+    return kt4, ks, vt4, vs
+
+
+def _check_partials(got, ref):
+    """m and d to relative 1e-5; the normalized context to 2e-2 of its
+    largest value (an ulp of exp may flip one int8 probability code)."""
+    (c, m, d), (rc, rm, rd) = got, ref
+    assert torch.equal(torch.isfinite(m), torch.isfinite(rm))
+    assert ((m - rm).abs() <= 1e-5 * rm.abs()).all()
+    assert ((d - rd).abs() <= 1e-5 * rd.abs()).all()
+    n = c / d.clamp_min(1e-30)[..., None]
+    rn = rc / rd.clamp_min(1e-30)[..., None]
+    assert (n - rn).abs().max() <= 2e-2 * rn.abs().max()
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("S", [512, 4096, 8192])
+def test_bd4_kernels_match_plain(dev, B, S):
+    from lightcompress_tpu_torch.ops import attention as T
+
+    q, k, v, qkv4 = _attn_inputs(dev, B, S, S + B)
+    kt4, ks, vt4, vs = _bd4_slabs(k, v, qkv4)
+    L = _ragged(B, S, dev)
+    T.reset_launch_counts()
+    for lengths in (L, None):
+        _check_partials(T.decode_attention_bd4(q, kt4, ks, vt4, vs, lengths),
+                        T.decode_attention_bd4_plain(q, kt4, ks, vt4, vs,
+                                                     lengths))
+        _check_partials(
+            T.decode_attention_bd4_flash(q, kt4, ks, vt4, vs, lengths),
+            T.decode_attention_bd4_flash_plain(q, kt4, ks, vt4, vs, lengths))
+    torch.cuda.synchronize()
+    assert [k.launches for k in T.KERNELS] == [0, 2, 2]
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("S", [512, 4096, 8192])
+def test_i8_kernel_matches_plain(dev, B, S):
+    from lightcompress_tpu_torch.ops import attention as T
+
+    q, k, v, _ = _attn_inputs(dev, B, S, S + B + 1)
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    kn, kns = quantize_kv(k[:, :, :1] * 1.5)
+    vn, vns = quantize_kv(v[:, :, :1])
+    fresh = (kn[:, :, 0], kns[:, :, 0], vn[:, :, 0], vns[:, :, 0])
+    L = _ragged(B, S, dev)
+    T.reset_launch_counts()
+    got = T.decode_attention_i8(q, kq, ks, vq, vs, *fresh, lengths=L)
+    ref = T.decode_attention_i8_plain(q, kq, ks, vq, vs, *fresh, lengths=L)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 2e-2 * ref.abs().max()
+    assert [k.launches for k in T.KERNELS] == [1, 0, 0]
+
+
+def test_attention_launch_refused_raises(dev):
+    """#20 holds the whole score row in shared memory: at S = 16384 it
+    needs 320 KiB, above the 227 KiB a block may have, so the launch is
+    refused and the wrapper raises."""
+    from lightcompress_tpu_torch.ops import attention as T
+
+    B, S = 1, 16384
+    q = torch.zeros((B, ATT_H, ATT_G, ATT_D), device=dev,
+                    dtype=torch.bfloat16)
+    kt4 = torch.zeros((B, ATT_H * ATT_D // 2, S), device=dev,
+                      dtype=torch.int8)
+    vt4 = torch.zeros((B, S, ATT_H * ATT_D // 2), device=dev,
+                      dtype=torch.int8)
+    sc = torch.ones((B, ATT_H, S), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        T.decode_attention_bd4(q, kt4, sc, vt4, sc)
+    with pytest.raises(ValueError):
+        T.decode_attention_bd4(q, kt4, sc.float(), vt4, sc)

@@ -132,9 +132,11 @@ def test_slot_append_and_read():
     assert (kr[0, :, 5:] == 0).all() and (vr[0, :, :5] == -kr[0, :, :5]).all()
 
 
-def _teacher_forced(jeng, teng, tokens, n_prompt, n_steps):
+def _teacher_forced(jeng, teng, tokens, n_prompt, n_steps, sync=False):
     """Feed one fixed token stream through prefill and decode of both
-    engines (slot 0 of 2); per step the two logits vectors."""
+    engines (slot 0 of 2); per step the two logits vectors.  With
+    ``sync`` the port is handed JAX's cache before every decode step, so
+    that each step of the two engines starts from the same cache codes."""
     prompt = tokens[:n_prompt]
     T = jeng.prefill_buckets[0]
     ids = np.zeros((1, T), np.int32)
@@ -150,6 +152,10 @@ def _teacher_forced(jeng, teng, tokens, n_prompt, n_steps):
     jcur, tcur = jeng.cur_tokens, teng.cur_tokens.clone()
     active = [True] + [False] * (jeng.max_slots - 1)
     for i in range(n_steps):
+        if sync:
+            for name in ("k", "v", "k_scale", "v_scale"):
+                getattr(teng.cache, name).copy_(torch.from_numpy(
+                    np.asarray(getattr(cache, name).astype(jnp.float32))))
         tok = tokens[n_prompt + i]
         jcur = jcur.at[0].set(tok)
         tcur[0] = tok
