@@ -5,8 +5,10 @@
 Phases (each prints one JSON line with its seconds):
   1. device and build: the card's name and power limit, nvcc of every
      ``lightcompress_tpu_torch/ops/csrc/*.cu`` (all started together);
-  2. every W4 kernel against its plain PyTorch version at every Llama-3-8B
-     linear shape, with times (kernel, plain, a library matmul, the bound);
+  2. every W4 kernel against its plain PyTorch version at the Llama-3-8B
+     linear shapes and M of its engine phases (#1-#3 and #12 at a block's
+     seven linears, #13 and #14 at the fused build's four), with times
+     (kernel, plain, a library matmul, the bound);
      then every decode-attention kernel against its plain version at the
      engine's shapes (8 slots, 8 KV heads of 4 query heads, head_dim 128,
      ragged lengths), with times (kernel, plain, a library attention, the
@@ -22,11 +24,14 @@ Phases (each prints one JSON line with its seconds):
      each, and torch.profiler over its decode steps; the kv4 engine at
      max_len 8192 (kernel #21) on 8 prompts of 3000-4000 tokens, 16 tokens
      each; the kv8 engine with ``attn_impl="pallas"`` (kernel #17) on the
-     prompts of phase 3;
+     prompts of phase 3; then the builds of the model with ln gammas
+     1 + 0.1 N(0, 1): fused planes (``fused_rms``, ``fuse_qkv``: #3 at
+     prefill, #14 at decode), fused s4 on the kv4 route (#13, #20) and
+     unfused s4 (#12 at prefill and decode);
   6. the engine's prefill logits against a forward of the same serving
      weights through the plain versions, and a small Llama through each
-     engine route on the card against the same on the CPU (the paths the
-     CPU tests hold to the JAX package);
+     engine route and fused build on the card against the same on the CPU
+     (the paths the CPU tests hold to the JAX package);
   7. the kernel summary line;
   8. the result line.
 Each engine phase sets every launch count to 0 just before it runs and
@@ -53,7 +58,8 @@ from lightcompress_tpu_torch.models import ArchSpec, Llama, init_params
 from lightcompress_tpu_torch.ops import _build
 from lightcompress_tpu_torch.ops import attention as AT
 from lightcompress_tpu_torch.ops import w4_matmul as W
-from lightcompress_tpu_torch.ops.qlinear import dequant_weight, quantize_linear
+from lightcompress_tpu_torch.ops.qlinear import (dequant_weight, qlinear_plain,
+                                                 quantize_linear)
 from lightcompress_tpu_torch.quant import QuantSpec
 from lightcompress_tpu_torch.serving import (LLMEngine, SamplingParams,
                                              build_serving_weights,
@@ -101,6 +107,15 @@ KERNEL_INFO = {
     "decode_attention_i8": dict(
         source="lightcompress_tpu_torch/ops/csrc/decode_attention.cu",
         replaces="lightcompress_tpu/ops/pallas_attention.py:118"),
+    "w4a8_matmul_bytes": dict(
+        source="lightcompress_tpu_torch/ops/csrc/w4_bytes.cu",
+        replaces="lightcompress_tpu/ops/pallas_matmul.py:2000"),
+    "w4a8_linear_bytes_fused": dict(
+        source="lightcompress_tpu_torch/ops/csrc/w4_bytes.cu",
+        replaces="lightcompress_tpu/ops/pallas_matmul.py:2038"),
+    "w4a8_linear_planes_fused": dict(
+        source="lightcompress_tpu_torch/ops/csrc/w4_matmul.cu",
+        replaces="lightcompress_tpu/ops/pallas_matmul.py:2151"),
 }
 KERNELS = W.KERNELS + AT.KERNELS
 ATTN = [k.__name__ for k in AT.KERNELS]
@@ -154,10 +169,10 @@ def phase_build() -> dict:
 
 
 def bound(M: int, N: int, K: int, x_bytes: int, out_bytes: int,
-          kind: str):
+          kind: str, x_scale: bool = True):
     G = K // 128
     nbytes = N * K // 2 + 2 * N * G * 2 + M * K * x_bytes + M * N * out_bytes
-    if kind == "int8":
+    if kind == "int8" and x_scale:
         nbytes += M * 4  # x_scale
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = 2 * M * N * K / PEAK_OPS[kind] * 1e3
@@ -221,6 +236,102 @@ def phase_kernels(dev) -> dict:
                 "bound_ms": b_ms, "bound_by": b_by})
         del qp, wd
     return {"phase": "kernels", "rows": rows, "seconds": time.time() - t0}
+
+
+# (name, N, K, rms) of the fused build's decode linears at Llama-3-8B (q|k|v
+# and gate|up merged), with the RMSNorm as the engine runs it
+FUSED_SHAPES = [("qkv", 6144, 4096, True), ("o", 4096, 4096, False),
+                ("gateup", 28672, 4096, True), ("down", 4096, 14336, False)]
+FUSED_M = 8
+# the M at which engine_s4 launches #12 on SHAPES: decode (8 slots) and its
+# prefill of 2 prompts x 128 rows
+S4_M = (8, 256)
+
+
+def phase_fused_kernels(dev) -> dict:
+    """#12 against its plain version at the shapes ``engine_s4`` launches it
+    (one block's seven linears at M = 8 and 256); #13 and #14 at the fused
+    build's decode shapes, M = 8 (8 slots).  Times (kernel, plain, a
+    library matmul, the bound), the act codes the fused kernels flip
+    against the plain prologue, and the cost of the prologue that every
+    block of #13 and #14 recomputes: the fused kernel's time less that of
+    the same matmul on pre-quantized x (#12, #2), beside the unfused path's
+    torch act quant."""
+    t0 = time.time()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    pad = torch.empty(PAD, dtype=torch.uint8, device=dev)
+    rows = []
+
+    def row(kname, name, M, N, K, y, ref, tol, flips, fused, run, plain,
+            library):
+        torch.cuda.synchronize()
+        err = float((y.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        if not (err <= tol * scale and torch.isfinite(y).all()
+                and flips <= 1e-3 * M * K):
+            raise AssertionError(f"{kname} {name} M={M}: max|err| {err} > "
+                                 f"{tol} * {scale} or {flips} flips")
+        b_ms, b_by = bound(M, N, K, 2 if fused else 1, 2 if fused else 4,
+                           "int8", x_scale=not fused)
+        return {"kernel": kname, "linear": name, "M": M, "N": N, "K": K,
+                "max_abs_err": err, "max_abs_ref": scale, "tol": tol,
+                "kernel_ms": time_ms(run, 20, pad),
+                "plain_ms": time_ms(plain, 3, pad),
+                "library_ms": time_ms(library, 20, pad),
+                "bound_ms": b_ms, "bound_by": b_by}
+
+    for name, N, K in SHAPES:
+        w = torch.randn((N, K), generator=gen, device=dev) * 0.02
+        s4 = quantize_linear(w, WSPEC, layout="s4")
+        wd = dequant_weight(s4, torch.bfloat16)
+        del w
+        sa = (s4.codes, s4.scales, s4.zeros)
+        for M in S4_M:
+            x = (torch.randn((M, K), generator=gen, device=dev) * 3).to(
+                torch.bfloat16)
+            xq, xs = W.quantize_act_per_token(x)
+            run = lambda: W.w4a8_matmul_bytes(xq, xs, *sa)
+            plain = lambda: W.w4a8_matmul_bytes_plain(xq, xs, *sa)
+            rows.append(row("w4a8_matmul_bytes", name, M, N, K, run(),
+                            plain(), TOL_F32, 0, False, run, plain,
+                            lambda: torch.matmul(x, wd.t())))
+        del s4, wd
+    M = FUSED_M
+    for name, N, K, rms in FUSED_SHAPES:
+        w = torch.randn((N, K), generator=gen, device=dev) * 0.02
+        planes = quantize_linear(w, WSPEC)
+        s4 = quantize_linear(w, WSPEC, layout="s4")
+        wd = dequant_weight(planes, torch.bfloat16)
+        del w
+        x = (torch.randn((M, K), generator=gen, device=dev) * 3).to(
+            torch.bfloat16)
+        xq, xs = W.quantize_act_per_token(x)
+        fk = dict(rms=rms, eps=LLAMA3_8B.rms_eps)
+        pa = (planes.codes, planes.scales, planes.zeros)
+        sa = (s4.codes, s4.scales, s4.zeros)
+        for kname, wa, unfused in (
+                ("w4a8_linear_bytes_fused", sa,
+                 lambda: W.w4a8_matmul_bytes(xq, xs, *sa)),
+                ("w4a8_linear_planes_fused", pa,
+                 lambda: W.w4a8_matmul_decode(xq, xs, *pa))):
+            kern, kplain = getattr(W, kname), getattr(W, kname + "_plain")
+            run = lambda: kern(x, *wa, **fk)
+            plain = lambda: kplain(x, *wa, **fk)
+            y, codes, _ = W._fused_with_act(kern, x, *wa, **fk)
+            ref, rcodes, _ = plain()
+            flips = int((codes != rcodes).sum())
+            r = row(kname, name, M, N, K, y, ref, TOL_ULP, flips, True, run,
+                    plain, lambda: torch.matmul(x, wd.t()))
+            r.update(rms=rms, act_code_flips=flips,
+                     unfused_kernel_ms=time_ms(unfused, 20, pad))
+            r["prologue_ms"] = r["kernel_ms"] - r["unfused_kernel_ms"]
+            r["torch_act_quant_ms"] = time_ms(
+                lambda: W.quantize_act_per_token(x), 20, pad)
+            rows.append(r)
+        del planes, s4, wd
+    return {"phase": "fused_kernels", "rows": rows,
+            "seconds": time.time() - t0}
 
 
 def attn_bound(kname: str, lengths: torch.Tensor):
@@ -367,6 +478,20 @@ def make_prompts(n: int, vocab: int, lo: int = 100, hi: int = 128):
             for _ in range(n)]
 
 
+def set_gammas(model, seed: int) -> None:
+    """ln1/ln2 weights 1 + 0.1 N(0, 1) from ``seed`` (init_params sets
+    ones, which a fold would leave as they were).  New tensors: builds made
+    before keep the old ones."""
+    dev = model.params["embed"]["weight"].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    h = model.arch.hidden_size
+    for bp in model.params["blocks"]:
+        for ln in ("ln1", "ln2"):
+            bp[ln]["weight"] = (1 + 0.1 * torch.randn(
+                h, generator=gen, device=dev)).to(model.arch.dtype)
+
+
 def padded(prompts, T: int, dev):
     """(N, T) ids with the prompts left-aligned, and their lengths."""
     ids = torch.zeros((len(prompts), T), dtype=torch.long, device=dev)
@@ -379,7 +504,7 @@ def timed_engine(eng: LLMEngine):
     """Wrap the engine's prefill and decode passes with synchronised host
     timers; returns the dict they fill."""
     stats = {"prefill_s": 0.0, "decode_s": 0.0, "decode_tokens": 0,
-             "decode_steps": 0, "prefill_rows": 0}
+             "decode_steps": 0, "prefill_rows": 0, "prefill_batches": 0}
     prefill, decode = eng._prefill_batch, eng._decode_step
 
     def p(ids, slots, tlens, T):
@@ -389,6 +514,7 @@ def timed_engine(eng: LLMEngine):
         torch.cuda.synchronize()
         stats["prefill_s"] += time.perf_counter() - t
         stats["prefill_rows"] += ids.numel()
+        stats["prefill_batches"] += 1
         return out
 
     def d(cur, active):
@@ -444,21 +570,33 @@ def run_engine(sw, prompts, n_new: int, dev, **kw) -> tuple:
 
 
 def engine_phase(name: str, sw, prompts, n_new: int, dev, attn: str,
-                 **kw) -> dict:
+                 expect=None, **kw) -> dict:
     """One engine phase: its attention kernel ``attn`` (None: the plain
-    ``xla`` route) launched, the other attention kernels not."""
+    ``xla`` route) launched, the other attention kernels not.  With
+    ``expect`` ({W4 kernel: (launches per prefill batch, per decode
+    step)}) each W4 kernel launched exactly so often, and the others
+    never."""
     t0 = time.time()
     _, launches, stats = run_engine(sw, prompts, n_new, dev, **kw)
     for k in ATTN:
         if (launches[k] > 0) != (k == attn):
             raise AssertionError(f"{name}: {k} launched {launches[k]} "
                                  f"times")
+    if expect is not None:
+        for k in (f.__name__ for f in W.KERNELS):
+            per_p, per_d = expect.get(k, (0, 0))
+            want = (per_p * stats["prefill_batches"]
+                    + per_d * stats["decode_steps"])
+            if launches[k] != want:
+                raise AssertionError(f"{name}: {k} launched {launches[k]} "
+                                     f"times, not {want}")
     emit({"phase": name, "launches": launches, **stats,
           "seconds": time.time() - t0})
     return launches
 
 
-def phase_profile(sw, prompts, dev, steps: int = 4, **kw) -> dict:
+def phase_profile(sw, prompts, dev, steps: int = 4, build: str = "w4a8",
+                  **kw) -> dict:
     """torch.profiler over a few decode steps with all 8 slots active:
     device busy time per kernel name, and the device's idle share of the
     steps' wall time (one stream, so kernel times do not overlap)."""
@@ -488,7 +626,8 @@ def phase_profile(sw, prompts, dev, steps: int = 4, **kw) -> dict:
         k[1] += e.count
     busy_ms = sum(v[0] for v in kern.values()) / 1e3 / steps
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:12]
-    return {"phase": "profile_decode", "act_bits": sw.act_bits,
+    return {"phase": "profile_decode", "build": build,
+            "act_bits": sw.act_bits,
             "kv_bits": eng.kv_bits, "attn_impl": eng.attn_impl,
             "lengths": eng.lengths.tolist(),
             "steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
@@ -503,7 +642,14 @@ def plain_linear(qp, x, act_bits: int):
     """The engine's W4 routing, through the plain versions only."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if act_bits == 8:
+    if qp.layout == "s4":
+        if act_bits == 8 and x2.shape[0] <= W.DECODE_M_MAX:
+            xq, xs = W.quantize_act_per_token(x2)
+            y = W.w4a8_matmul_bytes_plain(xq, xs, qp.codes, qp.scales,
+                                          qp.zeros).to(x.dtype)
+        else:
+            y = qlinear_plain(x2, qp)
+    elif act_bits == 8:
         xq, xs = W.quantize_act_per_token(x2)
         y = W.w4a8_matmul_prefill_plain(xq, xs, qp.codes, qp.scales,
                                         qp.zeros, out_dtype=x.dtype)
@@ -526,19 +672,27 @@ def plain_prefill_logits(sw, prompts, T: int, dev):
     mask = A.causal_mask(T, T, device=dev)[None, None] + torch.where(
         torch.arange(T, device=dev)[None] < tl[:, None], 0.0,
         neg)[:, None, None, :]
+    def proj(e, h, names):
+        """The named linears of ``h``, from their merged entry if any."""
+        merged = {2: "mlp.gateup", 3: "attn.qkv"}[len(names)]
+        if merged not in e:
+            return [plain_linear(e[n], h, ab) for n in names]
+        sizes = [e[merged].codes.shape[0] // 2] * 2 if len(names) == 2 \
+            else [nh * hd, nkv * hd, nkv * hd]
+        return torch.split(plain_linear(e[merged], h, ab), sizes, dim=-1)
+
     for e in sw.blocks:
         h1 = A.apply_norm(x, e["ln1"], arch)
-        q = plain_linear(e["attn.q"], h1, ab).reshape(N, T, nh, hd)
-        k = plain_linear(e["attn.k"], h1, ab).reshape(N, T, nkv, hd)
-        v = plain_linear(e["attn.v"], h1, ab).reshape(N, T, nkv, hd)
+        q, k, v = proj(e, h1, ("attn.q", "attn.k", "attn.v"))
+        q, k, v = (q.reshape(N, T, nh, hd), k.reshape(N, T, nkv, hd),
+                   v.reshape(N, T, nkv, hd))
         q, k = A.apply_rope(q.transpose(1, 2), k.transpose(1, 2), cos, sin)
         ctx = A.sdpa(q, k, v.transpose(1, 2), mask, kv_groups=nh // nkv)
         h = x + plain_linear(e["attn.o"],
                              ctx.transpose(1, 2).reshape(N, T, nh * hd), ab)
         h2 = A.apply_norm(h, e["ln2"], arch)
-        mid = A._act(plain_linear(e["mlp.gate"], h2, ab), arch.act_fn) \
-            * plain_linear(e["mlp.up"], h2, ab)
-        x = h + plain_linear(e["mlp.down"], mid, ab)
+        g, u = proj(e, h2, ("mlp.gate", "mlp.up"))
+        x = h + plain_linear(e["mlp.down"], A._act(g, arch.act_fn) * u, ab)
     xl = A.rmsnorm(x, sw.norm["weight"], arch.rms_eps)
     return head_logits(sw, xl[torch.arange(N, device=dev), tl - 1][:, None]
                        )[:, 0]
@@ -613,35 +767,31 @@ def writers_match(dev, eng: LLMEngine) -> bool:
     return all(torch.equal(a, b) for a, b in zip(*out))
 
 
-def phase_small_vs_cpu(dev, steps: int = 3) -> dict:
-    """A small Llama at W4A8 through each engine route on the card and on
-    the CPU: the same weight and head codes; cache writers that turn the
-    same K/V into the same bytes; then the prefill logits and ``steps``
-    teacher-forced decode steps with corr >= 0.999 for every row.
+LINEAR_FIELDS = ("codes", "scales", "zeros")
 
-    The engines' own prefill caches differ in a few codes: RMSNorm and
-    the prefill attention sum in other orders on the card, and the int8
-    act quant and the KV quant turn a last-bit difference into a code
-    step now and then.  Each layer's share of differing cache entries is
-    reported and held under 10% (a wrong layout would scramble nearly
-    all of them)."""
-    t0 = time.time()
-    gen = torch.Generator(device="cpu")
-    gen.manual_seed(SEED)
-    model = Llama(SMALL, init_params(gen, SMALL))
-    prompts = make_prompts(4, SMALL.vocab_size)
-    forced = np.random.RandomState(SEED + 1).randint(
-        0, SMALL.vocab_size, (steps, len(prompts)))
-    sws = {d: build_serving_weights(model, WSPEC, act_bits=8, device=d)
-           for d in ("cpu", dev)}
-    same_codes = torch.equal(sws["cpu"].lm_head, sws[dev].lm_head.cpu()) \
-        and all(torch.equal(getattr(a[n], f), getattr(b[n], f).cpu())
-                for a, b in zip(sws["cpu"].blocks, sws[dev].blocks)
-                for n in ("attn.q", "attn.k", "attn.v", "attn.o",
-                          "mlp.gate", "mlp.up", "mlp.down")
-                for f in ("codes", "scales", "zeros"))
-    routes, ok = {}, same_codes
-    for name, kw in SMALL_ROUTES.items():
+
+def same_codes(sws) -> bool:
+    """The card's serving weights equal the CPU's bit for bit: every
+    linear's codes, scales and zero corrections, the ln weights, the head."""
+    a, b = sws.values()
+    return torch.equal(a.lm_head, b.lm_head.cpu()) and all(
+        set(ea) == set(eb) and all(
+            torch.equal(ea[n]["weight"], eb[n]["weight"].cpu())
+            if n in ("ln1", "ln2") else
+            all(torch.equal(getattr(ea[n], f), getattr(eb[n], f).cpu())
+                for f in LINEAR_FIELDS)
+            for n in ea)
+        for ea, eb in zip(a.blocks, b.blocks))
+
+
+def compare_routes(sws, prompts, forced, dev, names,
+                   share_max: float = 0.1) -> tuple:
+    """Each named route of SMALL_ROUTES on the card against the CPU: (per
+    route results, all gates met, the largest cache share under
+    ``share_max``)."""
+    routes, ok = {}, True
+    for name in names:
+        kw = SMALL_ROUTES[name]
         (la, _, ca), (lb, eng, cb) = (small_route(sws[d], prompts, forced, d,
                                                   kw) for d in ("cpu", dev))
         a, b = la.flatten(0, 1), lb.flatten(0, 1)
@@ -658,21 +808,91 @@ def phase_small_vs_cpu(dev, steps: int = 3) -> dict:
                         "finite": bool(torch.isfinite(b).all())}
         ok = ok and corr >= 0.999 and routes[name]["finite"] \
             and routes[name]["writers_match"] \
-            and max(max(r) for r in share) < 0.1
-    res = {"phase": "small_vs_cpu", "same_codes": same_codes,
-           "routes": routes, "seconds": time.time() - t0}
+            and max(max(r) for r in share) < share_max
+    return routes, ok
+
+
+S4_FUSED = dict(layout="s4", fused_rms=True, fuse_qkv=True)
+# the fused builds (from a model whose gammas are 1 + 0.1 N(0, 1)): the
+# routes small_vs_cpu runs each through, its prompts and the limit of its
+# cache shares.  fused_s4 at 2 prompts prefills 256 rows through kernel
+# #12; fused_s4_512 at 4 prompts prefills 512 rows through the bf16
+# dequant-then-matmul (the route of engine_fused_s4's prefill), where no
+# int8 act quant snaps the card's and the CPU's last-bit differences back
+# to equal codes and layer 1's caches differed in 14-21% of their entries
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md); its limit is 0.3 (a
+# scrambled layout would differ in nearly all)
+SMALL_FUSED = {
+    "fused_planes": (dict(fused_rms=True, fuse_qkv=True), ("kv8",), 4, 0.1),
+    "fused_s4": (S4_FUSED, ("kv8", "kv4_4096"), 2, 0.1),
+    "fused_s4_512": (S4_FUSED, ("kv8",), 4, 0.3),
+}
+
+
+def phase_small_vs_cpu(dev, steps: int = 3) -> dict:
+    """A small Llama at W4A8 through each engine route on the card and on
+    the CPU: the same weight and head codes; cache writers that turn the
+    same K/V into the same bytes; then the prefill logits and ``steps``
+    teacher-forced decode steps with corr >= 0.999 for every row.  Then
+    the same for the fused builds of the model with non-unit gammas
+    (decode through #14 and #13 on the card, their plain versions on the
+    CPU), and the 512-row fused s4 case once more with cuBLAS's bf16
+    matmuls kept from reduced-precision reductions (reported, not gated).
+
+    The engines' own prefill caches differ in a few codes: RMSNorm and
+    the prefill attention sum in other orders on the card, and the int8
+    act quant and the KV quant turn a last-bit difference into a code
+    step now and then.  Each layer's share of differing cache entries is
+    reported and held under 10% (a wrong layout would scramble nearly
+    all of them), or under the case's limit in SMALL_FUSED."""
+    t0 = time.time()
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(SEED)
+    model = Llama(SMALL, init_params(gen, SMALL))
+    prompts = make_prompts(4, SMALL.vocab_size)
+    forced = np.random.RandomState(SEED + 1).randint(
+        0, SMALL.vocab_size, (steps, len(prompts)))
+    sws = {d: build_serving_weights(model, WSPEC, act_bits=8, device=d)
+           for d in ("cpu", dev)}
+    res = {"phase": "small_vs_cpu", "same_codes": same_codes(sws)}
+    res["routes"], ok = compare_routes(sws, prompts, forced, dev,
+                                       SMALL_ROUTES)
+    ok = ok and res["same_codes"]
+    set_gammas(model, SEED + 2)
+    for bname, (bkw, names, n, share_max) in SMALL_FUSED.items():
+        sws = {d: build_serving_weights(model, WSPEC, act_bits=8, device=d,
+                                        **bkw) for d in ("cpu", dev)}
+        routes, b_ok = compare_routes(sws, prompts[:n], forced[:, :n], dev,
+                                      names, share_max)
+        res[bname] = {"same_codes": same_codes(sws), "share_max": share_max,
+                      "routes": routes}
+        ok = ok and b_ok and res[bname]["same_codes"]
+    mm = torch.backends.cuda.matmul
+    reduced = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        routes, _ = compare_routes(sws, prompts, forced, dev, ("kv8",), 1.0)
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = reduced
+    res["fused_s4_512"]["no_reduced_precision_reduction"] = routes["kv8"]
+    res["seconds"] = time.time() - t0
     if not ok:
         raise AssertionError(f"small model, card vs CPU: {res}")
     return res
 
 
-def summarize(rows, attn_rows, launches) -> list:
+def summarize(rows, attn_rows, fused_rows, launches) -> list:
     """One entry per kernel: for a W4 kernel, times summed over one
     block's seven linears at the kernel's main-path M (8 for decode, 1024
-    for prefill); for an attention kernel, one call at the buffer of its
-    engine phase (#20 4096, #21 8192, #17 512)."""
+    for prefill; #12 at 8, the M of 15 of every 16 of its ``engine_s4``
+    launches), or for #13 and #14 over the fused build's four decode
+    linears at M = 8; for an attention kernel, one call at the buffer of
+    its engine phase (#20 4096, #21 8192, #17 512)."""
     main_m = {"w4a16_matmul": 8, "w4a8_matmul_decode": 8,
-              "w4a8_matmul_prefill": 1024}
+              "w4a8_matmul_prefill": 1024, "w4a8_matmul_bytes": S4_M[0],
+              "w4a8_linear_bytes_fused": FUSED_M,
+              "w4a8_linear_planes_fused": FUSED_M}
+    rows = rows + fused_rows
     main_s = {"decode_attention_bd4": 4096,
               "decode_attention_bd4_flash": 8192, "decode_attention_i8": 512}
     out = []
@@ -714,16 +934,29 @@ def main() -> int:
     attn = phase_attn_kernels(dev)
     emit(attn)
 
+    fused_k = phase_fused_kernels(dev)
+    emit(fused_k)
+
     t0 = time.time()
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     model = Llama(LLAMA3_8B, init_params(gen, LLAMA3_8B))
     sw8 = build_serving_weights(model, WSPEC, act_bits=8, device=dev)
+    # every other build from the same model, with non-unit gammas
+    set_gammas(model, SEED + 2)
+    builds = {name: build_serving_weights(model, WSPEC, act_bits=8,
+                                          device=dev, **kw)
+              for name, kw in (("fused_planes", dict(fused_rms=True,
+                                                     fuse_qkv=True)),
+                               ("fused_s4", S4_FUSED),
+                               ("s4", dict(layout="s4")))}
     del model
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    emit({"phase": "setup", "seconds": time.time() - t0})
+    emit({"phase": "setup", "builds": ["w4a8", *builds],
+          "seconds": time.time() - t0})
     vocab = LLAMA3_8B.vocab_size
+    layers = LLAMA3_8B.num_layers
     prompts = make_prompts(8, vocab)
     runs = [engine_phase("engine_w4a8", sw8, prompts, 32, dev, None)]
     for k in ("w4a8_matmul_decode", "w4a8_matmul_prefill"):
@@ -751,22 +984,51 @@ def main() -> int:
     runs.append(engine_phase("engine_pallas", sw8, prompts, 16, dev,
                              "decode_attention_i8", attn_impl="pallas"))
 
+    # the fused builds: 4 linears a block (q|k|v and gate|up merged); #14
+    # or #13 carries every decode linear, #3 the planes prefill (1024
+    # rows); the s4 prefill (4096 rows) is dequant-then-matmul, as in JAX
+    runs.append(engine_phase(
+        "engine_fused_planes", builds["fused_planes"], prompts, 32, dev, None,
+        expect={"w4a8_matmul_prefill": (4 * layers, 0),
+                "w4a8_linear_planes_fused": (0, 4 * layers)}))
     t0 = time.time()
-    with torch.no_grad():
-        eng_l = engine_prefill_logits(sw8, prompts, 128, dev)[0].float()
-        ref_l = plain_prefill_logits(sw8, prompts, 128, dev)[0].float()
-    corr = float(torch.corrcoef(torch.stack([eng_l, ref_l]))[0, 1])
-    same = int(eng_l.argmax()) == int(ref_l.argmax())
-    emit({"phase": "engine_vs_plain", "corr": corr, "argmax_equal": same,
-          "finite": bool(torch.isfinite(eng_l).all()),
-          "seconds": time.time() - t0})
-    if not (corr >= 0.999 and same and torch.isfinite(eng_l).all()):
-        raise AssertionError(f"engine vs plain: corr {corr}, argmax {same}")
+    emit(dict(phase_profile(builds["fused_planes"], prompts, dev,
+                            build="fused_planes"),
+              seconds=time.time() - t0))
+    runs.append(engine_phase(
+        "engine_fused_s4", builds["fused_s4"], prompts_kv4, 16, dev,
+        "decode_attention_bd4",
+        expect={"w4a8_linear_bytes_fused": (0, 4 * layers)}, **kv4))
+    # s4 unfused: #12 at prefill (2 prompts x 128 = 256 rows) and decode
+    runs.append(engine_phase(
+        "engine_s4", builds["s4"], prompts[:2], 16, dev, None,
+        expect={"w4a8_matmul_bytes": (7 * layers, 7 * layers)}))
+
+    t0 = time.time()
+    for name, sw, ps in (("w4a8", sw8, prompts),
+                         ("fused_planes", builds["fused_planes"], prompts),
+                         ("fused_s4", builds["fused_s4"], prompts[:2]),
+                         ("s4", builds["s4"], prompts[:2])):
+        with torch.no_grad():
+            eng_l = engine_prefill_logits(sw, ps, 128, dev)[0].float()
+            ref_l = plain_prefill_logits(sw, ps, 128, dev)[0].float()
+        corr = float(torch.corrcoef(torch.stack([eng_l, ref_l]))[0, 1])
+        same = int(eng_l.argmax()) == int(ref_l.argmax())
+        emit({"phase": "engine_vs_plain", "build": name,
+              "prefill_rows": len(ps) * 128, "corr": corr,
+              "argmax_equal": same,
+              "finite": bool(torch.isfinite(eng_l).all()),
+              "seconds": time.time() - t0})
+        if not (corr >= 0.999 and same and torch.isfinite(eng_l).all()):
+            raise AssertionError(f"engine vs plain ({name}): corr {corr}, "
+                                 f"argmax {same}")
+        t0 = time.time()
     emit(phase_small_vs_cpu(dev))
 
     # the main path's launches: every engine phase
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
-    emit({"kernels": summarize(kern["rows"], attn["rows"], launches)})
+    emit({"kernels": summarize(kern["rows"], attn["rows"], fused_k["rows"],
+                               launches)})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

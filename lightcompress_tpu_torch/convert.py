@@ -7,8 +7,10 @@ so this module imports neither JAX nor the JAX package.  Two entry points:
 - ``serving_weights_from_numpy``: a JAX ``ServingWeights`` (passed as its
   fields) -> the port's ``ServingWeights``, undoing the TPU-only layouts:
   the tiled codes (N/NT, gpp, NT, g) (``tile_packed``), the split pre-tiled
-  scales (gpp, N/NT, 8, NT) (``tile_scales``) and the combined scale slab
-  (N/NT, 2*gpp*8, NT) (``tile_scales_combined``).
+  scales (gpp, N/NT, 8, NT) (``tile_scales``), the combined scale slab
+  (N/NT, 2*gpp*8, NT) (``tile_scales_combined``), and the s4 byte pairs
+  (N/NT, NT, K/2) with their scales (N/NT, G, NT) (``pack_s4_pairs``,
+  ``tile_scales_pairs``).
 """
 
 from __future__ import annotations
@@ -68,14 +70,28 @@ def split_combined(slab: np.ndarray):
             untile_scales(comb[:, 1].transpose(1, 0, 2, 3)))
 
 
+def untile_pairs(t: np.ndarray) -> np.ndarray:
+    """(N/NT, G, NT) -> (N, G); inverse of ``tile_scales_pairs``."""
+    nb, G, nt = t.shape
+    return t.transpose(0, 2, 1).reshape(nb * nt, G)
+
+
 def qlinear_from_numpy(codes, scales, zeros, bias, bits: int,
                        group_size: int, layout: str,
                        device: DeviceLike = None) -> QLinearParams:
     """One JAX ``QLinearParams`` (its fields as arrays) -> the port's."""
-    if bits != 4 or layout != "planes":
+    if bits != 4 or layout not in ("planes", "s4"):
         raise ValueError(f"{bits}-bit {layout!r} linears are not ported")
     codes, scales = np.asarray(codes), np.asarray(scales)
     zeros = None if zeros is None else np.asarray(zeros)
+    if layout == "s4":
+        nb, nt, kh = codes.shape
+        return QLinearParams(
+            tensor_from_numpy(codes.reshape(nb * nt, kh), device),
+            tensor_from_numpy(untile_pairs(scales), device),
+            tensor_from_numpy(untile_pairs(zeros), device),
+            None if bias is None else tensor_from_numpy(bias, device),
+            group_size, "s4", True)
     wp = untile_codes(codes) if codes.ndim == 4 else codes
     if scales.ndim == 3:
         s, zs = split_combined(scales)
@@ -91,7 +107,7 @@ def qlinear_from_numpy(codes, scales, zeros, bias, bits: int,
         tensor_from_numpy(wp, device, torch.int32),
         tensor_from_numpy(s, device), tensor_from_numpy(zs, device),
         None if bias is None else tensor_from_numpy(bias, device),
-        group_size)
+        group_size, "planes", codes.ndim == 4)
 
 
 def arch_from_fields(fields: Dict[str, Any],
@@ -105,11 +121,14 @@ def arch_from_fields(fields: Dict[str, Any],
 
 def serving_weights_from_numpy(arch: ArchSpec, embed, norm: Dict[str, Any],
                                lm_head, lm_head_scale,
-                               blocks, act_bits: int,
+                               blocks, act_bits: int, fused_rms: bool = False,
                                device: DeviceLike = None) -> ServingWeights:
-    """``blocks`` is a list of dicts: linear name -> dict with the JAX
-    QLinearParams fields (codes, scales, zeros, bias, bits, group_size,
-    layout); ``ln1``/``ln2`` -> {"weight": array}."""
+    """``blocks`` is a list of dicts: linear name (``attn.qkv`` and
+    ``mlp.gateup`` for merged entries) -> dict with the JAX QLinearParams
+    fields (codes, scales, zeros, bias, bits, group_size, layout);
+    ``ln1``/``ln2`` -> {"weight": array}.  ``fused_rms`` is the JAX
+    field; a fused build with the combined scale slab is refused (JAX
+    runs no fused linear on it, as it has no separate zeros)."""
     out_blocks = []
     for entry in blocks:
         e: Dict[str, Any] = {}
@@ -118,6 +137,9 @@ def serving_weights_from_numpy(arch: ArchSpec, embed, norm: Dict[str, Any],
                 e[name] = {k: tensor_from_numpy(a, device)
                            for k, a in v.items()}
             else:
+                if fused_rms and v["zeros"] is None:
+                    raise ValueError(f"{name}: fused_rms weights without "
+                                     f"zeros are not ported")
                 e[name] = qlinear_from_numpy(device=device, **v)
         out_blocks.append(e)
     return ServingWeights(
@@ -128,4 +150,5 @@ def serving_weights_from_numpy(arch: ArchSpec, embed, norm: Dict[str, Any],
         lm_head_scale=tensor_from_numpy(lm_head_scale, device),
         blocks=out_blocks,
         act_bits=act_bits,
+        fused_rms=fused_rms,
     )

@@ -2,8 +2,9 @@
 into a shared library with a plain C interface, loaded with ``ctypes``).
 
 A library is built at first use into ``build/kernels/`` at the repository
-root, named by the hash of its source, and reused while the source is
-unchanged.  Nothing is built when this module is imported.
+root, named by the hash of its source and of the shared headers
+(``csrc/*.cuh``), and reused while they are unchanged.  Nothing is built
+when this module is imported.
 """
 
 from __future__ import annotations
@@ -36,7 +37,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -1,7 +1,7 @@
 // Grouped-W4 matmul kernels for Hopper (sm_90a), CUDA C++ with a plain C
 // interface bound from Python with ctypes (ops/_build.py, ops/w4_matmul.py).
 //
-// Weight layout (shared by all three kernels): untiled planes.
+// Weight layout (shared by all four kernels): untiled planes.
 //   wp  (N, K/8) int32: nibble j of word kw holds code u[n, j*K/8 + kw]
 //   s   (N, G)   bf16 : per-group scale, G = K/128
 //   zs  (N, G)   bf16 : premultiplied zero correction z*s
@@ -11,7 +11,9 @@
 // with the group dot finished before the scale is applied.
 //
 // Requirements checked by the Python wrappers: K % 1024 == 0, N % 64 == 0,
-// contiguous tensors on the current device.
+// contiguous tensors on the current device.  The decode block, the fused
+// prologue (#14) and the epilogue live in w4_common.cuh, shared with the
+// byte-pair kernels of w4_bytes.cu.
 //
 // Bounds on an H100 SXM (3.35 TB/s HBM, 1979 TOP/s int8 and 989 TFLOP/s
 // bf16 dense tensor-core peaks):
@@ -21,15 +23,11 @@
 // These first kernels use no tensor cores (no mma/wgmma, no TMA); they are
 // the simple correct versions that later work makes fast.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "w4_common.cuh"
 
 namespace {
 
-constexpr int kGroup = 128;
-constexpr int kDecodeWarps = 4;
-constexpr int kDecodeThreads = kDecodeWarps * 32;
+using namespace lcw4;
 
 __device__ __forceinline__ float bf16_to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -151,45 +149,47 @@ w4a16_decode_kernel(const __nv_bfloat16* __restrict__ x,
 // ---------------------------------------------------------------------------
 // #2  W4A8 decode.  Replaces lightcompress_tpu/ops/pallas_matmul.py
 // w4a8_matmul_planes (_w4a8_kernel_fullk_combined, _w4a8_kernel_fullk).
+// #14 W4A8 fused decode linear (XT = bf16 or f32 x).  Replaces
+// w4a8_linear_planes_fused (_w4a8_kernel_fullk_fused).
 //
 // Bound: the packed weight read (memory).  Same design as #1 with int8
 // activations: each lane's group dot is integer-exact (__dp4a over four
 // codes packed into bytes; a group sum is at most 127*15*128 = 243,840),
 // then the f32 scale and zero correction, then the per-token act scale.
+// #2 stages pre-quantized rows (XT = int8_t) and writes f32; #14 runs the
+// prologue of w4_common.cuh (RMSNorm, act quant) on its rows first, which
+// every block repeats (no block may wait on another), and writes XT.
 // ---------------------------------------------------------------------------
-template <int MT>
+template <int MT, typename XT>
 __global__ void __launch_bounds__(kDecodeThreads)
-w4a8_decode_kernel(const int8_t* __restrict__ xq,
+w4a8_decode_kernel(const XT* __restrict__ x,
                    const float* __restrict__ xscale,
                    const int32_t* __restrict__ wp,
                    const __nv_bfloat16* __restrict__ s,
                    const __nv_bfloat16* __restrict__ zs,
-                   float* __restrict__ out, int M, int N, int K) {
+                   void* __restrict__ out, int8_t* __restrict__ act_out,
+                   float* __restrict__ scale_out, int M, int N, int K,
+                   int rms, float eps) {
+  constexpr bool kFused = !std::is_same<XT, int8_t>::value;
+  using OutT = typename std::conditional<kFused, XT, float>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   const int kp = K / 8, G = K / kGroup, gpp = kp / kGroup;
   int8_t* xsh = reinterpret_cast<int8_t*>(smem);
   float* xsum = reinterpret_cast<float*>(smem + (size_t)MT * K);
   float* red = xsum + MT * G;
+  float* xs_sh = red + kDecodeWarps * MT * 32;
+  float* scratch = xs_sh + MT;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int m0 = blockIdx.y * MT;
   const int n = blockIdx.x * 32 + lane;
 
-  const int n16 = MT * K / 16;
-  for (int i = threadIdx.x; i < n16; i += blockDim.x) {
-    const int m = (i * 16) / K, k = (i * 16) % K;
-    int4 v = make_int4(0, 0, 0, 0);
-    if (m0 + m < M)
-      v = *reinterpret_cast<const int4*>(xq + (size_t)(m0 + m) * K + k);
-    reinterpret_cast<int4*>(xsh)[i] = v;
-  }
+  if constexpr (kFused)
+    quantize_rows<MT>(x, M, K, m0, rms, eps, xsh, xs_sh, scratch);
+  else
+    stage_rows<MT>(x, M, K, m0, xsh);
   __syncthreads();
-  for (int i = threadIdx.x; i < MT * G; i += blockDim.x) {
-    const int* p = reinterpret_cast<const int*>(
-        xsh + (size_t)(i / G) * K + (i % G) * kGroup);
-    int a = 0;
-    for (int q = 0; q < kGroup / 4; ++q) a = __dp4a(p[q], 0x01010101, a);
-    xsum[i] = (float)a;
-  }
+  group_sums<MT>(xsh, K, xsum);
+  if constexpr (kFused) export_act<MT>(xsh, xs_sh, act_out, scale_out, M, K, m0);
   __syncthreads();
 
   float acc[MT];
@@ -228,17 +228,8 @@ w4a8_decode_kernel(const int8_t* __restrict__ xq,
         acc[m] += sf * (float)dot[j][m] - zf * xsum[m * G + g];
     }
   }
-#pragma unroll
-  for (int m = 0; m < MT; ++m) red[(warp * MT + m) * 32 + lane] = acc[m];
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      float v = 0.f;
-      for (int w = 0; w < kDecodeWarps; ++w) v += red[(w * MT + m) * 32 + lane];
-      if (m0 + m < M) out[(size_t)(m0 + m) * N + n] = v * xscale[m0 + m];
-    }
-  }
+  store_rows<MT>(acc, red, kFused ? nullptr : xscale, xs_sh,
+                 static_cast<OutT*>(out), M, N, m0, n);
 }
 
 // ---------------------------------------------------------------------------
@@ -382,10 +373,23 @@ int w4a16_rows_per_block(int K) { return K <= 8192 ? 8 : 4; }
 constexpr size_t kPrefillSmem =
     (size_t)kPB * kGroup * 4 + 2 * (size_t)kPB * kPad * 4 + 3 * kPB * 4;
 
-template <typename Kern>
-cudaError_t prepare(Kern kern, size_t smem) {
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+// #2 (XT = int8_t, pre-quantized x and its scales) and #14 (XT = bf16 or
+// f32 x, the prologue in the kernel): 8 rows of x per block.
+template <typename XT>
+int launch_w4a8_decode(const XT* x, const void* xscale, const void* wp,
+                       const void* s, const void* zs, void* out,
+                       void* act_out, void* scale_out, int M, int N, int K,
+                       int rms, float eps, void* stream) {
+  const size_t smem = decode_smem_i8(8, K);
+  cudaError_t e = prepare(w4a8_decode_kernel<8, XT>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(N / 32, (M + 7) / 8);
+  w4a8_decode_kernel<8, XT><<<grid, kDecodeThreads, smem,
+                              reinterpret_cast<cudaStream_t>(stream)>>>(
+      x, (const float*)xscale, (const int32_t*)wp, (const __nv_bfloat16*)s,
+      (const __nv_bfloat16*)zs, out, (int8_t*)act_out, (float*)scale_out, M,
+      N, K, rms, eps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -419,16 +423,21 @@ int lc_w4a16_decode(const void* x, const void* wp, const void* s,
 int lc_w4a8_decode(const void* xq, const void* xscale, const void* wp,
                    const void* s, const void* zs, void* out, int M, int N,
                    int K, void* stream) {
-  const size_t smem = decode_smem(8, K, 1);
-  cudaError_t e = prepare(w4a8_decode_kernel<8>, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(N / 32, (M + 7) / 8);
-  w4a8_decode_kernel<8><<<grid, kDecodeThreads, smem,
-                          reinterpret_cast<cudaStream_t>(stream)>>>(
-      (const int8_t*)xq, (const float*)xscale, (const int32_t*)wp,
-      (const __nv_bfloat16*)s, (const __nv_bfloat16*)zs, (float*)out, M, N,
-      K);
-  return (int)cudaGetLastError();
+  return launch_w4a8_decode((const int8_t*)xq, xscale, wp, s, zs, out,
+                            nullptr, nullptr, M, N, K, 0, 0.f, stream);
+}
+
+// #14: x (M, K) bf16 (x_f32 = 0) or f32 (1); out (M, N) in x's type;
+// act_out (M, K) int8 and scale_out (M,) f32 may be null.
+int lc_w4a8_planes_fused(const void* x, int x_f32, const void* wp,
+                         const void* s, const void* zs, void* out,
+                         void* act_out, void* scale_out, int M, int N, int K,
+                         int rms, float eps, void* stream) {
+  if (x_f32)
+    return launch_w4a8_decode((const float*)x, nullptr, wp, s, zs, out,
+                              act_out, scale_out, M, N, K, rms, eps, stream);
+  return launch_w4a8_decode((const __nv_bfloat16*)x, nullptr, wp, s, zs, out,
+                            act_out, scale_out, M, N, K, rms, eps, stream);
 }
 
 int lc_w4a8_prefill(const void* xq, const void* xscale, const void* wp,

@@ -1,18 +1,29 @@
-"""Grouped-W4 matmuls: plane packing, per-token act quant, and the three
-Hopper kernels of the serving path with their plain PyTorch versions
-(port of lightcompress_tpu/ops/pallas_matmul.py, kernels #1-#3).
+"""Grouped-W4 matmuls: plane and byte-pair packing, per-token act quant,
+and the six Hopper kernels of the serving path with their plain PyTorch
+versions (port of lightcompress_tpu/ops/pallas_matmul.py, kernels #1-#3
+and #12-#14).
 
-Weight layout: untiled planes.  ``wp`` (N, K/8) int32 holds in nibble j of
-word kw the code of weight k = j*K/8 + kw (bit-identical to the JAX
-``pack_int4_planes``), ``s`` and ``zs`` (N, G) bf16 hold the per-group
-scale and the premultiplied zero correction z*s; G = K/128.  Every entry
-point computes
+Two weight layouts, both untiled; ``s`` and ``zs`` are (N, G) bf16
+per-group scales and premultiplied zero corrections, G = K/128:
 
-    y[m, n] = sum_g s[n, g] * (x_g . u_g) - zs[n, g] * sum(x_g)
+* planes: ``wp`` (N, K/8) int32 holds in nibble j of word kw the code u of
+  weight k = j*K/8 + kw (bit-identical to the JAX ``pack_int4_planes``);
+  zs = z*s;
+* s4 byte pairs: ``wb`` (N, K/2) int8, byte p*128 + t holds c' = u - 8 of
+  weight (2p)*128 + t in its low nibble and of (2p+1)*128 + t in its high
+  one (the JAX ``pack_s4_pairs`` without its tiling); zs = (z - 8)*s.
+
+Every entry point computes, with c the layout's code (u or c'),
+
+    y[m, n] = sum_g s[n, g] * (x_g . c_g) - zs[n, g] * sum(x_g)
+
+The fused linears (#13, #14) take the unquantized activations and run the
+JAX kernels' prologue first: an optional RMSNorm whose gamma is folded into
+the weights, then the per-token int8 quantization (``fused_act_quant``).
 
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
-kernel (``csrc/w4_matmul.cu``) or raises.  Each wrapper counts its kernel
-launches in its ``launches`` attribute.
+kernel (``csrc/w4_matmul.cu``, ``csrc/w4_bytes.cu``) or raises.  Each
+wrapper counts its kernel launches in its ``launches`` attribute.
 
 The plain versions' f32 matmuls are exact whether TF32 is on or off:
 nibble codes, int8 codes and bf16 activations are exact in TF32 and their
@@ -70,6 +81,26 @@ def unpack_int4_planes(packed: torch.Tensor, k: int) -> torch.Tensor:
     return ((packed[:, None, :] >> shifts) & 0xF).reshape(n, k)
 
 
+def pack_s4_pairs(codes: torch.Tensor) -> torch.Tensor:
+    """(N, K) codes u in [0, 15] -> (N, K/2) int8 byte pairs of c' = u - 8
+    (bit-identical to the JAX ``pack_s4_pairs`` reshaped to (N, K/2))."""
+    n, k = codes.shape
+    if k % (2 * GROUP):
+        raise ValueError(f"K={k} is not a multiple of {2 * GROUP}")
+    c = ((codes.to(torch.int32) & 0xF) - 8).reshape(n, k // (2 * GROUP), 2,
+                                                    GROUP)
+    b = (c[:, :, 0] & 0xF) | ((c[:, :, 1] & 0xF) << 4)
+    return torch.where(b > 127, b - 256, b).to(torch.int8).reshape(n, k // 2)
+
+
+def unpack_s4_pairs(wb: torch.Tensor) -> torch.Tensor:
+    """(N, K/2) int8 byte pairs -> (N, K) int32 signed codes c' in [-8, 7]."""
+    n, kh = wb.shape
+    b = wb.to(torch.int32).reshape(n, kh // GROUP, 1, GROUP)
+    c = torch.cat([((b & 0xF) ^ 8) - 8, (((b >> 4) & 0xF) ^ 8) - 8], dim=2)
+    return c.reshape(n, kh * 2)
+
+
 def quantize_act_per_token(x: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(M, K) float -> ((M, K) int8, (M, 1) f32 scale): amax/127, clamped
@@ -81,18 +112,35 @@ def quantize_act_per_token(x: torch.Tensor
     return q.to(torch.int8), scale
 
 
+def fused_act_quant(x: torch.Tensor, rms: bool, eps: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The prologue of the fused linears (#13, #14) in the JAX kernels'
+    order: f32 x, with ``rms`` times rsqrt(sum(x*x)/K + eps) (the RMSNorm
+    whose gamma is folded into the weights; unlike ``rmsnorm`` the result
+    is not rounded to x's dtype), then ``quantize_act_per_token``.  The
+    reciprocal square root is taken in f64 and rounded once, as the
+    kernels' correctly rounded ``__frsqrt_rn``; the sum runs in another
+    order than the kernels' and the JAX kernels', which can move the
+    rsqrt by an ulp and flip an act code now and then."""
+    xf = x.float()
+    if rms:
+        ms = div(torch.sum(xf * xf, dim=-1, keepdim=True), xf.shape[-1])
+        xf = xf * torch.rsqrt((ms + eps).double()).float()
+    return quantize_act_per_token(xf)
+
+
 # ---------------------------------------------------------------------------
 # plain versions (the CPU route and the on-card reference)
 # ---------------------------------------------------------------------------
 
-def _grouped(x: torch.Tensor, wp: torch.Tensor, s: torch.Tensor,
+def _grouped(x: torch.Tensor, codes: torch.Tensor, s: torch.Tensor,
              zs: torch.Tensor) -> torch.Tensor:
-    """sum_g s*(x_g . u_g) - zs*sum(x_g) in f32; x is f32 holding exact
-    bf16 or int8 values."""
+    """sum_g s*(x_g . c_g) - zs*sum(x_g) in f32; x is f32 holding exact
+    bf16 or int8 values, ``codes`` the (N, K) unpacked codes."""
     M, K = x.shape
     N, G = s.shape
     g = K // G
-    u = unpack_int4_planes(wp, K).float().reshape(N, G, g)
+    u = codes.float().reshape(N, G, g)
     xg = x.reshape(M, G, g)
     xsum = xg.sum(dim=-1)  # (M, G)
     sf, zf = s.float(), zs.float()
@@ -105,13 +153,35 @@ def _grouped(x: torch.Tensor, wp: torch.Tensor, s: torch.Tensor,
 
 def w4a16_matmul_plain(x, wp, s, zs) -> torch.Tensor:
     """Plain #1: bf16-rounded x, f32 group dots; returns (M, N) f32."""
-    return _grouped(x.to(torch.bfloat16).float(), wp, s, zs)
+    return _grouped(x.to(torch.bfloat16).float(),
+                    unpack_int4_planes(wp, x.shape[1]), s, zs)
 
 
 def w4a8_matmul_decode_plain(xq, x_scale, wp, s, zs) -> torch.Tensor:
     """Plain #2: integer-exact group dots (every partial sum is an integer
     below 2^24), f32 scale, times x_scale; returns (M, N) f32."""
-    return _grouped(xq.float(), wp, s, zs) * x_scale.float()
+    return _grouped(xq.float(), unpack_int4_planes(wp, xq.shape[1]), s,
+                    zs) * x_scale.float()
+
+
+def w4a8_matmul_bytes_plain(xq, x_scale, wb, s, zs) -> torch.Tensor:
+    """Plain #12: #2's arithmetic on the byte-pair codes c'; (M, N) f32."""
+    return _grouped(xq.float(), unpack_s4_pairs(wb), s, zs) \
+        * x_scale.float()
+
+
+def w4a8_linear_planes_fused_plain(x, wp, s, zs, rms=False, eps=1e-6):
+    """Plain #14: ``fused_act_quant`` then #2's arithmetic; returns
+    (y in ``x.dtype``, int8 codes, act scales)."""
+    xq, xs = fused_act_quant(x, rms, eps)
+    return w4a8_matmul_decode_plain(xq, xs, wp, s, zs).to(x.dtype), xq, xs
+
+
+def w4a8_linear_bytes_fused_plain(x, wb, s, zs, rms=False, eps=1e-6):
+    """Plain #13: ``fused_act_quant`` then #12's arithmetic; returns
+    (y in ``x.dtype``, int8 codes, act scales)."""
+    xq, xs = fused_act_quant(x, rms, eps)
+    return w4a8_matmul_bytes_plain(xq, xs, wb, s, zs).to(x.dtype), xq, xs
 
 
 def w4a8_matmul_prefill_plain(xq, x_scale, wp, s, zs,
@@ -126,6 +196,9 @@ def w4a8_matmul_prefill_plain(xq, x_scale, wp, s, zs,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# x, x_f32, w, s, zs, out, act_out, scale_out, M, N, K, rms, eps, stream
+_FUSED_ARGS = [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+               ctypes.c_float, _P]
 
 
 @functools.lru_cache(maxsize=None)
@@ -135,15 +208,33 @@ def _lib() -> ctypes.CDLL:
     lib.lc_w4a8_decode.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
     lib.lc_w4a8_prefill.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _P]
-    for fn in (lib.lc_w4a16_decode, lib.lc_w4a8_decode, lib.lc_w4a8_prefill):
+    lib.lc_w4a8_planes_fused.argtypes = _FUSED_ARGS
+    for fn in (lib.lc_w4a16_decode, lib.lc_w4a8_decode, lib.lc_w4a8_prefill,
+               lib.lc_w4a8_planes_fused):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bytes_lib() -> ctypes.CDLL:
+    lib = _build.load("w4_bytes")
+    lib.lc_w4a8_bytes.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
+    lib.lc_w4a8_bytes_fused.argtypes = _FUSED_ARGS
+    for fn in (lib.lc_w4a8_bytes, lib.lc_w4a8_bytes_fused):
         fn.restype = ctypes.c_int
     return lib
 
 
 def _check_weights(K: int, wp: torch.Tensor, s: torch.Tensor,
-                   zs: torch.Tensor, device: torch.device) -> int:
-    if wp.dtype != torch.int32 or wp.dim() != 2 or wp.shape[1] * 8 != K:
-        raise ValueError(f"wp must be (N, {K // 8}) int32, got "
+                   zs: torch.Tensor, device: torch.device,
+                   layout: str = "planes") -> int:
+    """Checks a planes (``wp`` (N, K/8) int32) or byte-pair (``wb``
+    (N, K/2) int8) weight; returns N."""
+    per, dtype, k_mult, n_mult = ((8, torch.int32, 8 * GROUP, 64)
+                                  if layout == "planes"
+                                  else (2, torch.int8, 4 * GROUP, 32))
+    if wp.dtype != dtype or wp.dim() != 2 or wp.shape[1] * per != K:
+        raise ValueError(f"the weight must be (N, {K // per}) {dtype}, got "
                          f"{tuple(wp.shape)} {wp.dtype}")
     N = wp.shape[0]
     G = K // GROUP
@@ -155,9 +246,9 @@ def _check_weights(K: int, wp: torch.Tensor, s: torch.Tensor,
         if t.device != device:
             raise ValueError("all operands must be on one device")
     if device.type == "cuda":
-        if K % (8 * GROUP) or N % 64:
-            raise ValueError(f"the kernels need K % 1024 == 0 and N % 64 == "
-                             f"0, got N={N} K={K}")
+        if K % k_mult or N % n_mult:
+            raise ValueError(f"the {layout} kernels need K % {k_mult} == 0 "
+                             f"and N % {n_mult} == 0, got N={N} K={K}")
         for t in (s, zs):
             if t.dtype != torch.bfloat16:
                 raise ValueError("the kernels take bf16 s and zs")
@@ -255,7 +346,95 @@ def w4a8_matmul_prefill(xq: torch.Tensor, x_scale: torch.Tensor,
     return out
 
 
-KERNELS = (w4a16_matmul, w4a8_matmul_decode, w4a8_matmul_prefill)
+def _fused_linear(kernel, x: torch.Tensor, w: torch.Tensor,
+                  s: torch.Tensor, zs: torch.Tensor, rms: bool, eps: float,
+                  export: bool):
+    """#13 (``kernel`` is ``w4a8_linear_bytes_fused``) or #14: (y, int8
+    codes, (M, 1) act scales); on the card the codes and scales only with
+    ``export``, else None."""
+    if x.dim() != 2:
+        raise ValueError("x must be (M, K)")
+    s4 = kernel is w4a8_linear_bytes_fused
+    N = _check_weights(x.shape[1], w, s, zs, x.device,
+                       "s4" if s4 else "planes")
+    if x.device.type == "cpu":
+        plain = (w4a8_linear_bytes_fused_plain if s4
+                 else w4a8_linear_planes_fused_plain)
+        return plain(x, w, s, zs, rms, eps)
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError("the fused kernels take bf16 or f32 x")
+    M, K = x.shape
+    xc = _aligned(x)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    xq = xs = None
+    if export:
+        xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
+        xs = torch.empty((M, 1), dtype=torch.float32, device=x.device)
+    fn = _bytes_lib().lc_w4a8_bytes_fused if s4 else \
+        _lib().lc_w4a8_planes_fused
+    with torch.cuda.device(x.device):
+        _launch(fn, xc.data_ptr(), int(x.dtype == torch.float32),
+                w.data_ptr(), s.data_ptr(), zs.data_ptr(), out.data_ptr(),
+                None if xq is None else xq.data_ptr(),
+                None if xs is None else xs.data_ptr(), M, N, K, int(rms),
+                float(eps), _stream(x.device))
+    kernel.launches += 1
+    return out, xq, xs
+
+
+def _fused_with_act(kernel, x: torch.Tensor, w: torch.Tensor,
+                   s: torch.Tensor, zs: torch.Tensor, rms: bool = False,
+                   eps: float = 1e-6):
+    """``kernel`` (``w4a8_linear_bytes_fused`` or
+    ``w4a8_linear_planes_fused``) returning also the int8 act codes and
+    (M, 1) scales its prologue made: (y, codes, scales).  For counting
+    act-code flips against the plain version; the engine never asks."""
+    return _fused_linear(kernel, x, w, s, zs, rms, eps, True)
+
+
+def w4a8_linear_planes_fused(x: torch.Tensor, wp: torch.Tensor,
+                             s: torch.Tensor, zs: torch.Tensor,
+                             rms: bool = False, eps: float = 1e-6
+                             ) -> torch.Tensor:
+    """#14: (M, K) unquantized x (the RMSNorm's input with ``rms``, its
+    gamma folded into the planes weight) -> (M, N) in ``x.dtype``; the
+    prologue (``fused_act_quant``) runs in the kernel."""
+    return _fused_linear(w4a8_linear_planes_fused, x, wp, s, zs, rms, eps,
+                         False)[0]
+
+
+def w4a8_matmul_bytes(xq: torch.Tensor, x_scale: torch.Tensor,
+                      wb: torch.Tensor, s: torch.Tensor,
+                      zs: torch.Tensor) -> torch.Tensor:
+    """#12: (M, K) int8 x with (M, 1) f32 scale times the byte-pair
+    weight -> (M, N) f32."""
+    M, K = _check_act(xq, x_scale)
+    N = _check_weights(K, wb, s, zs, xq.device, "s4")
+    if xq.device.type == "cpu":
+        return w4a8_matmul_bytes_plain(xq, x_scale, wb, s, zs)
+    xq = _aligned(xq)
+    xs = x_scale.float().contiguous()
+    out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
+    with torch.cuda.device(xq.device):
+        _launch(_bytes_lib().lc_w4a8_bytes, xq.data_ptr(), xs.data_ptr(),
+                wb.data_ptr(), s.data_ptr(), zs.data_ptr(), out.data_ptr(),
+                M, N, K, _stream(xq.device))
+    w4a8_matmul_bytes.launches += 1
+    return out
+
+
+def w4a8_linear_bytes_fused(x: torch.Tensor, wb: torch.Tensor,
+                            s: torch.Tensor, zs: torch.Tensor,
+                            rms: bool = False, eps: float = 1e-6
+                            ) -> torch.Tensor:
+    """#13: #14 on the byte-pair weight."""
+    return _fused_linear(w4a8_linear_bytes_fused, x, wb, s, zs, rms, eps,
+                         False)[0]
+
+
+KERNELS = (w4a16_matmul, w4a8_matmul_decode, w4a8_matmul_prefill,
+           w4a8_matmul_bytes, w4a8_linear_bytes_fused,
+           w4a8_linear_planes_fused)
 for _k in KERNELS:
     _k.launches = 0
 
@@ -270,13 +449,9 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 
 def _planes_ok(x: torch.Tensor, qp) -> bool:
-    """Shapes and types the three kernels take (K % 1024, N % 64, g 128,
-    bf16 scales)."""
-    if qp.group_size != GROUP:
-        return False
-    K = x.shape[-1]
-    return (K % (8 * GROUP) == 0 and qp.codes.shape[0] % 64 == 0
-            and qp.scales.dtype == torch.bfloat16)
+    """The planes kernels take what JAX holds in its tiled serving layout
+    (K % 1024, N % 128, bf16 scales) at groups of 128."""
+    return qp.layout == "planes" and qp.tiled and qp.group_size == GROUP
 
 
 def w4a16_matmul_available(x: torch.Tensor, qp) -> bool:
@@ -287,6 +462,26 @@ def w4a16_matmul_available(x: torch.Tensor, qp) -> bool:
 def w4a8_prefill_available(x: torch.Tensor, qp) -> bool:
     """Prefill regime (M > 256) on the planes layout."""
     return _planes_ok(x, qp) and math.prod(x.shape[:-1]) > DECODE_M_MAX
+
+
+def s4_matmul_available(x: torch.Tensor, qp) -> bool:
+    """Decode regime (M <= 256) on the s4 byte-pair layout, K % 512 == 0
+    (the JAX ``s4_matmul_available``)."""
+    return (qp.layout == "s4" and qp.group_size == GROUP
+            and math.prod(x.shape[:-1]) <= DECODE_M_MAX
+            and x.shape[-1] % (4 * GROUP) == 0)
+
+
+def w4a8_s4_matmul(x: torch.Tensor, qp,
+                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """W4A8 apply on the s4 layout: per-token int8 act quant, then #12.
+    Returns ``x.dtype``."""
+    lead = x.shape[:-1]
+    xq, xs = quantize_act_per_token(x.reshape(-1, x.shape[-1]))
+    y = w4a8_matmul_bytes(xq, xs, qp.codes, qp.scales, qp.zeros).to(x.dtype)
+    if bias is not None:
+        y = y + bias
+    return y.reshape(*lead, -1)
 
 
 def w4a8_matmul(x: torch.Tensor, qp,

@@ -17,6 +17,12 @@ is updated in place.  Decode attention takes one of three routes
 * ``pallas`` (kv8, probe-only in the JAX engine): kernel #17 over the
   read-only int8 cache with the fresh token as an in-register column, then
   the token is written.
+
+On every route, weights built with ``fused_rms`` at ``act_bits=8`` take the
+fused decode linears where JAX does (``fused_ok``): q/k/v (or the merged
+qkv) and gate/up (or gateup) run RMSNorm and the int8 act quant inside
+kernel #14 (planes) or #13 (s4), ``attn.o`` and ``mlp.down`` the act quant
+alone.  Prefill takes the plain linears: the folded ln weights are ones.
 """
 
 from __future__ import annotations
@@ -33,6 +39,9 @@ from ..device import DeviceLike, resolve_device
 from ..models import arch as A
 from ..ops.attention import (bd_merge_new_token, decode_attention_bd4,
                              decode_attention_bd4_flash, decode_attention_i8)
+from ..ops.qlinear import QLinearParams
+from ..ops.w4_matmul import (w4a8_linear_bytes_fused,
+                             w4a8_linear_planes_fused)
 from .kv_cache import (KVCache, append_kv4_bd, append_kv_quantized,
                        append_slots, quantize_kv, quantize_kv4)
 from .quantized_model import ServingWeights, apply_qlinear, head_logits
@@ -64,19 +73,88 @@ class Request:
     out_tokens: List[int] = dataclasses.field(default_factory=list)
 
 
-def _qkv_proj(entry, h1, ab):
+def _qkv_sizes(arch):
+    kv = arch.num_kv_heads * arch.head_dim
+    return arch.num_heads * arch.head_dim, kv, kv
+
+
+def _qkv_proj(entry, h1, arch, ab):
+    """q/k/v through the merged ``attn.qkv`` (fuse_qkv) or three linears."""
+    if "attn.qkv" in entry:
+        return torch.split(apply_qlinear(entry["attn.qkv"], h1, act_bits=ab),
+                           _qkv_sizes(arch), dim=-1)
     return (apply_qlinear(entry["attn.q"], h1, act_bits=ab),
             apply_qlinear(entry["attn.k"], h1, act_bits=ab),
             apply_qlinear(entry["attn.v"], h1, act_bits=ab))
 
 
+def _gateup_proj(entry, h2, ab):
+    if "mlp.gateup" in entry:
+        gu = apply_qlinear(entry["mlp.gateup"], h2, act_bits=ab)
+        return torch.split(gu, gu.shape[-1] // 2, dim=-1)
+    return (apply_qlinear(entry["mlp.gate"], h2, act_bits=ab),
+            apply_qlinear(entry["mlp.up"], h2, act_bits=ab))
+
+
 def _mlp_tail(sw: ServingWeights, entry, h: torch.Tensor,
               ab: int) -> torch.Tensor:
     h2 = A.apply_norm(h, entry["ln2"], sw.arch)
-    g = apply_qlinear(entry["mlp.gate"], h2, act_bits=ab)
-    u = apply_qlinear(entry["mlp.up"], h2, act_bits=ab)
+    g, u = _gateup_proj(entry, h2, ab)
     mid = A._act(g, sw.arch.act_fn) * u
     return h + apply_qlinear(entry["mlp.down"], mid, act_bits=ab)
+
+
+def fused_ok(sw: ServingWeights, qp: QLinearParams) -> bool:
+    """The JAX engine's test for a fused decode linear: ``fused_rms``
+    weights at ``act_bits=8``, a linear in the planes layout that JAX
+    tiles or in s4 (``tiled``).  (JAX also needs zero corrections, which
+    every port linear has.)"""
+    return sw.fused_rms and sw.act_bits == 8 and qp.tiled
+
+
+def _flin(sw: ServingWeights, qp: QLinearParams, x2: torch.Tensor,
+          rms: bool) -> torch.Tensor:
+    """A fused decode linear on (S, K) x: #13 on s4, #14 on planes; the
+    bias is added after the kernel."""
+    fn = (w4a8_linear_bytes_fused if qp.layout == "s4"
+          else w4a8_linear_planes_fused)
+    y = fn(x2, qp.codes, qp.scales, qp.zeros, rms=rms, eps=sw.arch.rms_eps)
+    return y if qp.bias is None else y + qp.bias
+
+
+def _decode_qkv(sw, entry, x):
+    """q/k/v (S, 1, .) of the decode step: fused where every linear
+    involved is ``fused_ok``, else RMSNorm and the routed linears."""
+    x2 = x[:, 0, :]
+    if "attn.qkv" in entry and fused_ok(sw, entry["attn.qkv"]):
+        return torch.split(_flin(sw, entry["attn.qkv"], x2, True)[:, None],
+                           _qkv_sizes(sw.arch), dim=-1)
+    names = ("attn.q", "attn.k", "attn.v")
+    if "attn.qkv" not in entry and all(fused_ok(sw, entry[n])
+                                       for n in names):
+        return tuple(_flin(sw, entry[n], x2, True)[:, None] for n in names)
+    return _qkv_proj(entry, A.apply_norm(x, entry["ln1"], sw.arch), sw.arch,
+                     sw.act_bits)
+
+
+def _decode_mlp(sw, entry, h):
+    """h + MLP(h) of the decode step, fused as in ``_decode_qkv`` (the
+    down projection must be fused too)."""
+    down = entry["mlp.down"]
+    h2 = h[:, 0, :]
+    if fused_ok(sw, down):
+        if "mlp.gateup" in entry and fused_ok(sw, entry["mlp.gateup"]):
+            gu = _flin(sw, entry["mlp.gateup"], h2, True)
+            g, u = torch.split(gu, gu.shape[-1] // 2, dim=-1)
+        elif "mlp.gateup" not in entry and all(
+                fused_ok(sw, entry[n]) for n in ("mlp.gate", "mlp.up")):
+            g = _flin(sw, entry["mlp.gate"], h2, True)
+            u = _flin(sw, entry["mlp.up"], h2, True)
+        else:
+            return _mlp_tail(sw, entry, h, sw.act_bits)
+        mid = A._act(g, sw.arch.act_fn) * u
+        return h + _flin(sw, down, mid, False)[:, None]
+    return _mlp_tail(sw, entry, h, sw.act_bits)
 
 
 def _block_apply(sw: ServingWeights, entry, x: torch.Tensor, cos, sin,
@@ -87,7 +165,7 @@ def _block_apply(sw: ServingWeights, entry, x: torch.Tensor, cos, sin,
     N, T, _ = x.shape
     nh, nkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
     h1 = A.apply_norm(x, entry["ln1"], arch)
-    q, k, v = _qkv_proj(entry, h1, ab)
+    q, k, v = _qkv_proj(entry, h1, arch, ab)
     q = q.reshape(N, T, nh, hd).transpose(1, 2)
     k = k.reshape(N, T, nkv, hd).transpose(1, 2)
     v = v.reshape(N, T, nkv, hd).transpose(1, 2)
@@ -126,8 +204,7 @@ def _block_apply_decode(sw: ServingWeights, entry, x: torch.Tensor, cos,
     arch, ab = sw.arch, sw.act_bits
     S = x.shape[0]
     nh, nkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
-    h1 = A.apply_norm(x, entry["ln1"], arch)
-    q, k, v = _qkv_proj(entry, h1, ab)
+    q, k, v = _decode_qkv(sw, entry, x)
     q = q.reshape(S, 1, nh, hd).transpose(1, 2)
     k = k.reshape(S, 1, nkv, hd).transpose(1, 2)
     v = v.reshape(S, 1, nkv, hd).transpose(1, 2)
@@ -155,8 +232,11 @@ def _block_apply_decode(sw: ServingWeights, entry, x: torch.Tensor, cos,
         append_kv4_bd(cache, li, *quantize_kv4(k), *quantize_kv4(v),
                       lengths)
     ctx = ctx.reshape(S, 1, nh * hd).to(x.dtype)
-    h = x + apply_qlinear(entry["attn.o"], ctx, act_bits=ab)
-    return _mlp_tail(sw, entry, h, ab)
+    if fused_ok(sw, entry["attn.o"]):
+        h = x + _flin(sw, entry["attn.o"], ctx[:, 0], False)[:, None]
+    else:
+        h = x + apply_qlinear(entry["attn.o"], ctx, act_bits=ab)
+    return _decode_mlp(sw, entry, h)
 
 
 class LLMEngine:

@@ -61,7 +61,7 @@ def test_kernels_match_plain(dev, M, N, K):
     for got, ref, tol in pairs:
         err = (got.float() - ref.float()).abs().max()
         assert err <= tol * ref.float().abs().max(), (err, tol)
-    assert [k.launches for k in W.KERNELS] == [1, 1, 2]
+    assert [k.launches for k in W.KERNELS] == [1, 1, 2, 0, 0, 0]
 
 
 def test_kernels_reject_what_they_cannot_take(dev):
@@ -222,3 +222,118 @@ def test_attention_launch_refused_raises(dev):
         T.decode_attention_bd4(q, kt4, sc, vt4, sc)
     with pytest.raises(ValueError):
         T.decode_attention_bd4(q, kt4, sc.float(), vt4, sc)
+
+
+# ---------------------------------------------------------------------------
+# s4 byte pairs and the fused linears (#12, #13, #14)
+# ---------------------------------------------------------------------------
+
+# (name, N, K, rms) of the fused build's decode linears at Llama-3-8B
+# (q|k|v and gate|up merged), with the RMSNorm as the engine runs it
+FUSED_SHAPES = [("qkv", 6144, 4096, True), ("o", 4096, 4096, False),
+                ("gateup", 28672, 4096, True), ("down", 4096, 14336, False)]
+# the kernels reduce sum(x*x) in another order than the plain version, which
+# can move the rsqrt by an ulp and flip an act code at a rounding tie
+FLIPS_PER_CODE = 1e-3
+
+
+def _check_fused(got, ref, tol=2.0 ** -8):
+    """Output within one bf16 ulp of max|y| (``tol``), act codes equal but
+    for FLIPS_PER_CODE flips, act scales within an ulp of the rsqrt."""
+    (y, c, s), (ry, rc, rs) = got, ref
+    assert torch.isfinite(y).all() and y.dtype == ry.dtype
+    flips = int((c != rc).sum())
+    assert flips <= FLIPS_PER_CODE * c.numel(), flips
+    assert ((s - rs).abs() <= 2.4e-7 * rs.abs()).all()
+    assert (y.float() - ry.float()).abs().max() <= tol * ry.float().abs().max()
+
+
+@pytest.mark.parametrize("M,name,N,K,rms", [
+    (8, *s) for s in FUSED_SHAPES] + [
+    (8, "qkv", 6144, 4096, False), (8, "down", 4096, 14336, True),
+    (32, "down", 4096, 14336, False), (32, "down", 4096, 14336, True)])
+def test_fused_and_s4_kernels_match_plain(dev, M, name, N, K, rms):
+    """#12, #13 and #14 against their plain versions at the fused build's
+    decode shapes; B = 32 at K = 14336 walks 8-row chunks of x whose int8
+    codes (114.7 KB a chunk) would not fit a block's shared memory whole."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(N + K + M)
+    w = torch.randn((N, K), generator=gen, device=dev) * 0.02
+    planes = quantize_linear(w, WSPEC)
+    s4 = quantize_linear(w, WSPEC, layout="s4")
+    assert s4.layout == "s4"
+    x = (torch.randn((M, K), generator=gen, device=dev) * 3).to(
+        torch.bfloat16)
+    W.reset_launch_counts()
+    kw = dict(rms=rms, eps=1e-5)
+    _check_fused(
+        W._fused_with_act(W.w4a8_linear_planes_fused, x, planes.codes,
+                          planes.scales, planes.zeros, **kw),
+        W.w4a8_linear_planes_fused_plain(x, planes.codes, planes.scales,
+                                         planes.zeros, **kw))
+    _check_fused(
+        W._fused_with_act(W.w4a8_linear_bytes_fused, x, s4.codes,
+                          s4.scales, s4.zeros, **kw),
+        W.w4a8_linear_bytes_fused_plain(x, s4.codes, s4.scales, s4.zeros,
+                                        **kw))
+    xq, xs = W.quantize_act_per_token(x)
+    got = W.w4a8_matmul_bytes(xq, xs, s4.codes, s4.scales, s4.zeros)
+    ref = W.w4a8_matmul_bytes_plain(xq, xs, s4.codes, s4.scales, s4.zeros)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert [k.launches for k in W.KERNELS] == [0, 0, 0, 1, 1, 1]
+
+
+# (name, N, K) of the seven linears of an unfused Llama-3-8B block
+BLOCK_SHAPES = [("q", 4096, 4096), ("k", 1024, 4096), ("v", 1024, 4096),
+                ("o", 4096, 4096), ("gate", 14336, 4096),
+                ("up", 14336, 4096), ("down", 4096, 14336)]
+
+
+@pytest.mark.parametrize("M", [8, 256])
+@pytest.mark.parametrize("name,N,K", BLOCK_SHAPES)
+def test_s4_kernel_matches_plain_at_block_shapes(dev, M, name, N, K):
+    """#12 at the shapes the unfused s4 engine launches it: a block's seven
+    linears at decode (8 slots) and at a prefill of 256 rows (32 grid rows
+    of 8 rows each)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(N + K + M)
+    w = torch.randn((N, K), generator=gen, device=dev) * 0.02
+    s4 = quantize_linear(w, WSPEC, layout="s4")
+    x = (torch.randn((M, K), generator=gen, device=dev) * 3).to(
+        torch.bfloat16)
+    xq, xs = W.quantize_act_per_token(x)
+    W.reset_launch_counts()
+    got = W.w4a8_matmul_bytes(xq, xs, s4.codes, s4.scales, s4.zeros)
+    ref = W.w4a8_matmul_bytes_plain(xq, xs, s4.codes, s4.scales, s4.zeros)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert [k.launches for k in W.KERNELS] == [0, 0, 0, 1, 0, 0]
+
+
+def test_fused_kernels_f32_and_symmetric(dev):
+    """f32 activations in and out, and symmetric weights, whose s4 zero
+    correction is exactly 0."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    spec = QuantSpec(bit=4, symmetric=True, granularity="per_group",
+                     group_size=128)
+    w = torch.randn((1024, 2048), generator=gen, device=dev) * 0.02
+    planes = quantize_linear(w, spec)
+    s4 = quantize_linear(w, spec, layout="s4")
+    assert not s4.zeros.float().any()
+    x = torch.randn((5, 2048), generator=gen, device=dev) * 3
+    for rms in (False, True):
+        _check_fused(
+            W._fused_with_act(W.w4a8_linear_planes_fused, x, planes.codes,
+                              planes.scales, planes.zeros, rms=rms),
+            W.w4a8_linear_planes_fused_plain(x, planes.codes, planes.scales,
+                                             planes.zeros, rms=rms), 1e-4)
+        _check_fused(
+            W._fused_with_act(W.w4a8_linear_bytes_fused, x, s4.codes,
+                              s4.scales, s4.zeros, rms=rms),
+            W.w4a8_linear_bytes_fused_plain(x, s4.codes, s4.scales,
+                                            s4.zeros, rms=rms), 1e-4)
+    with pytest.raises(ValueError):
+        W.w4a8_linear_bytes_fused(x.half(), s4.codes, s4.scales, s4.zeros)

@@ -1,6 +1,6 @@
-"""The port stands alone: it imports with JAX and the JAX package blocked,
-names neither in any import, and runs on the card unless asked for the
-CPU."""
+"""The port stands alone: it imports with JAX, ``triton`` and the JAX
+package blocked, names none of them in any import, and runs on the card
+unless asked for the CPU."""
 
 import pkgutil
 import re
@@ -20,7 +20,7 @@ from lightcompress_tpu_torch.serving import (LLMEngine, SamplingParams,
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "lightcompress_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "lightcompress_tpu")
+BLOCKED = ("jax", "jaxlib", "lightcompress_tpu", "triton")
 
 _BLOCKER = """
 import importlib.abc, sys
@@ -49,7 +49,9 @@ def _port_modules():
 
 def test_port_imports_with_jax_blocked():
     mods = _port_modules() + ["chip_smoke"]
-    assert "lightcompress_tpu_torch.ops.w4_matmul" in mods
+    for mod in ("ops.w4_matmul", "ops.qlinear", "ops.attention",
+                "serving.engine", "serving.quantized_model", "convert"):
+        assert f"lightcompress_tpu_torch.{mod}" in mods
     code = _BLOCKER.format(blocked=BLOCKED, modules=mods)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
@@ -64,8 +66,8 @@ def test_blocker_blocks_the_jax_package():
     assert r.returncode != 0 and "blocked: lightcompress_tpu" in r.stderr
 
 
-_IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|lightcompress_tpu)"
-                     r"\b(?!_)", re.M)
+_IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|lightcompress_tpu|"
+                     r"triton)\b(?!_)", re.M)
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -57,7 +57,7 @@ def _sw_to_port(jsw, act_bits):
         {k: np.asarray(a) for k, a in jsw.norm.items()},
         np.asarray(jsw.lm_head),
         None if jsw.lm_head_scale is None else np.asarray(jsw.lm_head_scale),
-        blocks, act_bits, device="cpu")
+        blocks, act_bits, fused_rms=jsw.fused_rms, device="cpu")
 
 
 @pytest.fixture(scope="module")
