@@ -29,11 +29,21 @@ Phases (each prints one JSON line with its seconds):
      prefill, #14 at decode), fused s4 on the kv4 route (#13, #20) and
      unfused s4 (#12 at prefill and decode);
   6. the engine's prefill logits against a forward of the same serving
-     weights through the plain versions, and a small Llama through each
-     engine route and fused build on the card against the same on the CPU
-     (the paths the CPU tests hold to the JAX package);
-  7. the kernel summary line;
-  8. the result line.
+     weights through the plain versions;
+  7. MoE: the three expert kernels (#6 stacked, #8 gathered, #9 grouped)
+     against their plain versions at Mixtral-8x7B's shapes, with times;
+     then, the Llama builds freed, Mixtral-8x7B at full width and depth
+     (random weights from a seed, made and quantized one block at a time):
+     8 prompts through the grouped prefill (#9) and the dense decode (#6),
+     2 prompts on 4 slots through a 256-row dense prefill (#6) and the
+     gathered decode (#8), torch.profiler over its decode steps, and its
+     prefill logits against the plain versions on the same routes;
+  8. a small Llama through each engine route and fused build, and a small
+     Mixtral-shaped model through each expert route, on the card against
+     the same on the CPU (the paths the CPU tests hold to the JAX
+     package);
+  9. the kernel summary line;
+  10. the result line.
 Each engine phase sets every launch count to 0 just before it runs and
 reads the counts just after.
 Any failure raises and the script exits non-zero.  Without a CUDA device
@@ -42,7 +52,9 @@ it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -55,8 +67,10 @@ import torch
 
 from lightcompress_tpu_torch.models import arch as A
 from lightcompress_tpu_torch.models import ArchSpec, Llama, init_params
+from lightcompress_tpu_torch.models.arch import MoESpec
 from lightcompress_tpu_torch.ops import _build
 from lightcompress_tpu_torch.ops import attention as AT
+from lightcompress_tpu_torch.ops import moe_matmul as M
 from lightcompress_tpu_torch.ops import w4_matmul as W
 from lightcompress_tpu_torch.ops.qlinear import (dequant_weight, qlinear_plain,
                                                  quantize_linear)
@@ -64,6 +78,8 @@ from lightcompress_tpu_torch.quant import QuantSpec
 from lightcompress_tpu_torch.serving import (LLMEngine, SamplingParams,
                                              build_serving_weights,
                                              head_logits)
+from lightcompress_tpu_torch.serving import engine as EN
+from lightcompress_tpu_torch.serving import quantized_model as QM
 from lightcompress_tpu_torch.serving.engine import Request
 from lightcompress_tpu_torch.serving.kv_cache import (
     KVCache, append_kv4_bd, append_kv_quantized, append_slots, quantize_kv,
@@ -76,6 +92,13 @@ LLAMA3_8B = ArchSpec(
     intermediate_size=14336, num_layers=32, num_heads=32, num_kv_heads=8,
     head_dim=128, rope_theta=500000.0,
     rms_eps=1e-5, dtype=torch.bfloat16)
+# mistralai/Mixtral-8x7B-v0.1 config.json (no sliding window, untied head)
+MIXTRAL_8X7B = ArchSpec(
+    family="llama", vocab_size=32000, hidden_size=4096,
+    intermediate_size=14336, num_layers=32, num_heads=32, num_kv_heads=8,
+    head_dim=128, rope_theta=1e6, rms_eps=1e-5,
+    moe=MoESpec(num_experts=8, top_k=2, moe_intermediate_size=14336),
+    dtype=torch.bfloat16)
 WSPEC = QuantSpec(bit=4, symmetric=False, granularity="per_group",
                   group_size=128)
 # (name, N, K) of every linear of one Llama-3-8B block
@@ -116,8 +139,18 @@ KERNEL_INFO = {
     "w4a8_linear_planes_fused": dict(
         source="lightcompress_tpu_torch/ops/csrc/w4_matmul.cu",
         replaces="lightcompress_tpu/ops/pallas_matmul.py:2151"),
+    "w4a8_stacked_matmul": dict(
+        source="lightcompress_tpu_torch/ops/csrc/w4_moe.cu",
+        replaces="lightcompress_tpu/ops/pallas_matmul.py:796"),
+    "w4a8_gathered_matmul": dict(
+        source="lightcompress_tpu_torch/ops/csrc/w4_moe.cu",
+        replaces="lightcompress_tpu/ops/pallas_matmul.py:1046"),
+    "w4a8_grouped_matmul": dict(
+        source="lightcompress_tpu_torch/ops/csrc/w4_moe.cu",
+        replaces="lightcompress_tpu/ops/pallas_matmul.py:1170"),
 }
-KERNELS = W.KERNELS + AT.KERNELS
+W4_KERNELS = W.KERNELS + M.KERNELS
+KERNELS = W4_KERNELS + AT.KERNELS
 ATTN = [k.__name__ for k in AT.KERNELS]
 # decode attention at the engine's shapes: 8 slots, Llama-3-8B's 8 KV heads
 # of 4 query heads each, head_dim 128
@@ -163,7 +196,8 @@ def phase_build() -> dict:
     for name in names:
         _build.load(name)
     notes = [line.strip() for r in reports.values() for line in r.splitlines()
-             if "registers" in line or "spill" in line]
+             if "registers" in line or "spill" in line
+             or "Compiling entry" in line]
     return {"phase": "build", "gpu": smi(), "sources": names,
             "ptxas": notes, "seconds": time.time() - t0}
 
@@ -331,6 +365,157 @@ def phase_fused_kernels(dev) -> dict:
             rows.append(r)
         del planes, s4, wd
     return {"phase": "fused_kernels", "rows": rows,
+            "seconds": time.time() - t0}
+
+
+# the expert linears of one Mixtral-8x7B layer: (name, N, K, pair), the
+# down projection reading each expert's own rows
+MOE_SHAPES = [("gate", 14336, 4096, False), ("up", 14336, 4096, False),
+              ("down", 4096, 14336, True)]
+MOE_E, MOE_TOP_K = 8, 2
+
+
+def expert_bytes(N: int, K: int) -> int:
+    """Packed codes, s and zs of one expert linear."""
+    return N * K // 2 + 2 * N * (K // 128) * 2
+
+
+def moe_bound(nbytes: int, ops: int):
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = ops / PEAK_OPS["int8"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def seeded_topi(n: int, gen, dev, experts: int = MOE_E) -> torch.Tensor:
+    """(n, top_k) routing of n random tokens by a random router over the
+    first ``experts`` experts (Mixtral's softmax top-2)."""
+    x = torch.randn((n, 4096), generator=gen, device=dev)
+    router = torch.randn((experts, 4096), generator=gen, device=dev) * 0.02
+    return A.moe_route(MIXTRAL_8X7B.moe, x @ router.t())[0]
+
+
+def phase_moe_kernels(dev) -> dict:
+    """#6, #8 and #9 against their plain versions at the expert shapes of
+    Mixtral-8x7B (8 experts; gate and up 14336 x 4096, down 4096 x 14336):
+    #6 at B = 8 (the dense decode of 8 slots) and 256 (a 2-prompt
+    prefill), #8 at n = 4 and 1 tokens (8 and 2 selections), #9 at the
+    3072 grouped rows of 1024 tokens routed by a seeded router (every
+    expert live) and at 300 tokens routed among 5 experts (3 absent,
+    padding-only blocks).  Times (kernel, plain, library, bound); the
+    library is torch.bmm of bf16 x over the pre-dequantized bf16 experts
+    at the same rows (for #8 the selections' experts gathered before the
+    timing; for #9 each expert's rows padded to the largest segment)."""
+    t0 = time.time()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)
+    pad = torch.empty(PAD, dtype=torch.uint8, device=dev)
+    qps, wds = {}, {}
+    for name, N, K, _ in MOE_SHAPES:
+        w3 = (torch.randn((MOE_E, N, K), generator=gen, device=dev)
+              * 0.02).to(torch.bfloat16)
+        qps[name] = QM.quantize_linear_stacked(w3, WSPEC)
+        del w3
+        wds[name] = QM.dequant_weight_stacked(qps[name], torch.bfloat16)
+    rows = []
+
+    def row(kname, case, name, N, K, run, plain, library, nbytes, ops,
+            **extra):
+        y, ref = run(), plain()
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max())
+        scale = float(ref.abs().max())
+        if not (err <= TOL_F32 * scale and torch.isfinite(y).all()):
+            raise AssertionError(f"{kname} {case} {name}: max|err| {err} > "
+                                 f"{TOL_F32} * {scale}")
+        b_ms, b_by = moe_bound(nbytes, ops)
+        rows.append(dict(
+            kernel=kname, case=case, linear=name, N=N, K=K, **extra,
+            max_abs_err=err, max_abs_ref=scale, bit_equal=bool(
+                torch.equal(y, ref)),
+            kernel_ms=time_ms(run, 20, pad), plain_ms=time_ms(plain, 3, pad),
+            library_ms=time_ms(library, 20, pad), bound_ms=b_ms,
+            bound_by=b_by))
+
+    for B in (8, 256):
+        for name, N, K, pair in MOE_SHAPES:
+            qp, wd = qps[name], wds[name]
+            wa = (qp.codes, qp.scales, qp.zeros)
+            x = (torch.randn((MOE_E, B, K) if pair else (B, K),
+                             generator=gen, device=dev)).to(torch.bfloat16)
+            xq, xs = W.quantize_act_per_token(x.reshape(-1, K))
+            if pair:
+                xq, xs = xq.reshape(MOE_E, B, K), xs.reshape(MOE_E, B, 1)
+            xe = x if pair else x.expand(MOE_E, B, K)
+            row("w4a8_stacked_matmul", f"B{B}", name, N, K,
+                lambda: M.w4a8_stacked_matmul(xq, xs, *wa, pair=pair),
+                lambda: M.w4a8_stacked_matmul_plain(xq, xs, *wa, pair),
+                lambda: torch.bmm(xe, wd.transpose(1, 2)),
+                MOE_E * expert_bytes(N, K) + xq.numel() + xs.numel() * 4
+                + MOE_E * B * N * 4, 2 * MOE_E * B * N * K, B=B, pair=pair)
+    for n in (4, 1):
+        topi = seeded_topi(n, gen, dev)
+        e_idx = topi.reshape(-1).to(torch.int32)
+        n_sel = e_idx.shape[0]
+        live = len(torch.unique(e_idx))
+        for name, N, K, pair in MOE_SHAPES:
+            qp, wd = qps[name], wds[name]
+            wa = (qp.codes, qp.scales, qp.zeros)
+            rows_x = n_sel if pair else n
+            t_idx = (torch.arange(n_sel, device=dev) if pair else
+                     torch.arange(n, device=dev).repeat_interleave(MOE_TOP_K)
+                     ).to(torch.int32)
+            x = torch.randn((rows_x, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            xq, xs = W.quantize_act_per_token(x)
+            wsel = wd[e_idx.long()]
+            xsel = x[t_idx.long()][:, None]
+            row("w4a8_gathered_matmul", f"n{n}", name, N, K,
+                lambda: M.w4a8_gathered_matmul(xq, xs, *wa, e_idx, t_idx),
+                lambda: M.w4a8_gathered_matmul_plain(xq, xs, *wa, e_idx,
+                                                     t_idx),
+                lambda: torch.bmm(xsel, wsel.transpose(1, 2)),
+                live * expert_bytes(N, K) + xq.numel() + rows_x * 4
+                + n_sel * N * 4 + n_sel * 8, 2 * n_sel * N * K,
+                n_sel=n_sel, experts_read=live)
+            del wsel
+    for case, n, experts in (("all_live", 1024, MOE_E), ("absent", 300, 5)):
+        topi = seeded_topi(n, gen, dev, experts)
+        gr, _, be = QM.moe_group_selections(topi, MOE_E)
+        counts = torch.bincount(topi.reshape(-1), minlength=MOE_E)
+        if case == "all_live" and not bool((counts > 0).all()):
+            raise AssertionError("the seeded router left an expert idle")
+        S, Mp = n * MOE_TOP_K, gr.shape[0]
+        live = int((counts > 0).sum())
+        pad_blocks = int(Mp // M.M_TILE - (-(-counts // M.M_TILE)).sum())
+        seg = int(counts.max())
+        for name, N, K, _ in MOE_SHAPES:
+            qp, wd = qps[name], wds[name]
+            wa = (qp.codes, qp.scales, qp.zeros)
+            x = torch.randn((n, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            xq_t, xs_t = W.quantize_act_per_token(x)
+            xq = torch.cat([xq_t, xq_t.new_zeros((1, K))])[gr.long()]
+            xs = torch.cat([xs_t, xs_t.new_ones((1, 1))])[gr.long()]
+            # the library's rows: each expert's padded to the largest
+            xpad = torch.zeros((MOE_E, seg, K), dtype=torch.bfloat16,
+                               device=dev)
+            flat = topi.reshape(-1)
+            for e in range(MOE_E):
+                sel = torch.nonzero(flat == e)[:, 0] // MOE_TOP_K
+                xpad[e, :sel.numel()] = x[sel]
+            row("w4a8_grouped_matmul", case, name, N, K,
+                lambda: M.w4a8_grouped_matmul(xq, xs, *wa, be),
+                lambda: M.w4a8_grouped_matmul_plain(xq, xs, *wa, be),
+                lambda: torch.bmm(xpad, wd.transpose(1, 2)),
+                live * expert_bytes(N, K) + Mp * K + Mp * 4 + Mp * N * 4,
+                2 * S * N * K, tokens=n, selections=S, Mp=Mp,
+                live_experts=live, padding_only_blocks=pad_blocks,
+                library_rows_per_expert=seg,
+                ops_bound_at_Mp_ms=2 * Mp * N * K / PEAK_OPS["int8"] * 1e3)
+    del qps, wds
+    torch.cuda.empty_cache()
+    return {"phase": "moe_kernels", "rows": rows,
             "seconds": time.time() - t0}
 
 
@@ -583,7 +768,7 @@ def engine_phase(name: str, sw, prompts, n_new: int, dev, attn: str,
             raise AssertionError(f"{name}: {k} launched {launches[k]} "
                                  f"times")
     if expect is not None:
-        for k in (f.__name__ for f in W.KERNELS):
+        for k in (f.__name__ for f in W4_KERNELS):
             per_p, per_d = expect.get(k, (0, 0))
             want = (per_p * stats["prefill_batches"]
                     + per_d * stats["decode_steps"])
@@ -659,9 +844,27 @@ def plain_linear(qp, x, act_bits: int):
     return y.reshape(*lead, -1)
 
 
+@contextlib.contextmanager
+def plain_experts():
+    """The engine's MoE MLP with each expert kernel's wrapper replaced by
+    its plain version (the same route, the same arguments)."""
+    saved = (QM.w4a8_stacked_matmul, QM.w4a8_grouped_matmul,
+             EN.w4a8_gathered_matmul)
+    QM.w4a8_stacked_matmul = M.w4a8_stacked_matmul_plain
+    QM.w4a8_grouped_matmul = M.w4a8_grouped_matmul_plain
+    EN.w4a8_gathered_matmul = M.w4a8_gathered_matmul_plain
+    try:
+        yield
+    finally:
+        (QM.w4a8_stacked_matmul, QM.w4a8_grouped_matmul,
+         EN.w4a8_gathered_matmul) = saved
+
+
 def plain_prefill_logits(sw, prompts, T: int, dev):
     """Batched prefill forward of the serving weights with every linear
-    through its plain version; last true token's logits (N, V)."""
+    through its plain version (a MoE block's experts through the engine's
+    route with the plain versions, ``plain_experts``); last true token's
+    logits (N, V)."""
     arch, ab = sw.arch, sw.act_bits
     N = len(prompts)
     ids, tl = padded(prompts, T, dev)
@@ -691,6 +894,10 @@ def plain_prefill_logits(sw, prompts, T: int, dev):
         h = x + plain_linear(e["attn.o"],
                              ctx.transpose(1, 2).reshape(N, T, nh * hd), ab)
         h2 = A.apply_norm(h, e["ln2"], arch)
+        if "mlp.router" in e:
+            with plain_experts():
+                x = h + EN._moe_mlp(sw, e, h2, ab)
+            continue
         g, u = proj(e, h2, ("mlp.gate", "mlp.up"))
         x = h + plain_linear(e["mlp.down"], A._act(g, arch.act_fn) * u, ab)
     xl = A.rmsnorm(x, sw.norm["weight"], arch.rms_eps)
@@ -770,30 +977,57 @@ def writers_match(dev, eng: LLMEngine) -> bool:
 LINEAR_FIELDS = ("codes", "scales", "zeros")
 
 
+def same_tensor(a, b) -> bool:
+    return (a is None and b is None) or (
+        a is not None and b is not None and torch.equal(a, b.cpu()))
+
+
 def same_codes(sws) -> bool:
     """The card's serving weights equal the CPU's bit for bit: every
-    linear's codes, scales and zero corrections, the ln weights, the head."""
+    linear's codes, scales and zero corrections (stacked experts too), the
+    ln and router weights, the head."""
     a, b = sws.values()
     return torch.equal(a.lm_head, b.lm_head.cpu()) and all(
         set(ea) == set(eb) and all(
-            torch.equal(ea[n]["weight"], eb[n]["weight"].cpu())
-            if n in ("ln1", "ln2") else
-            all(torch.equal(getattr(ea[n], f), getattr(eb[n], f).cpu())
+            same_tensor(ea[n]["weight"], eb[n]["weight"])
+            if isinstance(ea[n], dict) else
+            all(same_tensor(getattr(ea[n], f), getattr(eb[n], f))
                 for f in LINEAR_FIELDS)
             for n in ea)
         for ea, eb in zip(a.blocks, b.blocks))
 
 
-def compare_routes(sws, prompts, forced, dev, names,
+@contextlib.contextmanager
+def recorded_routing(out: list):
+    """Appends the (n, top_k) experts of every ``moe_route`` call to
+    ``out``, on the CPU."""
+    route = A.moe_route
+
+    def rec(*args, **kw):
+        topi, topw = route(*args, **kw)
+        out.append(topi.cpu())
+        return topi, topw
+    A.moe_route = rec
+    try:
+        yield
+    finally:
+        A.moe_route = route
+
+
+def compare_routes(sws, prompts, forced, dev, routes_kw: dict,
                    share_max: float = 0.1) -> tuple:
-    """Each named route of SMALL_ROUTES on the card against the CPU: (per
-    route results, all gates met, the largest cache share under
-    ``share_max``)."""
+    """Each route of ``routes_kw`` (name -> engine options) on the card
+    against the CPU: (per route results, all gates met, the largest cache
+    share under ``share_max``).  For a MoE model also the share of routing
+    selections (token, k) that agree between the two."""
     routes, ok = {}, True
-    for name in names:
-        kw = SMALL_ROUTES[name]
-        (la, _, ca), (lb, eng, cb) = (small_route(sws[d], prompts, forced, d,
-                                                  kw) for d in ("cpu", dev))
+    for name, kw in routes_kw.items():
+        topis = {}
+        runs = []
+        for d in ("cpu", dev):
+            with recorded_routing(topis.setdefault(d, [])):
+                runs.append(small_route(sws[d], prompts, forced, d, kw))
+        (la, _, ca), (lb, eng, cb) = runs
         a, b = la.flatten(0, 1), lb.flatten(0, 1)
         corr = min(float(torch.corrcoef(torch.stack([x, y]))[0, 1])
                    for x, y in zip(a, b))
@@ -806,6 +1040,11 @@ def compare_routes(sws, prompts, forced, dev, names,
                         "min_corr": corr, "cache_diff_share": share,
                         "writers_match": writers_match(dev, eng),
                         "finite": bool(torch.isfinite(b).all())}
+        if topis["cpu"]:
+            same = sum(int((x == y).sum()) for x, y in zip(*topis.values()))
+            total = sum(x.numel() for x in topis["cpu"])
+            routes[name]["routing_agree_share"] = same / total
+            routes[name]["routing_calls"] = len(topis["cpu"])
         ok = ok and corr >= 0.999 and routes[name]["finite"] \
             and routes[name]["writers_match"] \
             and max(max(r) for r in share) < share_max
@@ -862,8 +1101,9 @@ def phase_small_vs_cpu(dev, steps: int = 3) -> dict:
     for bname, (bkw, names, n, share_max) in SMALL_FUSED.items():
         sws = {d: build_serving_weights(model, WSPEC, act_bits=8, device=d,
                                         **bkw) for d in ("cpu", dev)}
-        routes, b_ok = compare_routes(sws, prompts[:n], forced[:, :n], dev,
-                                      names, share_max)
+        routes, b_ok = compare_routes(
+            sws, prompts[:n], forced[:, :n], dev,
+            {r: SMALL_ROUTES[r] for r in names}, share_max)
         res[bname] = {"same_codes": same_codes(sws), "share_max": share_max,
                       "routes": routes}
         ok = ok and b_ok and res[bname]["same_codes"]
@@ -871,28 +1111,79 @@ def phase_small_vs_cpu(dev, steps: int = 3) -> dict:
     reduced = mm.allow_bf16_reduced_precision_reduction
     mm.allow_bf16_reduced_precision_reduction = False
     try:
-        routes, _ = compare_routes(sws, prompts, forced, dev, ("kv8",), 1.0)
+        routes, _ = compare_routes(sws, prompts, forced, dev,
+                                   {"kv8": SMALL_ROUTES["kv8"]}, 1.0)
     finally:
         mm.allow_bf16_reduced_precision_reduction = reduced
     res["fused_s4_512"]["no_reduced_precision_reduction"] = routes["kv8"]
+    res["moe"], moe_ok = small_moe_vs_cpu(dev, prompts, forced)
+    ok = ok and moe_ok
     res["seconds"] = time.time() - t0
     if not ok:
         raise AssertionError(f"small model, card vs CPU: {res}")
     return res
 
 
-def summarize(rows, attn_rows, fused_rows, launches) -> list:
+# a 2-layer Mixtral-shaped model (hidden 1024, expert width 1024, 8 experts,
+# top-2) and its expert routes: gathered (#8 at the 2-slot decode, #6 at
+# the 256-row prefill), dense (#6 throughout), grouped (#9 throughout)
+SMALL_MOE = dataclasses.replace(
+    SMALL, intermediate_size=1024, rope_theta=1e6,
+    moe=MoESpec(num_experts=8, top_k=2, moe_intermediate_size=1024))
+SMALL_MOE_ROUTES = {
+    "gathered": dict(max_len=256),
+    "dense": dict(max_len=256, moe_gather_max=0, moe_grouped=False),
+    "grouped": dict(max_len=256, moe_gather_max=0, moe_grouped=True),
+}
+
+
+# gates of small_moe_vs_cpu set from its first readings (NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md): each layer's cache share 0.0234-0.0239 on every
+# route, as the dense model's (held under 0.1 like them), and 0.9962 of the
+# routing selections equal (4 of 1048 differ: near-tied experts that the
+# card's and the CPU's last bits order differently)
+MOE_ROUTING_AGREE_MIN = 0.98
+
+
+def small_moe_vs_cpu(dev, prompts, forced) -> tuple:
+    """The small Mixtral-shaped model (router sharpened x8, as the CPU
+    tests do) at W4A8 through each expert route on the card against the
+    CPU, 2 prompts: the same weight codes bit for bit, logits corr >=
+    0.999 over prefill and the teacher-forced decode steps, each layer's
+    cache share under 0.1 and a share of equal routing selections (token,
+    k) of at least MOE_ROUTING_AGREE_MIN."""
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(SEED + 5)
+    params = init_params(gen, SMALL_MOE)
+    for bp in params["blocks"]:
+        bp["mlp"]["router"]["weight"] = bp["mlp"]["router"]["weight"] * 8
+    model = Llama(SMALL_MOE, params)
+    sws = {d: build_serving_weights(model, WSPEC, act_bits=8, device=d)
+           for d in ("cpu", dev)}
+    routes, ok = compare_routes(sws, prompts[:2], forced[:, :2], dev,
+                                SMALL_MOE_ROUTES)
+    ok = ok and all(r["routing_agree_share"] >= MOE_ROUTING_AGREE_MIN
+                    for r in routes.values())
+    res = {"same_codes": same_codes(sws), "routes": routes}
+    return res, ok and res["same_codes"]
+
+
+def summarize(rows, attn_rows, fused_rows, moe_rows, launches) -> list:
     """One entry per kernel: for a W4 kernel, times summed over one
     block's seven linears at the kernel's main-path M (8 for decode, 1024
     for prefill; #12 at 8, the M of 15 of every 16 of its ``engine_s4``
     launches), or for #13 and #14 over the fused build's four decode
-    linears at M = 8; for an attention kernel, one call at the buffer of
-    its engine phase (#20 4096, #21 8192, #17 512)."""
+    linears at M = 8; for a MoE kernel over one Mixtral-8x7B layer's three
+    expert linears at its main-path case (#6 B = 8, #8 n = 4 tokens, #9
+    the 1024-token prefill); for an attention kernel, one call at the
+    buffer of its engine phase (#20 4096, #21 8192, #17 512)."""
     main_m = {"w4a16_matmul": 8, "w4a8_matmul_decode": 8,
               "w4a8_matmul_prefill": 1024, "w4a8_matmul_bytes": S4_M[0],
               "w4a8_linear_bytes_fused": FUSED_M,
-              "w4a8_linear_planes_fused": FUSED_M}
-    rows = rows + fused_rows
+              "w4a8_linear_planes_fused": FUSED_M,
+              "w4a8_stacked_matmul": "B8", "w4a8_gathered_matmul": "n4",
+              "w4a8_grouped_matmul": "all_live"}
+    rows = rows + fused_rows + [dict(r, M=r["case"]) for r in moe_rows]
     main_s = {"decode_attention_bd4": 4096,
               "decode_attention_bd4_flash": 8192, "decode_attention_i8": 512}
     out = []
@@ -920,6 +1211,91 @@ def summarize(rows, attn_rows, fused_rows, launches) -> list:
     return out
 
 
+def engine_vs_plain(name: str, sw, prompts, dev) -> None:
+    """The engine's prefill logits (first prompt) against the plain
+    forward of the same serving weights: corr >= 0.999, same argmax."""
+    t0 = time.time()
+    with torch.no_grad():
+        eng_l = engine_prefill_logits(sw, prompts, 128, dev)[0].float()
+        ref_l = plain_prefill_logits(sw, prompts, 128, dev)[0].float()
+    corr = float(torch.corrcoef(torch.stack([eng_l, ref_l]))[0, 1])
+    same = int(eng_l.argmax()) == int(ref_l.argmax())
+    emit({"phase": "engine_vs_plain", "build": name,
+          "prefill_rows": len(prompts) * 128, "corr": corr,
+          "argmax_equal": same, "finite": bool(torch.isfinite(eng_l).all()),
+          "seconds": time.time() - t0})
+    if not (corr >= 0.999 and same and torch.isfinite(eng_l).all()):
+        raise AssertionError(f"engine vs plain ({name}): corr {corr}, "
+                             f"argmax {same}")
+
+
+class LazyBlocks:
+    """The blocks of a random model, each made from its own seed when it
+    is read (the last one kept), so that a model too large for the card
+    in bf16 (Mixtral-8x7B: 93.4 GB) is made and quantized one block at a
+    time."""
+
+    def __init__(self, arch: ArchSpec, dev, seed: int):
+        self.arch, self.dev, self.seed = arch, dev, seed
+        self.idx, self.block = -1, None
+
+    def __len__(self) -> int:
+        return self.arch.num_layers
+
+    def __getitem__(self, i: int):
+        if i != self.idx:
+            self.block = None
+            gen = torch.Generator(device=self.dev)
+            gen.manual_seed(self.seed + 1 + i)
+            self.block, self.idx = A.init_block_params(gen, self.arch), i
+        return self.block
+
+
+def serving_bytes(sw) -> int:
+    """Bytes of every tensor of the serving weights."""
+    def size(v):
+        if isinstance(v, torch.Tensor):
+            return v.numel() * v.element_size()
+        if isinstance(v, dict):
+            return sum(size(t) for t in v.values())
+        return sum(size(getattr(v, f)) for f in ("codes", "scales", "zeros",
+                                                  "bias")
+                   if getattr(v, f) is not None)
+    return (size(sw.embed) + size(sw.norm) + size(sw.lm_head)
+            + size(sw.lm_head_scale) + sum(size(e) for e in sw.blocks))
+
+
+def phase_setup_moe(dev) -> tuple:
+    """Mixtral-8x7B from the seed at full width and depth, RTN W4 g128
+    (asymmetric; every expert linear takes the stacked planes layout),
+    int8 head, act_bits 8, made and quantized one block at a time."""
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    arch = MIXTRAL_8X7B
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 6)
+    V, H, dt = arch.vocab_size, arch.hidden_size, arch.dtype
+    params = {"embed": {"weight": A._normal(gen, (V, H), 0.02, dt)},
+              "blocks": LazyBlocks(arch, dev, SEED + 6),
+              "norm": {"weight": torch.ones(H, dtype=dt, device=dev)},
+              "lm_head": {"weight": A._normal(gen, (V, H), 0.02, dt)}}
+    sw = build_serving_weights(Llama(arch, params), WSPEC, act_bits=8,
+                               device=dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    layouts = sorted({(n, e.layout, e.bits) for b in sw.blocks
+                      for n, e in b.items() if hasattr(e, "layout")})
+    return sw, {"phase": "setup_moe", "model": "Mixtral-8x7B",
+                "layers": arch.num_layers, "serving_gb":
+                serving_bytes(sw) / 1e9, "allocated_before_gb": before / 1e9,
+                "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+                "layouts": layouts, "seconds": time.time() - t0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -936,6 +1312,8 @@ def main() -> int:
 
     fused_k = phase_fused_kernels(dev)
     emit(fused_k)
+    moe_k = phase_moe_kernels(dev)
+    emit(moe_k)
 
     t0 = time.time()
     gen = torch.Generator(device=dev)
@@ -1004,31 +1382,49 @@ def main() -> int:
         "engine_s4", builds["s4"], prompts[:2], 16, dev, None,
         expect={"w4a8_matmul_bytes": (7 * layers, 7 * layers)}))
 
-    t0 = time.time()
     for name, sw, ps in (("w4a8", sw8, prompts),
                          ("fused_planes", builds["fused_planes"], prompts),
                          ("fused_s4", builds["fused_s4"], prompts[:2]),
                          ("s4", builds["s4"], prompts[:2])):
-        with torch.no_grad():
-            eng_l = engine_prefill_logits(sw, ps, 128, dev)[0].float()
-            ref_l = plain_prefill_logits(sw, ps, 128, dev)[0].float()
-        corr = float(torch.corrcoef(torch.stack([eng_l, ref_l]))[0, 1])
-        same = int(eng_l.argmax()) == int(ref_l.argmax())
-        emit({"phase": "engine_vs_plain", "build": name,
-              "prefill_rows": len(ps) * 128, "corr": corr,
-              "argmax_equal": same,
-              "finite": bool(torch.isfinite(eng_l).all()),
-              "seconds": time.time() - t0})
-        if not (corr >= 0.999 and same and torch.isfinite(eng_l).all()):
-            raise AssertionError(f"engine vs plain ({name}): corr {corr}, "
-                                 f"argmax {same}")
-        t0 = time.time()
+        engine_vs_plain(name, sw, ps, dev)
+    # the Llama builds go before Mixtral's are made
+    del sw8, sw16, builds, sw
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    swm, setup = phase_setup_moe(dev)
+    emit(setup)
+    layers = MIXTRAL_8X7B.num_layers
+    prompts_m = make_prompts(8, MIXTRAL_8X7B.vocab_size)
+    # 8 slots: the 1024-row prefill through #9 (grouped, n >= 257), every
+    # decode step through #6 (dense: n = 8 > E / top_k); the attention
+    # linears through #3 and #2
+    runs.append(engine_phase(
+        "engine_moe", swm, prompts_m, 32, dev, None,
+        expect={"w4a8_matmul_prefill": (4 * layers, 0),
+                "w4a8_matmul_decode": (0, 4 * layers),
+                "w4a8_grouped_matmul": (3 * layers, 0),
+                "w4a8_stacked_matmul": (0, 3 * layers)}))
+    # 4 slots, 2 prompts: the 256-row prefill through #6 (dense) and #2,
+    # every decode step through #8 (gathered: n = 4 = E / top_k)
+    runs.append(engine_phase(
+        "engine_moe_small", swm, prompts_m[:2], 16, dev, None, max_slots=4,
+        expect={"w4a8_matmul_decode": (4 * layers, 4 * layers),
+                "w4a8_stacked_matmul": (3 * layers, 0),
+                "w4a8_gathered_matmul": (0, 3 * layers)}))
+    t0 = time.time()
+    emit(dict(phase_profile(swm, prompts_m, dev, build="moe"),
+              seconds=time.time() - t0))
+    engine_vs_plain("moe", swm, prompts_m, dev)
+    del swm
+    gc.collect()
+    torch.cuda.empty_cache()
     emit(phase_small_vs_cpu(dev))
 
     # the main path's launches: every engine phase
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     emit({"kernels": summarize(kern["rows"], attn["rows"], fused_k["rows"],
-                               launches)})
+                               moe_k["rows"], launches)})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

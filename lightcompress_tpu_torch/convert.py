@@ -10,7 +10,10 @@ so this module imports neither JAX nor the JAX package.  Two entry points:
   scales (gpp, N/NT, 8, NT) (``tile_scales``), the combined scale slab
   (N/NT, 2*gpp*8, NT) (``tile_scales_combined``), and the s4 byte pairs
   (N/NT, NT, K/2) with their scales (N/NT, G, NT) (``pack_s4_pairs``,
-  ``tile_scales_pairs``).
+  ``tile_scales_pairs``); for MoE blocks the stacked experts
+  (``stacked_planes``: codes (E, N/NT, gpp, NT, g) with the combined slab
+  (E, N/NT, 2*gpp*8, NT); the int8 ``stacked`` fallback), the bf16 router
+  and its optional selection bias.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
-from .models.arch import ArchSpec
+from .models.arch import ArchSpec, MoESpec
 from .ops.qlinear import QLinearParams
 from .serving.quantized_model import ServingWeights
 
@@ -79,11 +82,26 @@ def untile_pairs(t: np.ndarray) -> np.ndarray:
 def qlinear_from_numpy(codes, scales, zeros, bias, bits: int,
                        group_size: int, layout: str,
                        device: DeviceLike = None) -> QLinearParams:
-    """One JAX ``QLinearParams`` (its fields as arrays) -> the port's."""
-    if bits != 4 or layout not in ("planes", "s4"):
-        raise ValueError(f"{bits}-bit {layout!r} linears are not ported")
+    """One JAX ``QLinearParams`` (its fields as arrays) -> the port's.
+    The layout decides how the arrays are read: a stacked slab is 4-D
+    like the split tiled scales of a 2-D linear."""
     codes, scales = np.asarray(codes), np.asarray(scales)
     zeros = None if zeros is None else np.asarray(zeros)
+    if layout == "stacked_planes" and bits == 4:
+        parts = [split_combined(scales[e]) for e in range(codes.shape[0])]
+        return QLinearParams(
+            tensor_from_numpy(np.stack([untile_codes(c) for c in codes]),
+                              device, torch.int32),
+            tensor_from_numpy(np.stack([p[0] for p in parts]), device),
+            tensor_from_numpy(np.stack([p[1] for p in parts]), device),
+            None, group_size, "stacked_planes", True, 4)
+    if layout == "stacked" and bits == 8:
+        return QLinearParams(
+            tensor_from_numpy(codes, device, torch.int8),
+            tensor_from_numpy(scales, device, torch.float32), None, None, 0,
+            "stacked", False, 8)
+    if bits != 4 or layout not in ("planes", "s4"):
+        raise ValueError(f"{bits}-bit {layout!r} linears are not ported")
     if layout == "s4":
         nb, nt, kh = codes.shape
         return QLinearParams(
@@ -113,10 +131,15 @@ def qlinear_from_numpy(codes, scales, zeros, bias, bits: int,
 def arch_from_fields(fields: Dict[str, Any],
                      dtype: torch.dtype = torch.bfloat16) -> ArchSpec:
     """The port's ArchSpec from a dict of the JAX ArchSpec's fields (only
-    the fields the port has are read)."""
+    the fields the port has are read; ``moe`` as a dict of the MoESpec's
+    fields, as ``dataclasses.asdict`` gives it).  MLA is refused."""
+    if fields.get("mla") is not None:
+        raise ValueError("MLA (arch.mla) is not ported")
     names = [f for f in ArchSpec.__dataclass_fields__ if f != "dtype"]
-    return ArchSpec(**{k: fields[k] for k in names if k in fields},
-                    dtype=dtype)
+    kw = {k: fields[k] for k in names if k in fields}
+    if isinstance(kw.get("moe"), dict):
+        kw["moe"] = MoESpec(**kw["moe"])
+    return ArchSpec(**kw, dtype=dtype)
 
 
 def serving_weights_from_numpy(arch: ArchSpec, embed, norm: Dict[str, Any],
@@ -126,16 +149,19 @@ def serving_weights_from_numpy(arch: ArchSpec, embed, norm: Dict[str, Any],
     """``blocks`` is a list of dicts: linear name (``attn.qkv`` and
     ``mlp.gateup`` for merged entries) -> dict with the JAX QLinearParams
     fields (codes, scales, zeros, bias, bits, group_size, layout);
-    ``ln1``/``ln2`` -> {"weight": array}.  ``fused_rms`` is the JAX
+    ``ln1``/``ln2`` and ``mlp.router`` -> {"weight": array};
+    ``mlp.router_bias`` -> array.  ``fused_rms`` is the JAX
     field; a fused build with the combined scale slab is refused (JAX
     runs no fused linear on it, as it has no separate zeros)."""
     out_blocks = []
     for entry in blocks:
         e: Dict[str, Any] = {}
         for name, v in entry.items():
-            if name in ("ln1", "ln2"):
+            if name in ("ln1", "ln2", "mlp.router"):
                 e[name] = {k: tensor_from_numpy(a, device)
                            for k, a in v.items()}
+            elif name == "mlp.router_bias":
+                e[name] = tensor_from_numpy(v, device)
             else:
                 if fused_rms and v["zeros"] is None:
                     raise ValueError(f"{name}: fused_rms weights without "

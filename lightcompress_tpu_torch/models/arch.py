@@ -1,5 +1,6 @@
-"""Dense Llama architecture: spec, random init and forward passes (port of
-lightcompress_tpu/models/arch.py, the ``llama`` family without MoE/MLA).
+"""Llama architecture: spec, random init and forward passes (port of
+lightcompress_tpu/models/arch.py, the ``llama`` family, dense or with a
+mixture-of-experts MLP (``MoESpec``); no MLA).
 
 Parameters are nested dicts of tensors in the JAX package's layout:
 weights are (out_features, in_features) and matmuls are ``x @ W.T``.
@@ -15,11 +16,39 @@ import torch
 
 
 def _linear(p: Dict, x: torch.Tensor) -> torch.Tensor:
-    """``x @ W.T (+ b)`` with f32 accumulation, result in ``x.dtype``."""
-    y = torch.matmul(x, p["weight"].to(x.dtype).t())
+    """``x @ W.T (+ b)`` with f32 accumulation, result in ``x.dtype``.
+    A stacked (E, out, in) expert weight (no bias) gives (E, ..., out):
+    every expert on the same x, or on its own slice when x carries the
+    expert dim first (the down projection's (E, B, T, in) input), as
+    JAX's ``default_linear``."""
+    w = p["weight"].to(x.dtype)
+    if w.dim() == 3:
+        E = w.shape[0]
+        xe = x if x.dim() == 4 and x.shape[0] == E else x.unsqueeze(0)
+        y = torch.matmul(xe.reshape(xe.shape[0], -1, x.shape[-1]),
+                         w.transpose(1, 2))
+        return y.reshape(E, *xe.shape[1:-1], w.shape[1])
+    y = torch.matmul(x, w.t())
     if "bias" in p:
         y = y + p["bias"]
     return y
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    """Mixture-of-experts MLP config (mixtral, qwen2_moe, deepseek).
+    Experts are stored stacked (E, out, in)."""
+
+    num_experts: int
+    top_k: int
+    moe_intermediate_size: int
+    num_shared_experts: int = 0
+    gating: str = "softmax"  # 'softmax' (mixtral) | 'sigmoid' (deepseek-v3)
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
+    # deepseek-v3 group-limited routing
+    n_group: int = 1
+    topk_group: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,11 +67,13 @@ class ArchSpec:
     mlp_bias: bool = False
     tie_word_embeddings: bool = False
     act_fn: str = "silu"
+    moe: Optional[MoESpec] = None
     dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self):
         if self.family != "llama":
-            raise ValueError("only the dense llama family is ported")
+            raise ValueError("only the llama family is ported (dense or "
+                             "MoE, no MLA)")
 
 
 # ---------------------------------------------------------------------------
@@ -63,12 +94,30 @@ def _lin(gen, out_f, in_f, bias, dtype):
     return p
 
 
+def _moe_params(gen: torch.Generator, arch: ArchSpec) -> Dict:
+    """Router (E, H) * 0.02; stacked gate/up (E, I, H) and down (E, H, I)
+    at scale sqrt(2 / (H + I)); shared experts of width I * shared."""
+    m, h, dt = arch.moe, arch.hidden_size, arch.dtype
+    mi, E = m.moe_intermediate_size, m.num_experts
+    scale = (2.0 / (h + mi)) ** 0.5
+    mp = {"router": {"weight": _normal(gen, (E, h), 0.02, dt)},
+          "gate": {"weight": _normal(gen, (E, mi, h), scale, dt)},
+          "up": {"weight": _normal(gen, (E, mi, h), scale, dt)},
+          "down": {"weight": _normal(gen, (E, h, mi), scale, dt)}}
+    if m.num_shared_experts > 0:
+        si = mi * m.num_shared_experts
+        mp["shared_gate"] = _lin(gen, si, h, False, dt)
+        mp["shared_up"] = _lin(gen, si, h, False, dt)
+        mp["shared_down"] = _lin(gen, h, si, False, dt)
+    return mp
+
+
 def init_block_params(gen: torch.Generator, arch: ArchSpec) -> Dict:
     h, i = arch.hidden_size, arch.intermediate_size
     qd = arch.num_heads * arch.head_dim
     kvd = arch.num_kv_heads * arch.head_dim
     dt, dev = arch.dtype, gen.device
-    return {
+    bp = {
         "ln1": {"weight": torch.ones((h,), dtype=dt, device=dev)},
         "ln2": {"weight": torch.ones((h,), dtype=dt, device=dev)},
         "attn": {
@@ -77,12 +126,16 @@ def init_block_params(gen: torch.Generator, arch: ArchSpec) -> Dict:
             "v": _lin(gen, kvd, h, arch.attn_bias, dt),
             "o": _lin(gen, h, qd, False, dt),
         },
-        "mlp": {
+    }
+    if arch.moe is not None:
+        bp["mlp"] = _moe_params(gen, arch)
+    else:
+        bp["mlp"] = {
             "gate": _lin(gen, i, h, arch.mlp_bias, dt),
             "up": _lin(gen, i, h, arch.mlp_bias, dt),
             "down": _lin(gen, h, i, arch.mlp_bias, dt),
-        },
-    }
+        }
+    return bp
 
 
 def init_params(gen: torch.Generator, arch: ArchSpec) -> Dict:
@@ -208,8 +261,87 @@ def block_forward(arch: ArchSpec, bp: Dict, x: torch.Tensor, cos, sin,
     ctx = ctx.transpose(1, 2).reshape(B, T, nh * hd)
     h = x + _linear(ap["o"], ctx)
     h2 = apply_norm(h, bp["ln2"], arch)
-    mid = _act(_linear(mp["gate"], h2), arch.act_fn) * _linear(mp["up"], h2)
-    return h + _linear(mp["down"], mid), (k, v)
+    return h + mlp_forward(arch, mp, h2), (k, v)
+
+
+def mlp_forward(arch: ArchSpec, mp: Dict, x: torch.Tensor) -> torch.Tensor:
+    """The block's MLP on the normed x: the MoE MLP where the block has a
+    router, else the gated dense MLP (JAX's ``mlp_inspect``)."""
+    if arch.moe is not None and "router" in mp:
+        return moe_mlp_forward(arch, mp, x)
+    mid = _act(_linear(mp["gate"], x), arch.act_fn) * _linear(mp["up"], x)
+    return _linear(mp["down"], mid)
+
+
+# ---------------------------------------------------------------------------
+# mixture of experts
+# ---------------------------------------------------------------------------
+
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the last dim: the k largest values and their
+    indices, the lower index first among equal values (a stable
+    descending sort; ``torch.topk`` promises no order for ties on CUDA)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_route(m: MoESpec, lf: torch.Tensor,
+              router_bias: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Router selection from (n, E) f32 logits -> (topi (n, k) int64,
+    topw (n, k) f32): softmax or sigmoid scores; the selection bias added
+    to the selection scores only; group-limited top-k (the top
+    ``topk_group`` of ``n_group`` groups, each scored by the sum of its
+    two best); ``norm_topk_prob`` and ``routed_scaling_factor`` on the
+    combination weights, which are the raw scores."""
+    if m.gating == "sigmoid":
+        scores = torch.sigmoid(lf)
+    else:
+        scores = torch.softmax(lf, dim=-1)
+    sel = scores
+    if router_bias is not None:
+        sel = sel + router_bias.float()[None, :]
+    if m.n_group > 1:
+        n = sel.shape[0]
+        gsize = m.num_experts // m.n_group
+        grouped = sel.reshape(n, m.n_group, gsize)
+        group_scores = _top_k(grouped, 2)[0].sum(dim=-1)
+        gidx = _top_k(group_scores, m.topk_group)[1]
+        gmask = torch.zeros((n, m.n_group), dtype=torch.float32,
+                            device=sel.device).scatter_(1, gidx, 1.0)
+        sel = torch.where(gmask.repeat_interleave(gsize, dim=1) > 0, sel,
+                          float("-inf"))
+    topi = _top_k(sel, m.top_k)[1]
+    topw = torch.gather(scores, -1, topi)
+    if m.norm_topk_prob:
+        topw = topw / topw.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    return topi, topw * m.routed_scaling_factor
+
+
+def moe_mlp_forward(arch: ArchSpec, mp: Dict, x: torch.Tensor
+                    ) -> torch.Tensor:
+    """Mixture-of-experts MLP on (B, T, H): every expert computed on every
+    token (stacked matmuls; the router logits rounded to x's dtype as a
+    linear's are), then combined in f32 by the router's top-k weights;
+    plus the shared experts where the block has them."""
+    m = arch.moe
+    B, T, H = x.shape
+    lf = _linear(mp["router"], x).reshape(-1, m.num_experts).float()
+    topi, topw = moe_route(m, lf, mp.get("router_bias"))
+    g = _linear(mp["gate"], x)  # (E, B, T, I)
+    u = _linear(mp["up"], x)
+    d = _linear(mp["down"], _act(g, arch.act_fn) * u)  # (E, B, T, H)
+    n = B * T
+    w_full = torch.zeros((n, m.num_experts), dtype=torch.float32,
+                         device=x.device).scatter_(1, topi, topw)
+    y = torch.einsum("enh,ne->nh",
+                     d.reshape(m.num_experts, n, H).float(),
+                     w_full).reshape(B, T, H).to(x.dtype)
+    if "shared_gate" in mp:
+        smid = (_act(_linear(mp["shared_gate"], x), arch.act_fn)
+                * _linear(mp["shared_up"], x))
+        y = y + _linear(mp["shared_down"], smid)
+    return y
 
 
 def head_forward(arch: ArchSpec, params: Dict, x: torch.Tensor

@@ -13,6 +13,12 @@ from . import arch as A
 # llama.py:52-91 topology, canonical names (the JAX LLAMA_SUBSETS layers)
 LLAMA_LINEARS = ("attn.q", "attn.k", "attn.v", "attn.o",
                  "mlp.gate", "mlp.up", "mlp.down")
+# a MoE block (the JAX MOE_SUBSETS layers): the router first, with the
+# experts' gate/up (and the shared experts' where the block has them)
+# under ln2, then the expert down projections, then the shared down
+MOE_LINEARS = ("attn.q", "attn.k", "attn.v", "attn.o", "mlp.router",
+               "mlp.gate", "mlp.up", "mlp.shared_gate", "mlp.shared_up",
+               "mlp.down", "mlp.shared_down")
 
 
 def resolve(tree: Dict, dotted: str) -> Dict:
@@ -34,7 +40,12 @@ class Llama:
         return len(self.params["blocks"])
 
     def get_block_linear_names(self, block_idx: int) -> List[str]:
-        return list(LLAMA_LINEARS)
+        mlp = self.params["blocks"][block_idx]["mlp"]
+        if "router" not in mlp:
+            return list(LLAMA_LINEARS)
+        shared = "shared_gate" in mlp
+        return [n for n in MOE_LINEARS
+                if shared or not n.startswith("mlp.shared")]
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         return A.model_forward(self.arch, self.params, input_ids)

@@ -1,0 +1,422 @@
+// Stacked-expert W4A8 matmul kernels of the MoE serving path for Hopper
+// (sm_90a), CUDA C++ with a plain C interface bound from Python with ctypes
+// (ops/_build.py, ops/moe_matmul.py).
+//
+// Weight layout: E experts of untiled planes, stacked.
+//   wp  (E, N, K/8) int32: nibble j of word kw of row n holds code u of
+//                          weight k = j*K/8 + kw (pack_int4_planes)
+//   s   (E, N, G)   bf16 : per-group scale, G = K/128
+//   zs  (E, N, G)   bf16 : premultiplied zero correction z*s
+// Activations are int8 in natural K order with an f32 scale per row.
+//
+// Every output is computed in the float order of the TPU kernels
+// (_w4a8_kernel_stacked / _gathered / _grouped in
+// lightcompress_tpu/ops/pallas_matmul.py): with gpp = K/1024, for gi in
+// 0..gpp-1 and then plane j in 0..7 (group g = j*gpp + gi), the exact
+// integer group dot d times s[g] is added to accumulator j % 4; the zero
+// correction corr = sum of xsum[g]*zs[g] runs over the same (gi, j) order;
+// y = ((a0 + a1) + (a2 + a3) - corr) * xscale.  Every product and sum is
+// rounded on its own (__fmul_rn/__fadd_rn: no contracted multiply-adds), so
+// the plain PyTorch versions, which run the same sequence of f32 ops, agree
+// bit for bit.
+//
+// Requirements checked by the Python wrappers: K % 1024 == 0,
+// N % 128 == 0, contiguous 16-byte aligned tensors on the current device.
+//
+// Bounds on an H100 SXM (3.35 TB/s HBM, 1979 TOP/s int8 dense peak):
+//   #6 stacked (B <= 256): the packed weight of all E experts read once,
+//      bytes = E*(N*K/2 + 4*N*G) + x + out;
+//   #8 gathered: the packed weights of the distinct experts selected;
+//   #9 grouped: at a prefill's Mp rows the 2*rows*N*K int8 operations.
+// These first kernels use no tensor cores (no mma/wgmma, no TMA).
+
+#include "w4_common.cuh"
+
+namespace {
+
+using namespace lcw4;
+
+constexpr int kMoeThreads = 128;  // one output channel per thread
+constexpr int kStackedRows = 8;   // rows of x per #6 block
+
+// Bytes j of the result are nibble `sh/4` of words a, b, c, d: four
+// consecutive codes of one group, ready for __dp4a.
+__device__ __forceinline__ int pack_nibbles(uint32_t a, uint32_t b,
+                                            uint32_t c, uint32_t d, int sh) {
+  return (int)(((a >> sh) & 0xFu) | (((b >> sh) & 0xFu) << 8) |
+               (((c >> sh) & 0xFu) << 16) | (((d >> sh) & 0xFu) << 24));
+}
+
+// a + d * s, the product and the sum each rounded to nearest even.
+__device__ __forceinline__ float mac_rn(float a, float d, float s) {
+  return __fadd_rn(a, __fmul_rn(d, s));
+}
+
+// ((a0 + a1) + (a2 + a3) - corr) * xs, each op rounded.
+__device__ __forceinline__ float finish(float a0, float a1, float a2,
+                                        float a3, float corr, float xs) {
+  return __fmul_rn(__fsub_rn(__fadd_rn(__fadd_rn(a0, a1), __fadd_rn(a2, a3)),
+                             corr),
+                   xs);
+}
+
+__device__ __forceinline__ float quiet_nan() { return __int_as_float(0x7fc00000); }
+
+// ---------------------------------------------------------------------------
+// The decode block of #6 and #8: rows [0, nv) of x (row r at xrow0 + r*K,
+// its act scale at xs0[r]) against one expert's weight; output row r at
+// out0 + r*N.  Thread t owns channel n = blockIdx.x*128 + t and walks the
+// whole of K in the TPU order, so each output's sums run in one thread.
+// Per gi the block stages the MT rows' eight 128-byte groups of that gi (one
+// per plane; MT KB of shared memory) and their sums, then every thread reads
+// its own 512 bytes of codes (16 B a load) and finishes the eight group dots
+// with __dp4a.  Design against the bound (the weight read): 128 channels a
+// block, so a 14336-channel expert spreads over 112 blocks, and each lane's
+// 16-byte loads walk its row; x is re-read from L2 by every block.
+// ---------------------------------------------------------------------------
+template <int MT>
+__device__ __forceinline__ void expert_rows(
+    const int8_t* __restrict__ xrow0, const float* __restrict__ xs0,
+    const int32_t* __restrict__ wp_e, const __nv_bfloat16* __restrict__ s_e,
+    const __nv_bfloat16* __restrict__ zs_e, float* __restrict__ out0, int nv,
+    int N, int K) {
+  __shared__ __align__(16) int8_t xc[MT * 8 * kGroup];
+  __shared__ float xsc[MT * 8];
+  const int tid = threadIdx.x;
+  const int kp = K / 8, G = K / kGroup, gpp = kp / kGroup;
+  const int n = blockIdx.x * kMoeThreads + tid;
+
+  float acc[4][MT], corr[MT];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    corr[m] = 0.f;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) acc[p][m] = 0.f;
+  }
+  const int32_t* wrow = wp_e + (size_t)n * kp;
+  for (int gi = 0; gi < gpp; ++gi) {
+    __syncthreads();  // every thread is done with the previous chunk
+    // xc[m][j][0..128) = x row m, plane j, group gi (natural K offset
+    // j*kp + gi*128); 16 bytes a thread a step; absent rows are zeros
+    for (int i = tid; i < MT * 64; i += kMoeThreads) {
+      const int m = i >> 6, j = (i >> 3) & 7, q = i & 7;
+      int4 v = make_int4(0, 0, 0, 0);
+      if (m < nv)
+        v = *reinterpret_cast<const int4*>(xrow0 + (size_t)m * K + j * kp +
+                                           gi * kGroup + q * 16);
+      reinterpret_cast<int4*>(xc)[i] = v;
+    }
+    __syncthreads();
+    if (tid < MT * 8) {
+      const int* p = reinterpret_cast<const int*>(xc + tid * kGroup);
+      int a = 0;
+      for (int q = 0; q < kGroup / 4; ++q) a = __dp4a(p[q], 0x01010101, a);
+      xsc[tid] = (float)a;
+    }
+    __syncthreads();
+
+    int dot[8][MT];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int m = 0; m < MT; ++m) dot[j][m] = 0;
+    const int4* wg = reinterpret_cast<const int4*>(wrow + gi * kGroup);
+#pragma unroll 2
+    for (int c = 0; c < kGroup / 4; ++c) {
+      const int4 w = __ldg(wg + c);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int packed = pack_nibbles((uint32_t)w.x, (uint32_t)w.y,
+                                        (uint32_t)w.z, (uint32_t)w.w, 4 * j);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const int xv =
+              *reinterpret_cast<const int*>(xc + (m * 8 + j) * kGroup + 4 * c);
+          dot[j][m] = __dp4a(packed, xv, dot[j][m]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int g = j * gpp + gi;
+      const float sf = __bfloat162float(s_e[(size_t)n * G + g]);
+      const float zf = __bfloat162float(zs_e[(size_t)n * G + g]);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        acc[j & 3][m] = mac_rn(acc[j & 3][m], (float)dot[j][m], sf);
+        corr[m] = mac_rn(corr[m], xsc[m * 8 + j], zf);
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+    if (m < nv)
+      out0[(size_t)m * N + n] =
+          finish(acc[0][m], acc[1][m], acc[2][m], acc[3][m], corr[m], xs0[m]);
+}
+
+// ---------------------------------------------------------------------------
+// #6  Stacked-expert W4A8 matmul.  Replaces lightcompress_tpu/ops/
+// pallas_matmul.py w4a8_stacked_matmul (_w4a8_kernel_stacked).
+//
+// out[e, b, :] = x_e[b] . W[e]^T for every expert e, B <= 256 rows.  With
+// pair = 0 every expert reads the same x (B, K) (gate/up); with pair = 1
+// expert e reads its own rows x[e] (E, B, K) (the down projection).  Grid
+// (N/128, ceil(B/8), E): the TPU grid's expert and N-tile axes plus 8-row
+// chunks of B (a 256-row prefill is 32 chunks, each re-reading the expert's
+// weight from L2).  Bound: every expert's packed weight, read once.
+// ---------------------------------------------------------------------------
+template <int MT>
+__global__ void __launch_bounds__(kMoeThreads)
+w4a8_stacked_kernel(const int8_t* __restrict__ x,
+                    const float* __restrict__ xscale,
+                    const int32_t* __restrict__ wp,
+                    const __nv_bfloat16* __restrict__ s,
+                    const __nv_bfloat16* __restrict__ zs,
+                    float* __restrict__ out, int pair, int B, int N, int K) {
+  const int e = blockIdx.z, m0 = blockIdx.y * MT;
+  const size_t G = K / kGroup, kp = K / 8;
+  const size_t xrow = pair ? (size_t)e * B + m0 : (size_t)m0;
+  expert_rows<MT>(x + xrow * K, xscale + xrow, wp + (size_t)e * N * kp,
+                  s + (size_t)e * N * G, zs + (size_t)e * N * G,
+                  out + ((size_t)e * B + m0) * N, min(MT, B - m0), N, K);
+}
+
+// ---------------------------------------------------------------------------
+// #8  Expert-gathered W4A8 matmul.  Replaces lightcompress_tpu/ops/
+// pallas_matmul.py w4a8_gathered_matmul (_w4a8_kernel_gathered).
+//
+// out[s] = x[t_idx[s]] . W[e_idx[s]]^T.  The TPU prefetches the index
+// vectors as scalars for its BlockSpec maps and replicates the token row to
+// 8 sublanes; here a block (one selection, 128 channels) loads its own
+// e_idx[s] and t_idx[s] and stages that one row.  Only the selected experts'
+// weights are read; selections that share an expert re-read its weight (no
+// dedup, as on the TPU), which the 50 MB L2 serves when they run close
+// together.  Bound: the bytes of the distinct experts selected.  An index
+// out of range fills the row with NaN.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kMoeThreads)
+w4a8_gathered_kernel(const int8_t* __restrict__ x,
+                     const float* __restrict__ xscale,
+                     const int32_t* __restrict__ wp,
+                     const __nv_bfloat16* __restrict__ s,
+                     const __nv_bfloat16* __restrict__ zs,
+                     const int32_t* __restrict__ e_idx,
+                     const int32_t* __restrict__ t_idx,
+                     float* __restrict__ out, int n_rows, int E, int N,
+                     int K) {
+  const int sel = blockIdx.y;
+  const int e = e_idx[sel], t = t_idx[sel];
+  if (e < 0 || e >= E || t < 0 || t >= n_rows) {
+    out[(size_t)sel * N + blockIdx.x * kMoeThreads + threadIdx.x] =
+        quiet_nan();
+    return;  // uniform over the block
+  }
+  const size_t G = K / kGroup, kp = K / 8;
+  expert_rows<1>(x + (size_t)t * K, xscale + t, wp + (size_t)e * N * kp,
+                 s + (size_t)e * N * G, zs + (size_t)e * N * G,
+                 out + (size_t)sel * N, 1, N, K);
+}
+
+// ---------------------------------------------------------------------------
+// #9  Capacity-grouped W4A8 matmul.  Replaces lightcompress_tpu/ops/
+// pallas_matmul.py w4a8_grouped_matmul (_w4a8_kernel_grouped,
+// _xsum_slab_order).
+//
+// out[r] = x[r] . W[block_eid[r / m_tile]]^T over expert-sorted rows padded
+// to m_tile segments (moe_group_selections).  The prefill tile of #3
+// (w4_matmul.cu: 64x64 outputs a block, 256 threads of 4x4 __dp4a dots over
+// codes unpacked into padded shared memory) with the block's expert read
+// from block_eid in the block: m_tile is a multiple of 64, so every 64-row
+// tile lies in one expert's segment.  The TPU kernel permutes its row sums
+// to the scale slab's order with a one-hot matmul (a Mosaic workaround);
+// here x stays in natural order and each natural group's sum is taken
+// directly.  Padding rows are the zero dummy row with scale 1: their blocks
+// are computed like any other (not skipped; they give 0) and the caller
+// drops them on the unsort.  The four parity accumulators per output keep
+// the TPU order.  Bound: the int8 operations of the real rows.  An expert
+// id out of range fills the tile with NaN.
+// ---------------------------------------------------------------------------
+constexpr int kPB = 64;               // rows and channels per block tile
+constexpr int kPThreads = 256;        // 16 x 16 threads, 4 x 4 outputs each
+constexpr int kPad = kGroup / 4 + 1;  // int32 words per padded smem row
+constexpr size_t kGroupedSmem =
+    (size_t)kPB * kGroup * 4 + 2 * (size_t)kPB * kPad * 4 + 3 * kPB * 4;
+
+__global__ void __launch_bounds__(kPThreads)
+w4a8_grouped_kernel(const int8_t* __restrict__ xq,
+                    const float* __restrict__ xscale,
+                    const int32_t* __restrict__ wp,
+                    const __nv_bfloat16* __restrict__ s,
+                    const __nv_bfloat16* __restrict__ zs,
+                    const int32_t* __restrict__ block_eid,
+                    float* __restrict__ out, int Mp, int N, int K, int E,
+                    int m_tile) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int32_t* wsh = reinterpret_cast<int32_t*>(smem);            // [64][128]
+  int32_t* xt = wsh + kPB * kGroup;                            // [64][kPad]
+  int32_t* ct = xt + kPB * kPad;                               // [64][kPad]
+  float* xsum_t = reinterpret_cast<float*>(ct + kPB * kPad);   // [64]
+  float* s_t = xsum_t + kPB;                                   // [64]
+  float* zs_t = s_t + kPB;                                     // [64]
+
+  const int kp = K / 8, G = K / kGroup, gpp = kp / kGroup;
+  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
+  const int n0 = blockIdx.x * kPB, m0 = blockIdx.y * kPB;
+  const int e = block_eid[m0 / m_tile];
+  if (e < 0 || e >= E) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        out[(size_t)(m0 + tr + 16 * i) * N + n0 + tc + 16 * c] = quiet_nan();
+    return;  // uniform over the block
+  }
+  wp += (size_t)e * N * kp;
+  s += (size_t)e * N * G;
+  zs += (size_t)e * N * G;
+
+  float acc[4][4][4], corr[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      corr[i][c] = 0.f;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) acc[p][i][c] = 0.f;
+    }
+
+  for (int gi = 0; gi < gpp; ++gi) {
+    // the previous gi's last unpack finished before its last barrier
+    for (int u = tid; u < kPB * kGroup / 4; u += kPThreads) {
+      const int r = u / (kGroup / 4), q = u % (kGroup / 4);
+      reinterpret_cast<int4*>(wsh)[u] = __ldg(reinterpret_cast<const int4*>(
+          wp + (size_t)(n0 + r) * kp + gi * kGroup) + q);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      __syncthreads();
+      const int g = j * gpp + gi;
+      const int koff = j * kp + gi * kGroup;
+      for (int u = tid; u < kPB * kGroup / 16; u += kPThreads) {
+        const int r = u / (kGroup / 16), q = u % (kGroup / 16);
+        int4 v = make_int4(0, 0, 0, 0);
+        if (m0 + r < Mp)
+          v = *reinterpret_cast<const int4*>(xq + (size_t)(m0 + r) * K +
+                                             koff + 16 * q);
+        int32_t* dst = xt + r * kPad + 4 * q;
+        dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
+      }
+      for (int u = tid; u < kPB * kGroup / 4; u += kPThreads) {
+        const int r = u / (kGroup / 4), q = u % (kGroup / 4);
+        const int4 w = reinterpret_cast<const int4*>(wsh)[u];
+        ct[r * kPad + q] = pack_nibbles((uint32_t)w.x, (uint32_t)w.y,
+                                        (uint32_t)w.z, (uint32_t)w.w, 4 * j);
+      }
+      __syncthreads();
+      if (tid < kPB) {
+        int a = 0;
+        for (int q = 0; q < kGroup / 4; ++q)
+          a = __dp4a(xt[tid * kPad + q], 0x01010101, a);
+        xsum_t[tid] = (float)a;
+      } else if (tid < 2 * kPB) {
+        const int c = tid - kPB;
+        s_t[c] = __bfloat162float(s[(size_t)(n0 + c) * G + g]);
+      } else if (tid < 3 * kPB) {
+        const int c = tid - 2 * kPB;
+        zs_t[c] = __bfloat162float(zs[(size_t)(n0 + c) * G + g]);
+      }
+      __syncthreads();
+      int dot[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) dot[i][c] = 0;
+#pragma unroll 4
+      for (int q = 0; q < kGroup / 4; ++q) {
+        int xa[4], wb[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) xa[i] = xt[(tr + 16 * i) * kPad + q];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) wb[c] = ct[(tc + 16 * c) * kPad + q];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) dot[i][c] = __dp4a(xa[i], wb[c], dot[i][c]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          acc[j & 3][i][c] = mac_rn(acc[j & 3][i][c], (float)dot[i][c],
+                                    s_t[tc + 16 * c]);
+          corr[i][c] = mac_rn(corr[i][c], xsum_t[tr + 16 * i],
+                              zs_t[tc + 16 * c]);
+        }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + tr + 16 * i;
+    if (m >= Mp) continue;
+    const float xs = xscale[m];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      out[(size_t)m * N + n0 + tc + 16 * c] =
+          finish(acc[0][i][c], acc[1][i][c], acc[2][i][c], acc[3][i][c],
+                 corr[i][c], xs);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// #6: x (B, K) int8 (pair = 0) or (E, B, K) (pair = 1), xscale (B,) or
+// (E, B) f32; out (E, B, N) f32.
+int lc_w4a8_stacked(const void* x, const void* xscale, const void* wp,
+                    const void* s, const void* zs, void* out, int pair, int B,
+                    int N, int K, int E, void* stream) {
+  const dim3 grid(N / kMoeThreads, (B + kStackedRows - 1) / kStackedRows, E);
+  w4a8_stacked_kernel<kStackedRows>
+      <<<grid, kMoeThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+          (const int8_t*)x, (const float*)xscale, (const int32_t*)wp,
+          (const __nv_bfloat16*)s, (const __nv_bfloat16*)zs, (float*)out,
+          pair, B, N, K);
+  return (int)cudaGetLastError();
+}
+
+// #8: x (n_rows, K) int8, xscale (n_rows,) f32, e_idx/t_idx (n_sel,) int32;
+// out (n_sel, N) f32.
+int lc_w4a8_gathered(const void* x, const void* xscale, const void* wp,
+                     const void* s, const void* zs, const void* e_idx,
+                     const void* t_idx, void* out, int n_rows, int n_sel,
+                     int N, int K, int E, void* stream) {
+  const dim3 grid(N / kMoeThreads, n_sel);
+  w4a8_gathered_kernel<<<grid, kMoeThreads, 0,
+                         reinterpret_cast<cudaStream_t>(stream)>>>(
+      (const int8_t*)x, (const float*)xscale, (const int32_t*)wp,
+      (const __nv_bfloat16*)s, (const __nv_bfloat16*)zs,
+      (const int32_t*)e_idx, (const int32_t*)t_idx, (float*)out, n_rows, E,
+      N, K);
+  return (int)cudaGetLastError();
+}
+
+// #9: x (Mp, K) int8, xscale (Mp,) f32, block_eid (Mp / m_tile,) int32;
+// out (Mp, N) f32; m_tile % 64 == 0.
+int lc_w4a8_grouped(const void* x, const void* xscale, const void* wp,
+                    const void* s, const void* zs, const void* block_eid,
+                    void* out, int Mp, int N, int K, int E, int m_tile,
+                    void* stream) {
+  cudaError_t e = prepare(w4a8_grouped_kernel, kGroupedSmem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(N / kPB, (Mp + kPB - 1) / kPB);
+  w4a8_grouped_kernel<<<grid, kPThreads, kGroupedSmem,
+                        reinterpret_cast<cudaStream_t>(stream)>>>(
+      (const int8_t*)x, (const float*)xscale, (const int32_t*)wp,
+      (const __nv_bfloat16*)s, (const __nv_bfloat16*)zs,
+      (const int32_t*)block_eid, (float*)out, Mp, N, K, E, m_tile);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,269 @@
+"""Stacked-expert W4A8 matmuls of the MoE serving path: the three Hopper
+kernels with their plain PyTorch versions (port of
+lightcompress_tpu/ops/pallas_matmul.py, kernels #6 ``w4a8_stacked_matmul``,
+#8 ``w4a8_gathered_matmul`` and #9 ``w4a8_grouped_matmul``).
+
+Weights are E experts of the untiled planes layout of ``ops.w4_matmul``,
+stacked: ``wp`` (E, N, K/8) int32, ``s`` and ``zs`` (E, N, G) per-group
+scales and premultiplied zero corrections.  Activations are int8 per token
+in natural K order with (rows, 1) f32 scales.  Every entry point computes,
+per row and expert, in the float order of the TPU kernels: for gi in
+0..gpp-1 (gpp = G/8) and then plane j in 0..7, group g = j*gpp + gi, the
+exact integer group dot times s[g] added to accumulator j % 4; the zero
+correction sum of xsum[g]*zs[g] over the same order; then
+((a0 + a1) + (a2 + a3) - corr) * xscale, every op rounded on its own.  The
+plain versions run that sequence of f32 ops, so the kernels
+(``csrc/w4_moe.cu``) equal them bit for bit.
+
+A tensor on the CPU takes the plain version; a CUDA tensor launches the
+kernel or raises.  Each wrapper counts its kernel launches in its
+``launches`` attribute.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+from .w4_matmul import GROUP, _aligned, _launch, _stream, unpack_int4_planes
+
+# rows of one expert segment of the grouped layout (moe_group_selections);
+# the kernel takes multiples of its 64-row tile
+M_TILE = 128
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the CPU route and the on-card reference)
+# ---------------------------------------------------------------------------
+
+def expert_rows_plain(xq: torch.Tensor, x_scale: torch.Tensor,
+                      wp: torch.Tensor, s: torch.Tensor,
+                      zs: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 x with (M, 1) f32 scales against one expert's planes
+    weight ((N, K/8) codes, (N, G) s and zs) -> (M, N) f32, in the TPU
+    kernels' order (module docstring).  The group dots are f32 matmuls of
+    integers whose sums stay below 2^24, so they are exact."""
+    M, K = xq.shape
+    N, G = s.shape
+    gpp = G // 8
+    g = K // G
+    xg = xq.float().reshape(M, G, g)
+    ug = unpack_int4_planes(wp, K).float().reshape(N, G, g)
+    xsum = xg.sum(dim=-1)
+    sf, zf = s.float(), zs.float()
+    acc = [torch.zeros((M, N), dtype=torch.float32, device=xq.device)
+           for _ in range(4)]
+    corr = torch.zeros((M, N), dtype=torch.float32, device=xq.device)
+    for gi in range(gpp):
+        for j in range(8):
+            gg = j * gpp + gi
+            dot = torch.matmul(xg[:, gg], ug[:, gg].t())
+            acc[j % 4] = acc[j % 4] + dot * sf[:, gg]
+            corr = corr + xsum[:, gg, None] * zf[:, gg]
+    return ((acc[0] + acc[1]) + (acc[2] + acc[3]) - corr) * x_scale.float()
+
+
+def w4a8_stacked_matmul_plain(xq, x_scale, wp, s, zs, pair=False):
+    """Plain #6: (E, B, N) f32 for every expert, on the shared (B, K) x
+    or, with ``pair``, on each expert's own rows of (E, B, K) x."""
+    return torch.stack([
+        expert_rows_plain(xq[e] if pair else xq,
+                          x_scale[e] if pair else x_scale, wp[e], s[e],
+                          zs[e]) for e in range(wp.shape[0])])
+
+
+def w4a8_gathered_matmul_plain(xq, x_scale, wp, s, zs, e_idx, t_idx):
+    """Plain #8: out[s] = x[t_idx[s]] . W[e_idx[s]]^T, (n_sel, N) f32."""
+    out = torch.empty((e_idx.shape[0], wp.shape[1]), dtype=torch.float32,
+                      device=xq.device)
+    e_idx, t_idx = e_idx.long(), t_idx.long()
+    for e in torch.unique(e_idx).tolist():
+        sel = torch.nonzero(e_idx == e)[:, 0]
+        rows = t_idx[sel]
+        out[sel] = expert_rows_plain(xq[rows], x_scale[rows], wp[e], s[e],
+                                     zs[e])
+    return out
+
+
+def w4a8_grouped_matmul_plain(xq, x_scale, wp, s, zs, block_eid,
+                              m_tile=M_TILE):
+    """Plain #9: out[r] = x[r] . W[block_eid[r // m_tile]]^T, (Mp, N)
+    f32."""
+    row_e = block_eid.long().repeat_interleave(m_tile)
+    out = torch.empty((xq.shape[0], wp.shape[1]), dtype=torch.float32,
+                      device=xq.device)
+    for e in torch.unique(row_e).tolist():
+        rows = torch.nonzero(row_e == e)[:, 0]
+        out[rows] = expert_rows_plain(xq[rows], x_scale[rows], wp[e], s[e],
+                                      zs[e])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("w4_moe")
+    lib.lc_w4a8_stacked.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _P]
+    lib.lc_w4a8_gathered.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _I, _I, _I, _P]
+    lib.lc_w4a8_grouped.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _P]
+    for fn in (lib.lc_w4a8_stacked, lib.lc_w4a8_gathered,
+               lib.lc_w4a8_grouped):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_experts(K: int, wp: torch.Tensor, s: torch.Tensor,
+                   zs: torch.Tensor, device: torch.device):
+    """Checks a stacked planes weight; returns (E, N)."""
+    if wp.dtype != torch.int32 or wp.dim() != 3 or wp.shape[2] * 8 != K:
+        raise ValueError(f"the weight must be (E, N, {K // 8}) int32, got "
+                         f"{tuple(wp.shape)} {wp.dtype}")
+    E, N = wp.shape[:2]
+    G = s.shape[-1]
+    if s.dim() != 3 or s.shape[:2] != (E, N) or zs.shape != s.shape \
+            or G == 0 or K % G or (K // 8) % (K // G):
+        raise ValueError(f"s and zs must be ({E}, {N}, G), K/8 a multiple "
+                         f"of the group K/G, got {tuple(s.shape)} and "
+                         f"{tuple(zs.shape)}")
+    for t in (wp, s, zs):
+        if t.device != device:
+            raise ValueError("all operands must be on one device")
+    if device.type == "cuda":
+        if K % (8 * GROUP) or N % 128 or s.shape[2] != K // GROUP:
+            raise ValueError(f"the MoE kernels need groups of {GROUP}, "
+                             f"K % {8 * GROUP} == 0 and N % 128 == 0, got "
+                             f"N={N} K={K} G={s.shape[2]}")
+        for t in (s, zs):
+            if t.dtype != torch.bfloat16:
+                raise ValueError("the kernels take bf16 s and zs")
+        for t in (wp, s, zs):
+            if not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError("the kernels take contiguous, 16-byte "
+                                 "aligned weights")
+    elif device.type != "cpu":
+        raise ValueError(f"unsupported device {device}")
+    return E, N
+
+
+def _check_rows(xq: torch.Tensor, x_scale: torch.Tensor, lead: tuple):
+    if xq.dtype != torch.int8 or xq.shape[:-1] != lead:
+        raise ValueError(f"xq must be {lead + ('K',)} int8, got "
+                         f"{tuple(xq.shape)} {xq.dtype}")
+    if x_scale.shape != (*lead, 1) or x_scale.device != xq.device:
+        raise ValueError(f"x_scale must be {(*lead, 1)} on xq's device, got "
+                         f"{tuple(x_scale.shape)}")
+
+
+def _index(t: torch.Tensor, n: int, name: str, device) -> torch.Tensor:
+    if t.dim() != 1 or t.shape[0] != n or t.device != device:
+        raise ValueError(f"{name} must be ({n},) on the operands' device")
+    return t.to(torch.int32).contiguous()
+
+
+def w4a8_stacked_matmul(xq: torch.Tensor, x_scale: torch.Tensor,
+                        wp: torch.Tensor, s: torch.Tensor, zs: torch.Tensor,
+                        pair: bool = False) -> torch.Tensor:
+    """#6: (B, K) int8 x shared by every expert, or with ``pair`` (E, B, K)
+    x whose slice e expert e reads -> (E, B, N) f32."""
+    K = xq.shape[-1]
+    E, N = _check_experts(K, wp, s, zs, xq.device)
+    B = xq.shape[-2]
+    _check_rows(xq, x_scale, (E, B) if pair else (B,))
+    if xq.device.type == "cpu":
+        return w4a8_stacked_matmul_plain(xq, x_scale, wp, s, zs, pair)
+    out = torch.empty((E, B, N), dtype=torch.float32, device=xq.device)
+    if B == 0:
+        return out
+    xq = _aligned(xq)
+    xs = x_scale.float().contiguous()
+    with torch.cuda.device(xq.device):
+        _launch(_lib().lc_w4a8_stacked, xq.data_ptr(), xs.data_ptr(),
+                wp.data_ptr(), s.data_ptr(), zs.data_ptr(), out.data_ptr(),
+                int(pair), B, N, K, E, _stream(xq.device))
+    w4a8_stacked_matmul.launches += 1
+    return out
+
+
+def w4a8_gathered_matmul(xq: torch.Tensor, x_scale: torch.Tensor,
+                         wp: torch.Tensor, s: torch.Tensor, zs: torch.Tensor,
+                         e_idx: torch.Tensor, t_idx: torch.Tensor
+                         ) -> torch.Tensor:
+    """#8: out[s] = x[t_idx[s]] . W[e_idx[s]]^T -> (n_sel, N) f32, for
+    (n, K) int8 x; only the selected experts' weights are read."""
+    n, K = xq.shape
+    E, N = _check_experts(K, wp, s, zs, xq.device)
+    _check_rows(xq, x_scale, (n,))
+    n_sel = e_idx.shape[0]
+    e_idx = _index(e_idx, n_sel, "e_idx", xq.device)
+    t_idx = _index(t_idx, n_sel, "t_idx", xq.device)
+    if xq.device.type == "cpu":
+        return w4a8_gathered_matmul_plain(xq, x_scale, wp, s, zs, e_idx,
+                                          t_idx)
+    if n_sel > 65535:
+        raise ValueError(f"{n_sel} selections exceed the kernel's grid")
+    out = torch.empty((n_sel, N), dtype=torch.float32, device=xq.device)
+    if n_sel == 0:
+        return out
+    xq = _aligned(xq)
+    xs = x_scale.float().contiguous()
+    with torch.cuda.device(xq.device):
+        _launch(_lib().lc_w4a8_gathered, xq.data_ptr(), xs.data_ptr(),
+                wp.data_ptr(), s.data_ptr(), zs.data_ptr(), e_idx.data_ptr(),
+                t_idx.data_ptr(), out.data_ptr(), n, n_sel, N, K, E,
+                _stream(xq.device))
+    w4a8_gathered_matmul.launches += 1
+    return out
+
+
+def w4a8_grouped_matmul(xq: torch.Tensor, x_scale: torch.Tensor,
+                        wp: torch.Tensor, s: torch.Tensor, zs: torch.Tensor,
+                        block_eid: torch.Tensor, m_tile: int = M_TILE
+                        ) -> torch.Tensor:
+    """#9: out[r] = x[r] . W[block_eid[r // m_tile]]^T -> (Mp, N) f32, for
+    (Mp, K) int8 rows sorted by expert into m_tile segments."""
+    Mp, K = xq.shape
+    E, N = _check_experts(K, wp, s, zs, xq.device)
+    _check_rows(xq, x_scale, (Mp,))
+    if m_tile <= 0 or Mp % m_tile:
+        raise ValueError(f"Mp={Mp} is not a multiple of m_tile={m_tile}")
+    block_eid = _index(block_eid, Mp // m_tile, "block_eid", xq.device)
+    if xq.device.type == "cpu":
+        return w4a8_grouped_matmul_plain(xq, x_scale, wp, s, zs, block_eid,
+                                         m_tile)
+    if m_tile % 64:
+        raise ValueError("the grouped kernel takes m_tile % 64 == 0")
+    out = torch.empty((Mp, N), dtype=torch.float32, device=xq.device)
+    if Mp == 0:
+        return out
+    xq = _aligned(xq)
+    xs = x_scale.float().contiguous()
+    with torch.cuda.device(xq.device):
+        _launch(_lib().lc_w4a8_grouped, xq.data_ptr(), xs.data_ptr(),
+                wp.data_ptr(), s.data_ptr(), zs.data_ptr(),
+                block_eid.data_ptr(), out.data_ptr(), Mp, N, K, E, m_tile,
+                _stream(xq.device))
+    w4a8_grouped_matmul.launches += 1
+    return out
+
+
+KERNELS = (w4a8_stacked_matmul, w4a8_gathered_matmul, w4a8_grouped_matmul)
+for _k in KERNELS:
+    _k.launches = 0
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0

@@ -13,6 +13,11 @@ Storage (QLinearParams), int4 only, in one of two layouts
   K % 512 == 0 and N % 128 == 0 and falls back to planes elsewhere.
 
 Symmetric codes are offset by +8 with z = 8.
+
+Stacked MoE experts (``serving.quantized_model.quantize_linear_stacked``)
+use the same class with a leading expert dim: ``stacked_planes`` (4-bit
+planes per expert) or ``stacked`` (the int8 per-channel fallback, ``bits``
+8).
 """
 
 from __future__ import annotations
@@ -43,6 +48,8 @@ class QLinearParams:
     # (planes: the condition above; s4: always), which its kernels and
     # the fused decode linears take
     tiled: bool = False
+    # the codes' bit width: 4, or 8 for the stacked int8 fallback
+    bits: int = 4
 
 
 def quantize_linear(w: torch.Tensor, spec: QuantSpec,

@@ -23,6 +23,16 @@ fused decode linears where JAX does (``fused_ok``): q/k/v (or the merged
 qkv) and gate/up (or gateup) run RMSNorm and the int8 act quant inside
 kernel #14 (planes) or #13 (s4), ``attn.o`` and ``mlp.down`` the act quant
 alone.  Prefill takes the plain linears: the folded ln weights are ones.
+
+A MoE model (``arch.moe``) serves on the ``xla`` route at kv8 (as the JAX
+engine forces it).  Its blocks' MLP (``_moe_mlp``) picks one of four
+expert routes by the token count n of the call, as the JAX engine does on
+a TPU (``pick_moe_route``): ``gathered`` (kernel #8, only the selected
+experts read), ``grouped`` (kernel #9 over expert-sorted rows), ``dense``
+(kernel #6 over every expert at n <= 256, dequantized experts above) and
+``gathered_plain`` (dequantized selected experts, where #8 does not
+apply).  The expert activations are int8 per token on every kernel route
+whatever ``act_bits`` is.
 """
 
 from __future__ import annotations
@@ -39,12 +49,16 @@ from ..device import DeviceLike, resolve_device
 from ..models import arch as A
 from ..ops.attention import (bd_merge_new_token, decode_attention_bd4,
                              decode_attention_bd4_flash, decode_attention_i8)
+from ..ops.moe_matmul import w4a8_gathered_matmul
 from ..ops.qlinear import QLinearParams
-from ..ops.w4_matmul import (w4a8_linear_bytes_fused,
+from ..ops.w4_matmul import (quantize_act_per_token,
+                             w4a8_linear_bytes_fused,
                              w4a8_linear_planes_fused)
 from .kv_cache import (KVCache, append_kv4_bd, append_kv_quantized,
                        append_slots, quantize_kv, quantize_kv4)
-from .quantized_model import ServingWeights, apply_qlinear, head_logits
+from .quantized_model import (ServingWeights, apply_qlinear,
+                              apply_qlinear_gathered, apply_qlinear_stacked,
+                              head_logits, moe_mlp_grouped)
 from .sampler import SamplingParams, sample
 
 # rows per batched prefill: a bucket's prompts are split so that
@@ -56,6 +70,9 @@ BD4_ALIGN = 512
 BD4_FLASH_MIN = 8192
 # (kv_bits, attn_impl) pairs the port serves
 ROUTES = {(8, "xla"), (8, "pallas"), (4, "bd4")}
+# token rows per dense all-expert block above the #6 regime (bounds the
+# (E, rows, I) f32 transients)
+MOE_DENSE_BLOCK = 2048
 
 
 def pick_attn_impl(kv_bits: Union[int, str]) -> str:
@@ -96,9 +113,158 @@ def _gateup_proj(entry, h2, ab):
             apply_qlinear(entry["mlp.up"], h2, act_bits=ab))
 
 
-def _mlp_tail(sw: ServingWeights, entry, h: torch.Tensor,
-              ab: int) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class MoEOptions:
+    """The expert-route knobs of the JAX engine's environment
+    (``LCTPU_MOE_GATHER_MAX``, ``LCTPU_MOE_GROUPED``,
+    ``LCTPU_MOE_GROUPED_MIN``) as arguments, with JAX's defaults:
+    ``gather_max`` None means E // top_k; ``grouped`` is "auto" (from
+    ``grouped_min`` tokens on), True (always where the layouts allow) or
+    False (never)."""
+
+    gather_max: Optional[int] = None
+    grouped: Union[str, bool] = "auto"
+    grouped_min: int = 257
+
+    def __post_init__(self):
+        if self.grouped not in ("auto", True, False):
+            raise ValueError("moe_grouped is 'auto', True or False")
+
+
+def _is_layout(qp, layout: str) -> bool:
+    return isinstance(qp, QLinearParams) and qp.layout == layout
+
+
+def pick_moe_route(entry, n: int, moe: A.MoESpec,
+                   opts: MoEOptions = MoEOptions()) -> str:
+    """The expert route of a MoE MLP call on n tokens, by the JAX
+    engine's conditions on a TPU, unsharded
+    (``lightcompress_tpu/serving/engine.py:81-163``):
+    ``gathered`` (#8) at n <= gather_max with a ``stacked_planes`` gate
+    and n * top_k <= E; ``gathered_plain`` at n <= gather_max otherwise;
+    ``grouped`` (#9) with planes gate/up, a planes or int8 ``stacked``
+    down and ``grouped`` True or "auto" at n >= grouped_min; else
+    ``dense``."""
+    E, k = moe.num_experts, moe.top_k
+    thresh = (opts.gather_max if opts.gather_max is not None
+              else max(1, E // max(1, k)))
+    if n <= thresh:
+        if _is_layout(entry["mlp.gate"], "stacked_planes") and n * k <= E:
+            return "gathered"
+        return "gathered_plain"
+    down = entry["mlp.down"]
+    if (all(_is_layout(entry[nm], "stacked_planes")
+            for nm in ("mlp.gate", "mlp.up"))
+            and (_is_layout(down, "stacked_planes")
+                 or (_is_layout(down, "stacked") and down.bits == 8))
+            and (opts.grouped is True
+                 or (opts.grouped == "auto" and n >= opts.grouped_min))):
+        return "grouped"
+    return "dense"
+
+
+def _moe_gathered(sw, entry, x2, topi, topw):
+    """The #8 route: every selection's token row against its expert, for
+    gate, up and down; the down's input is the selection's own row."""
+    m = sw.arch.moe
+    n, H = x2.shape
+    dp = entry["mlp.down"]
+    if not _is_layout(dp, "stacked_planes"):
+        raise ValueError(
+            "the gathered expert route needs a stacked_planes down "
+            "projection; this one is int8 'stacked'.  The JAX engine tests "
+            "only the gate's layout here (lightcompress_tpu/serving/"
+            "engine.py:93-96) and hands the down's int8 codes to "
+            "w4a8_gathered_matmul, which fails on a TPU (a fault of the "
+            "reference; pass moe_gather_max=0)")
+    n_sel = n * m.top_k
+    e_flat = topi.reshape(-1).to(torch.int32)
+    t_flat = torch.arange(n, dtype=torch.int32,
+                          device=x2.device).repeat_interleave(m.top_k)
+    xq, xs = quantize_act_per_token(x2)
+    gp, upp = entry["mlp.gate"], entry["mlp.up"]
+    g = w4a8_gathered_matmul(xq, xs, gp.codes, gp.scales, gp.zeros, e_flat,
+                             t_flat)
+    u = w4a8_gathered_matmul(xq, xs, upp.codes, upp.scales, upp.zeros,
+                             e_flat, t_flat)
+    mq, ms = quantize_act_per_token(
+        (A._act(g, sw.arch.act_fn) * u).to(torch.bfloat16))
+    d = w4a8_gathered_matmul(
+        mq, ms, dp.codes, dp.scales, dp.zeros, e_flat,
+        torch.arange(n_sel, dtype=torch.int32, device=x2.device))
+    return torch.einsum("nkh,nk->nh", d.reshape(n, m.top_k, H), topw)
+
+
+def _moe_dense(sw, entry, x2, topi, topw):
+    """Every expert on every token (#6 at n <= 256), combined by the
+    router weights; in blocks of MOE_DENSE_BLOCK tokens above that."""
+    m = sw.arch.moe
+    n, H = x2.shape
+
+    def block(xb, wb):
+        g = apply_qlinear_stacked(entry["mlp.gate"], xb)
+        u = apply_qlinear_stacked(entry["mlp.up"], xb)
+        mid = A._act(g, sw.arch.act_fn) * u
+        d = apply_qlinear_stacked(entry["mlp.down"],
+                                  mid.to(torch.bfloat16), pair=True)
+        return torch.einsum("enh,ne->nh", d, wb)
+
+    w_full = torch.zeros((n, m.num_experts), dtype=torch.float32,
+                         device=x2.device).scatter_(1, topi, topw)
+    NB = MOE_DENSE_BLOCK
+    if n > NB and n % NB == 0:
+        return torch.cat([block(x2[i:i + NB], w_full[i:i + NB])
+                          for i in range(0, n, NB)])
+    return block(x2, w_full)
+
+
+def _moe_mlp(sw: ServingWeights, entry, h2: torch.Tensor, ab: int,
+             opts: MoEOptions = MoEOptions()) -> torch.Tensor:
+    """The serving MoE MLP on (S, T, H): router logits in f32 from bf16
+    operands, ``A.moe_route``, the expert route ``pick_moe_route`` picks,
+    plus the shared experts at ``act_bits``."""
+    arch = sw.arch
+    m = arch.moe
+    Bs, T, H = h2.shape
+    x2 = h2.reshape(-1, H)
+    logits = torch.matmul(
+        x2.to(torch.bfloat16).float(),
+        entry["mlp.router"]["weight"].to(torch.bfloat16).float().t())
+    topi, topw = A.moe_route(m, logits, entry.get("mlp.router_bias"))
+    route = pick_moe_route(entry, x2.shape[0], m, opts)
+    if route == "gathered":
+        y = _moe_gathered(sw, entry, x2, topi, topw)
+    elif route == "gathered_plain":
+        y = torch.zeros((x2.shape[0], H), dtype=torch.float32,
+                        device=x2.device)
+        for k in range(m.top_k):
+            e = topi[:, k]
+            gk = apply_qlinear_gathered(entry["mlp.gate"], x2, e)
+            uk = apply_qlinear_gathered(entry["mlp.up"], x2, e)
+            dk = apply_qlinear_gathered(
+                entry["mlp.down"],
+                (A._act(gk, arch.act_fn) * uk).to(torch.bfloat16), e)
+            y = y + topw[:, k:k + 1] * dk
+    elif route == "grouped":
+        y = moe_mlp_grouped(entry, x2, topi, topw, arch.act_fn)
+    else:
+        y = _moe_dense(sw, entry, x2, topi, topw)
+    if "mlp.shared_gate" in entry:
+        sg = apply_qlinear(entry["mlp.shared_gate"], x2, act_bits=ab)
+        su = apply_qlinear(entry["mlp.shared_up"], x2, act_bits=ab)
+        smid = A._act(sg, arch.act_fn) * su
+        y = y + apply_qlinear(entry["mlp.shared_down"], smid.to(h2.dtype),
+                              act_bits=ab)
+    return y.reshape(Bs, T, H).to(h2.dtype)
+
+
+def _mlp_tail(sw: ServingWeights, entry, h: torch.Tensor, ab: int,
+              moe: MoEOptions = MoEOptions()) -> torch.Tensor:
+    """Post-attention MLP tail (norm, MLP, residual), dispatching MoE
+    blocks to ``_moe_mlp`` (JAX's ``_mlp_tail_serving``)."""
     h2 = A.apply_norm(h, entry["ln2"], sw.arch)
+    if "mlp.router" in entry:
+        return h + _moe_mlp(sw, entry, h2, ab, moe)
     g, u = _gateup_proj(entry, h2, ab)
     mid = A._act(g, sw.arch.act_fn) * u
     return h + apply_qlinear(entry["mlp.down"], mid, act_bits=ab)
@@ -137,11 +303,13 @@ def _decode_qkv(sw, entry, x):
                      sw.act_bits)
 
 
-def _decode_mlp(sw, entry, h):
+def _decode_mlp(sw, entry, h, moe: MoEOptions = MoEOptions()):
     """h + MLP(h) of the decode step, fused as in ``_decode_qkv`` (the
-    down projection must be fused too)."""
+    down projection must be fused too); MoE blocks take ``_moe_mlp``."""
     down = entry["mlp.down"]
     h2 = h[:, 0, :]
+    if "mlp.router" in entry:
+        return _mlp_tail(sw, entry, h, sw.act_bits, moe)
     if fused_ok(sw, down):
         if "mlp.gateup" in entry and fused_ok(sw, entry["mlp.gateup"]):
             gu = _flin(sw, entry["mlp.gateup"], h2, True)
@@ -158,7 +326,7 @@ def _decode_mlp(sw, entry, h):
 
 
 def _block_apply(sw: ServingWeights, entry, x: torch.Tensor, cos, sin,
-                 mask: torch.Tensor):
+                 mask: torch.Tensor, moe: MoEOptions = MoEOptions()):
     """One block on (N, T, H) prompts with no earlier KV.  Returns
     (y, k, v) with post-rope K/V (N, Hkv, T, D)."""
     arch, ab = sw.arch, sw.act_bits
@@ -173,7 +341,7 @@ def _block_apply(sw: ServingWeights, entry, x: torch.Tensor, cos, sin,
     ctx = A.sdpa(q, k, v, mask, kv_groups=nh // nkv)
     ctx = ctx.transpose(1, 2).reshape(N, T, nh * hd)
     h = x + apply_qlinear(entry["attn.o"], ctx, act_bits=ab)
-    return _mlp_tail(sw, entry, h, ab), k, v
+    return _mlp_tail(sw, entry, h, ab, moe), k, v
 
 
 def _attend_xla8a(qg, kq, ks, vq, vs, cache: KVCache, li: int,
@@ -197,7 +365,8 @@ def _attend_xla8a(qg, kq, ks, vq, vs, cache: KVCache, li: int,
 
 def _block_apply_decode(sw: ServingWeights, entry, x: torch.Tensor, cos,
                         sin, cache: KVCache, li: int, lengths: torch.Tensor,
-                        impl: str) -> torch.Tensor:
+                        impl: str, moe: MoEOptions = MoEOptions()
+                        ) -> torch.Tensor:
     """One decode block on (S, 1, H) through the attention route ``impl``
     (module docstring); the fresh token ends up in the cache at each
     slot's length."""
@@ -236,7 +405,7 @@ def _block_apply_decode(sw: ServingWeights, entry, x: torch.Tensor, cos,
         h = x + _flin(sw, entry["attn.o"], ctx[:, 0], False)[:, None]
     else:
         h = x + apply_qlinear(entry["attn.o"], ctx, act_bits=ab)
-    return _decode_mlp(sw, entry, h)
+    return _decode_mlp(sw, entry, h, moe)
 
 
 class LLMEngine:
@@ -246,12 +415,18 @@ class LLMEngine:
 
     ``kv_bits`` 8, 4 or "auto" (4 from ``max_len`` 4096 on, as in the JAX
     engine); ``attn_impl`` "auto", "xla", "bd4" or "pallas" (module
-    docstring).  Other JAX routes raise ``NotImplementedError``."""
+    docstring; a MoE model always takes ``xla``, so it serves at kv8).
+    ``moe_gather_max``, ``moe_grouped`` and ``moe_grouped_min`` set the
+    expert routes (``MoEOptions``).  Other JAX routes raise
+    ``NotImplementedError``."""
 
     def __init__(self, weights: ServingWeights, max_slots: int = 8,
                  max_len: int = 1024, kv_bits: Union[int, str] = 8,
                  prefill_buckets: Sequence[int] = (64, 128, 256, 512),
                  seed: int = 0, attn_impl: str = "auto",
+                 moe_gather_max: Optional[int] = None,
+                 moe_grouped: Union[str, bool] = "auto",
+                 moe_grouped_min: int = 257,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         if weights.embed.device.type != self.device.type:
@@ -266,11 +441,14 @@ class LLMEngine:
                 "attn_impl='pallas' is probe-only (loses to the auto-picked "
                 "path engine-side at every measured shape; REPORT r4); use "
                 "attn_impl='auto'", stacklevel=2)
+        if weights.arch.moe is not None:
+            attn_impl = "xla"  # as the JAX engine routes MoE blocks
         if (kv_bits, attn_impl) not in ROUTES:
             raise NotImplementedError(
                 f"kv_bits={kv_bits} with attn_impl={attn_impl!r} is not "
                 f"ported; the port serves {sorted(ROUTES)}")
         self.attn_impl = attn_impl
+        self.moe = MoEOptions(moe_gather_max, moe_grouped, moe_grouped_min)
         self.sw = weights
         self.arch = weights.arch
         self.max_slots = max_slots
@@ -325,7 +503,8 @@ class LLMEngine:
                           < true_lens[:, None], 0.0, neg)
         mask = mask + pad[:, None, None, :]
         for li, entry in enumerate(sw.blocks):
-            x, k_new, v_new = _block_apply(sw, entry, x, cos, sin, mask)
+            x, k_new, v_new = _block_apply(sw, entry, x, cos, sin, mask,
+                                           self.moe)
             append_slots(self.cache, li, slots, k_new, v_new)
         xl = A.rmsnorm(x, sw.norm.get("weight"), arch.rms_eps)
         xl_last = xl[torch.arange(N, device=dev), true_lens - 1][:, None]
@@ -343,7 +522,7 @@ class LLMEngine:
         cos, sin = A.rope_cos_sin(arch, lengths[:, None])  # (S, 1, D)
         for li, entry in enumerate(sw.blocks):
             x = _block_apply_decode(sw, entry, x, cos, sin, self.cache, li,
-                                    lengths, self.attn_impl)
+                                    lengths, self.attn_impl, self.moe)
         xl = A.rmsnorm(x, sw.norm.get("weight"), arch.rms_eps)
         logits = head_logits(sw, xl)[:, 0]
         self.lengths = torch.where(active_mask, lengths + 1, lengths)

@@ -1,7 +1,9 @@
-"""Serving weights: adapter params -> packed W4 serving weights (port of the
-dense part of lightcompress_tpu/serving/quantized_model.py: RTN with the
-``layout``, ``fused_rms`` and ``fuse_qkv`` options, the int8 per-channel
-head, ``head_logits`` and ``apply_qlinear``)."""
+"""Serving weights: adapter params -> packed W4 serving weights (port of
+lightcompress_tpu/serving/quantized_model.py: RTN with the ``layout``,
+``fused_rms`` and ``fuse_qkv`` options, the int8 per-channel head,
+``head_logits`` and ``apply_qlinear``; for MoE blocks the stacked experts
+(``quantize_linear_stacked``), their dense, gathered and grouped linears and
+the selection grouping of the grouped route)."""
 
 from __future__ import annotations
 
@@ -13,8 +15,12 @@ import torch
 from ..device import DeviceLike, div, resolve_device
 from ..models import arch as A
 from ..models.base import resolve
+from ..ops.moe_matmul import (M_TILE, w4a8_grouped_matmul,
+                              w4a8_stacked_matmul)
 from ..ops.qlinear import QLinearParams, qlinear_apply, quantize_linear
-from ..quant import QuantSpec
+from ..ops.w4_matmul import (DECODE_M_MAX, quantize_act_per_token,
+                             unpack_int4_planes)
+from ..quant import QuantSpec, real_quant_weight
 
 # vocab rows per head matmul: bounds the f32 copy of the head codes that
 # exact f32 logits need (8192 x 4096 x 4 B = 128 MiB at Llama-3-8B width)
@@ -46,6 +52,185 @@ _FUSED = {"attn.qkv": ("attn.q", "attn.k", "attn.v"),
           "mlp.gateup": ("mlp.gate", "mlp.up")}
 
 
+# ---------------------------------------------------------------------------
+# stacked MoE experts
+# ---------------------------------------------------------------------------
+
+def quantize_linear_stacked(w3: torch.Tensor, spec: QuantSpec,
+                            layout: str = "auto") -> QLinearParams:
+    """Per-expert quantization of a stacked (E, oc, ic) expert weight.
+
+    ``stacked_planes`` (W4 planes per expert: codes (E, oc, ic/8) int32,
+    bf16 s and zs (E, oc, G), the layout the MoE kernels take) where
+    ``ic % (8*group) == 0 and oc % 128 == 0``; elsewhere, with
+    ``layout="auto"``, the JAX package's int8 per-channel symmetric
+    fallback ``stacked`` (codes (E, oc, ic) int8, f32 scales (E, oc, 1),
+    ``bits`` 8: the effective bit width is recorded, not hidden).  Each
+    expert is quantized on its own, through ``device.div``."""
+    E, oc, ic = w3.shape
+    gs = spec.group_size if spec.granularity == "per_group" else 0
+    if (layout in ("auto", "planes") and spec.bit == 4 and gs
+            and ic % (8 * gs) == 0 and oc % 128 == 0):
+        parts = [quantize_linear(w3[e].float(), spec, layout="planes")
+                 for e in range(E)]
+        assert all(p.tiled for p in parts)
+        return QLinearParams(
+            torch.stack([p.codes for p in parts]),
+            torch.stack([p.scales for p in parts]),
+            torch.stack([p.zeros for p in parts]), None, gs,
+            "stacked_planes", True, 4)
+    if layout == "auto" and spec.bit == 4:
+        spec8 = QuantSpec(bit=8, symmetric=True, granularity="per_channel")
+        parts = [real_quant_weight(w3[e].float(), spec8) for e in range(E)]
+        return QLinearParams(
+            torch.stack([c for c, _, _ in parts]),
+            torch.stack([sc.float() for _, sc, _ in parts]), None, None, 0,
+            "stacked", False, 8)
+    raise NotImplementedError(
+        f"{spec.bit}-bit stacked experts with layout={layout!r} (the int4 "
+        f"'rows' storage) are not ported")
+
+
+def dequant_weight_stacked(qp: QLinearParams,
+                           dtype: torch.dtype = torch.bfloat16
+                           ) -> torch.Tensor:
+    """(E, oc, ic) weights of a stacked expert entry: c*s - zs per group
+    (planes), or codes * scale per channel (int8), in f32, then ``dtype``."""
+    E, N = qp.codes.shape[:2]
+    if qp.layout == "stacked_planes":
+        K = qp.codes.shape[2] * 8
+        G = qp.scales.shape[2]
+        u = unpack_int4_planes(qp.codes.reshape(E * N, -1), K).float()
+        w = (u.reshape(E, N, G, K // G) * qp.scales.float()[..., None]
+             - qp.zeros.float()[..., None])
+        return w.reshape(E, N, K).to(dtype)
+    if qp.layout == "stacked" and qp.bits == 8:
+        return (qp.codes.float() * qp.scales.float()).to(dtype)
+    raise ValueError(f"not a stacked expert entry: {qp.layout!r}, "
+                     f"{qp.bits} bits")
+
+
+def _bf16_matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w^T`` (w batched (..., oc, ic)) of bf16-rounded operands with
+    f32 accumulation and an f32 result (JAX's einsum with
+    ``preferred_element_type=f32``): the bf16 values are exact in f32."""
+    return torch.matmul(x.to(torch.bfloat16).float(),
+                        w.to(torch.bfloat16).float().transpose(-1, -2))
+
+
+def apply_qlinear_stacked(qp: QLinearParams, x: torch.Tensor,
+                          pair: bool = False) -> torch.Tensor:
+    """Stacked-expert linear: x (n, ic) -> (E, n, oc); ``pair`` means x
+    carries the expert dim ((E, n, ic), the down projection's input).
+
+    ``stacked_planes`` at n <= 256 runs kernel #6 after the per-token int8
+    act quant (as on a TPU; here on any device, the plain version on the
+    CPU); otherwise the dequantized bf16 experts in a matmul."""
+    if qp.layout == "stacked_planes" and x.shape[-2] <= DECODE_M_MAX:
+        if pair:
+            E, n, ic = x.shape
+            xq, xs = quantize_act_per_token(x.reshape(E * n, ic))
+            xq, xs = xq.reshape(E, n, ic), xs.reshape(E, n, 1)
+        else:
+            xq, xs = quantize_act_per_token(x)
+        return w4a8_stacked_matmul(xq, xs, qp.codes, qp.scales, qp.zeros,
+                                   pair=pair)
+    return _bf16_matmul_f32(x if pair else x[None],
+                            dequant_weight_stacked(qp))
+
+
+def apply_qlinear_gathered(qp: QLinearParams, x: torch.Tensor,
+                           e_idx: torch.Tensor) -> torch.Tensor:
+    """Per-token expert-gathered linear: x (n, ic) and e_idx (n,) -> (n,
+    oc), through each token's dequantized bf16 expert (the JAX engine's
+    small-batch route where the gathered kernel does not apply)."""
+    w = dequant_weight_stacked(dataclasses.replace(
+        qp, codes=qp.codes[e_idx], scales=qp.scales[e_idx],
+        zeros=None if qp.zeros is None else qp.zeros[e_idx]))
+    return _bf16_matmul_f32(x[:, None, :], w)[:, 0]
+
+
+def moe_group_selections(topi: torch.Tensor, num_experts: int,
+                         m_tile: int = M_TILE):
+    """Dropless grouping of the (n, top_k) selections by expert, each
+    expert's run padded to an ``m_tile`` boundary, so that every M block
+    of the grouped rows belongs to one expert; Mp = (ceil(S/m_tile) + E)
+    * m_tile rows bound the worst padding.  Returns int32 ``(gather_row``
+    (Mp,): the source token of each grouped row, n for padding rows;
+    ``sel_pos`` (S,): the grouped row of selection s in token-major
+    order; ``block_eid`` (Mp/m_tile,): the expert of each M block)``, equal
+    to the JAX package's bit for bit (a stable argsort, searchsorted to
+    the right, clamped to E - 1)."""
+    n, top_k = topi.shape
+    S = n * top_k
+    E = num_experts
+    dev = topi.device
+    Mp = (-(-S // m_tile) + E) * m_tile
+    e_flat = topi.reshape(-1).long()
+    order = torch.sort(e_flat, stable=True).indices
+    e_sorted = e_flat[order]
+    counts = torch.bincount(e_flat, minlength=E)
+    padded = -(-counts // m_tile) * m_tile
+    start = torch.cumsum(counts, 0) - counts
+    pstart = torch.cumsum(padded, 0) - padded
+    pos_sorted = (torch.arange(S, device=dev) - start[e_sorted]
+                  + pstart[e_sorted])
+    gather_row = torch.full((Mp,), n, dtype=torch.long, device=dev)
+    gather_row[pos_sorted] = order // top_k
+    sel_pos = torch.zeros((S,), dtype=torch.long, device=dev)
+    sel_pos[order] = pos_sorted
+    pend = torch.cumsum(padded, 0)
+    block_eid = torch.searchsorted(
+        pend, torch.arange(Mp // m_tile, device=dev) * m_tile, right=True)
+    return (gather_row.to(torch.int32), sel_pos.to(torch.int32),
+            block_eid.clamp_max(E - 1).to(torch.int32))
+
+
+def moe_mlp_grouped(entry: Dict[str, Any], x2: torch.Tensor,
+                    topi: torch.Tensor, topw: torch.Tensor, act_fn: str,
+                    m_tile: int = M_TILE) -> torch.Tensor:
+    """MoE MLP through the capacity-grouped kernel #9: (n, H) tokens and
+    (n, top_k) routing -> (n, H) f32.  Each token is quantized once and
+    its int8 row gathered into the expert-sorted layout (padding rows:
+    the zero dummy row with scale 1); gate, up and down run as three
+    grouped calls over the live experts only; the result is unsorted and
+    weighted by the router.  An int8 ``stacked`` down projection needs
+    kernel #10 (``w8a8_grouped_matmul``), which is not ported: on the
+    card it raises, on the CPU the JAX package's plain block-gathered
+    dequant matmul serves it."""
+    gp, up, dp = entry["mlp.gate"], entry["mlp.up"], entry["mlp.down"]
+    E = gp.codes.shape[0]
+    n, H = x2.shape
+    top_k = topi.shape[1]
+    gather_row, sel_pos, block_eid = moe_group_selections(topi, E, m_tile)
+    gather_row, sel_pos = gather_row.long(), sel_pos.long()
+    xq_t, xs_t = quantize_act_per_token(x2)
+    xq = torch.cat([xq_t, xq_t.new_zeros((1, H))])[gather_row]
+    xs = torch.cat([xs_t, xs_t.new_ones((1, 1))])[gather_row]
+    g = w4a8_grouped_matmul(xq, xs, gp.codes, gp.scales, gp.zeros,
+                            block_eid, m_tile)
+    u = w4a8_grouped_matmul(xq, xs, up.codes, up.scales, up.zeros,
+                            block_eid, m_tile)
+    mid = A._act(g, act_fn) * u
+    if dp.layout == "stacked_planes":
+        mq, ms = quantize_act_per_token(mid.to(torch.bfloat16))
+        d = w4a8_grouped_matmul(mq, ms, dp.codes, dp.scales, dp.zeros,
+                                block_eid, m_tile)
+    elif x2.device.type != "cpu":
+        raise NotImplementedError(
+            "an int8 'stacked' down projection on the grouped route needs "
+            "kernel #10 w8a8_grouped_matmul, which is not ported")
+    else:
+        n_mb = block_eid.shape[0]
+        midb = mid.to(torch.bfloat16).reshape(n_mb, m_tile, -1)
+        be = block_eid.long()
+        d = _bf16_matmul_f32(midb, dp.codes[be].to(torch.bfloat16))
+        d = (d * dp.scales[be].reshape(n_mb, 1, H)).reshape(n_mb * m_tile,
+                                                            H)
+    y_sel = d[sel_pos].reshape(n, top_k, H)
+    return torch.einsum("nkh,nk->nh", y_sel, topw)
+
+
 def build_serving_weights(model, wspec: QuantSpec, act_bits: int = 16,
                           layout: str = "planes", fused_rms: bool = False,
                           fuse_qkv: bool = False,
@@ -59,13 +244,19 @@ def build_serving_weights(model, wspec: QuantSpec, act_bits: int = 16,
     weight's own dtype before quantization and stores ones as the ln
     weights.  ``fuse_qkv`` concatenates q/k/v into ``attn.qkv`` and
     gate/up into ``mlp.gateup`` along the output channels (exact: the
-    quantization is per output row)."""
+    quantization is per output row).
+
+    A MoE block's stacked experts go through ``quantize_linear_stacked``
+    whatever ``layout`` says, its router stays bf16, ``fuse_qkv`` never
+    merges the stacked gate/up, and ``fused_rms`` is off for MoE models
+    (the router and every expert hang off ln2), as in JAX."""
     dev = resolve_device(device)
     if wspec.bit != 4:
         raise ValueError("the ported serving path is W4")
     if act_bits not in (8, 16):
         raise ValueError("act_bits is 8 or 16")
     arch, params = model.arch, model.params
+    fused_rms = fused_rms and arch.moe is None
     blocks_out = []
     for idx in range(model.num_blocks):
         bp = params["blocks"][idx]
@@ -75,6 +266,8 @@ def build_serving_weights(model, wspec: QuantSpec, act_bits: int = 16,
                 gammas.update(dict.fromkeys(names, bp[ln]["weight"].to(dev)))
         pend: Dict[str, tuple] = {}
         for name in model.get_block_linear_names(idx):
+            if name == "mlp.router":
+                continue  # kept bf16 below
             node = resolve(bp, name)
             w = node["weight"].to(dev)
             if name in gammas:
@@ -83,6 +276,8 @@ def build_serving_weights(model, wspec: QuantSpec, act_bits: int = 16,
             pend[name] = (w, None if bias is None else bias.to(dev))
         if fuse_qkv:
             for merged, names in _FUSED.items():
+                if pend[names[0]][0].dim() != 2:
+                    continue  # stacked experts stay apart
                 ws, bs = zip(*(pend.pop(n) for n in names))
                 bias = None
                 if any(b is not None for b in bs):
@@ -91,12 +286,20 @@ def build_serving_weights(model, wspec: QuantSpec, act_bits: int = 16,
                         for w, b in zip(ws, bs)])
                 pend[merged] = (torch.cat(ws), bias)
         entry: Dict[str, Any] = {
-            name: quantize_linear(w.float(), wspec, bias=bias, layout=layout)
+            name: (quantize_linear_stacked(w, wspec) if w.dim() == 3 else
+                   quantize_linear(w.float(), wspec, bias=bias,
+                                   layout=layout))
             for name, (w, bias) in pend.items()}
         for ln in _LLAMA_NORMS:
             entry[ln] = {k: t.to(dev) for k, t in bp[ln].items()}
             if fused_rms:
                 entry[ln]["weight"] = torch.ones_like(entry[ln]["weight"])
+        mp = bp["mlp"]
+        if arch.moe is not None and "router" in mp:
+            entry["mlp.router"] = {
+                "weight": mp["router"]["weight"].to(dev, torch.bfloat16)}
+            if "router_bias" in mp:
+                entry["mlp.router_bias"] = mp["router_bias"].to(dev)
         blocks_out.append(entry)
     head_w = (params["embed"]["weight"] if arch.tie_word_embeddings
               else params["lm_head"]["weight"])
@@ -130,5 +333,5 @@ def head_logits(sw: ServingWeights, xl: torch.Tensor) -> torch.Tensor:
 
 def apply_qlinear(entry: QLinearParams, x: torch.Tensor,
                   act_bits: int = 16) -> torch.Tensor:
-    """A serving linear (W4, planes or s4)."""
+    """A serving linear (W4, planes or s4; not a stacked expert entry)."""
     return qlinear_apply(x, entry, act_bits=act_bits)

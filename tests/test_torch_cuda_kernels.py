@@ -9,11 +9,14 @@ import pytest
 import torch
 
 from lightcompress_tpu_torch.models import ArchSpec, Llama, init_params
+from lightcompress_tpu_torch.models import arch as A
+from lightcompress_tpu_torch.ops import moe_matmul as MM
 from lightcompress_tpu_torch.ops import w4_matmul as W
 from lightcompress_tpu_torch.ops.qlinear import quantize_linear
 from lightcompress_tpu_torch.quant import QuantSpec
 from lightcompress_tpu_torch.serving import (LLMEngine, build_serving_weights,
                                              quantize_kv)
+from lightcompress_tpu_torch.serving import quantized_model as QM
 
 pytestmark = pytest.mark.cuda
 
@@ -337,3 +340,143 @@ def test_fused_kernels_f32_and_symmetric(dev):
                                             s4.zeros, rms=rms), 1e-4)
     with pytest.raises(ValueError):
         W.w4a8_linear_bytes_fused(x.half(), s4.codes, s4.scales, s4.zeros)
+
+
+# ---------------------------------------------------------------------------
+# the MoE kernels (#6, #8, #9) at Mixtral-8x7B's expert shapes: 8 experts,
+# gate/up 14336 x 4096, down 4096 x 14336
+# ---------------------------------------------------------------------------
+
+MIXTRAL = ArchSpec(family="llama", vocab_size=32000, hidden_size=4096,
+                   intermediate_size=14336, num_layers=32, num_heads=32,
+                   num_kv_heads=8, head_dim=128,
+                   moe=A.MoESpec(num_experts=8, top_k=2,
+                                 moe_intermediate_size=14336))
+EXPERT_SHAPES = {"gate": (14336, 4096), "down": (4096, 14336)}
+
+
+@pytest.fixture(scope="module")
+def experts():
+    """Stacked Mixtral-shaped expert weights, made once per module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    out = {}
+    for name, (N, K) in EXPERT_SHAPES.items():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(N + 2 * K)
+        w3 = (torch.randn((8, N, K), generator=gen, device=dev)
+              * 0.02).to(torch.bfloat16)
+        out[name] = QM.quantize_linear_stacked(w3, WSPEC)
+        assert out[name].layout == "stacked_planes"
+    return out
+
+
+def _moe_close(got, ref):
+    """The kernels run the plain versions' sequence of rounded f32 ops, so
+    they are held to the f32 tolerance of the W4 kernels (1e-4 of the
+    largest output); chip_smoke.py reports whether they are equal."""
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    err = (got - ref).abs().max()
+    assert err <= 1e-4 * ref.abs().max(), err
+
+
+def _acts(dev, shape, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    xq, xs = W.quantize_act_per_token(x.reshape(-1, shape[-1]))
+    return xq.reshape(shape), xs.reshape(*shape[:-1], 1)
+
+
+@pytest.mark.parametrize("B", [3, 8, 256])
+@pytest.mark.parametrize("pair", [False, True])
+def test_stacked_kernel_matches_plain(dev, experts, B, pair):
+    qp = experts["down" if pair else "gate"]
+    K = qp.codes.shape[2] * 8
+    xq, xs = _acts(dev, (8, B, K) if pair else (B, K), B)
+    args = (qp.codes, qp.scales, qp.zeros)
+    MM.reset_launch_counts()
+    got = MM.w4a8_stacked_matmul(xq, xs, *args, pair=pair)
+    _moe_close(got, MM.w4a8_stacked_matmul_plain(xq, xs, *args, pair))
+    assert [k.launches for k in MM.KERNELS] == [1, 0, 0]
+
+
+@pytest.mark.parametrize("case", ["n1", "n4", "one_expert"])
+@pytest.mark.parametrize("name", ["gate", "down"])
+def test_gathered_kernel_matches_plain(dev, experts, case, name):
+    """n = 1 and 4 tokens routed top-2 by a seeded router (2 and 8
+    selections); every selection on one expert."""
+    qp = experts[name]
+    K = qp.codes.shape[2] * 8
+    n = 1 if case == "n1" else 4
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n)
+    topi, _ = A.moe_route(MIXTRAL.moe, torch.randn((n, 8), generator=gen,
+                                                    device=dev))
+    e_idx = topi.reshape(-1).to(torch.int32)
+    if case == "one_expert":
+        e_idx = torch.full_like(e_idx, 5)
+    n_sel = e_idx.shape[0]
+    if name == "down":
+        t_idx = torch.arange(n_sel, dtype=torch.int32, device=dev)
+        xq, xs = _acts(dev, (n_sel, K), n_sel)
+    else:
+        t_idx = torch.arange(n, dtype=torch.int32,
+                             device=dev).repeat_interleave(2)
+        xq, xs = _acts(dev, (n, K), n)
+    args = (qp.codes, qp.scales, qp.zeros)
+    MM.reset_launch_counts()
+    got = MM.w4a8_gathered_matmul(xq, xs, *args, e_idx, t_idx)
+    _moe_close(got, MM.w4a8_gathered_matmul_plain(xq, xs, *args, e_idx,
+                                                  t_idx))
+    assert [k.launches for k in MM.KERNELS] == [0, 1, 0]
+
+
+@pytest.mark.parametrize("case,n,live", [("all_live", 1024, 8),
+                                         ("trailing_padding", 300, 5)])
+@pytest.mark.parametrize("name", ["gate", "down"])
+def test_grouped_kernel_matches_plain(dev, experts, case, n, live, name):
+    """The Mp = 3072 grouping of 1024 tokens with every expert live, and
+    300 tokens over 5 experts, whose grouping ends in padding-only blocks
+    (block_eid clamped to E - 1)."""
+    qp = experts[name]
+    K = qp.codes.shape[2] * 8
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n + live)
+    topi, _ = A.moe_route(MIXTRAL.moe, torch.randn((n, live), generator=gen,
+                                                    device=dev))
+    gr, _, be = QM.moe_group_selections(topi, 8)
+    counts = torch.bincount(topi.reshape(-1), minlength=8)
+    assert int((counts > 0).sum()) == live
+    if case == "all_live":
+        assert gr.shape[0] == 3072
+    else:
+        assert int(be[-1]) == 7 and int(counts[7]) == 0
+    xq_t, xs_t = _acts(dev, (n, K), n)
+    xq = torch.cat([xq_t, xq_t.new_zeros((1, K))])[gr.long()]
+    xs = torch.cat([xs_t, xs_t.new_ones((1, 1))])[gr.long()]
+    args = (qp.codes, qp.scales, qp.zeros)
+    MM.reset_launch_counts()
+    got = MM.w4a8_grouped_matmul(xq, xs, *args, be)
+    _moe_close(got, MM.w4a8_grouped_matmul_plain(xq, xs, *args, be))
+    assert bool((got[gr.long() == n] == 0).all())
+    assert [k.launches for k in MM.KERNELS] == [0, 0, 1]
+
+
+def test_moe_kernels_reject_what_they_cannot_take(dev, experts):
+    qp = experts["gate"]
+    args = (qp.codes, qp.scales, qp.zeros)
+    xq = torch.zeros((192, 4096), dtype=torch.int8, device=dev)
+    xs = torch.ones((192, 1), device=dev)
+    with pytest.raises(ValueError):
+        MM.w4a8_stacked_matmul(xq, xs, qp.codes, qp.scales.float(), qp.zeros)
+    with pytest.raises(ValueError):
+        MM.w4a8_grouped_matmul(xq, xs, *args,
+                               torch.zeros(2, dtype=torch.int32,
+                                           device=dev), m_tile=64 + 32)
+    with pytest.raises(ValueError):
+        MM.w4a8_gathered_matmul(xq, xs, *args,
+                                torch.zeros(3, dtype=torch.int32),
+                                torch.zeros(3, dtype=torch.int32))
