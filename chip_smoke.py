@@ -30,20 +30,30 @@ Phases (each prints one JSON line with its seconds):
      unfused s4 (#12 at prefill and decode);
   6. the engine's prefill logits against a forward of the same serving
      weights through the plain versions;
-  7. MoE: the three expert kernels (#6 stacked, #8 gathered, #9 grouped)
-     against their plain versions at Mixtral-8x7B's shapes, with times;
-     then, the Llama builds freed, Mixtral-8x7B at full width and depth
-     (random weights from a seed, made and quantized one block at a time):
-     8 prompts through the grouped prefill (#9) and the dense decode (#6),
-     2 prompts on 4 slots through a 256-row dense prefill (#6) and the
-     gathered decode (#8), torch.profiler over its decode steps, and its
-     prefill logits against the plain versions on the same routes;
-  8. a small Llama through each engine route and fused build, and a small
-     Mixtral-shaped model through each expert route, on the card against
-     the same on the CPU (the paths the CPU tests hold to the JAX
-     package);
-  9. the kernel summary line;
-  10. the result line.
+  7. MoE: the five expert kernels (#6 stacked, #8 gathered, #9 grouped at
+     Mixtral-8x7B's shapes; #7 small-M stacked at Qwen3-30B-A3B's gate/up
+     and Mixtral's down; #10 int8 grouped at Qwen3-30B-A3B's down, and at
+     a ragged N) against their plain versions, with times; then, the Llama
+     builds freed, Mixtral-8x7B at full width and depth (random weights
+     from a seed, made and quantized one block at a time): 8 prompts
+     through the grouped prefill (#9) and the dense decode (#6), 2 prompts
+     on 4 slots through a 256-row dense prefill (#6) and the gathered
+     decode (#8), torch.profiler over its decode steps, and its prefill
+     logits against the plain versions on the same routes;
+  8. Qwen3-30B-A3B at full width and depth, the Mixtral weights freed
+     (qk_norm; the int8 per-channel down of 768 inputs): 8 prompts on 32
+     slots through the grouped prefill (#9 gate/up, #10 down) and the
+     dense decode (#6 gate/up, the int8 down in torch), 2 prompts on 8
+     slots through the dense prefill (#6) and the small-M decode (#7),
+     torch.profiler over its decode steps, and its prefill logits against
+     the plain versions;
+  9. a small Llama through each engine route and fused build, a small
+     Mixtral-shaped model through each expert route, and a small
+     Qwen3-MoE-shaped model through the grouped route with the int8 down
+     and the small-M route, on the card against the same on the CPU (the
+     paths the CPU tests hold to the JAX package);
+  10. the kernel summary line;
+  11. the result line.
 Each engine phase sets every launch count to 0 just before it runs and
 reads the counts just after.
 Any failure raises and the script exits non-zero.  Without a CUDA device
@@ -66,7 +76,8 @@ import numpy as np
 import torch
 
 from lightcompress_tpu_torch.models import arch as A
-from lightcompress_tpu_torch.models import ArchSpec, Llama, init_params
+from lightcompress_tpu_torch.models import (ArchSpec, Llama, Qwen3Moe,
+                                            arch_from_hf_config, init_params)
 from lightcompress_tpu_torch.models.arch import MoESpec
 from lightcompress_tpu_torch.ops import _build
 from lightcompress_tpu_torch.ops import attention as AT
@@ -93,12 +104,35 @@ LLAMA3_8B = ArchSpec(
     head_dim=128, rope_theta=500000.0,
     rms_eps=1e-5, dtype=torch.bfloat16)
 # mistralai/Mixtral-8x7B-v0.1 config.json (no sliding window, untied head)
-MIXTRAL_8X7B = ArchSpec(
-    family="llama", vocab_size=32000, hidden_size=4096,
-    intermediate_size=14336, num_layers=32, num_heads=32, num_kv_heads=8,
-    head_dim=128, rope_theta=1e6, rms_eps=1e-5,
-    moe=MoESpec(num_experts=8, top_k=2, moe_intermediate_size=14336),
-    dtype=torch.bfloat16)
+MIXTRAL_8X7B = arch_from_hf_config({
+    "architectures": ["MixtralForCausalLM"], "attention_dropout": 0.0,
+    "bos_token_id": 1, "eos_token_id": 2, "hidden_act": "silu",
+    "hidden_size": 4096, "initializer_range": 0.02,
+    "intermediate_size": 14336, "max_position_embeddings": 32768,
+    "model_type": "mixtral", "num_attention_heads": 32,
+    "num_experts_per_tok": 2, "num_hidden_layers": 32,
+    "num_key_value_heads": 8, "num_local_experts": 8,
+    "output_router_logits": False, "rms_norm_eps": 1e-05,
+    "rope_theta": 1e6, "router_aux_loss_coef": 0.02, "sliding_window": None,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "use_cache": True, "vocab_size": 32000})
+# Qwen/Qwen3-30B-A3B config.json: 128 experts of width 768, top-8, head_dim
+# 128 (q 2048 -> 4096), qk_norm; every layer MoE
+QWEN3_30B_A3B = arch_from_hf_config({
+    "architectures": ["Qwen3MoeForCausalLM"], "attention_bias": False,
+    "attention_dropout": 0.0, "bos_token_id": 151643,
+    "decoder_sparse_step": 1, "eos_token_id": 151645, "head_dim": 128,
+    "hidden_act": "silu", "hidden_size": 2048, "initializer_range": 0.02,
+    "intermediate_size": 6144, "max_position_embeddings": 40960,
+    "max_window_layers": 48, "mlp_only_layers": [],
+    "model_type": "qwen3_moe", "moe_intermediate_size": 768,
+    "norm_topk_prob": True, "num_attention_heads": 32, "num_experts": 128,
+    "num_experts_per_tok": 8, "num_hidden_layers": 48,
+    "num_key_value_heads": 4, "output_router_logits": False,
+    "rms_norm_eps": 1e-06, "rope_scaling": None, "rope_theta": 1000000.0,
+    "router_aux_loss_coef": 0.001, "sliding_window": None,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "use_cache": True, "use_sliding_window": False, "vocab_size": 151936})
 WSPEC = QuantSpec(bit=4, symmetric=False, granularity="per_group",
                   group_size=128)
 # (name, N, K) of every linear of one Llama-3-8B block
@@ -111,6 +145,9 @@ PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
 PAD = 64 << 20  # > the 50 MB L2: written between timed launches
 TOL_ULP = 2.0 ** -8   # bf16 outputs: one bf16 ulp at the largest |y|
 TOL_F32 = 1e-4        # f32 outputs: summation-order noise
+# #7 against its plain version: the same bf16 weights and exact products,
+# summed in f32 in another order
+TOL_SMALLM = 1e-5
 KERNEL_INFO = {
     "w4a16_matmul": dict(
         source="lightcompress_tpu_torch/ops/csrc/w4_matmul.cu",
@@ -148,6 +185,12 @@ KERNEL_INFO = {
     "w4a8_grouped_matmul": dict(
         source="lightcompress_tpu_torch/ops/csrc/w4_moe.cu",
         replaces="lightcompress_tpu/ops/pallas_matmul.py:1170"),
+    "w4a8_stacked_matmul_smallm": dict(
+        source="lightcompress_tpu_torch/ops/csrc/w4_moe.cu",
+        replaces="lightcompress_tpu/ops/pallas_matmul.py:920"),
+    "w8a8_grouped_matmul": dict(
+        source="lightcompress_tpu_torch/ops/csrc/w8_grouped.cu",
+        replaces="lightcompress_tpu/ops/pallas_matmul.py:1261"),
 }
 W4_KERNELS = W.KERNELS + M.KERNELS
 KERNELS = W4_KERNELS + AT.KERNELS
@@ -380,19 +423,52 @@ def expert_bytes(N: int, K: int) -> int:
     return N * K // 2 + 2 * N * (K // 128) * 2
 
 
-def moe_bound(nbytes: int, ops: int):
+def moe_bound(nbytes: int, ops: int, kind: str = "int8"):
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = ops / PEAK_OPS["int8"] * 1e3
+    t_ops = ops / PEAK_OPS[kind] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
 
-def seeded_topi(n: int, gen, dev, experts: int = MOE_E) -> torch.Tensor:
+def seeded_topi(n: int, gen, dev, experts: int = MOE_E,
+                arch: ArchSpec = MIXTRAL_8X7B) -> torch.Tensor:
     """(n, top_k) routing of n random tokens by a random router over the
-    first ``experts`` experts (Mixtral's softmax top-2)."""
-    x = torch.randn((n, 4096), generator=gen, device=dev)
-    router = torch.randn((experts, 4096), generator=gen, device=dev) * 0.02
-    return A.moe_route(MIXTRAL_8X7B.moe, x @ router.t())[0]
+    first ``experts`` experts (``arch``'s routing: Mixtral's softmax
+    top-2 by default)."""
+    H = arch.hidden_size
+    x = torch.randn((n, H), generator=gen, device=dev)
+    router = torch.randn((experts, H), generator=gen, device=dev) * 0.02
+    return A.moe_route(arch.moe, x @ router.t())[0]
+
+
+def padded_expert_rows(x, topi, experts: int, top_k: int):
+    """The library's rows of a grouped call: each expert's tokens of x,
+    padded with zeros to the largest segment, (experts, seg, K)."""
+    flat = topi.reshape(-1)
+    seg = int(torch.bincount(flat, minlength=experts).max())
+    xpad = torch.zeros((experts, seg, x.shape[1]), dtype=torch.bfloat16,
+                       device=x.device)
+    for e in range(experts):
+        sel = torch.nonzero(flat == e)[:, 0] // top_k
+        xpad[e, :sel.numel()] = x[sel]
+    return xpad
+
+
+def grouped_operands(x, topi, experts: int):
+    """x's per-token int8 rows gathered into the grouping of ``topi``, as
+    ``moe_mlp_grouped`` gathers them, with the grouping's facts."""
+    gr, _, be = QM.moe_group_selections(topi, experts)
+    xq_t, xs_t = W.quantize_act_per_token(x)
+    K = x.shape[1]
+    xq = torch.cat([xq_t, xq_t.new_zeros((1, K))])[gr.long()]
+    xs = torch.cat([xs_t, xs_t.new_ones((1, 1))])[gr.long()]
+    counts = torch.bincount(topi.reshape(-1), minlength=experts)
+    Mp = gr.shape[0]
+    facts = dict(tokens=topi.shape[0], selections=topi.numel(), Mp=Mp,
+                 live_experts=int((counts > 0).sum()),
+                 padding_only_blocks=int(
+                     Mp // M.M_TILE - (-(-counts // M.M_TILE)).sum()))
+    return xq, xs, be, facts
 
 
 def phase_moe_kernels(dev) -> dict:
@@ -402,10 +478,12 @@ def phase_moe_kernels(dev) -> dict:
     prefill), #8 at n = 4 and 1 tokens (8 and 2 selections), #9 at the
     3072 grouped rows of 1024 tokens routed by a seeded router (every
     expert live) and at 300 tokens routed among 5 experts (3 absent,
-    padding-only blocks).  Times (kernel, plain, library, bound); the
-    library is torch.bmm of bf16 x over the pre-dequantized bf16 experts
-    at the same rows (for #8 the selections' experts gathered before the
-    timing; for #9 each expert's rows padded to the largest segment)."""
+    padding-only blocks), #7 at the down in pair mode (B = 8); then #7 and
+    #10 at Qwen3-30B-A3B's shapes (``qwen3moe_kernel_rows``).  Times
+    (kernel, plain, library, bound); the library is torch.bmm of bf16 x
+    over the pre-dequantized bf16 experts at the same rows (for #8 the
+    selections' experts gathered before the timing; for #9 and #10 each
+    expert's rows padded to the largest segment)."""
     t0 = time.time()
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 4)
@@ -420,19 +498,22 @@ def phase_moe_kernels(dev) -> dict:
     rows = []
 
     def row(kname, case, name, N, K, run, plain, library, nbytes, ops,
-            **extra):
+            tol=TOL_F32, kind="int8", exact=False, **extra):
+        """``exact``: the kernel must equal its plain version bit for
+        bit."""
         y, ref = run(), plain()
         torch.cuda.synchronize()
         err = float((y - ref).abs().max())
         scale = float(ref.abs().max())
-        if not (err <= TOL_F32 * scale and torch.isfinite(y).all()):
+        equal = bool(torch.equal(y, ref))
+        if not (err <= tol * scale and torch.isfinite(y).all()
+                and (equal or not exact)):
             raise AssertionError(f"{kname} {case} {name}: max|err| {err} > "
-                                 f"{TOL_F32} * {scale}")
-        b_ms, b_by = moe_bound(nbytes, ops)
+                                 f"{tol} * {scale} or not bit-equal")
+        b_ms, b_by = moe_bound(nbytes, ops, kind)
         rows.append(dict(
             kernel=kname, case=case, linear=name, N=N, K=K, **extra,
-            max_abs_err=err, max_abs_ref=scale, bit_equal=bool(
-                torch.equal(y, ref)),
+            max_abs_err=err, max_abs_ref=scale, tol=tol, bit_equal=equal,
             kernel_ms=time_ms(run, 20, pad), plain_ms=time_ms(plain, 3, pad),
             library_ms=time_ms(library, 20, pad), bound_ms=b_ms,
             bound_by=b_by))
@@ -481,42 +562,108 @@ def phase_moe_kernels(dev) -> dict:
             del wsel
     for case, n, experts in (("all_live", 1024, MOE_E), ("absent", 300, 5)):
         topi = seeded_topi(n, gen, dev, experts)
-        gr, _, be = QM.moe_group_selections(topi, MOE_E)
         counts = torch.bincount(topi.reshape(-1), minlength=MOE_E)
         if case == "all_live" and not bool((counts > 0).all()):
             raise AssertionError("the seeded router left an expert idle")
-        S, Mp = n * MOE_TOP_K, gr.shape[0]
-        live = int((counts > 0).sum())
-        pad_blocks = int(Mp // M.M_TILE - (-(-counts // M.M_TILE)).sum())
-        seg = int(counts.max())
         for name, N, K, _ in MOE_SHAPES:
             qp, wd = qps[name], wds[name]
             wa = (qp.codes, qp.scales, qp.zeros)
             x = torch.randn((n, K), generator=gen, device=dev).to(
                 torch.bfloat16)
-            xq_t, xs_t = W.quantize_act_per_token(x)
-            xq = torch.cat([xq_t, xq_t.new_zeros((1, K))])[gr.long()]
-            xs = torch.cat([xs_t, xs_t.new_ones((1, 1))])[gr.long()]
-            # the library's rows: each expert's padded to the largest
-            xpad = torch.zeros((MOE_E, seg, K), dtype=torch.bfloat16,
-                               device=dev)
-            flat = topi.reshape(-1)
-            for e in range(MOE_E):
-                sel = torch.nonzero(flat == e)[:, 0] // MOE_TOP_K
-                xpad[e, :sel.numel()] = x[sel]
+            xq, xs, be, facts = grouped_operands(x, topi, MOE_E)
+            xpad = padded_expert_rows(x, topi, MOE_E, MOE_TOP_K)
+            Mp, live = facts["Mp"], facts["live_experts"]
             row("w4a8_grouped_matmul", case, name, N, K,
                 lambda: M.w4a8_grouped_matmul(xq, xs, *wa, be),
                 lambda: M.w4a8_grouped_matmul_plain(xq, xs, *wa, be),
                 lambda: torch.bmm(xpad, wd.transpose(1, 2)),
                 live * expert_bytes(N, K) + Mp * K + Mp * 4 + Mp * N * 4,
-                2 * S * N * K, tokens=n, selections=S, Mp=Mp,
-                live_experts=live, padding_only_blocks=pad_blocks,
-                library_rows_per_expert=seg,
+                2 * facts["selections"] * N * K, **facts,
+                library_rows_per_expert=xpad.shape[1],
                 ops_bound_at_Mp_ms=2 * Mp * N * K / PEAK_OPS["int8"] * 1e3)
-    del qps, wds
+    # #7 at Mixtral's down in pair mode, 8 rows an expert
+    qp, wd = qps["down"], wds["down"]
+    N, K = qp.codes.shape[1], qp.codes.shape[2] * 8
+    x = torch.randn((MOE_E, 8, K), generator=gen, device=dev).to(
+        torch.bfloat16)
+    xq, xs = W.quantize_act_per_token(x.reshape(-1, K))
+    xq, xs = xq.reshape(MOE_E, 8, K), xs.reshape(MOE_E, 8, 1)
+    wa = (qp.codes, qp.scales, qp.zeros)
+    row("w4a8_stacked_matmul_smallm", "mixtral_down_pair", "down", N, K,
+        lambda: M.w4a8_stacked_matmul_smallm(xq, xs, *wa, pair=True),
+        lambda: M.w4a8_stacked_matmul_smallm_plain(xq, xs, *wa, True),
+        lambda: torch.bmm(x, wd.transpose(1, 2)),
+        MOE_E * expert_bytes(N, K) + xq.numel() + xs.numel() * 4
+        + MOE_E * 8 * N * 4, 2 * MOE_E * 8 * N * K, tol=TOL_SMALLM,
+        kind="bf16", B=8, pair=True)
+    del qps, wds, wd, wa, qp
+    torch.cuda.empty_cache()
+    qwen3moe_kernel_rows(dev, gen, row)
     torch.cuda.empty_cache()
     return {"phase": "moe_kernels", "rows": rows,
             "seconds": time.time() - t0}
+
+
+# Qwen3-30B-A3B's expert linears: gate and up (N 768, K 2048) in stacked
+# planes, the down (N 2048, K 768) int8 per channel; and an N that is not a
+# multiple of 128 for #10's ragged edge
+Q_GATE_UP = (768, 2048)
+Q_DOWN = (2048, 768)
+Q_RAGGED_N = 1000
+
+
+def qwen3moe_kernel_rows(dev, gen, row) -> None:
+    """#7 at Qwen3-30B-A3B's gate and up with the shared x of the 8-slot
+    decode (B = 8, E 128); #10 at its down over the 24576 grouped rows of
+    1024 tokens routed top-8 over 128 experts by a seeded router, at N
+    2048 and at N 1000.  #10 must equal its plain version bit for bit."""
+    arch = QWEN3_30B_A3B
+    E, top_k = arch.moe.num_experts, arch.moe.top_k
+    N, K = Q_GATE_UP
+    x = torch.randn((8, K), generator=gen, device=dev).to(torch.bfloat16)
+    xq, xs = W.quantize_act_per_token(x)
+    xe = x.expand(E, 8, K)
+    for name in ("gate", "up"):
+        w3 = (torch.randn((E, N, K), generator=gen, device=dev)
+              * 0.02).to(torch.bfloat16)
+        qp = QM.quantize_linear_stacked(w3, WSPEC)
+        del w3
+        assert qp.layout == "stacked_planes"
+        wd = QM.dequant_weight_stacked(qp, torch.bfloat16)
+        wa = (qp.codes, qp.scales, qp.zeros)
+        row("w4a8_stacked_matmul_smallm", "qwen3_B8", name, N, K,
+            lambda: M.w4a8_stacked_matmul_smallm(xq, xs, *wa),
+            lambda: M.w4a8_stacked_matmul_smallm_plain(xq, xs, *wa),
+            lambda: torch.bmm(xe, wd.transpose(1, 2)),
+            E * expert_bytes(N, K) + xq.numel() + 8 * 4 + E * 8 * N * 4,
+            2 * E * 8 * N * K, tol=TOL_SMALLM, kind="bf16", B=8,
+            pair=False)
+        del qp, wd, wa
+    topi = seeded_topi(1024, gen, dev, E, arch)
+    N, K = Q_DOWN
+    x = torch.randn((1024, K), generator=gen, device=dev).to(torch.bfloat16)
+    xq, xs, be, facts = grouped_operands(x, topi, E)
+    if facts["live_experts"] != E:
+        raise AssertionError("the seeded router left an expert idle")
+    xpad = padded_expert_rows(x, topi, E, top_k)
+    Mp = facts["Mp"]
+    for case, N in (("qwen3_prefill", N), ("ragged_n", Q_RAGGED_N)):
+        w3 = (torch.randn((E, N, K), generator=gen, device=dev)
+              * 0.02).to(torch.bfloat16)
+        qp = QM.quantize_linear_stacked(w3, WSPEC)
+        del w3
+        assert (qp.layout, qp.bits) == ("stacked", 8)
+        wd = QM.dequant_weight_stacked(qp, torch.bfloat16)
+        wa = (qp.codes, qp.scales)
+        row("w8a8_grouped_matmul", case, "down", N, K,
+            lambda: M.w8a8_grouped_matmul(xq, xs, *wa, be),
+            lambda: M.w8a8_grouped_matmul_plain(xq, xs, *wa, be),
+            lambda: torch.bmm(xpad, wd.transpose(1, 2)),
+            E * (N * K + N * 4) + Mp * K + Mp * 4 + Mp * N * 4,
+            2 * facts["selections"] * N * K, exact=True, **facts,
+            library_rows_per_expert=xpad.shape[1],
+            ops_bound_at_Mp_ms=2 * Mp * N * K / PEAK_OPS["int8"] * 1e3)
+        del qp, wd, wa
 
 
 def attn_bound(kname: str, lengths: torch.Tensor):
@@ -782,13 +929,13 @@ def engine_phase(name: str, sw, prompts, n_new: int, dev, attn: str,
 
 def phase_profile(sw, prompts, dev, steps: int = 4, build: str = "w4a8",
                   **kw) -> dict:
-    """torch.profiler over a few decode steps with all 8 slots active:
+    """torch.profiler over a few decode steps with every slot active:
     device busy time per kernel name, and the device's idle share of the
     steps' wall time (one stream, so kernel times do not overlap)."""
     eng = engine(sw, dev, **kw)
     eng._admit([(i, Request(i, np.asarray(p), steps + 1))
                 for i, p in enumerate(prompts)], SamplingParams())
-    active = torch.ones(8, dtype=torch.bool, device=dev)
+    active = torch.ones(eng.max_slots, dtype=torch.bool, device=dev)
     eng._decode_step(eng.cur_tokens, active)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -812,7 +959,7 @@ def phase_profile(sw, prompts, dev, steps: int = 4, build: str = "w4a8",
     busy_ms = sum(v[0] for v in kern.values()) / 1e3 / steps
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:12]
     return {"phase": "profile_decode", "build": build,
-            "act_bits": sw.act_bits,
+            "act_bits": sw.act_bits, "slots": eng.max_slots,
             "kv_bits": eng.kv_bits, "attn_impl": eng.attn_impl,
             "lengths": eng.lengths.tolist(),
             "steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
@@ -848,16 +995,17 @@ def plain_linear(qp, x, act_bits: int):
 def plain_experts():
     """The engine's MoE MLP with each expert kernel's wrapper replaced by
     its plain version (the same route, the same arguments)."""
-    saved = (QM.w4a8_stacked_matmul, QM.w4a8_grouped_matmul,
-             EN.w4a8_gathered_matmul)
-    QM.w4a8_stacked_matmul = M.w4a8_stacked_matmul_plain
-    QM.w4a8_grouped_matmul = M.w4a8_grouped_matmul_plain
-    EN.w4a8_gathered_matmul = M.w4a8_gathered_matmul_plain
+    swaps = [(QM, "w4a8_stacked_matmul"), (QM, "w4a8_grouped_matmul"),
+             (QM, "w4a8_stacked_matmul_smallm"), (QM, "w8a8_grouped_matmul"),
+             (EN, "w4a8_gathered_matmul")]
+    saved = [getattr(mod, name) for mod, name in swaps]
+    for mod, name in swaps:
+        setattr(mod, name, getattr(M, name + "_plain"))
     try:
         yield
     finally:
-        (QM.w4a8_stacked_matmul, QM.w4a8_grouped_matmul,
-         EN.w4a8_gathered_matmul) = saved
+        for (mod, name), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
 
 
 def plain_prefill_logits(sw, prompts, T: int, dev):
@@ -889,7 +1037,8 @@ def plain_prefill_logits(sw, prompts, T: int, dev):
         q, k, v = proj(e, h1, ("attn.q", "attn.k", "attn.v"))
         q, k, v = (q.reshape(N, T, nh, hd), k.reshape(N, T, nkv, hd),
                    v.reshape(N, T, nkv, hd))
-        q, k = A.apply_rope(q.transpose(1, 2), k.transpose(1, 2), cos, sin)
+        q, k = A.qk_normed(arch, e, q.transpose(1, 2), k.transpose(1, 2))
+        q, k = A.apply_rope(q, k, cos, sin)
         ctx = A.sdpa(q, k, v.transpose(1, 2), mask, kv_groups=nh // nkv)
         h = x + plain_linear(e["attn.o"],
                              ctx.transpose(1, 2).reshape(N, T, nh * hd), ab)
@@ -1117,7 +1266,10 @@ def phase_small_vs_cpu(dev, steps: int = 3) -> dict:
         mm.allow_bf16_reduced_precision_reduction = reduced
     res["fused_s4_512"]["no_reduced_precision_reduction"] = routes["kv8"]
     res["moe"], moe_ok = small_moe_vs_cpu(dev, prompts, forced)
-    ok = ok and moe_ok
+    res["qwen3moe"], q_ok = small_moe_vs_cpu(
+        dev, prompts, forced, SMALL_QWEN3MOE, SMALL_QWEN3MOE_ROUTES,
+        SEED + 8)
+    ok = ok and moe_ok and q_ok
     res["seconds"] = time.time() - t0
     if not ok:
         raise AssertionError(f"small model, card vs CPU: {res}")
@@ -1145,23 +1297,48 @@ SMALL_MOE_ROUTES = {
 MOE_ROUTING_AGREE_MIN = 0.98
 
 
-def small_moe_vs_cpu(dev, prompts, forced) -> tuple:
-    """The small Mixtral-shaped model (router sharpened x8, as the CPU
-    tests do) at W4A8 through each expert route on the card against the
-    CPU, 2 prompts: the same weight codes bit for bit, logits corr >=
-    0.999 over prefill and the teacher-forced decode steps, each layer's
-    cache share under 0.1 and a share of equal routing selections (token,
-    k) of at least MOE_ROUTING_AGREE_MIN."""
+# a 2-layer Qwen3-MoE-shaped model (hidden 1024, 16 heads of 128: q wider
+# than hidden; 8 experts of width 384, top-2: gate/up in stacked planes,
+# the down int8 per channel; qk_norm) and its expert routes: grouped (#9
+# and #10 throughout; "interpret" has the CPU run the act quant and #10's
+# plain version, as the card runs #10) and smallm (#6 at the 256-row
+# prefill, #7 at the 2-slot decode).  Its gates are the Mixtral-shaped
+# model's, set before its first run: routing agreement >= 0.98, each
+# layer's cache share under 0.1.
+SMALL_QWEN3MOE = dataclasses.replace(
+    SMALL, num_heads=16, rope_theta=1e6, rms_eps=1e-6, qk_norm=True,
+    moe=MoESpec(num_experts=8, top_k=2, moe_intermediate_size=384))
+SMALL_QWEN3MOE_ROUTES = {
+    "grouped": dict(max_len=256, moe_gather_max=0, moe_grouped="interpret"),
+    "smallm": dict(max_len=256, moe_gather_max=0, moe_smallm=8),
+}
+
+
+def small_moe_vs_cpu(dev, prompts, forced, arch=SMALL_MOE,
+                     routes_kw=SMALL_MOE_ROUTES, seed=SEED + 5) -> tuple:
+    """A small MoE model (router sharpened x8, as the CPU tests do; with
+    ``qk_norm`` its ln and q/k norm gammas 1 + 0.1 N(0, 1)) at W4A8
+    through each expert route on the card against the CPU, 2 prompts:
+    the same weight codes bit for bit, logits corr >= 0.999 over prefill
+    and the teacher-forced decode steps, each layer's cache share under
+    0.1 and a share of equal routing selections (token, k) of at least
+    MOE_ROUTING_AGREE_MIN."""
     gen = torch.Generator(device="cpu")
-    gen.manual_seed(SEED + 5)
-    params = init_params(gen, SMALL_MOE)
+    gen.manual_seed(seed)
+    params = init_params(gen, arch)
     for bp in params["blocks"]:
         bp["mlp"]["router"]["weight"] = bp["mlp"]["router"]["weight"] * 8
-    model = Llama(SMALL_MOE, params)
+        if arch.qk_norm:
+            for node in (bp["ln1"], bp["ln2"], bp["attn"]["q_norm"],
+                         bp["attn"]["k_norm"]):
+                w = node["weight"]
+                node["weight"] = (1 + 0.1 * torch.randn(
+                    w.shape, generator=gen)).to(w.dtype)
+    model = (Qwen3Moe if arch.qk_norm else Llama)(arch, params)
     sws = {d: build_serving_weights(model, WSPEC, act_bits=8, device=d)
            for d in ("cpu", dev)}
     routes, ok = compare_routes(sws, prompts[:2], forced[:, :2], dev,
-                                SMALL_MOE_ROUTES)
+                                routes_kw)
     ok = ok and all(r["routing_agree_share"] >= MOE_ROUTING_AGREE_MIN
                     for r in routes.values())
     res = {"same_codes": same_codes(sws), "routes": routes}
@@ -1175,14 +1352,18 @@ def summarize(rows, attn_rows, fused_rows, moe_rows, launches) -> list:
     launches), or for #13 and #14 over the fused build's four decode
     linears at M = 8; for a MoE kernel over one Mixtral-8x7B layer's three
     expert linears at its main-path case (#6 B = 8, #8 n = 4 tokens, #9
-    the 1024-token prefill); for an attention kernel, one call at the
+    the 1024-token prefill), or of one Qwen3-30B-A3B layer's (#7 gate and
+    up at B = 8, #10 the down of the 1024-token prefill); for an
+    attention kernel, one call at the
     buffer of its engine phase (#20 4096, #21 8192, #17 512)."""
     main_m = {"w4a16_matmul": 8, "w4a8_matmul_decode": 8,
               "w4a8_matmul_prefill": 1024, "w4a8_matmul_bytes": S4_M[0],
               "w4a8_linear_bytes_fused": FUSED_M,
               "w4a8_linear_planes_fused": FUSED_M,
               "w4a8_stacked_matmul": "B8", "w4a8_gathered_matmul": "n4",
-              "w4a8_grouped_matmul": "all_live"}
+              "w4a8_grouped_matmul": "all_live",
+              "w4a8_stacked_matmul_smallm": "qwen3_B8",
+              "w8a8_grouped_matmul": "qwen3_prefill"}
     rows = rows + fused_rows + [dict(r, M=r["case"]) for r in moe_rows]
     main_s = {"decode_attention_bd4": 4096,
               "decode_attention_bd4_flash": 8192, "decode_attention_i8": 512}
@@ -1232,8 +1413,10 @@ def engine_vs_plain(name: str, sw, prompts, dev) -> None:
 class LazyBlocks:
     """The blocks of a random model, each made from its own seed when it
     is read (the last one kept), so that a model too large for the card
-    in bf16 (Mixtral-8x7B: 93.4 GB) is made and quantized one block at a
-    time."""
+    in bf16 (Mixtral-8x7B: 93.4 GB; Qwen3-30B-A3B: 61 GB) is made and
+    quantized one block at a time.  A ``qk_norm`` model's q/k norm gammas
+    are 1 + 0.1 N(0, 1) (init_block_params sets ones, which would test
+    nothing)."""
 
     def __init__(self, arch: ArchSpec, dev, seed: int):
         self.arch, self.dev, self.seed = arch, dev, seed
@@ -1247,7 +1430,13 @@ class LazyBlocks:
             self.block = None
             gen = torch.Generator(device=self.dev)
             gen.manual_seed(self.seed + 1 + i)
-            self.block, self.idx = A.init_block_params(gen, self.arch), i
+            bp = A.init_block_params(gen, self.arch)
+            if self.arch.qk_norm:
+                for name in ("q_norm", "k_norm"):
+                    bp["attn"][name]["weight"] = (1 + 0.1 * torch.randn(
+                        self.arch.head_dim, generator=gen,
+                        device=self.dev)).to(self.arch.dtype)
+            self.block, self.idx = bp, i
         return self.block
 
 
@@ -1265,22 +1454,25 @@ def serving_bytes(sw) -> int:
             + size(sw.lm_head_scale) + sum(size(e) for e in sw.blocks))
 
 
-def phase_setup_moe(dev) -> tuple:
-    """Mixtral-8x7B from the seed at full width and depth, RTN W4 g128
-    (asymmetric; every expert linear takes the stacked planes layout),
-    int8 head, act_bits 8, made and quantized one block at a time."""
+def phase_setup_moe(dev, arch: ArchSpec = MIXTRAL_8X7B,
+                    model: str = "Mixtral-8x7B", seed: int = SEED + 6,
+                    phase: str = "setup_moe") -> tuple:
+    """A MoE model from the seed at full width and depth, RTN W4 g128
+    (asymmetric; Mixtral's expert linears all take the stacked planes
+    layout, Qwen3-30B-A3B's down the int8 fallback), int8 head, act_bits
+    8, made and quantized one block at a time."""
     t0 = time.time()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
-    arch = MIXTRAL_8X7B
     gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED + 6)
+    gen.manual_seed(seed)
     V, H, dt = arch.vocab_size, arch.hidden_size, arch.dtype
     params = {"embed": {"weight": A._normal(gen, (V, H), 0.02, dt)},
-              "blocks": LazyBlocks(arch, dev, SEED + 6),
+              "blocks": LazyBlocks(arch, dev, seed),
               "norm": {"weight": torch.ones(H, dtype=dt, device=dev)},
               "lm_head": {"weight": A._normal(gen, (V, H), 0.02, dt)}}
-    sw = build_serving_weights(Llama(arch, params), WSPEC, act_bits=8,
+    adapter = Qwen3Moe if arch.qk_norm else Llama
+    sw = build_serving_weights(adapter(arch, params), WSPEC, act_bits=8,
                                device=dev)
     del params
     gc.collect()
@@ -1288,7 +1480,7 @@ def phase_setup_moe(dev) -> tuple:
     torch.cuda.synchronize()
     layouts = sorted({(n, e.layout, e.bits) for b in sw.blocks
                       for n, e in b.items() if hasattr(e, "layout")})
-    return sw, {"phase": "setup_moe", "model": "Mixtral-8x7B",
+    return sw, {"phase": phase, "model": model,
                 "layers": arch.num_layers, "serving_gb":
                 serving_bytes(sw) / 1e9, "allocated_before_gb": before / 1e9,
                 "max_memory_allocated_gb":
@@ -1417,6 +1609,39 @@ def main() -> int:
               seconds=time.time() - t0))
     engine_vs_plain("moe", swm, prompts_m, dev)
     del swm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    swq, setup = phase_setup_moe(dev, QWEN3_30B_A3B, "Qwen3-30B-A3B",
+                                 SEED + 7, "setup_qwen3moe")
+    emit(setup)
+    layers = QWEN3_30B_A3B.num_layers
+    prompts_q = make_prompts(8, QWEN3_30B_A3B.vocab_size)
+    # 32 slots, 8 prompts: the 1024-row prefill through #9 (gate, up) and
+    # #10 (the int8 down), every decode step dense (n = 32 > E / top_k =
+    # 16): #6 for gate and up, the int8 down in torch; the attention
+    # linears through #3 and #2
+    runs.append(engine_phase(
+        "engine_qwen3moe", swq, prompts_q, 32, dev, None, max_slots=32,
+        expect={"w4a8_matmul_prefill": (4 * layers, 0),
+                "w4a8_matmul_decode": (0, 4 * layers),
+                "w4a8_grouped_matmul": (2 * layers, 0),
+                "w8a8_grouped_matmul": (layers, 0),
+                "w4a8_stacked_matmul": (0, 2 * layers)}))
+    # 8 slots, 2 prompts, the gathered route off (its int8-down fault) and
+    # #7 up to 8 tokens: the 256-row dense prefill through #6 and #2, every
+    # decode step's gate and up through #7
+    runs.append(engine_phase(
+        "engine_qwen3moe_smallm", swq, prompts_q[:2], 16, dev, None,
+        moe_gather_max=0, moe_smallm=8,
+        expect={"w4a8_matmul_decode": (4 * layers, 4 * layers),
+                "w4a8_stacked_matmul": (2 * layers, 0),
+                "w4a8_stacked_matmul_smallm": (0, 2 * layers)}))
+    t0 = time.time()
+    emit(dict(phase_profile(swq, prompts_q, dev, build="qwen3moe",
+                            max_slots=32), seconds=time.time() - t0))
+    engine_vs_plain("qwen3moe", swq, prompts_q, dev)
+    del swq
     gc.collect()
     torch.cuda.empty_cache()
     emit(phase_small_vs_cpu(dev))

@@ -13,7 +13,7 @@ so this module imports neither JAX nor the JAX package.  Two entry points:
   ``tile_scales_pairs``); for MoE blocks the stacked experts
   (``stacked_planes``: codes (E, N/NT, gpp, NT, g) with the combined slab
   (E, N/NT, 2*gpp*8, NT); the int8 ``stacked`` fallback), the bf16 router
-  and its optional selection bias.
+  and its optional selection bias; the q/k norm gammas of ``qk_norm``.
 """
 
 from __future__ import annotations
@@ -27,6 +27,9 @@ from .device import DeviceLike, resolve_device
 from .models.arch import ArchSpec, MoESpec
 from .ops.qlinear import QLinearParams
 from .serving.quantized_model import ServingWeights
+
+# the entries of a serving block that are {"weight": array}, not linears
+NORM_ENTRIES = ("ln1", "ln2", "q_norm", "k_norm", "mlp.router")
 
 
 def tensor_from_numpy(a, device: DeviceLike = None,
@@ -149,7 +152,8 @@ def serving_weights_from_numpy(arch: ArchSpec, embed, norm: Dict[str, Any],
     """``blocks`` is a list of dicts: linear name (``attn.qkv`` and
     ``mlp.gateup`` for merged entries) -> dict with the JAX QLinearParams
     fields (codes, scales, zeros, bias, bits, group_size, layout);
-    ``ln1``/``ln2`` and ``mlp.router`` -> {"weight": array};
+    ``ln1``/``ln2``, ``q_norm``/``k_norm`` (``qk_norm``) and
+    ``mlp.router`` -> {"weight": array};
     ``mlp.router_bias`` -> array.  ``fused_rms`` is the JAX
     field; a fused build with the combined scale slab is refused (JAX
     runs no fused linear on it, as it has no separate zeros)."""
@@ -157,7 +161,7 @@ def serving_weights_from_numpy(arch: ArchSpec, embed, norm: Dict[str, Any],
     for entry in blocks:
         e: Dict[str, Any] = {}
         for name, v in entry.items():
-            if name in ("ln1", "ln2", "mlp.router"):
+            if name in NORM_ENTRIES:
                 e[name] = {k: tensor_from_numpy(a, device)
                            for k, a in v.items()}
             elif name == "mlp.router_bias":

@@ -1,6 +1,7 @@
 """Llama architecture: spec, random init and forward passes (port of
 lightcompress_tpu/models/arch.py, the ``llama`` family, dense or with a
-mixture-of-experts MLP (``MoESpec``); no MLA).
+mixture-of-experts MLP (``MoESpec``), with Qwen3's per-head RMSNorm of q
+and k (``qk_norm``); no MLA).
 
 Parameters are nested dicts of tensors in the JAX package's layout:
 weights are (out_features, in_features) and matmuls are ``x @ W.T``.
@@ -65,6 +66,8 @@ class ArchSpec:
     rms_eps: float = 1e-6
     attn_bias: bool = False
     mlp_bias: bool = False
+    # Qwen3: RMSNorm of each q and k head (gammas (head_dim,)) before rope
+    qk_norm: bool = False
     tie_word_embeddings: bool = False
     act_fn: str = "silu"
     moe: Optional[MoESpec] = None
@@ -127,6 +130,10 @@ def init_block_params(gen: torch.Generator, arch: ArchSpec) -> Dict:
             "o": _lin(gen, h, qd, False, dt),
         },
     }
+    if arch.qk_norm:
+        for name in ("q_norm", "k_norm"):
+            bp["attn"][name] = {"weight": torch.ones(
+                (arch.head_dim,), dtype=dt, device=dev)}
     if arch.moe is not None:
         bp["mlp"] = _moe_params(gen, arch)
     else:
@@ -198,6 +205,16 @@ def _rotate_half(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([-x2, x1], dim=-1)
 
 
+def qk_normed(arch: ArchSpec, norms: Dict, q: torch.Tensor,
+              k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q and k (B, H, T, D) after the per-head RMSNorm of ``qk_norm``
+    (``norms`` holds ``q_norm`` and ``k_norm``); unchanged without it."""
+    if not arch.qk_norm:
+        return q, k
+    return (rmsnorm(q, norms["q_norm"]["weight"], arch.rms_eps),
+            rmsnorm(k, norms["k_norm"]["weight"], arch.rms_eps))
+
+
 def apply_rope(q, k, cos, sin):
     """q, k: (B, H, T, D); cos/sin: (T, D) or (B, T, D)."""
     if cos.dim() == 2:
@@ -255,6 +272,7 @@ def block_forward(arch: ArchSpec, bp: Dict, x: torch.Tensor, cos, sin,
     q = q.reshape(B, T, nh, hd).transpose(1, 2)
     k = k.reshape(B, T, nkv, hd).transpose(1, 2)
     v = v.reshape(B, T, nkv, hd).transpose(1, 2)
+    q, k = qk_normed(arch, ap, q, k)
     if cos is not None:
         q, k = apply_rope(q, k, cos, sin)
     ctx = sdpa(q, k, v, mask, kv_groups=nh // nkv)

@@ -1,4 +1,4 @@
-"""Model adapter (port of the ``Llama`` adapter in
+"""Model adapters (port of the ``Llama`` and ``Qwen3Moe`` adapters in
 lightcompress_tpu/models/base.py): arch + params + the block topology the
 serving-weight builder walks."""
 
@@ -49,3 +49,13 @@ class Llama:
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         return A.model_forward(self.arch, self.params, input_ids)
+
+
+class Qwen3Moe(Llama):
+    """Qwen3-MoE (``qwen3_moe``): the MoE llama family's linear names, with
+    the per-head q/k RMSNorm of ``arch.qk_norm``."""
+
+    def __init__(self, arch: A.ArchSpec, params: Dict):
+        if arch.moe is None or not arch.qk_norm:
+            raise ValueError("Qwen3Moe needs arch.moe and arch.qk_norm")
+        super().__init__(arch, params)

@@ -1,0 +1,62 @@
+"""A Hugging Face ``config.json`` (as a dict) -> the port's ``ArchSpec``
+(port of the mixture-of-experts branch of ``arch_from_hf_config`` in
+lightcompress_tpu/models/hf_loader.py, for ``mixtral`` and ``qwen3_moe``).
+
+Every other ``model_type`` raises ``NotImplementedError``, as does a config
+with ``kv_lora_rank`` (MLA) and a Qwen3-MoE config whose layers are not
+all MoE (``mlp_only_layers``, ``decoder_sparse_step``): the JAX package
+reads neither field and would build every layer as MoE.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from .arch import ArchSpec, MoESpec
+
+MODEL_TYPES = ("mixtral", "qwen3_moe")
+
+
+def arch_from_hf_config(cfg: Dict[str, Any],
+                        dtype: torch.dtype = torch.bfloat16) -> ArchSpec:
+    mt = cfg.get("model_type", "llama")
+    if mt not in MODEL_TYPES:
+        raise NotImplementedError(
+            f"model_type {mt!r} is not ported; the port reads {MODEL_TYPES}")
+    if cfg.get("kv_lora_rank"):
+        raise NotImplementedError("MLA (kv_lora_rank) is not ported")
+    if cfg.get("mlp_only_layers") or cfg.get("decoder_sparse_step", 1) != 1:
+        raise NotImplementedError(
+            "dense layers among the MoE layers (mlp_only_layers, "
+            "decoder_sparse_step) are not ported")
+    n_heads = cfg["num_attention_heads"]
+    if mt == "mixtral":
+        moe = MoESpec(num_experts=cfg["num_local_experts"],
+                      top_k=cfg["num_experts_per_tok"],
+                      moe_intermediate_size=cfg["intermediate_size"],
+                      gating="softmax", norm_topk_prob=True)
+    else:
+        moe = MoESpec(num_experts=cfg["num_experts"],
+                      top_k=cfg["num_experts_per_tok"],
+                      moe_intermediate_size=cfg["moe_intermediate_size"],
+                      gating="softmax",
+                      norm_topk_prob=cfg.get("norm_topk_prob", False))
+    return ArchSpec(
+        family="llama",
+        vocab_size=cfg["vocab_size"],
+        hidden_size=cfg["hidden_size"],
+        intermediate_size=cfg["intermediate_size"],
+        num_layers=cfg["num_hidden_layers"],
+        num_heads=n_heads,
+        num_kv_heads=cfg.get("num_key_value_heads", n_heads),
+        head_dim=cfg.get("head_dim") or cfg["hidden_size"] // n_heads,
+        rope_theta=cfg.get("rope_theta", 10000.0),
+        rms_eps=cfg.get("rms_norm_eps", 1e-6),
+        attn_bias=cfg.get("attention_bias", False),
+        qk_norm=mt == "qwen3_moe",
+        tie_word_embeddings=cfg.get("tie_word_embeddings", False),
+        moe=moe,
+        dtype=dtype,
+    )

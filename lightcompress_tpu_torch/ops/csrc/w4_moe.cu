@@ -23,9 +23,16 @@
 // Requirements checked by the Python wrappers: K % 1024 == 0,
 // N % 128 == 0, contiguous 16-byte aligned tensors on the current device.
 //
+// #7 (the small-M stacked kernel) takes #6's inputs and keeps the TPU
+// small-M kernel's order instead: per group-block gi one f32 dot of x (int8,
+// exact as bf16) with the bf16-rounded weights u*s, added to one
+// accumulator; the zero correction and xscale after the loop.  Its dots sum
+// in a thread's own order, so it matches its plain version to f32
+// rounding, not bit for bit.
+//
 // Bounds on an H100 SXM (3.35 TB/s HBM, 1979 TOP/s int8 dense peak):
-//   #6 stacked (B <= 256): the packed weight of all E experts read once,
-//      bytes = E*(N*K/2 + 4*N*G) + x + out;
+//   #6, #7 stacked (B <= 256): the packed weight of all E experts read
+//      once, bytes = E*(N*K/2 + 4*N*G) + x + out;
 //   #8 gathered: the packed weights of the distinct experts selected;
 //   #9 grouped: at a prefill's Mp rows the 2*rows*N*K int8 operations.
 // These first kernels use no tensor cores (no mma/wgmma, no TMA).
@@ -180,6 +187,124 @@ w4a8_stacked_kernel(const int8_t* __restrict__ x,
   expert_rows<MT>(x + xrow * K, xscale + xrow, wp + (size_t)e * N * kp,
                   s + (size_t)e * N * G, zs + (size_t)e * N * G,
                   out + ((size_t)e * B + m0) * N, min(MT, B - m0), N, K);
+}
+
+// ---------------------------------------------------------------------------
+// #7  Small-M stacked-expert W4A8 matmul.  Replaces lightcompress_tpu/ops/
+// pallas_matmul.py w4a8_stacked_matmul_smallm (_w4a8_kernel_stacked_bf16).
+//
+// #6's grid, rows and pair mode (8-row chunks of B, 128 channels, one
+// expert a block; thread t owns channel n).  Per gi the block stages the
+// MT rows' eight 128-value groups of that gi (plane j, natural K offset
+// j*K/8 + gi*128) as f32 in shared memory (MT*4 KB), then every thread
+// walks its 128 words of codes: nibble j of word c is weight u of group
+// j*gpp + gi, turned into bf16(u * s_j) (the product of two bf16 values is
+// exact in f32; __float2bfloat16_rn rounds it as the TPU's bf16 multiply
+// does) and multiplied by each row's x in f32 (exact products).  The dot of
+// the gi is added to the row's accumulator; the zero correction sums
+// xsum*zs in (gi, j) order; y = (acc - corr) * xscale.  Design against
+// the bound (every expert's packed weight read once, as #6): the same
+// weight walk as #6, with the scale fold and the bf16 rounding in place of
+// __dp4a; the x reads are shared-memory broadcasts.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <int MT>
+__global__ void __launch_bounds__(kMoeThreads)
+w4a8_stacked_smallm_kernel(const int8_t* __restrict__ x,
+                           const float* __restrict__ xscale,
+                           const int32_t* __restrict__ wp,
+                           const __nv_bfloat16* __restrict__ s,
+                           const __nv_bfloat16* __restrict__ zs,
+                           float* __restrict__ out, int pair, int B, int N,
+                           int K) {
+  __shared__ __align__(16) float xf[MT * 8 * kGroup];
+  __shared__ float xsc[MT * 8];
+  const int e = blockIdx.z, m0 = blockIdx.y * MT, tid = threadIdx.x;
+  const int kp = K / 8, G = K / kGroup, gpp = kp / kGroup;
+  const int n = blockIdx.x * kMoeThreads + tid;
+  const int nv = min(MT, B - m0);
+  const size_t xrow = pair ? (size_t)e * B + m0 : (size_t)m0;
+  const int8_t* x0 = x + xrow * K;
+  const size_t row = (size_t)e * N + n;
+  const int32_t* wrow = wp + row * kp;
+  const __nv_bfloat16* s_n = s + row * G;
+  const __nv_bfloat16* zs_n = zs + row * G;
+
+  float acc[MT], corr[MT];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) acc[m] = corr[m] = 0.f;
+  for (int gi = 0; gi < gpp; ++gi) {
+    __syncthreads();  // every thread is done with the previous chunk
+    // xf[m][j][c] = x row m at natural K offset j*kp + gi*128 + c; four
+    // values a step; absent rows are zeros
+    for (int i = tid; i < MT * 8 * kGroup / 4; i += kMoeThreads) {
+      const int m = i / (8 * kGroup / 4), j = (i / (kGroup / 4)) & 7,
+                q = i % (kGroup / 4);
+      int v = 0;
+      if (m < nv)
+        v = *reinterpret_cast<const int*>(x0 + (size_t)m * K + j * kp +
+                                          gi * kGroup + 4 * q);
+      reinterpret_cast<float4*>(xf)[i] =
+          make_float4((float)(int8_t)v, (float)(int8_t)(v >> 8),
+                      (float)(int8_t)(v >> 16), (float)(int8_t)(v >> 24));
+    }
+    __syncthreads();
+    if (tid < MT * 8) {
+      float a = 0.f;  // integer sums below 2^24: exact in any order
+      for (int c = 0; c < kGroup; ++c) a += xf[tid * kGroup + c];
+      xsc[tid] = a;
+    }
+    __syncthreads();
+
+    float sj[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sj[j] = __bfloat162float(s_n[j * gpp + gi]);
+    float part[MT];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) part[m] = 0.f;
+    const int4* wg = reinterpret_cast<const int4*>(wrow + gi * kGroup);
+#pragma unroll 2
+    for (int c = 0; c < kGroup / 4; ++c) {
+      const int4 w4 = __ldg(wg + c);
+      const uint32_t ws[4] = {(uint32_t)w4.x, (uint32_t)w4.y, (uint32_t)w4.z,
+                              (uint32_t)w4.w};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float wv[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          wv[q] = bf16_round(__fmul_rn((float)((ws[q] >> (4 * j)) & 0xFu),
+                                       sj[j]));
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const float4 xv =
+              reinterpret_cast<const float4*>(xf + (m * 8 + j) * kGroup)[c];
+          // x * w is exact in f32: each add rounds once
+          part[m] = __fadd_rn(part[m], __fmul_rn(xv.x, wv[0]));
+          part[m] = __fadd_rn(part[m], __fmul_rn(xv.y, wv[1]));
+          part[m] = __fadd_rn(part[m], __fmul_rn(xv.z, wv[2]));
+          part[m] = __fadd_rn(part[m], __fmul_rn(xv.w, wv[3]));
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float zf = __bfloat162float(zs_n[j * gpp + gi]);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) corr[m] = mac_rn(corr[m], xsc[m * 8 + j], zf);
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) acc[m] = __fadd_rn(acc[m], part[m]);
+  }
+  const float* xs0 = xscale + xrow;
+  float* out0 = out + ((size_t)e * B + m0) * N + n;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+    if (m < nv)
+      out0[(size_t)m * N] = __fmul_rn(__fsub_rn(acc[m], corr[m]), xs0[m]);
 }
 
 // ---------------------------------------------------------------------------
@@ -379,6 +504,19 @@ int lc_w4a8_stacked(const void* x, const void* xscale, const void* wp,
                     int N, int K, int E, void* stream) {
   const dim3 grid(N / kMoeThreads, (B + kStackedRows - 1) / kStackedRows, E);
   w4a8_stacked_kernel<kStackedRows>
+      <<<grid, kMoeThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+          (const int8_t*)x, (const float*)xscale, (const int32_t*)wp,
+          (const __nv_bfloat16*)s, (const __nv_bfloat16*)zs, (float*)out,
+          pair, B, N, K);
+  return (int)cudaGetLastError();
+}
+
+// #7: #6's arguments.
+int lc_w4a8_stacked_smallm(const void* x, const void* xscale, const void* wp,
+                           const void* s, const void* zs, void* out, int pair,
+                           int B, int N, int K, int E, void* stream) {
+  const dim3 grid(N / kMoeThreads, (B + kStackedRows - 1) / kStackedRows, E);
+  w4a8_stacked_smallm_kernel<kStackedRows>
       <<<grid, kMoeThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
           (const int8_t*)x, (const float*)xscale, (const int32_t*)wp,
           (const __nv_bfloat16*)s, (const __nv_bfloat16*)zs, (float*)out,

@@ -1,7 +1,8 @@
-"""Stacked-expert W4A8 matmuls of the MoE serving path: the three Hopper
-kernels with their plain PyTorch versions (port of
+"""Stacked-expert matmuls of the MoE serving path: the five Hopper kernels
+with their plain PyTorch versions (port of
 lightcompress_tpu/ops/pallas_matmul.py, kernels #6 ``w4a8_stacked_matmul``,
-#8 ``w4a8_gathered_matmul`` and #9 ``w4a8_grouped_matmul``).
+#7 ``w4a8_stacked_matmul_smallm``, #8 ``w4a8_gathered_matmul``, #9
+``w4a8_grouped_matmul`` and #10 ``w8a8_grouped_matmul``).
 
 Weights are E experts of the untiled planes layout of ``ops.w4_matmul``,
 stacked: ``wp`` (E, N, K/8) int32, ``s`` and ``zs`` (E, N, G) per-group
@@ -14,6 +15,18 @@ correction sum of xsum[g]*zs[g] over the same order; then
 ((a0 + a1) + (a2 + a3) - corr) * xscale, every op rounded on its own.  The
 plain versions run that sequence of f32 ops, so the kernels
 (``csrc/w4_moe.cu``) equal them bit for bit.
+
+#7 takes #6's inputs and computes the same function in the order of the
+TPU's small-M kernel: per group-block gi one dot, in f32, of x's int8
+values as bf16 with the weights u * s rounded to bf16, added to one
+accumulator; then minus the f32 zero correction and times xscale.  Its
+plain version and kernel sum the dots in other orders, so they agree to
+f32 rounding, not bit for bit.
+
+#10 is the grouped route's int8 per-channel expert (the ``stacked``
+fallback of ``quantize_linear_stacked``): codes (E, N, K) int8 and f32
+scales (E, N, 1); y = (f32(x . w) * scale) * xscale with an exact integer
+dot (``csrc/w8_grouped.cu``), equal to its plain version bit for bit.
 
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel or raises.  Each wrapper counts its kernel launches in its
@@ -66,6 +79,31 @@ def expert_rows_plain(xq: torch.Tensor, x_scale: torch.Tensor,
     return ((acc[0] + acc[1]) + (acc[2] + acc[3]) - corr) * x_scale.float()
 
 
+def expert_rows_smallm_plain(xq: torch.Tensor, x_scale: torch.Tensor,
+                             wp: torch.Tensor, s: torch.Tensor,
+                             zs: torch.Tensor) -> torch.Tensor:
+    """#7's function for one expert: (M, K) int8 x -> (M, N) f32.  For
+    each group-block gi, the 8 groups j*gpp + gi of x (int8, exact in
+    bf16 and f32) against the weights bf16(u * s) (the product of two bf16
+    values is exact in f32, then rounded to bf16), one f32 matmul added to
+    the accumulator; then minus xsum . zs (an f32 matmul) and times
+    xscale."""
+    M, K = xq.shape
+    N, G = s.shape
+    gpp = G // 8
+    g = K // G
+    xg = xq.float().reshape(M, G, g)
+    u = unpack_int4_planes(wp, K).float().reshape(N, G, g)
+    w = (u * s.float()[..., None]).to(torch.bfloat16).float()
+    acc = torch.zeros((M, N), dtype=torch.float32, device=xq.device)
+    for gi in range(gpp):
+        gg = list(range(gi, G, gpp))  # planes j = 0..7 of group-block gi
+        acc = acc + torch.matmul(xg[:, gg].reshape(M, 8 * g),
+                                 w[:, gg].reshape(N, 8 * g).t())
+    corr = torch.matmul(xg.sum(dim=-1), zs.float().t())
+    return (acc - corr) * x_scale.float()
+
+
 def w4a8_stacked_matmul_plain(xq, x_scale, wp, s, zs, pair=False):
     """Plain #6: (E, B, N) f32 for every expert, on the shared (B, K) x
     or, with ``pair``, on each expert's own rows of (E, B, K) x."""
@@ -73,6 +111,14 @@ def w4a8_stacked_matmul_plain(xq, x_scale, wp, s, zs, pair=False):
         expert_rows_plain(xq[e] if pair else xq,
                           x_scale[e] if pair else x_scale, wp[e], s[e],
                           zs[e]) for e in range(wp.shape[0])])
+
+
+def w4a8_stacked_matmul_smallm_plain(xq, x_scale, wp, s, zs, pair=False):
+    """Plain #7: #6's inputs and output, #7's order of operations."""
+    return torch.stack([
+        expert_rows_smallm_plain(xq[e] if pair else xq,
+                                 x_scale[e] if pair else x_scale, wp[e],
+                                 s[e], zs[e]) for e in range(wp.shape[0])])
 
 
 def w4a8_gathered_matmul_plain(xq, x_scale, wp, s, zs, e_idx, t_idx):
@@ -102,6 +148,26 @@ def w4a8_grouped_matmul_plain(xq, x_scale, wp, s, zs, block_eid,
     return out
 
 
+def w8a8_grouped_matmul_plain(xq, x_scale, codes, scales, block_eid,
+                              m_tile=M_TILE):
+    """Plain #10: out[r] = (f32(x[r] . w_e) * scale_e) * xscale[r] with e =
+    block_eid[r // m_tile], (Mp, N) f32.  The integer dots are float64
+    matmuls of integers, exact at any K a model has; rows of an expert id
+    out of range are NaN, as the kernel writes them."""
+    E, N, _ = codes.shape
+    row_e = block_eid.long().repeat_interleave(m_tile)
+    out = torch.full((xq.shape[0], N), float("nan"), dtype=torch.float32,
+                     device=xq.device)
+    for e in torch.unique(row_e).tolist():
+        if not 0 <= e < E:
+            continue
+        rows = torch.nonzero(row_e == e)[:, 0]
+        acc = torch.matmul(xq[rows].double(), codes[e].double().t())
+        out[rows] = (acc.float() * scales[e].float().reshape(1, N)
+                     ) * x_scale[rows].float()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -119,9 +185,19 @@ def _lib() -> ctypes.CDLL:
                                      _I, _I, _I, _P]
     lib.lc_w4a8_grouped.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _I, _I, _P]
+    lib.lc_w4a8_stacked_smallm.argtypes = lib.lc_w4a8_stacked.argtypes
     for fn in (lib.lc_w4a8_stacked, lib.lc_w4a8_gathered,
-               lib.lc_w4a8_grouped):
+               lib.lc_w4a8_grouped, lib.lc_w4a8_stacked_smallm):
         fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _w8_lib() -> ctypes.CDLL:
+    lib = _build.load("w8_grouped")
+    lib.lc_w8a8_grouped.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _P]
+    lib.lc_w8a8_grouped.restype = ctypes.c_int
     return lib
 
 
@@ -173,28 +249,45 @@ def _index(t: torch.Tensor, n: int, name: str, device) -> torch.Tensor:
     return t.to(torch.int32).contiguous()
 
 
-def w4a8_stacked_matmul(xq: torch.Tensor, x_scale: torch.Tensor,
-                        wp: torch.Tensor, s: torch.Tensor, zs: torch.Tensor,
-                        pair: bool = False) -> torch.Tensor:
-    """#6: (B, K) int8 x shared by every expert, or with ``pair`` (E, B, K)
-    x whose slice e expert e reads -> (E, B, N) f32."""
+def _stacked(kernel, plain, entry: str, xq, x_scale, wp, s, zs, pair):
+    """#6 or #7: the shared checks, the CPU's plain version, the launch."""
     K = xq.shape[-1]
     E, N = _check_experts(K, wp, s, zs, xq.device)
     B = xq.shape[-2]
     _check_rows(xq, x_scale, (E, B) if pair else (B,))
     if xq.device.type == "cpu":
-        return w4a8_stacked_matmul_plain(xq, x_scale, wp, s, zs, pair)
+        return plain(xq, x_scale, wp, s, zs, pair)
     out = torch.empty((E, B, N), dtype=torch.float32, device=xq.device)
     if B == 0:
         return out
     xq = _aligned(xq)
     xs = x_scale.float().contiguous()
     with torch.cuda.device(xq.device):
-        _launch(_lib().lc_w4a8_stacked, xq.data_ptr(), xs.data_ptr(),
+        _launch(getattr(_lib(), entry), xq.data_ptr(), xs.data_ptr(),
                 wp.data_ptr(), s.data_ptr(), zs.data_ptr(), out.data_ptr(),
                 int(pair), B, N, K, E, _stream(xq.device))
-    w4a8_stacked_matmul.launches += 1
+    kernel.launches += 1
     return out
+
+
+def w4a8_stacked_matmul(xq: torch.Tensor, x_scale: torch.Tensor,
+                        wp: torch.Tensor, s: torch.Tensor, zs: torch.Tensor,
+                        pair: bool = False) -> torch.Tensor:
+    """#6: (B, K) int8 x shared by every expert, or with ``pair`` (E, B, K)
+    x whose slice e expert e reads -> (E, B, N) f32."""
+    return _stacked(w4a8_stacked_matmul, w4a8_stacked_matmul_plain,
+                    "lc_w4a8_stacked", xq, x_scale, wp, s, zs, pair)
+
+
+def w4a8_stacked_matmul_smallm(xq: torch.Tensor, x_scale: torch.Tensor,
+                               wp: torch.Tensor, s: torch.Tensor,
+                               zs: torch.Tensor, pair: bool = False
+                               ) -> torch.Tensor:
+    """#7: #6's function in the order of the TPU's small-M kernel (bf16
+    weights with their scales folded in; module docstring)."""
+    return _stacked(w4a8_stacked_matmul_smallm,
+                    w4a8_stacked_matmul_smallm_plain,
+                    "lc_w4a8_stacked_smallm", xq, x_scale, wp, s, zs, pair)
 
 
 def w4a8_gathered_matmul(xq: torch.Tensor, x_scale: torch.Tensor,
@@ -259,7 +352,59 @@ def w4a8_grouped_matmul(xq: torch.Tensor, x_scale: torch.Tensor,
     return out
 
 
-KERNELS = (w4a8_stacked_matmul, w4a8_gathered_matmul, w4a8_grouped_matmul)
+def w8a8_grouped_matmul(xq: torch.Tensor, x_scale: torch.Tensor,
+                        codes: torch.Tensor, scales: torch.Tensor,
+                        block_eid: torch.Tensor, m_tile: int = M_TILE
+                        ) -> torch.Tensor:
+    """#10: out[r] = (f32(x[r] . w_e) * scale_e) * xscale[r], e =
+    block_eid[r // m_tile] -> (Mp, N) f32, for (Mp, K) int8 rows sorted by
+    expert into m_tile segments and int8 per-channel experts: codes (E, N,
+    K) int8, scales (E, N, 1).  Any N: the kernel masks the ragged edge of
+    its last 128-channel tile."""
+    Mp, K = xq.shape
+    if codes.dtype != torch.int8 or codes.dim() != 3 \
+            or codes.shape[2] != K:
+        raise ValueError(f"codes must be (E, N, {K}) int8, got "
+                         f"{tuple(codes.shape)} {codes.dtype}")
+    E, N, _ = codes.shape
+    if scales.shape != (E, N, 1) or not scales.is_floating_point():
+        raise ValueError(f"scales must be ({E}, {N}, 1) float, got "
+                         f"{tuple(scales.shape)} {scales.dtype}")
+    _check_rows(xq, x_scale, (Mp,))
+    if m_tile <= 0 or Mp % m_tile:
+        raise ValueError(f"Mp={Mp} is not a multiple of m_tile={m_tile}")
+    block_eid = _index(block_eid, Mp // m_tile, "block_eid", xq.device)
+    for t in (codes, scales):
+        if t.device != xq.device:
+            raise ValueError("all operands must be on one device")
+    if xq.device.type == "cpu":
+        return w8a8_grouped_matmul_plain(xq, x_scale, codes, scales,
+                                         block_eid, m_tile)
+    if xq.device.type != "cuda":
+        raise ValueError(f"unsupported device {xq.device}")
+    if K % 16 or m_tile % 64 or Mp // 64 > 65535:
+        raise ValueError(f"the int8 grouped kernel takes K % 16 == 0, "
+                         f"m_tile % 64 == 0 and Mp <= 64 * 65535, got K={K} "
+                         f"m_tile={m_tile} Mp={Mp}")
+    if not codes.is_contiguous() or codes.data_ptr() % 16:
+        raise ValueError("the kernel takes contiguous, 16-byte aligned "
+                         "codes")
+    out = torch.empty((Mp, N), dtype=torch.float32, device=xq.device)
+    if Mp == 0 or N == 0:
+        return out
+    xq = _aligned(xq)
+    xs = x_scale.float().contiguous()
+    sc = scales.float().contiguous()
+    with torch.cuda.device(xq.device):
+        _launch(_w8_lib().lc_w8a8_grouped, xq.data_ptr(), xs.data_ptr(),
+                codes.data_ptr(), sc.data_ptr(), block_eid.data_ptr(),
+                out.data_ptr(), Mp, N, K, E, m_tile, _stream(xq.device))
+    w8a8_grouped_matmul.launches += 1
+    return out
+
+
+KERNELS = (w4a8_stacked_matmul, w4a8_gathered_matmul, w4a8_grouped_matmul,
+           w4a8_stacked_matmul_smallm, w8a8_grouped_matmul)
 for _k in KERNELS:
     _k.launches = 0
 

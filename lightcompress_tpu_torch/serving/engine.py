@@ -28,11 +28,15 @@ A MoE model (``arch.moe``) serves on the ``xla`` route at kv8 (as the JAX
 engine forces it).  Its blocks' MLP (``_moe_mlp``) picks one of four
 expert routes by the token count n of the call, as the JAX engine does on
 a TPU (``pick_moe_route``): ``gathered`` (kernel #8, only the selected
-experts read), ``grouped`` (kernel #9 over expert-sorted rows), ``dense``
-(kernel #6 over every expert at n <= 256, dequantized experts above) and
-``gathered_plain`` (dequantized selected experts, where #8 does not
-apply).  The expert activations are int8 per token on every kernel route
-whatever ``act_bits`` is.
+experts read), ``grouped`` (kernel #9 over expert-sorted rows; an int8
+per-channel down projection through kernel #10), ``dense`` (kernel #6
+over every expert at n <= 256, or #7 at n <= ``moe_smallm``; dequantized
+experts above, and for an int8 down) and ``gathered_plain`` (dequantized
+selected experts, where #8 does not apply).  The expert activations are
+int8 per token on every kernel route whatever ``act_bits`` is.
+
+A ``qk_norm`` model (Qwen3) normalizes each q and k head with its own
+gammas before rope, in prefill and decode.
 """
 
 from __future__ import annotations
@@ -117,18 +121,24 @@ def _gateup_proj(entry, h2, ab):
 class MoEOptions:
     """The expert-route knobs of the JAX engine's environment
     (``LCTPU_MOE_GATHER_MAX``, ``LCTPU_MOE_GROUPED``,
-    ``LCTPU_MOE_GROUPED_MIN``) as arguments, with JAX's defaults:
-    ``gather_max`` None means E // top_k; ``grouped`` is "auto" (from
-    ``grouped_min`` tokens on), True (always where the layouts allow) or
-    False (never)."""
+    ``LCTPU_MOE_GROUPED_MIN``, ``LCTPU_MOE_SMALLM``) as arguments, with
+    JAX's defaults: ``gather_max`` None means E // top_k; ``grouped`` is
+    "auto" (from ``grouped_min`` tokens on), True (always where the
+    layouts allow), "interpret" (as True, and on the CPU the int8 down
+    takes the card's act quant and #10's plain version, as JAX's
+    interpret mode runs its kernel) or False (never); ``smallm`` is the
+    largest n whose stacked planes linears take #7 instead of #6 (0:
+    never)."""
 
     gather_max: Optional[int] = None
     grouped: Union[str, bool] = "auto"
     grouped_min: int = 257
+    smallm: int = 0
 
     def __post_init__(self):
-        if self.grouped not in ("auto", True, False):
-            raise ValueError("moe_grouped is 'auto', True or False")
+        if self.grouped not in ("auto", True, False, "interpret"):
+            raise ValueError("moe_grouped is 'auto', True, False or "
+                             "'interpret'")
 
 
 def _is_layout(qp, layout: str) -> bool:
@@ -143,8 +153,8 @@ def pick_moe_route(entry, n: int, moe: A.MoESpec,
     ``gathered`` (#8) at n <= gather_max with a ``stacked_planes`` gate
     and n * top_k <= E; ``gathered_plain`` at n <= gather_max otherwise;
     ``grouped`` (#9) with planes gate/up, a planes or int8 ``stacked``
-    down and ``grouped`` True or "auto" at n >= grouped_min; else
-    ``dense``."""
+    down and ``grouped`` True, "interpret", or "auto" at n >=
+    grouped_min; else ``dense``."""
     E, k = moe.num_experts, moe.top_k
     thresh = (opts.gather_max if opts.gather_max is not None
               else max(1, E // max(1, k)))
@@ -157,7 +167,7 @@ def pick_moe_route(entry, n: int, moe: A.MoESpec,
             for nm in ("mlp.gate", "mlp.up"))
             and (_is_layout(down, "stacked_planes")
                  or (_is_layout(down, "stacked") and down.bits == 8))
-            and (opts.grouped is True
+            and (opts.grouped in (True, "interpret")
                  or (opts.grouped == "auto" and n >= opts.grouped_min))):
         return "grouped"
     return "dense"
@@ -195,18 +205,20 @@ def _moe_gathered(sw, entry, x2, topi, topw):
     return torch.einsum("nkh,nk->nh", d.reshape(n, m.top_k, H), topw)
 
 
-def _moe_dense(sw, entry, x2, topi, topw):
-    """Every expert on every token (#6 at n <= 256), combined by the
-    router weights; in blocks of MOE_DENSE_BLOCK tokens above that."""
+def _moe_dense(sw, entry, x2, topi, topw, smallm: int = 0):
+    """Every expert on every token (#6 at n <= 256, #7 at n <= smallm),
+    combined by the router weights; in blocks of MOE_DENSE_BLOCK tokens
+    above that."""
     m = sw.arch.moe
     n, H = x2.shape
 
     def block(xb, wb):
-        g = apply_qlinear_stacked(entry["mlp.gate"], xb)
-        u = apply_qlinear_stacked(entry["mlp.up"], xb)
+        g = apply_qlinear_stacked(entry["mlp.gate"], xb, smallm=smallm)
+        u = apply_qlinear_stacked(entry["mlp.up"], xb, smallm=smallm)
         mid = A._act(g, sw.arch.act_fn) * u
         d = apply_qlinear_stacked(entry["mlp.down"],
-                                  mid.to(torch.bfloat16), pair=True)
+                                  mid.to(torch.bfloat16), pair=True,
+                                  smallm=smallm)
         return torch.einsum("enh,ne->nh", d, wb)
 
     w_full = torch.zeros((n, m.num_experts), dtype=torch.float32,
@@ -246,9 +258,10 @@ def _moe_mlp(sw: ServingWeights, entry, h2: torch.Tensor, ab: int,
                 (A._act(gk, arch.act_fn) * uk).to(torch.bfloat16), e)
             y = y + topw[:, k:k + 1] * dk
     elif route == "grouped":
-        y = moe_mlp_grouped(entry, x2, topi, topw, arch.act_fn)
+        y = moe_mlp_grouped(entry, x2, topi, topw, arch.act_fn,
+                            kernel_route=opts.grouped == "interpret")
     else:
-        y = _moe_dense(sw, entry, x2, topi, topw)
+        y = _moe_dense(sw, entry, x2, topi, topw, opts.smallm)
     if "mlp.shared_gate" in entry:
         sg = apply_qlinear(entry["mlp.shared_gate"], x2, act_bits=ab)
         su = apply_qlinear(entry["mlp.shared_up"], x2, act_bits=ab)
@@ -337,6 +350,7 @@ def _block_apply(sw: ServingWeights, entry, x: torch.Tensor, cos, sin,
     q = q.reshape(N, T, nh, hd).transpose(1, 2)
     k = k.reshape(N, T, nkv, hd).transpose(1, 2)
     v = v.reshape(N, T, nkv, hd).transpose(1, 2)
+    q, k = A.qk_normed(arch, entry, q, k)
     q, k = A.apply_rope(q, k, cos, sin)
     ctx = A.sdpa(q, k, v, mask, kv_groups=nh // nkv)
     ctx = ctx.transpose(1, 2).reshape(N, T, nh * hd)
@@ -377,6 +391,7 @@ def _block_apply_decode(sw: ServingWeights, entry, x: torch.Tensor, cos,
     q = q.reshape(S, 1, nh, hd).transpose(1, 2)
     k = k.reshape(S, 1, nkv, hd).transpose(1, 2)
     v = v.reshape(S, 1, nkv, hd).transpose(1, 2)
+    q, k = A.qk_normed(arch, entry, q, k)
     q, k = A.apply_rope(q, k, cos, sin)
     kq, ks = quantize_kv(k)
     vq, vs = quantize_kv(v)
@@ -416,9 +431,9 @@ class LLMEngine:
     ``kv_bits`` 8, 4 or "auto" (4 from ``max_len`` 4096 on, as in the JAX
     engine); ``attn_impl`` "auto", "xla", "bd4" or "pallas" (module
     docstring; a MoE model always takes ``xla``, so it serves at kv8).
-    ``moe_gather_max``, ``moe_grouped`` and ``moe_grouped_min`` set the
-    expert routes (``MoEOptions``).  Other JAX routes raise
-    ``NotImplementedError``."""
+    ``moe_gather_max``, ``moe_grouped``, ``moe_grouped_min`` and
+    ``moe_smallm`` set the expert routes (``MoEOptions``).  Other JAX
+    routes raise ``NotImplementedError``."""
 
     def __init__(self, weights: ServingWeights, max_slots: int = 8,
                  max_len: int = 1024, kv_bits: Union[int, str] = 8,
@@ -426,7 +441,7 @@ class LLMEngine:
                  seed: int = 0, attn_impl: str = "auto",
                  moe_gather_max: Optional[int] = None,
                  moe_grouped: Union[str, bool] = "auto",
-                 moe_grouped_min: int = 257,
+                 moe_grouped_min: int = 257, moe_smallm: int = 0,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         if weights.embed.device.type != self.device.type:
@@ -448,7 +463,8 @@ class LLMEngine:
                 f"kv_bits={kv_bits} with attn_impl={attn_impl!r} is not "
                 f"ported; the port serves {sorted(ROUTES)}")
         self.attn_impl = attn_impl
-        self.moe = MoEOptions(moe_gather_max, moe_grouped, moe_grouped_min)
+        self.moe = MoEOptions(moe_gather_max, moe_grouped, moe_grouped_min,
+                              moe_smallm)
         self.sw = weights
         self.arch = weights.arch
         self.max_slots = max_slots

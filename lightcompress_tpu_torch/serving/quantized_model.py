@@ -3,7 +3,8 @@ lightcompress_tpu/serving/quantized_model.py: RTN with the ``layout``,
 ``fused_rms`` and ``fuse_qkv`` options, the int8 per-channel head,
 ``head_logits`` and ``apply_qlinear``; for MoE blocks the stacked experts
 (``quantize_linear_stacked``), their dense, gathered and grouped linears and
-the selection grouping of the grouped route)."""
+the selection grouping of the grouped route; the q/k norm gammas of
+``qk_norm``)."""
 
 from __future__ import annotations
 
@@ -16,7 +17,9 @@ from ..device import DeviceLike, div, resolve_device
 from ..models import arch as A
 from ..models.base import resolve
 from ..ops.moe_matmul import (M_TILE, w4a8_grouped_matmul,
-                              w4a8_stacked_matmul)
+                              w4a8_stacked_matmul,
+                              w4a8_stacked_matmul_smallm,
+                              w8a8_grouped_matmul)
 from ..ops.qlinear import QLinearParams, qlinear_apply, quantize_linear
 from ..ops.w4_matmul import (DECODE_M_MAX, quantize_act_per_token,
                              unpack_int4_planes)
@@ -66,26 +69,25 @@ def quantize_linear_stacked(w3: torch.Tensor, spec: QuantSpec,
     ``layout="auto"``, the JAX package's int8 per-channel symmetric
     fallback ``stacked`` (codes (E, oc, ic) int8, f32 scales (E, oc, 1),
     ``bits`` 8: the effective bit width is recorded, not hidden).  Each
-    expert is quantized on its own, through ``device.div``."""
+    expert is quantized on its own, as JAX quantizes them, through
+    ``device.div``: both quantizations work row by row, so the experts'
+    rows go through one call as an (E*oc, ic) weight."""
     E, oc, ic = w3.shape
     gs = spec.group_size if spec.granularity == "per_group" else 0
+    rows = w3.reshape(E * oc, ic).float()
     if (layout in ("auto", "planes") and spec.bit == 4 and gs
             and ic % (8 * gs) == 0 and oc % 128 == 0):
-        parts = [quantize_linear(w3[e].float(), spec, layout="planes")
-                 for e in range(E)]
-        assert all(p.tiled for p in parts)
+        qp = quantize_linear(rows, spec, layout="planes")
+        assert qp.tiled
         return QLinearParams(
-            torch.stack([p.codes for p in parts]),
-            torch.stack([p.scales for p in parts]),
-            torch.stack([p.zeros for p in parts]), None, gs,
-            "stacked_planes", True, 4)
+            qp.codes.reshape(E, oc, -1), qp.scales.reshape(E, oc, -1),
+            qp.zeros.reshape(E, oc, -1), None, gs, "stacked_planes", True, 4)
     if layout == "auto" and spec.bit == 4:
         spec8 = QuantSpec(bit=8, symmetric=True, granularity="per_channel")
-        parts = [real_quant_weight(w3[e].float(), spec8) for e in range(E)]
+        codes, scales, _ = real_quant_weight(rows, spec8)
         return QLinearParams(
-            torch.stack([c for c, _, _ in parts]),
-            torch.stack([sc.float() for _, sc, _ in parts]), None, None, 0,
-            "stacked", False, 8)
+            codes.reshape(E, oc, ic), scales.float().reshape(E, oc, 1),
+            None, None, 0, "stacked", False, 8)
     raise NotImplementedError(
         f"{spec.bit}-bit stacked experts with layout={layout!r} (the int4 "
         f"'rows' storage) are not ported")
@@ -119,13 +121,16 @@ def _bf16_matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def apply_qlinear_stacked(qp: QLinearParams, x: torch.Tensor,
-                          pair: bool = False) -> torch.Tensor:
+                          pair: bool = False, smallm: int = 0
+                          ) -> torch.Tensor:
     """Stacked-expert linear: x (n, ic) -> (E, n, oc); ``pair`` means x
     carries the expert dim ((E, n, ic), the down projection's input).
 
     ``stacked_planes`` at n <= 256 runs kernel #6 after the per-token int8
     act quant (as on a TPU; here on any device, the plain version on the
-    CPU); otherwise the dequantized bf16 experts in a matmul."""
+    CPU), or kernel #7 at n <= ``smallm`` (the JAX package's
+    ``LCTPU_MOE_SMALLM``, default 0: never); otherwise the dequantized bf16
+    experts in a matmul."""
     if qp.layout == "stacked_planes" and x.shape[-2] <= DECODE_M_MAX:
         if pair:
             E, n, ic = x.shape
@@ -133,8 +138,9 @@ def apply_qlinear_stacked(qp: QLinearParams, x: torch.Tensor,
             xq, xs = xq.reshape(E, n, ic), xs.reshape(E, n, 1)
         else:
             xq, xs = quantize_act_per_token(x)
-        return w4a8_stacked_matmul(xq, xs, qp.codes, qp.scales, qp.zeros,
-                                   pair=pair)
+        kernel = (w4a8_stacked_matmul_smallm if x.shape[-2] <= smallm
+                  else w4a8_stacked_matmul)
+        return kernel(xq, xs, qp.codes, qp.scales, qp.zeros, pair=pair)
     return _bf16_matmul_f32(x if pair else x[None],
                             dequant_weight_stacked(qp))
 
@@ -188,16 +194,19 @@ def moe_group_selections(topi: torch.Tensor, num_experts: int,
 
 def moe_mlp_grouped(entry: Dict[str, Any], x2: torch.Tensor,
                     topi: torch.Tensor, topw: torch.Tensor, act_fn: str,
-                    m_tile: int = M_TILE) -> torch.Tensor:
+                    m_tile: int = M_TILE, kernel_route: bool = False
+                    ) -> torch.Tensor:
     """MoE MLP through the capacity-grouped kernel #9: (n, H) tokens and
     (n, top_k) routing -> (n, H) f32.  Each token is quantized once and
     its int8 row gathered into the expert-sorted layout (padding rows:
     the zero dummy row with scale 1); gate, up and down run as three
     grouped calls over the live experts only; the result is unsorted and
-    weighted by the router.  An int8 ``stacked`` down projection needs
-    kernel #10 (``w8a8_grouped_matmul``), which is not ported: on the
-    card it raises, on the CPU the JAX package's plain block-gathered
-    dequant matmul serves it."""
+    weighted by the router.  An int8 ``stacked`` down projection takes
+    the per-token int8 act quant of ``mid`` and kernel #10
+    (``w8a8_grouped_matmul``) on the card; on the CPU the JAX package's
+    CPU fallback, a block-gathered bf16 matmul without act quant, unless
+    ``kernel_route`` asks for the card's route (act quant and #10's plain
+    version: JAX's ``interpret=True``)."""
     gp, up, dp = entry["mlp.gate"], entry["mlp.up"], entry["mlp.down"]
     E = gp.codes.shape[0]
     n, H = x2.shape
@@ -216,10 +225,10 @@ def moe_mlp_grouped(entry: Dict[str, Any], x2: torch.Tensor,
         mq, ms = quantize_act_per_token(mid.to(torch.bfloat16))
         d = w4a8_grouped_matmul(mq, ms, dp.codes, dp.scales, dp.zeros,
                                 block_eid, m_tile)
-    elif x2.device.type != "cpu":
-        raise NotImplementedError(
-            "an int8 'stacked' down projection on the grouped route needs "
-            "kernel #10 w8a8_grouped_matmul, which is not ported")
+    elif kernel_route or x2.device.type != "cpu":
+        mq, ms = quantize_act_per_token(mid.to(torch.bfloat16))
+        d = w8a8_grouped_matmul(mq, ms, dp.codes, dp.scales, block_eid,
+                                m_tile)
     else:
         n_mb = block_eid.shape[0]
         midb = mid.to(torch.bfloat16).reshape(n_mb, m_tile, -1)
@@ -245,6 +254,10 @@ def build_serving_weights(model, wspec: QuantSpec, act_bits: int = 16,
     weights.  ``fuse_qkv`` concatenates q/k/v into ``attn.qkv`` and
     gate/up into ``mlp.gateup`` along the output channels (exact: the
     quantization is per output row).
+
+    ``qk_norm`` models keep their q/k norm gammas as ``q_norm`` and
+    ``k_norm`` entries (with ``fuse_qkv`` the engine applies them after
+    the split).
 
     A MoE block's stacked experts go through ``quantize_linear_stacked``
     whatever ``layout`` says, its router stays bf16, ``fuse_qkv`` never
@@ -294,6 +307,10 @@ def build_serving_weights(model, wspec: QuantSpec, act_bits: int = 16,
             entry[ln] = {k: t.to(dev) for k, t in bp[ln].items()}
             if fused_rms:
                 entry[ln]["weight"] = torch.ones_like(entry[ln]["weight"])
+        if arch.qk_norm:  # applied per head after the q/k split
+            for name in ("q_norm", "k_norm"):
+                entry[name] = {k: t.to(dev)
+                               for k, t in bp["attn"][name].items()}
         mp = bp["mlp"]
         if arch.moe is not None and "router" in mp:
             entry["mlp.router"] = {

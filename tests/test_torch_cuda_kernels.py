@@ -400,7 +400,7 @@ def test_stacked_kernel_matches_plain(dev, experts, B, pair):
     MM.reset_launch_counts()
     got = MM.w4a8_stacked_matmul(xq, xs, *args, pair=pair)
     _moe_close(got, MM.w4a8_stacked_matmul_plain(xq, xs, *args, pair))
-    assert [k.launches for k in MM.KERNELS] == [1, 0, 0]
+    assert [k.launches for k in MM.KERNELS] == [1, 0, 0, 0, 0]
 
 
 @pytest.mark.parametrize("case", ["n1", "n4", "one_expert"])
@@ -431,7 +431,7 @@ def test_gathered_kernel_matches_plain(dev, experts, case, name):
     got = MM.w4a8_gathered_matmul(xq, xs, *args, e_idx, t_idx)
     _moe_close(got, MM.w4a8_gathered_matmul_plain(xq, xs, *args, e_idx,
                                                   t_idx))
-    assert [k.launches for k in MM.KERNELS] == [0, 1, 0]
+    assert [k.launches for k in MM.KERNELS] == [0, 1, 0, 0, 0]
 
 
 @pytest.mark.parametrize("case,n,live", [("all_live", 1024, 8),
@@ -462,7 +462,7 @@ def test_grouped_kernel_matches_plain(dev, experts, case, n, live, name):
     got = MM.w4a8_grouped_matmul(xq, xs, *args, be)
     _moe_close(got, MM.w4a8_grouped_matmul_plain(xq, xs, *args, be))
     assert bool((got[gr.long() == n] == 0).all())
-    assert [k.launches for k in MM.KERNELS] == [0, 0, 1]
+    assert [k.launches for k in MM.KERNELS] == [0, 0, 1, 0, 0]
 
 
 def test_moe_kernels_reject_what_they_cannot_take(dev, experts):
@@ -480,3 +480,122 @@ def test_moe_kernels_reject_what_they_cannot_take(dev, experts):
         MM.w4a8_gathered_matmul(xq, xs, *args,
                                 torch.zeros(3, dtype=torch.int32),
                                 torch.zeros(3, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# #7 and #10: the Qwen3-MoE slice (Qwen3-30B-A3B: 128 experts, gate/up
+# 768 x 2048 in stacked planes, the down 2048 x 768 int8 per channel)
+# ---------------------------------------------------------------------------
+
+def _stacked(dev, E, N, K, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    w3 = (torch.randn((E, N, K), generator=gen, device=dev)
+          * 0.02).to(torch.bfloat16)
+    return QM.quantize_linear_stacked(w3, WSPEC)
+
+
+def _smallm_close(got, ref):
+    """#7 sums its exact bf16 products in f32 in another order than its
+    plain version's matmuls: 1e-5 of the largest output."""
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    err = (got - ref).abs().max()
+    assert err <= 1e-5 * ref.abs().max(), err
+
+
+@pytest.mark.parametrize("E,N,K,B", [(128, 768, 2048, 8), (4, 256, 1024, 3),
+                                     (3, 128, 2048, 20)])
+def test_smallm_kernel_matches_plain(dev, E, N, K, B):
+    """Shared x: Qwen3-30B-A3B's gate at the 8-slot decode, a B below the
+    8-row chunk, and B over two chunks."""
+    qp = _stacked(dev, E, N, K, N + K)
+    assert qp.layout == "stacked_planes"
+    xq, xs = _acts(dev, (B, K), B)
+    args = (qp.codes, qp.scales, qp.zeros)
+    MM.reset_launch_counts()
+    got = MM.w4a8_stacked_matmul_smallm(xq, xs, *args)
+    _smallm_close(got, MM.w4a8_stacked_matmul_smallm_plain(xq, xs, *args))
+    assert [k.launches for k in MM.KERNELS] == [0, 0, 0, 1, 0]
+
+
+@pytest.mark.parametrize("B", [8, 5])
+def test_smallm_kernel_pair_matches_plain(dev, experts, B):
+    """Pair mode at Mixtral-8x7B's down (E 8, N 4096, K 14336)."""
+    qp = experts["down"]
+    K = qp.codes.shape[2] * 8
+    xq, xs = _acts(dev, (8, B, K), B + 1)
+    args = (qp.codes, qp.scales, qp.zeros)
+    MM.reset_launch_counts()
+    got = MM.w4a8_stacked_matmul_smallm(xq, xs, *args, pair=True)
+    _smallm_close(got, MM.w4a8_stacked_matmul_smallm_plain(xq, xs, *args,
+                                                           True))
+    assert [k.launches for k in MM.KERNELS] == [0, 0, 0, 1, 0]
+
+
+QWEN3 = A.MoESpec(num_experts=128, top_k=8, moe_intermediate_size=768)
+
+
+def _w8_operands(dev, E, N, K, n, moe, seed):
+    """int8 experts and the grouping of n tokens routed by a seeded
+    router over E experts (``moe``'s top-k)."""
+    qp = _stacked(dev, E, N, K, seed)
+    assert (qp.layout, qp.bits) == ("stacked", 8)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    topi, _ = A.moe_route(moe, torch.randn((n, E), generator=gen,
+                                           device=dev))
+    gr, _, be = QM.moe_group_selections(topi, E)
+    xq_t, xs_t = _acts(dev, (n, K), n)
+    xq = torch.cat([xq_t, xq_t.new_zeros((1, K))])[gr.long()]
+    xs = torch.cat([xs_t, xs_t.new_ones((1, 1))])[gr.long()]
+    return qp, xq, xs, be, gr.long() == n
+
+
+@pytest.mark.parametrize("E,N,K,n,top_k", [
+    (128, 2048, 768, 1024, 8),   # Qwen3-30B-A3B's down at a 1024-token
+    (128, 1000, 768, 1024, 8),   # prefill; a ragged N
+    (4, 77, 784, 40, 2),         # ragged N under one tile, K % 64 != 0
+    (8, 384, 1536, 300, 2)])
+def test_w8a8_grouped_kernel_matches_plain(dev, E, N, K, n, top_k):
+    """Bit for bit, padding rows 0, at every shape."""
+    moe = A.MoESpec(num_experts=E, top_k=top_k, moe_intermediate_size=K)
+    qp, xq, xs, be, pad = _w8_operands(dev, E, N, K, n, moe, N + K)
+    MM.reset_launch_counts()
+    got = MM.w8a8_grouped_matmul(xq, xs, qp.codes, qp.scales, be)
+    ref = MM.w8a8_grouped_matmul_plain(xq, xs, qp.codes, qp.scales, be)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert bool((got[pad] == 0).all())
+    assert [k.launches for k in MM.KERNELS] == [0, 0, 0, 0, 1]
+
+
+def test_w8a8_grouped_kernel_bad_expert_id_writes_nan(dev):
+    E, N, K = 4, 200, 768
+    qp = _stacked(dev, E, N, K, 3)
+    xq, xs = _acts(dev, (384, K), 3)
+    be = torch.tensor([1, 7, -1], dtype=torch.int32, device=dev)
+    got = MM.w8a8_grouped_matmul(xq, xs, qp.codes, qp.scales, be)
+    ref = MM.w8a8_grouped_matmul_plain(xq, xs, qp.codes, qp.scales, be)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got[:128]).all())
+    assert bool(torch.isnan(got[128:]).all())
+    assert torch.equal(got[:128], ref[:128])
+    assert bool(torch.isnan(ref[128:]).all())
+
+
+def test_w8a8_grouped_kernel_rejects_what_it_cannot_take(dev):
+    E, N = 2, 128
+    qp = _stacked(dev, E, N, 776, 4)  # K % 16 == 8
+    xq = torch.zeros((128, 776), dtype=torch.int8, device=dev)
+    xs = torch.ones((128, 1), device=dev)
+    be = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        MM.w8a8_grouped_matmul(xq, xs, qp.codes, qp.scales, be)
+    qp = _stacked(dev, E, N, 768, 4)
+    xq = torch.zeros((192, 768), dtype=torch.int8, device=dev)
+    xs = torch.ones((192, 1), device=dev)
+    with pytest.raises(ValueError):  # m_tile % 64
+        MM.w8a8_grouped_matmul(xq, xs, qp.codes, qp.scales,
+                               torch.zeros(2, dtype=torch.int32, device=dev),
+                               m_tile=96)

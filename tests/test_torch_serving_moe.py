@@ -252,8 +252,8 @@ def test_moe_mlp_route_matches_jax(route, monkeypatch):
 
 def test_grouped_int8_down_on_cpu(monkeypatch):
     """A down projection that fell back to int8 per channel: the grouped
-    route serves it on the CPU through the plain block-gathered matmul
-    (kernel #10 is not ported), against JAX's grouped route with #10 in
+    route serves it on the CPU by default through the plain block-gathered
+    matmul (JAX's CPU fallback), against JAX's grouped route with #10 in
     interpret mode (bf16 against int8 down activations: corr >= 0.999);
     the gathered route refuses it (the reference fault, ROADMAP C)."""
     jsw, tsw, _ = _weights("int8_down", 8, jnp.bfloat16)
@@ -347,7 +347,7 @@ def test_engine_routes_and_refusals(monkeypatch):
         with pytest.raises(NotImplementedError):
             LLMEngine(tsw, max_slots=2, device="cpu", **kw)
     with pytest.raises(ValueError):
-        LLMEngine(tsw, max_slots=2, device="cpu", moe_grouped="interpret")
+        LLMEngine(tsw, max_slots=2, device="cpu", moe_grouped="1")
     calls = []
     for name in ("w4a8_gathered_matmul_plain", "w4a8_stacked_matmul_plain",
                  "w4a8_grouped_matmul_plain"):
