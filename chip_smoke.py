@@ -24,12 +24,18 @@ Phases (each prints one JSON line with its seconds):
      each, and torch.profiler over its decode steps; the kv4 engine at
      max_len 8192 (kernel #21) on 8 prompts of 3000-4000 tokens, 16 tokens
      each; the kv8 engine with ``attn_impl="pallas"`` (kernel #17) on the
-     prompts of phase 3; then the builds of the model with ln gammas
+     prompts of phase 3; the kv8 ``bd`` engine (kernel #18) on them, 32
+     tokens; the kv8 ``bds`` engine at max_len 4096 (kernel #19) on the
+     prompts of the kv4 engine, 16 tokens; the chunked kv8 engine
+     (``decode_chunk=16``: the ring, no attention kernel) on the prompts
+     of phase 3, 32 tokens, and torch.profiler over one ring chunk of 4
+     steps; then the builds of the model with ln gammas
      1 + 0.1 N(0, 1): fused planes (``fused_rms``, ``fuse_qkv``: #3 at
      prefill, #14 at decode), fused s4 on the kv4 route (#13, #20) and
      unfused s4 (#12 at prefill and decode);
-  6. the engine's prefill logits against a forward of the same serving
-     weights through the plain versions;
+  6. the engine's prefill logits (the ``xla`` and ``bd`` engines)
+     against a forward of the same serving weights through the plain
+     versions;
   7. MoE: the five expert kernels (#6 stacked, #8 gathered, #9 grouped at
      Mixtral-8x7B's shapes; #7 small-M stacked at Qwen3-30B-A3B's gate/up
      and Mixtral's down; #10 int8 grouped at Qwen3-30B-A3B's down, and at
@@ -47,11 +53,13 @@ Phases (each prints one JSON line with its seconds):
      slots through the dense prefill (#6) and the small-M decode (#7),
      torch.profiler over its decode steps, and its prefill logits against
      the plain versions;
-  9. a small Llama through each engine route and fused build, a small
-     Mixtral-shaped model through each expert route, and a small
-     Qwen3-MoE-shaped model through the grouped route with the int8 down
-     and the small-M route, on the card against the same on the CPU (the
-     paths the CPU tests hold to the JAX package);
+  9. a small Llama through each engine route (the ring among them) and
+     fused build, a small Mixtral-shaped model through each expert route,
+     and a small Qwen3-MoE-shaped model through the grouped route with the
+     int8 down and the small-M route, on the card against the same on the
+     CPU (the paths the CPU tests hold to the JAX package); before its
+     line, the 512-row fused s4 prefill's layers 0 and 1 op by op, card
+     against CPU in bf16 ulps (ROADMAP C1);
   10. the kernel summary line;
   11. the result line.
 Each engine phase sets every launch count to 0 just before it runs and
@@ -93,8 +101,8 @@ from lightcompress_tpu_torch.serving import engine as EN
 from lightcompress_tpu_torch.serving import quantized_model as QM
 from lightcompress_tpu_torch.serving.engine import Request
 from lightcompress_tpu_torch.serving.kv_cache import (
-    KVCache, append_kv4_bd, append_kv_quantized, append_slots, quantize_kv,
-    quantize_kv4, unpack_kv4)
+    KVCache, Ring, append_kv_bd, append_kv_quantized, append_slots,
+    flush_ring_to_cache, quantize_kv, quantize_kv4, unpack_kv4)
 
 SEED = 0
 # meta-llama/Meta-Llama-3-8B config.json
@@ -167,6 +175,12 @@ KERNEL_INFO = {
     "decode_attention_i8": dict(
         source="lightcompress_tpu_torch/ops/csrc/decode_attention.cu",
         replaces="lightcompress_tpu/ops/pallas_attention.py:118"),
+    "decode_attention_bd": dict(
+        source="lightcompress_tpu_torch/ops/csrc/decode_attention.cu",
+        replaces="lightcompress_tpu/ops/pallas_attention.py:285"),
+    "decode_attention_bd_flash": dict(
+        source="lightcompress_tpu_torch/ops/csrc/decode_attention.cu",
+        replaces="lightcompress_tpu/ops/pallas_attention.py:429"),
     "w4a8_matmul_bytes": dict(
         source="lightcompress_tpu_torch/ops/csrc/w4_bytes.cu",
         replaces="lightcompress_tpu/ops/pallas_matmul.py:2000"),
@@ -668,13 +682,15 @@ def qwen3moe_kernel_rows(dev, gen, row) -> None:
 
 def attn_bound(kname: str, lengths: torch.Tensor):
     """Least time of one decode-attention call: the bytes of the valid
-    columns only (codes and scales of K and V; the kernels skip masked
-    columns, which contribute exactly 0), q, the fresh token (#17) and the
+    columns only (codes and scales of K and V: 2 * D + 4 bytes a column
+    and kv head at int8, D + 4 at int4; the kernels skip masked columns,
+    which contribute exactly 0), q, the fresh token (#17) and the
     outputs, against the int8 dot operations (QK and PV, 2*D each per
     query row and column) at the int8 peak."""
     B, H, G, D = ATT_B, ATT_H, ATT_G, ATT_D
     cols = H * int(lengths.sum())
-    per_col = (2 * D + 4) if kname == "decode_attention_i8" else (D + 4)
+    per_col = (D + 4) if kname.startswith("decode_attention_bd4") \
+        else (2 * D + 4)
     nbytes = cols * per_col + B * H * G * D * 2 + B * 4
     if kname == "decode_attention_i8":
         cols += B * H  # the fresh token's column
@@ -695,13 +711,14 @@ def ragged_lengths(S: int, dev) -> torch.Tensor:
 
 def ctx_error(out, ref):
     """(max |err|, max |ref|) of the normalized context; ``out`` and
-    ``ref`` are #17's context or the bd4 kernels' (ctx, m, d), whose m and
-    d must agree to TOL_MD relative."""
+    ``ref`` are #17's context or the block-diagonal kernels' (ctx, m, d),
+    whose m and d must agree to TOL_MD relative."""
     if isinstance(out, tuple):
         (c, m, d), (rc, rm, rd) = out, ref
         if not (((m - rm).abs() <= TOL_MD * rm.abs()).all()
                 and ((d - rd).abs() <= TOL_MD * rd.abs()).all()):
-            raise AssertionError("bd4 kernel: m or d off its plain version")
+            raise AssertionError("block-diagonal kernel: m or d off its "
+                                 "plain version")
         out = c / d.clamp_min(1e-30)[..., None]
         ref = rc / rd.clamp_min(1e-30)[..., None]
     if not torch.isfinite(out).all():
@@ -741,25 +758,30 @@ def attn_case(kname: str, S: int, dev, gen):
         run = lambda: AT.decode_attention_i8(*args)
         plain = lambda: AT.decode_attention_i8_plain(*args)
     else:
-        k4, ks = quantize_kv4(k)
-        v4, vs = quantize_kv4(v)
-        kt4 = k4.transpose(2, 3).reshape(B, H * D // 2, S).contiguous()
-        vt4 = v4.transpose(1, 2).reshape(B, S, H * D // 2).contiguous()
-        args = (q, kt4, ks, vt4, vs, L)
+        nib = kname.startswith("decode_attention_bd4")
+        kc, ks = (quantize_kv4 if nib else quantize_kv)(k)
+        vc, vs = (quantize_kv4 if nib else quantize_kv)(v)
+        R = kc.shape[-1]
+        kt = kc.transpose(2, 3).reshape(B, H * R, S).contiguous()
+        vt = vc.transpose(1, 2).reshape(B, S, H * R).contiguous()
+        args = (q, kt, ks, vt, vs, L)
         outs = [torch.empty(s, dtype=torch.float32, device=dev)
                 for s in ((B, H, G, D), (B, H, G), (B, H, G))]
         ptrs = [t.data_ptr() for t in (q8, qs, *args[1:], *outs)]
-        if kname == "decode_attention_bd4":
-            bare = lambda: AT._launch(lib.lc_attn_bd4, *ptrs, B, H, G, S,
-                                      stream)
+        sb = AT.flash_block(S, AT.S_BLOCK) if kname.endswith("_flash") \
+            else 0
+        fn = lib.lc_attn_bd4 if nib else lib.lc_attn_bd
+        bare = lambda: AT._launch(fn, *ptrs, B, H, G, S, sb, stream)
+        if nib:
+            kf, vf = (unpack_kv4(c) * s[..., None].float()
+                      for c, s in ((kc, ks), (vc, vs)))
         else:
-            sb = AT.flash_block(S, AT.S_BLOCK)
-            bare = lambda: AT._launch(lib.lc_attn_bd4_flash, *ptrs, B, H,
-                                      G, S, sb, stream)
-        kf, vf = (unpack_kv4(c) * s[..., None].float() for c, s in ((k4, ks),
-                                                                     (v4, vs)))
-        run = lambda: getattr(AT, kname)(*args)
-        plain = lambda: getattr(AT, kname + "_plain")(*args)
+            kf, vf = (c.float() * s[..., None].float()
+                      for c, s in ((kc, ks), (vc, vs)))
+        # the engine's column block: 512 (#19's own default is 256)
+        extra = dict(s_block=AT.S_BLOCK) if kname.endswith("_flash") else {}
+        run = lambda: getattr(AT, kname)(*args, **extra)
+        plain = lambda: getattr(AT, kname + "_plain")(*args, **extra)
     kf, vf = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
     mask = (torch.arange(S, device=dev)[None] < L[:, None])[:, None, None]
     library = lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -768,8 +790,9 @@ def attn_case(kname: str, S: int, dev, gen):
 
 
 def phase_attn_kernels(dev) -> dict:
-    """#20 at buffer 4096, #21 at 8192, #17 at 512 and 4096 against their
-    plain versions; times of the bare kernel (operands prepared), of the
+    """#20 at buffer 4096, #21 at 8192, #17 at 512 and 4096, #18 at 512
+    and 4096, #19 at 4096 (512-column blocks) against their plain
+    versions; times of the bare kernel (operands prepared), of the
     whole wrapper (with the query's int8 quantization), of the plain
     version, and of the library yardstick: PyTorch's
     scaled_dot_product_attention of the bf16 q over the pre-dequantized
@@ -783,7 +806,10 @@ def phase_attn_kernels(dev) -> dict:
     for kname, S in (("decode_attention_bd4", 4096),
                      ("decode_attention_bd4_flash", 8192),
                      ("decode_attention_i8", 512),
-                     ("decode_attention_i8", 4096)):
+                     ("decode_attention_i8", 4096),
+                     ("decode_attention_bd", 512),
+                     ("decode_attention_bd", 4096),
+                     ("decode_attention_bd_flash", 4096)):
         run, plain, bare, library, L = attn_case(kname, S, dev, gen)
         err, scale = ctx_error(run(), plain())
         torch.cuda.synchronize()
@@ -833,11 +859,13 @@ def padded(prompts, T: int, dev):
 
 
 def timed_engine(eng: LLMEngine):
-    """Wrap the engine's prefill and decode passes with synchronised host
-    timers; returns the dict they fill."""
+    """Wrap the engine's prefill and decode passes (per-step, or the
+    chunks of a chunked engine) with synchronised host timers; returns
+    the dict they fill."""
     stats = {"prefill_s": 0.0, "decode_s": 0.0, "decode_tokens": 0,
              "decode_steps": 0, "prefill_rows": 0, "prefill_batches": 0}
-    prefill, decode = eng._prefill_batch, eng._decode_step
+    prefill, step, chunk = (eng._prefill_batch, eng._decode_step,
+                            eng._decode_chunk)
 
     def p(ids, slots, tlens, T):
         torch.cuda.synchronize()
@@ -849,17 +877,30 @@ def timed_engine(eng: LLMEngine):
         stats["prefill_batches"] += 1
         return out
 
-    def d(cur, active):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = decode(cur, active)
-        torch.cuda.synchronize()
-        stats["decode_s"] += time.perf_counter() - t
-        stats["decode_tokens"] += int(active.sum())
-        stats["decode_steps"] += 1
-        return out
+    def timed(fn, n_steps):
+        def run(*args):  # args[1]: the active mask of both methods
+            active = args[1]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            stats["decode_s"] += time.perf_counter() - t
+            n = n_steps(args)
+            stats["decode_tokens"] += int(active.sum()) * n
+            stats["decode_steps"] += n
+            return out
+        return run
 
-    eng._prefill_batch, eng._decode_step = p, d
+    eng._prefill_batch = p
+    if eng.decode_chunk > 1:
+        stats["chunks"] = []
+
+        def n_chunk(args):
+            stats["chunks"].append(args[0])
+            return args[0]
+        eng._decode_chunk = timed(chunk, n_chunk)
+    else:
+        eng._decode_step = timed(step, lambda args: 1)
     return stats
 
 
@@ -869,7 +910,7 @@ def engine(sw, dev, **kw) -> LLMEngine:
     opts = dict(max_slots=8, max_len=512, kv_bits=8, prefill_buckets=(128,))
     opts.update(kw)
     with warnings.catch_warnings():
-        warnings.simplefilter("ignore")  # attn_impl="pallas" is probe-only
+        warnings.simplefilter("ignore")  # pallas, bd, bds are probe-only
         return LLMEngine(sw, seed=SEED, device=dev, **opts)
 
 
@@ -896,7 +937,9 @@ def run_engine(sw, prompts, n_new: int, dev, **kw) -> tuple:
     return outs, launches, dict(
         stats, generate_s=time.time() - t0,
         decode_tok_s=stats["decode_tokens"] / stats["decode_s"],
-        attn_impl=eng.attn_impl, kv_bits=eng.kv_bits, buf_len=eng.buf_len,
+        attn_impl=eng.attn_impl, ring=eng.ring,
+        decode_chunk=eng.decode_chunk, kv_bits=eng.kv_bits,
+        buf_len=eng.buf_len,
         prompt_tokens=[min(plens), max(plens)],
         context_max=max(plens) + n_new - 1)
 
@@ -904,16 +947,18 @@ def run_engine(sw, prompts, n_new: int, dev, **kw) -> tuple:
 def engine_phase(name: str, sw, prompts, n_new: int, dev, attn: str,
                  expect=None, **kw) -> dict:
     """One engine phase: its attention kernel ``attn`` (None: the plain
-    ``xla`` route) launched, the other attention kernels not.  With
-    ``expect`` ({W4 kernel: (launches per prefill batch, per decode
-    step)}) each W4 kernel launched exactly so often, and the others
-    never."""
+    ``xla`` route or the ring) launched once a layer and decode step, the
+    other attention kernels never.  With ``expect`` ({W4 kernel:
+    (launches per prefill batch, per decode step)}) each W4 kernel
+    launched exactly so often, and the others never."""
     t0 = time.time()
     _, launches, stats = run_engine(sw, prompts, n_new, dev, **kw)
     for k in ATTN:
-        if (launches[k] > 0) != (k == attn):
+        want = sw.arch.num_layers * stats["decode_steps"] if k == attn \
+            else 0
+        if launches[k] != want:
             raise AssertionError(f"{name}: {k} launched {launches[k]} "
-                                 f"times")
+                                 f"times, not {want}")
     if expect is not None:
         for k in (f.__name__ for f in W4_KERNELS):
             per_p, per_d = expect.get(k, (0, 0))
@@ -929,21 +974,30 @@ def engine_phase(name: str, sw, prompts, n_new: int, dev, attn: str,
 
 def phase_profile(sw, prompts, dev, steps: int = 4, build: str = "w4a8",
                   **kw) -> dict:
-    """torch.profiler over a few decode steps with every slot active:
-    device busy time per kernel name, and the device's idle share of the
-    steps' wall time (one stream, so kernel times do not overlap)."""
+    """torch.profiler over a few decode steps with every slot active (on a
+    chunked engine one chunk of ``steps`` steps, its sampling and its ring
+    flush included): device busy time per kernel name, and the device's
+    idle share of the steps' wall time (one stream, so kernel times do not
+    overlap)."""
     eng = engine(sw, dev, **kw)
     eng._admit([(i, Request(i, np.asarray(p), steps + 1))
                 for i, p in enumerate(prompts)], SamplingParams())
     active = torch.ones(eng.max_slots, dtype=torch.bool, device=dev)
-    eng._decode_step(eng.cur_tokens, active)
+
+    def run():
+        if eng.decode_chunk > 1:
+            eng._decode_chunk(steps, active, SamplingParams())
+        else:
+            for _ in range(steps):
+                eng._decode_step(eng.cur_tokens, active)
+
+    run()  # warm-up
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            eng._decode_step(eng.cur_tokens, active)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kern = {}
@@ -961,6 +1015,7 @@ def phase_profile(sw, prompts, dev, steps: int = 4, build: str = "w4a8",
     return {"phase": "profile_decode", "build": build,
             "act_bits": sw.act_bits, "slots": eng.max_slots,
             "kv_bits": eng.kv_bits, "attn_impl": eng.attn_impl,
+            "ring": eng.ring, "decode_chunk": eng.decode_chunk,
             "lengths": eng.lengths.tolist(),
             "steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
             "device_busy_ms_per_step": busy_ms,
@@ -1054,9 +1109,9 @@ def plain_prefill_logits(sw, prompts, T: int, dev):
                        )[:, 0]
 
 
-def engine_prefill_logits(sw, prompts, T: int, dev):
-    eng = LLMEngine(sw, max_slots=len(prompts), max_len=512, kv_bits=8,
-                    prefill_buckets=(T,), seed=SEED, device=dev)
+def engine_prefill_logits(sw, prompts, T: int, dev, **kw):
+    eng = engine(sw, dev, max_slots=len(prompts), prefill_buckets=(T,),
+                 **kw)
     ids, tl = padded(prompts, T, dev)
     return eng._prefill_batch(ids, torch.arange(len(prompts), device=dev),
                               tl, T)
@@ -1069,19 +1124,25 @@ SMALL = ArchSpec(family="llama", vocab_size=256, hidden_size=1024,
 
 
 # the engine routes of small_vs_cpu: kv8 (plain xla attention), kv4 at
-# buffers 4096 (#20) and 8192 (#21), kv8 with attn_impl="pallas" (#17)
+# buffers 4096 (#20) and 8192 (#21), kv8 with attn_impl="pallas" (#17),
+# "bd" (#18) and "bds" (#19 at buffer 4096), and the ring of a chunked kv8
+# engine (xla8r, the teacher-forced steps in one ring chunk of 4)
 SMALL_ROUTES = {
     "kv8": dict(max_len=256),
     "kv4_4096": dict(kv_bits="auto", max_len=4096),
     "kv4_8192": dict(kv_bits=4, max_len=8192),
     "pallas": dict(max_len=256, attn_impl="pallas"),
+    "bd": dict(max_len=256, attn_impl="bd"),
+    "bds": dict(kv_bits=8, max_len=4096, attn_impl="bds"),
+    "ring": dict(max_len=256, decode_chunk=4),
 }
 
 
 def small_route(sw, prompts, forced, d, kw):
-    """Prefill and teacher-forced decode of one route on device ``d``:
-    (stacked logits on the CPU, the engine, the prefill cache on the
-    CPU)."""
+    """Prefill and teacher-forced decode of one route on device ``d`` (a
+    ring engine's steps in ring chunks of its ``decode_chunk``, each
+    flushed after its last step): (stacked logits on the CPU, the engine,
+    the prefill cache on the CPU)."""
     eng = engine(sw, d, max_slots=len(prompts), **kw)
     ids, tl = padded(prompts, 128, d)
     out = [eng._prefill_batch(ids, torch.arange(len(prompts), device=d),
@@ -1089,16 +1150,28 @@ def small_route(sw, prompts, forced, d, kw):
     cache = [t.cpu() for t in (eng.cache.k, eng.cache.v, eng.cache.k_scale,
                                eng.cache.v_scale)]
     active = torch.ones(len(prompts), dtype=torch.bool, device=d)
-    for t in forced:
-        out.append(eng._decode_step(torch.from_numpy(t).to(d), active))
+    a, W = sw.arch, eng.decode_chunk
+    ring = None
+    for i, t in enumerate(forced):
+        if eng.ring and i % W == 0:
+            ring = EN.RingStep(Ring.create(a.num_layers, len(prompts),
+                                           a.num_kv_heads, W, a.head_dim, d),
+                               eng.lengths.clone())
+        if ring is not None:
+            ring.pos = i % W
+        out.append(eng._decode_step(torch.from_numpy(t).to(d), active,
+                                    ring))
+        if ring is not None and (i % W == W - 1 or i == len(forced) - 1):
+            flush_ring_to_cache(eng.cache, ring.ring, ring.lengths0)
     return torch.stack(out).float().cpu(), eng, cache
 
 
 def writers_match(dev, eng: LLMEngine) -> bool:
     """The cache writers of ``eng``'s cache layout on the card and on the
     CPU, fed the same K/V (a prefill of 100 tokens into each slot, then
-    one decode token per slot, one of them at the buffer's end), write the
-    same bytes."""
+    one decode token per slot, one of them at the buffer's end; on the
+    ring a 4-column ring flushed at the same lengths), write the same
+    bytes."""
     S, H, T, D = (eng.max_slots, eng.arch.num_kv_heads, eng.buf_len,
                   eng.arch.head_dim)
     bits, layout = eng.cache.bits, eng.cache.layout
@@ -1106,6 +1179,9 @@ def writers_match(dev, eng: LLMEngine) -> bool:
     k, v = (torch.randn((S, H, 100, D), generator=g).to(torch.bfloat16)
             for _ in range(2))
     kn, vn = (torch.randn((S, H, 1, D), generator=g) for _ in range(2))
+    ring = Ring(torch.randint(-127, 128, (1, S, 2 * H, 4, D), generator=g,
+                              dtype=torch.int8),
+                torch.rand((1, S, 2 * H, 4), generator=g).to(torch.bfloat16))
     lengths = torch.full((S,), 100)
     lengths[-1] = T
     out = []
@@ -1113,12 +1189,15 @@ def writers_match(dev, eng: LLMEngine) -> bool:
         c = KVCache.create(1, S, H, T, D, bits=bits, layout=layout,
                            device=d)
         append_slots(c, 0, torch.arange(S, device=d), k.to(d), v.to(d))
-        if layout == "bd4":
-            append_kv4_bd(c, 0, *quantize_kv4(kn.to(d)),
-                          *quantize_kv4(vn.to(d)), lengths.to(d))
-        else:
+        if layout == "hhd":
             append_kv_quantized(c, 0, *quantize_kv(kn.to(d)),
                                 *quantize_kv(vn.to(d)), lengths.to(d))
+        else:
+            q = quantize_kv4 if layout == "bd4" else quantize_kv
+            append_kv_bd(c, 0, *q(kn.to(d)), *q(vn.to(d)), lengths.to(d))
+        if eng.ring:
+            flush_ring_to_cache(c, Ring(ring.kv.to(d), ring.s.to(d)),
+                                lengths.to(d) + 1)
         out.append([t.cpu() for t in (c.k, c.v, c.k_scale, c.v_scale)])
     return all(torch.equal(a, b) for a, b in zip(*out))
 
@@ -1185,7 +1264,8 @@ def compare_routes(sws, prompts, forced, dev, routes_kw: dict,
         share = [[float((x[li] != y[li]).sum()
                         / ((x[li] != 0) | (y[li] != 0)).sum())
                   for x, y in zip(ca, cb)] for li in range(ca[0].shape[0])]
-        routes[name] = {"attn_impl": eng.attn_impl, "buf_len": eng.buf_len,
+        routes[name] = {"attn_impl": eng.attn_impl, "ring": eng.ring,
+                        "buf_len": eng.buf_len,
                         "min_corr": corr, "cache_diff_share": share,
                         "writers_match": writers_match(dev, eng),
                         "finite": bool(torch.isfinite(b).all())}
@@ -1215,6 +1295,102 @@ SMALL_FUSED = {
     "fused_s4": (S4_FUSED, ("kv8", "kv4_4096"), 2, 0.1),
     "fused_s4_512": (S4_FUSED, ("kv8",), 4, 0.3),
 }
+
+
+def bf16_ulps(out, ref) -> dict:
+    """How far ``out`` lies from ``ref`` in bf16 ulps (an ulp at |t| in
+    [2^(e-1), 2^e) is 2^(e-8)): the largest distance at the entries' own
+    magnitude (the larger of the two; an output that cancels to near 0
+    counts many of its small ulps), the largest distance in ulps of the
+    tensor's largest |ref|, and the share of entries that differ at all;
+    for int8 codes the largest code step and the share."""
+    a, b = out.cpu(), ref.cpu()
+    share = float((a != b).float().mean())
+    if not a.is_floating_point():
+        return {"max_code_step": int((a.int() - b.int()).abs().max()),
+                "share_diff": share}
+    a, b = a.float(), b.float()
+
+    def ulp(t):
+        e = torch.frexp(t.clamp_min(2.0 ** -126))[1]
+        return torch.ldexp(torch.ones_like(t), e - 8)
+
+    d = (a - b).abs()
+    return {"max_ulps": float((d / ulp(torch.maximum(a.abs(),
+                                                     b.abs()))).max()),
+            "max_ulps_of_max": float(d.max() / ulp(b.abs().max())),
+            "share_diff": share}
+
+
+def layer_ops(sw, li, x, mask, cos, sin, feed=None) -> dict:
+    """Layer ``li`` of a prefill through the engine's ops on ``sw``'s
+    device, op by op: {op: (inputs, outputs)} on the CPU.  With ``feed``
+    (another run's record) every op takes that run's inputs instead of its
+    own chain's, so each op sees identical inputs on both devices."""
+    arch, e = sw.arch, sw.blocks[li]
+    nh, nkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
+    N, T, _ = x.shape
+    d = x.device
+    rec = {}
+
+    def op(name, fn, *args):
+        if feed is not None:
+            args = tuple(a.to(d) for a in feed[name][0])
+        out = fn(*args)
+        outs = out if isinstance(out, tuple) else (out,)
+        rec[name] = (tuple(a.cpu() for a in args),
+                     tuple(o.cpu() for o in outs))
+        return out
+
+    def lin(name):
+        return lambda h: QM.apply_qlinear(e[name], h, act_bits=sw.act_bits)
+
+    h1 = op("rmsnorm_ln1", lambda t: A.apply_norm(t, e["ln1"], arch), x)
+    q, k, v = torch.split(op("qkv", lin("attn.qkv"), h1),
+                          EN._qkv_sizes(arch), dim=-1)
+    q = q.reshape(N, T, nh, hd).transpose(1, 2)
+    k = k.reshape(N, T, nkv, hd).transpose(1, 2)
+    v = v.reshape(N, T, nkv, hd).transpose(1, 2)
+    q, k = op("rope", lambda a, b: A.apply_rope(a, b, cos, sin), q, k)
+    op("kv_quant", lambda a, b: (*quantize_kv(a), *quantize_kv(b)), k, v)
+    ctx = op("sdpa", lambda a, b, c: A.sdpa(a, b, c, mask,
+                                            kv_groups=nh // nkv), q, k, v)
+    h = x + op("attn_o", lin("attn.o"),
+               ctx.transpose(1, 2).reshape(N, T, nh * hd))
+    gu = op("gateup", lin("mlp.gateup"),
+            op("rmsnorm_ln2", lambda t: A.apply_norm(t, e["ln2"], arch), h))
+    g, u = torch.split(gu, gu.shape[-1] // 2, dim=-1)
+    mid = op("act", lambda t: A._act(t, arch.act_fn), g) * u
+    op("output", lambda a, b: a + b, h, op("down", lin("mlp.down"), mid))
+    return rec
+
+
+def c1_readings(sws, prompts, dev) -> dict:
+    """ROADMAP C1: layers 0 and 1 of the 512-row fused s4 prefill, card
+    against CPU, each op on identical bf16 inputs (``same_inputs``: the
+    CPU chain's inputs handed to the card) and along each device's own
+    chain from the same embeddings (``chain``)."""
+    T = 128
+    ids, tl = padded(prompts, T, "cpu")
+    sw = sws["cpu"]
+    cos, sin = A.rope_cos_sin(sw.arch, torch.arange(T))
+    mask = A.causal_mask(T, T)[None, None] + torch.where(
+        torch.arange(T)[None] < tl[:, None], 0.0,
+        torch.finfo(torch.float32).min)[:, None, None, :]
+    x_ref = x_own = sw.embed[ids]
+    on = [t.to(dev) for t in (mask, cos, sin)]
+    layers = []
+    for li in range(2):
+        ref = layer_ops(sw, li, x_ref, mask, cos, sin)
+        fed = layer_ops(sws[dev], li, x_ref.to(dev), *on, feed=ref)
+        own = layer_ops(sws[dev], li, x_own.to(dev), *on)
+        layers.append({name: {
+            "same_inputs": [bf16_ulps(a, b) for a, b in zip(fed[name][1], r)],
+            "chain": [bf16_ulps(a, b) for a, b in zip(own[name][1], r)]}
+            for name, (_, r) in ref.items()})
+        x_ref, x_own = ref["output"][1][0], own["output"][1][0]
+    return {"phase": "small_vs_cpu_c1", "build": "fused_s4",
+            "prefill_rows": len(prompts) * T, "layers": layers}
 
 
 def phase_small_vs_cpu(dev, steps: int = 3) -> dict:
@@ -1256,6 +1432,7 @@ def phase_small_vs_cpu(dev, steps: int = 3) -> dict:
         res[bname] = {"same_codes": same_codes(sws), "share_max": share_max,
                       "routes": routes}
         ok = ok and b_ok and res[bname]["same_codes"]
+    emit(c1_readings(sws, prompts, dev))
     mm = torch.backends.cuda.matmul
     reduced = mm.allow_bf16_reduced_precision_reduction
     mm.allow_bf16_reduced_precision_reduction = False
@@ -1355,7 +1532,8 @@ def summarize(rows, attn_rows, fused_rows, moe_rows, launches) -> list:
     the 1024-token prefill), or of one Qwen3-30B-A3B layer's (#7 gate and
     up at B = 8, #10 the down of the 1024-token prefill); for an
     attention kernel, one call at the
-    buffer of its engine phase (#20 4096, #21 8192, #17 512)."""
+    buffer of its engine phase (#20 4096, #21 8192, #17 512, #18 512, #19
+    4096)."""
     main_m = {"w4a16_matmul": 8, "w4a8_matmul_decode": 8,
               "w4a8_matmul_prefill": 1024, "w4a8_matmul_bytes": S4_M[0],
               "w4a8_linear_bytes_fused": FUSED_M,
@@ -1366,7 +1544,8 @@ def summarize(rows, attn_rows, fused_rows, moe_rows, launches) -> list:
               "w8a8_grouped_matmul": "qwen3_prefill"}
     rows = rows + fused_rows + [dict(r, M=r["case"]) for r in moe_rows]
     main_s = {"decode_attention_bd4": 4096,
-              "decode_attention_bd4_flash": 8192, "decode_attention_i8": 512}
+              "decode_attention_bd4_flash": 8192, "decode_attention_i8": 512,
+              "decode_attention_bd": 512, "decode_attention_bd_flash": 4096}
     out = []
     for kname, info in KERNEL_INFO.items():
         if kname in main_s:
@@ -1392,16 +1571,16 @@ def summarize(rows, attn_rows, fused_rows, moe_rows, launches) -> list:
     return out
 
 
-def engine_vs_plain(name: str, sw, prompts, dev) -> None:
+def engine_vs_plain(name: str, sw, prompts, dev, **kw) -> None:
     """The engine's prefill logits (first prompt) against the plain
     forward of the same serving weights: corr >= 0.999, same argmax."""
     t0 = time.time()
     with torch.no_grad():
-        eng_l = engine_prefill_logits(sw, prompts, 128, dev)[0].float()
+        eng_l = engine_prefill_logits(sw, prompts, 128, dev, **kw)[0].float()
         ref_l = plain_prefill_logits(sw, prompts, 128, dev)[0].float()
     corr = float(torch.corrcoef(torch.stack([eng_l, ref_l]))[0, 1])
     same = int(eng_l.argmax()) == int(ref_l.argmax())
-    emit({"phase": "engine_vs_plain", "build": name,
+    emit({"phase": "engine_vs_plain", "build": name, **kw,
           "prefill_rows": len(prompts) * 128, "corr": corr,
           "argmax_equal": same, "finite": bool(torch.isfinite(eng_l).all()),
           "seconds": time.time() - t0})
@@ -1553,6 +1732,22 @@ def main() -> int:
         prefill_buckets=(4096,)))
     runs.append(engine_phase("engine_pallas", sw8, prompts, 16, dev,
                              "decode_attention_i8", attn_impl="pallas"))
+    # the kv8 block-diagonal routes and the chunked ring: the seven planes
+    # linears a block through #3 (prefill batches) and #2 (decode steps)
+    dense = {"w4a8_matmul_prefill": (7 * layers, 0),
+             "w4a8_matmul_decode": (0, 7 * layers)}
+    runs.append(engine_phase("engine_bd", sw8, prompts, 32, dev,
+                             "decode_attention_bd", expect=dense,
+                             attn_impl="bd"))
+    runs.append(engine_phase(
+        "engine_bds", sw8, prompts_kv4, 16, dev,
+        "decode_attention_bd_flash", expect=dense, kv_bits=8, max_len=4096,
+        prefill_buckets=(2048,), attn_impl="bds"))
+    runs.append(engine_phase("engine_chunk", sw8, prompts, 32, dev, None,
+                             expect=dense, decode_chunk=16))
+    t0 = time.time()
+    emit(dict(phase_profile(sw8, prompts, dev, build="ring",
+                            decode_chunk=16), seconds=time.time() - t0))
 
     # the fused builds: 4 linears a block (q|k|v and gate|up merged); #14
     # or #13 carries every decode linear, #3 the planes prefill (1024
@@ -1574,11 +1769,13 @@ def main() -> int:
         "engine_s4", builds["s4"], prompts[:2], 16, dev, None,
         expect={"w4a8_matmul_bytes": (7 * layers, 7 * layers)}))
 
-    for name, sw, ps in (("w4a8", sw8, prompts),
-                         ("fused_planes", builds["fused_planes"], prompts),
-                         ("fused_s4", builds["fused_s4"], prompts[:2]),
-                         ("s4", builds["s4"], prompts[:2])):
-        engine_vs_plain(name, sw, ps, dev)
+    for name, sw, ps, kw in (
+            ("w4a8", sw8, prompts, {}),
+            ("w4a8", sw8, prompts, dict(attn_impl="bd")),
+            ("fused_planes", builds["fused_planes"], prompts, {}),
+            ("fused_s4", builds["fused_s4"], prompts[:2], {}),
+            ("s4", builds["s4"], prompts[:2], {})):
+        engine_vs_plain(name, sw, ps, dev, **kw)
     # the Llama builds go before Mixtral's are made
     del sw8, sw16, builds, sw
     gc.collect()

@@ -1,15 +1,19 @@
-"""Decode attention over the quantized slot caches: the three Hopper kernels
+"""Decode attention over the quantized slot caches: the five Hopper kernels
 of the serving path with their plain PyTorch versions (port of
-lightcompress_tpu/ops/pallas_attention.py, kernels #17, #20 and #21).
+lightcompress_tpu/ops/pallas_attention.py, kernels #17-#21).
 
+* ``decode_attention_bd`` (#18) and ``decode_attention_bd_flash`` (#19):
+  one-token GQA decode over the kv8 block-diagonal ``bd`` slabs (K
+  feature-major (B, H*D, S) int8, V time-major (B, S, H*D) int8, bf16
+  scales (B, H, S));
 * ``decode_attention_bd4`` (#20) and ``decode_attention_bd4_flash`` (#21):
-  one-token GQA decode over the nibble-packed kv4 ``bd4`` slabs (K
-  feature-major (B, H*D/2, S), V time-major (B, S, H*D/2), bf16 scales
-  (B, H, S)); they return the *unnormalized* context (B, H, G, D) f32 with
-  the softmax max ``m`` and denominator ``d`` (B, H, G), for
-  ``bd_merge_new_token`` to fold the fresh token in.  #21 splits S into
-  ``s_block`` columns and carries (o, m, d) across the blocks; each block
-  requantizes its probabilities with its own scale.
+  the same over the nibble-packed kv4 ``bd4`` slabs (K (B, H*D/2, S), V
+  (B, S, H*D/2)).
+  These four return the *unnormalized* context (B, H, G, D) f32 with the
+  softmax max ``m`` and denominator ``d`` (B, H, G), for
+  ``bd_merge_new_token`` to fold the fresh token in.  The flash forms
+  split S into ``s_block`` columns and carry (o, m, d) across the blocks;
+  each block requantizes its probabilities with its own scale.
 * ``decode_attention_i8`` (#17): the same over the int8 ``hhd`` cache
   (B, H, S, D) with the fresh token as an extra softmax column; returns
   the normalized context.
@@ -17,7 +21,7 @@ lightcompress_tpu/ops/pallas_attention.py, kernels #17, #20 and #21).
 Arithmetic (the JAX kernels', in this order): q is quantized per (b, h, g)
 to int8 (``quantize_q``); scores are int32 dots, then
 ``(f32(s) * (qs * D**-0.5)) * ks``; columns at or past a slot's length are
-masked; the max is floored at -1e30 (bd4); ``pv = exp(s - m) * vs``;
+masked; the max is floored at -1e30 (#18-#21); ``pv = exp(s - m) * vs``;
 ``ps = max(max(pv), 1e-20) / 127``; ``p8 = round_half_even(pv / ps)``; the
 PV dot is an int32 sum times ``ps``.  Masked columns contribute exactly 0,
 so the kernels skip them.
@@ -43,7 +47,12 @@ from .w4_matmul import quantize_act_per_token
 # the kernels' supported shapes (Llama-3 GQA): head_dim and group sizes
 KERNEL_HEAD_DIM = 128
 KERNEL_GROUPS = (1, 2, 4, 8)
+# the engine's column block of #19 and #21
 S_BLOCK = 512
+# the JAX wrappers' default column block of #19 (``decode_attention_bd_flash``)
+FLASH_BLOCK = 256
+# the dynamic shared memory a block may have on an H100 (227 KB)
+SMEM_MAX = 232448
 
 Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -67,28 +76,33 @@ def _lengths(lengths: Optional[torch.Tensor], B: int, S: int,
 # plain versions (the CPU route and the on-card reference)
 # ---------------------------------------------------------------------------
 
-def _bd4_planes(kt4: torch.Tensor, vt4: torch.Tensor, H: int):
-    """Sign-extended f64 code planes: K (B, H, D/2, S) lo/hi and V
-    (B, H, S, D/2) lo/hi."""
-    B, HD2, S = kt4.shape
-    ki, vi = kt4.to(torch.int32), vt4.to(torch.int32)
+def _bd_planes(kt: torch.Tensor, vt: torch.Tensor, H: int, nib: bool):
+    """f64 code planes of the block-diagonal slabs: K planes (B, H, R, S)
+    and V planes (B, H, S, R).  kv8: one plane, the int8 codes (R = D);
+    kv4: the sign-extended low and high nibbles (R = D/2)."""
+    B, HR, S = kt.shape
+    k = kt.to(torch.int32).reshape(B, H, HR // H, S)
+    v = vt.to(torch.int32).reshape(B, S, H, HR // H).transpose(1, 2)
+    if not nib:
+        return (k.double(),), (v.double(),)
 
     def planes(p):
         return (((p & 0xF) ^ 8) - 8).double(), \
             ((((p >> 4) & 0xF) ^ 8) - 8).double()
 
-    klo, khi = planes(ki.reshape(B, H, HD2 // H, S))
-    vlo, vhi = planes(vi.reshape(B, S, H, HD2 // H).transpose(1, 2))
-    return klo, khi, vlo, vhi
+    return planes(k), planes(v)
 
 
-def _block_partials(q8, qsc, klo, khi, ks, vlo, vhi, vs, valid, m_floor):
-    """One column range of a bd4 kernel: returns (m_new, e, ctx) with
-    m_new = max(m_floor, max(s), -1e30), e = exp(s - m_new) and ctx the
-    range's requantized PV; m_floor is the running max (-1e30 at first)."""
-    D2 = klo.shape[2]
+def _block_partials(q8, qsc, kp, ks, vp, vs, valid, m_floor):
+    """One column range of a block-diagonal kernel over the code planes
+    ``kp``/``vp`` (q's features split evenly over the planes): returns
+    (m_new, e, ctx) with m_new = max(m_floor, max(s), -1e30),
+    e = exp(s - m_new) and ctx the range's requantized PV; m_floor is the
+    running max (-1e30 at first)."""
+    R = kp[0].shape[2]
     qd = q8.double()
-    sc = torch.matmul(qd[..., :D2], klo) + torch.matmul(qd[..., D2:], khi)
+    sc = sum(torch.matmul(qd[..., i * R:(i + 1) * R], k)
+             for i, k in enumerate(kp))
     scf = (sc.float() * qsc[..., None]) * ks.float()[:, :, None, :]
     scf = scf.masked_fill(~valid, float("-inf"))
     blk = torch.clamp(scf.amax(dim=-1), min=-1e30)
@@ -97,48 +111,32 @@ def _block_partials(q8, qsc, klo, khi, ks, vlo, vhi, vs, valid, m_floor):
     pv = e * vs.float()[:, :, None, :]
     ps = div(torch.clamp(pv.amax(dim=-1, keepdim=True), min=1e-20), 127.0)
     p8 = torch.round(pv / ps).double()
-    clo = torch.matmul(p8, vlo).float() * ps
-    chi = torch.matmul(p8, vhi).float() * ps
-    return m_new, e, torch.cat([clo, chi], dim=-1)
-
-
-def decode_attention_bd4_plain(q, kt4, ks, vt4, vs, lengths=None
-                               ) -> Partials:
-    """Plain #20: (ctx unnormalized, m, d) over the whole buffer."""
-    B, H, G, D = q.shape
-    S = kt4.shape[2]
-    q8, qs = quantize_q(q)
-    qsc = qs * D ** -0.5
-    klo, khi, vlo, vhi = _bd4_planes(kt4, vt4, H)
-    L = _lengths(lengths, B, S, q.device)
-    valid = (torch.arange(S, device=q.device)[None, :]
-             < L[:, None])[:, None, None, :]
-    floor = torch.full((B, H, G), -1e30, device=q.device)
-    m, e, ctx = _block_partials(q8, qsc, klo, khi, ks, vlo, vhi, vs, valid,
-                                floor)
-    return ctx, m, e.sum(dim=-1)
+    return m_new, e, torch.cat([torch.matmul(p8, v).float() * ps
+                                for v in vp], dim=-1)
 
 
 def flash_block(S: int, s_block: int) -> int:
-    """The column block #21 uses: ``s_block``, halved until it divides S
-    (the JAX wrapper's rule)."""
+    """The column block of the flash kernels: ``s_block``, halved until it
+    divides S (the JAX wrappers' rule)."""
     s_block = min(s_block, S)
     while S % s_block:
         s_block //= 2
     return s_block
 
 
-def decode_attention_bd4_flash_plain(q, kt4, ks, vt4, vs, lengths=None,
-                                     s_block: int = S_BLOCK) -> Partials:
-    """Plain #21: the column blocks in order, (o, m, d) carried as
-    ``m' = max(m, max(s_blk)); a = exp(m - m'); d' = d*a + sum(e);
-    o' = o*a + ctx_blk``."""
+def _bd_partials_plain(q, kt, ks, vt, vs, lengths, nib: bool,
+                       s_block: Optional[int] = None) -> Partials:
+    """Plain #18-#21: the column blocks in order (one block of S without
+    ``s_block``), (o, m, d) carried as ``m' = max(m, max(s_blk));
+    a = exp(m - m'); d' = d*a + sum(e); o' = o*a + ctx_blk`` from
+    m = -1e30.  A single block gives the whole-row kernels' result
+    exactly: a is 0, or 1 with o and d still 0."""
     B, H, G, D = q.shape
-    S = kt4.shape[2]
-    sb = flash_block(S, s_block)
+    S = kt.shape[2]
+    sb = S if s_block is None else flash_block(S, s_block)
     q8, qs = quantize_q(q)
     qsc = qs * D ** -0.5
-    klo, khi, vlo, vhi = _bd4_planes(kt4, vt4, H)
+    kp, vp = _bd_planes(kt, vt, H, nib)
     L = _lengths(lengths, B, S, q.device)
     col = torch.arange(S, device=q.device)
     o = torch.zeros((B, H, G, D), device=q.device)
@@ -148,13 +146,36 @@ def decode_attention_bd4_flash_plain(q, kt4, ks, vt4, vs, lengths=None,
         sl = slice(s0, s0 + sb)
         valid = (col[sl][None, :] < L[:, None])[:, None, None, :]
         m_new, e, ctx = _block_partials(
-            q8, qsc, klo[..., sl], khi[..., sl], ks[..., sl], vlo[:, :, sl],
-            vhi[:, :, sl], vs[..., sl], valid, m)
+            q8, qsc, [k[..., sl] for k in kp], ks[..., sl],
+            [v[:, :, sl] for v in vp], vs[..., sl], valid, m)
         alpha = torch.exp(m - m_new)
         o = o * alpha[..., None] + ctx
         d = d * alpha + e.sum(dim=-1)
         m = m_new
     return o, m, d
+
+
+def decode_attention_bd_plain(q, kt, ks, vt, vs, lengths=None) -> Partials:
+    """Plain #18: (ctx unnormalized, m, d) over the whole kv8 buffer."""
+    return _bd_partials_plain(q, kt, ks, vt, vs, lengths, False)
+
+
+def decode_attention_bd_flash_plain(q, kt, ks, vt, vs, lengths=None,
+                                    s_block: int = FLASH_BLOCK) -> Partials:
+    """Plain #19: #18 in ``s_block`` column blocks."""
+    return _bd_partials_plain(q, kt, ks, vt, vs, lengths, False, s_block)
+
+
+def decode_attention_bd4_plain(q, kt4, ks, vt4, vs, lengths=None
+                               ) -> Partials:
+    """Plain #20: (ctx unnormalized, m, d) over the whole kv4 buffer."""
+    return _bd_partials_plain(q, kt4, ks, vt4, vs, lengths, True)
+
+
+def decode_attention_bd4_flash_plain(q, kt4, ks, vt4, vs, lengths=None,
+                                     s_block: int = S_BLOCK) -> Partials:
+    """Plain #21: #20 in ``s_block`` column blocks."""
+    return _bd_partials_plain(q, kt4, ks, vt4, vs, lengths, True, s_block)
 
 
 def decode_attention_i8_plain(q, kq, ks, vq, vs, k_new, kns, v_new, vns,
@@ -215,10 +236,10 @@ _I = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("decode_attention")
-    lib.lc_attn_bd4.argtypes = [_P] * 10 + [_I] * 4 + [_P]
-    lib.lc_attn_bd4_flash.argtypes = [_P] * 10 + [_I] * 5 + [_P]
+    lib.lc_attn_bd.argtypes = [_P] * 10 + [_I] * 5 + [_P]
+    lib.lc_attn_bd4.argtypes = [_P] * 10 + [_I] * 5 + [_P]
     lib.lc_attn_i8.argtypes = [_P] * 12 + [_I] * 4 + [_P]
-    for fn in (lib.lc_attn_bd4, lib.lc_attn_bd4_flash, lib.lc_attn_i8):
+    for fn in (lib.lc_attn_bd, lib.lc_attn_bd4, lib.lc_attn_i8):
         fn.restype = ctypes.c_int
     return lib
 
@@ -252,24 +273,92 @@ def _check(q: torch.Tensor, S: int, tensors, scales) -> None:
             raise ValueError("the kernels take contiguous bf16 scales")
 
 
-def _check_bd4(q, kt4, ks, vt4, vs) -> int:
+def smem_bytes(G: int, cols: int) -> int:
+    """Dynamic shared memory of one block over ``cols`` score columns (the
+    kernels' ``Smem``): f32 scores and int8 codes per column and row, the
+    int32 PV sums, the q words, the reduction scratch."""
+    D = KERNEL_HEAD_DIM
+    return G * cols * 5 + G * D * 4 + G * D + 8 * G * 4
+
+
+def _check_bd(q, kt, ks, vt, vs, nib: bool) -> int:
+    """Shapes of the block-diagonal slabs (``nib``: kv4, else kv8), and on
+    the card the kernels' device, type and layout checks; returns S."""
     B, H, G, D = q.shape
-    S = kt4.shape[-1]
-    if kt4.shape != (B, H * D // 2, S) or vt4.shape != (B, S, H * D // 2) \
+    R = D // 2 if nib else D
+    S = kt.shape[-1]
+    if kt.shape != (B, H * R, S) or vt.shape != (B, S, H * R) \
             or ks.shape != (B, H, S) or vs.shape != (B, H, S):
-        raise ValueError(f"bd4 slabs must be (B, H*D/2, S), (B, S, H*D/2) "
-                         f"and scales (B, H, S); got {tuple(kt4.shape)}, "
-                         f"{tuple(vt4.shape)}, {tuple(ks.shape)}")
+        raise ValueError(f"{'bd4' if nib else 'bd'} slabs must be "
+                         f"(B, H*{R}, S), (B, S, H*{R}) and scales (B, H, S);"
+                         f" got {tuple(kt.shape)}, {tuple(vt.shape)}, "
+                         f"{tuple(ks.shape)}")
     if q.device.type == "cuda":
-        _check(q, S, [kt4, vt4], [ks, vs])
+        _check(q, S, [kt, vt], [ks, vs])
     return S
 
 
-def _bd4_outputs(q):
+def _bd_launch(fn, q, kt, ks, vt, vs, lengths, S: int, sb: int) -> Partials:
+    """One launch of a block-diagonal kernel (``sb`` 0: the whole row)."""
     B, H, G, D = q.shape
+    q8, qs = quantize_q(q)
+    L = _lengths(lengths, B, S, q.device)
     f32 = dict(dtype=torch.float32, device=q.device)
-    return (torch.empty((B, H, G, D), **f32), torch.empty((B, H, G), **f32),
-            torch.empty((B, H, G), **f32))
+    ctx, m, d = (torch.empty((B, H, G, D), **f32),
+                 torch.empty((B, H, G), **f32), torch.empty((B, H, G), **f32))
+    with torch.cuda.device(q.device):
+        _launch(fn, q8.data_ptr(), qs.data_ptr(), kt.data_ptr(),
+                ks.data_ptr(), vt.data_ptr(), vs.data_ptr(), L.data_ptr(),
+                ctx.data_ptr(), m.data_ptr(), d.data_ptr(), B, H, G, S, sb,
+                _stream(q.device))
+    return ctx, m, d
+
+
+def _flash_block_checked(S: int, s_block: int) -> int:
+    sb = flash_block(S, s_block)
+    if sb % 16:
+        raise ValueError(f"the flash kernels need s_block % 16 == 0, got "
+                         f"{sb}")
+    return sb
+
+
+def decode_attention_bd(q: torch.Tensor, kt: torch.Tensor, ks: torch.Tensor,
+                        vt: torch.Tensor, vs: torch.Tensor,
+                        lengths: Optional[torch.Tensor] = None) -> Partials:
+    """#18: q (B, H, G, D) over the kv8 ``bd`` slabs of one layer; columns
+    ``< lengths`` (all when None).  Returns (ctx unnormalized, m, d).  On
+    the card the whole score row sits in shared memory: S is bounded by
+    ``smem_bytes(G, S) <= SMEM_MAX`` (S <= 11488 at G = 4); above it this
+    raises and the flash kernel (``attn_impl="bds"``) takes the buffer."""
+    S = _check_bd(q, kt, ks, vt, vs, nib=False)
+    if q.device.type == "cpu":
+        return decode_attention_bd_plain(q, kt, ks, vt, vs, lengths)
+    G = q.shape[2]
+    if smem_bytes(G, S) > SMEM_MAX:
+        raise ValueError(
+            f"decode_attention_bd holds the whole score row in shared "
+            f"memory: S={S} at G={G} needs {smem_bytes(G, S)} bytes, above "
+            f"{SMEM_MAX}; use decode_attention_bd_flash (attn_impl='bds')")
+    out = _bd_launch(_lib().lc_attn_bd, q, kt, ks, vt, vs, lengths, S, 0)
+    decode_attention_bd.launches += 1
+    return out
+
+
+def decode_attention_bd_flash(q: torch.Tensor, kt: torch.Tensor,
+                              ks: torch.Tensor, vt: torch.Tensor,
+                              vs: torch.Tensor,
+                              lengths: Optional[torch.Tensor] = None,
+                              s_block: int = FLASH_BLOCK) -> Partials:
+    """#19: #18's contract, S split into ``s_block`` column blocks (halved
+    until it divides S)."""
+    S = _check_bd(q, kt, ks, vt, vs, nib=False)
+    if q.device.type == "cpu":
+        return decode_attention_bd_flash_plain(q, kt, ks, vt, vs, lengths,
+                                               s_block)
+    sb = _flash_block_checked(S, s_block)
+    out = _bd_launch(_lib().lc_attn_bd, q, kt, ks, vt, vs, lengths, S, sb)
+    decode_attention_bd_flash.launches += 1
+    return out
 
 
 def decode_attention_bd4(q: torch.Tensor, kt4: torch.Tensor,
@@ -278,20 +367,12 @@ def decode_attention_bd4(q: torch.Tensor, kt4: torch.Tensor,
                          lengths: Optional[torch.Tensor] = None) -> Partials:
     """#20: q (B, H, G, D) over the bd4 slabs of one layer; columns
     ``< lengths`` (all when None).  Returns (ctx unnormalized, m, d)."""
-    S = _check_bd4(q, kt4, ks, vt4, vs)
+    S = _check_bd(q, kt4, ks, vt4, vs, nib=True)
     if q.device.type == "cpu":
         return decode_attention_bd4_plain(q, kt4, ks, vt4, vs, lengths)
-    B, H, G, D = q.shape
-    q8, qs = quantize_q(q)
-    L = _lengths(lengths, B, S, q.device)
-    ctx, m, d = _bd4_outputs(q)
-    with torch.cuda.device(q.device):
-        _launch(_lib().lc_attn_bd4, q8.data_ptr(), qs.data_ptr(),
-                kt4.data_ptr(), ks.data_ptr(), vt4.data_ptr(), vs.data_ptr(),
-                L.data_ptr(), ctx.data_ptr(), m.data_ptr(),
-                d.data_ptr(), B, H, G, S, _stream(q.device))
+    out = _bd_launch(_lib().lc_attn_bd4, q, kt4, ks, vt4, vs, lengths, S, 0)
     decode_attention_bd4.launches += 1
-    return ctx, m, d
+    return out
 
 
 def decode_attention_bd4_flash(q: torch.Tensor, kt4: torch.Tensor,
@@ -301,24 +382,14 @@ def decode_attention_bd4_flash(q: torch.Tensor, kt4: torch.Tensor,
                                s_block: int = S_BLOCK) -> Partials:
     """#21: #20's contract, S split into ``s_block`` column blocks (halved
     until it divides S)."""
-    S = _check_bd4(q, kt4, ks, vt4, vs)
+    S = _check_bd(q, kt4, ks, vt4, vs, nib=True)
     if q.device.type == "cpu":
         return decode_attention_bd4_flash_plain(q, kt4, ks, vt4, vs, lengths,
                                                 s_block)
-    sb = flash_block(S, s_block)
-    if sb % 16:
-        raise ValueError(f"the flash kernel needs s_block % 16 == 0, got {sb}")
-    B, H, G, D = q.shape
-    q8, qs = quantize_q(q)
-    L = _lengths(lengths, B, S, q.device)
-    ctx, m, d = _bd4_outputs(q)
-    with torch.cuda.device(q.device):
-        _launch(_lib().lc_attn_bd4_flash, q8.data_ptr(), qs.data_ptr(),
-                kt4.data_ptr(), ks.data_ptr(), vt4.data_ptr(), vs.data_ptr(),
-                L.data_ptr(), ctx.data_ptr(), m.data_ptr(),
-                d.data_ptr(), B, H, G, S, sb, _stream(q.device))
+    sb = _flash_block_checked(S, s_block)
+    out = _bd_launch(_lib().lc_attn_bd4, q, kt4, ks, vt4, vs, lengths, S, sb)
     decode_attention_bd4_flash.launches += 1
-    return ctx, m, d
+    return out
 
 
 def decode_attention_i8(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
@@ -370,7 +441,8 @@ def _stream(device: torch.device) -> int:
 
 
 KERNELS = (decode_attention_i8, decode_attention_bd4,
-           decode_attention_bd4_flash)
+           decode_attention_bd4_flash, decode_attention_bd,
+           decode_attention_bd_flash)
 for _k in KERNELS:
     _k.launches = 0
 

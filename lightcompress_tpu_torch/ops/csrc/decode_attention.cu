@@ -2,39 +2,55 @@
 // (sm_90a), CUDA C++ with a plain C interface bound from Python with ctypes
 // (ops/_build.py, ops/attention.py).
 //
-//   #20 attn_bd4_kernel        replaces lightcompress_tpu/ops/pallas_attention.py
-//                              decode_attention_bd4 (_attn_kernel_bd4)
-//   #21 attn_bd4_flash_kernel  replaces decode_attention_bd4_flash
-//                              (_attn_kernel_bd4_flash)
-//   #17 attn_i8_kernel         replaces decode_attention_i8
-//                              (_attn_kernel_i8_append, masked)
+//   #18 attn_bd_kernel<G, false>        replaces
+//                                       lightcompress_tpu/ops/pallas_attention.py
+//                                       decode_attention_bd (_attn_kernel_bd)
+//   #19 attn_bd_flash_kernel<G, false>  replaces decode_attention_bd_flash
+//                                       (_attn_kernel_bd_flash)
+//   #20 attn_bd_kernel<G, true>         replaces decode_attention_bd4
+//                                       (_attn_kernel_bd4)
+//   #21 attn_bd_flash_kernel<G, true>   replaces decode_attention_bd4_flash
+//                                       (_attn_kernel_bd4_flash)
+//   #17 attn_i8_kernel                  replaces decode_attention_i8
+//                                       (_attn_kernel_i8_append, masked)
 //
-// Inputs shared by all three: the int8 query q8 (B, H, G, D) and its f32
-// scales qs (B, H, G) (ops/attention.quantize_q), bf16 per-token cache
-// scales (B, H, S), int32 lengths (B,).  D = 128; G is a template argument.
-// kv4 caches (#20, #21): K feature-major (B, H*D/2, S) and V time-major
-// (B, S, H*D/2), one byte = two int4 codes, low nibble feature d, high
-// nibble feature d + D/2.  int8 cache (#17): K and V (B, H, S, D).
+// Inputs shared by all: the int8 query q8 (B, H, G, D) and its f32 scales
+// qs (B, H, G) (ops/attention.quantize_q), bf16 per-token cache scales
+// (B, H, S), int32 lengths (B,).  D = 128; G is a template argument.
+// Block-diagonal caches (#18-#21): K feature-major (B, H*R, S) and V
+// time-major (B, S, H*R), R code bytes per head and token: kv8 (#18, #19)
+// R = D int8 codes, row h*D + d = feature d of head h; kv4 (#20, #21) R =
+// D/2, one byte = two int4 codes, low nibble feature d, high nibble
+// feature d + D/2.  int8 hhd cache (#17): K and V (B, H, S, D).  The TPU
+// kernels of #18/#19 multiply a block-diagonal q (H*G, H*D) against the
+// whole slab, a matrix-unit device; these compute what it computes, each
+// head's G query rows against that head's rows of the slab.
 //
 // Arithmetic, in the JAX kernels' order: integer dots (__dp4a over int8 q
-// and sign-extended nibbles or int8 codes, exact in int32); scores
+// and int8 codes or sign-extended nibbles, exact in int32); scores
 // (f32(s) * (qs * D^-0.5)) * ks; columns >= length are masked; the max is
-// floored at -1e30 (bd4); e = exp(s - m); pv = e * vs; ps = max(max(pv),
+// floored at -1e30 (#18-#21); e = exp(s - m); pv = e * vs; ps = max(max(pv),
 // 1e-20) / 127; p8 = rint(pv / ps) (round half to even, IEEE division: the
 // build uses no fast-math); PV as an int32 dot times ps.  Where JAX
 // multiplies and then adds, __fmul_rn/__fadd_rn keep the two roundings.
 // Masked columns contribute exactly 0 in the TPU kernels, so these skip them.
 //
 // Bound on an H100 SXM: bytes.  A block reads each valid column's codes and
-// scales once (kv4: 64 + 64 + 2 + 2 bytes per kv head and token; int8: 128 +
-// 128 + 2 + 2) against 2*G*D int operations per code byte pair, far below
+// scales once (kv8: 128 + 128 + 2 + 2 bytes per kv head and token; kv4: 64 +
+// 64 + 2 + 2) against 2*G*D int operations per code byte pair, far below
 // the int8 tensor-core rate.  Design: one block per (slot, kv head), grid
 // (H, B); the block reads its head's K once for all G query rows and V once
 // for the whole PV dot, with the scores of the valid columns held in shared
 // memory (the probability scale ps is a max over the whole row, or over one
-// 512-column block for #21).  No tensor cores and no TMA: at 8 slots x 8 kv
-// heads the 64 blocks fill half the SMs; splitting S across blocks (#21 with
-// a cross-block merge) and cp.async/TMA staging are for later work.
+// s_block column block for #19/#21).  K column t is read down the head's
+// feature rows, 4 columns to a thread, coalesced along t; a V row is one
+// contiguous run of code bytes.  The whole-row kernels (#17, #18, #20) keep
+// 5 * G bytes of shared memory per column, so the buffer S is bounded by
+// the 227 KB a block may have (#18 at G = 4: S <= 11488; the wrapper raises
+// above it and names the flash route).  No tensor cores and no TMA: at 8
+// slots x 8 kv heads the 64 blocks fill half the SMs; splitting S across
+// blocks (with a cross-block merge) and cp.async/TMA staging are for later
+// work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -132,15 +148,18 @@ __device__ __forceinline__ void load_q(Smem<G>& sm, const int8_t* q8,
   for (int i = threadIdx.x; i < G * kD; i += kThreads) sm.acc[i] = 0;
 }
 
-// kv4 scores of columns [c0, c0 + n) of one (slot, kv head) into sm.sc
-// (relative column), returning each thread's max per row.  kh points at
-// the head's first packed K row; rows are S bytes apart.
-template <int G>
-__device__ __forceinline__ void bd4_scores(const Smem<G>& sm,
-                                           const uint32_t* kh,
-                                           const __nv_bfloat16* ksh,
-                                           const float (&qsc)[G], int S,
-                                           int c0, int n, float (&mx)[G]) {
+// Block-diagonal scores of columns [c0, c0 + n) of one (slot, kv head) into
+// sm.sc (relative column), returning each thread's max per row.  kh points
+// at the head's first K row (kNib: packed nibble rows, else int8 feature
+// rows); rows are S bytes apart.  A thread takes 4 columns (one word of
+// every row) and walks the rows 4 at a time.
+template <int G, bool kNib>
+__device__ __forceinline__ void bd_scores(const Smem<G>& sm,
+                                          const uint32_t* kh,
+                                          const __nv_bfloat16* ksh,
+                                          const float (&qsc)[G], int S,
+                                          int c0, int n, float (&mx)[G]) {
+  constexpr int kRows = kNib ? kD2 : kD;
   const int S4 = S / 4, nw = (n + 3) / 4, w0 = c0 / 4;
   for (int c = threadIdx.x; c < nw; c += kThreads) {
     int s[G][4];
@@ -149,18 +168,24 @@ __device__ __forceinline__ void bd4_scores(const Smem<G>& sm,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[g][j] = 0;
 #pragma unroll 2
-    for (int d4 = 0; d4 < kD2 / 4; ++d4) {
+    for (int d4 = 0; d4 < kRows / 4; ++d4) {
       const uint32_t* r = kh + (size_t)(4 * d4) * S4 + w0 + c;
       const uint32_t a0 = __ldg(r), a1 = __ldg(r + S4), a2 = __ldg(r + 2 * S4),
                      a3 = __ldg(r + 3 * S4);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const uint32_t x = gather_byte(a0, a1, a2, a3, j);
-        const int lo = nib_lo(x), hi = nib_hi(x);
+        if constexpr (kNib) {
+          const int lo = nib_lo(x), hi = nib_hi(x);
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
-          s[g][j] = __dp4a(lo, sm.qw[g * kQW + d4], s[g][j]);
-          s[g][j] = __dp4a(hi, sm.qw[g * kQW + kQW / 2 + d4], s[g][j]);
+          for (int g = 0; g < G; ++g) {
+            s[g][j] = __dp4a(lo, sm.qw[g * kQW + d4], s[g][j]);
+            s[g][j] = __dp4a(hi, sm.qw[g * kQW + kQW / 2 + d4], s[g][j]);
+          }
+        } else {
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+            s[g][j] = __dp4a((int)x, sm.qw[g * kQW + d4], s[g][j]);
         }
       }
     }
@@ -264,6 +289,57 @@ __device__ __forceinline__ void bd4_pv(const Smem<G>& sm, const int8_t* vh,
   __syncthreads();
 }
 
+// int8 PV: sm.acc[g][d] += sum_t p8[g][t] * v[t][d] over columns [c0,
+// c0+n); vh points at the head's D code bytes of column 0, rows `stride`
+// bytes apart.  A warp owns 4-row quads, one 4-byte word of each row per
+// lane (a whole 128-byte row per warp load).
+template <int G>
+__device__ __forceinline__ void i8_pv(const Smem<G>& sm, const int8_t* vh,
+                                      int stride, int c0, int n) {
+  const int wc = threadIdx.x & 31, tg = threadIdx.x >> 5;
+  const int nq = (n + 3) / 4;
+  int a[G][4];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[g][j] = 0;
+  for (int q4 = tg; q4 < nq; q4 += kWarps) {
+    const int t0 = 4 * q4;
+    const int8_t* r = vh + (size_t)(c0 + t0) * stride + 4 * wc;
+    const uint32_t a0 = __ldg(reinterpret_cast<const uint32_t*>(r));
+    const uint32_t a1 = __ldg(reinterpret_cast<const uint32_t*>(r + stride));
+    const uint32_t a2 =
+        __ldg(reinterpret_cast<const uint32_t*>(r + 2 * stride));
+    const uint32_t a3 =
+        __ldg(reinterpret_cast<const uint32_t*>(r + 3 * stride));
+    int pw[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      pw[g] = *reinterpret_cast<const int*>(sm.p8 + g * sm.cap + t0);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int x = (int)gather_byte(a0, a1, a2, a3, j);
+#pragma unroll
+      for (int g = 0; g < G; ++g) a[g][j] = __dp4a(x, pw[g], a[g][j]);
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      atomicAdd(&sm.acc[g * kD + 4 * wc + j], a[g][j]);
+  __syncthreads();
+}
+
+template <int G, bool kNib>
+__device__ __forceinline__ void bd_pv(const Smem<G>& sm, const int8_t* vh,
+                                      int stride, int c0, int n) {
+  if constexpr (kNib)
+    bd4_pv(sm, vh, stride, c0, n);
+  else
+    i8_pv(sm, vh, stride, c0, n);
+}
+
 template <int G>
 __device__ __forceinline__ void q_scales(const float* qs, int bh,
                                          float (&qsc)[G]) {
@@ -272,18 +348,20 @@ __device__ __forceinline__ void q_scales(const float* qs, int bh,
 }
 
 // ---------------------------------------------------------------------------
-// #20: the whole buffer in one pass; (ctx unnormalized, m, d).
+// #18 (kNib false) and #20 (kNib true): the whole buffer in one pass;
+// (ctx unnormalized, m, d).
 // ---------------------------------------------------------------------------
-template <int G>
+template <int G, bool kNib>
 __global__ void __launch_bounds__(kThreads)
-attn_bd4_kernel(const int8_t* __restrict__ q8, const float* __restrict__ qs,
-                const int8_t* __restrict__ kt4,
-                const __nv_bfloat16* __restrict__ ks,
-                const int8_t* __restrict__ vt4,
-                const __nv_bfloat16* __restrict__ vs,
-                const int* __restrict__ lengths, float* __restrict__ ctx,
-                float* __restrict__ m_out, float* __restrict__ d_out, int S) {
+attn_bd_kernel(const int8_t* __restrict__ q8, const float* __restrict__ qs,
+               const int8_t* __restrict__ kt,
+               const __nv_bfloat16* __restrict__ ks,
+               const int8_t* __restrict__ vt,
+               const __nv_bfloat16* __restrict__ vs,
+               const int* __restrict__ lengths, float* __restrict__ ctx,
+               float* __restrict__ m_out, float* __restrict__ d_out, int S) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kRow = kNib ? kD2 : kD;  // code bytes of one head and token
   const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x, bh = b * H + h;
   Smem<G> sm(smem, S);
   const int L = min(max(lengths[b], 0), S);
@@ -294,13 +372,14 @@ attn_bd4_kernel(const int8_t* __restrict__ q8, const float* __restrict__ qs,
   for (int g = 0; g < G; ++g) mx[g] = -INFINITY;
   __syncthreads();
   const uint32_t* kh = reinterpret_cast<const uint32_t*>(
-      kt4 + ((size_t)b * H * kD2 + (size_t)h * kD2) * S);
-  bd4_scores(sm, kh, ks + (size_t)bh * S, qsc, S, 0, L, mx);
+      kt + ((size_t)b * H * kRow + (size_t)h * kRow) * S);
+  bd_scores<G, kNib>(sm, kh, ks + (size_t)bh * S, qsc, S, 0, L, mx);
   block_reduce<G, true>(mx, sm.red);
 #pragma unroll
   for (int g = 0; g < G; ++g) mx[g] = fmaxf(mx[g], -1e30f);
   softmax_requant(sm, vs + (size_t)bh * S, mx, 0, L, esum, ps);
-  bd4_pv(sm, vt4 + (size_t)b * S * H * kD2 + (size_t)h * kD2, H * kD2, 0, L);
+  bd_pv<G, kNib>(sm, vt + (size_t)b * S * H * kRow + (size_t)h * kRow,
+                 H * kRow, 0, L);
   for (int i = threadIdx.x; i < G * kD; i += kThreads)
     ctx[(size_t)bh * G * kD + i] = __fmul_rn((float)sm.acc[i], ps[i / kD]);
   if (threadIdx.x < G) {
@@ -310,25 +389,27 @@ attn_bd4_kernel(const int8_t* __restrict__ q8, const float* __restrict__ qs,
 }
 
 // ---------------------------------------------------------------------------
-// #21: S in blocks of sb columns, in order inside the block; the running
-// (o, m, d) stay in registers and shared memory:
+// #19 (kNib false) and #21 (kNib true): S in blocks of sb columns, in order
+// inside the block; the running (o, m, d) stay in registers and shared
+// memory:
 //   m' = max(m, max(max(s_blk), -1e30)); a = exp(m - m');
 //   d' = d*a + sum(e); o' = o*a + f32(p8 . v) * ps_blk.
 // Blocks at or past the slot's length leave (o, m, d) unchanged in the TPU
 // kernel (a = 1, e = 0), so the loop stops at the length.
 // ---------------------------------------------------------------------------
-template <int G>
+template <int G, bool kNib>
 __global__ void __launch_bounds__(kThreads)
-attn_bd4_flash_kernel(const int8_t* __restrict__ q8,
-                      const float* __restrict__ qs,
-                      const int8_t* __restrict__ kt4,
-                      const __nv_bfloat16* __restrict__ ks,
-                      const int8_t* __restrict__ vt4,
-                      const __nv_bfloat16* __restrict__ vs,
-                      const int* __restrict__ lengths,
-                      float* __restrict__ ctx, float* __restrict__ m_out,
-                      float* __restrict__ d_out, int S, int sb) {
+attn_bd_flash_kernel(const int8_t* __restrict__ q8,
+                     const float* __restrict__ qs,
+                     const int8_t* __restrict__ kt,
+                     const __nv_bfloat16* __restrict__ ks,
+                     const int8_t* __restrict__ vt,
+                     const __nv_bfloat16* __restrict__ vs,
+                     const int* __restrict__ lengths,
+                     float* __restrict__ ctx, float* __restrict__ m_out,
+                     float* __restrict__ d_out, int S, int sb) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kRow = kNib ? kD2 : kD;
   constexpr int kOut = (G * kD + kThreads - 1) / kThreads;
   const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x, bh = b * H + h;
   Smem<G> sm(smem, sb);
@@ -342,14 +423,14 @@ attn_bd4_flash_kernel(const int8_t* __restrict__ q8,
   for (int k = 0; k < kOut; ++k) o[k] = 0.f;
   __syncthreads();
   const uint32_t* kh = reinterpret_cast<const uint32_t*>(
-      kt4 + ((size_t)b * H * kD2 + (size_t)h * kD2) * S);
-  const int8_t* vh = vt4 + (size_t)b * S * H * kD2 + (size_t)h * kD2;
+      kt + ((size_t)b * H * kRow + (size_t)h * kRow) * S);
+  const int8_t* vh = vt + (size_t)b * S * H * kRow + (size_t)h * kRow;
   for (int c0 = 0; c0 < L; c0 += sb) {
     const int n = min(sb, L - c0);
     float mx[G], esum[G], ps[G], alpha[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) mx[g] = -INFINITY;
-    bd4_scores(sm, kh, ks + (size_t)bh * S, qsc, S, c0, n, mx);
+    bd_scores<G, kNib>(sm, kh, ks + (size_t)bh * S, qsc, S, c0, n, mx);
     block_reduce<G, true>(mx, sm.red);
 #pragma unroll
     for (int g = 0; g < G; ++g) {
@@ -358,7 +439,7 @@ attn_bd4_flash_kernel(const int8_t* __restrict__ q8,
       m[g] = mn;
     }
     softmax_requant(sm, vs + (size_t)bh * S, m, c0, n, esum, ps);
-    bd4_pv(sm, vh, H * kD2, c0, n);
+    bd_pv<G, kNib>(sm, vh, H * kRow, c0, n);
 #pragma unroll
     for (int k = 0; k < kOut; ++k) {
       const int i = threadIdx.x + k * kThreads;
@@ -393,7 +474,7 @@ attn_bd4_flash_kernel(const int8_t* __restrict__ q8,
 //   out = (f32(p8 . v) * ps + e_new * vns * v_new) / denom.
 // Scores: 8 lanes share a cache row (16 bytes each) and add their partial
 // dots with shuffles, so a warp reads four whole 128-byte rows per load.
-// PV: a warp owns 4-row quads, one 4-byte word of each row per lane.
+// PV: i8_pv over the head's rows.
 // ---------------------------------------------------------------------------
 template <int G>
 __global__ void __launch_bounds__(kThreads)
@@ -464,40 +545,7 @@ attn_i8_kernel(const int8_t* __restrict__ q8, const float* __restrict__ qs,
   }
   softmax_requant(sm, vs + (size_t)bh * S, mx, 0, L, esum, ps);
 
-  // PV over the int8 rows
-  {
-    const int wc = lane, tg = threadIdx.x >> 5;
-    const int nq = (L + 3) / 4;
-    const uint32_t* vh =
-        reinterpret_cast<const uint32_t*>(vq + (size_t)bh * S * kD);
-    int a[G][4];
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) a[g][j] = 0;
-    for (int q4 = tg; q4 < nq; q4 += kWarps) {
-      const int t0 = 4 * q4;
-      const uint32_t* r = vh + (size_t)t0 * kQW + wc;
-      const uint32_t a0 = __ldg(r), a1 = __ldg(r + kQW),
-                     a2 = __ldg(r + 2 * kQW), a3 = __ldg(r + 3 * kQW);
-      int pw[G];
-#pragma unroll
-      for (int g = 0; g < G; ++g)
-        pw[g] = *reinterpret_cast<const int*>(sm.p8 + g * sm.cap + t0);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int x = (int)gather_byte(a0, a1, a2, a3, j);
-#pragma unroll
-        for (int g = 0; g < G; ++g) a[g][j] = __dp4a(x, pw[g], a[g][j]);
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) atomicAdd(&sm.acc[g * kD + 4 * wc + j],
-                                            a[g][j]);
-    __syncthreads();
-  }
+  i8_pv(sm, vq + (size_t)bh * S * kD, kD, 0, L);
 
   const float vnsf = bf(vns[bh]);
   for (int i = threadIdx.x; i < G * kD; i += kThreads) {
@@ -515,28 +563,28 @@ cudaError_t prepare(Kern kern, size_t smem) {
                               (int)smem);
 }
 
-template <int G>
-int launch_bd4(const void* q8, const void* qs, const void* kt4,
-               const void* ks, const void* vt4, const void* vs,
-               const void* lengths, void* ctx, void* m, void* d, int B,
-               int H, int S, int sb, cudaStream_t st) {
+template <int G, bool kNib>
+int launch_bd(const void* q8, const void* qs, const void* kt, const void* ks,
+              const void* vt, const void* vs, const void* lengths, void* ctx,
+              void* m, void* d, int B, int H, int S, int sb,
+              cudaStream_t st) {
   const size_t smem = Smem<G>::bytes(sb > 0 ? sb : S);
   const dim3 grid(H, B);
   cudaError_t e;
   if (sb > 0) {
-    e = prepare(attn_bd4_flash_kernel<G>, smem);
+    e = prepare(attn_bd_flash_kernel<G, kNib>, smem);
     if (e != cudaSuccess) return (int)e;
-    attn_bd4_flash_kernel<G><<<grid, kThreads, smem, st>>>(
-        (const int8_t*)q8, (const float*)qs, (const int8_t*)kt4,
-        (const __nv_bfloat16*)ks, (const int8_t*)vt4,
+    attn_bd_flash_kernel<G, kNib><<<grid, kThreads, smem, st>>>(
+        (const int8_t*)q8, (const float*)qs, (const int8_t*)kt,
+        (const __nv_bfloat16*)ks, (const int8_t*)vt,
         (const __nv_bfloat16*)vs, (const int*)lengths, (float*)ctx,
         (float*)m, (float*)d, S, sb);
   } else {
-    e = prepare(attn_bd4_kernel<G>, smem);
+    e = prepare(attn_bd_kernel<G, kNib>, smem);
     if (e != cudaSuccess) return (int)e;
-    attn_bd4_kernel<G><<<grid, kThreads, smem, st>>>(
-        (const int8_t*)q8, (const float*)qs, (const int8_t*)kt4,
-        (const __nv_bfloat16*)ks, (const int8_t*)vt4,
+    attn_bd_kernel<G, kNib><<<grid, kThreads, smem, st>>>(
+        (const int8_t*)q8, (const float*)qs, (const int8_t*)kt,
+        (const __nv_bfloat16*)ks, (const int8_t*)vt,
         (const __nv_bfloat16*)vs, (const int*)lengths, (float*)ctx,
         (float*)m, (float*)d, S);
   }
@@ -560,16 +608,19 @@ int launch_i8(const void* q8, const void* qs, const void* kq, const void* ks,
   return (int)cudaGetLastError();
 }
 
-int bd4_dispatch(const void* q8, const void* qs, const void* kt4,
-                 const void* ks, const void* vt4, const void* vs,
-                 const void* lengths, void* ctx, void* m, void* d, int B,
-                 int H, int G, int S, int sb, void* stream) {
+template <bool kNib>
+int bd_dispatch(const void* q8, const void* qs, const void* kt,
+                const void* ks, const void* vt, const void* vs,
+                const void* lengths, void* ctx, void* m, void* d, int B,
+                int H, int G, int S, int sb, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (sb < 0 || (sb > 0 && (sb % 16 || S % sb)))
+    return (int)cudaErrorInvalidValue;
   switch (G) {
-    case 1: return launch_bd4<1>(q8, qs, kt4, ks, vt4, vs, lengths, ctx, m, d, B, H, S, sb, st);
-    case 2: return launch_bd4<2>(q8, qs, kt4, ks, vt4, vs, lengths, ctx, m, d, B, H, S, sb, st);
-    case 4: return launch_bd4<4>(q8, qs, kt4, ks, vt4, vs, lengths, ctx, m, d, B, H, S, sb, st);
-    case 8: return launch_bd4<8>(q8, qs, kt4, ks, vt4, vs, lengths, ctx, m, d, B, H, S, sb, st);
+    case 1: return launch_bd<1, kNib>(q8, qs, kt, ks, vt, vs, lengths, ctx, m, d, B, H, S, sb, st);
+    case 2: return launch_bd<2, kNib>(q8, qs, kt, ks, vt, vs, lengths, ctx, m, d, B, H, S, sb, st);
+    case 4: return launch_bd<4, kNib>(q8, qs, kt, ks, vt, vs, lengths, ctx, m, d, B, H, S, sb, st);
+    case 8: return launch_bd<8, kNib>(q8, qs, kt, ks, vt, vs, lengths, ctx, m, d, B, H, S, sb, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -578,21 +629,22 @@ int bd4_dispatch(const void* q8, const void* qs, const void* kt4,
 
 extern "C" {
 
+// #20 (sb = 0) and #21 (sb > 0, sb % 16 == 0, S % sb == 0) over the kv4
+// slabs; #18 and #19 over the kv8 slabs.
 int lc_attn_bd4(const void* q8, const void* qs, const void* kt4,
                 const void* ks, const void* vt4, const void* vs,
                 const void* lengths, void* ctx, void* m, void* d, int B,
-                int H, int G, int S, void* stream) {
-  return bd4_dispatch(q8, qs, kt4, ks, vt4, vs, lengths, ctx, m, d, B, H, G,
-                      S, 0, stream);
+                int H, int G, int S, int sb, void* stream) {
+  return bd_dispatch<true>(q8, qs, kt4, ks, vt4, vs, lengths, ctx, m, d, B,
+                           H, G, S, sb, stream);
 }
 
-int lc_attn_bd4_flash(const void* q8, const void* qs, const void* kt4,
-                      const void* ks, const void* vt4, const void* vs,
-                      const void* lengths, void* ctx, void* m, void* d,
-                      int B, int H, int G, int S, int sb, void* stream) {
-  if (sb <= 0 || sb % 16 || S % sb) return (int)cudaErrorInvalidValue;
-  return bd4_dispatch(q8, qs, kt4, ks, vt4, vs, lengths, ctx, m, d, B, H, G,
-                      S, sb, stream);
+int lc_attn_bd(const void* q8, const void* qs, const void* kt,
+               const void* ks, const void* vt, const void* vs,
+               const void* lengths, void* ctx, void* m, void* d, int B,
+               int H, int G, int S, int sb, void* stream) {
+  return bd_dispatch<false>(q8, qs, kt, ks, vt, vs, lengths, ctx, m, d, B,
+                            H, G, S, sb, stream);
 }
 
 int lc_attn_i8(const void* q8, const void* qs, const void* kq, const void* ks,

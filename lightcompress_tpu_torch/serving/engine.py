@@ -4,19 +4,33 @@ slot KV cache (port of lightcompress_tpu/serving/engine.py, dense Llama).
 Slots share one batched decode step; new requests are admitted into free
 slots between steps, one batched prefill per length bucket; finished
 sequences retire at once.  Prefill attention is plain torch ops.  The cache
-is updated in place.  Decode attention takes one of three routes
+is updated in place.  Decode attention takes one of these routes
 (``attn_impl``, picked as the JAX engine picks on a TPU):
 
-* ``xla`` (kv8, the default): append-first masked attention (``xla8a``),
-  plain torch: the fresh token is quantized and written into the cache
-  first, then one attention runs over the buffer where ``col <= length``;
+* ``xla`` (kv8, the default) or its explicit name ``xla8a``: append-first
+  masked attention, plain torch: the fresh token is quantized and written
+  into the cache first, then one attention runs over the buffer where
+  ``col <= length``;
 * ``bd4`` (kv4): the nibble-packed ``bd4`` cache stays read-only while
   kernel #20 (buffer < 8192) or #21 (from 8192) attends over
   ``col < length``; the fresh token, quantized to int8, is merged in by
   ``bd_merge_new_token``, then written to the cache as int4;
+* ``bd`` and ``bds`` (kv8, probe-only in the JAX engine): the same over
+  the int8 block-diagonal ``bd`` cache through kernel #18 (the whole row)
+  or #19 (512-column blocks); the int8 token is merged, then cached;
 * ``pallas`` (kv8, probe-only in the JAX engine): kernel #17 over the
   read-only int8 cache with the fresh token as an in-register column, then
   the token is written.
+
+``decode_chunk`` n > 1 runs the decode in chunks of up to n steps, each
+step's tokens sampled on the device and fed to the next, the host reading
+the tokens once per chunk (JAX's ``_decode_chunk``).  A chunked kv8
+``xla`` engine (``xla8r``) keeps the cache read-only through the chunk:
+every layer's fresh token goes to a ring of the chunk's width, attention
+merges the cache (``col <`` the chunk-entry length), the ring's earlier
+columns and the fresh token flash-style, and ``flush_ring_to_cache``
+writes the ring once per chunk.  Every other route loops its per-step
+decode inside the chunk.
 
 On every route, weights built with ``fused_rms`` at ``act_bits=8`` take the
 fused decode linears where JAX does (``fused_ok``): q/k/v (or the merged
@@ -24,10 +38,10 @@ qkv) and gate/up (or gateup) run RMSNorm and the int8 act quant inside
 kernel #14 (planes) or #13 (s4), ``attn.o`` and ``mlp.down`` the act quant
 alone.  Prefill takes the plain linears: the folded ln weights are ones.
 
-A MoE model (``arch.moe``) serves on the ``xla`` route at kv8 (as the JAX
-engine forces it).  Its blocks' MLP (``_moe_mlp``) picks one of four
-expert routes by the token count n of the call, as the JAX engine does on
-a TPU (``pick_moe_route``): ``gathered`` (kernel #8, only the selected
+A MoE model (``arch.moe``) serves on the ``xla`` route at kv8, on the ring
+when chunked (as the JAX engine forces it).  Its blocks' MLP
+(``_moe_mlp``) picks one of four expert routes by the token count n of
+the call, as the JAX engine does on a TPU (``pick_moe_route``): ``gathered`` (kernel #8, only the selected
 experts read), ``grouped`` (kernel #9 over expert-sorted rows; an int8
 per-channel down projection through kernel #10), ``dense`` (kernel #6
 over every expert at n <= 256, or #7 at n <= ``moe_smallm``; dequantized
@@ -42,8 +56,9 @@ gammas before rope, in prefill and decode.
 from __future__ import annotations
 
 import dataclasses
-from collections import deque
+import functools
 import warnings
+from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -51,15 +66,18 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models import arch as A
-from ..ops.attention import (bd_merge_new_token, decode_attention_bd4,
-                             decode_attention_bd4_flash, decode_attention_i8)
+from ..ops.attention import (S_BLOCK, bd_merge_new_token,
+                             decode_attention_bd, decode_attention_bd4,
+                             decode_attention_bd4_flash,
+                             decode_attention_bd_flash, decode_attention_i8)
 from ..ops.moe_matmul import w4a8_gathered_matmul
 from ..ops.qlinear import QLinearParams
 from ..ops.w4_matmul import (quantize_act_per_token,
                              w4a8_linear_bytes_fused,
                              w4a8_linear_planes_fused)
-from .kv_cache import (KVCache, append_kv4_bd, append_kv_quantized,
-                       append_slots, quantize_kv, quantize_kv4)
+from .kv_cache import (KVCache, Ring, append_kv_bd, append_kv_quantized,
+                       append_slots, flush_ring_to_cache, quantize_kv,
+                       quantize_kv4)
 from .quantized_model import (ServingWeights, apply_qlinear,
                               apply_qlinear_gathered, apply_qlinear_stacked,
                               head_logits, moe_mlp_grouped)
@@ -68,22 +86,39 @@ from .sampler import SamplingParams, sample
 # rows per batched prefill: a bucket's prompts are split so that
 # n_prompts * T stays within this (the JAX engine's default cap)
 PREFILL_ROWS = 4096
-# bd4 buffers are a multiple of the flash kernel's column block; from this
-# length on the bd4 route takes the flash kernel (#21)
+# bd and bd4 buffers are a multiple of the flash kernels' column block;
+# from this length on the bd4 route takes the flash kernel (#21)
 BD4_ALIGN = 512
 BD4_FLASH_MIN = 8192
-# (kv_bits, attn_impl) pairs the port serves
-ROUTES = {(8, "xla"), (8, "pallas"), (4, "bd4")}
+# (kv_bits, attn_impl) pairs the port serves; xla8r is the ring of a
+# chunked engine
+ROUTES = {(8, "xla"), (8, "xla8a"), (8, "xla8r"), (8, "pallas"), (8, "bd"),
+          (8, "bds"), (4, "bd4")}
+PROBE_ONLY = ("pallas", "bd", "bds")
 # token rows per dense all-expert block above the #6 regime (bounds the
 # (E, rows, I) f32 transients)
 MOE_DENSE_BLOCK = 2048
 
 
-def pick_attn_impl(kv_bits: Union[int, str]) -> str:
-    """The JAX engine's ``pick_attn_impl`` for a per-step dense engine on a
-    TPU, at any ``max_len``: kv4 -> the bd4 kernels, everything else ->
-    ``xla`` ("auto" is resolved by the engine first)."""
-    return "bd4" if kv_bits == 4 else "xla"
+def pick_attn_impl(kv_bits: Union[int, str], chunked: bool = False) -> str:
+    """The JAX engine's ``pick_attn_impl`` for a dense engine on a TPU, at
+    any ``max_len``: kv4 -> the bd4 kernels per step, the kv4 ring
+    ``xla4r`` when chunked; everything else -> ``xla`` ("auto" is resolved
+    by the engine first)."""
+    if kv_bits == 4:
+        return "xla4r" if chunked else "bd4"
+    return "xla"
+
+
+def _unported(kv_bits, attn_impl: str) -> str:
+    """The ROADMAP item of a JAX route the port does not serve."""
+    if attn_impl == "xla4r" or (kv_bits == 4 and attn_impl == "xla"):
+        return "A6b, the kv4 hhd cache and its ring"
+    if kv_bits == 16:
+        return "A6c, the kv16 engine"
+    if attn_impl == "xla8":
+        return "A6, the xla8 concat variant"
+    return "A6"
 
 
 @dataclasses.dataclass
@@ -377,13 +412,82 @@ def _attend_xla8a(qg, kq, ks, vq, vs, cache: KVCache, li: int,
     return torch.matmul(pv, vc.to(torch.bfloat16))  # (S, nkv, G, hd)
 
 
+@dataclasses.dataclass
+class RingStep:
+    """One step of a ring chunk: the chunk's ring, the slots' chunk-entry
+    lengths, this step's ring column, and the fresh tokens (kq, ks, vq, vs)
+    of the layers run so far."""
+    ring: Ring
+    lengths0: torch.Tensor
+    pos: int = 0
+    fresh: List[tuple] = dataclasses.field(default_factory=list)
+
+    def write(self) -> None:
+        """Every layer's fresh token into ring column ``pos`` at once (the
+        JAX engine's deferred ring write)."""
+        self.ring.kv[:, :, :, self.pos] = torch.stack(
+            [torch.cat([kq, vq], dim=1)[:, :, 0]
+             for kq, ks, vq, vs in self.fresh])
+        self.ring.s[:, :, :, self.pos] = torch.stack(
+            [torch.cat([ks, vs], dim=1)[:, :, 0]
+             for kq, ks, vq, vs in self.fresh])
+        self.fresh = []
+
+
+def _attend_ring(qg, kq, ks, vq, vs, cache: KVCache, li: int,
+                 rs: RingStep) -> torch.Tensor:
+    """The ``xla8r`` attention of one layer (JAX's deferred, fused ring with
+    the full-T main term): a flash merge of three terms, the first two
+    with their max floored at -1e30: the read-only cache at
+    ``col < lengths0`` (bf16 scores and PV, as JAX's bf16 einsums, with
+    f32 scales); the ring's columns ``< pos`` (f32); the fresh token (its
+    score accumulated in f32).  Returns (S, K, G, D) f32.  JAX's
+    split-cache copy (``LCTPU_RING_SPLITCACHE``) only shapes XLA's
+    schedule and gives the same values; the port has none."""
+    H, hd = kq.shape[1], qg.shape[-1]
+    scale = hd ** -0.5
+    qb = qg.to(torch.bfloat16)
+    kc, vc = cache.k[li], cache.v[li]  # (S, H, T, hd) int8
+    ksc, vsc = cache.k_scale[li], cache.v_scale[li]  # (S, H, T) bf16
+
+    def term(sc, visible):
+        sc = sc.masked_fill(~visible, float("-inf"))
+        m = torch.clamp(sc.amax(dim=-1), min=-1e30)
+        p = torch.exp(sc - m[..., None])
+        return m, p, p.sum(dim=-1)
+
+    sc1 = torch.matmul(qb, kc.to(torch.bfloat16).transpose(-1, -2))
+    sc1 = sc1.float() * ksc[:, :, None, :].float() * scale
+    col = torch.arange(kc.shape[2], device=qg.device)
+    m1, p1, l1 = term(sc1, col[None, None, None, :]
+                      < rs.lengths0[:, None, None, None])
+    ctx1 = torch.matmul((p1 * vsc[:, :, None, :].float()).to(torch.bfloat16),
+                        vc.to(torch.bfloat16)).float()
+    rkv, rsc = rs.ring.kv[li], rs.ring.s[li]  # (S, 2H, W, hd), (S, 2H, W)
+    qf = qb.float()
+    sc2 = torch.matmul(qf, rkv[:, :H].float().transpose(-1, -2))
+    sc2 = sc2 * rsc[:, :H, None, :].float() * scale
+    wcol = torch.arange(rkv.shape[2], device=qg.device)
+    m2, p2, l2 = term(sc2, wcol < rs.pos)
+    ctx2 = torch.matmul(p2 * rsc[:, H:, None, :].float(), rkv[:, H:].float())
+    sc3 = torch.matmul(qf, kq.float().transpose(-1, -2))[..., 0]
+    sc3 = sc3 * ks.float() * scale  # ks (S, H, 1) meets (S, H, G)
+    v3 = vq[:, :, 0].float() * vs.float()  # (S, H, hd)
+    m = torch.maximum(torch.maximum(m1, m2), sc3)
+    a1, a2, a3 = (torch.exp(t - m) for t in (m1, m2, sc3))
+    denom = l1 * a1 + l2 * a2 + a3
+    ctx = (ctx1 * a1[..., None] + ctx2 * a2[..., None]
+           + v3[:, :, None, :] * a3[..., None])
+    return ctx / denom[..., None]
+
+
 def _block_apply_decode(sw: ServingWeights, entry, x: torch.Tensor, cos,
                         sin, cache: KVCache, li: int, lengths: torch.Tensor,
-                        impl: str, moe: MoEOptions = MoEOptions()
-                        ) -> torch.Tensor:
+                        impl: str, moe: MoEOptions = MoEOptions(),
+                        ring: Optional[RingStep] = None) -> torch.Tensor:
     """One decode block on (S, 1, H) through the attention route ``impl``
     (module docstring); the fresh token ends up in the cache at each
-    slot's length."""
+    slot's length, or with ``ring`` in the step's fresh tokens."""
     arch, ab = sw.arch, sw.act_bits
     S = x.shape[0]
     nh, nkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
@@ -397,7 +501,10 @@ def _block_apply_decode(sw: ServingWeights, entry, x: torch.Tensor, cos,
     vq, vs = quantize_kv(v)
     # q head h attends kv head h // groups -> (S, nkv, G, hd)
     qg = q[:, :, 0, :].reshape(S, nkv, nh // nkv, hd)
-    if impl == "xla":
+    if ring is not None:
+        ctx = _attend_ring(qg, kq, ks, vq, vs, cache, li, ring)
+        ring.fresh.append((kq, ks, vq, vs))
+    elif impl in ("xla", "xla8a", "xla8r"):
         ctx = _attend_xla8a(qg, kq, ks, vq, vs, cache, li, lengths)
     elif impl == "pallas":
         ctx = decode_attention_i8(
@@ -405,16 +512,25 @@ def _block_apply_decode(sw: ServingWeights, entry, x: torch.Tensor, cos,
             cache.v_scale[li], kq[:, :, 0], ks[:, :, 0], vq[:, :, 0],
             vs[:, :, 0], lengths)
         append_kv_quantized(cache, li, kq, ks, vq, vs, lengths)
-    else:  # bd4: the int8 token is merged, the int4 token is cached
-        kernel = (decode_attention_bd4_flash
-                  if cache.k.shape[-1] >= BD4_FLASH_MIN
-                  else decode_attention_bd4)
+    else:  # bd, bds, bd4: the int8 token is merged, then cached
+        if impl == "bd":
+            kernel = decode_attention_bd
+        elif impl == "bds":
+            kernel = functools.partial(decode_attention_bd_flash,
+                                       s_block=S_BLOCK)
+        elif cache.k.shape[-1] >= BD4_FLASH_MIN:
+            kernel = decode_attention_bd4_flash
+        else:
+            kernel = decode_attention_bd4
         qctx = kernel(qg, cache.k[li], cache.k_scale[li], cache.v[li],
                       cache.v_scale[li], lengths)
         ctx = bd_merge_new_token(qg, qctx, kq[:, :, 0], vq[:, :, 0],
                                  ks[:, :, 0], vs[:, :, 0], hd ** -0.5)
-        append_kv4_bd(cache, li, *quantize_kv4(k), *quantize_kv4(v),
-                      lengths)
+        if impl == "bd4":
+            append_kv_bd(cache, li, *quantize_kv4(k), *quantize_kv4(v),
+                         lengths)
+        else:
+            append_kv_bd(cache, li, kq, ks, vq, vs, lengths)
     ctx = ctx.reshape(S, 1, nh * hd).to(x.dtype)
     if fused_ok(sw, entry["attn.o"]):
         h = x + _flin(sw, entry["attn.o"], ctx[:, 0], False)[:, None]
@@ -429,16 +545,19 @@ class LLMEngine:
     that device.
 
     ``kv_bits`` 8, 4 or "auto" (4 from ``max_len`` 4096 on, as in the JAX
-    engine); ``attn_impl`` "auto", "xla", "bd4" or "pallas" (module
-    docstring; a MoE model always takes ``xla``, so it serves at kv8).
-    ``moe_gather_max``, ``moe_grouped``, ``moe_grouped_min`` and
-    ``moe_smallm`` set the expert routes (``MoEOptions``).  Other JAX
-    routes raise ``NotImplementedError``."""
+    engine); ``attn_impl`` "auto", "xla" (or "xla8a"), "xla8r", "bd",
+    "bds", "bd4" or "pallas" (module docstring; a MoE model always takes
+    ``xla``, so it serves at kv8); ``decode_chunk`` the decode steps per
+    chunk (1: per-step decode; "xla8r" without a chunk falls back to
+    "xla", as in JAX).  ``moe_gather_max``, ``moe_grouped``,
+    ``moe_grouped_min`` and ``moe_smallm`` set the expert routes
+    (``MoEOptions``).  Other JAX routes raise ``NotImplementedError``."""
 
     def __init__(self, weights: ServingWeights, max_slots: int = 8,
                  max_len: int = 1024, kv_bits: Union[int, str] = 8,
                  prefill_buckets: Sequence[int] = (64, 128, 256, 512),
                  seed: int = 0, attn_impl: str = "auto",
+                 decode_chunk: int = 1,
                  moe_gather_max: Optional[int] = None,
                  moe_grouped: Union[str, bool] = "auto",
                  moe_grouped_min: int = 257, moe_smallm: int = 0,
@@ -449,20 +568,27 @@ class LLMEngine:
                              f"engine on {self.device}")
         if kv_bits == "auto":
             kv_bits = 4 if max_len >= 4096 else 8
+        self.decode_chunk = max(1, int(decode_chunk))
+        chunked = self.decode_chunk > 1
         if attn_impl == "auto":
-            attn_impl = pick_attn_impl(kv_bits)
-        elif attn_impl == "pallas":
+            attn_impl = pick_attn_impl(kv_bits, chunked)
+        elif attn_impl in PROBE_ONLY:
             warnings.warn(
-                "attn_impl='pallas' is probe-only (loses to the auto-picked "
-                "path engine-side at every measured shape; REPORT r4); use "
-                "attn_impl='auto'", stacklevel=2)
+                f"attn_impl='{attn_impl}' is probe-only (loses to the "
+                "auto-picked path engine-side at every measured shape; "
+                "REPORT r4); use attn_impl='auto'", stacklevel=2)
         if weights.arch.moe is not None:
             attn_impl = "xla"  # as the JAX engine routes MoE blocks
+        if attn_impl == "xla8r" and (kv_bits != 8 or not chunked):
+            attn_impl = "xla"  # the ring is the chunk's window
         if (kv_bits, attn_impl) not in ROUTES:
             raise NotImplementedError(
                 f"kv_bits={kv_bits} with attn_impl={attn_impl!r} is not "
-                f"ported; the port serves {sorted(ROUTES)}")
+                f"ported (ROADMAP {_unported(kv_bits, attn_impl)}); the port "
+                f"serves {sorted(ROUTES)}")
         self.attn_impl = attn_impl
+        # a chunked kv8 xla engine decodes on the ring (JAX's _use_xla8)
+        self.ring = chunked and attn_impl in ("xla", "xla8r")
         self.moe = MoEOptions(moe_gather_max, moe_grouped, moe_grouped_min,
                               moe_smallm)
         self.sw = weights
@@ -479,11 +605,16 @@ class LLMEngine:
     def reset(self):
         a = self.arch
         if self.cache is None:
-            layout = "bd4" if self.attn_impl == "bd4" else "hhd"
-            # the physical time axis: bd4 buffers round up to the flash
-            # block; the lengths mask keeps the logical max_len
-            self.buf_len = (-(-self.max_len // BD4_ALIGN) * BD4_ALIGN
-                            if layout == "bd4" else self.max_len)
+            layout = {"bd4": "bd4", "bd": "bd", "bds": "bd"}.get(
+                self.attn_impl, "hhd")
+            # the physical time axis: a ring chunk entered at max_len - k
+            # flushes a whole chunk-wide slab, so the ring's cache has a
+            # chunk of headroom; bd and bd4 buffers round up to the flash
+            # block.  The lengths mask keeps the logical max_len.
+            self.buf_len = self.max_len + (self.decode_chunk if self.ring
+                                           else 0)
+            if layout != "hhd":
+                self.buf_len = -(-self.buf_len // BD4_ALIGN) * BD4_ALIGN
             self.cache = KVCache.create(
                 a.num_layers, self.max_slots, a.num_kv_heads, self.buf_len,
                 a.head_dim, bits=self.kv_bits, layout=layout,
@@ -529,8 +660,11 @@ class LLMEngine:
 
     @torch.no_grad()
     def _decode_step(self, cur_tokens: torch.Tensor,
-                     active_mask: torch.Tensor) -> torch.Tensor:
+                     active_mask: torch.Tensor,
+                     ring: Optional[RingStep] = None) -> torch.Tensor:
         """One token for every slot; lengths advance for active slots.
+        With ``ring`` (a ring chunk's step) the cache stays read-only and
+        every layer's fresh token goes to the ring's column ``ring.pos``.
         Returns logits (S, V)."""
         sw, arch = self.sw, self.arch
         lengths = self.lengths
@@ -538,11 +672,41 @@ class LLMEngine:
         cos, sin = A.rope_cos_sin(arch, lengths[:, None])  # (S, 1, D)
         for li, entry in enumerate(sw.blocks):
             x = _block_apply_decode(sw, entry, x, cos, sin, self.cache, li,
-                                    lengths, self.attn_impl, self.moe)
+                                    lengths, self.attn_impl, self.moe, ring)
+        if ring is not None:
+            ring.write()
         xl = A.rmsnorm(x, sw.norm.get("weight"), arch.rms_eps)
         logits = head_logits(sw, xl)[:, 0]
         self.lengths = torch.where(active_mask, lengths + 1, lengths)
         return logits
+
+    @torch.no_grad()
+    def _decode_chunk(self, n: int, active_mask: torch.Tensor,
+                      sampling: SamplingParams) -> torch.Tensor:
+        """``n`` decode steps, each step's tokens sampled on the device and
+        fed to the next; returns the (n, S) token buffer, on the device.
+        On the ring (``self.ring``) the chunk's fresh tokens ride a ring of
+        width n, flushed into the cache at the chunk-entry lengths after
+        the last step."""
+        buf = torch.empty((n, self.max_slots), dtype=torch.int64,
+                          device=self.device)
+        ring = None
+        if self.ring:
+            a = self.arch
+            ring = RingStep(Ring.create(a.num_layers, self.max_slots,
+                                        a.num_kv_heads, n, a.head_dim,
+                                        self.device), self.lengths.clone())
+        cur = self.cur_tokens
+        for i in range(n):
+            if ring is not None:
+                ring.pos = i
+            logits = self._decode_step(cur, active_mask, ring)
+            cur = sample(logits, sampling, self.generator).long()
+            buf[i] = cur
+        if ring is not None:
+            flush_ring_to_cache(self.cache, ring.ring, ring.lengths0)
+        self.cur_tokens = cur
+        return buf
 
     # ------------------------------------------------------------------
     def _admit(self, admits: List[Tuple[int, Request]],
@@ -610,24 +774,47 @@ class LLMEngine:
             if not any(active):
                 continue
             active_mask = torch.tensor(active, device=self.device)
-            logits = self._decode_step(self.cur_tokens, active_mask)
-            toks = sample(logits, sampling, self.generator)
-            row = toks.cpu().tolist()
+            if self.decode_chunk > 1:
+                live = [sl for sl, r in enumerate(self.slot_req)
+                        if r is not None]
+                lens = self.lengths.cpu().tolist()
+                remaining = min(self.slot_req[sl].max_new_tokens
+                                - len(self.slot_req[sl].out_tokens)
+                                for sl in live)
+                room = self.max_len - 1 - max(lens[sl] for sl in live)
+                n = max(1, min(self.decode_chunk, remaining, room))
+                # a chunk length between 1 and decode_chunk rounds down to
+                # a power of two: a few fixed lengths (the ring's chunk
+                # boundaries shape its numerics, as in JAX)
+                if n not in (1, self.decode_chunk):
+                    n = 1 << (n.bit_length() - 1)
+                tok_rows = self._decode_chunk(n, active_mask,
+                                              sampling).cpu().tolist()
+            else:
+                logits = self._decode_step(self.cur_tokens, active_mask)
+                toks = sample(logits, sampling, self.generator)
+                tok_rows = [toks.cpu().tolist()]
+                self.cur_tokens = torch.where(active_mask, toks.long(),
+                                              self.cur_tokens)
             lengths_np = self.lengths.cpu().tolist()
             done_slots = []
-            for slot, req in enumerate(self.slot_req):
-                if req is None:
-                    continue
-                tok = int(row[slot])
-                req.out_tokens.append(tok)
-                hit_eos = eos_token_id is not None and tok == eos_token_id
-                full = lengths_np[slot] >= self.max_len - 1
-                if len(req.out_tokens) >= req.max_new_tokens or hit_eos \
-                        or full:
-                    results[req.req_id] = req.out_tokens
-                    done_slots.append(slot)
-            self.cur_tokens = torch.where(active_mask, toks.long(),
-                                          self.cur_tokens)
+            for ri, row in enumerate(tok_rows):
+                for slot, req in enumerate(self.slot_req):
+                    if req is None or slot in done_slots:
+                        continue
+                    tok = int(row[slot])
+                    req.out_tokens.append(tok)
+                    hit_eos = eos_token_id is not None and \
+                        tok == eos_token_id
+                    # the post-chunk length holds for the chunk's last row
+                    # only (the chunk length keeps every slot inside the
+                    # buffer until then)
+                    full = ri == len(tok_rows) - 1 and \
+                        lengths_np[slot] >= self.max_len - 1
+                    if len(req.out_tokens) >= req.max_new_tokens \
+                            or hit_eos or full:
+                        results[req.req_id] = req.out_tokens
+                        done_slots.append(slot)
             if done_slots:
                 idx = torch.tensor(done_slots, device=self.device)
                 self.lengths[idx] = 0

@@ -1,12 +1,17 @@
 """Slot KV cache (port of lightcompress_tpu/serving/kv_cache.py: the dense
-``hhd`` layout at 8 and 16 bits and the nibble-packed ``bd4`` slabs).
+``hhd`` layout at 8 and 16 bits, the block-diagonal int8 ``bd`` slabs and
+the nibble-packed ``bd4`` slabs).
 
 ``hhd``: (L, S, H, T, D) per slot, int8 with a bf16 scale per (head, token)
-or bf16 passthrough.  ``bd4`` (kv4, for ``ops.attention``'s bd4 kernels):
-K feature-major (L, S, H*D/2, T), V time-major (L, S, T, H*D/2), int8
-bytes holding two int4 codes (``quantize_kv4``), bf16 scales (L, S, H, T).
+or bf16 passthrough.  ``bd`` (kv8, for ``ops.attention``'s #18/#19): K
+feature-major (L, S, H*D, T) with row h*D + d holding feature d of head h,
+V time-major (L, S, T, H*D), int8 codes, bf16 scales (L, S, H, T).
+``bd4`` (kv4, for #20/#21): the same slabs of int8 bytes holding two int4
+codes (``quantize_kv4``), K (L, S, H*D/2, T), V (L, S, T, H*D/2).
 Appends write in place into the preallocated buffers (the JAX package's
-dynamic_update_slice loops, with donation, do the same).
+dynamic_update_slice loops, with donation, do the same).  A decode chunk's
+ring (``flush_ring_to_cache``) is written into the ``hhd`` cache once per
+chunk.
 """
 
 from __future__ import annotations
@@ -21,12 +26,13 @@ from ..device import DeviceLike, div, resolve_device
 
 @dataclasses.dataclass
 class KVCache:
-    k: torch.Tensor  # (L, S, H, T, D) int8 | bf16; bd4: (L, S, H*D/2, T)
-    v: torch.Tensor  # bd4: (L, S, T, H*D/2)
+    k: torch.Tensor  # (L, S, H, T, D) int8 | bf16; bd: (L, S, H*D, T);
+    #                  bd4: (L, S, H*D/2, T)
+    v: torch.Tensor  # bd: (L, S, T, H*D); bd4: (L, S, T, H*D/2)
     k_scale: Optional[torch.Tensor]  # (L, S, H, T) bf16 (int8, int4 only)
     v_scale: Optional[torch.Tensor]
     bits: int = 8
-    layout: str = "hhd"  # "hhd" | "bd4"
+    layout: str = "hhd"  # "hhd" | "bd" | "bd4"
 
     @staticmethod
     def create(n_layers: int, n_slots: int, n_kv_heads: int, max_len: int,
@@ -38,16 +44,18 @@ class KVCache:
         def zeros(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
-        if layout == "bd4":
-            if bits != 4 or head_dim % 2:
+        if layout in ("bd", "bd4"):
+            if layout == "bd" and bits != 8:
+                raise ValueError("the bd layout holds int8 codes")
+            if layout == "bd4" and (bits != 4 or head_dim % 2):
                 raise ValueError("the bd4 layout holds int4 codes of an "
                                  "even head_dim")
-            hd2 = n_kv_heads * head_dim // 2
+            hr = n_kv_heads * head_dim * bits // 8
             return KVCache(
-                zeros((n_layers, n_slots, hd2, max_len), torch.int8),
-                zeros((n_layers, n_slots, max_len, hd2), torch.int8),
+                zeros((n_layers, n_slots, hr, max_len), torch.int8),
+                zeros((n_layers, n_slots, max_len, hr), torch.int8),
                 zeros(sshape, torch.bfloat16), zeros(sshape, torch.bfloat16),
-                4, "bd4")
+                bits, layout)
         if layout != "hhd":
             raise ValueError(f"unknown cache layout {layout!r}")
         shape = sshape + (head_dim,)
@@ -122,11 +130,11 @@ def append_slots(cache: KVCache, layer: int, slots: torch.Tensor,
     Repeated slots (row padding) write identical values."""
     T = k_new.shape[2]
     kq, ks, vq, vs = _quantized(cache, k_new, v_new)
-    if cache.layout == "bd4":
-        N, H, _, D2 = kq.shape
+    if cache.layout in ("bd", "bd4"):
+        N, H, _, R = kq.shape  # R = head_dim (bd) or head_dim/2 (bd4)
         cache.k[layer, slots, :, :T] = kq.transpose(2, 3).reshape(
-            N, H * D2, T)
-        cache.v[layer, slots, :T] = vq.transpose(1, 2).reshape(N, T, H * D2)
+            N, H * R, T)
+        cache.v[layer, slots, :T] = vq.transpose(1, 2).reshape(N, T, H * R)
     else:
         cache.k[layer, slots, :, :T] = kq
         cache.v[layer, slots, :, :T] = vq
@@ -157,18 +165,60 @@ def append_kv_quantized(cache: KVCache, layer: int, kq, ks, vq, vs,
     return cache
 
 
-def append_kv4_bd(cache: KVCache, layer: int, k4: torch.Tensor,
-                  ks: torch.Tensor, v4: torch.Tensor, vs: torch.Tensor,
-                  lengths: torch.Tensor) -> KVCache:
-    """Decode: write one nibble-packed token per slot into the bd4 slabs.
-    k4/v4 (S, H, 1, D/2) int8 (``quantize_kv4`` codes); ks/vs (S, H, 1)."""
-    S, H, _, D2 = k4.shape
+def append_kv_bd(cache: KVCache, layer: int, kq: torch.Tensor,
+                 ks: torch.Tensor, vq: torch.Tensor, vs: torch.Tensor,
+                 lengths: torch.Tensor) -> KVCache:
+    """Decode: write one token per slot into the block-diagonal slabs
+    (``bd``: int8 codes (S, H, 1, D) of ``quantize_kv``; ``bd4``: packed
+    (S, H, 1, D/2) of ``quantize_kv4``); ks/vs (S, H, 1)."""
+    S, H, _, R = kq.shape
     pos = _positions(cache, lengths)
     rows = torch.arange(S, device=lengths.device)
-    cache.k[layer, rows, :, pos] = k4.reshape(S, H * D2)
-    cache.v[layer, rows, pos, :] = v4.reshape(S, H * D2)
+    cache.k[layer, rows, :, pos] = kq.reshape(S, H * R)
+    cache.v[layer, rows, pos, :] = vq.reshape(S, H * R)
     cache.k_scale[layer, rows, :, pos] = ks[:, :, 0]
     cache.v_scale[layer, rows, :, pos] = vs[:, :, 0]
+    return cache
+
+
+@dataclasses.dataclass
+class Ring:
+    """A decode chunk's fresh tokens (``xla8r``): k and v of every layer in
+    one int8 buffer ``kv`` (L, S, 2H, W, D) (k in head rows [0, H), v in
+    [H, 2H)) and their bf16 scales ``s`` (L, S, 2H, W); column w holds the
+    token of chunk step w (the JAX engine's fused ring)."""
+    kv: torch.Tensor
+    s: torch.Tensor
+
+    @staticmethod
+    def create(n_layers: int, n_slots: int, n_kv_heads: int, width: int,
+               head_dim: int, device: torch.device) -> "Ring":
+        shape = (n_layers, n_slots, 2 * n_kv_heads, width)
+        return Ring(torch.zeros(shape + (head_dim,), dtype=torch.int8,
+                                device=device),
+                    torch.zeros(shape, dtype=torch.bfloat16, device=device))
+
+
+def flush_ring_to_cache(cache: KVCache, ring: Ring,
+                        lengths0: torch.Tensor) -> KVCache:
+    """Write a chunk's ring into the int8 ``hhd`` cache, every layer at
+    once: slot s's W columns at positions lengths0[s] .. + W - 1 (the
+    chunk-entry length).  As with dynamic_update_slice, a start past
+    T - W clamps to T - W (the engine's flush headroom keeps real tokens
+    clear of that).  Columns of inactive slots land past their length,
+    masked until real tokens overwrite them."""
+    H, T = cache.k.shape[2], cache.k.shape[3]
+    S, W = ring.kv.shape[1], ring.kv.shape[3]
+    start = lengths0.clamp(0, T - W)
+    pos = start[:, None] + torch.arange(W, device=start.device)  # (S, W)
+    rows = torch.arange(S, device=start.device)[:, None]
+    # advanced indices split by a slice lead the result: (S, W, L, H, ...)
+    kv = ring.kv.permute(1, 3, 0, 2, 4)
+    sc = ring.s.permute(1, 3, 0, 2)
+    cache.k[:, rows, :, pos] = kv[..., :H, :]
+    cache.v[:, rows, :, pos] = kv[..., H:, :]
+    cache.k_scale[:, rows, :, pos] = sc[..., :H]
+    cache.v_scale[:, rows, :, pos] = sc[..., H:]
     return cache
 
 
@@ -180,9 +230,11 @@ def read_kv_slot(cache: KVCache, layer: int, slot: int
         return k[None], v[None]
     ksc = cache.k_scale[layer, slot][..., None].float()
     vsc = cache.v_scale[layer, slot][..., None].float()
-    if cache.layout == "bd4":
+    if cache.layout in ("bd", "bd4"):
         H, T = ksc.shape[:2]
-        k = unpack_kv4(k.reshape(H, -1, T).transpose(1, 2))
-        v = unpack_kv4(v.reshape(T, H, -1).transpose(0, 1))
+        k = k.reshape(H, -1, T).transpose(1, 2)
+        v = v.reshape(T, H, -1).transpose(0, 1)
+        if cache.layout == "bd4":
+            k, v = unpack_kv4(k), unpack_kv4(v)
     k, v = k.float() * ksc, v.float() * vsc
     return k[None].to(torch.bfloat16), v[None].to(torch.bfloat16)

@@ -17,6 +17,7 @@ from lightcompress_tpu.serving.engine import pick_attn_impl as j_pick
 from lightcompress_tpu_torch.ops import attention as ta
 from lightcompress_tpu_torch.serving import kv_cache as tkv
 from lightcompress_tpu_torch.serving.engine import pick_attn_impl
+from test_torch_serving import one_torch_thread  # noqa: F401
 
 B, H, G, D = 3, 2, 4, 128
 
@@ -56,9 +57,11 @@ def _assert_cache_equal(jc, tc):
 
 
 def test_bd4_cache_writes_match_jax():
-    """The batched prefill write (with a repeated padding slot) and the
-    one-token decode append (a slot at the buffer's end clamps) put the
-    same bytes into the bd4 slabs."""
+    """The batched prefill write (with a padding row that repeats the last
+    prompt into its slot, as the engine pads; rows of one slot that
+    differ have no defined order in an index_put) and the one-token decode
+    append (a slot at the buffer's end clamps) put the same bytes into the
+    bd4 slabs."""
     L, S, T = 2, 3, 32
     rng = np.random.RandomState(1)
     jc = jkv.KVCache.create(L, S, H, T, D, bits=4, layout="bd4")
@@ -68,6 +71,7 @@ def test_bd4_cache_writes_match_jax():
         jnp.bfloat16)
     v = jnp.asarray(rng.randn(4, H, 7, D).astype(np.float32)).astype(
         jnp.bfloat16)
+    k, v = k.at[3].set(k[2]), v.at[3].set(v[2])
     slots = np.array([2, 0, 1, 1])
     jc = j_append_slots(jc, 1, jnp.asarray(slots), k, v)
     tkv.append_slots(tc, 1, torch.from_numpy(slots), _bf16(k), _bf16(v))
@@ -77,7 +81,7 @@ def test_bd4_cache_writes_match_jax():
     lengths = np.array([7, 0, T])
     jc = jkv.append_kv4_bd(jc, 0, *jkv.quantize_kv4(kn), *jkv.quantize_kv4(vn),
                            jnp.asarray(lengths, jnp.int32))
-    tkv.append_kv4_bd(tc, 0, *tkv.quantize_kv4(_t(kn)),
+    tkv.append_kv_bd(tc, 0, *tkv.quantize_kv4(_t(kn)),
                       *tkv.quantize_kv4(_t(vn)), torch.from_numpy(lengths))
     _assert_cache_equal(jc, tc)
     # read back: slot 2 holds prompt row 0 (codes times scales)

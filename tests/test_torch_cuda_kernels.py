@@ -183,7 +183,7 @@ def test_bd4_kernels_match_plain(dev, B, S):
             T.decode_attention_bd4_flash(q, kt4, ks, vt4, vs, lengths),
             T.decode_attention_bd4_flash_plain(q, kt4, ks, vt4, vs, lengths))
     torch.cuda.synchronize()
-    assert [k.launches for k in T.KERNELS] == [0, 2, 2]
+    assert [k.launches for k in T.KERNELS] == [0, 2, 2, 0, 0]
 
 
 @pytest.mark.parametrize("B", [1, 8])
@@ -204,7 +204,7 @@ def test_i8_kernel_matches_plain(dev, B, S):
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     assert (got - ref).abs().max() <= 2e-2 * ref.abs().max()
-    assert [k.launches for k in T.KERNELS] == [1, 0, 0]
+    assert [k.launches for k in T.KERNELS] == [1, 0, 0, 0, 0]
 
 
 def test_attention_launch_refused_raises(dev):
@@ -225,6 +225,87 @@ def test_attention_launch_refused_raises(dev):
         T.decode_attention_bd4(q, kt4, sc, vt4, sc)
     with pytest.raises(ValueError):
         T.decode_attention_bd4(q, kt4, sc.float(), vt4, sc)
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("S", [512, 1280, 4096])
+def test_bd_kernels_match_plain(dev, S, G):
+    """#18 and #19 (the engine's 512-column block: at S 1280 it halves to
+    256) over the kv8 bd slabs at 8 slots with ragged lengths."""
+    from lightcompress_tpu_torch.ops import attention as T
+
+    B = 8
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(S + G)
+    q = torch.randn((B, ATT_H, G, ATT_D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k = torch.randn((B, ATT_H, S, ATT_D), generator=gen, device=dev) * 2
+    v = torch.randn((B, ATT_H, S, ATT_D), generator=gen, device=dev)
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    kt = kq.transpose(2, 3).reshape(B, ATT_H * ATT_D, S).contiguous()
+    vt = vq.transpose(1, 2).reshape(B, S, ATT_H * ATT_D).contiguous()
+    L = _ragged(B, S, dev)
+    T.reset_launch_counts()
+    for lengths in (L, None):
+        _check_partials(T.decode_attention_bd(q, kt, ks, vt, vs, lengths),
+                        T.decode_attention_bd_plain(q, kt, ks, vt, vs,
+                                                    lengths))
+        _check_partials(
+            T.decode_attention_bd_flash(q, kt, ks, vt, vs, lengths,
+                                        s_block=T.S_BLOCK),
+            T.decode_attention_bd_flash_plain(q, kt, ks, vt, vs, lengths,
+                                              s_block=T.S_BLOCK))
+    torch.cuda.synchronize()
+    assert [k.launches for k in T.KERNELS] == [0, 0, 0, 2, 2]
+
+
+def test_bd_whole_row_limit_raises(dev):
+    """Above #18's shared-memory limit the wrapper raises and names the
+    flash route; #19 takes the same buffer."""
+    from lightcompress_tpu_torch.ops import attention as T
+
+    B, S = 1, 11504
+    q = torch.zeros((B, ATT_H, ATT_G, ATT_D), device=dev,
+                    dtype=torch.bfloat16)
+    kt = torch.zeros((B, ATT_H * ATT_D, S), device=dev, dtype=torch.int8)
+    vt = torch.zeros((B, S, ATT_H * ATT_D), device=dev, dtype=torch.int8)
+    sc = torch.ones((B, ATT_H, S), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bds"):
+        T.decode_attention_bd(q, kt, sc, vt, sc)
+    c, m, d = T.decode_attention_bd_flash(q, kt, sc, vt, sc)
+    torch.cuda.synchronize()
+    assert torch.isfinite(c).all() and (d == S).all()
+
+
+@pytest.mark.parametrize("impl,kernel", [("bd", "decode_attention_bd"),
+                                         ("bds", "decode_attention_bd_flash")])
+def test_bd_engine_launches_once_a_layer_and_step(dev, impl, kernel):
+    """The bd/bds engines on the card: their kernel once a layer and
+    decode step, no other attention kernel."""
+    import warnings
+
+    from lightcompress_tpu_torch.ops import attention as T
+    from lightcompress_tpu_torch.serving import SamplingParams
+
+    arch = ArchSpec("llama", vocab_size=256, hidden_size=1024,
+                    intermediate_size=2048, num_layers=2, num_heads=8,
+                    num_kv_heads=2, head_dim=128)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(1)
+    sw = build_serving_weights(Llama(arch, init_params(gen, arch)), WSPEC,
+                               act_bits=8, device=dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        eng = LLMEngine(sw, max_slots=2, max_len=600, prefill_buckets=(16,),
+                        attn_impl=impl, device=dev)
+    T.reset_launch_counts()
+    out = eng.generate([[1, 2, 3], [4, 5, 6, 7]],
+                       SamplingParams(max_new_tokens=5))
+    torch.cuda.synchronize()
+    assert [len(o) for o in out] == [5, 5]
+    assert {k.__name__: k.launches for k in T.KERNELS if k.launches} == {
+        kernel: arch.num_layers * 4}
 
 
 # ---------------------------------------------------------------------------

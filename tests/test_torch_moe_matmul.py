@@ -16,6 +16,7 @@ from lightcompress_tpu_torch import convert
 from lightcompress_tpu_torch.ops import moe_matmul as tm
 from lightcompress_tpu_torch.quant import QuantSpec
 from lightcompress_tpu_torch.serving import quantized_model as tqm
+from test_torch_serving import one_torch_thread  # noqa: F401
 
 G128 = dict(bit=4, symmetric=False, granularity="per_group", group_size=128)
 

@@ -35,6 +35,7 @@ from lightcompress_tpu_torch.serving import (LLMEngine, SamplingParams,
 from lightcompress_tpu_torch.serving import engine as t_engine
 from lightcompress_tpu_torch.serving import quantized_model as tqm
 from test_torch_serving_moe import _jax_dense, _jax_routing, _sw_to_port
+from test_torch_serving import one_torch_thread  # noqa: F401
 
 # Qwen/Qwen3-30B-A3B config.json
 QWEN3_30B_A3B = {

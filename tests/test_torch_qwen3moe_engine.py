@@ -16,6 +16,7 @@ from lightcompress_tpu_torch.ops import moe_matmul as tm
 from test_torch_qwen3moe import _weights
 from test_torch_serving_moe_engine import (GROUPED_ENV, _engines,
                                            _teacher_forced)
+from test_torch_serving import one_torch_thread  # noqa: F401
 
 TOKENS = [1, 5, 9, 44, 100, 7, 3, 120, 11, 64, 200, 17]
 # prompts drawn from np.random.RandomState(0) (3 to 6 tokens each) and kept

@@ -30,6 +30,18 @@ from lightcompress_tpu_torch.serving import (LLMEngine, SamplingParams,
                                              sample)
 from lightcompress_tpu_torch.serving.kv_cache import KVCache, append_slots
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for the module (other port test modules import
+    this fixture).  The suite runs under several xdist workers; torch's
+    default of a thread per core then oversubscribes the CPU, and the
+    engines' many small ops slowed down a hundredfold and more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the smallest Llama whose linears take the W4 kernels' layout (K % 1024)
 DIMS = dict(family="llama", vocab_size=256, hidden_size=1024,
             intermediate_size=2048, num_layers=2, num_heads=8, num_kv_heads=2,

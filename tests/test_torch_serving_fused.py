@@ -32,7 +32,7 @@ from lightcompress_tpu_torch.serving import (LLMEngine, SamplingParams,
                                              build_serving_weights)
 from lightcompress_tpu_torch.serving import engine as t_engine
 from test_torch_serving import DIMS, TOKENS, WSPEC, _sw_to_port, \
-    _teacher_forced
+    _teacher_forced, one_torch_thread  # noqa: F401
 
 # the widths: DIMS, where JAX fuses every decode linear of both layouts;
 # narrow (hidden 512, intermediate 1280), where JAX's planes stay untiled

@@ -13,7 +13,8 @@ from lightcompress_tpu.serving import LLMEngine as JEngine
 from lightcompress_tpu.serving import SamplingParams as JSampling
 from lightcompress_tpu_torch.serving import LLMEngine, SamplingParams
 from test_torch_serving import (MARGIN, N_NEW, PROMPTS, TOKENS,  # noqa: F401
-                                _teacher_forced, models, weights)
+                                _teacher_forced, models, one_torch_thread,
+                                weights)
 
 # (JAX engine options, port engine options): max_len 64 gives a 512-column
 # bd4 buffer (#20), max_len 8192 an 8192-column one (#21)

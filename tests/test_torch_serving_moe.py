@@ -35,6 +35,7 @@ from lightcompress_tpu_torch.quant import QuantSpec
 from lightcompress_tpu_torch.serving import (LLMEngine, SamplingParams,
                                              build_serving_weights)
 from lightcompress_tpu_torch.serving import engine as t_engine
+from test_torch_serving import one_torch_thread  # noqa: F401
 
 WSPEC = dict(bit=4, symmetric=False, granularity="per_group", group_size=128)
 # Mixtral's shape at a small size: every expert linear takes the planes

@@ -16,6 +16,7 @@ from lightcompress_tpu.serving import LLMEngine as JEngine
 from lightcompress_tpu.serving import SamplingParams as JSampling
 from lightcompress_tpu_torch.serving import LLMEngine, SamplingParams
 from test_torch_serving_moe import _weights
+from test_torch_serving import one_torch_thread  # noqa: F401
 
 
 def _engines(jsw, tsw, slots=2, **tkw):
