@@ -62,6 +62,14 @@ Phases (each prints one JSON line with its seconds):
      against CPU in bf16 ulps (ROADMAP C1);
   10. the kernel summary line;
   11. the result line.
+After the kernel phases of 2 and 7 come those of the bench's decode stack
+(``lightcompress_tpu_torch.bench``): #5, #15, #16 and #22 against their
+plain versions at the bench's shapes (B 32 at Llama-3-8B width, #22 over
+2049 columns), with times; the bench itself at B 32, CTX 2048 and 32
+layers in five configurations (default, tail=1, tail=2, attn=pallas,
+ksplit), each kernel launched exactly as the configuration routes it;
+and one step of each at 2 layers with every kernel against its plain
+version.
 Each engine phase sets every launch count to 0 just before it runs and
 reads the counts just after.
 Any failure raises and the script exits non-zero.  Without a CUDA device
@@ -83,15 +91,18 @@ import warnings
 import numpy as np
 import torch
 
+from lightcompress_tpu_torch import bench as TB
 from lightcompress_tpu_torch.models import arch as A
 from lightcompress_tpu_torch.models import (ArchSpec, Llama, Qwen3Moe,
                                             arch_from_hf_config, init_params)
 from lightcompress_tpu_torch.models.arch import MoESpec
 from lightcompress_tpu_torch.ops import _build
 from lightcompress_tpu_torch.ops import attention as AT
+from lightcompress_tpu_torch.ops import layer_fused as LF
 from lightcompress_tpu_torch.ops import moe_matmul as M
 from lightcompress_tpu_torch.ops import w4_matmul as W
-from lightcompress_tpu_torch.ops.qlinear import (dequant_weight, qlinear_plain,
+from lightcompress_tpu_torch.ops.qlinear import (QLinearParams,
+                                                 dequant_weight, qlinear_plain,
                                                  quantize_linear)
 from lightcompress_tpu_torch.quant import QuantSpec
 from lightcompress_tpu_torch.serving import (LLMEngine, SamplingParams,
@@ -205,9 +216,21 @@ KERNEL_INFO = {
     "w8a8_grouped_matmul": dict(
         source="lightcompress_tpu_torch/ops/csrc/w8_grouped.cu",
         replaces="lightcompress_tpu/ops/pallas_matmul.py:1261"),
+    "w4a8_matmul_planes_ksplit": dict(
+        source="lightcompress_tpu_torch/ops/csrc/w4_ksplit.cu",
+        replaces="lightcompress_tpu/ops/pallas_matmul.py:697"),
+    "w4a8_attn_tail_fused": dict(
+        source="lightcompress_tpu_torch/ops/csrc/layer_fused.cu",
+        replaces="lightcompress_tpu/ops/pallas_matmul.py:2327"),
+    "w4a8_layer_fused": dict(
+        source="lightcompress_tpu_torch/ops/csrc/layer_fused.cu",
+        replaces="lightcompress_tpu/ops/pallas_matmul.py:2494"),
+    "decode_attention_kv8": dict(
+        source="lightcompress_tpu_torch/ops/csrc/decode_attention.cu",
+        replaces="lightcompress_tpu/ops/pallas_attention.py:815"),
 }
 W4_KERNELS = W.KERNELS + M.KERNELS
-KERNELS = W4_KERNELS + AT.KERNELS
+KERNELS = W4_KERNELS + AT.KERNELS + LF.KERNELS
 ATTN = [k.__name__ for k in AT.KERNELS]
 # decode attention at the engine's shapes: 8 slots, Llama-3-8B's 8 KV heads
 # of 4 query heads each, head_dim 128
@@ -437,7 +460,7 @@ def expert_bytes(N: int, K: int) -> int:
     return N * K // 2 + 2 * N * (K // 128) * 2
 
 
-def moe_bound(nbytes: int, ops: int, kind: str = "int8"):
+def bytes_ops_bound(nbytes: int, ops: int, kind: str = "int8"):
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = ops / PEAK_OPS[kind] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
@@ -524,7 +547,7 @@ def phase_moe_kernels(dev) -> dict:
                 and (equal or not exact)):
             raise AssertionError(f"{kname} {case} {name}: max|err| {err} > "
                                  f"{tol} * {scale} or not bit-equal")
-        b_ms, b_by = moe_bound(nbytes, ops, kind)
+        b_ms, b_by = bytes_ops_bound(nbytes, ops, kind)
         rows.append(dict(
             kernel=kname, case=case, linear=name, N=N, K=K, **extra,
             max_abs_err=err, max_abs_ref=scale, tol=tol, bit_equal=equal,
@@ -829,6 +852,262 @@ def phase_attn_kernels(dev) -> dict:
             "seconds": time.time() - t0}
 
 
+# ---------------------------------------------------------------------------
+# the bench's decode stack (lightcompress_tpu_torch.bench): #5, #15, #16, #22
+# ---------------------------------------------------------------------------
+
+# #22: a bf16 probability can round one step apart where the f32 sums
+# differ in their last bit; times a code of at most 127 (as the CPU tests)
+TOL_KV8 = 1e-3
+# the five configurations of the bench phases: config fields and the
+# launches each kernel takes (per layer, once a step)
+BENCH_CONFIGS = {
+    "default": ({}, {"w4a8_matmul_decode": (4, 0)}),
+    "tail1": (dict(tail=1, scales="bf16"),
+              {"w4a8_matmul_decode": (1, 0), "w4a8_attn_tail_fused": (1, 0)}),
+    "tail2": (dict(tail=2, scales="bf16"),
+              {"w4a8_matmul_decode": (0, 1), "w4a8_layer_fused": (1, 0)}),
+    "pallas": (dict(attn="pallas"),
+               {"w4a8_matmul_decode": (4, 0), "decode_attention_kv8": (1, 0)}),
+    "ksplit": (dict(ksplit=True),
+               {"w4a8_matmul_decode": (3, 0),
+                "w4a8_matmul_planes_ksplit": (1, 0)}),
+}
+BENCH_KERNELS = ("w4a8_matmul_planes_ksplit", "w4a8_attn_tail_fused",
+                 "w4a8_layer_fused", "decode_attention_kv8")
+
+
+def random_planes(gen, dev, N: int, K: int):
+    """Random plane words with random per-group scales and zero points:
+    (codes, s, zs) with bf16 s and zs = z*s."""
+    wp = torch.randint(-2**31, 2**31 - 1, (N, K // 8), generator=gen,
+                       device=dev, dtype=torch.int32)
+    s = torch.rand((N, K // 128), generator=gen, device=dev) * 0.02 + 0.005
+    z = torch.randint(0, 16, (N, K // 128), generator=gen, device=dev).float()
+    return wp, s.to(torch.bfloat16), (z * s).to(torch.bfloat16)
+
+
+def planes_bytes(N: int, K: int) -> int:
+    return N * K // 2 + 2 * N * (K // 128) * 2
+
+
+def phase_bench_kernels(dev) -> dict:
+    """#5, #15, #16 and #22 against their plain versions at the bench's
+    shapes (B 32, H 4096, I 14336, q|k|v 6144; #5 on the down projection,
+    K 14336; #22 over CTX + 1 = 2049 columns, 8 KV heads of 4 query
+    heads), random weights with random per-group scales and zero points;
+    times of the kernel, the plain version, the bound and the library
+    yardstick (#15/#16: torch.matmul over the pre-dequantized bf16 o,
+    gate|up, down (and q|k|v), in turn; #5: torch.matmul over the
+    dequantized down; #22: scaled_dot_product_attention over the
+    pre-dequantized bf16 K and V), and for #15/#16 the act codes each
+    prologue flips against the plain version."""
+    t0 = time.time()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    pad = torch.empty(PAD, dtype=torch.uint8, device=dev)
+    cfg = TB.BenchConfig()
+    B, H, I = cfg.batch, cfg.hidden, cfg.inter
+    Nq = (cfg.n_heads + 2 * cfg.n_kv) * cfg.head_dim
+    shapes = {"o": (H, H), "gateup": (2 * I, H), "down": (H, I),
+              "qkv": (Nq, H)}
+    w = {n: random_planes(gen, dev, *nk) for n, nk in shapes.items()}
+    wd = {n: dequant_weight(QLinearParams(*w[n], None, 128, "planes", True))
+          for n in w}
+    ctx = torch.randn((B, H), generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn((B, H), generator=gen, device=dev).to(torch.bfloat16)
+    mid = (torch.randn((B, I), generator=gen, device=dev) * 3).to(
+        torch.bfloat16)
+    rows = []
+
+    def row(kname, err, scale, tol, run, plain, library, nbytes, ops, kind,
+            **extra):
+        if not err <= tol * scale:
+            raise AssertionError(f"{kname}: max|err| {err} > {tol} * "
+                                 f"{scale}")
+        b_ms, b_by = bytes_ops_bound(nbytes, ops, kind)
+        rows.append(dict(kernel=kname, max_abs_err=err, max_abs_ref=scale,
+                         tol=tol, kernel_ms=time_ms(run, 20, pad),
+                         plain_ms=time_ms(plain, 3, pad),
+                         library_ms=time_ms(library, 20, pad),
+                         bound_ms=b_ms, bound_by=b_by, **extra))
+
+    def error(outs, refs):
+        for o in outs:
+            if not torch.isfinite(o.float()).all():
+                raise AssertionError("a bench kernel's output is not finite")
+        errs = [float((o.float() - r.float()).abs().max())
+                for o, r in zip(outs, refs)]
+        scales = [float(r.float().abs().max()) for r in refs]
+        i = max(range(len(errs)), key=lambda j: errs[j] / scales[j])
+        return errs[i], scales[i]
+
+    for kname, names in (("w4a8_attn_tail_fused", ("o", "gateup", "down")),
+                         ("w4a8_layer_fused",
+                          ("o", "gateup", "down", "qkv"))):
+        kern = getattr(LF, kname)
+        args = [t for n in names for t in w[n]]
+        run = lambda: kern(ctx, x, *args)
+        plain = lambda: getattr(LF, kname + "_plain")(ctx, x, *args)
+        y, q, acts = LF._with_act(kern, ctx, x, *args)
+        ry, rq, racts = LF._plain(ctx, x, *(w[n] for n in names[:3]),
+                                  w["qkv"] if len(names) == 4 else None,
+                                  1e-6)
+        torch.cuda.synchronize()
+        flips = [int((a[0] != r[0]).sum()) for a, r in zip(acts, racts)]
+        for f, (codes, _) in zip(flips, racts):
+            if f > 1e-3 * codes.numel():
+                raise AssertionError(f"{kname}: {flips} act-code flips")
+        outs, refs = ([y], [ry]) if q is None else ([y, q], [ry, rq])
+        err, scale = error(outs, refs)
+        library = lambda: [torch.matmul(t, wd[n].t()) for t, n in
+                           zip((ctx, x, mid, x), names)]
+        nbytes = sum(planes_bytes(*shapes[n]) for n in names) \
+            + 3 * B * H * 2 + (B * Nq * 2 if len(names) == 4 else 0)
+        ops = 2 * B * sum(shapes[n][0] * shapes[n][1] for n in names)
+        row(kname, err, scale, TOL_ULP, run, plain, library, nbytes, ops,
+            "int8", act_code_flips=flips,
+            grid_blocks=LF.grid_blocks(B, H, I, Nq, len(names) == 4),
+            tiles=max(shapes[n][0] // 32 * ((B + 7) // 8) for n in names))
+
+    xq, xs = W.quantize_act_per_token(mid)
+    run = lambda: W.w4a8_matmul_planes_ksplit(xq, xs, *w["down"])
+    plain = lambda: W.w4a8_matmul_planes_ksplit_plain(xq, xs, *w["down"])
+    err, scale = error([run()], [plain()])
+    row("w4a8_matmul_planes_ksplit", err, scale, TOL_F32, run, plain,
+        lambda: torch.matmul(mid, wd["down"].t()),
+        planes_bytes(H, I) + B * I + B * H * 4 + B * 4, 2 * B * H * I,
+        "int8")
+
+    S, Hk, G, D = cfg.ctx + 1, cfg.n_kv, cfg.n_heads // cfg.n_kv, \
+        cfg.head_dim
+    qg = torch.randn((B, Hk, G, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    kq, vq = (torch.randint(-127, 128, (B, Hk, S, D), generator=gen,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ks, vs = ((torch.rand((B, Hk, S), generator=gen, device=dev) * 0.02
+               + 1e-3).to(torch.bfloat16) for _ in range(2))
+    args = (qg, kq, ks, vq, vs)
+    run = lambda: AT.decode_attention_kv8(*args)
+    plain = lambda: AT.decode_attention_kv8_plain(*args)
+    err, scale = error([run()], [plain()])
+    kf, vf = ((c.float() * s_[..., None].float()).to(torch.bfloat16)
+              for c, s_ in ((kq, ks), (vq, vs)))
+    row("decode_attention_kv8", err, scale, TOL_KV8, run, plain,
+        lambda: torch.nn.functional.scaled_dot_product_attention(qg, kf, vf),
+        2 * B * Hk * S * (D + 2) + B * Hk * G * D * (2 + 4),
+        4 * B * Hk * G * S * D, "bf16", S=S)
+    return {"phase": "bench_kernels", "rows": rows,
+            "seconds": time.time() - t0}
+
+
+def bench_expected(name: str, layers: int) -> dict:
+    """{kernel: launches of one step} of a bench configuration."""
+    return {k: a * layers + c for k, (a, c) in BENCH_CONFIGS[name][1].items()}
+
+
+def check_bench_launches(name: str, launches: dict, layers: int,
+                         steps: int) -> None:
+    want = bench_expected(name, layers)
+    for k, n in launches.items():
+        if n != want.get(k, 0) * steps:
+            raise AssertionError(f"bench {name}: {k} launched {n} times in "
+                                 f"{steps} steps, not "
+                                 f"{want.get(k, 0) * steps}")
+
+
+def phase_bench(dev) -> list:
+    """The port's bench at B 32, CTX 2048, 32 layers of Llama-3-8B width in
+    the five configurations (default, tail=1, tail=2, attn=pallas,
+    ksplit): one line each with the bench's JSON fields; the launches of
+    its warm-up and timed steps, every kernel exactly as often as the
+    configuration routes it; then torch.profiler over two more steps
+    (``profiled``).  Returns the launch counts."""
+    runs = []
+    for name, (over, _) in BENCH_CONFIGS.items():
+        t0 = time.time()
+        cfg = TB.BenchConfig(**over)
+        inputs = TB.build_inputs(cfg, dev, seed=SEED)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        res = TB.run(cfg, dev, inputs=inputs)
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in KERNELS}
+        steps = cfg.iters + 1  # the warm-up step and the timed ones
+        check_bench_launches(name, launches, cfg.layers, steps)
+        if not res["value"] > 0:
+            raise AssertionError(f"bench {name}: no tokens/s")
+        emit({"phase": "bench", "name": name, **res, "steps": steps,
+              "launches_per_step": bench_expected(name, cfg.layers),
+              "seconds": time.time() - t0})
+        runs.append(launches)
+        step = lambda: TB.renorm(TB.decode_step(cfg, *inputs))
+        emit({"phase": "profile_bench", "name": name,
+              **profiled(lambda: [step() for _ in range(2)], 2)})
+        del inputs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
+
+
+@contextlib.contextmanager
+def plain_bench_kernels():
+    """The bench's kernels replaced by their plain versions (the same
+    arguments, the same routes)."""
+    swaps = [(W, "w4a8_matmul_decode"), (W, "w4a8_matmul_planes_ksplit"),
+             (AT, "decode_attention_kv8"), (LF, "w4a8_attn_tail_fused"),
+             (LF, "w4a8_layer_fused")]
+    saved = [getattr(mod, name) for mod, name in swaps]
+    for mod, name in swaps:
+        setattr(mod, name, getattr(mod, name + "_plain"))
+    try:
+        yield
+    finally:
+        for (mod, name), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
+
+
+def phase_bench_vs_plain(dev) -> None:
+    """One bench decode step at full width and 2 layers, random int8
+    caches and scales, each configuration with its kernels and with every
+    kernel swapped for its plain version: corr >= 0.999, finite, each
+    kernel launched as the configuration routes it (none in the plain
+    run)."""
+    for name, (over, _) in BENCH_CONFIGS.items():
+        t0 = time.time()
+        cfg = TB.BenchConfig(**over, layers=2)
+        layers, x, kc, vc, kvs = TB.build_inputs(cfg, dev, seed=SEED + 11)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 12)
+        for t in kc + vc:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                                  device=dev, dtype=torch.int8))
+        for pair in kvs:
+            for t in pair:
+                t.copy_(torch.rand(t.shape, generator=gen, device=dev)
+                        * 0.02 + 1e-3)
+        reset_launch_counts()
+        y = TB.decode_step(cfg, layers, x, kc, vc, kvs)
+        torch.cuda.synchronize()
+        check_bench_launches(name, {k.__name__: k.launches
+                                    for k in KERNELS}, cfg.layers, 1)
+        reset_launch_counts()
+        with plain_bench_kernels():
+            ref = TB.decode_step(cfg, layers, x, kc, vc, kvs)
+        torch.cuda.synchronize()
+        check_bench_launches(name, {k.__name__: k.launches
+                                    for k in KERNELS}, cfg.layers, 0)
+        a, b = y.float().flatten(), ref.float().flatten()
+        corr = float(torch.corrcoef(torch.stack([a, b]))[0, 1])
+        finite = bool(torch.isfinite(a).all())
+        emit({"phase": "bench_vs_plain", "name": name, "layers": cfg.layers,
+              "corr": corr, "max_abs_err": float((a - b).abs().max()),
+              "max_abs_ref": float(b.abs().max()), "finite": finite,
+              "seconds": time.time() - t0})
+        if not (corr >= 0.999 and finite):
+            raise AssertionError(f"bench {name} vs plain: corr {corr}")
+
+
 def make_prompts(n: int, vocab: int, lo: int = 100, hi: int = 128):
     """``n`` prompts of ``lo`` to ``hi`` tokens drawn from the seed."""
     rng = np.random.RandomState(SEED)
@@ -959,6 +1238,9 @@ def engine_phase(name: str, sw, prompts, n_new: int, dev, attn: str,
         if launches[k] != want:
             raise AssertionError(f"{name}: {k} launched {launches[k]} "
                                  f"times, not {want}")
+    for k in (f.__name__ for f in LF.KERNELS):
+        if launches[k]:
+            raise AssertionError(f"{name}: {k} launched {launches[k]} times")
     if expect is not None:
         for k in (f.__name__ for f in W4_KERNELS):
             per_p, per_d = expect.get(k, (0, 0))
@@ -991,6 +1273,18 @@ def phase_profile(sw, prompts, dev, steps: int = 4, build: str = "w4a8",
             for _ in range(steps):
                 eng._decode_step(eng.cur_tokens, active)
 
+    return {"phase": "profile_decode", "build": build,
+            "act_bits": sw.act_bits, "slots": eng.max_slots,
+            "kv_bits": eng.kv_bits, "attn_impl": eng.attn_impl,
+            "ring": eng.ring, "decode_chunk": eng.decode_chunk,
+            "lengths": eng.lengths.tolist(), **profiled(run, steps)}
+
+
+def profiled(run, steps: int) -> dict:
+    """torch.profiler over ``run`` (``steps`` decode steps) after one
+    warm-up call: wall and device busy time a step, the device's idle share
+    of the wall (one stream, so kernel times do not overlap), kernels a
+    step, and the top kernels by device time."""
     run()  # warm-up
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -1012,12 +1306,7 @@ def phase_profile(sw, prompts, dev, steps: int = 4, build: str = "w4a8",
         k[1] += e.count
     busy_ms = sum(v[0] for v in kern.values()) / 1e3 / steps
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:12]
-    return {"phase": "profile_decode", "build": build,
-            "act_bits": sw.act_bits, "slots": eng.max_slots,
-            "kv_bits": eng.kv_bits, "attn_impl": eng.attn_impl,
-            "ring": eng.ring, "decode_chunk": eng.decode_chunk,
-            "lengths": eng.lengths.tolist(),
-            "steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
+    return {"steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
             "device_busy_ms_per_step": busy_ms,
             "idle_share": 1.0 - busy_ms / (wall * 1e3 / steps),
             "kernels_per_step": sum(v[1] for v in kern.values()) / steps,
@@ -1522,7 +1811,8 @@ def small_moe_vs_cpu(dev, prompts, forced, arch=SMALL_MOE,
     return res, ok and res["same_codes"]
 
 
-def summarize(rows, attn_rows, fused_rows, moe_rows, launches) -> list:
+def summarize(rows, attn_rows, fused_rows, moe_rows, bench_rows,
+              launches) -> list:
     """One entry per kernel: for a W4 kernel, times summed over one
     block's seven linears at the kernel's main-path M (8 for decode, 1024
     for prefill; #12 at 8, the M of 15 of every 16 of its ``engine_s4``
@@ -1533,7 +1823,8 @@ def summarize(rows, attn_rows, fused_rows, moe_rows, launches) -> list:
     up at B = 8, #10 the down of the 1024-token prefill); for an
     attention kernel, one call at the
     buffer of its engine phase (#20 4096, #21 8192, #17 512, #18 512, #19
-    4096)."""
+    4096); for a bench kernel (#5, #15, #16, #22), one call at the bench's
+    shapes (``phase_bench_kernels``)."""
     main_m = {"w4a16_matmul": 8, "w4a8_matmul_decode": 8,
               "w4a8_matmul_prefill": 1024, "w4a8_matmul_bytes": S4_M[0],
               "w4a8_linear_bytes_fused": FUSED_M,
@@ -1548,6 +1839,14 @@ def summarize(rows, attn_rows, fused_rows, moe_rows, launches) -> list:
               "decode_attention_bd": 512, "decode_attention_bd_flash": 4096}
     out = []
     for kname, info in KERNEL_INFO.items():
+        if kname in BENCH_KERNELS:
+            r = next(r for r in bench_rows if r["kernel"] == kname)
+            out.append(dict(
+                name=kname, route="cuda", **info, launches=launches[kname],
+                max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], library_ms=r["library_ms"]))
+            continue
         if kname in main_s:
             r = next(r for r in attn_rows if r["kernel"] == kname
                      and r["S"] == main_s[kname])
@@ -1685,6 +1984,10 @@ def main() -> int:
     emit(fused_k)
     moe_k = phase_moe_kernels(dev)
     emit(moe_k)
+    bench_k = phase_bench_kernels(dev)
+    emit(bench_k)
+    bench_runs = phase_bench(dev)
+    phase_bench_vs_plain(dev)
 
     t0 = time.time()
     gen = torch.Generator(device=dev)
@@ -1843,10 +2146,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit(phase_small_vs_cpu(dev))
 
-    # the main path's launches: every engine phase
+    # the main path's launches: every engine phase and bench run
+    runs += bench_runs
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     emit({"kernels": summarize(kern["rows"], attn["rows"], fused_k["rows"],
-                               moe_k["rows"], launches)})
+                               moe_k["rows"], bench_k["rows"], launches)})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,10 @@ so this module imports neither JAX nor the JAX package.  Two entry points:
   ``tile_scales_pairs``); for MoE blocks the stacked experts
   (``stacked_planes``: codes (E, N/NT, gpp, NT, g) with the combined slab
   (E, N/NT, 2*gpp*8, NT); the int8 ``stacked`` fallback), the bf16 router
-  and its optional selection bias; the q/k norm gammas of ``qk_norm``.
+  and its optional selection bias; the q/k norm gammas of ``qk_norm``; the
+  bench's K-split ``planes_ks`` linear (codes (N/NT, 2, gpp/2, NT, g), one
+  combined slab per half (N/NT, 2, 2*(gpp/2)*8, NT) in the half's group
+  order; ``tile_packed_ksplit``, ``tile_scales_combined_ksplit``).
 """
 
 from __future__ import annotations
@@ -76,6 +79,30 @@ def split_combined(slab: np.ndarray):
             untile_scales(comb[:, 1].transpose(1, 0, 2, 3)))
 
 
+def untile_codes_ksplit(codes: np.ndarray) -> np.ndarray:
+    """(N/NT, 2, gpp/2, NT, g) -> (N, K/8); inverse of
+    ``tile_packed_ksplit``: half h holds the word columns
+    [h*K/16, (h+1)*K/16) of the planes."""
+    return np.concatenate([untile_codes(codes[:, h])
+                           for h in range(codes.shape[1])], axis=1)
+
+
+def split_combined_ksplit(slab: np.ndarray):
+    """(N/NT, 2, 2*(gpp/2)*8, NT) -> (s, zs), each (N, G) in natural group
+    order; inverse of ``tile_scales_combined_ksplit``, whose half h holds
+    the groups j*gpp + h*gpp/2 + gi in (j, gi) order."""
+    nb, splits, rows, nt = slab.shape
+    gpp2 = rows // 16
+    gpp = gpp2 * splits
+    s = np.empty((nb * nt, 8 * gpp), slab.dtype)
+    zs = np.empty_like(s)
+    for h in range(splits):
+        idx = [j * gpp + h * gpp2 + gi for j in range(8)
+               for gi in range(gpp2)]
+        s[:, idx], zs[:, idx] = split_combined(slab[:, h])
+    return s, zs
+
+
 def untile_pairs(t: np.ndarray) -> np.ndarray:
     """(N/NT, G, NT) -> (N, G); inverse of ``tile_scales_pairs``."""
     nb, G, nt = t.shape
@@ -103,6 +130,14 @@ def qlinear_from_numpy(codes, scales, zeros, bias, bits: int,
             tensor_from_numpy(codes, device, torch.int8),
             tensor_from_numpy(scales, device, torch.float32), None, None, 0,
             "stacked", False, 8)
+    if layout == "planes_ks" and bits == 4:
+        s, zs = split_combined_ksplit(scales)
+        return QLinearParams(
+            tensor_from_numpy(untile_codes_ksplit(codes), device,
+                              torch.int32),
+            tensor_from_numpy(s, device), tensor_from_numpy(zs, device),
+            None if bias is None else tensor_from_numpy(bias, device),
+            group_size, "planes_ks", True)
     if bits != 4 or layout not in ("planes", "s4"):
         raise ValueError(f"{bits}-bit {layout!r} linears are not ported")
     if layout == "s4":

@@ -1,6 +1,6 @@
-"""Decode attention over the quantized slot caches: the five Hopper kernels
-of the serving path with their plain PyTorch versions (port of
-lightcompress_tpu/ops/pallas_attention.py, kernels #17-#21).
+"""Decode attention over the quantized caches: the six Hopper kernels of
+the serving path and the bench with their plain PyTorch versions (port of
+lightcompress_tpu/ops/pallas_attention.py, kernels #17-#22).
 
 * ``decode_attention_bd`` (#18) and ``decode_attention_bd_flash`` (#19):
   one-token GQA decode over the kv8 block-diagonal ``bd`` slabs (K
@@ -18,8 +18,13 @@ lightcompress_tpu/ops/pallas_attention.py, kernels #17-#21).
   (B, H, S, D) with the fresh token as an extra softmax column; returns
   the normalized context.
 
-Arithmetic (the JAX kernels', in this order): q is quantized per (b, h, g)
-to int8 (``quantize_q``); scores are int32 dots, then
+* ``decode_attention_kv8`` (#22): bf16 q over the int8 cache (B, H, S, D)
+  with per-token scales (B, H, S), every column (no length mask: the bench
+  appends the fresh token first); f32 dots, a softmax normalized before
+  PV, ``pv = bf16(p * vs)``; returns the normalized context.
+
+Arithmetic of #17-#21 (the JAX kernels', in this order): q is quantized
+per (b, h, g) to int8 (``quantize_q``); scores are int32 dots, then
 ``(f32(s) * (qs * D**-0.5)) * ks``; columns at or past a slot's length are
 masked; the max is floored at -1e30 (#18-#21); ``pv = exp(s - m) * vs``;
 ``ps = max(max(pv), 1e-20) / 127``; ``p8 = round_half_even(pv / ps)``; the
@@ -207,6 +212,20 @@ def decode_attention_i8_plain(q, kq, ks, vq, vs, k_new, kns, v_new, vns,
     return ctx / denom[..., None]
 
 
+def decode_attention_kv8_plain(q, kq, ks, vq, vs) -> torch.Tensor:
+    """Plain #22: ``scores = (f32 dot(bf16 q, k)) * ks * D**-0.5`` over every
+    column, ``p = e / sum(e)``, ``pv = bf16(p * vs)``, the f32 PV dot;
+    normalized (B, H, G, D) f32.  The dots' products are exact in f32."""
+    D = q.shape[-1]
+    sc = torch.matmul(q.to(torch.bfloat16).float(),
+                      kq.float().transpose(-1, -2))
+    sc = sc * ks.float()[:, :, None, :] * D ** -0.5
+    e = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    pv = (p * vs.float()[:, :, None, :]).to(torch.bfloat16)
+    return torch.matmul(pv.float(), vq.float())
+
+
 def bd_merge_new_token(q, qctx: Partials, k_new, v_new, kns, vns,
                        scale: float) -> torch.Tensor:
     """Fold the fresh token (int8 k_new/v_new (B, H, D), scales (B, H))
@@ -239,7 +258,9 @@ def _lib() -> ctypes.CDLL:
     lib.lc_attn_bd.argtypes = [_P] * 10 + [_I] * 5 + [_P]
     lib.lc_attn_bd4.argtypes = [_P] * 10 + [_I] * 5 + [_P]
     lib.lc_attn_i8.argtypes = [_P] * 12 + [_I] * 4 + [_P]
-    for fn in (lib.lc_attn_bd, lib.lc_attn_bd4, lib.lc_attn_i8):
+    lib.lc_attn_kv8.argtypes = [_P] * 6 + [_I] * 5 + [_P]
+    for fn in (lib.lc_attn_bd, lib.lc_attn_bd4, lib.lc_attn_i8,
+               lib.lc_attn_kv8):
         fn.restype = ctypes.c_int
     return lib
 
@@ -436,13 +457,69 @@ def decode_attention_i8(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     return out
 
 
+def kv8_smem_bytes(G: int, S: int) -> int:
+    """Dynamic shared memory of a #22 block: the f32 score row (G*S), q
+    in f32, the reduction scratch and the warps' PV sums."""
+    D = KERNEL_HEAD_DIM
+    return 4 * (G * S + G * D + 8 * G + 8 * G * D)
+
+
+def decode_attention_kv8(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
+                         vq: torch.Tensor, vs: torch.Tensor) -> torch.Tensor:
+    """#22: q (B, H, G, D) (taken as bf16) over the int8 cache K, V (B, H, S,
+    D) with f32 or bf16 per-token scales (B, H, S), every column.  Returns
+    the normalized (B, H, G, D) f32.  On the card the score row sits in
+    shared memory: ``kv8_smem_bytes(G, S) <= SMEM_MAX`` (S <= 13368 at
+    G = 4); above it this raises."""
+    B, H, G, D = q.shape
+    S = kq.shape[2]
+    if kq.shape != (B, H, S, D) or vq.shape != kq.shape or \
+            ks.shape != (B, H, S) or vs.shape != (B, H, S) or S < 1:
+        raise ValueError("decode_attention_kv8 takes q (B, H, G, D), K and V "
+                         "(B, H, S, D) and scales (B, H, S), S >= 1; got "
+                         f"{tuple(q.shape)}, {tuple(kq.shape)}, "
+                         f"{tuple(ks.shape)}")
+    if q.device.type == "cpu":
+        return decode_attention_kv8_plain(q, kq, ks, vq, vs)
+    for t in (kq, ks, vq, vs):
+        if t.device != q.device:
+            raise ValueError("all operands must be on one device")
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if D != KERNEL_HEAD_DIM or G not in KERNEL_GROUPS:
+        raise ValueError(f"the kernel takes head_dim {KERNEL_HEAD_DIM} and "
+                         f"groups {KERNEL_GROUPS}, got D={D} G={G}")
+    for t in (kq, vq):
+        if t.dtype != torch.int8 or not t.is_contiguous() or \
+                t.data_ptr() % 16:
+            raise ValueError("the kernel takes contiguous, 16-byte aligned "
+                             "int8 K and V")
+    if ks.dtype != vs.dtype or ks.dtype not in (torch.bfloat16,
+                                                torch.float32):
+        raise ValueError("the kernel takes bf16 or f32 scales, both alike")
+    if kv8_smem_bytes(G, S) > SMEM_MAX:
+        raise ValueError(f"decode_attention_kv8 holds the score row in "
+                         f"shared memory: S={S} at G={G} needs "
+                         f"{kv8_smem_bytes(G, S)} bytes, above {SMEM_MAX}")
+    qb = q.to(torch.bfloat16).contiguous()
+    ks, vs = ks.contiguous(), vs.contiguous()
+    out = torch.empty((B, H, G, D), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        _launch(_lib().lc_attn_kv8, qb.data_ptr(), kq.data_ptr(),
+                ks.data_ptr(), vq.data_ptr(), vs.data_ptr(), out.data_ptr(),
+                B, H, G, S, int(ks.dtype == torch.float32),
+                _stream(q.device))
+    decode_attention_kv8.launches += 1
+    return out
+
+
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
 KERNELS = (decode_attention_i8, decode_attention_bd4,
            decode_attention_bd4_flash, decode_attention_bd,
-           decode_attention_bd_flash)
+           decode_attention_bd_flash, decode_attention_kv8)
 for _k in KERNELS:
     _k.launches = 0
 

@@ -13,10 +13,12 @@
 //                                       (_attn_kernel_bd4_flash)
 //   #17 attn_i8_kernel                  replaces decode_attention_i8
 //                                       (_attn_kernel_i8_append, masked)
+//   #22 attn_kv8_kernel<G, ST>          replaces decode_attention_kv8
+//                                       (_attn_kernel)
 //
-// Inputs shared by all: the int8 query q8 (B, H, G, D) and its f32 scales
-// qs (B, H, G) (ops/attention.quantize_q), bf16 per-token cache scales
-// (B, H, S), int32 lengths (B,).  D = 128; G is a template argument.
+// Inputs shared by all but #22: the int8 query q8 (B, H, G, D) and its
+// f32 scales qs (B, H, G) (ops/attention.quantize_q), bf16 per-token cache
+// scales (B, H, S), int32 lengths (B,).  D = 128; G is a template argument.
 // Block-diagonal caches (#18-#21): K feature-major (B, H*R, S) and V
 // time-major (B, S, H*R), R code bytes per head and token: kv8 (#18, #19)
 // R = D int8 codes, row h*D + d = feature d of head h; kv4 (#20, #21) R =
@@ -67,6 +69,10 @@ constexpr int kQW = kD / 4;                   // int32 words of one q row
 constexpr float kScale = 0.08838834764831845f;  // 128 ** -0.5
 
 __device__ __forceinline__ float bf(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
@@ -557,6 +563,128 @@ attn_i8_kernel(const int8_t* __restrict__ q8, const float* __restrict__ qs,
   }
 }
 
+// ---------------------------------------------------------------------------
+// #22: bf16 q (B, H, G, D) over the int8 cache (B, H, S, D) with per-token
+// scales (B, H, S) (ST = bf16 or f32), no length mask (every column is
+// read: the caller appended the fresh token), the normalized context out:
+//   s = (f32 dot(bf16 q, bf16 k)) * ks * D^-0.5;  p = e / sum(e),
+//   e = exp(s - max(s));  pv = bf16(p * vs);  out = f32 dot(pv, bf16 v).
+// Unlike #17, q is not quantized, the dots are f32 (every product of a bf16
+// q and an int8 code is exact in f32), and p is normalized and rounded to
+// bf16 before PV.  Scores: 8 lanes share a cache row (16 codes each) and
+// add their partial dots with shuffles.  PV: a warp takes one row at a
+// time (4 features a lane, rows warp, warp + 8, ...), and the warps' sums
+// are added through shared memory at the end.  Shared memory: the score
+// row (G * S floats, so S is bounded by the 227 KB a block may have: S <=
+// 13368 at G 4; the wrapper raises above it), q in f32, the warps' PV sums.
+// ---------------------------------------------------------------------------
+template <int G>
+size_t kv8_smem(int S) {
+  return ((size_t)G * S + (size_t)G * kD + (size_t)kWarps * G +
+          (size_t)kWarps * G * kD) * 4;
+}
+
+template <int G, typename ST>
+__global__ void __launch_bounds__(kThreads)
+attn_kv8_kernel(const __nv_bfloat16* __restrict__ q,
+                const int8_t* __restrict__ kq, const ST* __restrict__ ks,
+                const int8_t* __restrict__ vq, const ST* __restrict__ vs,
+                float* __restrict__ out, int S) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x, bh = b * H + h;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int sub = threadIdx.x & 7;
+  float* sc = reinterpret_cast<float*>(smem);  // [G][S]
+  float* qf = sc + (size_t)G * S;              // [G][kD]
+  float* red = qf + G * kD;                    // [kWarps][G]
+  float* part = red + kWarps * G;              // [kWarps][G][kD]
+  for (int i = threadIdx.x; i < G * kD; i += kThreads)
+    qf[i] = __bfloat162float(q[(size_t)bh * G * kD + i]);
+  __syncthreads();
+
+  const int8_t* kh = kq + (size_t)bh * S * kD;
+  const ST* ksh = ks + (size_t)bh * S;
+  float mx[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) mx[g] = -INFINITY;
+  for (int tb = 0; tb < S; tb += kThreads / 8) {
+    const int t = tb + (threadIdx.x >> 3);
+    const bool valid = t < S;
+    int4 kv = make_int4(0, 0, 0, 0);
+    if (valid)
+      kv = __ldg(reinterpret_cast<const int4*>(kh + (size_t)t * kD) + sub);
+    const int8_t* c = reinterpret_cast<const int8_t*>(&kv);
+    float ksv = 0.f;
+    if (valid) ksv = to_f32(ksh[t]);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float* qg = qf + g * kD + 16 * sub;
+      float a = 0.f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) a = fmaf(qg[i], (float)c[i], a);
+      a += __shfl_xor_sync(0xffffffffu, a, 4);
+      a += __shfl_xor_sync(0xffffffffu, a, 2);
+      a += __shfl_xor_sync(0xffffffffu, a, 1);
+      if (valid && sub == 0) {
+        const float v = __fmul_rn(__fmul_rn(a, ksv), kScale);
+        sc[g * S + t] = v;
+        mx[g] = fmaxf(mx[g], v);
+      }
+    }
+  }
+  block_reduce<G, true>(mx, red);
+  float sum[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) sum[g] = 0.f;
+  for (int t = threadIdx.x; t < S; t += kThreads)
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float e = expf(sc[g * S + t] - mx[g]);
+      sc[g * S + t] = e;
+      sum[g] += e;
+    }
+  block_reduce<G, false>(sum, red);
+  const ST* vsh = vs + (size_t)bh * S;
+  for (int t = threadIdx.x; t < S; t += kThreads) {
+    const float vsv = to_f32(vsh[t]);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float p = __fdiv_rn(sc[g * S + t], sum[g]);
+      sc[g * S + t] = __bfloat162float(__float2bfloat16(__fmul_rn(p, vsv)));
+    }
+  }
+  __syncthreads();
+
+  const int8_t* vh = vq + (size_t)bh * S * kD;
+  float acc[G][4];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[g][j] = 0.f;
+  for (int t = warp; t < S; t += kWarps) {
+    const int w = __ldg(reinterpret_cast<const int*>(vh + (size_t)t * kD) +
+                        lane);
+    const int8_t* c = reinterpret_cast<const int8_t*>(&w);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float p = sc[g * S + t];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[g][j] = fmaf(p, (float)c[j], acc[g][j]);
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      part[(warp * G + g) * kD + 4 * lane + j] = acc[g][j];
+  __syncthreads();
+  for (int i = threadIdx.x; i < G * kD; i += kThreads) {
+    float a = part[i];
+    for (int w = 1; w < kWarps; ++w) a += part[w * G * kD + i];
+    out[(size_t)bh * G * kD + i] = a;
+  }
+}
+
 template <typename Kern>
 cudaError_t prepare(Kern kern, size_t smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -606,6 +734,32 @@ int launch_i8(const void* q8, const void* qs, const void* kq, const void* ks,
       (const int8_t*)kn, (const __nv_bfloat16*)kns, (const int8_t*)vn,
       (const __nv_bfloat16*)vns, (const int*)lengths, (float*)out, S);
   return (int)cudaGetLastError();
+}
+
+template <int G, typename ST>
+int launch_kv8(const void* q, const void* kq, const void* ks, const void* vq,
+               const void* vs, void* out, int B, int H, int S,
+               cudaStream_t st) {
+  const size_t smem = kv8_smem<G>(S);
+  cudaError_t e = prepare(attn_kv8_kernel<G, ST>, smem);
+  if (e != cudaSuccess) return (int)e;
+  attn_kv8_kernel<G, ST><<<dim3(H, B), kThreads, smem, st>>>(
+      (const __nv_bfloat16*)q, (const int8_t*)kq, (const ST*)ks,
+      (const int8_t*)vq, (const ST*)vs, (float*)out, S);
+  return (int)cudaGetLastError();
+}
+
+template <typename ST>
+int kv8_dispatch(const void* q, const void* kq, const void* ks,
+                 const void* vq, const void* vs, void* out, int B, int H,
+                 int G, int S, cudaStream_t st) {
+  switch (G) {
+    case 1: return launch_kv8<1, ST>(q, kq, ks, vq, vs, out, B, H, S, st);
+    case 2: return launch_kv8<2, ST>(q, kq, ks, vq, vs, out, B, H, S, st);
+    case 4: return launch_kv8<4, ST>(q, kq, ks, vq, vs, out, B, H, S, st);
+    case 8: return launch_kv8<8, ST>(q, kq, ks, vq, vs, out, B, H, S, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <bool kNib>
@@ -660,6 +814,18 @@ int lc_attn_i8(const void* q8, const void* qs, const void* kq, const void* ks,
     case 8: return launch_i8<8>(q8, qs, kq, ks, vq, vs, kn, kns, vn, vns, lengths, out, B, H, S, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// #22: q (B, H, G, D) bf16; kq, vq (B, H, S, D) int8; ks, vs (B, H, S) bf16
+// (scales_f32 = 0) or f32 (1); out (B, H, G, D) f32.  Any S >= 1.
+int lc_attn_kv8(const void* q, const void* kq, const void* ks, const void* vq,
+                const void* vs, void* out, int B, int H, int G, int S,
+                int scales_f32, void* stream) {
+  if (S < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (scales_f32)
+    return kv8_dispatch<float>(q, kq, ks, vq, vs, out, B, H, G, S, st);
+  return kv8_dispatch<__nv_bfloat16>(q, kq, ks, vq, vs, out, B, H, G, S, st);
 }
 
 }  // extern "C"

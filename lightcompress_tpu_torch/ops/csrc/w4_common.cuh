@@ -1,6 +1,7 @@
-// Pieces shared by the grouped-W4 decode kernels of w4_matmul.cu and
-// w4_bytes.cu: the block shape, bf16/f32 loads and stores, and the fused
-// prologue (RMSNorm and per-token int8 act quant done inside the kernel).
+// Pieces shared by the grouped-W4 kernels of w4_matmul.cu, w4_bytes.cu,
+// w4_moe.cu, w4_ksplit.cu and layer_fused.cu: the block shape, the nibble
+// gather, bf16/f32 loads and stores, and the fused prologue (RMSNorm and
+// per-token int8 act quant done inside the kernel).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -22,6 +23,14 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);  // round to nearest even, as torch's .to(bf16)
+}
+
+// Bytes j of the result are nibble `sh/4` of words a, b, c, d: four
+// consecutive codes of one group, ready for __dp4a.
+__device__ __forceinline__ int pack_nibbles(uint32_t a, uint32_t b,
+                                            uint32_t c, uint32_t d, int sh) {
+  return (int)(((a >> sh) & 0xFu) | (((b >> sh) & 0xFu) << 8) |
+               (((c >> sh) & 0xFu) << 16) | (((d >> sh) & 0xFu) << 24));
 }
 
 // Block-wide sum and max of one value per thread, in one fixed order (warp

@@ -33,14 +33,6 @@ __device__ __forceinline__ float bf16_to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// Bytes j of the result are nibble `sh/4` of words a, b, c, d: four
-// consecutive codes of one group, ready for __dp4a.
-__device__ __forceinline__ int pack_nibbles(uint32_t a, uint32_t b,
-                                            uint32_t c, uint32_t d, int sh) {
-  return (int)(((a >> sh) & 0xFu) | (((b >> sh) & 0xFu) << 8) |
-               (((c >> sh) & 0xFu) << 16) | (((d >> sh) & 0xFu) << 24));
-}
-
 // ---------------------------------------------------------------------------
 // #1  W4A16 decode.  Replaces lightcompress_tpu/ops/pallas_matmul.py
 // w4a16_matmul_planes (_w4a16_kernel_fullk).

@@ -46,14 +46,6 @@ using namespace lcw4;
 constexpr int kMoeThreads = 128;  // one output channel per thread
 constexpr int kStackedRows = 8;   // rows of x per #6 block
 
-// Bytes j of the result are nibble `sh/4` of words a, b, c, d: four
-// consecutive codes of one group, ready for __dp4a.
-__device__ __forceinline__ int pack_nibbles(uint32_t a, uint32_t b,
-                                            uint32_t c, uint32_t d, int sh) {
-  return (int)(((a >> sh) & 0xFu) | (((b >> sh) & 0xFu) << 8) |
-               (((c >> sh) & 0xFu) << 16) | (((d >> sh) & 0xFu) << 24));
-}
-
 // a + d * s, the product and the sum each rounded to nearest even.
 __device__ __forceinline__ float mac_rn(float a, float d, float s) {
   return __fadd_rn(a, __fmul_rn(d, s));

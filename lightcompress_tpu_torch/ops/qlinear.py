@@ -14,6 +14,11 @@ Storage (QLinearParams), int4 only, in one of two layouts
 
 Symmetric codes are offset by +8 with z = 8.
 
+A third layout, ``planes_ks``, is the JAX bench's K-split down projection
+(``bench.py`` with ``BENCH_KSPLIT=1``): the same planes arrays (bf16 s and
+zs), applied by #5 in two K halves (``w4_matmul.w4a8_matmul_ks``).
+``quantize_linear`` does not build it; ``convert`` reads the JAX tiles.
+
 Stacked MoE experts (``serving.quantized_model.quantize_linear_stacked``)
 use the same class with a leading expert dim: ``stacked_planes`` (4-bit
 planes per expert) or ``stacked`` (the int8 per-channel fallback, ``bits``
@@ -30,15 +35,16 @@ import torch
 from ..quant import QuantSpec, real_quant_weight
 from .w4_matmul import (GROUP, pack_int4_planes, pack_s4_pairs,
                         s4_matmul_available, unpack_int4_planes,
-                        unpack_s4_pairs, w4a8_matmul, w4a8_prefill_available,
-                        w4a8_s4_matmul, w4a16_matmul, w4a16_matmul_available)
+                        unpack_s4_pairs, w4a8_matmul, w4a8_matmul_ks,
+                        w4a8_prefill_available, w4a8_s4_matmul, w4a16_matmul,
+                        w4a16_matmul_available)
 
 LAYOUTS = ("planes", "s4")
 
 
 @dataclasses.dataclass
 class QLinearParams:
-    codes: torch.Tensor  # planes (N, K/8) int32 | s4 (N, K/2) int8
+    codes: torch.Tensor  # planes, planes_ks (N, K/8) int32 | s4 (N, K/2)
     scales: torch.Tensor  # (N, G)
     zeros: torch.Tensor  # (N, G) premultiplied: z*s (planes), (z-8)*s (s4)
     bias: Optional[torch.Tensor]
@@ -118,9 +124,17 @@ def qlinear_apply(x: torch.Tensor, qp: QLinearParams,
     ``act_bits=8`` the s4 kernel (#12, M <= 256) or the planes W4A8
     kernels (#2 decode, #3 prefill); the W4A16 kernel (#1) at decode;
     dequant-then-matmul otherwise.  On the CPU the kernels' plain versions
-    run."""
+    run.  ``planes_ks`` takes #5 at ``act_bits=8`` (any M) and raises at
+    16, where the JAX dispatch sends it to ``qlinear_xla``, whose dequant
+    cannot read that layout."""
     if act_bits == 8 and s4_matmul_available(x, qp):
         return w4a8_s4_matmul(x, qp, qp.bias)
+    if qp.layout == "planes_ks":
+        if act_bits != 8:
+            raise NotImplementedError(
+                "planes_ks at act_bits=16: the JAX dispatch sends it to "
+                "qlinear_xla, whose dequant cannot read the K-split tiles")
+        return w4a8_matmul_ks(x, qp, qp.bias)
     if act_bits == 8 and w4a8_prefill_available(x, qp):
         return w4a8_matmul(x, qp, qp.bias)
     if w4a16_matmul_available(x, qp):

@@ -1,7 +1,7 @@
 """Grouped-W4 matmuls: plane and byte-pair packing, per-token act quant,
-and the six Hopper kernels of the serving path with their plain PyTorch
-versions (port of lightcompress_tpu/ops/pallas_matmul.py, kernels #1-#3
-and #12-#14).
+and the seven Hopper kernels of the serving path and the bench with their
+plain PyTorch versions (port of lightcompress_tpu/ops/pallas_matmul.py,
+kernels #1-#3, #5 and #12-#14).
 
 Two weight layouts, both untiled; ``s`` and ``zs`` are (N, G) bf16
 per-group scales and premultiplied zero corrections, G = K/128:
@@ -21,9 +21,14 @@ The fused linears (#13, #14) take the unquantized activations and run the
 JAX kernels' prologue first: an optional RMSNorm whose gamma is folded into
 the weights, then the per-token int8 quantization (``fused_act_quant``).
 
+#5 (``w4a8_matmul_planes_ksplit``) runs the planes layout in two K halves,
+each over the word columns [h*K/16, (h+1)*K/16) of every plane (the JAX
+``planes_ks`` tiles, untiled, are these planes words), and adds them.
+
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
-kernel (``csrc/w4_matmul.cu``, ``csrc/w4_bytes.cu``) or raises.  Each
-wrapper counts its kernel launches in its ``launches`` attribute.
+kernel (``csrc/w4_matmul.cu``, ``csrc/w4_bytes.cu``, ``csrc/w4_ksplit.cu``)
+or raises.  Each wrapper counts its kernel launches in its ``launches``
+attribute.
 
 The plain versions' f32 matmuls are exact whether TF32 is on or off:
 nibble codes, int8 codes and bf16 activations are exact in TF32 and their
@@ -184,6 +189,43 @@ def w4a8_linear_bytes_fused_plain(x, wb, s, zs, rms=False, eps=1e-6):
     return w4a8_matmul_bytes_plain(xq, xs, wb, s, zs).to(x.dtype), xq, xs
 
 
+def _check_ksplit(K: int, splits: int) -> None:
+    if splits != 2:
+        raise ValueError(f"#5 takes two K halves, got splits={splits}")
+    if K % (16 * GROUP):
+        raise ValueError(f"#5 needs K % {16 * GROUP} == 0, got K={K}")
+
+
+def ksplit_halves(K: int, splits: int = 2):
+    """For each K half: its columns of the natural K order (plane j's word
+    columns [h*K/16, (h+1)*K/16), j = 0..7) and its natural groups in that
+    order, j*gpp + h*gpp/2 + gi (the JAX ``_ksplit_group_idx``)."""
+    _check_ksplit(K, splits)
+    kp, gpp = K // 8, K // (8 * GROUP)
+    kp2, gpp2 = kp // 2, gpp // 2
+    return [(torch.cat([torch.arange(j * kp + h * kp2,
+                                     j * kp + (h + 1) * kp2)
+                        for j in range(8)]),
+             torch.tensor([j * gpp + h * gpp2 + gi for j in range(8)
+                           for gi in range(gpp2)]))
+            for h in range(2)]
+
+
+def w4a8_matmul_planes_ksplit_plain(xq, x_scale, wp, s, zs,
+                                    splits: int = 2) -> torch.Tensor:
+    """Plain #5: half 0's partial plus half 1's, each #2's group sum over
+    the half's groups, then times x_scale; (M, N) f32."""
+    K = xq.shape[1]
+    x, u = xq.float(), unpack_int4_planes(wp, K)
+    out = torch.zeros((xq.shape[0], wp.shape[0]), dtype=torch.float32,
+                      device=xq.device)
+    for cols, groups in ksplit_halves(K, splits):
+        cols, groups = cols.to(xq.device), groups.to(xq.device)
+        out = out + _grouped(x[:, cols], u[:, cols], s[:, groups],
+                             zs[:, groups])
+    return out * x_scale.float()
+
+
 def w4a8_matmul_prefill_plain(xq, x_scale, wp, s, zs,
                               out_dtype=torch.bfloat16) -> torch.Tensor:
     """Plain #3: #2's arithmetic, stored in ``out_dtype``."""
@@ -212,6 +254,14 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.lc_w4a16_decode, lib.lc_w4a8_decode, lib.lc_w4a8_prefill,
                lib.lc_w4a8_planes_fused):
         fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _ksplit_lib() -> ctypes.CDLL:
+    lib = _build.load("w4_ksplit")
+    lib.lc_w4a8_ksplit.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
+    lib.lc_w4a8_ksplit.restype = ctypes.c_int
     return lib
 
 
@@ -346,6 +396,30 @@ def w4a8_matmul_prefill(xq: torch.Tensor, x_scale: torch.Tensor,
     return out
 
 
+def w4a8_matmul_planes_ksplit(xq: torch.Tensor, x_scale: torch.Tensor,
+                              wp: torch.Tensor, s: torch.Tensor,
+                              zs: torch.Tensor, splits: int = 2
+                              ) -> torch.Tensor:
+    """#5: #2's contract in two K halves that meet in the output; (M, N)
+    f32.  K % 2048 == 0 and ``splits`` 2, as the JAX layout."""
+    M, K = _check_act(xq, x_scale)
+    N = _check_weights(K, wp, s, zs, xq.device)
+    _check_ksplit(K, splits)
+    if xq.device.type == "cpu":
+        return w4a8_matmul_planes_ksplit_plain(xq, x_scale, wp, s, zs,
+                                               splits)
+    xq = _aligned(xq)
+    out = torch.zeros((M, N), dtype=torch.float32, device=xq.device)
+    with torch.cuda.device(xq.device):
+        _launch(_ksplit_lib().lc_w4a8_ksplit, xq.data_ptr(), wp.data_ptr(),
+                s.data_ptr(), zs.data_ptr(), out.data_ptr(), M, N, K,
+                _stream(xq.device))
+    w4a8_matmul_planes_ksplit.launches += 1
+    # the halves' sum times the act scale, as the JAX wrapper scales the
+    # kernel's output
+    return out.mul_(x_scale.float())
+
+
 def _fused_linear(kernel, x: torch.Tensor, w: torch.Tensor,
                   s: torch.Tensor, zs: torch.Tensor, rms: bool, eps: float,
                   export: bool):
@@ -434,7 +508,7 @@ def w4a8_linear_bytes_fused(x: torch.Tensor, wb: torch.Tensor,
 
 KERNELS = (w4a16_matmul, w4a8_matmul_decode, w4a8_matmul_prefill,
            w4a8_matmul_bytes, w4a8_linear_bytes_fused,
-           w4a8_linear_planes_fused)
+           w4a8_linear_planes_fused, w4a8_matmul_planes_ksplit)
 for _k in KERNELS:
     _k.launches = 0
 
@@ -479,6 +553,19 @@ def w4a8_s4_matmul(x: torch.Tensor, qp,
     lead = x.shape[:-1]
     xq, xs = quantize_act_per_token(x.reshape(-1, x.shape[-1]))
     y = w4a8_matmul_bytes(xq, xs, qp.codes, qp.scales, qp.zeros).to(x.dtype)
+    if bias is not None:
+        y = y + bias
+    return y.reshape(*lead, -1)
+
+
+def w4a8_matmul_ks(x: torch.Tensor, qp,
+                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """W4A8 apply on the ``planes_ks`` layout (the JAX ``w4a8_matmul_ks``):
+    per-token int8 act quant, then #5 at any M.  Returns ``x.dtype``."""
+    lead = x.shape[:-1]
+    xq, xs = quantize_act_per_token(x.reshape(-1, x.shape[-1]))
+    y = w4a8_matmul_planes_ksplit(xq, xs, qp.codes, qp.scales,
+                                  qp.zeros).to(x.dtype)
     if bias is not None:
         y = y + bias
     return y.reshape(*lead, -1)

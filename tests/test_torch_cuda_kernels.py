@@ -64,7 +64,7 @@ def test_kernels_match_plain(dev, M, N, K):
     for got, ref, tol in pairs:
         err = (got.float() - ref.float()).abs().max()
         assert err <= tol * ref.float().abs().max(), (err, tol)
-    assert [k.launches for k in W.KERNELS] == [1, 1, 2, 0, 0, 0]
+    assert [k.launches for k in W.KERNELS] == [1, 1, 2, 0, 0, 0, 0]
 
 
 def test_kernels_reject_what_they_cannot_take(dev):
@@ -183,7 +183,7 @@ def test_bd4_kernels_match_plain(dev, B, S):
             T.decode_attention_bd4_flash(q, kt4, ks, vt4, vs, lengths),
             T.decode_attention_bd4_flash_plain(q, kt4, ks, vt4, vs, lengths))
     torch.cuda.synchronize()
-    assert [k.launches for k in T.KERNELS] == [0, 2, 2, 0, 0]
+    assert [k.launches for k in T.KERNELS] == [0, 2, 2, 0, 0, 0]
 
 
 @pytest.mark.parametrize("B", [1, 8])
@@ -204,7 +204,7 @@ def test_i8_kernel_matches_plain(dev, B, S):
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     assert (got - ref).abs().max() <= 2e-2 * ref.abs().max()
-    assert [k.launches for k in T.KERNELS] == [1, 0, 0, 0, 0]
+    assert [k.launches for k in T.KERNELS] == [1, 0, 0, 0, 0, 0]
 
 
 def test_attention_launch_refused_raises(dev):
@@ -257,7 +257,7 @@ def test_bd_kernels_match_plain(dev, S, G):
             T.decode_attention_bd_flash_plain(q, kt, ks, vt, vs, lengths,
                                               s_block=T.S_BLOCK))
     torch.cuda.synchronize()
-    assert [k.launches for k in T.KERNELS] == [0, 0, 0, 2, 2]
+    assert [k.launches for k in T.KERNELS] == [0, 0, 0, 2, 2, 0]
 
 
 def test_bd_whole_row_limit_raises(dev):
@@ -365,7 +365,7 @@ def test_fused_and_s4_kernels_match_plain(dev, M, name, N, K, rms):
     ref = W.w4a8_matmul_bytes_plain(xq, xs, s4.codes, s4.scales, s4.zeros)
     torch.cuda.synchronize()
     assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
-    assert [k.launches for k in W.KERNELS] == [0, 0, 0, 1, 1, 1]
+    assert [k.launches for k in W.KERNELS] == [0, 0, 0, 1, 1, 1, 0]
 
 
 # (name, N, K) of the seven linears of an unfused Llama-3-8B block
@@ -393,7 +393,7 @@ def test_s4_kernel_matches_plain_at_block_shapes(dev, M, name, N, K):
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
-    assert [k.launches for k in W.KERNELS] == [0, 0, 0, 1, 0, 0]
+    assert [k.launches for k in W.KERNELS] == [0, 0, 0, 1, 0, 0, 0]
 
 
 def test_fused_kernels_f32_and_symmetric(dev):
@@ -680,3 +680,133 @@ def test_w8a8_grouped_kernel_rejects_what_it_cannot_take(dev):
         MM.w8a8_grouped_matmul(xq, xs, qp.codes, qp.scales,
                                torch.zeros(2, dtype=torch.int32, device=dev),
                                m_tile=96)
+
+
+# ---------------------------------------------------------------------------
+# the bench's kernels: #5 split-K, #22 kv8 attention, #15/#16 fused tail
+# ---------------------------------------------------------------------------
+
+def _random_planes(gen, dev, N, K):
+    """Random plane words, random per-group scales and zero points."""
+    wp = torch.randint(-2**31, 2**31 - 1, (N, K // 8), generator=gen,
+                       device=dev, dtype=torch.int32)
+    s = torch.rand((N, K // 128), generator=gen, device=dev) * 0.02 + 0.005
+    z = torch.randint(0, 16, (N, K // 128), generator=gen, device=dev).float()
+    return wp, s.to(torch.bfloat16), (z * s).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("M", [1, 7, 32, 300])
+@pytest.mark.parametrize("N,K", [(256, 2048), (4096, 14336)])
+def test_ksplit_kernel_matches_plain(dev, M, N, K):
+    """#5: f32 output within summation-order noise of its plain version;
+    the two halves' atomic adds give the same bits run after run."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(M + N)
+    w = _random_planes(gen, dev, N, K)
+    xq, xs = W.quantize_act_per_token(
+        torch.randn((M, K), generator=gen, device=dev))
+    W.reset_launch_counts()
+    got = W.w4a8_matmul_planes_ksplit(xq, xs, *w)
+    again = W.w4a8_matmul_planes_ksplit(xq, xs, *w)
+    ref = W.w4a8_matmul_planes_ksplit_plain(xq, xs, *w)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert torch.equal(got, again)
+    assert [k.launches for k in W.KERNELS] == [0, 0, 0, 0, 0, 0, 2]
+
+
+@pytest.mark.parametrize("scales", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("S", [1, 17, 129, 2049])
+def test_kv8_kernel_matches_plain(dev, S, G, scales):
+    """#22 at ragged S: the normalized context within 1e-3 of the largest
+    |ctx| (a bf16 step of one probability times a code)."""
+    from lightcompress_tpu_torch.ops import attention as T
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(S + G)
+    B, H, D = 4, 8, 128
+    q = torch.randn((B, H, G, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    kq, vq = (torch.randint(-127, 128, (B, H, S, D), generator=gen,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ks, vs = ((torch.rand((B, H, S), generator=gen, device=dev) * 0.02
+               + 1e-3).to(scales) for _ in range(2))
+    T.reset_launch_counts()
+    got = T.decode_attention_kv8(q, kq, ks, vq, vs)
+    ref = T.decode_attention_kv8_plain(q, kq, ks, vq, vs)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert (got - ref).abs().max() <= 1e-3 * ref.abs().max()
+    assert [k.launches for k in T.KERNELS] == [0, 0, 0, 0, 0, 1]
+
+
+def test_kv8_kernel_rejects_what_it_cannot_take(dev):
+    from lightcompress_tpu_torch.ops import attention as T
+
+    B, H, G, D = 1, 1, 4, 128
+    S = 13369  # one column past the shared memory of a block at G 4
+    assert T.kv8_smem_bytes(G, S) > T.SMEM_MAX >= T.kv8_smem_bytes(G, S - 1)
+    q = torch.zeros((B, H, G, D), dtype=torch.bfloat16, device=dev)
+    kq = torch.zeros((B, H, S, D), dtype=torch.int8, device=dev)
+    ks = torch.ones((B, H, S), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        T.decode_attention_kv8(q, kq, ks, kq, ks)
+    with pytest.raises(ValueError):  # scales of two types
+        T.decode_attention_kv8(q, kq[:, :, :8], ks[..., :8], kq[:, :, :8],
+                               ks[..., :8].float())
+
+
+@pytest.mark.parametrize("B,H,I,Nq,cap", [
+    (32, 4096, 14336, 6144, 0),  # the bench: 3584 gate|up tiles
+    (5, 1024, 2048, 1536, 3),    # a ragged row chunk, three blocks
+    (1, 1024, 1024, 1024, 0)])   # one row, a block a tile
+def test_layer_fused_kernels_match_plain(dev, B, H, I, Nq, cap):
+    """#15 and #16 on their cooperative grid (which the tiles outnumber
+    in the first two cases): outputs within a bf16 ulp of the largest |y|
+    of the plain version, at most one act-code flip in a thousand per
+    prologue."""
+    from lightcompress_tpu_torch.ops import layer_fused as LF
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(B + H + I)
+    ws = [_random_planes(gen, dev, n, k)
+          for n, k in ((H, H), (2 * I, H), (H, I), (Nq, H))]
+    ctx, x = (torch.randn((B, H), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    args = [t for w in ws for t in w]
+    for kern, nxt in ((LF.w4a8_attn_tail_fused, False),
+                      (LF.w4a8_layer_fused, True)):
+        grid = LF.grid_blocks(B, H, I, Nq, nxt, cap)
+        tiles = 2 * I // 32 * ((B + 7) // 8)
+        assert 0 < grid <= tiles
+        assert grid < tiles or B == 1
+        LF.reset_launch_counts()
+        y, q, acts = LF._with_act(kern, ctx, x, *args[:12 if nxt else 9],
+                                  max_blocks=cap)
+        ry, rq, racts = LF._plain(ctx, x, *ws[:3], ws[3] if nxt else None,
+                                  1e-6)
+        torch.cuda.synchronize()
+        assert [k.launches for k in LF.KERNELS] == [int(not nxt), int(nxt)]
+        for got, ref in ((y, ry), (q, rq)) if nxt else ((y, ry),):
+            assert bool(torch.isfinite(got.float()).all())
+            err = (got.float() - ref.float()).abs().max()
+            assert err <= 2.0 ** -8 * ref.float().abs().max()
+        assert len(acts) == len(racts) == (4 if nxt else 3)
+        for (codes, _), (rcodes, _) in zip(acts, racts):
+            assert int((codes != rcodes).sum()) <= 1e-3 * codes.numel()
+
+
+def test_layer_fused_kernels_reject_what_they_cannot_take(dev):
+    from lightcompress_tpu_torch.ops import layer_fused as LF
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    ws = [t for n, k in ((1024, 1024), (2048, 1024), (1024, 1024))
+          for t in _random_planes(gen, dev, n, k)]
+    x = torch.zeros((2, 1024), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):  # f32 activations
+        LF.w4a8_attn_tail_fused(x.float(), x.float(), *ws)
+    with pytest.raises(ValueError):  # gate|up rows for I = 1024, down K 512
+        LF.w4a8_attn_tail_fused(x, x, *ws[:6], ws[6][:, :64], ws[7][:, :4],
+                                ws[8][:, :4])
