@@ -60,16 +60,30 @@ Phases (each prints one JSON line with its seconds):
      CPU (the paths the CPU tests hold to the JAX package); before its
      line, the 512-row fused s4 prefill's layers 0 and 1 op by op, card
      against CPU in bf16 ulps (ROADMAP C1);
-  10. the kernel summary line;
+  10. the kernel summary line (all 22 kernels; the run fails if one of
+      them was never launched on the main path);
   11. the result line.
 After the kernel phases of 2 and 7 come those of the bench's decode stack
 (``lightcompress_tpu_torch.bench``): #5, #15, #16 and #22 against their
 plain versions at the bench's shapes (B 32 at Llama-3-8B width, #22 over
-2049 columns), with times; the bench itself at B 32, CTX 2048 and 32
-layers in five configurations (default, tail=1, tail=2, attn=pallas,
-ksplit), each kernel launched exactly as the configuration routes it;
-and one step of each at 2 layers with every kernel against its plain
-version.
+2049 columns), with times; #4 (masked planes) at the bench's four fused
+entries and #11 (natural s4 bytes) at a block's seven linears at M 8 and
+32 against their plain versions, #4 against #1 on the same codes; the
+bench itself at B 32, CTX 2048 and 32 layers in six configurations
+(default, tail=1, tail=2, attn=pallas, ksplit, masked: #4 on q|k|v and
+o), each kernel launched exactly as the configuration routes it; one
+step of each at 2 layers with every kernel against its plain version;
+and #11's entry point over a block's seven linears.
+Between 8 and 9 comes the main path's front half: a random Llama-3-8B
+(full width and depth, bf16, seed 0) written as a safetensors checkpoint
+by the port's ``save_params`` and read back (``calib_setup``); the
+pipeline on it (``run_pipeline``: AWQ W4 g128, 32 x 512 synthetic
+calibration tokens, PPL at pretrain, transformed and fake_quant, token
+consistency; ``calib_awq``); the AWQ model's serving weights
+(``algo=``) through the W4A8 engine with exact launches and against the
+plain versions (``engine_calibrated``); the RTN pipeline's fake-quant PPL
+(``calib_rtn``); and the CI config's tiny model calibrated on the card
+and on the CPU (``small_calib_vs_cpu``).
 Each engine phase sets every launch count to 0 just before it runs and
 reads the counts just after.
 Any failure raises and the script exits non-zero.  Without a CUDA device
@@ -82,20 +96,24 @@ import contextlib
 import dataclasses
 import gc
 import json
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from lightcompress_tpu_torch import bench as TB
+from lightcompress_tpu_torch.config import DotDict
 from lightcompress_tpu_torch.models import arch as A
 from lightcompress_tpu_torch.models import (ArchSpec, Llama, Qwen3Moe,
                                             arch_from_hf_config, init_params)
 from lightcompress_tpu_torch.models.arch import MoESpec
+from lightcompress_tpu_torch.models.hf_loader import load_model, save_params
 from lightcompress_tpu_torch.ops import _build
 from lightcompress_tpu_torch.ops import attention as AT
 from lightcompress_tpu_torch.ops import layer_fused as LF
@@ -104,6 +122,7 @@ from lightcompress_tpu_torch.ops import w4_matmul as W
 from lightcompress_tpu_torch.ops.qlinear import (QLinearParams,
                                                  dequant_weight, qlinear_plain,
                                                  quantize_linear)
+from lightcompress_tpu_torch.pipeline import run_pipeline
 from lightcompress_tpu_torch.quant import QuantSpec
 from lightcompress_tpu_torch.serving import (LLMEngine, SamplingParams,
                                              build_serving_weights,
@@ -228,6 +247,12 @@ KERNEL_INFO = {
     "decode_attention_kv8": dict(
         source="lightcompress_tpu_torch/ops/csrc/decode_attention.cu",
         replaces="lightcompress_tpu/ops/pallas_attention.py:815"),
+    "w4a16_matmul_planes_masked": dict(
+        source="lightcompress_tpu_torch/ops/csrc/w4_matmul.cu",
+        replaces="lightcompress_tpu/ops/pallas_matmul.py:283"),
+    "w4a8_matmul_s4_bytes": dict(
+        source="lightcompress_tpu_torch/ops/csrc/w4_bytes.cu",
+        replaces="lightcompress_tpu/ops/pallas_matmul.py:1741"),
 }
 W4_KERNELS = W.KERNELS + M.KERNELS
 KERNELS = W4_KERNELS + AT.KERNELS + LF.KERNELS
@@ -872,9 +897,17 @@ BENCH_CONFIGS = {
     "ksplit": (dict(ksplit=True),
                {"w4a8_matmul_decode": (3, 0),
                 "w4a8_matmul_planes_ksplit": (1, 0)}),
+    # the root bench's BENCH_MASKED=qkv,o with its default f32 scales
+    "masked": (dict(masked=("o", "qkv")),
+               {"w4a8_matmul_decode": (2, 0),
+                "w4a16_matmul_planes_masked": (2, 0)}),
 }
 BENCH_KERNELS = ("w4a8_matmul_planes_ksplit", "w4a8_attn_tail_fused",
                  "w4a8_layer_fused", "decode_attention_kv8")
+# kernels whose kernels-line entry sums their ``main`` bench_kernels rows:
+# #4 over the masked bench's entries (q|k|v and o), #11 over a Llama-3-8B
+# block's seven linears at M 8
+SUMMED_KERNELS = ("w4a16_matmul_planes_masked", "w4a8_matmul_s4_bytes")
 
 
 def random_planes(gen, dev, N: int, K: int):
@@ -1001,6 +1034,152 @@ def phase_bench_kernels(dev) -> dict:
             "seconds": time.time() - t0}
 
 
+# #4 at the bench's four fused entries (N, K), the masked bench's main ones
+# first
+MASKED_SHAPES = [("qkv", 6144, 4096, True), ("o", 4096, 4096, True),
+                 ("gateup", 28672, 4096, False), ("down", 4096, 14336, False)]
+S4_NATURAL_M = (8, 32)
+
+
+def dequant_codes(u, s, z):
+    """(N, K) bf16 weights (u - z) * s per group of 128."""
+    N, K = u.shape
+    w = (u.float().reshape(N, -1, 128) - z[..., None]) * s.float()[..., None]
+    return w.reshape(N, K).to(torch.bfloat16)
+
+
+def phase_masked_s4_kernels(dev) -> dict:
+    """#4 (masked planes, the root bench's f32 pre-divided scales, random
+    codes, scales 0.01 and zero points 8) at the bench's fused entries at
+    B 32, and #11 (natural s4 bytes, bf16 scales, random codes, scales and
+    zero points) at a Llama-3-8B block's seven linears at M 8 and 32, each
+    against its plain version (f32 outputs, 1e-4 of max|y|) with times of
+    the kernel, the plain version, the bound and the library yardstick
+    (torch.matmul over the pre-dequantized bf16 weight, on bf16 x or the
+    dequantized int8 x); and #4 against #1 on the same codes, scales and
+    zero points (bf16-exact scale 0.01 and z = 8, which both layouts hold
+    exactly): 1e-4 of max|y|."""
+    t0 = time.time()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 13)
+    pad = torch.empty(PAD, dtype=torch.uint8, device=dev)
+    B = TB.BenchConfig().batch
+    rows, vs_planes = [], []
+
+    def row(kname, got, ref, run, plain, library, nbytes, ops, kind,
+            **extra):
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{kname}: output not finite")
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        if not err <= TOL_F32 * scale:
+            raise AssertionError(f"{kname} {extra}: max|err| {err} > "
+                                 f"{TOL_F32} * {scale}")
+        b_ms, b_by = bytes_ops_bound(nbytes, ops, kind)
+        rows.append(dict(kernel=kname, max_abs_err=err, max_abs_ref=scale,
+                         tol=TOL_F32, kernel_ms=time_ms(run, 20, pad),
+                         plain_ms=time_ms(plain, 3, pad),
+                         library_ms=time_ms(library, 20, pad),
+                         bound_ms=b_ms, bound_by=b_by, **extra))
+
+    for entry, N, K, main in MASKED_SHAPES:
+        u = torch.randint(0, 16, (N, K), generator=gen, device=dev,
+                          dtype=torch.int32)
+        s = torch.full((N, K // 128), 0.01, device=dev)
+        z = torch.full_like(s, 8.0)
+        wp = W.pack_int4_planes_masked(u)
+        sm, zm = W.masked_scales(s), W.masked_zero_scales(z, s)
+        x = torch.randn((B, K), generator=gen, device=dev).to(torch.bfloat16)
+        wd = dequant_codes(u, s, z)
+        run = lambda: W.w4a16_matmul_planes_masked(x, wp, sm, zm)
+        plain = lambda: W.w4a16_matmul_planes_masked_plain(x, wp, sm, zm)
+        row("w4a16_matmul_planes_masked", run(), plain(), run, plain,
+            lambda: torch.matmul(x, wd.t()),
+            N * K // 2 + 2 * N * (K // 128) * 4 + 2 * B * K + 4 * B * N,
+            2 * B * N * K, "bf16", entry=entry, N=N, K=K, M=B, main=main)
+        # the same product through #1's unpack on scales both hold exactly
+        sb = s.to(torch.bfloat16)
+        y1 = W.w4a16_matmul(x.float(), W.pack_int4_planes(u), sb,
+                            (z * sb.float()).to(torch.bfloat16))
+        y4 = W.w4a16_matmul_planes_masked(x, wp, W.masked_scales(sb),
+                                          W.masked_zero_scales(z, sb))
+        torch.cuda.synchronize()
+        err = float((y4 - y1).abs().max())
+        scale = float(y1.abs().max())
+        vs_planes.append(dict(entry=entry, max_abs_err=err,
+                              max_abs_ref=scale))
+        if not err <= TOL_F32 * scale:
+            raise AssertionError(f"#4 vs #1 at {entry}: {err} > {TOL_F32} "
+                                 f"* {scale}")
+        del u, wp, sm, zm, wd
+
+    for name, N, K in SHAPES:
+        u = torch.randint(0, 16, (N, K), generator=gen, device=dev,
+                          dtype=torch.int32)
+        s = (torch.rand((N, K // 128), generator=gen, device=dev) * 0.02
+             + 0.005).to(torch.bfloat16).float()
+        z = torch.randint(0, 16, (N, K // 128), generator=gen,
+                          device=dev).float()
+        wb = W.pack_s4_bytes(u)
+        sb, zb = s.to(torch.bfloat16), ((z - 8) * s).to(torch.bfloat16)
+        wd = dequant_codes(u, s, z)
+        for M in S4_NATURAL_M:
+            xq, xs = W.quantize_act_per_token(
+                torch.randn((M, K), generator=gen, device=dev))
+            xd = (xq.float() * xs).to(torch.bfloat16)
+            run = lambda: W.w4a8_matmul_s4_bytes(xq, xs, wb, sb, zb)
+            plain = lambda: W.w4a8_matmul_s4_plain(xq, xs, wb, sb, zb)
+            row("w4a8_matmul_s4_bytes", run(), plain(), run, plain,
+                lambda: torch.matmul(xd, wd.t()),
+                N * K // 2 + 2 * N * (K // 128) * 2 + M * K + 4 * M
+                + 4 * M * N, 2 * M * N * K, "int8", entry=name, N=N, K=K,
+                M=M, main=M == S4_NATURAL_M[0])
+        del u, wb, wd
+    return {"phase": "masked_s4_kernels", "rows": rows,
+            "masked_vs_planes": vs_planes, "seconds": time.time() - t0}
+
+
+def phase_s4_entry(dev) -> dict:
+    """#11's main path, its entry point ``w4a8_matmul_s4_bytes`` as a
+    caller drives it: one Llama-3-8B block's seven linears, each on the
+    per-token int8 quantization of its input, at M 8 (random weights, bf16
+    scales); counts set to 0 just before and read just after: 7
+    launches."""
+    t0 = time.time()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 14)
+    w = {}
+    for name, N, K in SHAPES:
+        u = torch.randint(0, 16, (N, K), generator=gen, device=dev,
+                          dtype=torch.int32)
+        s = (torch.rand((N, K // 128), generator=gen, device=dev) * 0.02
+             + 0.005)
+        z = torch.randint(0, 16, s.shape, generator=gen, device=dev)
+        w[name] = (W.pack_s4_bytes(u), s.to(torch.bfloat16),
+                   ((z - 8) * s).to(torch.bfloat16))
+    H, M = LLAMA3_8B.hidden_size, S4_NATURAL_M[0]
+    x = torch.randn((M, H), generator=gen, device=dev)
+
+    def lin(name, t):
+        xq, xs = W.quantize_act_per_token(t)
+        return W.w4a8_matmul_s4_bytes(xq, xs, *w[name])
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    q, k, v = (lin(n, x) for n in ("q", "k", "v"))
+    h = x + lin("o", q)
+    g, u_ = lin("gate", h), lin("up", h)
+    y = h + lin("down", A._act(g, "silu") * u_)
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in KERNELS}
+    if launches["w4a8_matmul_s4_bytes"] != 7 or not torch.isfinite(y).all():
+        raise AssertionError(f"s4 entry: {launches}")
+    emit({"phase": "s4_entry", "M": M, "launches": launches,
+          "out_shape": list(y.shape), "seconds": time.time() - t0})
+    return launches
+
+
 def bench_expected(name: str, layers: int) -> dict:
     """{kernel: launches of one step} of a bench configuration."""
     return {k: a * layers + c for k, (a, c) in BENCH_CONFIGS[name][1].items()}
@@ -1055,6 +1234,7 @@ def plain_bench_kernels():
     """The bench's kernels replaced by their plain versions (the same
     arguments, the same routes)."""
     swaps = [(W, "w4a8_matmul_decode"), (W, "w4a8_matmul_planes_ksplit"),
+             (W, "w4a16_matmul_planes_masked"),
              (AT, "decode_attention_kv8"), (LF, "w4a8_attn_tail_fused"),
              (LF, "w4a8_layer_fused")]
     saved = [getattr(mod, name) for mod, name in swaps]
@@ -1839,6 +2019,10 @@ def summarize(rows, attn_rows, fused_rows, moe_rows, bench_rows,
               "decode_attention_bd": 512, "decode_attention_bd_flash": 4096}
     out = []
     for kname, info in KERNEL_INFO.items():
+        if kname in SUMMED_KERNELS:
+            rows = rows + [dict(r, M="main") for r in bench_rows
+                           if r["kernel"] == kname and r["main"]]
+            main_m[kname] = "main"
         if kname in BENCH_KERNELS:
             r = next(r for r in bench_rows if r["kernel"] == kname)
             out.append(dict(
@@ -1966,6 +2150,240 @@ def phase_setup_moe(dev, arch: ArchSpec = MIXTRAL_8X7B,
                 "layouts": layouts, "seconds": time.time() - t0}
 
 
+# meta-llama/Meta-Llama-3-8B config.json
+LLAMA3_8B_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "attention_bias": False,
+    "attention_dropout": 0.0, "bos_token_id": 128000,
+    "eos_token_id": 128001, "hidden_act": "silu", "hidden_size": 4096,
+    "initializer_range": 0.02, "intermediate_size": 14336,
+    "max_position_embeddings": 8192, "model_type": "llama",
+    "num_attention_heads": 32, "num_hidden_layers": 32,
+    "num_key_value_heads": 8, "pretraining_tp": 1, "rms_norm_eps": 1e-05,
+    "rope_scaling": None, "rope_theta": 500000.0,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "use_cache": True, "vocab_size": 128256}
+# the CI config's tiny Llama (tests/helpers.py make_tiny_hf_llama)
+TINY_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "hidden_act": "silu",
+    "hidden_size": 64, "intermediate_size": 128,
+    "max_position_embeddings": 512, "model_type": "llama",
+    "num_attention_heads": 4, "num_hidden_layers": 2,
+    "num_key_value_heads": 2, "rms_norm_eps": 1e-06, "rope_theta": 10000.0,
+    "tie_word_embeddings": False, "torch_dtype": "float32",
+    "vocab_size": 256}
+# checkpoints written here (``build/`` is not committed)
+CALIB_DIR = Path(__file__).resolve().parent / "build" / "calib"
+# the transformed model's PPL against the pretrained one: AWQ's transform
+# is exact in real arithmetic, bf16 rounds the scaled weights
+TOL_TRANSFORMED = 1e-2
+# the tiny f32 calibration, card against CPU: summation order
+TOL_SMALL_PPL = 1e-3
+
+
+def calib_config(path: str, method: str = "Awq", n_samples: int = 32,
+                 seq_len: int = 512, n_tokens: int = 8192, bs: int = 4,
+                 vocab: int = 128256, group: int = 128,
+                 dtype: str = "bfloat16",
+                 eval_pos=("pretrain", "transformed", "fake_quant"),
+                 token_consist: bool = True) -> DotDict:
+    """The pipeline's config as a dict (the card has no PyYAML): W4
+    asymmetric per-group AWQ (v2 transform, the v1 clip, asymmetric) or
+    RTN, synthetic calibration and eval data."""
+    quant = {"method": method,
+             "weight": {"bit": 4, "symmetric": False,
+                        "granularity": "per_group", "group_size": group}}
+    if method == "Awq":
+        quant["special"] = {"trans": True, "trans_version": "v2",
+                            "weight_clip": True, "clip_sym": False}
+    return DotDict({
+        "base": {"seed": 42},
+        "model": {"type": "Llama", "path": path, "torch_dtype": dtype},
+        "calib": {"name": "synthetic", "n_samples": n_samples, "bs": -1,
+                  "seq_len": seq_len, "preproc": "synthetic_random",
+                  "seed": 42, "vocab_size": vocab},
+        "eval": {"eval_pos": list(eval_pos), "name": "synthetic",
+                 "seq_len": seq_len, "bs": bs, "n_tokens": n_tokens,
+                 "eval_token_consist": token_consist},
+        "quant": quant})
+
+
+def free_cuda() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_calib_setup(dev, cfg: dict = LLAMA3_8B_CONFIG,
+                      name: str = "llama3_8b") -> str:
+    """A random bf16 model at ``cfg``'s widths and depth from the seed,
+    written as a safetensors checkpoint by the port's ``save_params`` and
+    read back by its loader onto the card: write and load seconds, bytes,
+    and the read-back weights equal to the written ones."""
+    t0 = time.time()
+    arch = arch_from_hf_config(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    model = Llama(arch, init_params(gen, arch), config=cfg)
+    sums = {k: float(t.float().sum()) for k, t in (
+        ("embed", model.params["embed"]["weight"]),
+        ("down_last", model.params["blocks"][-1]["mlp"]["down"]["weight"]))}
+    torch.cuda.synchronize()
+    make_s = time.time() - t0
+    path = CALIB_DIR / name
+    shutil.rmtree(path, ignore_errors=True)
+    t1 = time.time()
+    nbytes = save_params(model, str(path), hf_config=cfg)
+    write_s = time.time() - t1
+    del model
+    free_cuda()
+    t1 = time.time()
+    back = load_model(str(path), dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.time() - t1
+    got = {k: float(t.float().sum()) for k, t in (
+        ("embed", back.params["embed"]["weight"]),
+        ("down_last", back.params["blocks"][-1]["mlp"]["down"]["weight"]))}
+    del back
+    free_cuda()
+    emit({"phase": "calib_setup", "model": name,
+          "layers": arch.num_layers, "hidden": arch.hidden_size,
+          "bytes": nbytes, "make_s": make_s, "write_s": write_s,
+          "load_s": load_s, "write_gb_s": nbytes / write_s / 1e9,
+          "load_gb_s": nbytes / load_s / 1e9, "sums": got,
+          "seconds": time.time() - t0})
+    if got != sums:
+        raise AssertionError(f"checkpoint read back differs: {got} {sums}")
+    return str(path)
+
+
+def search_summary(algo) -> dict:
+    """The AWQ grid index chosen per subset kind, over the blocks."""
+    out = {}
+    for (_, subset), (_, best) in algo.search_log.items():
+        out.setdefault(subset, []).append(best)
+    return out
+
+
+def phase_calib_awq(dev, path: str, layers: int):
+    """``run_pipeline`` on the checkpoint on the card: AWQ W4 asymmetric
+    per-group 128 (v2 transform, v1 clip), bf16, 32 synthetic calibration
+    samples of 512 tokens, synthetic PPL (seq_len 512, 8192 tokens) at
+    pretrain, transformed and fake_quant, token consistency.  Gates: every
+    PPL finite, transformed within 1e-2 of pretrain, token consistency in
+    [0, 1].  Returns the calibrated algorithm."""
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    tim = {}
+    results, algo = run_pipeline(calib_config(path), device=dev,
+                                 timings=tim, return_algo=True)
+    blocks = tim.pop("blocks")
+    ppl = {k: v for k, v in results.items() if k.startswith("ppl_")}
+    tc = results["token_consistency"]
+    emit({"phase": "calib_awq", "layers": layers, "ppl": ppl,
+          "token_consistency": tc, "block_s_median": statistics.median(
+              blocks), "block_s_max": max(blocks), "block_s": blocks,
+          "phase_s": tim, "awq_grid_index": search_summary(algo),
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "seconds": time.time() - t0})
+    finite = all(np.isfinite(v) for v in ppl.values())
+    if not (finite and abs(ppl["ppl_transformed"] - ppl["ppl_pretrain"])
+            <= TOL_TRANSFORMED * ppl["ppl_pretrain"] and 0 <= tc <= 1):
+        raise AssertionError(f"calib_awq: {results}")
+    return algo
+
+
+def phase_engine_calibrated(dev, algo) -> dict:
+    """The AWQ model's serving weights (``algo=``: its clipped ranges
+    served) at W4A8 through the engine: 8 prompts, 32 new tokens, kv8
+    ``xla``, 8 slots; #3 on every prefill linear, #2 on every decode
+    linear; then its prefill logits against the plain versions."""
+    t0 = time.time()
+    sw = build_serving_weights(algo.model, WSPEC, act_bits=8, device=dev,
+                               algo=algo)
+    torch.cuda.synchronize()
+    emit({"phase": "calibrated_build", "serving_gb": serving_bytes(sw) / 1e9,
+          "seconds": time.time() - t0})
+    algo.model.params.clear()
+    free_cuda()
+    layers = sw.arch.num_layers
+    prompts = make_prompts(8, sw.arch.vocab_size)
+    launches = engine_phase(
+        "engine_calibrated", sw, prompts, 32, dev, None,
+        expect={"w4a8_matmul_prefill": (7 * layers, 0),
+                "w4a8_matmul_decode": (0, 7 * layers)})
+    engine_vs_plain("calibrated", sw, prompts, dev)
+    return launches
+
+
+def phase_calib_rtn(dev, path: str) -> None:
+    """The driver entry's quantizer (RTN W4 asymmetric per-group 128) by
+    the pipeline on the same checkpoint: its fake_quant PPL."""
+    t0 = time.time()
+    tim = {}
+    results = run_pipeline(calib_config(path, method="RTN",
+                                        eval_pos=("fake_quant",),
+                                        token_consist=False),
+                           device=dev, timings=tim)
+    tim.pop("blocks")
+    emit({"phase": "calib_rtn", "ppl": results, "phase_s": tim,
+          "seconds": time.time() - t0})
+    if not np.isfinite(results["ppl_fake_quant"]):
+        raise AssertionError(f"calib_rtn: {results}")
+
+
+def phase_small_calib_vs_cpu(dev) -> dict:
+    """The CI config's shape (the tiny Llama, f32, W4 groups of 16, 4
+    calibration samples of 16 tokens, 256 eval tokens) calibrated by the
+    port on the card and on the CPU from one checkpoint: each subset's AWQ
+    grid index (a subset whose index differs is listed with both losses),
+    PPL at each position within 1e-3, token consistency, and the serving
+    codes built with ``algo=`` bit for bit in the blocks whose indices
+    all agree."""
+    t0 = time.time()
+    path = CALIB_DIR / "tiny"
+    shutil.rmtree(path, ignore_errors=True)
+    arch = arch_from_hf_config(TINY_CONFIG, dtype=torch.float32)
+    gen = torch.Generator()
+    gen.manual_seed(SEED)
+    save_params(Llama(arch, init_params(gen, arch)), str(path),
+                hf_config=TINY_CONFIG)
+    cfg = calib_config(str(path), n_samples=4, seq_len=16, n_tokens=256,
+                       bs=1, vocab=256, group=16, dtype="float32")
+    runs = {d: run_pipeline(cfg, device=d, return_algo=True)
+            for d in ("cpu", dev)}
+    (r_cpu, a_cpu), (r_card, a_card) = runs["cpu"], runs[dev]
+    differ = {}
+    for key, (loss_c, best_c) in a_cpu.search_log.items():
+        loss_g, best_g = a_card.search_log[key]
+        if best_c != best_g:
+            differ[f"{key[0]}/{key[1]}"] = {
+                "cpu": [best_c, float(loss_c[best_c]),
+                        float(loss_c[best_g])],
+                "card": [best_g, float(loss_g[best_g]),
+                         float(loss_g[best_c])]}
+    spec = QuantSpec(bit=4, symmetric=False, granularity="per_group",
+                     group_size=16)
+    sws = {d: build_serving_weights(a.model, spec, act_bits=8, device=d,
+                                    algo=a)
+           for d, (_, a) in (("cpu", runs["cpu"]), (dev, runs[dev]))}
+    agree = [i for i in range(arch.num_layers)
+             if not any(k.startswith(f"{i}/") for k in differ)]
+    same = all(same_tensor(sws["cpu"].blocks[i][n].codes,
+                           sws[dev].blocks[i][n].codes)
+               for i in agree for n in sws["cpu"].blocks[i]
+               if hasattr(sws["cpu"].blocks[i][n], "codes"))
+    rel = {k: abs(r_card[k] - v) / v for k, v in r_cpu.items()
+           if k.startswith("ppl_")}
+    res = {"phase": "small_calib_vs_cpu", "ppl_cpu": r_cpu,
+           "ppl_card": r_card, "ppl_rel": rel, "index_differs": differ,
+           "blocks_compared": agree, "same_codes": same,
+           "seconds": time.time() - t0}
+    emit(res)
+    if not (all(v <= TOL_SMALL_PPL for v in rel.values()) and same
+            and 0 <= r_card["token_consistency"] <= 1):
+        raise AssertionError(f"small calibration, card vs CPU: {res}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1986,8 +2404,11 @@ def main() -> int:
     emit(moe_k)
     bench_k = phase_bench_kernels(dev)
     emit(bench_k)
+    ms_k = phase_masked_s4_kernels(dev)
+    emit(ms_k)
     bench_runs = phase_bench(dev)
     phase_bench_vs_plain(dev)
+    bench_runs.append(phase_s4_entry(dev))
 
     t0 = time.time()
     gen = torch.Generator(device=dev)
@@ -2144,13 +2565,30 @@ def main() -> int:
     del swq
     gc.collect()
     torch.cuda.empty_cache()
+
+    # the main path's front half: a Llama-3-8B checkpoint written and read
+    # by the port, calibrated (AWQ, then RTN) and evaluated by its
+    # pipeline, and the calibrated model served
+    path = phase_calib_setup(dev)
+    algo = phase_calib_awq(dev, path, LLAMA3_8B_CONFIG["num_hidden_layers"])
+    runs.append(phase_engine_calibrated(dev, algo))
+    del algo
+    free_cuda()
+    phase_calib_rtn(dev, path)
+    free_cuda()
+    shutil.rmtree(CALIB_DIR, ignore_errors=True)
+    phase_small_calib_vs_cpu(dev)
     emit(phase_small_vs_cpu(dev))
 
     # the main path's launches: every engine phase and bench run
     runs += bench_runs
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
+    idle = [k for k in KERNEL_INFO if not launches[k] > 0]
+    if idle:
+        raise AssertionError(f"kernels the main path never launched: {idle}")
     emit({"kernels": summarize(kern["rows"], attn["rows"], fused_k["rows"],
-                               moe_k["rows"], bench_k["rows"], launches)})
+                               moe_k["rows"],
+                               bench_k["rows"] + ms_k["rows"], launches)})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

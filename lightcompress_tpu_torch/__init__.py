@@ -1,7 +1,9 @@
-"""PyTorch/CUDA port of lightcompress_tpu (first slice: the W4 serving engine).
+"""PyTorch/CUDA port of lightcompress_tpu: the checkpoint loader, RTN and
+AWQ calibration, the PPL evals and the pipeline, the W4 serving engine
+and the bench's decode stack.
 
-Mirrors the JAX package's module paths.  Imports ``torch`` only; the W4
-matmul kernels are CUDA C++ for Hopper (``ops/csrc``), built at first use.
+Mirrors the JAX package's module paths.  Imports ``torch`` only; the
+kernels are CUDA C++ for Hopper (``ops/csrc``), built at first use.
 """
 
 from .device import resolve_device

@@ -32,12 +32,21 @@ It reads the root bench's environment names:
   in the root bench, ``BENCH_TAIL`` needs ``bf16``;
 - ``BENCH_KSPLIT`` 1: the down projection in the ``planes_ks`` layout,
   applied by #5 ``w4a8_matmul_planes_ksplit``;
+- ``BENCH_MASKED``: a comma list of entry names (``qkv``, ``o``,
+  ``gateup``, ``down``, or the unfused ``q`` .. ``down`` under
+  ``BENCH_FUSED=0``) stored as masked planes (random codes u in [0, 16),
+  scales 0.01, zero points 8; scales pre-divided by 16^j, f32, or bf16
+  under ``BENCH_SCALES=bf16``, as the root bench stores them) and applied
+  by #4 ``w4a16_matmul_planes_masked`` on bf16 x, its f32 output cast to
+  x's dtype, at act_bits 8 or 16 alike; it takes precedence over
+  ``BENCH_KSPLIT`` for ``down``, and ``BENCH_TAIL`` refuses it (the tail
+  kernels take the planes layout);
 - ``BENCH_BATCH`` (32) and ``BENCH_CTX`` (2048).
 
 Knobs that reach no kernel ported here raise ``NotImplementedError``
 naming their ROADMAP item: ``BENCH_KV_APPEND`` other than ``concat``,
 ``BENCH_ATTN`` ``i8app``, ``i8full``, ``bd``, ``bds``, ``bd4``, ``bds4``,
-``BENCH_KV_BITS=4``, ``BENCH_MASKED`` (#4), ``BENCH_WLAYOUT=s4``,
+``BENCH_KV_BITS=4``, ``BENCH_WLAYOUT=s4``,
 ``BENCH_FUSEDLIN``, ``BENCH_DOWNSPLIT``, ``BENCH_KV_STACKED``, and
 ``BENCH_ENGINE=1``: the root bench also runs an engine step in a
 subprocess (``tools/engine_step_probe.py``) and reports its numbers; the
@@ -69,6 +78,7 @@ from .device import DeviceLike, _scalar, div, resolve_device
 from .models.arch import _act
 from .ops import attention as AT
 from .ops import layer_fused as LF
+from .ops import w4_matmul as W
 from .ops.qlinear import QLinearParams, qlinear_apply
 
 GROUP = 128
@@ -94,6 +104,8 @@ class BenchConfig:
     tail: int = 0
     scales: str = "contig"
     ksplit: bool = False
+    # entry names stored as masked planes and applied by #4
+    masked: Tuple[str, ...] = ()
     batch: int = 32
     ctx: int = 2048
     # Llama-3-8B block shapes (meta-llama/Meta-Llama-3-8B config.json)
@@ -126,11 +138,9 @@ class BenchConfig:
             if hit:
                 raise NotImplementedError(f"{what} is not ported: "
                                           f"{_DEFERRED}")
-        if env.get("BENCH_MASKED"):
-            raise NotImplementedError(
-                "BENCH_MASKED is not ported: ROADMAP B3 (#4 "
-                "w4a16_matmul_planes_masked)")
         return cls(
+            masked=tuple(sorted(filter(None, env.get(
+                "BENCH_MASKED", "").split(",")))),
             act_bits=int(env.get("BENCH_ACT_BITS", "8")),
             kv_bits=int(env.get("BENCH_KV_BITS", "8")),
             attn=env.get("BENCH_ATTN", "xla"),
@@ -166,6 +176,14 @@ def validate(cfg: BenchConfig) -> None:
                          "(BENCH_SCALES=bf16) and the fused layout")
     if cfg.attn == "pallas" and cfg.kv_bits != 8:
         raise ValueError("BENCH_ATTN=pallas is the int8-cache kernel")
+    names = (("qkv", "o", "gateup", "down") if cfg.fused
+             else ("q", "k", "v", "o", "gate", "up", "down"))
+    if set(cfg.masked) - set(names):
+        raise ValueError(f"BENCH_MASKED names {cfg.masked}; the entries "
+                         f"are {names}")
+    if cfg.masked and cfg.tail:
+        raise ValueError("BENCH_MASKED with BENCH_TAIL: the tail kernels "
+                         "take the planes layout")
     if cfg.ksplit and (cfg.tail or cfg.act_bits != 8):
         raise ValueError("BENCH_KSPLIT's planes_ks down runs through #5 at "
                          "act_bits 8, outside the TAIL kernels")
@@ -181,7 +199,10 @@ def make_layer_qweights(cfg: BenchConfig, gen: torch.Generator,
     alike, as the root bench draws them), scales 0.01 and zero points 8,
     carried as bf16 ``s`` and ``zs = z*s`` (rounded from the f32 product),
     in the tiled serving layout's routing; with ``ksplit`` the down
-    projection takes ``planes_ks``."""
+    projection takes ``planes_ks``.  The ``masked`` entries hold masked
+    planes of random codes u in [0, 16) with pre-divided scales and zero
+    corrections, f32 or (``scales`` bf16) bf16, as the root bench makes
+    them; ``masked`` wins over ``ksplit`` for the down projection."""
     H, D = cfg.hidden, cfg.head_dim
     nq, nkv = cfg.n_heads * D, cfg.n_kv * D
     if cfg.fused:
@@ -193,6 +214,17 @@ def make_layer_qweights(cfg: BenchConfig, gen: torch.Generator,
                   "down": (H, cfg.inter)}
     out = {}
     for name, (oc, ic) in shapes.items():
+        if name in cfg.masked:
+            u = torch.randint(0, 16, (oc, ic), generator=gen, device=device,
+                              dtype=torch.int32)
+            s = torch.full((oc, ic // GROUP), 0.01, dtype=torch.float32,
+                           device=device)
+            sd = torch.bfloat16 if cfg.scales == "bf16" else torch.float32
+            out[name] = QLinearParams(
+                W.pack_int4_planes_masked(u), W.masked_scales(s).to(sd),
+                W.masked_zero_scales(torch.full_like(s, 8.0), s).to(sd),
+                None, GROUP, "masked", True)
+            continue
         codes = torch.randint(-2**31, 2**31 - 1, (oc, ic // 8),
                               generator=gen, device=device,
                               dtype=torch.int32)
@@ -287,8 +319,11 @@ def decode_step(cfg: BenchConfig, layers, x: torch.Tensor, k_cache, v_cache,
     scale = _scalar(D ** -0.5, x.device, bf16)
 
     def lin(h, qp, with_rms=False):
-        return qlinear_apply(_rms(h) if with_rms else h, qp,
-                             act_bits=cfg.act_bits)
+        hh = _rms(h) if with_rms else h
+        if qp.layout == "masked":
+            return W.w4a16_matmul_planes_masked(
+                hh.to(bf16), qp.codes, qp.scales, qp.zeros).to(h.dtype)
+        return qlinear_apply(hh, qp, act_bits=cfg.act_bits)
 
     def weights(*qps):
         return [t for qp in qps for t in (qp.codes, qp.scales, qp.zeros)]
@@ -412,7 +447,8 @@ def run(cfg: BenchConfig, device: DeviceLike = None, seed: int = 0,
         "hbm_bytes_per_s": rate,
         "config": {k: v for k, v in dataclasses.asdict(cfg).items()
                    if k in ("act_bits", "kv_bits", "attn", "fused", "tail",
-                            "scales", "ksplit", "batch", "ctx", "layers")}}
+                            "scales", "ksplit", "masked", "batch", "ctx",
+                            "layers")}}
 
 
 def main() -> int:

@@ -16,7 +16,13 @@ so this module imports neither JAX nor the JAX package.  Two entry points:
   and its optional selection bias; the q/k norm gammas of ``qk_norm``; the
   bench's K-split ``planes_ks`` linear (codes (N/NT, 2, gpp/2, NT, g), one
   combined slab per half (N/NT, 2, 2*(gpp/2)*8, NT) in the half's group
-  order; ``tile_packed_ksplit``, ``tile_scales_combined_ksplit``).
+  order; ``tile_packed_ksplit``, ``tile_scales_combined_ksplit``); the
+  bench's masked linear (``BENCH_MASKED``: masked planes tiled as
+  ``tile_packed``, pre-divided scales and zero corrections tiled as
+  ``tile_scales``, f32 or bf16; layout ``masked``).
+
+``s4_bytes_from_numpy`` reads #11's natural s4 bytes (N/NT, NT, K/2)
+(``pack_s4_bytes``) and their (N/NT, NT, G) scales (``tile_scales_s4``).
 """
 
 from __future__ import annotations
@@ -138,6 +144,13 @@ def qlinear_from_numpy(codes, scales, zeros, bias, bits: int,
             tensor_from_numpy(s, device), tensor_from_numpy(zs, device),
             None if bias is None else tensor_from_numpy(bias, device),
             group_size, "planes_ks", True)
+    if layout == "masked" and bits == 4:
+        return QLinearParams(
+            tensor_from_numpy(untile_codes(codes), device, torch.int32),
+            tensor_from_numpy(untile_scales(scales), device),
+            tensor_from_numpy(untile_scales(zeros), device),
+            None if bias is None else tensor_from_numpy(bias, device),
+            group_size, "masked", True)
     if bits != 4 or layout not in ("planes", "s4"):
         raise ValueError(f"{bits}-bit {layout!r} linears are not ported")
     if layout == "s4":
@@ -164,6 +177,20 @@ def qlinear_from_numpy(codes, scales, zeros, bias, bits: int,
         tensor_from_numpy(s, device), tensor_from_numpy(zs, device),
         None if bias is None else tensor_from_numpy(bias, device),
         group_size, "planes", codes.ndim == 4)
+
+
+def s4_bytes_from_numpy(codes, scales, zeros, device: DeviceLike = None):
+    """#11's tiles -> (wb (N, K/2) int8, s (N, G), zs (N, G)): the natural
+    s4 bytes (N/NT, NT, K/2) of ``pack_s4_bytes`` and the (N/NT, NT, G)
+    scales and zero corrections of ``tile_scales_s4``, dtypes kept."""
+    codes = np.asarray(codes)
+    nb, nt, kh = codes.shape
+
+    def flat(t):
+        t = np.asarray(t)
+        return tensor_from_numpy(t.reshape(nb * nt, t.shape[-1]), device)
+    return (tensor_from_numpy(codes.reshape(nb * nt, kh), device,
+                              torch.int8), flat(scales), flat(zeros))
 
 
 def arch_from_fields(fields: Dict[str, Any],

@@ -1,28 +1,42 @@
 """Llama architecture: spec, random init and forward passes (port of
 lightcompress_tpu/models/arch.py, the ``llama`` family, dense or with a
 mixture-of-experts MLP (``MoESpec``), with Qwen3's per-head RMSNorm of q
-and k (``qk_norm``); no MLA).
+and k (``qk_norm``) and the llama3 rope scaling (``rope_llama3``); no MLA).
 
 Parameters are nested dicts of tensors in the JAX package's layout:
 weights are (out_features, in_features) and matmuls are ``x @ W.T``.
 Prefill attention is plain torch ops, as it is plain XLA in JAX.
+
+Every linear goes through a ``LinearFn`` ``(name, w, b, x) -> y``
+(``default_linear`` unless the caller swaps it, as calibration and fake
+quant do), and the block forward returns the input of every linear by its
+canonical name (``feats``), the inputs the calibration algorithms read.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+import math
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..device import div
 
-def _linear(p: Dict, x: torch.Tensor) -> torch.Tensor:
+# linear_fn(name, w, b, x) -> y: the swap point of calibration and fake
+# quant (the JAX ``LinearFn``)
+LinearFn = Callable[[str, torch.Tensor, Optional[torch.Tensor],
+                     torch.Tensor], torch.Tensor]
+
+
+def default_linear(name: str, w: torch.Tensor, b: Optional[torch.Tensor],
+                   x: torch.Tensor) -> torch.Tensor:
     """``x @ W.T (+ b)`` with f32 accumulation, result in ``x.dtype``.
     A stacked (E, out, in) expert weight (no bias) gives (E, ..., out):
     every expert on the same x, or on its own slice when x carries the
     expert dim first (the down projection's (E, B, T, in) input), as
     JAX's ``default_linear``."""
-    w = p["weight"].to(x.dtype)
+    w = w.to(x.dtype)
     if w.dim() == 3:
         E = w.shape[0]
         xe = x if x.dim() == 4 and x.shape[0] == E else x.unsqueeze(0)
@@ -30,9 +44,23 @@ def _linear(p: Dict, x: torch.Tensor) -> torch.Tensor:
                          w.transpose(1, 2))
         return y.reshape(E, *xe.shape[1:-1], w.shape[1])
     y = torch.matmul(x, w.t())
-    if "bias" in p:
-        y = y + p["bias"]
+    if b is not None:
+        y = y + b
     return y
+
+
+def _call(linear_fn: LinearFn, name: str, p: Dict,
+          x: torch.Tensor) -> torch.Tensor:
+    """``linear_fn`` on the linear ``p`` whose canonical name is ``name``."""
+    return linear_fn(name, p["weight"], p.get("bias"), x)
+
+
+def resolve(tree: Dict, dotted: str) -> Dict:
+    """The node at a canonical path: ``attn.q`` is tree['attn']['q']."""
+    node = tree
+    for part in dotted.split("."):
+        node = node[part]
+    return node
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +99,9 @@ class ArchSpec:
     tie_word_embeddings: bool = False
     act_fn: str = "silu"
     moe: Optional[MoESpec] = None
+    # llama3 rope scaling (factor, low_freq_factor, high_freq_factor,
+    # original_max_position_embeddings); None = off
+    rope_llama3: Optional[Tuple[float, float, float, int]] = None
     dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self):
@@ -188,6 +219,20 @@ def _act(x: torch.Tensor, name: str) -> torch.Tensor:
     raise ValueError(f"activation {name!r} is not ported")
 
 
+def _llama3_inv_freq(inv_freq: torch.Tensor, rope: Tuple) -> torch.Tensor:
+    """HF's ``llama3`` rope init: the low frequencies divided by ``factor``,
+    a smooth ramp between the two wavelength cutoffs (every division a
+    true f32 division, as JAX's)."""
+    factor, lo_f, hi_f, orig_max = rope
+    wavelen = torch.full_like(inv_freq, 2 * math.pi) / inv_freq
+    lo_wl, hi_wl = orig_max / lo_f, orig_max / hi_f
+    smooth = div(torch.full_like(wavelen, orig_max) / wavelen - lo_f,
+                 hi_f - lo_f)
+    smoothed = div((1 - smooth) * inv_freq, factor) + smooth * inv_freq
+    return torch.where(wavelen > lo_wl, div(inv_freq, factor),
+                       torch.where(wavelen < hi_wl, inv_freq, smoothed))
+
+
 def rope_cos_sin(arch: ArchSpec, positions: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """HF-Llama rotary tables; positions (T,) or (B, T) -> (..., T, D)."""
@@ -195,6 +240,8 @@ def rope_cos_sin(arch: ArchSpec, positions: torch.Tensor
     exps = torch.arange(0, d, 2, dtype=torch.float32,
                         device=positions.device) / d
     inv_freq = 1.0 / (arch.rope_theta ** exps)
+    if arch.rope_llama3 is not None:
+        inv_freq = _llama3_inv_freq(inv_freq, arch.rope_llama3)
     freqs = positions[..., None].float() * inv_freq
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb), torch.sin(emb)
@@ -258,37 +305,85 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# block and model forwards
+# block and model forwards (each returns or records the input of every
+# linear: the calibration's feats)
 # ---------------------------------------------------------------------------
 
-def block_forward(arch: ArchSpec, bp: Dict, x: torch.Tensor, cos, sin,
-                  mask: Optional[torch.Tensor]):
-    """One block on (B, T, H).  Returns (y, (k, v)) with k/v post-rope."""
-    B, T, _ = x.shape
+def _attention(arch: ArchSpec, ap: Dict, h1: torch.Tensor, cos, sin,
+               mask: Optional[torch.Tensor], linear_fn: LinearFn):
+    """q/k/v, qk_norm, rope and attention on the normed x; returns the
+    context (B, T, nh*hd) before ``attn.o`` and the post-rope (k, v)."""
+    B, T, _ = h1.shape
     nh, nkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
-    h1 = apply_norm(x, bp["ln1"], arch)
-    ap, mp = bp["attn"], bp["mlp"]
-    q, k, v = (_linear(ap[n], h1) for n in ("q", "k", "v"))
-    q = q.reshape(B, T, nh, hd).transpose(1, 2)
-    k = k.reshape(B, T, nkv, hd).transpose(1, 2)
-    v = v.reshape(B, T, nkv, hd).transpose(1, 2)
+    q, k, v = (_call(linear_fn, "attn." + n, ap[n], h1)
+               .reshape(B, T, -1, hd).transpose(1, 2)
+               for n in ("q", "k", "v"))
     q, k = qk_normed(arch, ap, q, k)
     if cos is not None:
         q, k = apply_rope(q, k, cos, sin)
     ctx = sdpa(q, k, v, mask, kv_groups=nh // nkv)
-    ctx = ctx.transpose(1, 2).reshape(B, T, nh * hd)
-    h = x + _linear(ap["o"], ctx)
+    return ctx.transpose(1, 2).reshape(B, T, nh * hd), (k, v)
+
+
+def _mlp_tail(arch: ArchSpec, bp: Dict, h: torch.Tensor,
+              linear_fn: LinearFn, feats: Dict[str, torch.Tensor]):
+    """The MLP half of a block after the attention residual."""
     h2 = apply_norm(h, bp["ln2"], arch)
-    return h + mlp_forward(arch, mp, h2), (k, v)
+    feats["mlp.gate"] = h2
+    feats["mlp.up"] = h2
+    return h + mlp_forward(arch, bp["mlp"], h2, linear_fn, feats)
 
 
-def mlp_forward(arch: ArchSpec, mp: Dict, x: torch.Tensor) -> torch.Tensor:
+def block_forward(arch: ArchSpec, bp: Dict, x: torch.Tensor, cos, sin,
+                  mask: Optional[torch.Tensor],
+                  linear_fn: LinearFn = default_linear):
+    """One block on (B, T, H).  Returns (y, feats, (k, v)): ``feats`` maps
+    each linear's canonical name to its input, k/v are post-rope."""
+    feats: Dict[str, torch.Tensor] = {}
+    h1 = apply_norm(x, bp["ln1"], arch)
+    for n in ("attn.q", "attn.k", "attn.v"):
+        feats[n] = h1
+    ctx, kv = _attention(arch, bp["attn"], h1, cos, sin, mask, linear_fn)
+    feats["attn.o"] = ctx
+    h = x + _call(linear_fn, "attn.o", bp["attn"]["o"], ctx)
+    return _mlp_tail(arch, bp, h, linear_fn, feats), feats, kv
+
+
+def mlp_forward(arch: ArchSpec, mp: Dict, x: torch.Tensor,
+                linear_fn: LinearFn = default_linear,
+                feats: Optional[Dict[str, torch.Tensor]] = None
+                ) -> torch.Tensor:
     """The block's MLP on the normed x: the MoE MLP where the block has a
     router, else the gated dense MLP (JAX's ``mlp_inspect``)."""
     if arch.moe is not None and "router" in mp:
-        return moe_mlp_forward(arch, mp, x)
-    mid = _act(_linear(mp["gate"], x), arch.act_fn) * _linear(mp["up"], x)
-    return _linear(mp["down"], mid)
+        if feats is not None:
+            feats["mlp.router"] = x
+        return moe_mlp_forward(arch, mp, x, linear_fn, feats)
+    mid = _act(_call(linear_fn, "mlp.gate", mp["gate"], x), arch.act_fn) \
+        * _call(linear_fn, "mlp.up", mp["up"], x)
+    if feats is not None:
+        feats["mlp.down"] = mid
+    return _call(linear_fn, "mlp.down", mp["down"], mid)
+
+
+def attn_inspect(arch: ArchSpec, bp: Dict, x: torch.Tensor, cos, sin,
+                 mask: Optional[torch.Tensor],
+                 linear_fn: LinearFn = default_linear) -> torch.Tensor:
+    """The attention sub-forward on the post-ln1 x, through ``attn.o``
+    (AWQ's re-run of the q/k/v subset)."""
+    ctx, _ = _attention(arch, bp["attn"], x, cos, sin, mask, linear_fn)
+    return _call(linear_fn, "attn.o", bp["attn"]["o"], ctx)
+
+
+def mlp_inspect(arch: ArchSpec, bp: Dict, x: torch.Tensor,
+                linear_fn: LinearFn = default_linear) -> torch.Tensor:
+    """The MLP sub-forward on the post-ln2 x."""
+    return mlp_forward(arch, bp["mlp"], x, linear_fn)
+
+
+def linear_inspect(bp: Dict, name: str, x: torch.Tensor,
+                   linear_fn: LinearFn = default_linear) -> torch.Tensor:
+    return _call(linear_fn, name, resolve(bp, name), x)
 
 
 # ---------------------------------------------------------------------------
@@ -336,7 +431,9 @@ def moe_route(m: MoESpec, lf: torch.Tensor,
     return topi, topw * m.routed_scaling_factor
 
 
-def moe_mlp_forward(arch: ArchSpec, mp: Dict, x: torch.Tensor
+def moe_mlp_forward(arch: ArchSpec, mp: Dict, x: torch.Tensor,
+                    linear_fn: LinearFn = default_linear,
+                    feats: Optional[Dict[str, torch.Tensor]] = None
                     ) -> torch.Tensor:
     """Mixture-of-experts MLP on (B, T, H): every expert computed on every
     token (stacked matmuls; the router logits rounded to x's dtype as a
@@ -344,11 +441,18 @@ def moe_mlp_forward(arch: ArchSpec, mp: Dict, x: torch.Tensor
     plus the shared experts where the block has them."""
     m = arch.moe
     B, T, H = x.shape
-    lf = _linear(mp["router"], x).reshape(-1, m.num_experts).float()
+
+    def lin(name, t):
+        return _call(linear_fn, "mlp." + name, mp[name], t)
+
+    lf = lin("router", x).reshape(-1, m.num_experts).float()
     topi, topw = moe_route(m, lf, mp.get("router_bias"))
-    g = _linear(mp["gate"], x)  # (E, B, T, I)
-    u = _linear(mp["up"], x)
-    d = _linear(mp["down"], _act(g, arch.act_fn) * u)  # (E, B, T, H)
+    g = lin("gate", x)  # (E, B, T, I)
+    u = lin("up", x)
+    mid = _act(g, arch.act_fn) * u
+    if feats is not None:
+        feats["mlp.down"] = mid
+    d = lin("down", mid)  # (E, B, T, H)
     n = B * T
     w_full = torch.zeros((n, m.num_experts), dtype=torch.float32,
                          device=x.device).scatter_(1, topi, topw)
@@ -356,9 +460,11 @@ def moe_mlp_forward(arch: ArchSpec, mp: Dict, x: torch.Tensor
                      d.reshape(m.num_experts, n, H).float(),
                      w_full).reshape(B, T, H).to(x.dtype)
     if "shared_gate" in mp:
-        smid = (_act(_linear(mp["shared_gate"], x), arch.act_fn)
-                * _linear(mp["shared_up"], x))
-        y = y + _linear(mp["shared_down"], smid)
+        smid = _act(lin("shared_gate", x), arch.act_fn) * lin("shared_up", x)
+        if feats is not None:
+            feats["mlp.shared_gate"] = feats["mlp.shared_up"] = x
+            feats["mlp.shared_down"] = smid
+        y = y + lin("shared_down", smid)
     return y
 
 
@@ -375,14 +481,17 @@ def embed_forward(arch: ArchSpec, params: Dict,
     return params["embed"]["weight"][input_ids]
 
 
-def model_forward(arch: ArchSpec, params: Dict,
-                  input_ids: torch.Tensor) -> torch.Tensor:
-    """Full causal-LM forward returning float32 logits (B, T, V)."""
+def model_forward(arch: ArchSpec, params: Dict, input_ids: torch.Tensor,
+                  linear_fns: Optional[List[LinearFn]] = None
+                  ) -> torch.Tensor:
+    """Full causal-LM forward returning float32 logits (B, T, V);
+    ``linear_fns`` gives each block its ``LinearFn``."""
     T = input_ids.shape[1]
     dev = input_ids.device
     x = embed_forward(arch, params, input_ids)
     mask = causal_mask(T, T, device=dev)
     cos, sin = rope_cos_sin(arch, torch.arange(T, device=dev))
-    for bp in params["blocks"]:
-        x, _ = block_forward(arch, bp, x, cos, sin, mask)
+    for idx, bp in enumerate(params["blocks"]):
+        lf = linear_fns[idx] if linear_fns is not None else default_linear
+        x = block_forward(arch, bp, x, cos, sin, mask, lf)[0]
     return head_forward(arch, params, x)

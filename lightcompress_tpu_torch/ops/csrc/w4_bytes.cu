@@ -1,8 +1,9 @@
-// Grouped-W4 matmul kernels on the s4 group-pair byte layout for Hopper
+// Grouped-W4 matmul kernels on the s4 byte layouts for Hopper
 // (sm_90a), CUDA C++ with a plain C interface bound from Python with ctypes
 // (ops/_build.py, ops/w4_matmul.py).
 //
-// Weight layout: untiled byte pairs.
+// Weight layout of #12 and #13: untiled byte pairs (#11 takes natural-order
+// bytes, described at its kernel).
 //   wb  (N, K/2) int8: byte p*128 + t holds, already signed (c' = u - 8 in
 //                      [-8, 7]), the code of weight (2p)*128 + t in its low
 //                      nibble and of weight (2p+1)*128 + t in its high one
@@ -126,6 +127,122 @@ w4a8_bytes_kernel(const XT* __restrict__ x, const float* __restrict__ xscale,
                  static_cast<OutT*>(out), M, N, m0, n);
 }
 
+// ---------------------------------------------------------------------------
+// #11 W4A8 on natural-order s4 bytes.  Replaces
+// lightcompress_tpu/ops/pallas_matmul.py w4a8_matmul_s4 (_w4a8_kernel_s4)
+// behind its byte-view entry point w4a8_matmul_s4_bytes.
+//
+// Weight layout (pack_s4_bytes, untiled): wb (N, K/2) int8, byte b holds the
+// signed code c' = u - 8 of weight 2b in its low nibble and of weight 2b+1
+// in its high one; s and zs' = (z - 8) * s are (N, G) in ST (f32 or bf16).
+// In the TPU kernel's order:
+//   a_r = sum over the groups g with g % 4 == r, in turn, of
+//         f32(x_g . c'_g) * s_g   (exact int32 group dots)
+//   y = ((a0 + a1) + (a2 + a3) - sum_g xsum_g * zs'_g) * x_scale
+// each product and sum rounded once.  Bound: the packed weight read
+// (memory).  Design: #12's decode block (a lane per channel, MT = 8 rows of
+// int8 x in shared memory), with warp w taking the groups g = w, w + 4, ...
+// in order, so that its accumulator is the TPU kernel's a_w; a 4-byte word
+// holds codes 8q .. 8q+7, sign-extended to four even and four odd ones and
+// put back in K order with two byte permutes for two __dp4a.
+// ---------------------------------------------------------------------------
+template <int MT, typename ST>
+__global__ void __launch_bounds__(kDecodeThreads)
+w4a8_s4_kernel(const int8_t* __restrict__ xq,
+               const float* __restrict__ xscale,
+               const int8_t* __restrict__ wb, const ST* __restrict__ s,
+               const ST* __restrict__ zs, float* __restrict__ out, int M,
+               int N, int K) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int G = K / kGroup, kh = K / 2;
+  int8_t* xsh = reinterpret_cast<int8_t*>(smem);
+  float* xsum = reinterpret_cast<float*>(smem + (size_t)MT * K);
+  float* red = xsum + MT * G;  // [warp][2][MT][32]: a_warp, corr
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m0 = blockIdx.y * MT;
+  const int n = blockIdx.x * 32 + lane;
+
+  stage_rows<MT>(xq, M, K, m0, xsh);
+  __syncthreads();
+  group_sums<MT>(xsh, K, xsum);
+  __syncthreads();
+
+  float acc[MT], corr[MT];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) acc[m] = corr[m] = 0.f;
+  const int8_t* wrow = wb + (size_t)n * kh;
+  for (int g = warp; g < G; g += kDecodeWarps) {
+    int dot[MT];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) dot[m] = 0;
+    const int4* wq = reinterpret_cast<const int4*>(wrow + g * (kGroup / 2));
+#pragma unroll
+    for (int c = 0; c < kGroup / 32; ++c) {
+      const int4 w = __ldg(wq + c);
+      const uint32_t ws[4] = {(uint32_t)w.x, (uint32_t)w.y, (uint32_t)w.z,
+                              (uint32_t)w.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint32_t lo = (uint32_t)sext_lo(ws[q]);
+        const uint32_t hi = (uint32_t)sext_hi(ws[q]);
+        const int a = (int)__byte_perm(lo, hi, 0x5140);  // codes 0 1 2 3
+        const int b = (int)__byte_perm(lo, hi, 0x7362);  // codes 4 5 6 7
+        const int k = g * kGroup + 32 * c + 8 * q;
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const int8_t* xr = xsh + (size_t)m * K + k;
+          dot[m] = __dp4a(a, *reinterpret_cast<const int*>(xr), dot[m]);
+          dot[m] = __dp4a(b, *reinterpret_cast<const int*>(xr + 4), dot[m]);
+        }
+      }
+    }
+    const float sf = to_f32(s[(size_t)n * G + g]);
+    const float zf = to_f32(zs[(size_t)n * G + g]);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      acc[m] = __fadd_rn(acc[m], __fmul_rn((float)dot[m], sf));
+      corr[m] = __fadd_rn(corr[m], __fmul_rn(xsum[m * G + g], zf));
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    red[((warp * 2) * MT + m) * 32 + lane] = acc[m];
+    red[((warp * 2 + 1) * MT + m) * 32 + lane] = corr[m];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      float a[kDecodeWarps], c = 0.f;
+#pragma unroll
+      for (int w = 0; w < kDecodeWarps; ++w) {
+        a[w] = red[((w * 2) * MT + m) * 32 + lane];
+        c = __fadd_rn(c, red[((w * 2 + 1) * MT + m) * 32 + lane]);
+      }
+      const float y = __fsub_rn(
+          __fadd_rn(__fadd_rn(a[0], a[1]), __fadd_rn(a[2], a[3])), c);
+      if (m0 + m < M)
+        out[(size_t)(m0 + m) * N + n] = __fmul_rn(y, xscale[m0 + m]);
+    }
+  }
+}
+
+template <typename ST>
+int launch_s4(const void* xq, const void* xscale, const void* wb,
+              const void* s, const void* zs, void* out, int M, int N, int K,
+              void* stream) {
+  const size_t smem = (size_t)8 * K + (size_t)8 * (K / kGroup) * 4 +
+                      (size_t)kDecodeWarps * 2 * 8 * 32 * 4;
+  cudaError_t e = prepare(w4a8_s4_kernel<8, ST>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(N / 32, (M + 7) / 8);
+  w4a8_s4_kernel<8, ST><<<grid, kDecodeThreads, smem,
+                          reinterpret_cast<cudaStream_t>(stream)>>>(
+      (const int8_t*)xq, (const float*)xscale, (const int8_t*)wb,
+      (const ST*)s, (const ST*)zs, (float*)out, M, N, K);
+  return (int)cudaGetLastError();
+}
+
 template <typename XT>
 int launch_bytes(const XT* x, const void* xscale, const void* wb,
                  const void* s, const void* zs, void* out, void* act_out,
@@ -166,6 +283,17 @@ int lc_w4a8_bytes_fused(const void* x, int x_f32, const void* wb,
                         scale_out, M, N, K, rms, eps, stream);
   return launch_bytes((const __nv_bfloat16*)x, nullptr, wb, s, zs, out,
                       act_out, scale_out, M, N, K, rms, eps, stream);
+}
+
+// #11: xq (M, K) int8, xscale (M,) f32, wb (N, K/2) natural s4 bytes,
+// s, zs (N, G) f32 (s_bf16 = 0) or bf16 (1) -> out (M, N) f32.
+int lc_w4a8_s4(const void* xq, const void* xscale, const void* wb,
+               const void* s, const void* zs, int s_bf16, void* out, int M,
+               int N, int K, void* stream) {
+  if (s_bf16)
+    return launch_s4<__nv_bfloat16>(xq, xscale, wb, s, zs, out, M, N, K,
+                                    stream);
+  return launch_s4<float>(xq, xscale, wb, s, zs, out, M, N, K, stream);
 }
 
 }  // extern "C"

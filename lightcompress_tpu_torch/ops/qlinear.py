@@ -19,6 +19,11 @@ A third layout, ``planes_ks``, is the JAX bench's K-split down projection
 zs), applied by #5 in two K halves (``w4_matmul.w4a8_matmul_ks``).
 ``quantize_linear`` does not build it; ``convert`` reads the JAX tiles.
 
+A fourth, ``masked``, is the bench's ``BENCH_MASKED`` linear: masked
+planes with pre-divided scales and zero corrections (``w4_matmul``'s
+``pack_int4_planes_masked``), f32 or bf16, applied by #4 through the
+bench's own dispatch, as the root bench applies it.
+
 Stacked MoE experts (``serving.quantized_model.quantize_linear_stacked``)
 use the same class with a leading expert dim: ``stacked_planes`` (4-bit
 planes per expert) or ``stacked`` (the int8 per-channel fallback, ``bits``

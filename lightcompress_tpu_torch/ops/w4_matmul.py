@@ -1,7 +1,7 @@
-"""Grouped-W4 matmuls: plane and byte-pair packing, per-token act quant,
-and the seven Hopper kernels of the serving path and the bench with their
-plain PyTorch versions (port of lightcompress_tpu/ops/pallas_matmul.py,
-kernels #1-#3, #5 and #12-#14).
+"""Grouped-W4 matmuls: plane and byte packing, per-token act quant, and the
+nine Hopper kernels of the serving path and the bench with their plain
+PyTorch versions (port of lightcompress_tpu/ops/pallas_matmul.py, kernels
+#1-#5, #11 and #12-#14).
 
 Two weight layouts, both untiled; ``s`` and ``zs`` are (N, G) bf16
 per-group scales and premultiplied zero corrections, G = K/128:
@@ -24,6 +24,20 @@ the weights, then the per-token int8 quantization (``fused_act_quant``).
 #5 (``w4a8_matmul_planes_ksplit``) runs the planes layout in two K halves,
 each over the word columns [h*K/16, (h+1)*K/16) of every plane (the JAX
 ``planes_ks`` tiles, untiled, are these planes words), and adds them.
+
+Two more layouts, each with its kernel:
+
+* masked planes (#4, ``w4a16_matmul_planes_masked``, the bench's
+  ``BENCH_MASKED``): the planes words with plane 7's nibbles stored XOR
+  0x8 (``pack_int4_planes_masked``), scales pre-divided by 16^j
+  (``masked_scales``) and zero corrections (z - 8*[j = 7])*s
+  (``masked_zero_scales``), f32 or bf16;
+* natural s4 bytes (#11, ``w4a8_matmul_s4_bytes``): ``wb`` (N, K/2) int8,
+  byte b holding c' = u - 8 of weight 2b in its low nibble and of 2b+1 in
+  its high one (``pack_s4_bytes``), with zs' = (z - 8)*s, f32 or bf16.
+
+Both add their scaled group dots in four accumulators, (a0 + a1) +
+(a2 + a3), before the correction, as the TPU kernels do.
 
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel (``csrc/w4_matmul.cu``, ``csrc/w4_bytes.cu``, ``csrc/w4_ksplit.cu``)
@@ -104,6 +118,74 @@ def unpack_s4_pairs(wb: torch.Tensor) -> torch.Tensor:
     b = wb.to(torch.int32).reshape(n, kh // GROUP, 1, GROUP)
     c = torch.cat([((b & 0xF) ^ 8) - 8, (((b >> 4) & 0xF) ^ 8) - 8], dim=2)
     return c.reshape(n, kh * 2)
+
+
+# plane j's scale factor of the masked kernel: JAX's f32 ``exp2(-4j)`` as XLA
+# computes it, one ulp below 16^-j from j = 4 on; the pre-divided scales
+# then equal the JAX package's bit for bit
+MASKED_FACTORS = (1.0, 2.0 ** -4, 2.0 ** -8, 2.0 ** -12,
+                  (1 - 2.0 ** -24) * 2.0 ** -16, (1 - 2.0 ** -24) * 2.0 ** -20,
+                  (1 - 2.0 ** -24) * 2.0 ** -24, (1 - 2.0 ** -24) * 2.0 ** -28)
+
+
+def pack_int4_planes_masked(codes: torch.Tensor) -> torch.Tensor:
+    """``pack_int4_planes`` with plane 7's nibbles stored XOR 0x8 (the JAX
+    ``pack_int4_planes_masked``): masked, plane 7 reads (c - 8) * 2^28."""
+    n, k = codes.shape
+    u = codes.to(torch.int32) & 0xF
+    u = torch.cat([u[:, :7 * k // 8], u[:, 7 * k // 8:] ^ 0x8], dim=1)
+    return pack_int4_planes(u)
+
+
+def unpack_int4_planes_masked(packed: torch.Tensor, k: int) -> torch.Tensor:
+    """(N, K/8) masked planes -> (N, K) int32 codes u in [0, 15]."""
+    u = unpack_int4_planes(packed, k)
+    return torch.cat([u[:, :7 * k // 8], u[:, 7 * k // 8:] ^ 0x8], dim=1)
+
+
+def _plane_of_group(G: int, device) -> torch.Tensor:
+    if G % 8:
+        raise ValueError(f"G={G} groups are not 8 planes")
+    return torch.arange(G, device=device) // (G // 8)
+
+
+def masked_scales(s: torch.Tensor) -> torch.Tensor:
+    """(N, G) scales -> f32 pre-divided by 16^j for group g = j*gpp + gi
+    (the JAX ``tile_scales_masked`` before its tiling)."""
+    fac = torch.tensor(MASKED_FACTORS, dtype=torch.float32,
+                       device=s.device)[_plane_of_group(s.shape[1],
+                                                        s.device)]
+    return s.float() * fac[None, :]
+
+
+def masked_zero_scales(zeros: torch.Tensor, scales: torch.Tensor
+                       ) -> torch.Tensor:
+    """(z - 8*[j = 7]) * s in f32 (the JAX ``masked_zero_scales``): plane 7
+    stores c ^ 8, whose masked value is (c - 8) * 2^28."""
+    j = _plane_of_group(zeros.shape[1], zeros.device)
+    off = torch.where(j == 7, 8.0, 0.0).to(zeros.device)
+    return (zeros.float() - off[None, :]) * scales.float()
+
+
+def pack_s4_bytes(codes: torch.Tensor) -> torch.Tensor:
+    """(N, K) codes u in [0, 15] -> (N, K/2) int8 natural-order bytes of
+    c' = u - 8, the low nibble the even weight (the JAX ``pack_s4_bytes``
+    without its (N/NT, NT) tiling)."""
+    n, k = codes.shape
+    if k % 2:
+        raise ValueError(f"K={k} is odd")
+    c = ((codes.to(torch.int32) & 0xF) - 8) & 0xF
+    pairs = c.reshape(n, k // 2, 2)
+    b = pairs[..., 0] | (pairs[..., 1] << 4)
+    return torch.where(b > 127, b - 256, b).to(torch.int8)
+
+
+def unpack_s4_bytes(wb: torch.Tensor) -> torch.Tensor:
+    """(N, K/2) natural s4 bytes -> (N, K) int32 signed codes c'."""
+    b = wb.to(torch.int32)
+    c = torch.stack([((b & 0xF) ^ 8) - 8, (((b >> 4) & 0xF) ^ 8) - 8],
+                    dim=-1)
+    return c.reshape(wb.shape[0], -1)
 
 
 def quantize_act_per_token(x: torch.Tensor
@@ -232,6 +314,55 @@ def w4a8_matmul_prefill_plain(xq, x_scale, wp, s, zs,
     return w4a8_matmul_decode_plain(xq, x_scale, wp, s, zs).to(out_dtype)
 
 
+def _four_accumulators(parts, s: torch.Tensor, groups) -> torch.Tensor:
+    """The TPU kernels' a_r: sum over ``groups`` (group indices, in order)
+    of parts[i] * s[:, g], added into accumulator ``r(i)``; each entry of
+    ``groups`` is (g, r).  Returns (a0 + a1) + (a2 + a3)."""
+    acc = [None] * 4
+    for part, (g, r) in zip(parts, groups):
+        term = part * s[:, g].float()
+        acc[r] = term if acc[r] is None else acc[r] + term
+    acc = [a if a is not None else torch.zeros_like(parts[0]) for a in acc]
+    return (acc[0] + acc[1]) + (acc[2] + acc[3])
+
+
+def w4a16_matmul_planes_masked_plain(x, wp, s, zs) -> torch.Tensor:
+    """Plain #4 in the TPU kernel's order: for gi, then plane j, the bf16 x
+    group dotted with the masked words as f32 (c * 16^j, or (c - 8) * 2^28
+    on plane 7) into accumulator j % 4 times the pre-divided scale, then
+    (a0 + a1) + (a2 + a3) minus the zero correction; (M, N) f32."""
+    M, K = x.shape
+    N, G = s.shape
+    kp, gpp = K // 8, G // 8
+    xb = x.to(torch.bfloat16).float()
+    w = wp.reshape(N, gpp, GROUP)
+    parts, groups = [], []
+    for gi in range(gpp):
+        for j in range(8):
+            mask = (0xF << (4 * j)) - (1 << 32 if j == 7 else 0)
+            d = (w[:, gi] & mask).float()
+            k0 = j * kp + gi * GROUP
+            parts.append(torch.matmul(xb[:, k0:k0 + GROUP], d.t()))
+            groups.append((j * gpp + gi, j % 4))
+    xsum = xb.reshape(M, G, GROUP).sum(dim=-1)
+    return _four_accumulators(parts, s, groups) - torch.matmul(
+        xsum, zs.float().t())
+
+
+def w4a8_matmul_s4_plain(xq, x_scale, wb, s, zs) -> torch.Tensor:
+    """Plain #11 in the TPU kernel's order: exact integer group dots of the
+    natural s4 codes, f32(dot) * s into accumulator g % 4, (a0 + a1) +
+    (a2 + a3) minus the zero correction, times x_scale; (M, N) f32."""
+    M, K = xq.shape
+    G = s.shape[1]
+    x = xq.float().reshape(M, G, GROUP)
+    c = unpack_s4_bytes(wb).float().reshape(-1, G, GROUP)
+    parts = [torch.matmul(x[:, g], c[:, g].t()) for g in range(G)]
+    y = _four_accumulators(parts, s, [(g, g % 4) for g in range(G)]) \
+        - torch.matmul(x.sum(dim=-1), zs.float().t())
+    return y * x_scale.float()
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -251,8 +382,9 @@ def _lib() -> ctypes.CDLL:
     lib.lc_w4a8_prefill.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _P]
     lib.lc_w4a8_planes_fused.argtypes = _FUSED_ARGS
+    lib.lc_w4a16_masked.argtypes = [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P]
     for fn in (lib.lc_w4a16_decode, lib.lc_w4a8_decode, lib.lc_w4a8_prefill,
-               lib.lc_w4a8_planes_fused):
+               lib.lc_w4a8_planes_fused, lib.lc_w4a16_masked):
         fn.restype = ctypes.c_int
     return lib
 
@@ -270,7 +402,8 @@ def _bytes_lib() -> ctypes.CDLL:
     lib = _build.load("w4_bytes")
     lib.lc_w4a8_bytes.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
     lib.lc_w4a8_bytes_fused.argtypes = _FUSED_ARGS
-    for fn in (lib.lc_w4a8_bytes, lib.lc_w4a8_bytes_fused):
+    lib.lc_w4a8_s4.argtypes = [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P]
+    for fn in (lib.lc_w4a8_bytes, lib.lc_w4a8_bytes_fused, lib.lc_w4a8_s4):
         fn.restype = ctypes.c_int
     return lib
 
@@ -506,9 +639,87 @@ def w4a8_linear_bytes_fused(x: torch.Tensor, wb: torch.Tensor,
                          False)[0]
 
 
+def _check_f32_or_bf16_scales(N: int, G: int, s: torch.Tensor,
+                              zs: torch.Tensor, device: torch.device) -> int:
+    """(N, G) s and zs of one dtype, f32 or bf16, on ``device``; returns
+    1 for bf16."""
+    for name, t in (("s", s), ("zs", zs)):
+        if t.shape != (N, G) or t.device != device:
+            raise ValueError(f"{name} must be ({N}, {G}) on the "
+                             f"activations' device, got {tuple(t.shape)}")
+    if s.dtype != zs.dtype or s.dtype not in (torch.float32,
+                                              torch.bfloat16):
+        raise ValueError("s and zs are both f32 or both bf16")
+    return int(s.dtype == torch.bfloat16)
+
+
+def w4a16_matmul_planes_masked(x: torch.Tensor, wp: torch.Tensor,
+                               s: torch.Tensor, zs: torch.Tensor
+                               ) -> torch.Tensor:
+    """#4: (M, K) x (rounded to bf16) times the masked planes ``wp``
+    (N, K/8) int32 with pre-divided (N, G) ``s`` (``masked_scales``) and
+    ``zs`` (``masked_zero_scales``), f32 or bf16 -> (M, N) f32.  K % 1024
+    == 0; on the card N % 32 == 0."""
+    if x.dim() != 2 or wp.dim() != 2 or wp.dtype != torch.int32:
+        raise ValueError("x must be (M, K) and wp (N, K/8) int32")
+    M, K = x.shape
+    if K % (8 * GROUP) or wp.shape[1] * 8 != K:
+        raise ValueError(f"#4 needs K % {8 * GROUP} == 0 and wp (N, K/8), "
+                         f"got K={K}, wp {tuple(wp.shape)}")
+    N = wp.shape[0]
+    s_bf16 = _check_f32_or_bf16_scales(N, K // GROUP, s, zs, x.device)
+    if wp.device != x.device:
+        raise ValueError("all operands must be on one device")
+    if x.device.type == "cpu":
+        return w4a16_matmul_planes_masked_plain(x, wp, s, zs)
+    if N % 32:
+        raise ValueError(f"the masked kernel needs N % 32 == 0, got N={N}")
+    xb = _aligned(x.to(torch.bfloat16))
+    wp, s, zs = _aligned(wp), _aligned(s), _aligned(zs)
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _launch(_lib().lc_w4a16_masked, xb.data_ptr(), wp.data_ptr(),
+                s.data_ptr(), zs.data_ptr(), s_bf16, out.data_ptr(), M, N,
+                K, _stream(x.device))
+    w4a16_matmul_planes_masked.launches += 1
+    return out
+
+
+def w4a8_matmul_s4_bytes(xq: torch.Tensor, x_scale: torch.Tensor,
+                         wb: torch.Tensor, s: torch.Tensor,
+                         zs: torch.Tensor) -> torch.Tensor:
+    """#11: (M, K) int8 x with (M, 1) f32 scale times the natural s4 bytes
+    ``wb`` (N, K/2) int8 (``pack_s4_bytes``), (N, G) ``s`` and ``zs`` =
+    (z - 8)*s, f32 or bf16 -> (M, N) f32.  K % 128 == 0; on the card
+    N % 32 == 0."""
+    M, K = _check_act(xq, x_scale)
+    if K % GROUP or wb.dim() != 2 or wb.dtype != torch.int8 \
+            or wb.shape[1] * 2 != K:
+        raise ValueError(f"#11 needs K % {GROUP} == 0 and wb (N, K/2) "
+                         f"int8, got K={K}, wb {tuple(wb.shape)}")
+    N = wb.shape[0]
+    s_bf16 = _check_f32_or_bf16_scales(N, K // GROUP, s, zs, xq.device)
+    if wb.device != xq.device:
+        raise ValueError("all operands must be on one device")
+    if xq.device.type == "cpu":
+        return w4a8_matmul_s4_plain(xq, x_scale, wb, s, zs)
+    if N % 32:
+        raise ValueError(f"the s4 kernel needs N % 32 == 0, got N={N}")
+    xq, wb, s, zs = _aligned(xq), _aligned(wb), _aligned(s), _aligned(zs)
+    xs = x_scale.float().contiguous()
+    out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
+    with torch.cuda.device(xq.device):
+        _launch(_bytes_lib().lc_w4a8_s4, xq.data_ptr(), xs.data_ptr(),
+                wb.data_ptr(), s.data_ptr(), zs.data_ptr(), s_bf16,
+                out.data_ptr(), M, N, K, _stream(xq.device))
+    w4a8_matmul_s4_bytes.launches += 1
+    return out
+
+
 KERNELS = (w4a16_matmul, w4a8_matmul_decode, w4a8_matmul_prefill,
            w4a8_matmul_bytes, w4a8_linear_bytes_fused,
-           w4a8_linear_planes_fused, w4a8_matmul_planes_ksplit)
+           w4a8_linear_planes_fused, w4a8_matmul_planes_ksplit,
+           w4a16_matmul_planes_masked, w4a8_matmul_s4_bytes)
 for _k in KERNELS:
     _k.launches = 0
 

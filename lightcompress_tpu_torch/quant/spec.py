@@ -47,3 +47,30 @@ class QuantSpec:
 
     def with_(self, **kw) -> "QuantSpec":
         return dataclasses.replace(self, **kw)
+
+
+def spec_from_config(cfg: dict) -> QuantSpec:
+    """A QuantSpec from a config's ``quant.weight`` sub-dict (the JAX
+    ``spec_from_config``); what the port's quantizer does not have raises
+    ``NotImplementedError`` naming ROADMAP A2."""
+    cfg = dict(cfg or {})
+    if cfg.get("granularity") == "per_token":
+        cfg["granularity"] = "per_channel"
+    bit = cfg.get("bit", 8)
+    unported = [
+        (not isinstance(bit, int) or bit == 48, f"bit {bit!r}"),
+        (cfg.get("granularity", "per_channel") not in GRANULARITIES,
+         f"granularity {cfg.get('granularity')!r}"),
+        (cfg.get("calib_algo", "minmax") != "minmax",
+         f"calib_algo {cfg.get('calib_algo')!r}"),
+        (bool(cfg.get("ste")), "ste"),
+    ]
+    for hit, what in unported:
+        if hit:
+            raise NotImplementedError(f"quantizer {what} is not ported: "
+                                      f"ROADMAP A2")
+    known = {f.name for f in dataclasses.fields(QuantSpec)}
+    kwargs = {k: v for k, v in cfg.items() if k in known}
+    if kwargs.get("int_range") is not None:
+        kwargs["int_range"] = tuple(kwargs["int_range"])
+    return QuantSpec(**kwargs)

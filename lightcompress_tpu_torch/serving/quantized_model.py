@@ -1,6 +1,7 @@
 """Serving weights: adapter params -> packed W4 serving weights (port of
 lightcompress_tpu/serving/quantized_model.py: RTN with the ``layout``,
-``fused_rms`` and ``fuse_qkv`` options, the int8 per-channel head,
+``fused_rms`` and ``fuse_qkv`` options, or a calibrated model's weights
+through its algorithm's ``w_qdq`` (``algo=``), the int8 per-channel head,
 ``head_logits`` and ``apply_qlinear``; for MoE blocks the stacked experts
 (``quantize_linear_stacked``), their dense, gathered and grouped linears and
 the selection grouping of the grouped route; the q/k norm gammas of
@@ -243,11 +244,18 @@ def moe_mlp_grouped(entry: Dict[str, Any], x2: torch.Tensor,
 def build_serving_weights(model, wspec: QuantSpec, act_bits: int = 16,
                           layout: str = "planes", fused_rms: bool = False,
                           fuse_qkv: bool = False,
-                          device: DeviceLike = None) -> ServingWeights:
+                          device: DeviceLike = None,
+                          algo=None) -> ServingWeights:
     """RTN real-quant of every block linear to the W4 ``layout`` ("planes",
     or "s4" with the JAX fallback to planes where its shapes do not fit);
     the embedding stays bf16 and the head is int8 per channel.  The
     quantization runs on ``device`` and the weights stay there.
+
+    With ``algo`` (a calibrated algorithm of ``compression``), each weight
+    is first replaced by ``algo.w_qdq``'s fake-quantized weight, which the
+    RTN real quant re-codes losslessly, so that what the algorithm
+    searched (AWQ's clipped ranges) is what is served (the JAX
+    ``build_serving_weights(algo=)``).
 
     ``fused_rms`` folds each RMSNorm gamma into its consumer linears in the
     weight's own dtype before quantization and stores ones as the ln
@@ -283,6 +291,8 @@ def build_serving_weights(model, wspec: QuantSpec, act_bits: int = 16,
                 continue  # kept bf16 below
             node = resolve(bp, name)
             w = node["weight"].to(dev)
+            if algo is not None:
+                w = algo.w_qdq(w, idx, name)
             if name in gammas:
                 w = w * gammas[name][None, :].to(w.dtype)
             bias = node.get("bias")

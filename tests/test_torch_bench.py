@@ -58,6 +58,17 @@ CONFIGS = {
     "act16": (dict(act_bits=16), dict(ACT_BITS=16), False),
     "kv16": (dict(kv_bits=16), dict(KV_BITS=16), False),
     "unfused": (dict(fused=False), dict(FUSED=False), False),
+    # #4 on the masked entries: f32 pre-divided scales (the root bench's
+    # default), bf16 ones, the masked down winning over BENCH_KSPLIT, the
+    # W4A16 bench, and the unfused entry names
+    "masked": (dict(masked=("o", "qkv")), dict(MASKED={"qkv", "o"}), False),
+    "masked_bf16_ksplit": (dict(masked=("down",), scales="bf16",
+                                ksplit=True),
+                           dict(MASKED={"down"}, SCALES="bf16"), True),
+    "masked_act16": (dict(masked=("gateup",), act_bits=16),
+                     dict(MASKED={"gateup"}, ACT_BITS=16), False),
+    "masked_unfused": (dict(masked=("k", "up"), fused=False),
+                       dict(MASKED={"k", "up"}, FUSED=False), False),
 }
 
 
@@ -83,12 +94,14 @@ def root_bench(monkeypatch):
     monkeypatch.setattr(jops, "qlinear_apply", _jax_qlinear_apply)
     for mod, name in ((jpm, "w4a8_attn_tail_fused"),
                       (jpm, "w4a8_layer_fused"),
+                      (jpm, "w4a16_matmul_planes_masked"),
                       (jpa, "decode_attention_kv8")):
         monkeypatch.setattr(mod, name, functools.partial(
             getattr(mod, name), interpret=True))
     for k, v in dict(ROOT_GLOBALS, FUSED=True, TAIL=0, ATTN_IMPL="xla",
                      ACT_BITS=8, KV_BITS=8, SCALES="contig",
-                     FUSEDLIN=False, WLAYOUT="planes").items():
+                     FUSEDLIN=False, WLAYOUT="planes",
+                     MASKED=set()).items():
         monkeypatch.setattr(RB, k, v)
     monkeypatch.delenv("BENCH_KSPLIT", raising=False)
     return monkeypatch
@@ -160,7 +173,8 @@ def test_decode_step_matches_root_bench(one_torch_thread,  # noqa: F811
     assert np.corrcoef(a, b)[0, 1] >= CORR_MIN
 
 
-@pytest.mark.parametrize("name", ["default", "tail1", "ksplit"])
+@pytest.mark.parametrize("name", ["default", "tail1", "ksplit", "masked",
+                                  "masked_bf16_ksplit"])
 def test_weight_bytes_match_root_formula(root_bench, name):
     """The roofline's bytes: the port's count of the converted layers and
     of its own ``make_layer_qweights`` equal the root bench's formula on
@@ -207,7 +221,7 @@ def test_make_layer_qweights_like_root_bench(root_bench):
     dict(BENCH_ATTN="i8full"), dict(BENCH_ATTN="bd"),
     dict(BENCH_ATTN="bds"), dict(BENCH_ATTN="bd4", BENCH_KV_BITS="4"),
     dict(BENCH_ATTN="bds4", BENCH_KV_BITS="4"), dict(BENCH_KV_BITS="4"),
-    dict(BENCH_MASKED="o,qkv"), dict(BENCH_WLAYOUT="s4"),
+    dict(BENCH_WLAYOUT="s4"),
     dict(BENCH_FUSEDLIN="1"), dict(BENCH_DOWNSPLIT="1"),
     dict(BENCH_KV_STACKED="1"), dict(BENCH_ENGINE="1"),
     dict(BENCH_SCALES="f32"), dict(BENCH_SCALES="raw")])
@@ -220,7 +234,10 @@ def test_deferred_knobs_raise(env):
     dict(BENCH_TAIL="1"), dict(BENCH_TAIL="2", BENCH_FUSED="0",
                                BENCH_SCALES="bf16"),
     dict(BENCH_ATTN="pallas", BENCH_KV_BITS="16"),
-    dict(BENCH_KSPLIT="1", BENCH_ACT_BITS="16")])
+    dict(BENCH_KSPLIT="1", BENCH_ACT_BITS="16"),
+    dict(BENCH_MASKED="qkv", BENCH_TAIL="1", BENCH_SCALES="bf16"),
+    dict(BENCH_MASKED="down", BENCH_TAIL="2", BENCH_SCALES="bf16"),
+    dict(BENCH_MASKED="q,o")])
 def test_root_asserts_raise(env):
     """The root bench's ``main()`` asserts (TAIL on the contiguous scale
     slab), and configs whose kernels cannot take their layout."""
@@ -328,3 +345,40 @@ def test_planes_ks_routes_like_jax(monkeypatch):
         tw.w4a8_matmul_planes_ksplit_plain(
             torch.zeros((1, 1024), dtype=torch.int8), torch.ones((1, 1)),
             qp.codes[:, :128], qp.scales[:, :8], qp.zeros[:, :8])
+
+
+def test_masked_config_from_env():
+    """``BENCH_MASKED`` reads the root bench's comma list."""
+    cfg = TB.BenchConfig.from_env(dict(BENCH_MASKED="qkv,o"))
+    assert cfg.masked == ("o", "qkv")
+    TB.validate(cfg)
+    assert TB.BenchConfig.from_env(dict(BENCH_MASKED="")).masked == ()
+
+
+def test_make_layer_qweights_masked_like_root_bench(root_bench):
+    """The port's masked entries: the root bench's layout, shapes, dtypes
+    and pre-divided scale and zero-correction values; ``masked`` wins
+    over ``ksplit`` for the down projection."""
+    for over, root_over in ((dict(masked=("down", "o")), {}),
+                            (dict(masked=("down", "o"), scales="bf16"),
+                             dict(SCALES="bf16"))):
+        root = _root_layers(root_bench, dict(root_over,
+                                             MASKED={"down", "o"}), True)[0]
+        conv = _port_layers([root])[0]
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        own = TB.make_layer_qweights(
+            TB.BenchConfig(**DIMS, ksplit=True, **over), gen,
+            torch.device("cpu"))
+        for n in ("down", "o"):
+            assert own[n].layout == conv[n].layout == "masked"
+            for a, b in ((own[n].codes, conv[n].codes),
+                         (own[n].scales, conv[n].scales),
+                         (own[n].zeros, conv[n].zeros)):
+                assert a.shape == b.shape and a.dtype == b.dtype
+            assert torch.equal(own[n].scales, conv[n].scales)
+            assert torch.equal(own[n].zeros, conv[n].zeros)
+            codes = tw.unpack_int4_planes_masked(own[n].codes,
+                                                 own[n].codes.shape[1] * 8)
+            assert int(codes.min()) == 0 and int(codes.max()) == 15
+        assert own["qkv"].layout == "planes"

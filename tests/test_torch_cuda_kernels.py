@@ -64,7 +64,7 @@ def test_kernels_match_plain(dev, M, N, K):
     for got, ref, tol in pairs:
         err = (got.float() - ref.float()).abs().max()
         assert err <= tol * ref.float().abs().max(), (err, tol)
-    assert [k.launches for k in W.KERNELS] == [1, 1, 2, 0, 0, 0, 0]
+    assert [k.launches for k in W.KERNELS] == [1, 1, 2, 0, 0, 0, 0, 0, 0]
 
 
 def test_kernels_reject_what_they_cannot_take(dev):
@@ -365,7 +365,7 @@ def test_fused_and_s4_kernels_match_plain(dev, M, name, N, K, rms):
     ref = W.w4a8_matmul_bytes_plain(xq, xs, s4.codes, s4.scales, s4.zeros)
     torch.cuda.synchronize()
     assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
-    assert [k.launches for k in W.KERNELS] == [0, 0, 0, 1, 1, 1, 0]
+    assert [k.launches for k in W.KERNELS] == [0, 0, 0, 1, 1, 1, 0, 0, 0]
 
 
 # (name, N, K) of the seven linears of an unfused Llama-3-8B block
@@ -393,7 +393,7 @@ def test_s4_kernel_matches_plain_at_block_shapes(dev, M, name, N, K):
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
-    assert [k.launches for k in W.KERNELS] == [0, 0, 0, 1, 0, 0, 0]
+    assert [k.launches for k in W.KERNELS] == [0, 0, 0, 1, 0, 0, 0, 0, 0]
 
 
 def test_fused_kernels_f32_and_symmetric(dev):
@@ -712,7 +712,7 @@ def test_ksplit_kernel_matches_plain(dev, M, N, K):
     torch.cuda.synchronize()
     assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
     assert torch.equal(got, again)
-    assert [k.launches for k in W.KERNELS] == [0, 0, 0, 0, 0, 0, 2]
+    assert [k.launches for k in W.KERNELS] == [0, 0, 0, 0, 0, 0, 2, 0, 0]
 
 
 @pytest.mark.parametrize("scales", [torch.bfloat16, torch.float32])
@@ -810,3 +810,93 @@ def test_layer_fused_kernels_reject_what_they_cannot_take(dev):
     with pytest.raises(ValueError):  # gate|up rows for I = 1024, down K 512
         LF.w4a8_attn_tail_fused(x, x, *ws[:6], ws[6][:, :64], ws[7][:, :4],
                                 ws[8][:, :4])
+
+
+# ---------------------------------------------------------------------------
+# #4 (masked planes) and #11 (natural s4 bytes)
+# ---------------------------------------------------------------------------
+
+# the root bench's fused entries (N, K) at Llama-3-8B width: q|k|v, o,
+# gate|up, down
+MASKED_SHAPES = [(6144, 4096), (4096, 4096), (28672, 4096), (4096, 14336)]
+
+
+def _random_codes(dev, N, K, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    u = torch.randint(0, 16, (N, K), generator=gen, device=dev,
+                      dtype=torch.int32)
+    s = torch.rand((N, K // 128), generator=gen, device=dev) * 0.02 + 0.005
+    z = torch.randint(0, 16, (N, K // 128), generator=gen,
+                      device=dev).float()
+    return u, s, z, gen
+
+
+@pytest.mark.parametrize("sdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,K", MASKED_SHAPES)
+def test_masked_kernel_matches_plain(dev, N, K, sdtype):
+    u, s, z, gen = _random_codes(dev, N, K, N + K)
+    wp = W.pack_int4_planes_masked(u)
+    sm = W.masked_scales(s).to(sdtype)
+    zm = W.masked_zero_scales(z, s).to(sdtype)
+    x = torch.randn((32, K), generator=gen, device=dev).to(torch.bfloat16)
+    W.reset_launch_counts()
+    got = W.w4a16_matmul_planes_masked(x, wp, sm, zm)
+    ref = W.w4a16_matmul_planes_masked_plain(x, wp, sm, zm)
+    torch.cuda.synchronize()
+    # f32 outputs: summation-order noise
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert W.w4a16_matmul_planes_masked.launches == 1
+    if sdtype == torch.float32:
+        # the same product through #1's unpack, on scales and zero points
+        # that both storages hold exactly (bf16 s, z = 8: zs = 8*s)
+        sb = s.to(torch.bfloat16)
+        z8 = torch.full_like(z, 8.0)
+        y1 = W.w4a16_matmul(x.float(), W.pack_int4_planes(u), sb,
+                            (z8 * sb.float()).to(torch.bfloat16)).float()
+        y4 = W.w4a16_matmul_planes_masked(
+            x, wp, W.masked_scales(sb), W.masked_zero_scales(z8, sb))
+        torch.cuda.synchronize()
+        assert (y4 - y1).abs().max() <= 1e-4 * y1.abs().max()
+
+
+@pytest.mark.parametrize("M", [1, 8, 32])
+@pytest.mark.parametrize("sdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,K", [(4096, 4096), (1024, 4096),
+                                 (14336, 4096), (4096, 14336), (96, 384)])
+def test_s4_natural_kernel_matches_plain(dev, M, N, K, sdtype):
+    u, s, z, gen = _random_codes(dev, N, K, N + 3 * K)
+    wb = W.pack_s4_bytes(u)
+    sb, zb = s.to(sdtype), ((z - 8) * s).to(sdtype)
+    x = torch.randn((M, K), generator=gen, device=dev)
+    xq, xs = W.quantize_act_per_token(x)
+    W.reset_launch_counts()
+    got = W.w4a8_matmul_s4_bytes(xq, xs, wb, sb, zb)
+    ref = W.w4a8_matmul_s4_plain(xq, xs, wb, sb, zb)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert W.w4a8_matmul_s4_bytes.launches == 1
+
+
+def test_masked_and_s4_kernels_reject_what_they_cannot_take(dev):
+    x = torch.zeros((4, 1000), device=dev, dtype=torch.bfloat16)
+    s = torch.zeros((64, 7), device=dev)
+    with pytest.raises(ValueError):  # K % 1024
+        W.w4a16_matmul_planes_masked(
+            x, torch.zeros((64, 125), dtype=torch.int32, device=dev), s, s)
+    with pytest.raises(ValueError):  # K % 128
+        W.w4a8_matmul_s4_bytes(
+            x.to(torch.int8), torch.ones((4, 1), device=dev),
+            torch.zeros((64, 500), dtype=torch.int8, device=dev), s, s)
+    with pytest.raises(ValueError):  # N % 32 on the card
+        W.w4a16_matmul_planes_masked(
+            torch.zeros((4, 1024), device=dev),
+            torch.zeros((48, 128), dtype=torch.int32, device=dev),
+            torch.zeros((48, 8), device=dev), torch.zeros((48, 8), device=dev))
+    with pytest.raises(ValueError):  # s and zs of two dtypes
+        W.w4a8_matmul_s4_bytes(
+            torch.zeros((4, 1024), dtype=torch.int8, device=dev),
+            torch.ones((4, 1), device=dev),
+            torch.zeros((64, 512), dtype=torch.int8, device=dev),
+            torch.zeros((64, 8), device=dev),
+            torch.zeros((64, 8), device=dev, dtype=torch.bfloat16))

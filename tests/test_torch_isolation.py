@@ -1,6 +1,7 @@
-"""The port stands alone: it imports with JAX, ``triton`` and the JAX
-package blocked, names none of them in any import, and runs on the card
-unless asked for the CPU."""
+"""The port stands alone: it imports with JAX, ``triton``, the JAX package
+and the packages the machine with the card lacks (``safetensors``,
+``transformers``, ``datasets``, PyYAML) blocked, names none of the first
+three in any import, and runs on the card unless asked for the CPU."""
 
 import pkgutil
 import re
@@ -20,7 +21,8 @@ from lightcompress_tpu_torch.serving import (LLMEngine, SamplingParams,
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "lightcompress_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "lightcompress_tpu", "triton")
+BLOCKED = ("jax", "jaxlib", "lightcompress_tpu", "triton", "safetensors",
+           "transformers", "datasets", "yaml")
 
 _BLOCKER = """
 import importlib.abc, sys
@@ -50,7 +52,10 @@ def _port_modules():
 def test_port_imports_with_jax_blocked():
     mods = _port_modules() + ["chip_smoke"]
     for mod in ("ops.w4_matmul", "ops.qlinear", "ops.attention",
-                "serving.engine", "serving.quantized_model", "convert"):
+                "serving.engine", "serving.quantized_model", "convert",
+                "pipeline", "models.hf_loader", "models.st_io",
+                "compression.quantization.awq", "eval.ppl", "data.dataset",
+                "__main__"):
         assert f"lightcompress_tpu_torch.{mod}" in mods
     code = _BLOCKER.format(blocked=BLOCKED, modules=mods)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

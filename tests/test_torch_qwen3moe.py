@@ -95,7 +95,7 @@ def test_hf_config_qwen3_values():
 
 
 @pytest.mark.parametrize("change", [
-    dict(model_type="llama"), dict(model_type="qwen2_moe"),
+    dict(model_type="phi3"), dict(model_type="qwen2_moe"),
     dict(model_type="deepseek_v2", kv_lora_rank=512),
     dict(kv_lora_rank=512), dict(mlp_only_layers=[0]),
     dict(decoder_sparse_step=2)])
