@@ -385,6 +385,8 @@ FUSED_M = 8
 # the M at which engine_s4 launches #12 on SHAPES: decode (8 slots) and its
 # prefill of 2 prompts x 128 rows
 S4_M = (8, 256)
+# the M at which both bodies of #12 are timed over SHAPES (the crossover)
+BYTES_M_SCAN = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
 
 def phase_fused_kernels(dev) -> dict:
@@ -395,7 +397,11 @@ def phase_fused_kernels(dev) -> dict:
     against the plain prologue, and the cost of the prologue that every
     block of #13 and #14 recomputes: the fused kernel's time less that of
     the same matmul on pre-quantized x (#12, #2), beside the unfused path's
-    torch act quant."""
+    torch act quant.  Then #12's crossover: both of its bodies (the decode
+    block and the tile) against the plain version and timed over the seven
+    linears at each M of BYTES_M_SCAN; ``tile_min_m_measured`` is the
+    least M of the scan from which the tile is faster at every larger M,
+    beside the wrapper's ``BYTES_TILE_MIN_M``."""
     t0 = time.time()
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 3)
@@ -469,8 +475,47 @@ def phase_fused_kernels(dev) -> dict:
                 lambda: W.quantize_act_per_token(x), 20, pad)
             rows.append(r)
         del planes, s4, wd
+    crossover = bytes_crossover(dev, pad)
+    faster = [c["tile_ms"] < c["decode_ms"] for c in crossover]
+    from_m = next((BYTES_M_SCAN[i] for i in range(len(faster))
+                   if all(faster[i:])), None)
     return {"phase": "fused_kernels", "rows": rows,
+            "bytes_crossover": crossover, "tile_min_m_measured": from_m,
+            "tile_min_m_set": W.BYTES_TILE_MIN_M,
             "seconds": time.time() - t0}
+
+
+def bytes_crossover(dev, pad) -> list:
+    """Both bodies of #12 (the decode block and the tile) against the plain
+    version and timed over one Llama-3-8B block's seven linears at each M
+    of BYTES_M_SCAN, in s4 weights of their own (seed SEED + 5): one entry
+    per M, the bodies' summed ms."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    scan = {M: {"M": M, "decode_ms": 0.0, "tile_ms": 0.0,
+                "max_abs_err": 0.0} for M in BYTES_M_SCAN}
+    for name, N, K in SHAPES:
+        w = torch.randn((N, K), generator=gen, device=dev) * 0.02
+        s4 = quantize_linear(w, WSPEC, layout="s4")
+        del w
+        sa = (s4.codes, s4.scales, s4.zeros)
+        for M in BYTES_M_SCAN:
+            x = (torch.randn((M, K), generator=gen, device=dev) * 3).to(
+                torch.bfloat16)
+            xq, xs = W.quantize_act_per_token(x)
+            ref = W.w4a8_matmul_bytes_plain(xq, xs, *sa)
+            scale = float(ref.abs().max())
+            for body in ("decode", "tile"):
+                run = lambda: W._w4a8_matmul_bytes(xq, xs, *sa, body)
+                err = float((run() - ref).abs().max())
+                if not err <= TOL_F32 * scale:
+                    raise AssertionError(f"#12 {body} {name} M={M}: max|err| "
+                                         f"{err} > {TOL_F32} * {scale}")
+                c = scan[M]
+                c[f"{body}_ms"] += time_ms(run, 20, pad)
+                c["max_abs_err"] = max(c["max_abs_err"], err)
+        del s4
+    return [scan[M] for M in BYTES_M_SCAN]
 
 
 # the expert linears of one Mixtral-8x7B layer: (name, N, K, pair), the
@@ -540,8 +585,9 @@ def phase_moe_kernels(dev) -> dict:
     prefill), #8 at n = 4 and 1 tokens (8 and 2 selections), #9 at the
     3072 grouped rows of 1024 tokens routed by a seeded router (every
     expert live) and at 300 tokens routed among 5 experts (3 absent,
-    padding-only blocks), #7 at the down in pair mode (B = 8); then #7 and
-    #10 at Qwen3-30B-A3B's shapes (``qwen3moe_kernel_rows``).  Times
+    padding-only blocks), #7 at the down in pair mode (B = 8); then #7,
+    #9 and #10 at Qwen3-30B-A3B's shapes (``qwen3moe_kernel_rows``); #9
+    must equal its plain version bit for bit.  Times
     (kernel, plain, library, bound); the library is torch.bmm of bf16 x
     over the pre-dequantized bf16 experts at the same rows (for #8 the
     selections' experts gathered before the timing; for #9 and #10 each
@@ -640,7 +686,7 @@ def phase_moe_kernels(dev) -> dict:
                 lambda: M.w4a8_grouped_matmul_plain(xq, xs, *wa, be),
                 lambda: torch.bmm(xpad, wd.transpose(1, 2)),
                 live * expert_bytes(N, K) + Mp * K + Mp * 4 + Mp * N * 4,
-                2 * facts["selections"] * N * K, **facts,
+                2 * facts["selections"] * N * K, exact=True, **facts,
                 library_rows_per_expert=xpad.shape[1],
                 ops_bound_at_Mp_ms=2 * Mp * N * K / PEAK_OPS["int8"] * 1e3)
     # #7 at Mixtral's down in pair mode, 8 rows an expert
@@ -678,13 +724,16 @@ def qwen3moe_kernel_rows(dev, gen, row) -> None:
     """#7 at Qwen3-30B-A3B's gate and up with the shared x of the 8-slot
     decode (B = 8, E 128); #10 at its down over the 24576 grouped rows of
     1024 tokens routed top-8 over 128 experts by a seeded router, at N
-    2048 and at N 1000.  #10 must equal its plain version bit for bit."""
+    2048 and at N 1000; #9 at its gate and up over the same grouping, as
+    ``engine_qwen3moe``'s prefill launches it.  #9 and #10 must equal their
+    plain versions bit for bit."""
     arch = QWEN3_30B_A3B
     E, top_k = arch.moe.num_experts, arch.moe.top_k
     N, K = Q_GATE_UP
     x = torch.randn((8, K), generator=gen, device=dev).to(torch.bfloat16)
     xq, xs = W.quantize_act_per_token(x)
     xe = x.expand(E, 8, K)
+    gate_up = {}
     for name in ("gate", "up"):
         w3 = (torch.randn((E, N, K), generator=gen, device=dev)
               * 0.02).to(torch.bfloat16)
@@ -700,6 +749,7 @@ def qwen3moe_kernel_rows(dev, gen, row) -> None:
             E * expert_bytes(N, K) + xq.numel() + 8 * 4 + E * 8 * N * 4,
             2 * E * 8 * N * K, tol=TOL_SMALLM, kind="bf16", B=8,
             pair=False)
+        gate_up[name] = (qp, wd)
         del qp, wd, wa
     topi = seeded_topi(1024, gen, dev, E, arch)
     N, K = Q_DOWN
@@ -726,6 +776,22 @@ def qwen3moe_kernel_rows(dev, gen, row) -> None:
             library_rows_per_expert=xpad.shape[1],
             ops_bound_at_Mp_ms=2 * Mp * N * K / PEAK_OPS["int8"] * 1e3)
         del qp, wd, wa
+    N, K = Q_GATE_UP
+    x = torch.randn((1024, K), generator=gen, device=dev).to(torch.bfloat16)
+    xq, xs, be, facts = grouped_operands(x, topi, E)
+    xpad = padded_expert_rows(x, topi, E, top_k)
+    for name, (qp, wd) in gate_up.items():
+        wa = (qp.codes, qp.scales, qp.zeros)
+        row("w4a8_grouped_matmul", "qwen3_prefill", name, N, K,
+            lambda: M.w4a8_grouped_matmul(xq, xs, *wa, be),
+            lambda: M.w4a8_grouped_matmul_plain(xq, xs, *wa, be),
+            lambda: torch.bmm(xpad, wd.transpose(1, 2)),
+            E * expert_bytes(N, K) + Mp * K + Mp * 4 + Mp * N * 4,
+            2 * facts["selections"] * N * K, exact=True, **facts,
+            library_rows_per_expert=xpad.shape[1],
+            ops_bound_at_Mp_ms=2 * Mp * N * K / PEAK_OPS["int8"] * 1e3)
+        del wa
+    del gate_up
 
 
 def attn_bound(kname: str, lengths: torch.Tensor):

@@ -19,10 +19,11 @@
 //
 // Bound on an H100 SXM (3.35 TB/s HBM, 1979 TOP/s int8): at M <= 256 the
 // bytes, N*K/2 + 4*N*G + M*K*b_x + M*N*b_out over 3.35 TB/s, so the packed
-// weight read is the bound.  These first kernels use no tensor cores (no
-// mma/wgmma, no TMA); later work makes them fast.
+// weight read is the bound.  The decode blocks (#11, #12 at small M, #13)
+// compute with __dp4a on the CUDA cores, a lane per channel; #12 above
+// the decode regime runs the int8 tensor-core tile of w4_mma.cuh.
 
-#include "w4_common.cuh"
+#include "w4_mma.cuh"
 
 namespace {
 
@@ -125,6 +126,162 @@ w4a8_bytes_kernel(const XT* __restrict__ x, const float* __restrict__ xscale,
   }
   store_rows<MT>(acc, red, kFused ? nullptr : xscale, xs_sh,
                  static_cast<OutT*>(out), M, N, m0, n);
+}
+
+// ---------------------------------------------------------------------------
+// #12, the tile: w4a8_matmul_bytes above the decode regime (the wrapper
+// sends M >= BYTES_TILE_MIN_M here, ops/w4_matmul.py), on the int8
+// tensor-core tile of w4_mma.cuh.  Replaces the same TPU kernel as the
+// decode block above (w4a8_matmul_bytes, _w4a8_kernel_pairs and
+// _pairs_group_loop), whose grid (N/32, M/8) streamed the whole packed
+// weight once for every 8 rows and computed with __dp4a.
+//
+// A block takes 64 rows x 128 channels and walks the group pairs p: a
+// stage holds the x of groups 2p and 2p + 1 (two [64][128] tiles) and
+// bytes p*128 .. +128 of its 128 weight rows, which hold both groups'
+// codes: three 128-byte-swizzled TMA boxes that thread 0 issues and an
+// mbarrier counts.  Three stages in flight (96 KB); 16 warps of 32 x 16
+// outputs (mma.sync), one block an SM.  The B
+// fragments come straight from the packed tile: a 32-bit word is four
+// consecutive k of one channel, its low nibbles (sext_lo) group 2p's codes
+// and its high ones (sext_hi) group 2p + 1's, so the tile is read twice
+// and never unpacked in shared memory.  Per group: the exact dot d, then
+// acc += d * s[g] and acc -= xsum[g] * zs[g] (f32, fused multiply-adds;
+// one accumulator, the TPU's four are not kept), then y = acc * xscale.
+// Rows past M and channels past N (N % 32 == 0) come in as zeros (TMA
+// fills a box's elements out of range with zeros) and are masked on store.
+// Bound: the packed weight read at small M, the int8 operations and the
+// f32 epilogue at M 256 (a Llama-3-8B block's seven linears: 56 G int8
+// multiply-adds).
+// ---------------------------------------------------------------------------
+constexpr int kBytesThreads = kMmaThreads;
+constexpr int kBytesStages = 3;
+constexpr size_t kBytesStage = 2 * kTileX + kTileW;
+// (after 1024 bytes of alignment slack) the stages, the stage's row sums
+// [2][64], scales and zero corrections [2][128], the stages' mbarriers
+constexpr size_t kBytesSmem = 1024 + kBytesStages * kBytesStage +
+                              (2 * kTileM + 4 * kTileN) * 4 + 8 * kBytesStages;
+
+struct LowNibbles {
+  __device__ __forceinline__ int operator()(int w) const {
+    return sext_lo((uint32_t)w);
+  }
+};
+struct HighNibbles {
+  __device__ __forceinline__ int operator()(int w) const {
+    return sext_hi((uint32_t)w);
+  }
+};
+
+__global__ void __launch_bounds__(kBytesThreads, 1)
+w4a8_bytes_tile_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const float* __restrict__ xscale,
+                       const __grid_constant__ CUtensorMap wmap,
+                       const __nv_bfloat16* __restrict__ s,
+                       const __nv_bfloat16* __restrict__ zs,
+                       float* __restrict__ out, int M, int N, int K) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the swizzled tiles need 1024-byte aligned bases
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  int8_t* stages = reinterpret_cast<int8_t*>(smem);
+  float* xs_sh = reinterpret_cast<float*>(smem + kBytesStages * kBytesStage);
+  float* s_sh = xs_sh + 2 * kTileM;
+  float* zs_sh = s_sh + 2 * kTileN;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(zs_sh + 2 * kTileN);
+  const int G = K / kGroup, P = G / 2;
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * kTileM, n0 = blockIdx.y * kTileN;
+  const int mv = min(kTileM, M - m0), nv = min(kTileN, N - n0);
+
+  auto load = [&](int p) {  // by thread 0: x of groups 2p, 2p + 1; bytes p
+    const int slot = p % kBytesStages;
+    int8_t* dst = stages + slot * kBytesStage;
+    mbar_expect_tx(bar + slot, kBytesStage);
+    tma_load_2d(dst, &xmap, 2 * p * kGroup, m0, bar + slot);
+    tma_load_2d(dst + kTileX, &xmap, (2 * p + 1) * kGroup, m0, bar + slot);
+    tma_load_2d(dst + 2 * kTileX, &wmap, p * kGroup, n0, bar + slot);
+  };
+
+  constexpr int NT = kMmaNT;
+  float acc[2][NT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+  auto add_group = [&](const Dot& d, int h) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int c = h * kTileN + frag_col(j, q);
+          acc[i][j][q] = fmaf(exact_f32(d[i][j][q]), s_sh[c], acc[i][j][q]);
+          acc[i][j][q] = fmaf(-xs_sh[h * kTileM + frag_row(i, q)], zs_sh[c],
+                              acc[i][j][q]);
+        }
+  };
+
+  // stage p's scales and zero corrections, read one stage ahead (thread
+  // t < 256: channel t % 128 of group 2p + t / 128)
+  float s_next = 0.f, z_next = 0.f;
+  auto fetch = [&](int p) {
+    const int n = tid % kTileN;
+    if (tid < 2 * kTileN && n < nv) {
+      const size_t o = (size_t)(n0 + n) * G + 2 * p + tid / kTileN;
+      s_next = __bfloat162float(s[o]);
+      z_next = __bfloat162float(zs[o]);
+    }
+  };
+  fetch(0);
+  if (tid == 0) {
+    for (int i = 0; i < kBytesStages; ++i) mbar_init(bar + i, 1);
+    mbar_init_fence();
+    for (int q = 0; q < kBytesStages - 1 && q < P; ++q) load(q);
+  }
+  __syncthreads();  // the barriers are initialised
+  for (int p = 0; p < P; ++p) {
+    mbar_wait(bar + p % kBytesStages, (p / kBytesStages) & 1);
+    __syncthreads();  // every warp is done with p - 1
+    if (tid == 0 && p + kBytesStages - 1 < P) load(p + kBytesStages - 1);
+    const int8_t* st = stages + (p % kBytesStages) * kBytesStage;
+    {
+      constexpr int kParts = kBytesThreads / kTileN;  // threads a row sum
+      const int sum = stage_row_sum<kBytesThreads>(st, st + kTileX);
+      if (tid % kParts == 0)
+        xs_sh[(tid / (kBytesThreads / 2)) * kTileM + (tid / kParts) % kTileM] =
+            sum;
+      if (tid < 2 * kTileN) {
+        s_sh[tid] = s_next;
+        zs_sh[tid] = z_next;
+      }
+      if (p + 1 < P) fetch(p + 1);
+    }
+    __syncthreads();
+    Dot d;
+    group_dot(d, st, st + 2 * kTileX, LowNibbles());
+    add_group(d, 0);
+    group_dot(d, st + kTileX, st + 2 * kTileX, HighNibbles());
+    add_group(d, 1);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = frag_row(i, 2 * h);
+      if (r >= mv) continue;
+      const float xs = xscale[m0 + r];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int c = frag_col(j, 0);
+        if (c >= nv) continue;  // nv % 32 == 0: c and c + 1 are in or out
+        *reinterpret_cast<float2*>(out + (size_t)(m0 + r) * N + n0 + c) =
+            make_float2(acc[i][j][2 * h] * xs, acc[i][j][2 * h + 1] * xs);
+      }
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -264,7 +421,29 @@ int launch_bytes(const XT* x, const void* xscale, const void* wb,
 
 extern "C" {
 
-// #12: xq (M, K) int8, xscale (M,) f32 -> out (M, N) f32.
+// #12, the tile: xq (M, K) int8, xscale (M,) f32 -> out (M, N) f32;
+// K % 512 == 0, N % 32 == 0.
+int lc_w4a8_bytes_tile(const void* xq, const void* xscale, const void* wb,
+                       const void* s, const void* zs, void* out, int M,
+                       int N, int K, void* stream) {
+  CUtensorMap xmap, wmap;
+  int rc = tensor_map_2d(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, xq, K, M, K,
+                         kTileRow, kTileM);
+  if (rc == 0)
+    rc = tensor_map_2d(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, wb, K / 2, N,
+                       K / 2, kTileRow, kTileN);
+  if (rc != 0) return rc;
+  cudaError_t e = prepare(w4a8_bytes_tile_kernel, kBytesSmem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((M + kTileM - 1) / kTileM, (N + kTileN - 1) / kTileN);
+  w4a8_bytes_tile_kernel<<<grid, kBytesThreads, kBytesSmem,
+                           reinterpret_cast<cudaStream_t>(stream)>>>(
+      xmap, (const float*)xscale, wmap, (const __nv_bfloat16*)s,
+      (const __nv_bfloat16*)zs, (float*)out, M, N, K);
+  return (int)cudaGetLastError();
+}
+
+// #12, the decode block: xq (M, K) int8, xscale (M,) f32 -> out (M, N) f32.
 int lc_w4a8_bytes(const void* xq, const void* xscale, const void* wb,
                   const void* s, const void* zs, void* out, int M, int N,
                   int K, void* stream) {

@@ -35,25 +35,17 @@
 // Mp*N f32 outputs) outweigh the 2*Mp*N*K operations.  This first kernel
 // uses mma.sync without TMA or wgmma.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "w4_mma.cuh"
 
 namespace {
+
+using lcw4::mma_s8;
 
 constexpr int kBM = 64;               // rows of a block tile
 constexpr int kBN = 128;              // channels of a block tile
 constexpr int kBK = 64;               // bytes of K per shared-memory step
 constexpr int kThreads = 256;         // 8 warps: 2 (rows) x 4 (channels)
 constexpr int kStride = kBK + 16;     // bytes per padded shared row
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4],
-                                       const int (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 __device__ __forceinline__ int lds32(const int8_t* p) {
   return *reinterpret_cast<const int*>(p);

@@ -46,6 +46,9 @@ from .w4_matmul import GROUP, _aligned, _launch, _stream, unpack_int4_planes
 # rows of one expert segment of the grouped layout (moe_group_selections);
 # the kernel takes multiples of its 64-row tile
 M_TILE = 128
+# #9's shared memory holds, beside its stages, 128 bytes of row sums a
+# group: K up to 49152
+GROUPED_K_MAX = 49152
 
 
 # ---------------------------------------------------------------------------
@@ -137,11 +140,14 @@ def w4a8_gathered_matmul_plain(xq, x_scale, wp, s, zs, e_idx, t_idx):
 def w4a8_grouped_matmul_plain(xq, x_scale, wp, s, zs, block_eid,
                               m_tile=M_TILE):
     """Plain #9: out[r] = x[r] . W[block_eid[r // m_tile]]^T, (Mp, N)
-    f32."""
+    f32; rows of an expert id out of range are NaN, as the kernel writes
+    them."""
     row_e = block_eid.long().repeat_interleave(m_tile)
-    out = torch.empty((xq.shape[0], wp.shape[1]), dtype=torch.float32,
-                      device=xq.device)
+    out = torch.full((xq.shape[0], wp.shape[1]), float("nan"),
+                     dtype=torch.float32, device=xq.device)
     for e in torch.unique(row_e).tolist():
+        if not 0 <= e < wp.shape[0]:
+            continue
         rows = torch.nonzero(row_e == e)[:, 0]
         out[rows] = expert_rows_plain(xq[rows], x_scale[rows], wp[e], s[e],
                                       zs[e])
@@ -336,8 +342,9 @@ def w4a8_grouped_matmul(xq: torch.Tensor, x_scale: torch.Tensor,
     if xq.device.type == "cpu":
         return w4a8_grouped_matmul_plain(xq, x_scale, wp, s, zs, block_eid,
                                          m_tile)
-    if m_tile % 64:
-        raise ValueError("the grouped kernel takes m_tile % 64 == 0")
+    if m_tile % 64 or K > GROUPED_K_MAX:
+        raise ValueError(f"the grouped kernel takes m_tile % 64 == 0 and K "
+                         f"<= {GROUPED_K_MAX}, got m_tile={m_tile} K={K}")
     out = torch.empty((Mp, N), dtype=torch.float32, device=xq.device)
     if Mp == 0:
         return out

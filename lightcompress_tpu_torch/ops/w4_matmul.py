@@ -41,7 +41,9 @@ Both add their scaled group dots in four accumulators, (a0 + a1) +
 
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel (``csrc/w4_matmul.cu``, ``csrc/w4_bytes.cu``, ``csrc/w4_ksplit.cu``)
-or raises.  Each wrapper counts its kernel launches in its ``launches``
+or raises.  #12 has two bodies, chosen by M alone (``bytes_body``): the
+decode block below ``BYTES_TILE_MIN_M`` rows, the int8 tensor-core tile of
+``csrc/w4_mma.cuh`` from there on.  Each wrapper counts its kernel launches in its ``launches``
 attribute.
 
 The plain versions' f32 matmuls are exact whether TF32 is on or off:
@@ -68,6 +70,9 @@ GROUP = 128
 # decode-regime M cap (the JAX route's whole-M-in-VMEM limit, kept so both
 # packages route the same shapes the same way)
 DECODE_M_MAX = 256
+# #12's tile takes M >= this many rows, its decode block fewer (the
+# crossover measured on the H100 by chip_smoke.py's fused_kernels phase)
+BYTES_TILE_MIN_M = 8
 
 
 # ---------------------------------------------------------------------------
@@ -401,9 +406,11 @@ def _ksplit_lib() -> ctypes.CDLL:
 def _bytes_lib() -> ctypes.CDLL:
     lib = _build.load("w4_bytes")
     lib.lc_w4a8_bytes.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
+    lib.lc_w4a8_bytes_tile.argtypes = lib.lc_w4a8_bytes.argtypes
     lib.lc_w4a8_bytes_fused.argtypes = _FUSED_ARGS
     lib.lc_w4a8_s4.argtypes = [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P]
-    for fn in (lib.lc_w4a8_bytes, lib.lc_w4a8_bytes_fused, lib.lc_w4a8_s4):
+    for fn in (lib.lc_w4a8_bytes, lib.lc_w4a8_bytes_tile,
+               lib.lc_w4a8_bytes_fused, lib.lc_w4a8_s4):
         fn.restype = ctypes.c_int
     return lib
 
@@ -610,24 +617,40 @@ def w4a8_linear_planes_fused(x: torch.Tensor, wp: torch.Tensor,
                          False)[0]
 
 
-def w4a8_matmul_bytes(xq: torch.Tensor, x_scale: torch.Tensor,
-                      wb: torch.Tensor, s: torch.Tensor,
-                      zs: torch.Tensor) -> torch.Tensor:
-    """#12: (M, K) int8 x with (M, 1) f32 scale times the byte-pair
-    weight -> (M, N) f32."""
+def bytes_body(M: int) -> str:
+    """The body of #12 that takes M rows: ``"tile"`` (the int8
+    tensor-core tile) from BYTES_TILE_MIN_M rows on, else ``"decode"`` (the
+    decode block, a lane per channel).  By M alone."""
+    return "tile" if M >= BYTES_TILE_MIN_M else "decode"
+
+
+def _w4a8_matmul_bytes(xq, x_scale, wb, s, zs, body: str) -> torch.Tensor:
+    """#12 on the named body (``bytes_body``); one launch, counted on
+    ``w4a8_matmul_bytes``."""
     M, K = _check_act(xq, x_scale)
     N = _check_weights(K, wb, s, zs, xq.device, "s4")
     if xq.device.type == "cpu":
         return w4a8_matmul_bytes_plain(xq, x_scale, wb, s, zs)
+    fn = {"tile": _bytes_lib().lc_w4a8_bytes_tile,
+          "decode": _bytes_lib().lc_w4a8_bytes}[body]
     xq = _aligned(xq)
     xs = x_scale.float().contiguous()
     out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
     with torch.cuda.device(xq.device):
-        _launch(_bytes_lib().lc_w4a8_bytes, xq.data_ptr(), xs.data_ptr(),
-                wb.data_ptr(), s.data_ptr(), zs.data_ptr(), out.data_ptr(),
-                M, N, K, _stream(xq.device))
+        _launch(fn, xq.data_ptr(), xs.data_ptr(), wb.data_ptr(),
+                s.data_ptr(), zs.data_ptr(), out.data_ptr(), M, N, K,
+                _stream(xq.device))
     w4a8_matmul_bytes.launches += 1
     return out
+
+
+def w4a8_matmul_bytes(xq: torch.Tensor, x_scale: torch.Tensor,
+                      wb: torch.Tensor, s: torch.Tensor,
+                      zs: torch.Tensor) -> torch.Tensor:
+    """#12: (M, K) int8 x with (M, 1) f32 scale times the byte-pair
+    weight -> (M, N) f32, on the body ``bytes_body(M)`` names."""
+    return _w4a8_matmul_bytes(xq, x_scale, wb, s, zs,
+                              bytes_body(xq.shape[0]))
 
 
 def w4a8_linear_bytes_fused(x: torch.Tensor, wb: torch.Tensor,

@@ -5,6 +5,8 @@ mode).  On a machine with the card, where JAX (which
 ``tests/conftest.py`` imports) may be absent: ``python -m pytest
 --noconftest -m cuda tests/test_torch_cuda_kernels.py``.  Imports no JAX."""
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -335,11 +337,13 @@ def _check_fused(got, ref, tol=2.0 ** -8):
 @pytest.mark.parametrize("M,name,N,K,rms", [
     (8, *s) for s in FUSED_SHAPES] + [
     (8, "qkv", 6144, 4096, False), (8, "down", 4096, 14336, True),
-    (32, "down", 4096, 14336, False), (32, "down", 4096, 14336, True)])
+    (32, "down", 4096, 14336, False), (32, "down", 4096, 14336, True),
+    (100, "o", 4096, 4096, False)])
 def test_fused_and_s4_kernels_match_plain(dev, M, name, N, K, rms):
     """#12, #13 and #14 against their plain versions at the fused build's
     decode shapes; B = 32 at K = 14336 walks 8-row chunks of x whose int8
-    codes (114.7 KB a chunk) would not fit a block's shared memory whole."""
+    codes (114.7 KB a chunk) would not fit a block's shared memory whole;
+    M = 100 runs #12's tile."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(N + K + M)
     w = torch.randn((N, K), generator=gen, device=dev) * 0.02
@@ -374,16 +378,34 @@ BLOCK_SHAPES = [("q", 4096, 4096), ("k", 1024, 4096), ("v", 1024, 4096),
                 ("up", 14336, 4096), ("down", 4096, 14336)]
 
 
-@pytest.mark.parametrize("M", [8, 256])
-@pytest.mark.parametrize("name,N,K", BLOCK_SHAPES)
-def test_s4_kernel_matches_plain_at_block_shapes(dev, M, name, N, K):
+# #12's tile against its decode block: ragged M (64-row tiles), the
+# crossover and its neighbours, a ragged N (96 against 128-channel tiles),
+# symmetric weights (zs = 0)
+S4_TILE_CASES = [
+    (M, "ragged_n", 96, 4096, False) for M in (9, 33, 100, 255, 256)] + [
+    (M, "down", 4096, 14336, False) for M in (9, 33, 100, 255)] + [
+    (W.BYTES_TILE_MIN_M + d, "q", 4096, 4096, False) for d in (-1, 0, 1)] + [
+    (M, "o_sym", 4096, 4096, True) for M in (8, 100, 256)]
+
+
+@pytest.mark.parametrize("M,name,N,K,sym", [
+    (M, *s, False) for s in BLOCK_SHAPES for M in (8, 256)] + S4_TILE_CASES)
+def test_s4_kernel_matches_plain_at_block_shapes(dev, M, name, N, K, sym):
     """#12 at the shapes the unfused s4 engine launches it: a block's seven
-    linears at decode (8 slots) and at a prefill of 256 rows (32 grid rows
-    of 8 rows each)."""
+    linears at decode (8 slots) and at a prefill of 256 rows; and its
+    tile's edges (``S4_TILE_CASES``), whichever body ``bytes_body(M)``
+    picks."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(N + K + M)
-    w = torch.randn((N, K), generator=gen, device=dev) * 0.02
-    s4 = quantize_linear(w, WSPEC, layout="s4")
+    # the s4 layout takes N % 128 == 0; a ragged N is the first N rows of
+    # a wider weight (the kernel takes N % 32 == 0)
+    w = torch.randn((-(-N // 128) * 128, K), generator=gen, device=dev) * 0.02
+    spec = QuantSpec(bit=4, symmetric=sym, granularity="per_group",
+                     group_size=128)
+    s4 = quantize_linear(w, spec, layout="s4")
+    assert s4.layout == "s4" and bool(s4.zeros.float().any()) != sym
+    s4 = dataclasses.replace(s4, codes=s4.codes[:N], scales=s4.scales[:N],
+                             zeros=s4.zeros[:N])
     x = (torch.randn((M, K), generator=gen, device=dev) * 3).to(
         torch.bfloat16)
     xq, xs = W.quantize_act_per_token(x)
@@ -515,34 +537,70 @@ def test_gathered_kernel_matches_plain(dev, experts, case, name):
     assert [k.launches for k in MM.KERNELS] == [0, 1, 0, 0, 0]
 
 
-@pytest.mark.parametrize("case,n,live", [("all_live", 1024, 8),
-                                         ("trailing_padding", 300, 5)])
-@pytest.mark.parametrize("name", ["gate", "down"])
-def test_grouped_kernel_matches_plain(dev, experts, case, n, live, name):
-    """The Mp = 3072 grouping of 1024 tokens with every expert live, and
-    300 tokens over 5 experts, whose grouping ends in padding-only blocks
-    (block_eid clamped to E - 1)."""
-    qp = experts[name]
+# Qwen3-30B-A3B's gate/up (N 768, K 2048: gpp 2) over 16 of its 128
+# experts, routed top-8
+QWEN3_GATE_UP = (768, 2048)
+
+
+@pytest.mark.parametrize("case,name", [
+    ("all_live", "gate"), ("all_live", "down"),
+    ("trailing_padding", "gate"), ("trailing_padding", "down"),
+    ("m_tile64", "gate"), ("m_tile64", "down"),
+    ("bad_expert", "gate"), ("qwen3", "gate")])
+def test_grouped_kernel_matches_plain(dev, experts, case, name):
+    """#9 equals its plain version bit for bit: the Mp = 3072 grouping of
+    1024 tokens with every expert live; 300 tokens over 5 experts, whose
+    grouping ends in padding-only blocks (block_eid clamped to E - 1); the
+    1024 tokens grouped in 64-row segments (m_tile = 64, the kernel's own
+    tile); expert ids out of range (NaN rows); and Qwen3-30B-A3B's gate
+    shape (gpp 2) over 16 experts routed top-8."""
+    n, live, E, top_k = {"trailing_padding": (300, 5, 8, 2),
+                         "qwen3": (384, 16, 16, 8)}.get(case, (1024, 8, 8, 2))
+    m_tile = 64 if case == "m_tile64" else MM.M_TILE
+    if case == "qwen3":
+        N, K = QWEN3_GATE_UP
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(N + K)
+        qp = QM.quantize_linear_stacked(
+            (torch.randn((E, N, K), generator=gen, device=dev)
+             * 0.02).to(torch.bfloat16), WSPEC)
+    else:
+        qp = experts[name]
     K = qp.codes.shape[2] * 8
     gen = torch.Generator(device=dev)
     gen.manual_seed(n + live)
-    topi, _ = A.moe_route(MIXTRAL.moe, torch.randn((n, live), generator=gen,
-                                                    device=dev))
-    gr, _, be = QM.moe_group_selections(topi, 8)
-    counts = torch.bincount(topi.reshape(-1), minlength=8)
+    moe = A.MoESpec(num_experts=E, top_k=top_k,
+                    moe_intermediate_size=qp.codes.shape[1])
+    topi, _ = A.moe_route(moe, torch.randn((n, live), generator=gen,
+                                           device=dev))
+    gr, _, be = QM.moe_group_selections(topi, E, m_tile)
+    counts = torch.bincount(topi.reshape(-1), minlength=E)
     assert int((counts > 0).sum()) == live
     if case == "all_live":
         assert gr.shape[0] == 3072
-    else:
+    elif case == "trailing_padding":
         assert int(be[-1]) == 7 and int(counts[7]) == 0
+    bad = torch.zeros_like(be, dtype=torch.bool)
+    if case == "bad_expert":
+        be = be.clone()
+        be[1], be[4] = E, -1
+        bad[1] = bad[4] = True
     xq_t, xs_t = _acts(dev, (n, K), n)
     xq = torch.cat([xq_t, xq_t.new_zeros((1, K))])[gr.long()]
     xs = torch.cat([xs_t, xs_t.new_ones((1, 1))])[gr.long()]
     args = (qp.codes, qp.scales, qp.zeros)
     MM.reset_launch_counts()
-    got = MM.w4a8_grouped_matmul(xq, xs, *args, be)
-    _moe_close(got, MM.w4a8_grouped_matmul_plain(xq, xs, *args, be))
-    assert bool((got[gr.long() == n] == 0).all())
+    got = MM.w4a8_grouped_matmul(xq, xs, *args, be, m_tile)
+    ref = MM.w4a8_grouped_matmul_plain(xq, xs, *args, be, m_tile)
+    torch.cuda.synchronize()
+    rows_bad = bad.repeat_interleave(m_tile)
+    assert bool(torch.isnan(got[rows_bad]).all())
+    assert bool(torch.isnan(ref[rows_bad]).all())
+    got, ref = got[~rows_bad], ref[~rows_bad]
+    _moe_close(got, ref)
+    assert torch.equal(got, ref)
+    pad = (gr.long() == n)[~rows_bad]
+    assert bool((got[pad] == 0).all())
     assert [k.launches for k in MM.KERNELS] == [0, 0, 1, 0, 0]
 
 
