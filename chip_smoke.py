@@ -7,8 +7,9 @@ Phases (each prints one JSON line with its seconds):
      ``lightcompress_tpu_torch/ops/csrc/*.cu`` (all started together);
   2. every W4 kernel against its plain PyTorch version at the Llama-3-8B
      linear shapes and M of its engine phases (#1-#3 and #12 at a block's
-     seven linears, #13 and #14 at the fused build's four), with times
-     (kernel, plain, a library matmul, the bound);
+     seven linears, #13 and #14 at the fused build's four; #3 bit for bit,
+     also at M 300 and 1000 and the fused q|k|v and gate|up), with device
+     times (kernel, plain, a library matmul, the bound);
      then every decode-attention kernel against its plain version at the
      engine's shapes (8 slots, 8 KV heads of 4 query heads, head_dim 128,
      ragged lengths), with times (kernel, plain, a library attention, the
@@ -66,7 +67,7 @@ Phases (each prints one JSON line with its seconds):
 After the kernel phases of 2 and 7 come those of the bench's decode stack
 (``lightcompress_tpu_torch.bench``): #5, #15, #16 and #22 against their
 plain versions at the bench's shapes (B 32 at Llama-3-8B width, #22 over
-2049 columns), with times; #4 (masked planes) at the bench's four fused
+2049 columns; #5 bit for bit, also at M 1, 7 and 300), with times; #4 (masked planes) at the bench's four fused
 entries and #11 (natural s4 bytes) at a block's seven linears at M 8 and
 32 against their plain versions, #4 against #1 on the same codes; the
 bench itself at B 32, CTX 2048 and 32 layers in six configurations
@@ -109,6 +110,7 @@ import torch
 
 from lightcompress_tpu_torch import bench as TB
 from lightcompress_tpu_torch.config import DotDict
+from lightcompress_tpu_torch.device import bf16_ulp
 from lightcompress_tpu_torch.models import arch as A
 from lightcompress_tpu_torch.models import (ArchSpec, Llama, Qwen3Moe,
                                             arch_from_hf_config, init_params)
@@ -181,7 +183,7 @@ SHAPES = [("q", 4096, 4096), ("k", 1024, 4096), ("v", 1024, 4096),
 HBM_BPS = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
 PAD = 64 << 20  # > the 50 MB L2: written between timed launches
-TOL_ULP = 2.0 ** -8   # bf16 outputs: one bf16 ulp at the largest |y|
+TOL_ULP = "bf16_ulp"  # bf16 outputs: one bf16 ulp at the largest |y|
 TOL_F32 = 1e-4        # f32 outputs: summation-order noise
 # #7 against its plain version: the same bf16 weights and exact products,
 # summed in f32 in another order
@@ -266,6 +268,12 @@ TOL_MD = 1e-5
 TOL_CTX = 2e-2
 
 
+def limit(tol, scale: float) -> float:
+    """The largest error a gate allows: one bf16 ulp at ``scale`` (the
+    largest |y|) for TOL_ULP, else ``tol`` times it."""
+    return bf16_ulp(scale) if tol == TOL_ULP else tol * scale
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -277,15 +285,24 @@ def smi() -> str:
         check=True).stdout.strip()
 
 
+# cycles the card spins before each timed launch (about a millisecond), so
+# that the host has enqueued the call before its start event runs
+HOLD_CYCLES = 2_000_000
+
+
 def time_ms(fn, reps: int, pad: torch.Tensor) -> float:
     """Median of CUDA-event times over ``reps`` launches after a warm-up,
-    with L2 flushed before each launch."""
+    with L2 flushed before each launch.  The card is held in a spin before
+    the start event while the host enqueues ``fn``'s kernels, so the time
+    is the device's, not the host's enqueue (a kernel shorter than its
+    wrapper's Python would otherwise read as the wrapper)."""
     fn()
     times = []
     for _ in range(reps):
         pad.zero_()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES)
         a.record()
         fn()
         b.record()
@@ -319,13 +336,62 @@ def bound(M: int, N: int, K: int, x_bytes: int, out_bytes: int,
                                  "operations")
 
 
+# #3 beside its main-path M (a 1024-row prefill batch): ragged row tiles
+PREFILL_M = (300, 1000, 1024)
+# #3 at the fused build's prefill linears, M 1024
+PREFILL_FUSED = [("qkv", 6144, 4096), ("gateup", 28672, 4096)]
+
+
 def phase_kernels(dev) -> dict:
-    """Each kernel against its plain version at every linear shape."""
+    """Each kernel against its plain version at every linear shape: #1
+    and #2 at M 8 and 32 within their tolerances, #3 bit for bit (bf16 at
+    every M of PREFILL_M, f32 at 1024) and then at the fused build's q|k|v
+    and gate|up (``prefill_fused``)."""
     t0 = time.time()
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     pad = torch.empty(PAD, dtype=torch.uint8, device=dev)
-    rows = []
+    rows, fused_rows = [], []
+
+    def check(kname, name, M, y, ref, tol, exact):
+        torch.cuda.synchronize()
+        err = float((y.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        equal = bool(torch.equal(y, ref))
+        if not (err <= limit(tol, scale) and torch.isfinite(y).all()
+                and (equal or not exact)):
+            raise AssertionError(f"{kname} {name} M={M}: max|err| {err} > "
+                                 f"{tol} at {scale} or not bit-equal")
+        return err, scale, equal
+
+    def prefill_rows(name, N, K, qp, wd, ms, out):
+        args = (qp.codes, qp.scales, qp.zeros)
+        for M in ms:
+            x = torch.randn((M, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            xq, xs = W.quantize_act_per_token(x)
+            if M == 1024:
+                check("w4a8_matmul_prefill", name, M,
+                      W.w4a8_matmul_prefill(xq, xs, *args,
+                                            out_dtype=torch.float32),
+                      W.w4a8_matmul_prefill_plain(xq, xs, *args,
+                                                  torch.float32),
+                      TOL_F32, True)
+            run = lambda: W.w4a8_matmul_prefill(xq, xs, *args)
+            plain = lambda: W.w4a8_matmul_prefill_plain(xq, xs, *args)
+            err, scale, equal = check("w4a8_matmul_prefill", name, M, run(),
+                                      plain(), TOL_ULP, True)
+            b_ms, b_by = bound(M, N, K, 1, 2, "int8")
+            out.append({
+                "kernel": "w4a8_matmul_prefill", "linear": name, "M": M,
+                "N": N, "K": K, "max_abs_err": err, "max_abs_ref": scale,
+                "tol": TOL_ULP, "bit_equal": equal,
+                "kernel_ms": time_ms(run, 20, pad),
+                "plain_ms": time_ms(plain, 3, pad),
+                "library_ms": time_ms(lambda: torch.matmul(x, wd.t()), 20,
+                                      pad),
+                "bound_ms": b_ms, "bound_by": b_by})
+
     for name, N, K in SHAPES:
         w = torch.randn((N, K), generator=gen, device=dev) * 0.02
         qp = quantize_linear(w, WSPEC)
@@ -336,7 +402,6 @@ def phase_kernels(dev) -> dict:
         for M in (8, 32):
             cases.append(("w4a16_matmul", M, "bf16"))
             cases.append(("w4a8_matmul_decode", M, "int8"))
-        cases.append(("w4a8_matmul_prefill", 1024, "int8"))
         for kname, M, kind in cases:
             x = torch.randn((M, K), generator=gen, device=dev).to(
                 torch.bfloat16)
@@ -346,23 +411,10 @@ def phase_kernels(dev) -> dict:
                 tol, out_bytes = TOL_ULP, 2
             else:
                 xq, xs = W.quantize_act_per_token(x)
-                if kname == "w4a8_matmul_decode":
-                    run = lambda: W.w4a8_matmul_decode(xq, xs, *args)
-                    plain = lambda: W.w4a8_matmul_decode_plain(xq, xs, *args)
-                    tol, out_bytes = TOL_F32, 4
-                else:
-                    run = lambda: W.w4a8_matmul_prefill(xq, xs, *args)
-                    plain = lambda: W.w4a8_matmul_prefill_plain(xq, xs,
-                                                                *args)
-                    tol, out_bytes = TOL_ULP, 2
-            y = run()
-            ref = plain()
-            torch.cuda.synchronize()
-            err = float((y.float() - ref.float()).abs().max())
-            scale = float(ref.float().abs().max())
-            if not (err <= tol * scale and torch.isfinite(y).all()):
-                raise AssertionError(
-                    f"{kname} {name} M={M}: max|err| {err} > {tol} * {scale}")
+                run = lambda: W.w4a8_matmul_decode(xq, xs, *args)
+                plain = lambda: W.w4a8_matmul_decode_plain(xq, xs, *args)
+                tol, out_bytes = TOL_F32, 4
+            err, scale, _ = check(kname, name, M, run(), plain(), tol, False)
             b_ms, b_by = bound(M, N, K, 2 if kind == "bf16" else 1,
                                out_bytes, kind)
             rows.append({
@@ -373,8 +425,17 @@ def phase_kernels(dev) -> dict:
                 "library_ms": time_ms(lambda: torch.matmul(x, wd.t()), 20,
                                       pad),
                 "bound_ms": b_ms, "bound_by": b_by})
+        prefill_rows(name, N, K, qp, wd, PREFILL_M, rows)
         del qp, wd
-    return {"phase": "kernels", "rows": rows, "seconds": time.time() - t0}
+    for name, N, K in PREFILL_FUSED:
+        w = torch.randn((N, K), generator=gen, device=dev) * 0.02
+        qp = quantize_linear(w, WSPEC)
+        wd = dequant_weight(qp, torch.bfloat16)
+        del w
+        prefill_rows(name, N, K, qp, wd, (1024,), fused_rows)
+        del qp, wd
+    return {"phase": "kernels", "rows": rows, "prefill_fused": fused_rows,
+            "seconds": time.time() - t0}
 
 
 # (name, N, K, rms) of the fused build's decode linears at Llama-3-8B (q|k|v
@@ -413,7 +474,7 @@ def phase_fused_kernels(dev) -> dict:
         torch.cuda.synchronize()
         err = float((y.float() - ref.float()).abs().max())
         scale = float(ref.float().abs().max())
-        if not (err <= tol * scale and torch.isfinite(y).all()
+        if not (err <= limit(tol, scale) and torch.isfinite(y).all()
                 and flips <= 1e-3 * M * K):
             raise AssertionError(f"{kname} {name} M={M}: max|err| {err} > "
                                  f"{tol} * {scale} or {flips} flips")
@@ -614,7 +675,7 @@ def phase_moe_kernels(dev) -> dict:
         err = float((y - ref).abs().max())
         scale = float(ref.abs().max())
         equal = bool(torch.equal(y, ref))
-        if not (err <= tol * scale and torch.isfinite(y).all()
+        if not (err <= limit(tol, scale) and torch.isfinite(y).all()
                 and (equal or not exact)):
             raise AssertionError(f"{kname} {case} {name}: max|err| {err} > "
                                  f"{tol} * {scale} or not bit-equal")
@@ -976,6 +1037,10 @@ BENCH_KERNELS = ("w4a8_matmul_planes_ksplit", "w4a8_attn_tail_fused",
 SUMMED_KERNELS = ("w4a16_matmul_planes_masked", "w4a8_matmul_s4_bytes")
 
 
+# #5's rows beside the bench's B
+KSPLIT_M = (1, 7, 300)
+
+
 def random_planes(gen, dev, N: int, K: int):
     """Random plane words with random per-group scales and zero points:
     (codes, s, zs) with bf16 s and zs = z*s."""
@@ -1021,7 +1086,7 @@ def phase_bench_kernels(dev) -> dict:
 
     def row(kname, err, scale, tol, run, plain, library, nbytes, ops, kind,
             **extra):
-        if not err <= tol * scale:
+        if not err <= limit(tol, scale):
             raise AssertionError(f"{kname}: max|err| {err} > {tol} * "
                                  f"{scale}")
         b_ms, b_by = bytes_ops_bound(nbytes, ops, kind)
@@ -1069,14 +1134,27 @@ def phase_bench_kernels(dev) -> dict:
             grid_blocks=LF.grid_blocks(B, H, I, Nq, len(names) == 4),
             tiles=max(shapes[n][0] // 32 * ((B + 7) // 8) for n in names))
 
-    xq, xs = W.quantize_act_per_token(mid)
-    run = lambda: W.w4a8_matmul_planes_ksplit(xq, xs, *w["down"])
-    plain = lambda: W.w4a8_matmul_planes_ksplit_plain(xq, xs, *w["down"])
-    err, scale = error([run()], [plain()])
-    row("w4a8_matmul_planes_ksplit", err, scale, TOL_F32, run, plain,
-        lambda: torch.matmul(mid, wd["down"].t()),
-        planes_bytes(H, I) + B * I + B * H * 4 + B * 4, 2 * B * H * I,
-        "int8")
+    # #5 at the bench's B first (the kernels line reads that row), then at
+    # M 1, 7 and 300 (rows of their own seed): bit for bit its plain
+    # version, and a second call the same bits
+    gen5 = torch.Generator(device=dev)
+    gen5.manual_seed(SEED + 6)
+    for M in (B, *KSPLIT_M):
+        xm = mid if M == B else (torch.randn(
+            (M, I), generator=gen5, device=dev) * 3).to(torch.bfloat16)
+        xq, xs = W.quantize_act_per_token(xm)
+        run = lambda: W.w4a8_matmul_planes_ksplit(xq, xs, *w["down"])
+        plain = lambda: W.w4a8_matmul_planes_ksplit_plain(xq, xs,
+                                                          *w["down"])
+        y, again, ref = run(), run(), plain()
+        err, scale = error([y], [ref])
+        if not (torch.equal(y, ref) and torch.equal(y, again)):
+            raise AssertionError(f"#5 M={M}: not its plain version's bits, "
+                                 "or a second call's")
+        row("w4a8_matmul_planes_ksplit", err, scale, TOL_F32, run, plain,
+            lambda: torch.matmul(xm, wd["down"].t()),
+            planes_bytes(H, I) + M * I + M * H * 4 + M * 4, 2 * M * H * I,
+            "int8", M=M, bit_equal=True, repeat_equal=True)
 
     S, Hk, G, D = cfg.ctx + 1, cfg.n_kv, cfg.n_heads // cfg.n_kv, \
         cfg.head_dim

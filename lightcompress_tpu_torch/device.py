@@ -8,6 +8,7 @@ port never falls back to the CPU on its own.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional, Union
 
 import torch
@@ -41,3 +42,14 @@ def div(t: torch.Tensor, d: float) -> torch.Tensor:
     CPU and the JAX package.  Dividing by a 0-d tensor on ``t``'s device
     takes the true division."""
     return t / _scalar(float(d), t.device, t.dtype)
+
+
+def bf16_ulp(v: float) -> float:
+    """The spacing of bf16 numbers at |v|: 2^(floor(log2 |v|) - 7), one
+    unit in the last place of a bf16 value of that magnitude (2^-133 among
+    the subnormals, 0 at 0).  The on-card gates of bf16 outputs allow one
+    ulp at the largest |y|."""
+    if v == 0:
+        return 0.0
+    _, e = math.frexp(abs(v))  # |v| = m * 2^e, 0.5 <= m < 1
+    return math.ldexp(1.0, max(e - 8, -133))

@@ -10,20 +10,21 @@
 //   y[m, n] = sum_g s[n,g] * (x_g . u_g) - zs[n,g] * sum(x_g)
 // with the group dot finished before the scale is applied.
 //
-// Requirements checked by the Python wrappers: K % 1024 == 0, N % 64 == 0,
-// contiguous tensors on the current device.  The decode block, the fused
-// prologue (#14) and the epilogue live in w4_common.cuh, shared with the
-// byte-pair kernels of w4_bytes.cu.
+// Requirements checked by the Python wrappers: K % 1024 == 0, N % 64 == 0
+// (#3: N % 128 == 0, K <= 49152), contiguous tensors on the current
+// device.  The decode block, the fused prologue (#14) and the epilogue live
+// in w4_common.cuh, shared with the byte-pair kernels of w4_bytes.cu; #3's
+// body is the planes tile of w4_planes_wgmma.cuh, shared with #9.
 //
 // Bounds on an H100 SXM (3.35 TB/s HBM, 1979 TOP/s int8 and 989 TFLOP/s
 // bf16 dense tensor-core peaks):
 //   decode (M <= 256): bytes / 3.35 TB/s, bytes = N*K/2 + 4*N*G + M*K*b_x
 //                      + M*N*4, so the packed weight read is the bound;
 //   prefill (M > 256): max(bytes / 3.35 TB/s, 2*M*N*K / 1979 TOP/s).
-// These first kernels use no tensor cores (no mma/wgmma, no TMA); they are
-// the simple correct versions that later work makes fast.
+// The decode kernels use no tensor cores (a lane per channel, __dp4a or
+// f32 FMAs); #3 runs on the int8 tensor cores (wgmma, TMA-fed tiles).
 
-#include "w4_common.cuh"
+#include "w4_planes_wgmma.cuh"
 
 namespace {
 
@@ -348,134 +349,6 @@ w4a8_decode_kernel(const XT* __restrict__ x,
                  static_cast<OutT*>(out), M, N, m0, n);
 }
 
-// ---------------------------------------------------------------------------
-// #3  W4A8 prefill, any M.  Replaces lightcompress_tpu/ops/pallas_matmul.py
-// w4a8_matmul_planes_mtiled (_w4a8_kernel_mtiled, _xsum_slab_order).
-//
-// Bound: at M = 1024 and the Llama-3-8B shapes the work (2*M*N*K int8
-// operations) is the bound over the bytes.  Design: a 2-D grid over
-// (64-channel N tiles, 64-row M tiles), 256 threads each computing a 4x4
-// output patch with __dp4a (no tensor cores yet).  The TPU kernel unpacks a
-// weight tile once and keeps it across a sequential M loop; blocks on the GPU
-// run in no order, so each block re-reads and re-unpacks its weight tile
-// (the re-reads hit L2).  Per gi the block stages its 64 rows x 128 words,
-// then for each plane j one group: the x tile (64 x 128 int8, natural K
-// order) and the unpacked codes go to padded shared memory, the integer
-// group dot finishes per output, and the f32 scale and zero correction are
-// applied.  The act scale and the bf16 (or f32) store happen in the kernel.
-// ---------------------------------------------------------------------------
-constexpr int kPB = 64;          // rows and channels per block tile
-constexpr int kPThreads = 256;   // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kPad = kGroup / 4 + 1;  // int32 words per padded smem row
-
-__global__ void __launch_bounds__(kPThreads)
-w4a8_prefill_kernel(const int8_t* __restrict__ xq,
-                    const float* __restrict__ xscale,
-                    const int32_t* __restrict__ wp,
-                    const __nv_bfloat16* __restrict__ s,
-                    const __nv_bfloat16* __restrict__ zs,
-                    void* __restrict__ out, int out_f32, int M, int N, int K) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int32_t* wsh = reinterpret_cast<int32_t*>(smem);        // [64][128] words
-  int32_t* xt = wsh + kPB * kGroup;                        // [64][kPad]
-  int32_t* ct = xt + kPB * kPad;                           // [64][kPad]
-  float* xsum_t = reinterpret_cast<float*>(ct + kPB * kPad);  // [64]
-  float* s_t = xsum_t + kPB;                               // [64]
-  float* zs_t = s_t + kPB;                                 // [64]
-
-  const int kp = K / 8, G = K / kGroup, gpp = kp / kGroup;
-  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
-  const int n0 = blockIdx.x * kPB, m0 = blockIdx.y * kPB;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
-
-  for (int gi = 0; gi < gpp; ++gi) {
-    // the previous gi's last unpack finished before its last barrier
-    for (int u = tid; u < kPB * kGroup / 4; u += kPThreads) {
-      const int r = u / (kGroup / 4), q = u % (kGroup / 4);
-      reinterpret_cast<int4*>(wsh)[u] = __ldg(reinterpret_cast<const int4*>(
-          wp + (size_t)(n0 + r) * kp + gi * kGroup) + q);
-    }
-    for (int j = 0; j < 8; ++j) {
-      __syncthreads();
-      const int g = j * gpp + gi;
-      const int koff = j * kp + gi * kGroup;
-      for (int u = tid; u < kPB * kGroup / 16; u += kPThreads) {
-        const int r = u / (kGroup / 16), q = u % (kGroup / 16);
-        int4 v = make_int4(0, 0, 0, 0);
-        if (m0 + r < M)
-          v = *reinterpret_cast<const int4*>(xq + (size_t)(m0 + r) * K +
-                                             koff + 16 * q);
-        int32_t* dst = xt + r * kPad + 4 * q;
-        dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
-      }
-      for (int u = tid; u < kPB * kGroup / 4; u += kPThreads) {
-        const int r = u / (kGroup / 4), q = u % (kGroup / 4);
-        const int4 w = reinterpret_cast<const int4*>(wsh)[u];
-        ct[r * kPad + q] = pack_nibbles((uint32_t)w.x, (uint32_t)w.y,
-                                        (uint32_t)w.z, (uint32_t)w.w, 4 * j);
-      }
-      __syncthreads();
-      if (tid < kPB) {
-        int a = 0;
-        for (int q = 0; q < kGroup / 4; ++q)
-          a = __dp4a(xt[tid * kPad + q], 0x01010101, a);
-        xsum_t[tid] = (float)a;
-      } else if (tid < 2 * kPB) {
-        const int c = tid - kPB;
-        s_t[c] = bf16_to_f32(s[(size_t)(n0 + c) * G + g]);
-      } else if (tid < 3 * kPB) {
-        const int c = tid - 2 * kPB;
-        zs_t[c] = bf16_to_f32(zs[(size_t)(n0 + c) * G + g]);
-      }
-      __syncthreads();
-      int dot[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) dot[i][c] = 0;
-#pragma unroll 4
-      for (int q = 0; q < kGroup / 4; ++q) {
-        int xa[4], wb[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) xa[i] = xt[(tr + 16 * i) * kPad + q];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) wb[c] = ct[(tc + 16 * c) * kPad + q];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) dot[i][c] = __dp4a(xa[i], wb[c], dot[i][c]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          acc[i][c] += s_t[tc + 16 * c] * (float)dot[i][c] -
-                       zs_t[tc + 16 * c] * xsum_t[tr + 16 * i];
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + tr + 16 * i;
-    if (m >= M) continue;
-    const float xs = xscale[m];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int n = n0 + tc + 16 * c;
-      const float y = acc[i][c] * xs;
-      if (out_f32)
-        reinterpret_cast<float*>(out)[(size_t)m * N + n] = y;
-      else
-        reinterpret_cast<__nv_bfloat16*>(out)[(size_t)m * N + n] =
-            __float2bfloat16(y);
-    }
-  }
-}
-
 size_t decode_smem(int mt, int K, int xbytes) {
   const int G = K / kGroup;
   return (size_t)mt * K * xbytes + (size_t)mt * G * 4 +
@@ -485,9 +358,6 @@ size_t decode_smem(int mt, int K, int xbytes) {
 // Rows of x a W4A16 decode block stages: 8, or 4 where 8 rows of bf16 x
 // would not fit in shared memory.
 int w4a16_rows_per_block(int K) { return K <= 8192 ? 8 : 4; }
-
-constexpr size_t kPrefillSmem =
-    (size_t)kPB * kGroup * 4 + 2 * (size_t)kPB * kPad * 4 + 3 * kPB * 4;
 
 // #2 (XT = int8_t, pre-quantized x and its scales) and #14 (XT = bf16 or
 // f32 x, the prologue in the kernel): 8 rows of x per block.
@@ -596,18 +466,31 @@ int lc_w4a8_planes_fused(const void* x, int x_f32, const void* wp,
                             act_out, scale_out, M, N, K, rms, eps, stream);
 }
 
+// ---------------------------------------------------------------------------
+// #3  W4A8 prefill, any M.  Replaces lightcompress_tpu/ops/pallas_matmul.py
+// w4a8_matmul_planes_mtiled (_w4a8_kernel_mtiled, _xsum_slab_order).
+//
+// The planes tile of w4_planes_wgmma.cuh with one expert and dense rows
+// (no block_eid): 64 rows x 128 channels a block, wgmma m64n64k32 on planes
+// unpacked four at a time from TMA-fed word blocks, the exact f32 group
+// epilogue in registers, y * xscale stored in bf16 or f32 by the kernel.
+// The TPU kernel unpacks a weight tile once and keeps it across a
+// sequential M loop; here the grid runs the row tiles innermost, so the
+// blocks in flight share a weight tile that the L2 serves.  The x tensor
+// map covers the M rows: the ragged tail's rows are zeros, their stores
+// masked.  Float order: w4a8_rows_tpu_order (ops/w4_matmul.py), bit for
+// bit.  Bound: at M = 1024 and the Llama-3-8B shapes the 2*M*N*K int8
+// operations, and the f32 epilogue of every (output, group).
+// ---------------------------------------------------------------------------
+// xq (M, K) int8, xscale (M,) f32; out (M, N) bf16 (out_f32 = 0) or f32.
 int lc_w4a8_prefill(const void* xq, const void* xscale, const void* wp,
                     const void* s, const void* zs, void* out, int out_f32,
                     int M, int N, int K, void* stream) {
-  cudaError_t e = prepare(w4a8_prefill_kernel, kPrefillSmem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(N / kPB, (M + kPB - 1) / kPB);
-  w4a8_prefill_kernel<<<grid, kPThreads, kPrefillSmem,
-                        reinterpret_cast<cudaStream_t>(stream)>>>(
-      (const int8_t*)xq, (const float*)xscale, (const int32_t*)wp,
-      (const __nv_bfloat16*)s, (const __nv_bfloat16*)zs, out, out_f32, M, N,
-      K);
-  return (int)cudaGetLastError();
+  if (out_f32)
+    return launch_planes_wgmma(xq, xscale, wp, s, zs, nullptr, (float*)out,
+                               M, N, K, 1, kTileM, stream);
+  return launch_planes_wgmma(xq, xscale, wp, s, zs, nullptr,
+                             (__nv_bfloat16*)out, M, N, K, 1, kTileM, stream);
 }
 
 }  // extern "C"

@@ -1,35 +1,43 @@
-// One int8 tensor-core tile for the W4A8 prefill shapes on Hopper (sm_90a),
-// shared by #9 (w4_moe.cu, the planes layout) and #12 (w4_bytes.cu, the s4
-// byte pairs).  Replaces, as their prefill body, the __dp4a tiles of the
-// TPU kernels lightcompress_tpu/ops/pallas_matmul.py w4a8_grouped_matmul
-// (_w4a8_kernel_grouped) and w4a8_matmul_bytes (_w4a8_kernel_pairs,
-// _pairs_group_loop).
+// The int8 tensor-core tiles of the W4A8 kernels on Hopper (sm_90a).
+//
+// The prefill tile, shared by #3 and #9 (w4_planes_wgmma.cuh, the planes
+// layout) and #12 (w4_bytes.cu, the s4 byte pairs).  Replaces, as their
+// prefill body, the __dp4a tiles of the TPU kernels
+// lightcompress_tpu/ops/pallas_matmul.py w4a8_matmul_planes_mtiled,
+// w4a8_grouped_matmul and w4a8_matmul_bytes.
 //
 // What bounds it on an H100 SXM (1979 TOP/s int8 dense, 3.35 TB/s HBM):
-// at a MoE prefill's Mp rows the 2*Mp*N*K int8 operations, and beside them
+// at a prefill's rows the 2*M*N*K int8 operations, and beside them
 // the exact f32 epilogue of every group (a rounded product and sum per
 // output and group of 128, on the CUDA cores); at small M the packed weight
 // read.  The design:
 //   * A block owns 64 rows x 128 channels.  #12's 16 warps (32 x 16) run
-//     mma.sync m16n8k32 s8 x s8 -> s32, #9's two warpgroups wgmma
-//     m64n64k32, four per group of 128 (one per 32 k), so a group's integer
-//     dot sits in registers until the group's float epilogue has consumed
-//     it.
+//     mma.sync m16n8k32 s8 x s8 -> s32, the planes tile's two warpgroups
+//     wgmma m64n64k32, four per group of 128 (one per 32 k), so a group's
+//     integer dot sits in registers until the group's float epilogue has
+//     consumed it.
 //   * A stage holds two groups: two x tiles [64][128] int8 and one weight
-//     tile [128][128] bytes (#9: a word block, unpacked into plane tiles),
-//     copied by the tensor memory accelerator (TMA boxes one thread issues,
-//     counted by an mbarrier) into 16-byte chunks swizzled by row (chunk c
-//     of row r at c ^ (r & 7): the 128-byte swizzle), so that fragment
-//     reads and 16-byte stores hit distinct banks and wgmma reads the tiles
-//     as they lie.  The kernels keep two or three stages in flight: the
-//     next stages' copies run under the current stage's products.
+//     tile [128][128] bytes (planes: a word block, unpacked into plane
+//     tiles), copied by the tensor memory accelerator (TMA boxes one thread
+//     issues, counted by an mbarrier) into 16-byte chunks swizzled by row
+//     (chunk c of row r at c ^ (r & 7): the 128-byte swizzle), so that
+//     fragment reads and 16-byte stores hit distinct banks and wgmma reads
+//     the tiles as they lie.  The kernels keep two or three stages in
+//     flight: the next stages' copies run under the current stage's
+//     products.
 //   * The weight codes reach the B operand as four int8 lanes of one
 //     channel at four consecutive k: the s4 byte pairs (#12) give them per
 //     32-bit word (sign-extended low or high nibbles, in registers); the
-//     planes layout (#9) spreads them over four words, so its kernel
-//     unpacks four planes at a time into int8 tiles first.
+//     planes layout spreads them over four words (unpack4).
 //   * The grid runs the row tiles innermost: the blocks in flight share
 //     one weight channel tile, which the L2 then serves to every row tile.
+//
+// The decode tile of the planes layout (#5, w4_ksplit.cu; the template for
+// the decode kernels #1, #2, #4, #11, #13 and #14), below the prefill
+// tile's helpers: mma.sync m16n8k32 with the B fragments unpacked in
+// registers from the 32 bytes of planes words each lane reads a k step
+// (decode_b_word, planes_b_frags), the A fragments from x staged in shared
+// memory in the 128-byte swizzle (decode_a_frag).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap
@@ -43,6 +51,7 @@ constexpr int kTileN = 128;    // channels of a block tile
 constexpr int kTileRow = 128;  // bytes of a staged row (one group)
 constexpr int kTileX = kTileM * kTileRow;  // bytes of an x tile
 constexpr int kTileW = kTileN * kTileRow;  // bytes of a weight tile
+constexpr int kWordRow = kGroup * 4;  // bytes of a channel's planes word block
 
 // The mma.sync tile's warps (#12): 2 along the rows (32 each) times 8
 // along the channels (kMmaNT = 2 n8 tiles, 16 channels each): 16 warps of
@@ -81,6 +90,30 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4],
 // a float subtract, both on full-rate pipes (I2F is not).
 __device__ __forceinline__ float exact_f32(int d) {
   return __fsub_rn(__int_as_float(0x4B400000 + d), 12582912.f);
+}
+
+// a + d * s, the product and the sum each rounded to nearest even.
+__device__ __forceinline__ float mac_rn(float a, float d, float s) {
+  return __fadd_rn(a, __fmul_rn(d, s));
+}
+
+// The planes layout's int8 lanes: of four consecutive words w (the codes of
+// k = kw .. kw + 3 of every plane), p[i] holds plane 2b + i (b = 0 or 2)
+// in byte q = nibble 2b + i of word q.  Bytes b and b + 1 of the four
+// words are gathered by two byte permutes (t0, t1), regrouped by two more
+// (v0: bytes b, v1: bytes b + 1), and split into their low and high
+// nibbles by masks.
+__device__ __forceinline__ void unpack4(const int4 w, int b, int (&p)[4]) {
+  const uint32_t sel = (uint32_t)b | ((uint32_t)(b + 4) << 4) |
+                       ((uint32_t)(b + 1) << 8) | ((uint32_t)(b + 5) << 12);
+  const uint32_t t0 = __byte_perm((uint32_t)w.x, (uint32_t)w.y, sel);
+  const uint32_t t1 = __byte_perm((uint32_t)w.z, (uint32_t)w.w, sel);
+  const uint32_t v0 = __byte_perm(t0, t1, 0x5410);
+  const uint32_t v1 = __byte_perm(t0, t1, 0x7632);
+  p[0] = (int)(v0 & 0x0F0F0F0Fu);
+  p[1] = (int)((v0 >> 4) & 0x0F0F0F0Fu);
+  p[2] = (int)(v1 & 0x0F0F0F0Fu);
+  p[3] = (int)((v1 >> 4) & 0x0F0F0F0Fu);
 }
 
 // A thread's mma.sync outputs: fragment (i, j) (the warp's m16 tile i, n8
@@ -313,6 +346,59 @@ inline int tensor_map_2d(CUtensorMap* m, CUtensorMapDataType t,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;
+}
+
+// ---- the planes decode tile (mma.sync m16n8k32, #5) ----
+// 16 bytes from global to shared memory without registers; with valid
+// false the 16 bytes are zeros (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Lane (g, t) = (lane >> 2, lane & 3) of a warp that owns the n8 tile of
+// channels c .. c + 7 reads, for k step kk (32 k) of a group of 128 words,
+// the 16 bytes at word kk * 32 + 4t (its b0 k) and at kk * 32 + 16 + 4t
+// (its b1 k) of channel c + g's row: four lanes read 64 contiguous bytes.
+__device__ __forceinline__ int decode_b_word(int kk, int lane) {
+  return kk * 32 + 4 * (lane & 3);
+}
+
+// The B fragments of all eight planes for one k step from those two loads:
+// b[j][0] (k = 4t .. 4t + 3) and b[j][1] (k = 16 + 4t ..) of plane j at
+// channel g, as mma.sync m16n8k32's col-major s8 B wants them.
+__device__ __forceinline__ void planes_b_frags(const int4 lo, const int4 hi,
+                                               int (&b)[8][2]) {
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    int p[4];
+    unpack4(lo, 2 * q, p);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) b[4 * q + i][0] = p[i];
+    unpack4(hi, 2 * q, p);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) b[4 * q + i][1] = p[i];
+  }
+}
+
+// The A fragment of m16 tile i at k step kk from an x tile of 128-byte
+// rows in the swz layout (row r, k in the group at byte k of the row):
+// ldmatrix x4, lane L naming row L & 15 of the tile, chunk 2kk + (L >> 4)
+// -> a0 (rows 0-7, k 0-15), a1 (rows 8-15), a2 (rows 0-7, k 16-31), a3.
+__device__ __forceinline__ void decode_a_frag(int (&a)[4], const int8_t* xt,
+                                              int i, int kk) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(a, xt + swz(16 * i + (lane & 15), 2 * kk + (lane >> 4)));
 }
 
 }  // namespace lcw4

@@ -41,45 +41,22 @@ import functools
 import torch
 
 from . import _build
-from .w4_matmul import GROUP, _aligned, _launch, _stream, unpack_int4_planes
+from .w4_matmul import (GROUP, PLANES_TILE_K_MAX, _aligned, _launch,
+                        _stream, unpack_int4_planes, w4a8_rows_tpu_order)
 
 # rows of one expert segment of the grouped layout (moe_group_selections);
 # the kernel takes multiples of its 64-row tile
 M_TILE = 128
-# #9's shared memory holds, beside its stages, 128 bytes of row sums a
-# group: K up to 49152
-GROUPED_K_MAX = 49152
 
 
 # ---------------------------------------------------------------------------
 # plain versions (the CPU route and the on-card reference)
 # ---------------------------------------------------------------------------
 
-def expert_rows_plain(xq: torch.Tensor, x_scale: torch.Tensor,
-                      wp: torch.Tensor, s: torch.Tensor,
-                      zs: torch.Tensor) -> torch.Tensor:
-    """(M, K) int8 x with (M, 1) f32 scales against one expert's planes
-    weight ((N, K/8) codes, (N, G) s and zs) -> (M, N) f32, in the TPU
-    kernels' order (module docstring).  The group dots are f32 matmuls of
-    integers whose sums stay below 2^24, so they are exact."""
-    M, K = xq.shape
-    N, G = s.shape
-    gpp = G // 8
-    g = K // G
-    xg = xq.float().reshape(M, G, g)
-    ug = unpack_int4_planes(wp, K).float().reshape(N, G, g)
-    xsum = xg.sum(dim=-1)
-    sf, zf = s.float(), zs.float()
-    acc = [torch.zeros((M, N), dtype=torch.float32, device=xq.device)
-           for _ in range(4)]
-    corr = torch.zeros((M, N), dtype=torch.float32, device=xq.device)
-    for gi in range(gpp):
-        for j in range(8):
-            gg = j * gpp + gi
-            dot = torch.matmul(xg[:, gg], ug[:, gg].t())
-            acc[j % 4] = acc[j % 4] + dot * sf[:, gg]
-            corr = corr + xsum[:, gg, None] * zf[:, gg]
-    return ((acc[0] + acc[1]) + (acc[2] + acc[3]) - corr) * x_scale.float()
+# one expert's rows: (M, K) int8 x with (M, 1) f32 scales against its
+# planes weight ((N, K/8) codes, (N, G) s and zs) -> (M, N) f32 in the TPU
+# kernels' order (module docstring), the order of plain #3 as well
+expert_rows_plain = w4a8_rows_tpu_order
 
 
 def expert_rows_smallm_plain(xq: torch.Tensor, x_scale: torch.Tensor,
@@ -342,9 +319,9 @@ def w4a8_grouped_matmul(xq: torch.Tensor, x_scale: torch.Tensor,
     if xq.device.type == "cpu":
         return w4a8_grouped_matmul_plain(xq, x_scale, wp, s, zs, block_eid,
                                          m_tile)
-    if m_tile % 64 or K > GROUPED_K_MAX:
+    if m_tile % 64 or K > PLANES_TILE_K_MAX:
         raise ValueError(f"the grouped kernel takes m_tile % 64 == 0 and K "
-                         f"<= {GROUPED_K_MAX}, got m_tile={m_tile} K={K}")
+                         f"<= {PLANES_TILE_K_MAX}, got m_tile={m_tile} K={K}")
     out = torch.empty((Mp, N), dtype=torch.float32, device=xq.device)
     if Mp == 0:
         return out

@@ -21,7 +21,10 @@ The fused linears (#13, #14) take the unquantized activations and run the
 JAX kernels' prologue first: an optional RMSNorm whose gamma is folded into
 the weights, then the per-token int8 quantization (``fused_act_quant``).
 
-#5 (``w4a8_matmul_planes_ksplit``) runs the planes layout in two K halves,
+#3 (``w4a8_matmul_prefill``) and #5 (``w4a8_matmul_planes_ksplit``) keep
+the TPU kernels' float order (``w4a8_rows_tpu_order``: four accumulators
+by plane j % 4 over (gi, j), then the zero correction) and equal their
+plain versions bit for bit.  #5 runs the planes layout in two K halves,
 each over the word columns [h*K/16, (h+1)*K/16) of every plane (the JAX
 ``planes_ks`` tiles, untiled, are these planes words), and adds them.
 
@@ -43,8 +46,10 @@ A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel (``csrc/w4_matmul.cu``, ``csrc/w4_bytes.cu``, ``csrc/w4_ksplit.cu``)
 or raises.  #12 has two bodies, chosen by M alone (``bytes_body``): the
 decode block below ``BYTES_TILE_MIN_M`` rows, the int8 tensor-core tile of
-``csrc/w4_mma.cuh`` from there on.  Each wrapper counts its kernel launches in its ``launches``
-attribute.
+``csrc/w4_mma.cuh`` from there on.  #3 runs on the planes tile it shares
+with #9 (``csrc/w4_planes_wgmma.cuh``), #5 on the planes decode tile of
+``csrc/w4_mma.cuh``.  Each wrapper counts its kernel launches in its
+``launches`` attribute.
 
 The plain versions' f32 matmuls are exact whether TF32 is on or off:
 nibble codes, int8 codes and bf16 activations are exact in TF32 and their
@@ -73,6 +78,11 @@ DECODE_M_MAX = 256
 # #12's tile takes M >= this many rows, its decode block fewer (the
 # crossover measured on the H100 by chip_smoke.py's fused_kernels phase)
 BYTES_TILE_MIN_M = 8
+# the planes tile of #3 and #9 (csrc/w4_planes_wgmma.cuh): 128 channels a
+# block; beside its stages, shared memory holds 128 bytes of row sums a
+# group, so K up to 49152
+TILE_N = 128
+PLANES_TILE_K_MAX = 49152
 
 
 # ---------------------------------------------------------------------------
@@ -283,40 +293,65 @@ def _check_ksplit(K: int, splits: int) -> None:
         raise ValueError(f"#5 needs K % {16 * GROUP} == 0, got K={K}")
 
 
-def ksplit_halves(K: int, splits: int = 2):
-    """For each K half: its columns of the natural K order (plane j's word
-    columns [h*K/16, (h+1)*K/16), j = 0..7) and its natural groups in that
-    order, j*gpp + h*gpp/2 + gi (the JAX ``_ksplit_group_idx``)."""
-    _check_ksplit(K, splits)
-    kp, gpp = K // 8, K // (8 * GROUP)
-    kp2, gpp2 = kp // 2, gpp // 2
-    return [(torch.cat([torch.arange(j * kp + h * kp2,
-                                     j * kp + (h + 1) * kp2)
-                        for j in range(8)]),
-             torch.tensor([j * gpp + h * gpp2 + gi for j in range(8)
-                           for gi in range(gpp2)]))
-            for h in range(2)]
+def _tpu_order_part(xq, wp, s, zs, gis) -> torch.Tensor:
+    """The planes kernels' float order over the group blocks ``gis``: for
+    gi in ``gis``, then plane j (group g = j*gpp + gi), the exact integer
+    group dot times s[g] added to accumulator j % 4 and xsum[g]*zs[g] to
+    the zero correction; returns ((a0 + a1) + (a2 + a3)) - corr, (M, N)
+    f32, every op rounded on its own.  The group dots are f32 matmuls of
+    integers whose sums stay below 2^24, so they are exact."""
+    M, K = xq.shape
+    N, G = s.shape
+    gpp = G // 8
+    g = K // G
+    xg = xq.float().reshape(M, G, g)
+    ug = unpack_int4_planes(wp, K).float().reshape(N, G, g)
+    xsum = xg.sum(dim=-1)
+    sf, zf = s.float(), zs.float()
+    acc = [torch.zeros((M, N), dtype=torch.float32, device=xq.device)
+           for _ in range(4)]
+    corr = torch.zeros((M, N), dtype=torch.float32, device=xq.device)
+    for gi in gis:
+        for j in range(8):
+            gg = j * gpp + gi
+            dot = torch.matmul(xg[:, gg], ug[:, gg].t())
+            acc[j % 4] = acc[j % 4] + dot * sf[:, gg]
+            corr = corr + xsum[:, gg, None] * zf[:, gg]
+    return (acc[0] + acc[1]) + (acc[2] + acc[3]) - corr
+
+
+def w4a8_rows_tpu_order(xq, x_scale, wp, s, zs) -> torch.Tensor:
+    """(M, K) int8 x with (M, 1) f32 scales against a planes weight
+    ((N, K/8) codes, (N, G) s and zs) -> (M, N) f32 in the TPU kernels'
+    order (_w4a8_kernel_mtiled, _w4a8_kernel_grouped): for gi, then plane
+    j, acc[j % 4] += dot * s and corr += xsum * zs; then ((a0 + a1) +
+    (a2 + a3) - corr) * x_scale.  The planes tile (#3, #9) keeps it bit
+    for bit."""
+    gpp = s.shape[1] // 8
+    return _tpu_order_part(xq, wp, s, zs, range(gpp)) * x_scale.float()
 
 
 def w4a8_matmul_planes_ksplit_plain(xq, x_scale, wp, s, zs,
                                     splits: int = 2) -> torch.Tensor:
-    """Plain #5: half 0's partial plus half 1's, each #2's group sum over
-    the half's groups, then times x_scale; (M, N) f32."""
+    """Plain #5 in the TPU kernel's order: each K half h (the group blocks
+    gi in [h*gpp/2, (h+1)*gpp/2) of every plane) gives part_h, the four
+    accumulators and the correction over its groups; then (0 + part_0) +
+    part_1, times x_scale; (M, N) f32."""
     K = xq.shape[1]
-    x, u = xq.float(), unpack_int4_planes(wp, K)
+    _check_ksplit(K, splits)
+    gpp2 = K // (16 * GROUP)
     out = torch.zeros((xq.shape[0], wp.shape[0]), dtype=torch.float32,
                       device=xq.device)
-    for cols, groups in ksplit_halves(K, splits):
-        cols, groups = cols.to(xq.device), groups.to(xq.device)
-        out = out + _grouped(x[:, cols], u[:, cols], s[:, groups],
-                             zs[:, groups])
+    for h in range(splits):
+        out = out + _tpu_order_part(xq, wp, s, zs,
+                                    range(h * gpp2, (h + 1) * gpp2))
     return out * x_scale.float()
 
 
 def w4a8_matmul_prefill_plain(xq, x_scale, wp, s, zs,
                               out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Plain #3: #2's arithmetic, stored in ``out_dtype``."""
-    return w4a8_matmul_decode_plain(xq, x_scale, wp, s, zs).to(out_dtype)
+    """Plain #3: ``w4a8_rows_tpu_order``, stored in ``out_dtype``."""
+    return w4a8_rows_tpu_order(xq, x_scale, wp, s, zs).to(out_dtype)
 
 
 def _four_accumulators(parts, s: torch.Tensor, groups) -> torch.Tensor:
@@ -397,7 +432,7 @@ def _lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _ksplit_lib() -> ctypes.CDLL:
     lib = _build.load("w4_ksplit")
-    lib.lc_w4a8_ksplit.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
+    lib.lc_w4a8_ksplit.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
     lib.lc_w4a8_ksplit.restype = ctypes.c_int
     return lib
 
@@ -518,13 +553,17 @@ def w4a8_matmul_prefill(xq: torch.Tensor, x_scale: torch.Tensor,
                         out_dtype: torch.dtype = torch.bfloat16
                         ) -> torch.Tensor:
     """#3: any M; the act scale and the store in ``out_dtype`` (bf16 or
-    f32) happen in the kernel."""
+    f32) happen in the kernel, on the planes tile (on the card N % 128 ==
+    0, K <= 49152); equal to ``w4a8_matmul_prefill_plain`` bit for bit."""
     M, K = _check_act(xq, x_scale)
     N = _check_weights(K, wp, s, zs, xq.device)
     if xq.device.type == "cpu":
         return w4a8_matmul_prefill_plain(xq, x_scale, wp, s, zs, out_dtype)
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError("the prefill kernel stores bf16 or f32")
+    if N % TILE_N or K > PLANES_TILE_K_MAX:
+        raise ValueError(f"the prefill kernel needs N % {TILE_N} == 0 and "
+                         f"K <= {PLANES_TILE_K_MAX}, got N={N} K={K}")
     xq = _aligned(xq)
     xs = x_scale.float().contiguous()
     out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
@@ -540,8 +579,8 @@ def w4a8_matmul_planes_ksplit(xq: torch.Tensor, x_scale: torch.Tensor,
                               wp: torch.Tensor, s: torch.Tensor,
                               zs: torch.Tensor, splits: int = 2
                               ) -> torch.Tensor:
-    """#5: #2's contract in two K halves that meet in the output; (M, N)
-    f32.  K % 2048 == 0 and ``splits`` 2, as the JAX layout."""
+    """#5: #2's contract in two K halves, (part_0 + part_1) * x_scale;
+    (M, N) f32.  K % 2048 == 0 and ``splits`` 2, as the JAX layout."""
     M, K = _check_act(xq, x_scale)
     N = _check_weights(K, wp, s, zs, xq.device)
     _check_ksplit(K, splits)
@@ -549,15 +588,14 @@ def w4a8_matmul_planes_ksplit(xq: torch.Tensor, x_scale: torch.Tensor,
         return w4a8_matmul_planes_ksplit_plain(xq, x_scale, wp, s, zs,
                                                splits)
     xq = _aligned(xq)
-    out = torch.zeros((M, N), dtype=torch.float32, device=xq.device)
+    xs = x_scale.float().contiguous()
+    out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
     with torch.cuda.device(xq.device):
-        _launch(_ksplit_lib().lc_w4a8_ksplit, xq.data_ptr(), wp.data_ptr(),
-                s.data_ptr(), zs.data_ptr(), out.data_ptr(), M, N, K,
-                _stream(xq.device))
+        _launch(_ksplit_lib().lc_w4a8_ksplit, xq.data_ptr(), xs.data_ptr(),
+                wp.data_ptr(), s.data_ptr(), zs.data_ptr(), out.data_ptr(),
+                M, N, K, _stream(xq.device))
     w4a8_matmul_planes_ksplit.launches += 1
-    # the halves' sum times the act scale, as the JAX wrapper scales the
-    # kernel's output
-    return out.mul_(x_scale.float())
+    return out
 
 
 def _fused_linear(kernel, x: torch.Tensor, w: torch.Tensor,

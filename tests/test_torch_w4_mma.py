@@ -1,17 +1,23 @@
-"""The int8 tensor-core tile of #9 and #12 (``ops/csrc/w4_mma.cuh``) in
-torch on the CPU: its order of float operations and its operand mapping,
-held to the plain versions before the card runs the kernels.
+"""The int8 tensor-core tiles of ``ops/csrc/w4_mma.cuh`` in torch on the
+CPU: their order of float operations and their operand mappings, held to
+the plain versions before the card runs the kernels.
 
-* #9 keeps expert_rows_plain's float order bit for bit while it walks
+* The planes tile of #3 and #9 (``w4_planes_wgmma.cuh``) keeps the TPU
+  kernels' float order (``w4a8_rows_tpu_order``) bit for bit while it walks
   stages of plane pairs (planes 2b, 2b + 1 of word block gi), takes the
   group dot's f32 through the bits 0x4B400000 + d, keeps the row sums as
   int16, and sums the zero correction after the stages with fused
-  multiply-adds (its products are exact).  The rendering
-  below runs that schedule and must equal the plain version bit for bit.
-* The B operand: #9's byte gather (byte permutes of four words, then the
-  low and the high nibbles) must give planes 2b .. 2b + 3 at four
+  multiply-adds (its products are exact).  The rendering below runs that
+  schedule and must equal plain #9 and plain #3 (dense rows, a ragged M,
+  f32 and bf16) bit for bit.
+* The B operand: the planes byte gather (byte permutes of four words, then
+  the low and the high nibbles) must give planes 2b .. 2b + 3 at four
   consecutive k; #12's sign-extended low and high nibbles of one word must
   give groups 2p and 2p + 1 at four consecutive k.
+* #5's decode tile: the lane loads and unpack that make the m16n8k32 B
+  fragments, and the ldmatrix A fragments, must assemble x . u^T; its
+  schedule (four accumulators over a half, the halves added in either
+  order) must equal plain #5 bit for bit.
 * #12 takes the tile from ``BYTES_TILE_MIN_M`` rows on, by M alone.
 
 The kernels themselves run in ``tests/test_torch_cuda_kernels.py`` (on the
@@ -111,6 +117,52 @@ def test_tile_order_equals_plain(K):
     assert bool((grouped[-3:] == 0).all())
 
 
+def _expert_rows_pr9(xq, x_scale, wp, s, zs):
+    """plain #9's expert rows as they were before plain #3 took the same
+    order (kept here to show the bits did not move)."""
+    M, K = xq.shape
+    N, G = s.shape
+    gpp = G // 8
+    xg = xq.float().reshape(M, G, K // G)
+    ug = W.unpack_int4_planes(wp, K).float().reshape(N, G, K // G)
+    xsum = xg.sum(dim=-1)
+    sf, zf = s.float(), zs.float()
+    acc = [torch.zeros((M, N)) for _ in range(4)]
+    corr = torch.zeros((M, N))
+    for gi in range(gpp):
+        for j in range(8):
+            gg = j * gpp + gi
+            dot = torch.matmul(xg[:, gg], ug[:, gg].t())
+            acc[j % 4] = acc[j % 4] + dot * sf[:, gg]
+            corr = corr + xsum[:, gg, None] * zf[:, gg]
+    return ((acc[0] + acc[1]) + (acc[2] + acc[3]) - corr) * x_scale.float()
+
+
+@pytest.mark.parametrize("K,M", [(1024, 100), (1024, 300), (4096, 100),
+                                 (14336, 100)])
+def test_dense_tile_order_equals_plain_prefill(K, M):
+    """#3 on the planes tile: dense rows, one expert; the last row tile is
+    ragged (TMA fills rows past M with zeros, the stores are masked).  The
+    schedule over the zero-padded tiles, cut to M rows, equals plain #3 bit
+    for bit in f32 and in bf16; plain #9's expert rows (the same function)
+    keep their earlier bits."""
+    N = 64
+    wp, s, zs = (t[0] for t in _experts(1, N, K, seed=K + M))
+    xq, xs = _rows(M, K, seed=K + M + 1)
+    Mp = -(-M // 64) * 64
+    xpad = torch.cat([xq, xq.new_zeros((Mp - M, K))])
+    spad = torch.cat([xs, xs.new_ones((Mp - M, 1))])
+    got = _tile_order_rows(xpad, spad, wp, s, zs)[:M]
+    ref = W.w4a8_matmul_prefill_plain(xq, xs, wp, s, zs, torch.float32)
+    assert torch.equal(got, ref)
+    assert torch.equal(got.to(torch.bfloat16),
+                       W.w4a8_matmul_prefill_plain(xq, xs, wp, s, zs))
+    assert torch.equal(W.w4a8_matmul_prefill(xq, xs, wp, s, zs,
+                                             out_dtype=torch.float32), ref)
+    assert torch.equal(tm.expert_rows_plain(xq, xs, wp, s, zs),
+                       _expert_rows_pr9(xq, xs, wp, s, zs))
+
+
 def test_exact_f32_covers_group_dots():
     """0x4B400000 + d is exact for |d| < 2^22; a group dot is at most
     128 * 127 * 15 = 243840 in magnitude (unsigned codes) or 128 * 127 * 8
@@ -176,6 +228,125 @@ def test_byte_pair_lanes():
                 k = g * 128 + 4 * q
                 assert np.array_equal(lanes, c[:, k:k + 4])
                 assert np.array_equal(lanes, u[:, k:k + 4].numpy() - 8)
+
+
+def _unpack_lanes(w4: np.ndarray) -> list:
+    """unpack4 at b = 0 and 2 over a lane's four words (columns of w4):
+    the eight planes' int8 lane words (planes_b_frags)."""
+    out = []
+    for b in (0, 2):
+        sel = b | ((b + 4) << 4) | ((b + 1) << 8) | ((b + 5) << 12)
+        t0 = _byte_perm(w4[:, 0], w4[:, 1], sel)
+        t1 = _byte_perm(w4[:, 2], w4[:, 3], sel)
+        for v in (_byte_perm(t0, t1, 0x5410), _byte_perm(t0, t1, 0x7632)):
+            out += [v & 0x0F0F0F0F, (v >> 4) & 0x0F0F0F0F]
+    return out
+
+
+def _lanes(word: np.ndarray) -> np.ndarray:
+    """The four int8 lanes of 32-bit words, as signed values."""
+    b = np.stack([(word >> (8 * i)) & 0xFF for i in range(4)], -1)
+    return np.where(b > 127, b - 256, b)
+
+
+def _swz(r: int, c: int) -> int:
+    return r * 128 + ((c ^ (r & 7)) << 4)
+
+
+@pytest.mark.parametrize("gi", [0, 1])
+def test_decode_tile_fragments(gi):
+    """#5's warp tile (n8 channels, two m16 row tiles) at word block gi of
+    a K = 2048 planes weight: lane (g, t) loads words kk*32 + 4t and
+    kk*32 + 16 + 4t of channel g (decode_b_word) and unpacks them into the
+    eight planes' b0, b1; ldmatrix x4 on the swizzled x tile of plane j
+    (lane L names row L & 15 of m16 tile i, chunk 2kk + (L >> 4)) gives
+    a0..a3.  Assembled by the m16n8k32 fragment layouts, the four k steps'
+    products are x_j,gi . u_j,gi^T for every plane j."""
+    rng = np.random.RandomState(gi)
+    N, K, M = 8, 2048, 32
+    kp = K // 8
+    u = torch.from_numpy(rng.randint(0, 16, (N, K)).astype(np.int32))
+    words = W.pack_int4_planes(u).numpy().view(np.uint32).astype(np.int64)
+    x = rng.randint(-127, 128, (M, K)).astype(np.int64)
+    un = u.numpy().astype(np.int64)
+    for j in range(8):
+        cols = slice(j * kp + gi * 128, j * kp + gi * 128 + 128)
+        # the x tile of plane j: [32 rows][128 bytes], chunk c of row r at
+        # swz(r, c)
+        tile = np.zeros(32 * 128, dtype=np.int64)
+        for r in range(M):
+            for c in range(8):
+                o = _swz(r, c)
+                tile[o:o + 16] = x[r, cols][16 * c:16 * c + 16]
+        d = np.zeros((M, N), dtype=np.int64)
+        for kk in range(4):
+            A = np.zeros((2, 16, 32), dtype=np.int64)
+            B = np.zeros((32, N), dtype=np.int64)
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                w0 = gi * 128 + kk * 32 + 4 * t
+                for reg, w in enumerate((w0, w0 + 16)):
+                    planes = _unpack_lanes(words[g:g + 1, w:w + 4])
+                    B[16 * reg + 4 * t:16 * reg + 4 * t + 4, g] = \
+                        _lanes(planes[j])[0]
+                for i in range(2):
+                    for q in range(4):  # matrix q, row given by lane 8q + g
+                        src = 8 * q + g
+                        o = _swz(16 * i + (src & 15), 2 * kk + (src >> 4))
+                        vals = tile[o + 4 * t:o + 4 * t + 4]
+                        # a0: row g, k 4t; a1: row g + 8; a2: k 16 + 4t; a3
+                        A[i, g + 8 * (q & 1),
+                          16 * (q >> 1) + 4 * t:16 * (q >> 1) + 4 * t + 4] \
+                            = vals
+            for i in range(2):
+                d[16 * i:16 * i + 16] += A[i] @ B
+        assert np.array_equal(d, x[:, cols] @ un[:, cols].T)
+
+
+def _ksplit_schedule(xq, x_scale, wp, s, zs, first):
+    """#5's kernel: per half h (gi in [h*gpp/2, (h+1)*gpp/2)), for gi and
+    plane j the exact dot's f32 (0x4B400000 + d) times s into accumulator
+    j % 4 and the exact xsum * zs into corr (fused multiply-add: rounded
+    once); part = ((a0 + a1) + (a2 + a3)) - corr; the halves added to
+    zero, half ``first`` first (the kernel: 0 + part_0, then part_1),
+    then times x_scale."""
+    M, K = xq.shape
+    N, G = s.shape
+    gpp, kp = G // 8, K // 8
+    u = W.unpack_int4_planes(wp, K).reshape(N, 8, kp)
+    sf, zf = s.float(), zs.float()
+    parts = []
+    for h in range(2):
+        acc = [torch.zeros((M, N)) for _ in range(4)]
+        corr = torch.zeros((M, N))
+        for gi in range(h * gpp // 2, (h + 1) * gpp // 2):
+            for j in range(8):
+                g = j * gpp + gi
+                xg = xq[:, g * 128:g * 128 + 128].long()
+                d = xg @ u[:, j, gi * 128:gi * 128 + 128].long().t()
+                acc[j % 4] = acc[j % 4] + _exact_f32(d) * sf[:, g]
+                prod = xg.sum(-1).float()[:, None] * zf[:, g]
+                assert torch.equal(prod.double(), xg.sum(-1).double()[:, None]
+                                   * zf[:, g].double())
+                corr = corr + prod
+        parts.append((acc[0] + acc[1]) + (acc[2] + acc[3]) - corr)
+    out = torch.zeros((M, N))
+    for h in (first, 1 - first):
+        out = out + parts[h]
+    return out * x_scale
+
+
+@pytest.mark.parametrize("K,M", [(2048, 1), (2048, 33), (6144, 8)])
+def test_ksplit_schedule_equals_plain(K, M):
+    """#5's schedule equals plain #5 bit for bit, and so does the other
+    order of the halves."""
+    N = 64
+    wp, s, zs = (t[0] for t in _experts(1, N, K, seed=K + M))
+    xq, xs = _rows(M, K, seed=M)
+    ref = W.w4a8_matmul_planes_ksplit_plain(xq, xs, wp, s, zs)
+    for first in (0, 1):
+        assert torch.equal(_ksplit_schedule(xq, xs, wp, s, zs, first), ref)
+    assert torch.equal(W.w4a8_matmul_planes_ksplit(xq, xs, wp, s, zs), ref)
 
 
 @pytest.mark.parametrize("M", sorted({1, 8, W.BYTES_TILE_MIN_M - 1,
