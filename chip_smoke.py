@@ -7,8 +7,10 @@ Phases (each prints one JSON line with its seconds):
      ``lightcompress_tpu_torch/ops/csrc/*.cu`` (all started together);
   2. every W4 kernel against its plain PyTorch version at the Llama-3-8B
      linear shapes and M of its engine phases (#1-#3 and #12 at a block's
-     seven linears, #13 and #14 at the fused build's four; #3 bit for bit,
-     also at M 300 and 1000 and the fused q|k|v and gate|up), with device
+     seven linears, #1 with a bf16 and an f32 store and the same bits on a
+     second call, #13 and #14 at the fused build's four; #3 bit for bit,
+     also at M 300 and 1000, the fused q|k|v and gate|up, and once at K
+     50176, past the planes tile's shared-memory row sums), with device
      times (kernel, plain, a library matmul, the bound);
      then every decode-attention kernel against its plain version at the
      engine's shapes (8 slots, 8 KV heads of 4 query heads, head_dim 128,
@@ -17,9 +19,10 @@ Phases (each prints one JSON line with its seconds):
   3. the W4A8 engine at full Llama-3-8B width and depth (random weights from
      a seed): one batched prefill of 8 prompts (1024 rows) and 32 greedy
      tokens each;
-  4. the W4A16 engine on the same packed weights: 4 prompts, 16 tokens;
-     then torch.profiler over four W4A8 decode steps (device time by
-     kernel, idle share);
+  4. the W4A16 engine on the same packed weights: 4 prompts, 16 tokens,
+     #1 on every decode linear (224 a step); then torch.profiler over four
+     W4A8 decode steps and four W4A16 ones (device time by kernel, idle
+     share);
   5. the kv4 engine (``kv_bits="auto"`` at max_len 4096: the bd4 nibble
      cache and kernel #20) on 8 prompts of 1500-2000 tokens, 32 tokens
      each, and torch.profiler over its decode steps; the kv4 engine at
@@ -68,7 +71,8 @@ After the kernel phases of 2 and 7 come those of the bench's decode stack
 (``lightcompress_tpu_torch.bench``): #5, #15, #16 and #22 against their
 plain versions at the bench's shapes (B 32 at Llama-3-8B width, #22 over
 2049 columns; #5 bit for bit, also at M 1, 7 and 300), with times; #4 (masked planes) at the bench's four fused
-entries and #11 (natural s4 bytes) at a block's seven linears at M 8 and
+entries (with bf16 scales too at q|k|v and o, the same bits on a second
+call) and #11 (natural s4 bytes) at a block's seven linears at M 8 and
 32 against their plain versions, #4 against #1 on the same codes; the
 bench itself at B 32, CTX 2048 and 32 layers in six configurations
 (default, tail=1, tail=2, attn=pallas, ksplit, masked: #4 on q|k|v and
@@ -190,7 +194,7 @@ TOL_F32 = 1e-4        # f32 outputs: summation-order noise
 TOL_SMALLM = 1e-5
 KERNEL_INFO = {
     "w4a16_matmul": dict(
-        source="lightcompress_tpu_torch/ops/csrc/w4_matmul.cu",
+        source="lightcompress_tpu_torch/ops/csrc/w4a16_tile.cu",
         replaces="lightcompress_tpu/ops/pallas_matmul.py:391"),
     "w4a8_matmul_decode": dict(
         source="lightcompress_tpu_torch/ops/csrc/w4_matmul.cu",
@@ -250,7 +254,7 @@ KERNEL_INFO = {
         source="lightcompress_tpu_torch/ops/csrc/decode_attention.cu",
         replaces="lightcompress_tpu/ops/pallas_attention.py:815"),
     "w4a16_matmul_planes_masked": dict(
-        source="lightcompress_tpu_torch/ops/csrc/w4_matmul.cu",
+        source="lightcompress_tpu_torch/ops/csrc/w4a16_tile.cu",
         replaces="lightcompress_tpu/ops/pallas_matmul.py:283"),
     "w4a8_matmul_s4_bytes": dict(
         source="lightcompress_tpu_torch/ops/csrc/w4_bytes.cu",
@@ -338,15 +342,20 @@ def bound(M: int, N: int, K: int, x_bytes: int, out_bytes: int,
 
 # #3 beside its main-path M (a 1024-row prefill batch): ragged row tiles
 PREFILL_M = (300, 1000, 1024)
+# #3 past the K up to which the planes tile keeps its row sums in shared
+# memory (49 word blocks: the row sums in a global scratch), once
+K_CAP_CASE = dict(M=300, N=256, K=50176)
 # #3 at the fused build's prefill linears, M 1024
 PREFILL_FUSED = [("qkv", 6144, 4096), ("gateup", 28672, 4096)]
 
 
 def phase_kernels(dev) -> dict:
     """Each kernel against its plain version at every linear shape: #1
-    and #2 at M 8 and 32 within their tolerances, #3 bit for bit (bf16 at
-    every M of PREFILL_M, f32 at 1024) and then at the fused build's q|k|v
-    and gate|up (``prefill_fused``)."""
+    (bf16 and f32 stores, the same bits on a second call) and #2 at M 8
+    and 32 within their tolerances, #3 bit for bit (bf16 at every M of
+    PREFILL_M, f32 at 1024) and then at the fused build's q|k|v and
+    gate|up (``prefill_fused``) and once past the shared-memory row sums
+    (``k_cap``, K_CAP_CASE)."""
     t0 = time.time()
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -401,29 +410,38 @@ def phase_kernels(dev) -> dict:
         cases = []
         for M in (8, 32):
             cases.append(("w4a16_matmul", M, "bf16"))
+            cases.append(("w4a16_matmul", M, "f32"))
             cases.append(("w4a8_matmul_decode", M, "int8"))
         for kname, M, kind in cases:
             x = torch.randn((M, K), generator=gen, device=dev).to(
                 torch.bfloat16)
             if kname == "w4a16_matmul":
+                # the store in x's dtype: bf16 x, or its f32 values
+                x = x if kind == "bf16" else x.float()
                 run = lambda: W.w4a16_matmul(x, *args)
                 plain = lambda: W.w4a16_matmul_plain(x, *args).to(x.dtype)
-                tol, out_bytes = TOL_ULP, 2
+                tol, out_bytes = ((TOL_ULP, 2) if kind == "bf16"
+                                  else (TOL_F32, 4))
+                if not torch.equal(run(), run()):
+                    raise AssertionError(f"#1 {name} M={M} {kind}: two "
+                                         "calls differ")
             else:
                 xq, xs = W.quantize_act_per_token(x)
                 run = lambda: W.w4a8_matmul_decode(xq, xs, *args)
                 plain = lambda: W.w4a8_matmul_decode_plain(xq, xs, *args)
                 tol, out_bytes = TOL_F32, 4
             err, scale, _ = check(kname, name, M, run(), plain(), tol, False)
-            b_ms, b_by = bound(M, N, K, 2 if kind == "bf16" else 1,
-                               out_bytes, kind)
+            kind_ops = "int8" if kind == "int8" else "bf16"
+            b_ms, b_by = bound(M, N, K, 1 if kind == "int8" else 2,
+                               out_bytes, kind_ops)
             rows.append({
                 "kernel": kname, "linear": name, "M": M, "N": N, "K": K,
-                "max_abs_err": err, "max_abs_ref": scale, "tol": tol,
+                "store": kind, "max_abs_err": err, "max_abs_ref": scale,
+                "err_ulps": err / bf16_ulp(scale), "tol": tol,
                 "kernel_ms": time_ms(run, 20, pad),
                 "plain_ms": time_ms(plain, 3, pad),
-                "library_ms": time_ms(lambda: torch.matmul(x, wd.t()), 20,
-                                      pad),
+                "library_ms": time_ms(lambda: torch.matmul(
+                    x.to(wd.dtype), wd.t()), 20, pad),
                 "bound_ms": b_ms, "bound_by": b_by})
         prefill_rows(name, N, K, qp, wd, PREFILL_M, rows)
         del qp, wd
@@ -435,7 +453,28 @@ def phase_kernels(dev) -> dict:
         prefill_rows(name, N, K, qp, wd, (1024,), fused_rows)
         del qp, wd
     return {"phase": "kernels", "rows": rows, "prefill_fused": fused_rows,
-            "seconds": time.time() - t0}
+            "k_cap": k_cap(dev, gen), "seconds": time.time() - t0}
+
+
+def k_cap(dev, gen) -> dict:
+    """#3 at K_CAP_CASE, past the K up to which the planes tile keeps its
+    row sums in shared memory: bit for bit in bf16 and f32."""
+    M, N, K = K_CAP_CASE["M"], K_CAP_CASE["N"], K_CAP_CASE["K"]
+    qp = quantize_linear(torch.randn((N, K), generator=gen, device=dev)
+                         * 0.02, WSPEC)
+    args = (qp.codes, qp.scales, qp.zeros)
+    xq, xs = W.quantize_act_per_token(
+        torch.randn((M, K), generator=gen, device=dev))
+    for dt in (torch.bfloat16, torch.float32):
+        got = W.w4a8_matmul_prefill(xq, xs, *args, out_dtype=dt)
+        ref = W.w4a8_matmul_prefill_plain(xq, xs, *args, dt)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(got).all() and torch.equal(got, ref)):
+            raise AssertionError(f"#3 at K {K} ({dt}) is not bit-equal to "
+                                 "its plain version")
+    return dict(K_CAP_CASE, bit_equal=True,
+                rowsum_k_max=W.ROWSUM_SMEM_K_MAX)
+
 
 
 # (name, N, K, rms) of the fused build's decode linears at Llama-3-8B (q|k|v
@@ -1195,12 +1234,13 @@ def dequant_codes(u, s, z):
 def phase_masked_s4_kernels(dev) -> dict:
     """#4 (masked planes, the root bench's f32 pre-divided scales, random
     codes, scales 0.01 and zero points 8) at the bench's fused entries at
-    B 32, and #11 (natural s4 bytes, bf16 scales, random codes, scales and
+    B 32 (and with bf16 scales at its main entries), and #11 (natural s4 bytes, bf16 scales, random codes, scales and
     zero points) at a Llama-3-8B block's seven linears at M 8 and 32, each
     against its plain version (f32 outputs, 1e-4 of max|y|) with times of
     the kernel, the plain version, the bound and the library yardstick
     (torch.matmul over the pre-dequantized bf16 weight, on bf16 x or the
-    dequantized int8 x); and #4 against #1 on the same codes, scales and
+    dequantized int8 x), each the same bits on a second call; and #4
+    against #1 on the same codes, scales and
     zero points (bf16-exact scale 0.01 and z = 8, which both layouts hold
     exactly): 1e-4 of max|y|."""
     t0 = time.time()
@@ -1220,8 +1260,11 @@ def phase_masked_s4_kernels(dev) -> dict:
         if not err <= TOL_F32 * scale:
             raise AssertionError(f"{kname} {extra}: max|err| {err} > "
                                  f"{TOL_F32} * {scale}")
+        if not torch.equal(run(), run()):
+            raise AssertionError(f"{kname} {extra}: two calls differ")
         b_ms, b_by = bytes_ops_bound(nbytes, ops, kind)
         rows.append(dict(kernel=kname, max_abs_err=err, max_abs_ref=scale,
+                         err_ulps=err / bf16_ulp(scale),
                          tol=TOL_F32, kernel_ms=time_ms(run, 20, pad),
                          plain_ms=time_ms(plain, 3, pad),
                          library_ms=time_ms(library, 20, pad),
@@ -1241,7 +1284,18 @@ def phase_masked_s4_kernels(dev) -> dict:
         row("w4a16_matmul_planes_masked", run(), plain(), run, plain,
             lambda: torch.matmul(x, wd.t()),
             N * K // 2 + 2 * N * (K // 128) * 4 + 2 * B * K + 4 * B * N,
-            2 * B * N * K, "bf16", entry=entry, N=N, K=K, M=B, main=main)
+            2 * B * N * K, "bf16", entry=entry, N=N, K=K, M=B, main=main,
+            scales="f32")
+        if main:  # the kernel's bf16-scale instance
+            smb, zmb = sm.to(torch.bfloat16), zm.to(torch.bfloat16)
+            run = lambda: W.w4a16_matmul_planes_masked(x, wp, smb, zmb)
+            plain = lambda: W.w4a16_matmul_planes_masked_plain(x, wp, smb,
+                                                                zmb)
+            row("w4a16_matmul_planes_masked", run(), plain(), run, plain,
+                lambda: torch.matmul(x, wd.t()),
+                N * K // 2 + 2 * N * (K // 128) * 2 + 2 * B * K + 4 * B * N,
+                2 * B * N * K, "bf16", entry=entry, N=N, K=K, M=B,
+                main=False, scales="bf16")
         # the same product through #1's unpack on scales both hold exactly
         sb = s.to(torch.bfloat16)
         y1 = W.w4a16_matmul(x.float(), W.pack_int4_planes(u), sb,
@@ -2184,8 +2238,9 @@ def summarize(rows, attn_rows, fused_rows, moe_rows, bench_rows,
                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                 bound_by=r["bound_by"], library_ms=r["library_ms"]))
             continue
+        # #1's main rows: the bf16 store, as the engine runs it
         rs = [r for r in rows if r["kernel"] == kname
-              and r["M"] == main_m[kname]]
+              and r["M"] == main_m[kname] and r.get("store") != "f32"]
         by_ops = sum(r["bound_by"] == "operations" for r in rs)
         out.append(dict(
             name=kname, route="cuda", **info, launches=launches[kname],
@@ -2580,12 +2635,15 @@ def main() -> int:
         if runs[0][k] <= 0:
             raise AssertionError(f"the W4A8 engine never launched {k}")
     sw16 = dataclasses.replace(sw8, act_bits=16)
+    # every decode linear through #1 (224 a step); the prefill (act_bits
+    # 16 above 256 rows) is dequant-then-matmul, as in JAX
     runs.append(engine_phase("engine_w4a16", sw16, prompts[:4], 16, dev,
-                             None))
-    if runs[1]["w4a16_matmul"] <= 0:
-        raise AssertionError("the W4A16 engine never launched w4a16_matmul")
+                             None, expect={"w4a16_matmul": (0, 7 * layers)}))
     t0 = time.time()
     emit(dict(phase_profile(sw8, prompts, dev), seconds=time.time() - t0))
+    t0 = time.time()
+    emit(dict(phase_profile(sw16, prompts, dev, build="w4a16"),
+              seconds=time.time() - t0))
 
     kv4 = dict(kv_bits="auto", max_len=4096, prefill_buckets=(2048,))
     prompts_kv4 = make_prompts(8, vocab, 1500, 2000)

@@ -1,17 +1,27 @@
-"""Time the planes W4A8 kernels of the tree in the working directory on one
+"""Time the planes W4 kernels of the tree in the working directory on one
 NVIDIA GPU, for comparing two trees (designs) in one call:
 
     cd <tree> && python3 <repo>/kernel_ab.py TAG
 
 #3 over a Llama-3-8B block's seven linears and the fused q|k|v and
 gate|up at M 1024, #9 over a Mixtral-8x7B layer's grouped prefill (1024
-tokens), #5 at the bench's down (N 4096, K 14336) at B 1, 8 and 32; the
+tokens), #5 at the bench's down (N 4096, K 14336) at B 1, 8 and 32, #1
+over a Llama-3-8B block's seven linears at each M of P1_M (bf16 x and
+store), #4 at the bench's four fused entries at B 32 (f32 scales); the
 median of CUDA-event times with L2 flushed and the card held in a spin
 while the host enqueues each call (``time_ms`` below, the same in every
 tree).  The shapes and helpers come from the tree's ``chip_smoke.py``.
 Prints one JSON line: ms by kernel and shape, the card's name and power
-limit."""
+limit.
 
+    cd <tree> && python3 <repo>/kernel_ab.py TAG w4a16_profile
+
+instead profiles four decode steps of the W4A16 engine (Llama-3-8B at full
+width and depth, random weights from chip_smoke's seed, 8 slots, #1 on
+every decode linear) with the tree's ``chip_smoke.phase_profile``: wall
+and busy ms a step, the idle share, kernels a step."""
+
+import dataclasses
 import json
 import statistics
 import sys
@@ -25,6 +35,11 @@ from lightcompress_tpu_torch.ops import moe_matmul as M  # noqa: E402
 from lightcompress_tpu_torch.ops import w4_matmul as W  # noqa: E402
 from lightcompress_tpu_torch.ops.qlinear import quantize_linear  # noqa: E402
 from lightcompress_tpu_torch.serving import quantized_model as QM  # noqa: E402
+
+
+# #1's M: the scan of a decode block's rows up to DECODE_M_MAX (in two
+# trees, the old body's crossover with the new)
+P1_M = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
 
 def time_ms(fn, reps: int, pad: torch.Tensor) -> float:
@@ -81,8 +96,50 @@ def main(tag: str) -> None:
             torch.randn((B, 14336), generator=gen, device=dev))
         out[f"p5_B{B}"] = time_ms(
             lambda: W.w4a8_matmul_planes_ksplit(xq, xs, *w), 50, pad)
+    del w
+    t1 = {m: 0.0 for m in P1_M}
+    for name, N, K in C.SHAPES:
+        w = C.random_planes(gen, dev, N, K)
+        for m in t1:
+            x = torch.randn((m, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            t1[m] += time_ms(lambda: W.w4a16_matmul(x, *w), 20, pad)
+        del w
+    out.update({f"p1_block_M{m}": t for m, t in t1.items()})
+    t4 = {}
+    for entry, N, K, _ in C.MASKED_SHAPES:
+        u = torch.randint(0, 16, (N, K), generator=gen, device=dev,
+                          dtype=torch.int32)
+        s = torch.full((N, K // 128), 0.01, device=dev)
+        wp = W.pack_int4_planes_masked(u)
+        sm = W.masked_scales(s)
+        zm = W.masked_zero_scales(torch.full_like(s, 8.0), s)
+        x = torch.randn((32, K), generator=gen, device=dev).to(
+            torch.bfloat16)
+        t4[entry] = time_ms(
+            lambda: W.w4a16_matmul_planes_masked(x, wp, sm, zm), 20, pad)
+        del u, wp
+    out["p4_B32"] = t4
+    out["p4_qkv_o"] = t4["qkv"] + t4["o"]
     print(json.dumps(out), flush=True)
 
 
+def profile_w4a16(tag: str) -> None:
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(C.SEED)
+    model = C.Llama(C.LLAMA3_8B, C.init_params(gen, C.LLAMA3_8B))
+    sw8 = C.build_serving_weights(model, C.WSPEC, act_bits=8, device=dev)
+    del model
+    out = C.phase_profile(dataclasses.replace(sw8, act_bits=16),
+                          C.make_prompts(8, C.LLAMA3_8B.vocab_size), dev,
+                          build="w4a16")
+    print(json.dumps({"tag": tag, "gpu": C.smi(), "profile_w4a16": out}),
+          flush=True)
+
+
 if __name__ == "__main__":
-    main(sys.argv[1] if len(sys.argv) > 1 else "tree")
+    if sys.argv[2:3] == ["w4a16_profile"]:
+        profile_w4a16(sys.argv[1])
+    else:
+        main(sys.argv[1] if len(sys.argv) > 1 else "tree")

@@ -1,7 +1,9 @@
-// Grouped-W4 matmul kernels for Hopper (sm_90a), CUDA C++ with a plain C
-// interface bound from Python with ctypes (ops/_build.py, ops/w4_matmul.py).
+// Grouped-W4A8 matmul kernels on the planes layout for Hopper (sm_90a), CUDA
+// C++ with a plain C interface bound from Python with ctypes (ops/_build.py,
+// ops/w4_matmul.py): #2, #14 and #3.  (#1 and #4, the W4A16 planes kernels,
+// are the bf16 tensor-core tile of w4a16_tile.cu.)
 //
-// Weight layout (shared by all five kernels): untiled planes (#4: masked).
+// Weight layout (shared by the three kernels): untiled planes.
 //   wp  (N, K/8) int32: nibble j of word kw holds code u[n, j*K/8 + kw]
 //   s   (N, G)   bf16 : per-group scale, G = K/128
 //   zs  (N, G)   bf16 : premultiplied zero correction z*s
@@ -11,7 +13,7 @@
 // with the group dot finished before the scale is applied.
 //
 // Requirements checked by the Python wrappers: K % 1024 == 0, N % 64 == 0
-// (#3: N % 128 == 0, K <= 49152), contiguous tensors on the current
+// (#3: N % 128 == 0), contiguous tensors on the current
 // device.  The decode block, the fused prologue (#14) and the epilogue live
 // in w4_common.cuh, shared with the byte-pair kernels of w4_bytes.cu; #3's
 // body is the planes tile of w4_planes_wgmma.cuh, shared with #9.
@@ -21,8 +23,8 @@
 //   decode (M <= 256): bytes / 3.35 TB/s, bytes = N*K/2 + 4*N*G + M*K*b_x
 //                      + M*N*4, so the packed weight read is the bound;
 //   prefill (M > 256): max(bytes / 3.35 TB/s, 2*M*N*K / 1979 TOP/s).
-// The decode kernels use no tensor cores (a lane per channel, __dp4a or
-// f32 FMAs); #3 runs on the int8 tensor cores (wgmma, TMA-fed tiles).
+// The decode kernels use no tensor cores (a lane per channel, __dp4a); #3
+// runs on the int8 tensor cores (wgmma, TMA-fed tiles).
 
 #include "w4_planes_wgmma.cuh"
 
@@ -35,242 +37,15 @@ __device__ __forceinline__ float bf16_to_f32(__nv_bfloat16 v) {
 }
 
 // ---------------------------------------------------------------------------
-// #1  W4A16 decode.  Replaces lightcompress_tpu/ops/pallas_matmul.py
-// w4a16_matmul_planes (_w4a16_kernel_fullk).
-//
-// Bound: the packed weight read (memory).  Design: one lane owns one output
-// channel, so each group's f32 dot finishes in one thread with no shuffles;
-// the block's 4 warps split the gi range of the same 32 channels and add
-// their sums through shared memory at the end (the TPU kernel's whole-K
-// VMEM tile does not fit: a block stages MT rows of x, all of K, in shared
-// memory instead, MT = 8, or 4 at K > 8192).  Lanes read 16 B of their own
-// weight row per step through the read-only cache.
-// ---------------------------------------------------------------------------
-template <int MT>
-__global__ void __launch_bounds__(kDecodeThreads)
-w4a16_decode_kernel(const __nv_bfloat16* __restrict__ x,
-                    const int32_t* __restrict__ wp,
-                    const __nv_bfloat16* __restrict__ s,
-                    const __nv_bfloat16* __restrict__ zs,
-                    float* __restrict__ out, int M, int N, int K) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int kp = K / 8, G = K / kGroup, gpp = kp / kGroup;
-  __nv_bfloat16* xsh = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* xsum = reinterpret_cast<float*>(smem + (size_t)MT * K * 2);
-  float* red = xsum + MT * G;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int m0 = blockIdx.y * MT;
-  const int n = blockIdx.x * 32 + lane;
-
-  const int n16 = MT * K / 8;  // 16-byte units of the x slab
-  for (int i = threadIdx.x; i < n16; i += blockDim.x) {
-    const int m = (i * 8) / K, k = (i * 8) % K;
-    int4 v = make_int4(0, 0, 0, 0);
-    if (m0 + m < M)
-      v = *reinterpret_cast<const int4*>(x + (size_t)(m0 + m) * K + k);
-    reinterpret_cast<int4*>(xsh)[i] = v;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < MT * G; i += blockDim.x) {
-    const __nv_bfloat16* p = xsh + (size_t)(i / G) * K + (i % G) * kGroup;
-    float a = 0.f;
-    for (int t = 0; t < kGroup; ++t) a += bf16_to_f32(p[t]);
-    xsum[i] = a;
-  }
-  __syncthreads();
-
-  float acc[MT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) acc[m] = 0.f;
-  const int32_t* wrow = wp + (size_t)n * kp;
-  for (int gi = warp; gi < gpp; gi += kDecodeWarps) {
-    float part[8][MT];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int m = 0; m < MT; ++m) part[j][m] = 0.f;
-    const int4* wg = reinterpret_cast<const int4*>(wrow + gi * kGroup);
-#pragma unroll 2
-    for (int c = 0; c < kGroup / 4; ++c) {
-      const int4 w = __ldg(wg + c);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int sh = 4 * j;
-        const float c0 = (float)(((uint32_t)w.x >> sh) & 0xFu);
-        const float c1 = (float)(((uint32_t)w.y >> sh) & 0xFu);
-        const float c2 = (float)(((uint32_t)w.z >> sh) & 0xFu);
-        const float c3 = (float)(((uint32_t)w.w >> sh) & 0xFu);
-        const int koff = j * kp + gi * kGroup + 4 * c;
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const uint2 xv =
-              *reinterpret_cast<const uint2*>(xsh + (size_t)m * K + koff);
-          const float x0 = __uint_as_float(xv.x << 16);
-          const float x1 = __uint_as_float(xv.x & 0xFFFF0000u);
-          const float x2 = __uint_as_float(xv.y << 16);
-          const float x3 = __uint_as_float(xv.y & 0xFFFF0000u);
-          part[j][m] = fmaf(c0, x0, part[j][m]);
-          part[j][m] = fmaf(c1, x1, part[j][m]);
-          part[j][m] = fmaf(c2, x2, part[j][m]);
-          part[j][m] = fmaf(c3, x3, part[j][m]);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int g = j * gpp + gi;
-      const float sf = bf16_to_f32(s[(size_t)n * G + g]);
-      const float zf = bf16_to_f32(zs[(size_t)n * G + g]);
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-        acc[m] += sf * part[j][m] - zf * xsum[m * G + g];
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < MT; ++m) red[(warp * MT + m) * 32 + lane] = acc[m];
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      float v = 0.f;
-      for (int w = 0; w < kDecodeWarps; ++w) v += red[(w * MT + m) * 32 + lane];
-      if (m0 + m < M) out[(size_t)(m0 + m) * N + n] = v;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// #4  W4A16 on masked planes.  Replaces lightcompress_tpu/ops/pallas_matmul.py
-// w4a16_matmul_planes_masked (_w4a16_kernel_fullk_masked).
-//
-// Weights from pack_int4_planes_masked: the planes layout with plane 7's
-// nibbles stored XOR 0x8.  Plane j is taken by a mask alone: as an int32,
-// w & (0xF << 4j) is c * 16^j, and for plane 7 (the sign bit) (c - 8) * 2^28,
-// both exact in f32.  ST (f32 or bf16) scales arrive pre-divided by 16^j
-// (masked_scales) and the zero corrections with plane 7's -8 folded in
-// (masked_zero_scales), so
-//   y = (a0 + a1) + (a2 + a3) - sum_g xsum_g * zs_g,
-//   a_r = sum over gi, then over the planes j with j % 4 == r, of
-//         (x_{j,gi} . masked_{j,gi}) * s_{j,gi}
-// as the TPU kernel adds its four accumulators (each product and sum
-// rounded once, no contraction).  Bound: the packed weight read (memory).
-// Design: #1's decode block (a lane per channel, 4 warps splitting gi, MT
-// rows of bf16 x staged whole in shared memory); each warp keeps the four
-// accumulators and its part of the correction, and warp 0 adds the warps'
-// partials accumulator by accumulator before the TPU kernel's final sum.
-// ---------------------------------------------------------------------------
-template <int MT, typename ST>
-__global__ void __launch_bounds__(kDecodeThreads)
-w4a16_masked_kernel(const __nv_bfloat16* __restrict__ x,
-                    const int32_t* __restrict__ wp, const ST* __restrict__ s,
-                    const ST* __restrict__ zs, float* __restrict__ out, int M,
-                    int N, int K) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int kp = K / 8, G = K / kGroup, gpp = kp / kGroup;
-  __nv_bfloat16* xsh = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* xsum = reinterpret_cast<float*>(smem + (size_t)MT * K * 2);
-  float* red = xsum + MT * G;  // [warp][5][MT][32]: a0..a3, corr
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int m0 = blockIdx.y * MT;
-  const int n = blockIdx.x * 32 + lane;
-
-  const int n16 = MT * K / 8;
-  for (int i = threadIdx.x; i < n16; i += blockDim.x) {
-    const int m = (i * 8) / K, k = (i * 8) % K;
-    int4 v = make_int4(0, 0, 0, 0);
-    if (m0 + m < M)
-      v = *reinterpret_cast<const int4*>(x + (size_t)(m0 + m) * K + k);
-    reinterpret_cast<int4*>(xsh)[i] = v;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < MT * G; i += blockDim.x) {
-    const __nv_bfloat16* p = xsh + (size_t)(i / G) * K + (i % G) * kGroup;
-    float a = 0.f;
-    for (int t = 0; t < kGroup; ++t) a = __fadd_rn(a, bf16_to_f32(p[t]));
-    xsum[i] = a;
-  }
-  __syncthreads();
-
-  float acc[4][MT], corr[MT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    corr[m] = 0.f;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) acc[r][m] = 0.f;
-  }
-  const int32_t* wrow = wp + (size_t)n * kp;
-  for (int gi = warp; gi < gpp; gi += kDecodeWarps) {
-    float part[8][MT];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int m = 0; m < MT; ++m) part[j][m] = 0.f;
-    const int4* wg = reinterpret_cast<const int4*>(wrow + gi * kGroup);
-#pragma unroll 2
-    for (int c = 0; c < kGroup / 4; ++c) {
-      const int4 w = __ldg(wg + c);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int mask = (int)(0xFu << (4 * j));  // plane 7: negative
-        const float c0 = (float)(w.x & mask), c1 = (float)(w.y & mask);
-        const float c2 = (float)(w.z & mask), c3 = (float)(w.w & mask);
-        const int koff = j * kp + gi * kGroup + 4 * c;
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const uint2 xv =
-              *reinterpret_cast<const uint2*>(xsh + (size_t)m * K + koff);
-          part[j][m] = fmaf(c0, __uint_as_float(xv.x << 16), part[j][m]);
-          part[j][m] = fmaf(c1, __uint_as_float(xv.x & 0xFFFF0000u), part[j][m]);
-          part[j][m] = fmaf(c2, __uint_as_float(xv.y << 16), part[j][m]);
-          part[j][m] = fmaf(c3, __uint_as_float(xv.y & 0xFFFF0000u), part[j][m]);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int g = j * gpp + gi;
-      const float sf = to_f32(s[(size_t)n * G + g]);
-      const float zf = to_f32(zs[(size_t)n * G + g]);
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        acc[j % 4][m] = __fadd_rn(acc[j % 4][m], __fmul_rn(part[j][m], sf));
-        corr[m] = __fadd_rn(corr[m], __fmul_rn(xsum[m * G + g], zf));
-      }
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      red[((warp * 5 + r) * MT + m) * 32 + lane] = acc[r][m];
-    red[((warp * 5 + 4) * MT + m) * 32 + lane] = corr[m];
-  }
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      float v[5];
-#pragma unroll
-      for (int r = 0; r < 5; ++r) {
-        v[r] = 0.f;
-        for (int w = 0; w < kDecodeWarps; ++w)
-          v[r] = __fadd_rn(v[r], red[((w * 5 + r) * MT + m) * 32 + lane]);
-      }
-      const float y = __fsub_rn(
-          __fadd_rn(__fadd_rn(v[0], v[1]), __fadd_rn(v[2], v[3])), v[4]);
-      if (m0 + m < M) out[(size_t)(m0 + m) * N + n] = y;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // #2  W4A8 decode.  Replaces lightcompress_tpu/ops/pallas_matmul.py
 // w4a8_matmul_planes (_w4a8_kernel_fullk_combined, _w4a8_kernel_fullk).
 // #14 W4A8 fused decode linear (XT = bf16 or f32 x).  Replaces
 // w4a8_linear_planes_fused (_w4a8_kernel_fullk_fused).
 //
-// Bound: the packed weight read (memory).  Same design as #1 with int8
-// activations: each lane's group dot is integer-exact (__dp4a over four
+// Bound: the packed weight read (memory).  Design: one lane owns one output
+// channel, and the block's 4 warps split the gi range of the same 32
+// channels, adding their sums through shared memory at the end; each
+// lane's group dot is integer-exact (__dp4a over four
 // codes packed into bytes; a group sum is at most 127*15*128 = 243,840),
 // then the f32 scale and zero correction, then the per-token act scale.
 // #2 stages pre-quantized rows (XT = int8_t) and writes f32; #14 runs the
@@ -349,16 +124,6 @@ w4a8_decode_kernel(const XT* __restrict__ x,
                  static_cast<OutT*>(out), M, N, m0, n);
 }
 
-size_t decode_smem(int mt, int K, int xbytes) {
-  const int G = K / kGroup;
-  return (size_t)mt * K * xbytes + (size_t)mt * G * 4 +
-         (size_t)kDecodeWarps * mt * 32 * 4;
-}
-
-// Rows of x a W4A16 decode block stages: 8, or 4 where 8 rows of bf16 x
-// would not fit in shared memory.
-int w4a16_rows_per_block(int K) { return K <= 8192 ? 8 : 4; }
-
 // #2 (XT = int8_t, pre-quantized x and its scales) and #14 (XT = bf16 or
 // f32 x, the prologue in the kernel): 8 rows of x per block.
 template <typename XT>
@@ -378,73 +143,9 @@ int launch_w4a8_decode(const XT* x, const void* xscale, const void* wp,
   return (int)cudaGetLastError();
 }
 
-// #4: MT rows as #1, the four accumulators and the correction of each
-// warp in the reduction buffer.
-template <typename ST>
-int launch_masked(const __nv_bfloat16* x, const int32_t* wp, const ST* s,
-                  const ST* zs, float* out, int M, int N, int K,
-                  void* stream) {
-  const int mt = w4a16_rows_per_block(K);
-  const size_t smem = (size_t)mt * K * 2 + (size_t)mt * (K / kGroup) * 4 +
-                      (size_t)kDecodeWarps * 5 * mt * 32 * 4;
-  const dim3 grid(N / 32, (M + mt - 1) / mt);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (mt == 8) {
-    e = prepare(w4a16_masked_kernel<8, ST>, smem);
-    if (e != cudaSuccess) return (int)e;
-    w4a16_masked_kernel<8, ST><<<grid, kDecodeThreads, smem, st>>>(
-        x, wp, s, zs, out, M, N, K);
-  } else {
-    e = prepare(w4a16_masked_kernel<4, ST>, smem);
-    if (e != cudaSuccess) return (int)e;
-    w4a16_masked_kernel<4, ST><<<grid, kDecodeThreads, smem, st>>>(
-        x, wp, s, zs, out, M, N, K);
-  }
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
-
-int lc_w4a16_decode(const void* x, const void* wp, const void* s,
-                    const void* zs, void* out, int M, int N, int K,
-                    void* stream) {
-  const int mt = w4a16_rows_per_block(K);
-  const size_t smem = decode_smem(mt, K, 2);
-  const dim3 grid(N / 32, (M + mt - 1) / mt);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (mt == 8) {
-    e = prepare(w4a16_decode_kernel<8>, smem);
-    if (e != cudaSuccess) return (int)e;
-    w4a16_decode_kernel<8><<<grid, kDecodeThreads, smem, st>>>(
-        (const __nv_bfloat16*)x, (const int32_t*)wp, (const __nv_bfloat16*)s,
-        (const __nv_bfloat16*)zs, (float*)out, M, N, K);
-  } else {
-    e = prepare(w4a16_decode_kernel<4>, smem);
-    if (e != cudaSuccess) return (int)e;
-    w4a16_decode_kernel<4><<<grid, kDecodeThreads, smem, st>>>(
-        (const __nv_bfloat16*)x, (const int32_t*)wp, (const __nv_bfloat16*)s,
-        (const __nv_bfloat16*)zs, (float*)out, M, N, K);
-  }
-  return (int)cudaGetLastError();
-}
-
-// #4: x (M, K) bf16; wp (N, K/8) masked planes; s, zs (N, G) f32
-// (s_bf16 = 0) or bf16 (1), s pre-divided by 16^j -> out (M, N) f32.
-int lc_w4a16_masked(const void* x, const void* wp, const void* s,
-                    const void* zs, int s_bf16, void* out, int M, int N,
-                    int K, void* stream) {
-  if (s_bf16)
-    return launch_masked((const __nv_bfloat16*)x, (const int32_t*)wp,
-                         (const __nv_bfloat16*)s, (const __nv_bfloat16*)zs,
-                         (float*)out, M, N, K, stream);
-  return launch_masked((const __nv_bfloat16*)x, (const int32_t*)wp,
-                       (const float*)s, (const float*)zs, (float*)out, M, N,
-                       K, stream);
-}
 
 int lc_w4a8_decode(const void* xq, const void* xscale, const void* wp,
                    const void* s, const void* zs, void* out, int M, int N,
@@ -482,14 +183,15 @@ int lc_w4a8_planes_fused(const void* x, int x_f32, const void* wp,
 // bit.  Bound: at M = 1024 and the Llama-3-8B shapes the 2*M*N*K int8
 // operations, and the f32 epilogue of every (output, group).
 // ---------------------------------------------------------------------------
-// xq (M, K) int8, xscale (M,) f32; out (M, N) bf16 (out_f32 = 0) or f32.
+// xq (M, K) int8, xscale (M,) f32; out (M, N) bf16 (out_f32 = 0) or f32;
+// xsum_g null or the int16 row-sum scratch of launch_planes_wgmma.
 int lc_w4a8_prefill(const void* xq, const void* xscale, const void* wp,
-                    const void* s, const void* zs, void* out, int out_f32,
-                    int M, int N, int K, void* stream) {
+                    const void* s, const void* zs, void* xsum_g, void* out,
+                    int out_f32, int M, int N, int K, void* stream) {
   if (out_f32)
-    return launch_planes_wgmma(xq, xscale, wp, s, zs, nullptr, (float*)out,
-                               M, N, K, 1, kTileM, stream);
-  return launch_planes_wgmma(xq, xscale, wp, s, zs, nullptr,
+    return launch_planes_wgmma(xq, xscale, wp, s, zs, nullptr, xsum_g,
+                               (float*)out, M, N, K, 1, kTileM, stream);
+  return launch_planes_wgmma(xq, xscale, wp, s, zs, nullptr, xsum_g,
                              (__nv_bfloat16*)out, M, N, K, 1, kTileM, stream);
 }
 

@@ -33,7 +33,8 @@
 //     one weight channel tile, which the L2 then serves to every row tile.
 //
 // The decode tile of the planes layout (#5, w4_ksplit.cu; the template for
-// the decode kernels #1, #2, #4, #11, #13 and #14), below the prefill
+// the decode kernels #2, #11, #13 and #14, and for the bf16 tile of #1 and
+// #4 in w4a16_tile.cu, which swaps its operands), below the prefill
 // tile's helpers: mma.sync m16n8k32 with the B fragments unpacked in
 // registers from the 32 bytes of planes words each lane reads a k step
 // (decode_b_word, planes_b_frags), the A fragments from x staged in shared

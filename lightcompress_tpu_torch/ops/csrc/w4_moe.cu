@@ -395,13 +395,14 @@ int lc_w4a8_gathered(const void* x, const void* xscale, const void* wp,
 // ---------------------------------------------------------------------------
 // x (Mp, K) int8, xscale (Mp,) f32, block_eid (Mp / m_tile,) int32;
 // out (Mp, N) f32; m_tile % 64 == 0, Mp % m_tile == 0, K % 1024 == 0,
-// N % 128 == 0, K <= 49152 (the row sums fill the rest of shared memory).
+// N % 128 == 0; xsum_g null or the int16 row-sum scratch of
+// launch_planes_wgmma (K > 49152).
 int lc_w4a8_grouped(const void* x, const void* xscale, const void* wp,
                     const void* s, const void* zs, const void* block_eid,
-                    void* out, int Mp, int N, int K, int E, int m_tile,
-                    void* stream) {
-  return launch_planes_wgmma(x, xscale, wp, s, zs, block_eid, (float*)out,
-                             Mp, N, K, E, m_tile, stream);
+                    void* xsum_g, void* out, int Mp, int N, int K, int E,
+                    int m_tile, void* stream) {
+  return launch_planes_wgmma(x, xscale, wp, s, zs, block_eid, xsum_g,
+                             (float*)out, Mp, N, K, E, m_tile, stream);
 }
 
 }  // extern "C"

@@ -15,7 +15,11 @@
 // w4_mma.cuh: with #9 m_tile % 64 == 0, so its rows lie in one expert's
 // segment, whose id the block reads itself (an id out of range fills the
 // tile with NaN).  The x tensor map covers M rows: TMA fills the rows past
-// M with zeros, and the stores and xscale reads are masked to m < M.
+// M with zeros, and the stores and xscale reads are masked to m < M.  Any
+// K % 1024 == 0: up to ROWSUM_SMEM_K_MAX (ops/w4_matmul.py, 49152) the row
+// sums stay in shared memory beside the stages; above it (kBigK) they go to
+// a global int16 scratch (xsum_g, [M / 64][G][64], from the wrapper), and
+// the zero corrections are staged kZsGi word blocks at a time.
 //
 // Stages.  Word block gi (words gi*128 .. +128 of each channel, all eight
 // planes of groups j*gpp + gi) is copied once into shared memory (64 KB:
@@ -38,12 +42,12 @@
 // same (gi, j) order, every op rounded on its own; a bf16 output is y
 // rounded to nearest even.  Each accumulator sees its own sequence; corr is
 // summed after the stages from the row sums each stage leaves in shared
-// memory (int16: |xsum| <= 128 * 127), so a thread holds four accumulators
-// per output and the two planes' group dots (32 outputs: 192 registers;
-// about 220 in all, one block an SM) during the stages.  Bound: the int8
-// operations of the rows and the f32 epilogue of every (output, group);
-// with 64 x 128 tiles (the accumulators fill the register file) also the
-// L2 traffic of x and the word blocks.
+// or global memory (int16: |xsum| <= 128 * 127), so a thread holds four
+// accumulators per output and the two planes' group dots (32 outputs: 192
+// registers; about 220 in all, one block an SM) during the stages.  Bound:
+// the int8 operations of the rows and the f32 epilogue of every (output,
+// group); with 64 x 128 tiles (the accumulators fill the register file)
+// also the L2 traffic of x and the word blocks.
 #pragma once
 
 #include "w4_mma.cuh"
@@ -59,10 +63,13 @@ constexpr size_t kWordBlock = (size_t)kTileN * kWordRow;
 constexpr int kXStages = 3;           // x tiles in flight
 // (after 1024 bytes of alignment slack) four unpacked planes, the x tiles
 // (kXStages stages x 2 groups), the word block, the stage's scales, the
-// mbarriers (kXStages x tiles, the word block); then the row sums, 128
-// bytes a group
+// mbarriers (kXStages x tiles, the word block); then, unless they go to
+// global memory, the row sums, 128 bytes a group
 constexpr size_t kPlanesFixedSmem = 1024 + 4 * kTileW + 2 * kXStages * kTileX +
                                     kWordBlock + 2 * kTileN * 4 + 64;
+// word blocks of zero corrections ([8 planes][128 channels] bf16 each) that
+// fit in the plane and x tiles once the stages are done
+constexpr int kZsGi = (4 * kTileW + 2 * kXStages * kTileX) / (8 * kTileN * 2);
 
 // 16-byte chunk c of channel n's word block: TMA box c / 8, swizzled
 __device__ __forceinline__ int word_swz(int n, int c) {
@@ -77,7 +84,7 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-template <typename OutT>
+template <typename OutT, bool kBigK>
 __global__ void __launch_bounds__(kPlanesThreads, 1)
 w4a8_planes_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                          const float* __restrict__ xscale,
@@ -85,6 +92,7 @@ w4a8_planes_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                          const __nv_bfloat16* __restrict__ s,
                          const __nv_bfloat16* __restrict__ zs,
                          const int32_t* __restrict__ block_eid,
+                         int16_t* __restrict__ xsum_g,
                          OutT* __restrict__ out, int M, int N, int K, int E,
                          int m_tile) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -97,9 +105,11 @@ w4a8_planes_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   float* s_sh = reinterpret_cast<float*>(wbuf + kWordBlock);  // [2][128]
   uint64_t* xbar = reinterpret_cast<uint64_t*>(s_sh + 2 * kTileN);
   uint64_t* wbar = xbar + kXStages;
-  int16_t* xsum_sh = reinterpret_cast<int16_t*>(xbar + 8);  // [G][64]
-
   const int kp = K / 8, G = K / kGroup, gpp = kp / kGroup;
+  // the row sums, [G][64]: in shared memory, or (kBigK) the block's rows
+  // of xsum_g
+  int16_t* xsum_sh = kBigK ? xsum_g + (size_t)blockIdx.x * G * kTileM
+                           : reinterpret_cast<int16_t*>(xbar + 8);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2;
   // a thread's outputs d[4j + e]: row rw + 8 (e >> 1), channel
@@ -237,58 +247,99 @@ w4a8_planes_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       pair(xt, bt, st, acc0, acc1);
   }
 
-  // the block's zero corrections, [G][128] bf16, into the plane and x
-  // tiles (112 KB, free now: every warp is past its last products); a
-  // channel's G values are G / 8 16-byte chunks, read eight a thread at
-  // once and stored transposed
-  __syncthreads();
-  __nv_bfloat16* zs_sh = reinterpret_cast<__nv_bfloat16*>(bsh);
-  const int n_chunks = kTileN * G / 8;
-  for (int i0 = 0; i0 < n_chunks; i0 += 8 * kPlanesThreads) {
-    int4 v[8];
+  if constexpr (kBigK) {
+    // y = (a0 + a1) + (a2 + a3) into acc0; corr into acc1, in (gi, j)
+    // order, the zero corrections staged in the plane and x tiles (112 KB,
+    // free now) kZsGi word blocks gi at a time: row jp * gin + gi - gi0
+    // holds group jp * gpp + gi of the 128 channels, one value a thread,
+    // the threads along a channel's run of gin groups
 #pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const int i = i0 + u * kPlanesThreads + tid;
-      if (i < n_chunks)
-        v[u] = *reinterpret_cast<const int4*>(zs_e + (size_t)(i % kTileN) * G +
-                                              8 * (i / kTileN));
+    for (int i = 0; i < 32; ++i) {
+      acc0[i] = __fadd_rn(__fadd_rn(acc0[i], acc1[i]),
+                          __fadd_rn(acc2[i], acc3[i]));
+      acc1[i] = 0.f;
     }
+    __nv_bfloat16* zs_sh = reinterpret_cast<__nv_bfloat16*>(bsh);
+    for (int gi0 = 0; gi0 < gpp; gi0 += kZsGi) {
+      const int gin = min(kZsGi, gpp - gi0), per = 8 * gin;
+      __syncthreads();  // the tiles (then the previous chunk) are free
+      for (int i = tid; i < kTileN * per; i += kPlanesThreads) {
+        const int n = i / per, r = i % per;
+        zs_sh[r * kTileN + n] =
+            zs_e[(size_t)n * G + (r / gin) * gpp + gi0 + r % gin];
+      }
+      __syncthreads();
+      for (int gi = gi0; gi < gi0 + gin; ++gi)
+        for (int jp = 0; jp < 8; ++jp) {
+          const int g = jp * gpp + gi, zr = jp * gin + gi - gi0;
+          float zv[16], xv[2];
 #pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const int i = i0 + u * kPlanesThreads + tid;
-      if (i >= n_chunks) continue;
-      const __nv_bfloat16* z = reinterpret_cast<const __nv_bfloat16*>(&v[u]);
+          for (int c = 0; c < 16; ++c)
+            zv[c] = __bfloat162float(
+                zs_sh[zr * kTileN + cw + 8 * (c >> 1) + (c & 1)]);
+          xv[0] = (float)xsum_sh[g * kTileM + rw];
+          xv[1] = (float)xsum_sh[g * kTileM + rw + 8];
 #pragma unroll
-      for (int k = 0; k < 8; ++k)
-        zs_sh[(8 * (i / kTileN) + k) * kTileN + i % kTileN] = z[k];
+          for (int i = 0; i < 32; ++i)
+            acc1[i] =
+                fmaf(xv[(i >> 1) & 1], zv[2 * (i >> 2) + (i & 1)], acc1[i]);
+        }
     }
-  }
-  __syncthreads();
+  } else {
+    // the block's zero corrections, [G][128] bf16, into the plane and x
+    // tiles (112 KB, free now: every warp is past its last products); a
+    // channel's G values are G / 8 16-byte chunks, read eight a thread at
+    // once and stored transposed
+    __syncthreads();
+    __nv_bfloat16* zs_sh = reinterpret_cast<__nv_bfloat16*>(bsh);
+    const int n_chunks = kTileN * G / 8;
+    for (int i0 = 0; i0 < n_chunks; i0 += 8 * kPlanesThreads) {
+      int4 v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int i = i0 + u * kPlanesThreads + tid;
+        if (i < n_chunks)
+          v[u] = *reinterpret_cast<const int4*>(
+              zs_e + (size_t)(i % kTileN) * G + 8 * (i / kTileN));
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int i = i0 + u * kPlanesThreads + tid;
+        if (i >= n_chunks) continue;
+        const __nv_bfloat16* z =
+            reinterpret_cast<const __nv_bfloat16*>(&v[u]);
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          zs_sh[(8 * (i / kTileN) + k) * kTileN + i % kTileN] = z[k];
+      }
+    }
+    __syncthreads();
 
-  // y = (a0 + a1) + (a2 + a3) into acc0; corr into acc1, in (gi, j) order
+    // y = (a0 + a1) + (a2 + a3) into acc0; corr into acc1, in (gi, j) order
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    acc0[i] = __fadd_rn(__fadd_rn(acc0[i], acc1[i]),
-                        __fadd_rn(acc2[i], acc3[i]));
-    acc1[i] = 0.f;
-  }
-  for (int gi = 0; gi < gpp; ++gi)
-    for (int jp = 0; jp < 8; ++jp) {
-      const int g = jp * gpp + gi;
-      float zv[16], xv[2];
-#pragma unroll
-      for (int c = 0; c < 16; ++c)
-        zv[c] = __bfloat162float(
-            zs_sh[g * kTileN + cw + 8 * (c >> 1) + (c & 1)]);
-      xv[0] = (float)xsum_sh[g * kTileM + rw];
-      xv[1] = (float)xsum_sh[g * kTileM + rw + 8];
-#pragma unroll
-      // xsum * zs is exact (at most 14 + 8 significant bits): the fused
-      // multiply-add rounds once, as the product and the sum do
-      for (int i = 0; i < 32; ++i)
-        acc1[i] =
-            fmaf(xv[(i >> 1) & 1], zv[2 * (i >> 2) + (i & 1)], acc1[i]);
+    for (int i = 0; i < 32; ++i) {
+      acc0[i] = __fadd_rn(__fadd_rn(acc0[i], acc1[i]),
+                          __fadd_rn(acc2[i], acc3[i]));
+      acc1[i] = 0.f;
     }
+    for (int gi = 0; gi < gpp; ++gi)
+      for (int jp = 0; jp < 8; ++jp) {
+        const int g = jp * gpp + gi;
+        float zv[16], xv[2];
+#pragma unroll
+        for (int c = 0; c < 16; ++c)
+          zv[c] = __bfloat162float(
+              zs_sh[g * kTileN + cw + 8 * (c >> 1) + (c & 1)]);
+        xv[0] = (float)xsum_sh[g * kTileM + rw];
+        xv[1] = (float)xsum_sh[g * kTileM + rw + 8];
+#pragma unroll
+        // xsum * zs is exact (at most 14 + 8 significant bits): the fused
+        // multiply-add rounds once, as the product and the sum do
+        for (int i = 0; i < 32; ++i)
+          acc1[i] =
+              fmaf(xv[(i >> 1) & 1], zv[2 * (i >> 2) + (i & 1)], acc1[i]);
+      }
+  }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int m = m0 + rw + 8 * h;
@@ -306,13 +357,15 @@ w4a8_planes_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 
 // Launches the planes tile over x (M, K) int8 and the stacked weight of E
 // experts; block_eid null for one expert and dense rows.  K % 1024 == 0,
-// K <= 49152 (the row sums fill the rest of shared memory), N % 128 == 0;
-// with block_eid m_tile % 64 == 0.  Returns 0 or an error code.
+// N % 128 == 0; with block_eid m_tile % 64 == 0.  xsum_g: null (the row
+// sums in shared memory, K <= 49152) or an int16 scratch of
+// ceil(M / 64) * 64 * K / 128 values.  Returns 0 or an error code (shared
+// memory that does not fit is refused, never worked around).
 template <typename OutT>
 int launch_planes_wgmma(const void* x, const void* xscale, const void* wp,
                         const void* s, const void* zs, const void* block_eid,
-                        OutT* out, int M, int N, int K, int E, int m_tile,
-                        void* stream) {
+                        void* xsum_g, OutT* out, int M, int N, int K, int E,
+                        int m_tile, void* stream) {
   CUtensorMap xmap, wmap;
   int rc = tensor_map_2d(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, x, K, M, K,
                          kTileRow, kTileM);
@@ -320,15 +373,26 @@ int launch_planes_wgmma(const void* x, const void* xscale, const void* wp,
     rc = tensor_map_2d(&wmap, CU_TENSOR_MAP_DATA_TYPE_INT32, wp, K / 8,
                        (uint64_t)E * N, (uint64_t)K / 2, 32, kTileN);
   if (rc != 0) return rc;
-  const size_t smem = kPlanesFixedSmem + (size_t)(K / kGroup) * kTileM * 2;
-  cudaError_t e = prepare(w4a8_planes_wgmma_kernel<OutT>, smem);
-  if (e != cudaSuccess) return (int)e;
   const dim3 grid((M + kTileM - 1) / kTileM, N / kTileN);  // rows innermost
-  w4a8_planes_wgmma_kernel<OutT>
-      <<<grid, kPlanesThreads, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
-          xmap, (const float*)xscale, wmap, (const __nv_bfloat16*)s,
-          (const __nv_bfloat16*)zs, (const int32_t*)block_eid, out, M, N, K,
-          E, m_tile);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (xsum_g != nullptr) {
+    e = prepare(w4a8_planes_wgmma_kernel<OutT, true>, kPlanesFixedSmem);
+    if (e != cudaSuccess) return (int)e;
+    w4a8_planes_wgmma_kernel<OutT, true>
+        <<<grid, kPlanesThreads, kPlanesFixedSmem, st>>>(
+            xmap, (const float*)xscale, wmap, (const __nv_bfloat16*)s,
+            (const __nv_bfloat16*)zs, (const int32_t*)block_eid,
+            (int16_t*)xsum_g, out, M, N, K, E, m_tile);
+  } else {
+    const size_t smem = kPlanesFixedSmem + (size_t)(K / kGroup) * kTileM * 2;
+    e = prepare(w4a8_planes_wgmma_kernel<OutT, false>, smem);
+    if (e != cudaSuccess) return (int)e;
+    w4a8_planes_wgmma_kernel<OutT, false><<<grid, kPlanesThreads, smem, st>>>(
+        xmap, (const float*)xscale, wmap, (const __nv_bfloat16*)s,
+        (const __nv_bfloat16*)zs, (const int32_t*)block_eid, nullptr, out, M,
+        N, K, E, m_tile);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -41,8 +41,8 @@ import functools
 import torch
 
 from . import _build
-from .w4_matmul import (GROUP, PLANES_TILE_K_MAX, _aligned, _launch,
-                        _stream, unpack_int4_planes, w4a8_rows_tpu_order)
+from .w4_matmul import (GROUP, _aligned, _launch, _stream, rowsum_scratch,
+                        unpack_int4_planes, w4a8_rows_tpu_order)
 
 # rows of one expert segment of the grouped layout (moe_group_selections);
 # the kernel takes multiples of its 64-row tile
@@ -166,8 +166,8 @@ def _lib() -> ctypes.CDLL:
                                     _I, _P]
     lib.lc_w4a8_gathered.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                      _I, _I, _I, _P]
-    lib.lc_w4a8_grouped.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _I, _I, _P]
+    lib.lc_w4a8_grouped.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _I, _P]
     lib.lc_w4a8_stacked_smallm.argtypes = lib.lc_w4a8_stacked.argtypes
     for fn in (lib.lc_w4a8_stacked, lib.lc_w4a8_gathered,
                lib.lc_w4a8_grouped, lib.lc_w4a8_stacked_smallm):
@@ -319,19 +319,21 @@ def w4a8_grouped_matmul(xq: torch.Tensor, x_scale: torch.Tensor,
     if xq.device.type == "cpu":
         return w4a8_grouped_matmul_plain(xq, x_scale, wp, s, zs, block_eid,
                                          m_tile)
-    if m_tile % 64 or K > PLANES_TILE_K_MAX:
-        raise ValueError(f"the grouped kernel takes m_tile % 64 == 0 and K "
-                         f"<= {PLANES_TILE_K_MAX}, got m_tile={m_tile} K={K}")
+    if m_tile % 64:
+        raise ValueError(f"the grouped kernel takes m_tile % 64 == 0, got "
+                         f"m_tile={m_tile}")
     out = torch.empty((Mp, N), dtype=torch.float32, device=xq.device)
     if Mp == 0:
         return out
     xq = _aligned(xq)
     xs = x_scale.float().contiguous()
+    scratch = rowsum_scratch(Mp, K, xq.device)
     with torch.cuda.device(xq.device):
         _launch(_lib().lc_w4a8_grouped, xq.data_ptr(), xs.data_ptr(),
                 wp.data_ptr(), s.data_ptr(), zs.data_ptr(),
-                block_eid.data_ptr(), out.data_ptr(), Mp, N, K, E, m_tile,
-                _stream(xq.device))
+                block_eid.data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
+                out.data_ptr(), Mp, N, K, E, m_tile, _stream(xq.device))
     w4a8_grouped_matmul.launches += 1
     return out
 

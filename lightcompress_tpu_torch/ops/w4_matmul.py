@@ -43,8 +43,11 @@ Both add their scaled group dots in four accumulators, (a0 + a1) +
 (a2 + a3), before the correction, as the TPU kernels do.
 
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
-kernel (``csrc/w4_matmul.cu``, ``csrc/w4_bytes.cu``, ``csrc/w4_ksplit.cu``)
-or raises.  #12 has two bodies, chosen by M alone (``bytes_body``): the
+kernel (``csrc/w4_matmul.cu``, ``csrc/w4a16_tile.cu``, ``csrc/w4_bytes.cu``,
+``csrc/w4_ksplit.cu``) or raises.  #1 and #4 run on one bf16 tensor-core
+tile (``csrc/w4a16_tile.cu``) in the TPU kernels' order
+(``_w4a16_tpu_order``, their plain versions), within summation-order noise
+of it.  #12 has two bodies, chosen by M alone (``bytes_body``): the
 decode block below ``BYTES_TILE_MIN_M`` rows, the int8 tensor-core tile of
 ``csrc/w4_mma.cuh`` from there on.  #3 runs on the planes tile it shares
 with #9 (``csrc/w4_planes_wgmma.cuh``), #5 on the planes decode tile of
@@ -80,9 +83,10 @@ DECODE_M_MAX = 256
 BYTES_TILE_MIN_M = 8
 # the planes tile of #3 and #9 (csrc/w4_planes_wgmma.cuh): 128 channels a
 # block; beside its stages, shared memory holds 128 bytes of row sums a
-# group, so K up to 49152
+# group up to this K, above it the wrapper hands the kernel a global int16
+# scratch of the row sums (``rowsum_scratch``)
 TILE_N = 128
-PLANES_TILE_K_MAX = 49152
+ROWSUM_SMEM_K_MAX = 49152
 
 
 # ---------------------------------------------------------------------------
@@ -253,12 +257,6 @@ def _grouped(x: torch.Tensor, codes: torch.Tensor, s: torch.Tensor,
     return y
 
 
-def w4a16_matmul_plain(x, wp, s, zs) -> torch.Tensor:
-    """Plain #1: bf16-rounded x, f32 group dots; returns (M, N) f32."""
-    return _grouped(x.to(torch.bfloat16).float(),
-                    unpack_int4_planes(wp, x.shape[1]), s, zs)
-
-
 def w4a8_matmul_decode_plain(xq, x_scale, wp, s, zs) -> torch.Tensor:
     """Plain #2: integer-exact group dots (every partial sum is an integer
     below 2^24), f32 scale, times x_scale; returns (M, N) f32."""
@@ -366,10 +364,12 @@ def _four_accumulators(parts, s: torch.Tensor, groups) -> torch.Tensor:
     return (acc[0] + acc[1]) + (acc[2] + acc[3])
 
 
-def w4a16_matmul_planes_masked_plain(x, wp, s, zs) -> torch.Tensor:
-    """Plain #4 in the TPU kernel's order: for gi, then plane j, the bf16 x
-    group dotted with the masked words as f32 (c * 16^j, or (c - 8) * 2^28
-    on plane 7) into accumulator j % 4 times the pre-divided scale, then
+def _w4a16_tpu_order(x, wp, s, zs, masked: bool) -> torch.Tensor:
+    """The W4A16 planes kernels' order (_w4a16_kernel_fullk and, with
+    ``masked``, _w4a16_kernel_fullk_masked): for gi, then plane j, the bf16
+    x group dotted with the plane's codes as f32 (masked: the words under
+    the plane's mask, c * 16^j, or (c - 8) * 2^28 on plane 7) into
+    accumulator j % 4 times the scale (masked: pre-divided by 16^j), then
     (a0 + a1) + (a2 + a3) minus the zero correction; (M, N) f32."""
     M, K = x.shape
     N, G = s.shape
@@ -379,14 +379,29 @@ def w4a16_matmul_planes_masked_plain(x, wp, s, zs) -> torch.Tensor:
     parts, groups = [], []
     for gi in range(gpp):
         for j in range(8):
-            mask = (0xF << (4 * j)) - (1 << 32 if j == 7 else 0)
-            d = (w[:, gi] & mask).float()
+            if masked:
+                mask = (0xF << (4 * j)) - (1 << 32 if j == 7 else 0)
+                d = (w[:, gi] & mask).float()
+            else:
+                d = ((w[:, gi] >> (4 * j)) & 0xF).float()
             k0 = j * kp + gi * GROUP
             parts.append(torch.matmul(xb[:, k0:k0 + GROUP], d.t()))
             groups.append((j * gpp + gi, j % 4))
     xsum = xb.reshape(M, G, GROUP).sum(dim=-1)
     return _four_accumulators(parts, s, groups) - torch.matmul(
         xsum, zs.float().t())
+
+
+def w4a16_matmul_plain(x, wp, s, zs) -> torch.Tensor:
+    """Plain #1 in the TPU kernel's order (``_w4a16_tpu_order``):
+    bf16-rounded x, f32 group dots; returns (M, N) f32."""
+    return _w4a16_tpu_order(x, wp, s, zs, masked=False)
+
+
+def w4a16_matmul_planes_masked_plain(x, wp, s, zs) -> torch.Tensor:
+    """Plain #4 in the TPU kernel's order (``_w4a16_tpu_order`` on the
+    masked words and pre-divided scales); returns (M, N) f32."""
+    return _w4a16_tpu_order(x, wp, s, zs, masked=True)
 
 
 def w4a8_matmul_s4_plain(xq, x_scale, wb, s, zs) -> torch.Tensor:
@@ -417,15 +432,22 @@ _FUSED_ARGS = [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("w4_matmul")
-    lib.lc_w4a16_decode.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
     lib.lc_w4a8_decode.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
-    lib.lc_w4a8_prefill.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _P]
+    lib.lc_w4a8_prefill.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _P]
     lib.lc_w4a8_planes_fused.argtypes = _FUSED_ARGS
-    lib.lc_w4a16_masked.argtypes = [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P]
-    for fn in (lib.lc_w4a16_decode, lib.lc_w4a8_decode, lib.lc_w4a8_prefill,
-               lib.lc_w4a8_planes_fused, lib.lc_w4a16_masked):
+    for fn in (lib.lc_w4a8_decode, lib.lc_w4a8_prefill,
+               lib.lc_w4a8_planes_fused):
         fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_lib() -> ctypes.CDLL:
+    lib = _build.load("w4a16_tile")
+    lib.lc_w4a16_tile.argtypes = [_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I,
+                                  _P]
+    lib.lc_w4a16_tile.restype = ctypes.c_int
     return lib
 
 
@@ -503,21 +525,43 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def rowsum_scratch(M: int, K: int, device: torch.device
+                   ) -> Optional[torch.Tensor]:
+    """The planes tile's row sums (#3, #9) for K > ROWSUM_SMEM_K_MAX: an
+    int16 (ceil(M / 64) * 64, K / 128) scratch the kernel fills and reads
+    back; None below, where they stay in shared memory."""
+    if K <= ROWSUM_SMEM_K_MAX:
+        return None
+    return torch.empty((-(-M // 64) * 64, K // GROUP), dtype=torch.int16,
+                       device=device)
+
+
+def _w4a16_tile(x, wp, s, zs, s_bf16: int, masked: bool,
+                out: torch.Tensor) -> None:
+    """One launch of the bf16 tensor-core tile of #1 and #4
+    (``csrc/w4a16_tile.cu``) into ``out`` (bf16 or f32)."""
+    M, K = x.shape
+    with torch.cuda.device(x.device):
+        _launch(_tile_lib().lc_w4a16_tile, x.data_ptr(), wp.data_ptr(),
+                s.data_ptr(), zs.data_ptr(), s_bf16, int(masked),
+                out.data_ptr(), int(out.dtype == torch.float32), M,
+                out.shape[1], K, _stream(x.device))
+
+
 def w4a16_matmul(x: torch.Tensor, wp: torch.Tensor, s: torch.Tensor,
                  zs: torch.Tensor) -> torch.Tensor:
-    """#1: (M, K) float x times W4 planes -> (M, N) in ``x.dtype``."""
+    """#1: (M, K) float x (rounded to bf16) times W4 planes -> (M, N) in
+    ``x.dtype``, stored by the kernel for bf16 and f32 x."""
     M, K = x.shape
     N = _check_weights(K, wp, s, zs, x.device)
     if x.device.type == "cpu":
         return w4a16_matmul_plain(x, wp, s, zs).to(x.dtype)
     xb = _aligned(x.to(torch.bfloat16))
-    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        _launch(_lib().lc_w4a16_decode, xb.data_ptr(), wp.data_ptr(),
-                s.data_ptr(), zs.data_ptr(), out.data_ptr(), M, N, K,
-                _stream(x.device))
+    out = torch.empty((M, N), dtype=x.dtype if x.dtype in (
+        torch.bfloat16, torch.float32) else torch.float32, device=x.device)
+    _w4a16_tile(xb, wp, s, zs, 1, False, out)
     w4a16_matmul.launches += 1
-    return out.to(x.dtype)
+    return out if out.dtype == x.dtype else out.to(x.dtype)
 
 
 def _check_act(xq: torch.Tensor, x_scale: torch.Tensor) -> Tuple[int, int]:
@@ -554,23 +598,27 @@ def w4a8_matmul_prefill(xq: torch.Tensor, x_scale: torch.Tensor,
                         ) -> torch.Tensor:
     """#3: any M; the act scale and the store in ``out_dtype`` (bf16 or
     f32) happen in the kernel, on the planes tile (on the card N % 128 ==
-    0, K <= 49152); equal to ``w4a8_matmul_prefill_plain`` bit for bit."""
+    0, any K % 1024 == 0); equal to ``w4a8_matmul_prefill_plain`` bit for
+    bit."""
     M, K = _check_act(xq, x_scale)
     N = _check_weights(K, wp, s, zs, xq.device)
     if xq.device.type == "cpu":
         return w4a8_matmul_prefill_plain(xq, x_scale, wp, s, zs, out_dtype)
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError("the prefill kernel stores bf16 or f32")
-    if N % TILE_N or K > PLANES_TILE_K_MAX:
-        raise ValueError(f"the prefill kernel needs N % {TILE_N} == 0 and "
-                         f"K <= {PLANES_TILE_K_MAX}, got N={N} K={K}")
+    if N % TILE_N:
+        raise ValueError(f"the prefill kernel needs N % {TILE_N} == 0, got "
+                         f"N={N}")
     xq = _aligned(xq)
     xs = x_scale.float().contiguous()
     out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
+    scratch = rowsum_scratch(M, K, xq.device)
     with torch.cuda.device(xq.device):
         _launch(_lib().lc_w4a8_prefill, xq.data_ptr(), xs.data_ptr(),
-                wp.data_ptr(), s.data_ptr(), zs.data_ptr(), out.data_ptr(),
-                int(out_dtype == torch.float32), M, N, K, _stream(xq.device))
+                wp.data_ptr(), s.data_ptr(), zs.data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
+                out.data_ptr(), int(out_dtype == torch.float32), M, N, K,
+                _stream(xq.device))
     w4a8_matmul_prefill.launches += 1
     return out
 
@@ -738,10 +786,7 @@ def w4a16_matmul_planes_masked(x: torch.Tensor, wp: torch.Tensor,
     xb = _aligned(x.to(torch.bfloat16))
     wp, s, zs = _aligned(wp), _aligned(s), _aligned(zs)
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        _launch(_lib().lc_w4a16_masked, xb.data_ptr(), wp.data_ptr(),
-                s.data_ptr(), zs.data_ptr(), s_bf16, out.data_ptr(), M, N,
-                K, _stream(x.device))
+    _w4a16_tile(xb, wp, s, zs, s_bf16, True, out)
     w4a16_matmul_planes_masked.launches += 1
     return out
 

@@ -935,6 +935,85 @@ def test_masked_kernel_matches_plain(dev, N, K, sdtype):
         assert (y4 - y1).abs().max() <= 1e-4 * y1.abs().max()
 
 
+# #1 and #4 on their bf16 tensor-core tile (csrc/w4a16_tile.cu): K 14336
+# is 112 groups in uneven splits of a cluster, N 1024 under one wave, M
+# across the 8-, 16- and 32-token instances and token chunks
+TILE_M = [1, 3, 8, 16, 33, 256]
+TILE_CASES = {"w4a16_bf16": ("w4a16", torch.bfloat16),
+              "w4a16_f32": ("w4a16", torch.float32),
+              "masked_f32": ("masked", torch.float32),
+              "masked_bf16": ("masked", torch.bfloat16)}
+
+
+@pytest.mark.parametrize("case", list(TILE_CASES))
+@pytest.mark.parametrize("N", [1024, 14336])
+@pytest.mark.parametrize("M", TILE_M)
+def test_w4a16_tile_matches_plain(dev, M, N, case):
+    """#1 (bf16 x stored in bf16, f32 x in f32) and #4 (f32 and bf16
+    pre-divided scales, f32 out) against their plain versions: one bf16
+    ulp at max|y| for a bf16 output, 1e-4 of max|y| for f32; a second call
+    gives the same bits."""
+    kind, dtype = TILE_CASES[case]
+    K = 14336
+    u, s, z, gen = _random_codes(dev, N, K, N + M)
+    x = torch.randn((M, K), generator=gen, device=dev)
+    if kind == "w4a16":
+        sb = s.to(torch.bfloat16)
+        args = (W.pack_int4_planes(u), sb,
+                (z * sb.float()).to(torch.bfloat16))
+        x = x.to(torch.bfloat16).to(dtype)
+        kernel, plain = W.w4a16_matmul, W.w4a16_matmul_plain
+    else:
+        args = (W.pack_int4_planes_masked(u), W.masked_scales(s).to(dtype),
+                W.masked_zero_scales(z, s).to(dtype))
+        x = x.to(torch.bfloat16)
+        kernel = W.w4a16_matmul_planes_masked
+        plain = W.w4a16_matmul_planes_masked_plain
+    W.reset_launch_counts()
+    got, again = kernel(x, *args), kernel(x, *args)
+    ref = plain(x, *args)
+    torch.cuda.synchronize()
+    assert kernel.launches == 2
+    assert got.dtype == (dtype if kind == "w4a16" else torch.float32)
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    scale = float(ref.abs().max())
+    if got.dtype == torch.bfloat16:
+        err = (got.float() - ref.to(torch.bfloat16).float()).abs().max()
+        assert err <= bf16_ulp(scale)
+    else:
+        assert (got - ref).abs().max() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("K", [50176, 58368])
+def test_planes_tile_past_the_shared_row_sums(dev, K):
+    """#3 (M 300, f32 and bf16) and #9 (two experts of 128 rows) at K past
+    ROWSUM_SMEM_K_MAX: the row sums in a global scratch, the zero
+    corrections staged in one chunk (K 50176) or two (K 58368); bit for
+    bit with their plain versions."""
+    assert K > W.ROWSUM_SMEM_K_MAX
+    N = 256
+    qp, gen = _weights(dev, N, K)
+    args = (qp.codes, qp.scales, qp.zeros)
+    xq, xs = W.quantize_act_per_token(
+        torch.randn((300, K), generator=gen, device=dev))
+    for dt in (torch.float32, torch.bfloat16):
+        got = W.w4a8_matmul_prefill(xq, xs, *args, out_dtype=dt)
+        ref = W.w4a8_matmul_prefill_plain(xq, xs, *args, dt)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all() and torch.equal(got, ref)
+    st = QM.quantize_linear_stacked(
+        (torch.randn((2, N, K), generator=gen, device=dev)
+         * 0.02).to(torch.bfloat16), WSPEC)
+    xq, xs = W.quantize_act_per_token(
+        torch.randn((256, K), generator=gen, device=dev))
+    be = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    sargs = (st.codes, st.scales, st.zeros)
+    got = MM.w4a8_grouped_matmul(xq, xs, *sargs, be)
+    ref = MM.w4a8_grouped_matmul_plain(xq, xs, *sargs, be)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.equal(got, ref)
+
+
 @pytest.mark.parametrize("M", [1, 8, 32])
 @pytest.mark.parametrize("sdtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N,K", [(4096, 4096), (1024, 4096),

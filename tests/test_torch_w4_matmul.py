@@ -137,6 +137,22 @@ def test_w4a8_prefill_plain_matches_pallas(K):
     _close(got.numpy(), ref)
 
 
+@pytest.mark.parametrize("M", [256, 300])
+def test_prefill_route_past_the_shared_row_sums(M):
+    """At K 50176 (49 word blocks), past the K up to which the planes tile
+    keeps its row sums in shared memory, the port routes a planes linear
+    as JAX's ``w4a8_prefill_available`` does: to the W4A8 prefill kernel
+    at M 300 (which takes any K % 1024 on the card), not at M 256."""
+    K = 50176
+    assert K > tw.ROWSUM_SMEM_K_MAX
+    _, qp = _jax_qp(128, K, seed=14)
+    x = np.zeros((M, K), dtype=np.float32)
+    want = jpm.w4a8_prefill_available(jnp.asarray(x), qp)
+    assert want == (M > 256)
+    assert tw.w4a8_prefill_available(torch.from_numpy(x), _to_port(qp)) \
+        == want
+
+
 PLAINS = ("w4a16_matmul_plain", "w4a8_matmul_decode_plain",
           "w4a8_matmul_prefill_plain")
 

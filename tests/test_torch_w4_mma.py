@@ -19,6 +19,10 @@ the plain versions before the card runs the kernels.
   schedule (four accumulators over a half, the halves added in either
   order) must equal plain #5 bit for bit.
 * #12 takes the tile from ``BYTES_TILE_MIN_M`` rows on, by M alone.
+* #1 and #4's bf16 tile (``csrc/w4a16_tile.cu``): the shared-memory
+  layouts, the lane reads and the unpack to bf16 codes make m16n8k16 A
+  and B fragments that assemble x . c^T for every plane, on plain and on
+  masked words.
 
 The kernels themselves run in ``tests/test_torch_cuda_kernels.py`` (on the
 card)."""
@@ -301,6 +305,105 @@ def test_decode_tile_fragments(gi):
             for i in range(2):
                 d[16 * i:16 * i + 16] += A[i] @ B
         assert np.array_equal(d, x[:, cols] @ un[:, cols].T)
+
+
+def _bf16_bits(h) -> np.ndarray:
+    """bf16 bit patterns (uint16 values) as float64."""
+    h = np.asarray(h, dtype=np.uint32) << 16
+    return h.astype(np.uint32).view(np.float32).astype(np.float64)
+
+
+def _byte_pair(lo, hi, b):
+    """byte_pair: __byte_perm(lo, hi, b | b << 4 | (4 + b) << 8 |
+    (4 + b) << 12), byte b of lo in bytes 0, 1 and of hi in bytes 2, 3."""
+    bl, bh = (lo >> (8 * b)) & 0xFF, (hi >> (8 * b)) & 0xFF
+    return bl | (bl << 8) | (bh << 16) | (bh << 24)
+
+
+def _code_pair(p, nib, signed):
+    """code_pair: the low (nib 0) or high nibbles of a byte pair as bf16
+    128 + c less 128 (signed: 128 + (c ^ 8) less 136), both halves."""
+    v = ((p >> 4) if nib else p) & 0x000F000F
+    base = 0x4308 if signed else 0x4300
+    v = v ^ 0x43084308 if signed else v | 0x43004300
+    return (_bf16_bits(v & 0xFFFF) - _bf16_bits(base),
+            _bf16_bits(v >> 16) - _bf16_bits(base))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("gi", [0, 1])
+def test_bf16_tile_fragments(gi, masked):
+    """#1 and #4's tile (csrc/w4a16_tile.cu) at word block gi of a K = 2048
+    weight, warp 1 of a 64-channel block with 16 tokens (two n8 tiles): the
+    word block and the x slab lie in shared memory as the copies put them
+    (word row c, chunk q at q ^ 4 (c & 1); x plane j, token r, chunk c at
+    c ^ (r & 7)); lane (g, t) reads 16 bytes of words 16 kk + 4t .. + 3 of
+    channels g and g + 8 and unpacks them (byte_pair, code_pair) into the
+    A registers a0..a3 of every plane at logical k {2t, 2t + 1} (words 0,
+    1) and {2t + 8, 2t + 9} (words 2, 3), and 8 bytes of x (physical k
+    16 kk + 4t .. + 3 of token 8 nt + g) into b0, b1.  Assembled by the
+    m16n8k16 layouts, the eight k steps' products are x_j,gi . c_j,gi^T for
+    every plane j; on the masked words (plane 7 stored XOR 8, both signs
+    present) times 16^j they are x_j,gi . (w & (0xF << 4j))^T."""
+    rng = np.random.RandomState(10 * gi + masked)
+    N, K, TB, warp = 64, 2048, 16, 1
+    kp = K // 8
+    u = torch.from_numpy(rng.randint(0, 16, (N, K)).astype(np.int32))
+    wp = (W.pack_int4_planes_masked(u) if masked else W.pack_int4_planes(u))
+    words = wp.numpy().view(np.uint32).astype(np.int64)
+    x = rng.randint(-8, 9, (TB, K)).astype(np.float64)  # exact in bf16
+    xb = x.astype(np.float32).view(np.uint32) >> 16  # bf16 bits
+    # the word block: 64 rows of 32 chunks (four words each)
+    wsh = np.zeros((N, 32, 4), dtype=np.int64)
+    for c in range(N):
+        for q in range(32):
+            wsh[c, q ^ ((c & 1) << 2)] = words[c, gi * 128 + 4 * q:
+                                                gi * 128 + 4 * q + 4]
+    # the x slab: [plane][token] rows of 16 chunks of eight bf16
+    xsh = np.zeros((8, TB, 16, 8), dtype=np.int64)
+    for j in range(8):
+        for r in range(TB):
+            for c in range(16):
+                k0 = j * kp + gi * 128 + 8 * c
+                xsh[j, r, c ^ (r & 7)] = xb[r, k0:k0 + 8]
+    ch = slice(16 * warp, 16 * warp + 16)
+    for j in range(8):
+        signed = masked and j == 7
+        d = np.zeros((16, TB))
+        for kk in range(8):
+            A = np.zeros((16, 16))
+            B = np.zeros((16, TB))
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                sw = (g & 1) << 2
+                q = (4 * kk + t) ^ sw
+                wa, wb = wsh[16 * warp + g, q], wsh[16 * warp + g + 8, q]
+                b, nib = j // 2, j % 2
+                for reg, (row, w0) in enumerate(((g, wa[0:2]), (g + 8, wb[0:2]),
+                                                 (g, wa[2:4]),
+                                                 (g + 8, wb[2:4]))):
+                    lo, hi = _code_pair(_byte_pair(w0[0], w0[1], b), nib,
+                                        signed)
+                    k = 2 * t + 8 * (reg >> 1)
+                    A[row, k], A[row, k + 1] = lo, hi
+                for nt in range(TB // 8):
+                    r = 8 * nt + g
+                    c = (2 * kk + (t >> 1)) ^ (r & 7)
+                    e = _bf16_bits(xsh[j, r, c, 4 * (t & 1):4 * (t & 1) + 4])
+                    B[2 * t, r], B[2 * t + 1, r] = e[0], e[1]
+                    B[2 * t + 8, r], B[2 * t + 9, r] = e[2], e[3]
+            d += A @ B
+        cols = slice(j * kp + gi * 128, j * kp + gi * 128 + 128)
+        if masked:
+            mask = (0xF << (4 * j)) - (1 << 32 if j == 7 else 0)
+            val = (wp.numpy()[ch, gi * 128:gi * 128 + 128] & mask)
+            assert np.array_equal(d * 16.0 ** j, val.astype(np.float64)
+                                  @ x[:, cols].T)
+            if j == 7:
+                assert (val < 0).any() and (val > 0).any()
+        else:
+            assert np.array_equal(
+                d, u.numpy()[ch, cols].astype(np.float64) @ x[:, cols].T)
 
 
 def _ksplit_schedule(xq, x_scale, wp, s, zs, first):
