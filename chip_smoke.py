@@ -1078,6 +1078,8 @@ SUMMED_KERNELS = ("w4a16_matmul_planes_masked", "w4a8_matmul_s4_bytes")
 
 # #5's rows beside the bench's B
 KSPLIT_M = (1, 7, 300)
+# #15 and #16 also on a grid capped at three blocks
+BENCH_TAIL_CAP = 3
 
 
 def random_planes(gen, dev, N: int, K: int):
@@ -1104,7 +1106,10 @@ def phase_bench_kernels(dev) -> dict:
     gate|up, down (and q|k|v), in turn; #5: torch.matmul over the
     dequantized down; #22: scaled_dot_product_attention over the
     pre-dequantized bf16 K and V), and for #15/#16 the act codes each
-    prologue flips against the plain version."""
+    prologue flips against the plain version, the error in bf16 ulps, the
+    same bits on a second call (also on a grid capped at three blocks),
+    the grid, the shared memory of a block, the splits of each phase and
+    the median µs of each phase over five launches (``LF.phase_times``)."""
     t0 = time.time()
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 5)
@@ -1149,29 +1154,60 @@ def phase_bench_kernels(dev) -> dict:
                          ("w4a8_layer_fused",
                           ("o", "gateup", "down", "qkv"))):
         kern = getattr(LF, kname)
+        nxt = len(names) == 4
         args = [t for n in names for t in w[n]]
         run = lambda: kern(ctx, x, *args)
         plain = lambda: getattr(LF, kname + "_plain")(ctx, x, *args)
-        y, q, acts = LF._with_act(kern, ctx, x, *args)
         ry, rq, racts = LF._plain(ctx, x, *(w[n] for n in names[:3]),
-                                  w["qkv"] if len(names) == 4 else None,
-                                  1e-6)
+                                  w["qkv"] if nxt else None, 1e-6)
+        refs = [ry] if not nxt else [ry, rq]
+        gates = {}
+        # the co-resident grid and one capped at three blocks: each call
+        # within the gates and a second call the same bits
+        for cap in (0, BENCH_TAIL_CAP):
+            y, q, acts = LF._with_act(kern, ctx, x, *args, max_blocks=cap)
+            y2, q2, acts2 = LF._with_act(kern, ctx, x, *args,
+                                         max_blocks=cap)
+            torch.cuda.synchronize()
+            flips = [int((a[0] != r[0]).sum()) for a, r in zip(acts, racts)]
+            for f, (codes, _) in zip(flips, racts):
+                if f > 1e-3 * codes.numel():
+                    raise AssertionError(f"{kname} (grid cap {cap}): "
+                                         f"{flips} act-code flips")
+            outs, again = ([y], [y2]) if not nxt else ([y, q], [y2, q2])
+            same = all(torch.equal(a, b) for a, b in zip(outs, again)) and \
+                all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                    for a, b in zip(acts, acts2))
+            if not same:
+                raise AssertionError(f"{kname} (grid cap {cap}): a second "
+                                     "call gave other bits")
+            err, scale = error(outs, refs)
+            if not err <= limit(TOL_ULP, scale):
+                raise AssertionError(f"{kname} (grid cap {cap}): max|err| "
+                                     f"{err} > a bf16 ulp at {scale}")
+            gates[cap] = dict(max_abs_err=err, max_abs_ref=scale,
+                              err_ulps=err / bf16_ulp(scale),
+                              act_code_flips=flips, repeat_equal=True,
+                              grid_blocks=LF.grid_blocks(B, H, I, Nq, nxt,
+                                                         cap))
+        stamps = []
+        for _ in range(5):
+            LF._with_act(kern, ctx, x, *args, stamps=stamps)
         torch.cuda.synchronize()
-        flips = [int((a[0] != r[0]).sum()) for a, r in zip(acts, racts)]
-        for f, (codes, _) in zip(flips, racts):
-            if f > 1e-3 * codes.numel():
-                raise AssertionError(f"{kname}: {flips} act-code flips")
-        outs, refs = ([y], [ry]) if q is None else ([y, q], [ry, rq])
-        err, scale = error(outs, refs)
+        phases = [LF.phase_times(t, nxt) for t in stamps]
+        full = gates.pop(0)
         library = lambda: [torch.matmul(t, wd[n].t()) for t, n in
                            zip((ctx, x, mid, x), names)]
         nbytes = sum(planes_bytes(*shapes[n]) for n in names) \
-            + 3 * B * H * 2 + (B * Nq * 2 if len(names) == 4 else 0)
+            + 3 * B * H * 2 + (B * Nq * 2 if nxt else 0)
         ops = 2 * B * sum(shapes[n][0] * shapes[n][1] for n in names)
-        row(kname, err, scale, TOL_ULP, run, plain, library, nbytes, ops,
-            "int8", act_code_flips=flips,
-            grid_blocks=LF.grid_blocks(B, H, I, Nq, len(names) == 4),
-            tiles=max(shapes[n][0] // 32 * ((B + 7) // 8) for n in names))
+        pl = LF.plan(B, H, I, Nq, nxt)
+        row(kname, full.pop("max_abs_err"), full.pop("max_abs_ref"), TOL_ULP,
+            run, plain, library, nbytes, ops, "int8", **full,
+            smem_bytes=pl["smem_bytes"], splits=pl["splits"],
+            capped=gates[BENCH_TAIL_CAP],
+            phase_us={k: statistics.median(t[k] for t in phases)
+                      for k in phases[0]})
 
     # #5 at the bench's B first (the kernels line reads that row), then at
     # M 1, 7 and 300 (rows of their own seed): bit for bit its plain

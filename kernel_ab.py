@@ -7,12 +7,17 @@ NVIDIA GPU, for comparing two trees (designs) in one call:
 gate|up at M 1024, #9 over a Mixtral-8x7B layer's grouped prefill (1024
 tokens), #5 at the bench's down (N 4096, K 14336) at B 1, 8 and 32, #1
 over a Llama-3-8B block's seven linears at each M of P1_M (bf16 x and
-store), #4 at the bench's four fused entries at B 32 (f32 scales); the
-median of CUDA-event times with L2 flushed and the card held in a spin
-while the host enqueues each call (``time_ms`` below, the same in every
-tree).  The shapes and helpers come from the tree's ``chip_smoke.py``.
-Prints one JSON line: ms by kernel and shape, the card's name and power
-limit.
+store), #4 at the bench's four fused entries at B 32 (f32 scales), #15
+and #16 at the bench's shape (``tail_ms``); the median of CUDA-event
+times with L2 flushed and the card held in a spin while the host enqueues
+each call (``time_ms`` below, the same in every tree).  The shapes and
+helpers come from the tree's ``chip_smoke.py``.  Prints one JSON line: ms
+by kernel and shape, the card's name and power limit.
+
+    cd <tree> && python3 <repo>/kernel_ab.py TAG tail
+
+times #15 and #16 alone (B 32, H 4096, I 14336, q|k|v 6144, random plane
+words and scales from the seed).
 
     cd <tree> && python3 <repo>/kernel_ab.py TAG w4a16_profile
 
@@ -58,12 +63,30 @@ def time_ms(fn, reps: int, pad: torch.Tensor) -> float:
     return statistics.median(times)
 
 
-def main(tag: str) -> None:
+def tail_ms(gen, dev, pad) -> dict:
+    """#15 and #16 at the port bench's shape, 50 launches each."""
+    from lightcompress_tpu_torch.ops import layer_fused as LF
+
+    B, H, I, Nq = 32, 4096, 14336, 6144
+    w = [t for n, k in ((H, H), (2 * I, H), (H, I), (Nq, H))
+         for t in C.random_planes(gen, dev, n, k)]
+    ctx, x = (torch.randn((B, H), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    return {"p15": time_ms(lambda: LF.w4a8_attn_tail_fused(ctx, x, *w[:9]),
+                           50, pad),
+            "p16": time_ms(lambda: LF.w4a8_layer_fused(ctx, x, *w), 50,
+                           pad)}
+
+
+def main(tag: str, only_tail: bool = False) -> None:
     dev = torch.device("cuda")
     pad = torch.empty(C.PAD, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    out = {"tag": tag, "gpu": C.smi()}
+    out = {"tag": tag, "gpu": C.smi(), **tail_ms(gen, dev, pad)}
+    if only_tail:
+        print(json.dumps(out), flush=True)
+        return
     t3 = {}
     for name, N, K in C.SHAPES + [("qkv", 6144, 4096),
                                   ("gateup", 28672, 4096)]:
@@ -142,4 +165,5 @@ if __name__ == "__main__":
     if sys.argv[2:3] == ["w4a16_profile"]:
         profile_w4a16(sys.argv[1])
     else:
-        main(sys.argv[1] if len(sys.argv) > 1 else "tree")
+        main(sys.argv[1] if len(sys.argv) > 1 else "tree",
+             sys.argv[2:3] == ["tail"])

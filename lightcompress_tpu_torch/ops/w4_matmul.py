@@ -291,13 +291,16 @@ def _check_ksplit(K: int, splits: int) -> None:
         raise ValueError(f"#5 needs K % {16 * GROUP} == 0, got K={K}")
 
 
-def _tpu_order_part(xq, wp, s, zs, gis) -> torch.Tensor:
+def _tpu_order_part(xq, wp, s, zs, gis, per_plane: bool = False
+                    ) -> torch.Tensor:
     """The planes kernels' float order over the group blocks ``gis``: for
     gi in ``gis``, then plane j (group g = j*gpp + gi), the exact integer
     group dot times s[g] added to accumulator j % 4 and xsum[g]*zs[g] to
     the zero correction; returns ((a0 + a1) + (a2 + a3)) - corr, (M, N)
-    f32, every op rounded on its own.  The group dots are f32 matmuls of
-    integers whose sums stay below 2^24, so they are exact."""
+    f32, every op rounded on its own.  With ``per_plane`` (the fused layer
+    tail's ``_phase_dot``), each plane's correction sum_gi xsum*zs is
+    subtracted on its own, in plane order.  The group dots are f32 matmuls
+    of integers whose sums stay below 2^24, so they are exact."""
     M, K = xq.shape
     N, G = s.shape
     gpp = G // 8
@@ -306,16 +309,23 @@ def _tpu_order_part(xq, wp, s, zs, gis) -> torch.Tensor:
     ug = unpack_int4_planes(wp, K).float().reshape(N, G, g)
     xsum = xg.sum(dim=-1)
     sf, zf = s.float(), zs.float()
-    acc = [torch.zeros((M, N), dtype=torch.float32, device=xq.device)
-           for _ in range(4)]
-    corr = torch.zeros((M, N), dtype=torch.float32, device=xq.device)
+
+    def zeros():
+        return torch.zeros((M, N), dtype=torch.float32, device=xq.device)
+
+    acc = [zeros() for _ in range(4)]
+    corr = [zeros() for _ in range(8 if per_plane else 1)]
     for gi in gis:
         for j in range(8):
             gg = j * gpp + gi
             dot = torch.matmul(xg[:, gg], ug[:, gg].t())
             acc[j % 4] = acc[j % 4] + dot * sf[:, gg]
-            corr = corr + xsum[:, gg, None] * zf[:, gg]
-    return (acc[0] + acc[1]) + (acc[2] + acc[3]) - corr
+            c = j if per_plane else 0
+            corr[c] = corr[c] + xsum[:, gg, None] * zf[:, gg]
+    out = (acc[0] + acc[1]) + (acc[2] + acc[3])
+    for c in corr:
+        out = out - c
+    return out
 
 
 def w4a8_rows_tpu_order(xq, x_scale, wp, s, zs) -> torch.Tensor:
@@ -327,6 +337,17 @@ def w4a8_rows_tpu_order(xq, x_scale, wp, s, zs) -> torch.Tensor:
     for bit."""
     gpp = s.shape[1] // 8
     return _tpu_order_part(xq, wp, s, zs, range(gpp)) * x_scale.float()
+
+
+def w4a8_rows_phase_dot(xq, x_scale, wp, s, zs) -> torch.Tensor:
+    """(M, K) int8 x with (M, 1) f32 scales against a planes weight ->
+    (M, N) f32 in the order of the fused layer tail's ``_phase_dot``
+    (#15, #16): for gi, then plane j, acc[j % 4] += dot * s; then (a0 +
+    a1) + (a2 + a3); then minus each plane's correction sum_gi xsum * zs,
+    in plane order; times x_scale."""
+    gpp = s.shape[1] // 8
+    return _tpu_order_part(xq, wp, s, zs, range(gpp), per_plane=True) \
+        * x_scale.float()
 
 
 def w4a8_matmul_planes_ksplit_plain(xq, x_scale, wp, s, zs,

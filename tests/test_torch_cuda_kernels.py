@@ -833,14 +833,17 @@ def test_kv8_kernel_rejects_what_it_cannot_take(dev):
 
 
 @pytest.mark.parametrize("B,H,I,Nq,cap", [
-    (32, 4096, 14336, 6144, 0),  # the bench: 3584 gate|up tiles
+    (32, 4096, 14336, 6144, 0),  # the bench: 448 gate|up work items
+    (32, 4096, 14336, 6144, 3),  # the bench's shapes on three blocks
     (5, 1024, 2048, 1536, 3),    # a ragged row chunk, three blocks
-    (1, 1024, 1024, 1024, 0)])   # one row, a block a tile
+    (1, 1024, 1024, 1024, 0),    # one row
+    (33, 1024, 2048, 1536, 0)])  # a second row chunk of one row
 def test_layer_fused_kernels_match_plain(dev, B, H, I, Nq, cap):
-    """#15 and #16 on their cooperative grid (which the tiles outnumber
-    in the first two cases): outputs within a bf16 ulp of the largest |y|
-    of the plain version, at most one act-code flip in a thousand per
-    prologue."""
+    """#15 and #16 on their cooperative grid (which the gate|up phase's
+    work items outnumber in the bench's and the capped cases): outputs
+    within a bf16 ulp of the largest |y| of the plain version, at most one
+    act-code flip in a thousand per prologue, and the same bits on a
+    second call."""
     from lightcompress_tpu_torch.ops import layer_fused as LF
 
     gen = torch.Generator(device=dev)
@@ -853,23 +856,73 @@ def test_layer_fused_kernels_match_plain(dev, B, H, I, Nq, cap):
     for kern, nxt in ((LF.w4a8_attn_tail_fused, False),
                       (LF.w4a8_layer_fused, True)):
         grid = LF.grid_blocks(B, H, I, Nq, nxt, cap)
-        tiles = 2 * I // 32 * ((B + 7) // 8)
+        # a gate|up work item: 32 gate and the same 32 up channels by up
+        # to 32 rows, before its group range is split
+        tiles = I // 32 * ((B + 31) // 32)
         assert 0 < grid <= tiles
-        assert grid < tiles or B == 1
+        if cap or (H, I) == (4096, 14336):
+            assert grid < tiles
         LF.reset_launch_counts()
         y, q, acts = LF._with_act(kern, ctx, x, *args[:12 if nxt else 9],
                                   max_blocks=cap)
+        y2, q2, acts2 = LF._with_act(kern, ctx, x, *args[:12 if nxt else 9],
+                                     max_blocks=cap)
         ry, rq, racts = LF._plain(ctx, x, *ws[:3], ws[3] if nxt else None,
                                   1e-6)
         torch.cuda.synchronize()
-        assert [k.launches for k in LF.KERNELS] == [int(not nxt), int(nxt)]
-        for got, ref in ((y, ry), (q, rq)) if nxt else ((y, ry),):
+        assert [k.launches for k in LF.KERNELS] == [2 * int(not nxt),
+                                                    2 * int(nxt)]
+        for got, again, ref in (((y, y2, ry), (q, q2, rq)) if nxt
+                                else ((y, y2, ry),)):
             assert bool(torch.isfinite(got.float()).all())
             err = float((got.float() - ref.float()).abs().max())
             assert err <= bf16_ulp(float(ref.float().abs().max()))
+            assert torch.equal(got, again)
         assert len(acts) == len(racts) == (4 if nxt else 3)
-        for (codes, _), (rcodes, _) in zip(acts, racts):
+        for (codes, scales), (codes2, scales2), (rcodes, _) in zip(
+                acts, acts2, racts):
             assert int((codes != rcodes).sum()) <= 1e-3 * codes.numel()
+            assert torch.equal(codes, codes2) and torch.equal(scales, scales2)
+
+
+@pytest.mark.parametrize("nxt", [False, True])
+def test_layer_fused_plan_and_phase_times(dev, nxt):
+    """The plan at the bench's shapes (the grid within the co-resident
+    blocks and the finest work, the splits within each group range, the
+    shared memory within a block's 227 KB) and the phase stamps of a
+    launch: every segment read, in order, within the launch."""
+    from lightcompress_tpu_torch.ops import layer_fused as LF
+
+    B, H, I, Nq = 32, 4096, 14336, 6144
+    pl = LF.plan(B, H, I, Nq, nxt)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert 0 < pl["grid"] <= sms * (232448 // pl["smem_bytes"])
+    assert pl["smem_bytes"] <= 232448
+    gpp = {"o": H // 1024, "gateup": H // 1024, "down": I // 1024,
+           "qkv": H // 1024}
+    for name, s in pl["splits"].items():
+        assert 1 <= s <= gpp[name]
+    assert LF.plan(B, H, I, Nq, nxt, 3)["grid"] == 3
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    ws = [t for n, k in ((H, H), (2 * I, H), (H, I), (Nq, H))[:4 if nxt
+                                                               else 3]
+          for t in _random_planes(gen, dev, n, k)]
+    ctx, x = (torch.randn((B, H), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    kern = LF.w4a8_layer_fused if nxt else LF.w4a8_attn_tail_fused
+    stamps = []
+    LF._with_act(kern, ctx, x, *ws, stamps=stamps)
+    torch.cuda.synchronize()
+    st = [int(v) for v in stamps[0].tolist()]
+    segs = 8 if nxt else 6
+    edges = [st[0]] + [v for s in range(segs) for v in
+                       (st[2 + 3 * s], st[3 + 3 * s])][:-1]
+    assert all(e > 0 for e in edges)
+    assert edges == sorted(edges)
+    times = LF.phase_times(stamps[0], nxt)
+    assert times["total_us"] > 0
+    assert all(times[f"{n}_us"] >= 0 for n in LF.SEGMENTS[:segs])
 
 
 def test_layer_fused_kernels_reject_what_they_cannot_take(dev):

@@ -5,15 +5,18 @@ lightcompress_tpu_torch (#15 ``w4a8_attn_tail_fused``, #16
 per-group scales and zero points.  The JAX tiled weights reach the port
 through ``convert.qlinear_from_numpy``."""
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
+from jax.experimental import pallas as pl
 
 from lightcompress_tpu.ops import pallas_matmul as jpm
 from lightcompress_tpu_torch import convert
 from lightcompress_tpu_torch.ops import layer_fused as LF
+from lightcompress_tpu_torch.ops import w4_matmul as W
 from test_torch_serving import one_torch_thread  # noqa: F401
 
 B, H, I, NQ, G128 = 8, 1024, 2048, 1536, 128
@@ -139,3 +142,53 @@ def test_layer_fused_rejects_bad_shapes():
     with pytest.raises(ValueError):  # o is not (H, H)
         LF.w4a8_attn_tail_fused(tctx, tx, *tw[3:6], *tw[3:6], *tw[6:9])
     assert [k.launches for k in LF.KERNELS] == [0, 0]
+
+
+@pytest.mark.parametrize("N,K,M", [(256, 1024, 8), (256, 2048, 5),
+                                   (512, 4096, 3)])
+def test_phase_dot_plain_matches_pallas_bit_for_bit(N, K, M):
+    """``w4a8_rows_phase_dot`` (each matmul phase of plain #15/#16) is the
+    JAX kernels' ``_phase_dot`` order: the same f32 bits as ``_phase_dot``
+    in an interpret-mode Pallas kernel, the act scale left at 1."""
+    rng = np.random.RandomState(N + K + M)
+    (wp, sr, zsr), (codes, s, zs) = _linear(rng, N, K, N)
+    xq = jnp.asarray(rng.randint(-127, 128, (M, K)), jnp.int8)
+    gpp = K // 8 // G128
+    xsum = jnp.sum(xq.astype(jnp.int32).reshape(M, gpp * 8, G128),
+                   axis=2).astype(jnp.float32)
+
+    def kernel(xq_ref, xsum_ref, wp_ref, s_ref, zs_ref, o_ref):
+        o_ref[:] = jpm._phase_dot(xq_ref, xsum_ref, wp_ref, s_ref, zs_ref,
+                                  M, N, gpp, G128)
+
+    ref = pl.pallas_call(kernel,
+                         out_shape=jax.ShapeDtypeStruct((M, N), jnp.float32),
+                         interpret=True)(xq, xsum, wp, sr, zsr)
+    got = W.w4a8_rows_phase_dot(torch.from_numpy(np.array(xq)),
+                                torch.ones((M, 1)), codes, s, zs)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("nxt", [False, True])
+def test_phase_times_reads_stamps(nxt):
+    """``phase_times`` over a launch's stamps: each segment from block 0
+    past the previous barrier to the last block's arrival, block 0's own
+    arrival, the barrier after it, and the total."""
+    segs = 8 if nxt else 6
+    st = torch.zeros(33, dtype=torch.int64)
+    t = 1000
+    st[0] = t
+    for s in range(segs):
+        st[1 + 3 * s] = t + 1000 * (s + 1)        # block 0 arrives
+        st[2 + 3 * s] = t + 1000 * (s + 1) + 500  # the last block
+        st[3 + 3 * s] = t + 1000 * (s + 1) + 700  # block 0 past the barrier
+        t += 1000 * (s + 1) + 700
+    times = LF.phase_times(st, nxt)
+    names = LF.SEGMENTS[:segs]
+    for s, name in enumerate(names):
+        assert times[f"{name}_us"] == (1000 * (s + 1) + 500) / 1e3
+        assert times[f"{name}_block0_us"] == (1000 * (s + 1)) / 1e3
+        if s + 1 < segs:
+            assert times[f"{name}_barrier_us"] == 0.2
+    assert f"{names[-1]}_barrier_us" not in times
+    assert times["total_us"] == (int(st[3 * segs - 1]) - 1000) / 1e3
