@@ -8,10 +8,13 @@ Phases (each prints one JSON line with its seconds):
   2. every W4 kernel against its plain PyTorch version at the Llama-3-8B
      linear shapes and M of its engine phases (#1-#3 and #12 at a block's
      seven linears, #1 with a bf16 and an f32 store and the same bits on a
-     second call, #13 and #14 at the fused build's four; #3 bit for bit,
-     also at M 300 and 1000, the fused q|k|v and gate|up, and once at K
-     50176, past the planes tile's shared-memory row sums), with device
-     times (kernel, plain, a library matmul, the bound);
+     second call, #2 also at M 256 over the attention linears, #13 and
+     #14 at the fused build's four, #13 also at M 32, bit for bit its TPU
+     order on its own act codes and the same bits on a second call; #3 bit
+     for bit, also at M 300 and 1000, the fused q|k|v and gate|up, and
+     once at K 50176, past the planes tile's shared-memory row sums; #12's
+     two bodies at M 1-256), with device times (kernel, plain, a library
+     matmul, the bound);
      then every decode-attention kernel against its plain version at the
      engine's shapes (8 slots, 8 KV heads of 4 query heads, head_dim 128,
      ragged lengths), with times (kernel, plain, a library attention, the
@@ -35,15 +38,19 @@ Phases (each prints one JSON line with its seconds):
      of phase 3, 32 tokens, and torch.profiler over one ring chunk of 4
      steps; then the builds of the model with ln gammas
      1 + 0.1 N(0, 1): fused planes (``fused_rms``, ``fuse_qkv``: #3 at
-     prefill, #14 at decode), fused s4 on the kv4 route (#13, #20) and
-     unfused s4 (#12 at prefill and decode);
+     prefill, #14 at decode), fused s4 on the kv4 route (#13, #20; with
+     torch.profiler over its decode steps) and unfused s4 (#12 at prefill
+     and decode);
   6. the engine's prefill logits (the ``xla`` and ``bd`` engines)
      against a forward of the same serving weights through the plain
      versions;
-  7. MoE: the five expert kernels (#6 stacked, #8 gathered, #9 grouped at
-     Mixtral-8x7B's shapes; #7 small-M stacked at Qwen3-30B-A3B's gate/up
-     and Mixtral's down; #10 int8 grouped at Qwen3-30B-A3B's down, and at
-     a ragged N) against their plain versions, with times; then, the Llama
+  7. MoE: the five expert kernels (#6 stacked on each of its bodies at B
+     8, 32 and 256, bit for bit, at Mixtral-8x7B's and Qwen3-30B-A3B's
+     gate/up shapes, #8 gathered, #9 grouped at Mixtral-8x7B's shapes; #7
+     small-M stacked at Qwen3-30B-A3B's gate/up and Mixtral's down; #10
+     int8 grouped at Qwen3-30B-A3B's down, and at a ragged N) against
+     their plain versions, with times, and #6's two bodies at B 1-256
+     (``stacked_crossover``, a line of its own); then, the Llama
      builds freed, Mixtral-8x7B at full width and depth (random weights
      from a seed, made and quantized one block at a time): 8 prompts
      through the grouped prefill (#9) and the dense decode (#6), 2 prompts
@@ -342,6 +349,10 @@ def bound(M: int, N: int, K: int, x_bytes: int, out_bytes: int,
 
 # #3 beside its main-path M (a 1024-row prefill batch): ragged row tiles
 PREFILL_M = (300, 1000, 1024)
+# #2 at the rows of a 256-row prefill, over a block's attention linears
+# (Mixtral-8x7B's are Llama-3-8B's shapes)
+DECODE_256 = 256
+ATTN_LINEARS = ("q", "k", "v", "o")
 # #3 past the K up to which the planes tile keeps its row sums in shared
 # memory (49 word blocks: the row sums in a global scratch), once
 K_CAP_CASE = dict(M=300, N=256, K=50176)
@@ -352,7 +363,8 @@ PREFILL_FUSED = [("qkv", 6144, 4096), ("gateup", 28672, 4096)]
 def phase_kernels(dev) -> dict:
     """Each kernel against its plain version at every linear shape: #1
     (bf16 and f32 stores, the same bits on a second call) and #2 at M 8
-    and 32 within their tolerances, #3 bit for bit (bf16 at every M of
+    and 32 within their tolerances, #2 also at M 256 over the attention
+    linears (``engine_moe_small``'s 256-row prefill runs them there), #3 bit for bit (bf16 at every M of
     PREFILL_M, f32 at 1024) and then at the fused build's q|k|v and
     gate|up (``prefill_fused``) and once past the shared-memory row sums
     (``k_cap``, K_CAP_CASE)."""
@@ -412,6 +424,8 @@ def phase_kernels(dev) -> dict:
             cases.append(("w4a16_matmul", M, "bf16"))
             cases.append(("w4a16_matmul", M, "f32"))
             cases.append(("w4a8_matmul_decode", M, "int8"))
+        if name in ATTN_LINEARS:
+            cases.append(("w4a8_matmul_decode", DECODE_256, "int8"))
         for kname, M, kind in cases:
             x = torch.randn((M, K), generator=gen, device=dev).to(
                 torch.bfloat16)
@@ -482,6 +496,8 @@ def k_cap(dev, gen) -> dict:
 FUSED_SHAPES = [("qkv", 6144, 4096, True), ("o", 4096, 4096, False),
                 ("gateup", 28672, 4096, True), ("down", 4096, 14336, False)]
 FUSED_M = 8
+# #13 is also held at a decode step of 32 slots (two m16 tiles)
+FUSED_S4_M = (FUSED_M, 32)
 # the M at which engine_s4 launches #12 on SHAPES: decode (8 slots) and its
 # prefill of 2 prompts x 128 rows
 S4_M = (8, 256)
@@ -492,12 +508,15 @@ BYTES_M_SCAN = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 def phase_fused_kernels(dev) -> dict:
     """#12 against its plain version at the shapes ``engine_s4`` launches it
     (one block's seven linears at M = 8 and 256); #13 and #14 at the fused
-    build's decode shapes, M = 8 (8 slots).  Times (kernel, plain, a
-    library matmul, the bound), the act codes the fused kernels flip
-    against the plain prologue, and the cost of the prologue that every
-    block of #13 and #14 recomputes: the fused kernel's time less that of
-    the same matmul on pre-quantized x (#12, #2), beside the unfused path's
-    torch act quant.  Then #12's crossover: both of its bodies (the decode
+    build's decode shapes, M = 8 (8 slots), #13 also at M = 32.  Times
+    (kernel, plain, a library matmul, the bound), the act codes the fused
+    kernels flip against the plain prologue, and the cost of the prologue
+    that every block of #13 and #14 recomputes: the fused kernel's time
+    less that of the same matmul on pre-quantized x (#12, #2), beside the
+    unfused path's torch act quant.  #13 must also equal its TPU order
+    (``w4a8_matmul_pairs_tpu_order``) on its own act codes and scales bit
+    for bit and give the same bits on a second call; its distance from
+    the plain version (from x) in bf16 ulps is recorded.  Then #12's crossover: both of its bodies (the decode
     block and the tile) against the plain version and timed over the seven
     linears at each M of BYTES_M_SCAN; ``tile_min_m_measured`` is the
     least M of the scan from which the tile is faster at every larger M,
@@ -542,38 +561,54 @@ def phase_fused_kernels(dev) -> dict:
                             plain(), TOL_F32, 0, False, run, plain,
                             lambda: torch.matmul(x, wd.t())))
         del s4, wd
-    M = FUSED_M
     for name, N, K, rms in FUSED_SHAPES:
         w = torch.randn((N, K), generator=gen, device=dev) * 0.02
         planes = quantize_linear(w, WSPEC)
         s4 = quantize_linear(w, WSPEC, layout="s4")
         wd = dequant_weight(planes, torch.bfloat16)
         del w
-        x = (torch.randn((M, K), generator=gen, device=dev) * 3).to(
-            torch.bfloat16)
-        xq, xs = W.quantize_act_per_token(x)
         fk = dict(rms=rms, eps=LLAMA3_8B.rms_eps)
         pa = (planes.codes, planes.scales, planes.zeros)
         sa = (s4.codes, s4.scales, s4.zeros)
-        for kname, wa, unfused in (
-                ("w4a8_linear_bytes_fused", sa,
-                 lambda: W.w4a8_matmul_bytes(xq, xs, *sa)),
-                ("w4a8_linear_planes_fused", pa,
-                 lambda: W.w4a8_matmul_decode(xq, xs, *pa))):
-            kern, kplain = getattr(W, kname), getattr(W, kname + "_plain")
-            run = lambda: kern(x, *wa, **fk)
-            plain = lambda: kplain(x, *wa, **fk)
-            y, codes, _ = W._fused_with_act(kern, x, *wa, **fk)
-            ref, rcodes, _ = plain()
-            flips = int((codes != rcodes).sum())
-            r = row(kname, name, M, N, K, y, ref, TOL_ULP, flips, True, run,
-                    plain, lambda: torch.matmul(x, wd.t()))
-            r.update(rms=rms, act_code_flips=flips,
-                     unfused_kernel_ms=time_ms(unfused, 20, pad))
-            r["prologue_ms"] = r["kernel_ms"] - r["unfused_kernel_ms"]
-            r["torch_act_quant_ms"] = time_ms(
-                lambda: W.quantize_act_per_token(x), 20, pad)
-            rows.append(r)
+        for M in FUSED_S4_M:
+            x = (torch.randn((M, K), generator=gen, device=dev) * 3).to(
+                torch.bfloat16)
+            xq, xs = W.quantize_act_per_token(x)
+            for kname, wa, unfused in (
+                    ("w4a8_linear_bytes_fused", sa,
+                     lambda: W.w4a8_matmul_bytes(xq, xs, *sa)),
+                    ("w4a8_linear_planes_fused", pa,
+                     lambda: W.w4a8_matmul_decode(xq, xs, *pa))):
+                s4k = kname == "w4a8_linear_bytes_fused"
+                if M != FUSED_M and not s4k:
+                    continue
+                kern, kplain = getattr(W, kname), getattr(W, kname + "_plain")
+                run = lambda: kern(x, *wa, **fk)
+                plain = lambda: kplain(x, *wa, **fk)
+                y, codes, scales = W._fused_with_act(kern, x, *wa, **fk)
+                ref, rcodes, _ = plain()
+                flips = int((codes != rcodes).sum())
+                extra = {}
+                if s4k:
+                    own = W.w4a8_matmul_pairs_tpu_order(codes, scales,
+                                                        *wa).to(x.dtype)
+                    extra = dict(bit_equal_own_codes=torch.equal(y, own),
+                                 repeat_equal=torch.equal(y, run()),
+                                 err_ulps=bf16_ulps(y, ref))
+                    if not (extra["bit_equal_own_codes"]
+                            and extra["repeat_equal"]):
+                        raise AssertionError(
+                            f"#13 {name} M={M}: not its TPU order on its "
+                            f"own codes bit for bit, or a second call "
+                            f"differs")
+                r = row(kname, name, M, N, K, y, ref, TOL_ULP, flips, True,
+                        run, plain, lambda: torch.matmul(x, wd.t()))
+                r.update(rms=rms, act_code_flips=flips,
+                         unfused_kernel_ms=time_ms(unfused, 20, pad), **extra)
+                r["prologue_ms"] = r["kernel_ms"] - r["unfused_kernel_ms"]
+                r["torch_act_quant_ms"] = time_ms(
+                    lambda: W.quantize_act_per_token(x), 20, pad)
+                rows.append(r)
         del planes, s4, wd
     crossover = bytes_crossover(dev, pad)
     faster = [c["tile_ms"] < c["decode_ms"] for c in crossover]
@@ -623,6 +658,10 @@ def bytes_crossover(dev, pad) -> list:
 MOE_SHAPES = [("gate", 14336, 4096, False), ("up", 14336, 4096, False),
               ("down", 4096, 14336, True)]
 MOE_E, MOE_TOP_K = 8, 2
+# #6 on each body at a decode step of 8 and 32 slots and a 256-row prefill
+STACKED_ROWS_B = (8, 32, 256)
+# #6's two bodies timed at each B of the dense route (the crossover)
+STACKED_SCAN_B = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
 
 def expert_bytes(N: int, K: int) -> int:
@@ -681,13 +720,15 @@ def grouped_operands(x, topi, experts: int):
 def phase_moe_kernels(dev) -> dict:
     """#6, #8 and #9 against their plain versions at the expert shapes of
     Mixtral-8x7B (8 experts; gate and up 14336 x 4096, down 4096 x 14336):
-    #6 at B = 8 (the dense decode of 8 slots) and 256 (a 2-prompt
-    prefill), #8 at n = 4 and 1 tokens (8 and 2 selections), #9 at the
+    #6 on each of its bodies at B = 8 (the dense decode of 8 slots), 32 and
+    256 (a 2-prompt prefill), bit for bit, ``routed`` marking the body
+    ``stacked_body`` picks, #8 at n = 4 and 1 tokens (8 and 2 selections), #9 at the
     3072 grouped rows of 1024 tokens routed by a seeded router (every
     expert live) and at 300 tokens routed among 5 experts (3 absent,
-    padding-only blocks), #7 at the down in pair mode (B = 8); then #7,
-    #9 and #10 at Qwen3-30B-A3B's shapes (``qwen3moe_kernel_rows``); #9
-    must equal its plain version bit for bit.  Times
+    padding-only blocks), #7 at the down in pair mode (B = 8); then #6,
+    #7, #9 and #10 at Qwen3-30B-A3B's shapes (``qwen3moe_kernel_rows``); #9
+    must equal its plain version bit for bit.  Then #6's crossover
+    (``stacked_crossover``), emitted on a line of its own.  Times
     (kernel, plain, library, bound); the library is torch.bmm of bf16 x
     over the pre-dequantized bf16 experts at the same rows (for #8 the
     selections' experts gathered before the timing; for #9 and #10 each
@@ -726,22 +767,10 @@ def phase_moe_kernels(dev) -> dict:
             library_ms=time_ms(library, 20, pad), bound_ms=b_ms,
             bound_by=b_by))
 
-    for B in (8, 256):
+    for B in STACKED_ROWS_B:
         for name, N, K, pair in MOE_SHAPES:
             qp, wd = qps[name], wds[name]
-            wa = (qp.codes, qp.scales, qp.zeros)
-            x = (torch.randn((MOE_E, B, K) if pair else (B, K),
-                             generator=gen, device=dev)).to(torch.bfloat16)
-            xq, xs = W.quantize_act_per_token(x.reshape(-1, K))
-            if pair:
-                xq, xs = xq.reshape(MOE_E, B, K), xs.reshape(MOE_E, B, 1)
-            xe = x if pair else x.expand(MOE_E, B, K)
-            row("w4a8_stacked_matmul", f"B{B}", name, N, K,
-                lambda: M.w4a8_stacked_matmul(xq, xs, *wa, pair=pair),
-                lambda: M.w4a8_stacked_matmul_plain(xq, xs, *wa, pair),
-                lambda: torch.bmm(xe, wd.transpose(1, 2)),
-                MOE_E * expert_bytes(N, K) + xq.numel() + xs.numel() * 4
-                + MOE_E * B * N * 4, 2 * MOE_E * B * N * K, B=B, pair=pair)
+            stacked_rows(row, f"B{B}", name, qp, wd, B, pair, gen, dev)
     for n in (4, 1):
         topi = seeded_topi(n, gen, dev)
         e_idx = topi.reshape(-1).to(torch.int32)
@@ -808,8 +837,84 @@ def phase_moe_kernels(dev) -> dict:
     torch.cuda.empty_cache()
     qwen3moe_kernel_rows(dev, gen, row)
     torch.cuda.empty_cache()
-    return {"phase": "moe_kernels", "rows": rows,
-            "seconds": time.time() - t0}
+    out = {"phase": "moe_kernels", "rows": rows,
+           "seconds": time.time() - t0}
+    emit(out)
+    t0 = time.time()
+    crossover = stacked_crossover(dev, pad)
+    emit(dict(crossover, seconds=time.time() - t0))
+    return out
+
+
+def stacked_rows(row, case, name, qp, wd, B, pair, gen, dev) -> None:
+    """#6 on each body at B rows of shared x (B, K) or, with ``pair``,
+    each expert's own (E, B, K), against its plain version bit for bit and
+    timed beside the library's bmm over the dequantized experts."""
+    E, N, K = qp.codes.shape[0], qp.codes.shape[1], qp.codes.shape[2] * 8
+    wa = (qp.codes, qp.scales, qp.zeros)
+    x = torch.randn((E, B, K) if pair else (B, K), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    xq, xs = W.quantize_act_per_token(x.reshape(-1, K))
+    if pair:
+        xq, xs = xq.reshape(E, B, K), xs.reshape(E, B, 1)
+    xe = x if pair else x.expand(E, B, K)
+    for body in ("decode", "tile"):
+        row("w4a8_stacked_matmul", case, name, N, K,
+            lambda: M._w4a8_stacked_matmul(xq, xs, *wa, pair, body),
+            lambda: M.w4a8_stacked_matmul_plain(xq, xs, *wa, pair),
+            lambda: torch.bmm(xe, wd.transpose(1, 2)),
+            E * expert_bytes(N, K) + xq.numel() + xs.numel() * 4
+            + E * B * N * 4, 2 * E * B * N * K, exact=True, B=B, pair=pair,
+            body=body, routed=M.stacked_body(B) == body)
+
+
+def random_stacked(gen, dev, E: int, N: int, K: int):
+    """E experts of random plane words, scales and zero corrections."""
+    parts = [random_planes(gen, dev, N, K) for _ in range(E)]
+    return tuple(torch.stack([t[i] for t in parts]) for i in range(3))
+
+
+def stacked_crossover(dev, pad) -> dict:
+    """Both bodies of #6 bit for bit against the plain version and timed
+    at each B of STACKED_SCAN_B over a Mixtral-8x7B layer's three expert
+    linears and over Qwen3-30B-A3B's gate and up (E 128, 768 x 2048), in
+    random plane weights of their own (seed SEED + 8): per model and B the
+    bodies' summed ms; ``tile_min_b_measured``: per model the least B of
+    the scan from which the tile is faster at every larger B, beside the
+    wrapper's STACKED_TILE_MIN_B."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    models = {"mixtral": (MOE_E, MOE_SHAPES),
+              "qwen3": (QWEN3_30B_A3B.moe.num_experts,
+                        [(n, *Q_GATE_UP, False) for n in ("gate", "up")])}
+    out = {"phase": "stacked_crossover", "B": list(STACKED_SCAN_B),
+           "tile_min_b_set": M.STACKED_TILE_MIN_B}
+    from_b = {}
+    for model, (E, linears) in models.items():
+        ms = {b: [0.0] * len(STACKED_SCAN_B) for b in ("decode", "tile")}
+        for name, N, K, pair in linears:
+            w = random_stacked(gen, dev, E, N, K)
+            for i, B in enumerate(STACKED_SCAN_B):
+                x = torch.randn((E, B, K) if pair else (B, K), generator=gen,
+                                device=dev)
+                xq, xs = W.quantize_act_per_token(x.reshape(-1, K))
+                if pair:
+                    xq, xs = xq.reshape(E, B, K), xs.reshape(E, B, 1)
+                ref = M.w4a8_stacked_matmul_plain(xq, xs, *w, pair)
+                for body in ms:
+                    run = lambda: M._w4a8_stacked_matmul(xq, xs, *w, pair,
+                                                         body)
+                    if not torch.equal(run(), ref):
+                        raise AssertionError(f"#6 {body} {model} {name} "
+                                             f"B={B}: not bit for bit")
+                    ms[body][i] += time_ms(run, 20, pad)
+            del w
+        faster = [t < d for t, d in zip(ms["tile"], ms["decode"])]
+        from_b[model] = next((STACKED_SCAN_B[i] for i in range(len(faster))
+                              if all(faster[i:])), None)
+        out[model] = {f"{b}_ms": v for b, v in ms.items()}
+    out["tile_min_b_measured"] = from_b
+    return out
 
 
 # Qwen3-30B-A3B's expert linears: gate and up (N 768, K 2048) in stacked
@@ -822,7 +927,8 @@ Q_RAGGED_N = 1000
 
 def qwen3moe_kernel_rows(dev, gen, row) -> None:
     """#7 at Qwen3-30B-A3B's gate and up with the shared x of the 8-slot
-    decode (B = 8, E 128); #10 at its down over the 24576 grouped rows of
+    decode (B = 8, E 128); #6 on each body there at B = 8, 32 (the dense
+    decode of ``engine_qwen3moe``'s 32 slots) and 256; #10 at its down over the 24576 grouped rows of
     1024 tokens routed top-8 over 128 experts by a seeded router, at N
     2048 and at N 1000; #9 at its gate and up over the same grouping, as
     ``engine_qwen3moe``'s prefill launches it.  #9 and #10 must equal their
@@ -849,6 +955,9 @@ def qwen3moe_kernel_rows(dev, gen, row) -> None:
             E * expert_bytes(N, K) + xq.numel() + 8 * 4 + E * 8 * N * 4,
             2 * E * 8 * N * K, tol=TOL_SMALLM, kind="bf16", B=8,
             pair=False)
+        for B in STACKED_ROWS_B:
+            stacked_rows(row, f"qwen3_B{B}", name, qp, wd, B, False, gen,
+                         dev)
         gate_up[name] = (qp, wd)
         del qp, wd, wa
     topi = seeded_topi(1024, gen, dev, E, arch)
@@ -2232,9 +2341,10 @@ def summarize(rows, attn_rows, fused_rows, moe_rows, bench_rows,
     for prefill; #12 at 8, the M of 15 of every 16 of its ``engine_s4``
     launches), or for #13 and #14 over the fused build's four decode
     linears at M = 8; for a MoE kernel over one Mixtral-8x7B layer's three
-    expert linears at its main-path case (#6 B = 8, #8 n = 4 tokens, #9
-    the 1024-token prefill), or of one Qwen3-30B-A3B layer's (#7 gate and
-    up at B = 8, #10 the down of the 1024-token prefill); for an
+    expert linears at its main-path case (#6 B = 8 on the body
+    ``stacked_body`` picks, with the same at B = 256 under ``B256``; #8 n =
+    4 tokens, #9 the 1024-token prefill), or of one Qwen3-30B-A3B layer's
+    (#7 gate and up at B = 8, #10 the down of the 1024-token prefill); for an
     attention kernel, one call at the
     buffer of its engine phase (#20 4096, #21 8192, #17 512, #18 512, #19
     4096); for a bench kernel (#5, #15, #16, #22), one call at the bench's
@@ -2274,18 +2384,26 @@ def summarize(rows, attn_rows, fused_rows, moe_rows, bench_rows,
                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                 bound_by=r["bound_by"], library_ms=r["library_ms"]))
             continue
-        # #1's main rows: the bf16 store, as the engine runs it
-        rs = [r for r in rows if r["kernel"] == kname
-              and r["M"] == main_m[kname] and r.get("store") != "f32"]
-        by_ops = sum(r["bound_by"] == "operations" for r in rs)
-        out.append(dict(
-            name=kname, route="cuda", **info, launches=launches[kname],
-            max_abs_err=max(r["max_abs_err"] for r in rs),
-            ms=sum(r["kernel_ms"] for r in rs),
-            plain_ms=sum(r["plain_ms"] for r in rs),
-            bound_ms=sum(r["bound_ms"] for r in rs),
-            bound_by="operations" if by_ops * 2 > len(rs) else "bytes",
-            library_ms=sum(r["library_ms"] for r in rs)))
+        # #1's main rows: the bf16 store, as the engine runs it; #6's: the
+        # body its wrapper routes B to
+        def summed(case):
+            rs = [r for r in rows if r["kernel"] == kname
+                  and r["M"] == case and r.get("store") != "f32"
+                  and r.get("routed", True)]
+            by_ops = sum(r["bound_by"] == "operations" for r in rs)
+            return dict(
+                max_abs_err=max(r["max_abs_err"] for r in rs),
+                ms=sum(r["kernel_ms"] for r in rs),
+                plain_ms=sum(r["plain_ms"] for r in rs),
+                bound_ms=sum(r["bound_ms"] for r in rs),
+                bound_by="operations" if by_ops * 2 > len(rs) else "bytes",
+                library_ms=sum(r["library_ms"] for r in rs))
+
+        entry = dict(name=kname, route="cuda", **info,
+                     launches=launches[kname], **summed(main_m[kname]))
+        if kname == "w4a8_stacked_matmul":
+            entry["B256"] = summed("B256")
+        out.append(entry)
     return out
 
 
@@ -2636,7 +2754,6 @@ def main() -> int:
     fused_k = phase_fused_kernels(dev)
     emit(fused_k)
     moe_k = phase_moe_kernels(dev)
-    emit(moe_k)
     bench_k = phase_bench_kernels(dev)
     emit(bench_k)
     ms_k = phase_masked_s4_kernels(dev)
@@ -2726,6 +2843,10 @@ def main() -> int:
         "engine_fused_s4", builds["fused_s4"], prompts_kv4, 16, dev,
         "decode_attention_bd4",
         expect={"w4a8_linear_bytes_fused": (0, 4 * layers)}, **kv4))
+    t0 = time.time()
+    emit(dict(phase_profile(builds["fused_s4"], prompts_kv4, dev,
+                            build="fused_s4", **kv4),
+              seconds=time.time() - t0))
     # s4 unfused: #12 at prefill (2 prompts x 128 = 256 rows) and decode
     runs.append(engine_phase(
         "engine_s4", builds["s4"], prompts[:2], 16, dev, None,

@@ -24,9 +24,34 @@ words and scales from the seed).
 instead profiles four decode steps of the W4A16 engine (Llama-3-8B at full
 width and depth, random weights from chip_smoke's seed, 8 slots, #1 on
 every decode linear) with the tree's ``chip_smoke.phase_profile``: wall
-and busy ms a step, the idle share, kernels a step."""
+and busy ms a step, the idle share, kernels a step.
+
+    cd <tree> && python3 <repo>/kernel_ab.py TAG stacked
+
+times #6 on each of its bodies (the decode block and, where the tree has
+it, the planes tile) at each B of STACKED_B over a Mixtral-8x7B layer's
+three expert linears (E 8: gate and up 14336 x 4096 on a shared x, the
+down 4096 x 14336 in pair mode) and over Qwen3-30B-A3B's gate and up (E
+128, 768 x 2048), random plane words and scales from the seed; the least
+B of the scan from which the tile is faster at every larger B, per model.
+
+    cd <tree> && python3 <repo>/kernel_ab.py TAG engines
+
+profiles four decode steps of the fused s4 engine (Llama-3-8B, the fused
+s4 build with chip_smoke's gammas, kv4 ``bd4``, 8 prompts of 1500-2000
+tokens) and of Qwen3-30B-A3B's 32-slot engine (its decode's dense route
+through #6), and times the 256-row prefill of Mixtral-8x7B's
+``engine_moe_small`` (2 prompts, 4 slots, the dense route through #6),
+with the tree's chip_smoke helpers: wall and busy ms a step, prefill s.
+
+    cd <tree> && python3 <repo>/kernel_ab.py TAG fused_s4
+
+times #13 at each M of FUSED_S4_M over a Llama-3-8B block's four fused
+linears (q|k|v 6144 and gate|up 28672 with the RMSNorm, o and down
+without), random s4 byte pairs and scales from the seed, bf16 x."""
 
 import dataclasses
+import gc
 import json
 import statistics
 import sys
@@ -45,6 +70,16 @@ from lightcompress_tpu_torch.serving import quantized_model as QM  # noqa: E402
 # #1's M: the scan of a decode block's rows up to DECODE_M_MAX (in two
 # trees, the old body's crossover with the new)
 P1_M = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+# #6's B: the dense MoE route's rows, from a decode step to a 256-row
+# prefill
+STACKED_B = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+# (model, E, [(name, N, K, pair)]) of #6's main-path calls
+STACKED_MODELS = (
+    ("mixtral", 8, [("gate", 14336, 4096, False), ("up", 14336, 4096, False),
+                    ("down", 4096, 14336, True)]),
+    ("qwen3", 128, [("gate", 768, 2048, False), ("up", 768, 2048, False)]))
+# #13's M: a decode step of 1, 8 and 32 slots
+FUSED_S4_M = (1, 8, 32)
 
 
 def time_ms(fn, reps: int, pad: torch.Tensor) -> float:
@@ -147,6 +182,121 @@ def main(tag: str, only_tail: bool = False) -> None:
     print(json.dumps(out), flush=True)
 
 
+def random_stacked(gen, dev, E: int, N: int, K: int):
+    """E experts of random plane words, per-group scales and zero
+    corrections (z * s), stacked."""
+    parts = [C.random_planes(gen, dev, N, K) for _ in range(E)]
+    return tuple(torch.stack([p[i] for p in parts]) for i in range(3))
+
+
+def stacked_ms(tag: str) -> None:
+    """#6 on each body at each B of STACKED_B, summed over each model's
+    linears; a tree without the planes-tile body times its one body as
+    ``decode``."""
+    dev = torch.device("cuda")
+    pad = torch.empty(C.PAD, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    forced = getattr(M, "_w4a8_stacked_matmul", None)
+    bodies = ("decode", "tile") if forced is not None else ("decode",)
+    out = {"tag": tag, "gpu": C.smi()}
+    for model, E, linears in STACKED_MODELS:
+        ms = {b: {B: 0.0 for B in STACKED_B} for b in bodies}
+        for name, N, K, pair in linears:
+            w = random_stacked(gen, dev, E, N, K)
+            for B in STACKED_B:
+                x = torch.randn((E, B, K) if pair else (B, K), generator=gen,
+                                device=dev)
+                xq, xs = W.quantize_act_per_token(x.reshape(-1, K))
+                if pair:
+                    xq, xs = xq.reshape(E, B, K), xs.reshape(E, B, 1)
+                for b in bodies:
+                    run = ((lambda: forced(xq, xs, *w, pair, b)) if forced
+                           else (lambda: M.w4a8_stacked_matmul(
+                               xq, xs, *w, pair=pair)))
+                    ms[b][B] += time_ms(run, 20, pad)
+            del w
+        out[model] = {b: {str(B): t for B, t in v.items()}
+                      for b, v in ms.items()}
+        if forced is not None:
+            faster = [ms["tile"][B] < ms["decode"][B] for B in STACKED_B]
+            out[f"{model}_tile_from_B"] = next(
+                (STACKED_B[i] for i in range(len(faster)) if all(faster[i:])),
+                None)
+    print(json.dumps(out), flush=True)
+
+
+def fused_s4_ms(tag: str) -> None:
+    """#13 at each M of FUSED_S4_M over a Llama-3-8B block's four fused
+    linears, and each linear's ms at M 8."""
+    dev = torch.device("cuda")
+    pad = torch.empty(C.PAD, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = {"tag": tag, "gpu": C.smi()}
+    tot = {m: 0.0 for m in FUSED_S4_M}
+    for name, N, K, rms in C.FUSED_SHAPES:
+        wb = torch.randint(-128, 128, (N, K // 2), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.int8)
+        s = (torch.rand((N, K // 128), generator=gen, device=dev) * 0.02
+             + 0.005).to(torch.bfloat16)
+        zs = (torch.rand((N, K // 128), generator=gen, device=dev) * 0.1
+              - 0.05).to(torch.bfloat16)
+        for m in FUSED_S4_M:
+            x = (torch.randn((m, K), generator=gen, device=dev) * 3).to(
+                torch.bfloat16)
+            t = time_ms(lambda: W.w4a8_linear_bytes_fused(
+                x, wb, s, zs, rms=rms, eps=1e-5), 20, pad)
+            tot[m] += t
+            if m == 8:
+                out[f"p13_{name}_M8"] = t
+        del wb, s, zs
+    out.update({f"p13_block_M{m}": t for m, t in tot.items()})
+    print(json.dumps(out), flush=True)
+
+
+def engines(tag: str) -> None:
+    """The fused s4 and Qwen3-30B-A3B decode steps' profiles and
+    Mixtral-8x7B's 256-row dense prefill (``engines`` in the docstring)."""
+    dev = torch.device("cuda")
+    out = {"tag": tag, "gpu": C.smi()}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(C.SEED)
+    model = C.Llama(C.LLAMA3_8B, C.init_params(gen, C.LLAMA3_8B))
+    C.set_gammas(model, C.SEED + 2)
+    sw = C.build_serving_weights(model, C.WSPEC, act_bits=8, device=dev,
+                                 **C.S4_FUSED)
+    del model
+    kv4 = dict(kv_bits="auto", max_len=4096, prefill_buckets=(2048,))
+    prof = C.phase_profile(sw, C.make_prompts(8, C.LLAMA3_8B.vocab_size, 1500,
+                                              2000), dev, build="fused_s4",
+                           **kv4)
+    out["fused_s4"] = {k: prof[k] for k in (
+        "wall_ms_per_step", "device_busy_ms_per_step", "idle_share",
+        "kernels_per_step")}
+    del sw
+    gc.collect()
+    torch.cuda.empty_cache()
+    swm, _ = C.phase_setup_moe(dev)
+    prompts = C.make_prompts(8, C.MIXTRAL_8X7B.vocab_size)
+    _, launches, stats = C.run_engine(swm, prompts[:2], 16, dev,
+                                      max_slots=4)
+    out["moe_small"] = {"prefill_s": stats["prefill_s"],
+                        "prefill_rows": stats["prefill_rows"],
+                        "stacked_launches": launches["w4a8_stacked_matmul"]}
+    del swm
+    gc.collect()
+    torch.cuda.empty_cache()
+    swq, _ = C.phase_setup_moe(dev, C.QWEN3_30B_A3B, "Qwen3-30B-A3B",
+                               C.SEED + 7, "setup_qwen3moe")
+    prof = C.phase_profile(swq, C.make_prompts(8, C.QWEN3_30B_A3B.vocab_size),
+                           dev, build="qwen3moe", max_slots=32)
+    out["qwen3moe"] = {k: prof[k] for k in (
+        "wall_ms_per_step", "device_busy_ms_per_step", "idle_share",
+        "kernels_per_step")}
+    print(json.dumps(out), flush=True)
+
+
 def profile_w4a16(tag: str) -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -162,8 +312,15 @@ def profile_w4a16(tag: str) -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[2:3] == ["w4a16_profile"]:
-        profile_w4a16(sys.argv[1])
+    mode = sys.argv[2] if len(sys.argv) > 2 else ""
+    tag = sys.argv[1] if len(sys.argv) > 1 else "tree"
+    if mode == "w4a16_profile":
+        profile_w4a16(tag)
+    elif mode == "stacked":
+        stacked_ms(tag)
+    elif mode == "fused_s4":
+        fused_s4_ms(tag)
+    elif mode == "engines":
+        engines(tag)
     else:
-        main(sys.argv[1] if len(sys.argv) > 1 else "tree",
-             sys.argv[2:3] == ["tail"])
+        main(tag, mode == "tail")

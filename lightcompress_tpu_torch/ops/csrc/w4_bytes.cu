@@ -19,9 +19,10 @@
 //
 // Bound on an H100 SXM (3.35 TB/s HBM, 1979 TOP/s int8): at M <= 256 the
 // bytes, N*K/2 + 4*N*G + M*K*b_x + M*N*b_out over 3.35 TB/s, so the packed
-// weight read is the bound.  The decode blocks (#11, #12 at small M, #13)
+// weight read is the bound.  The decode blocks (#11, #12 at small M)
 // compute with __dp4a on the CUDA cores, a lane per channel; #12 above
-// the decode regime runs the int8 tensor-core tile of w4_mma.cuh.
+// the decode regime runs the int8 tensor-core tile of w4_mma.cuh, #13 the
+// int8 mma.sync decode tile below it.
 
 #include "w4_mma.cuh"
 
@@ -40,49 +41,39 @@ __device__ __forceinline__ int sext_hi(uint32_t w) {
 }
 
 // ---------------------------------------------------------------------------
-// #12 W4A8 on byte pairs.  Replaces lightcompress_tpu/ops/pallas_matmul.py
-// w4a8_matmul_bytes (_w4a8_kernel_pairs, _pairs_group_loop).
-// #13 fused W4A8 decode linear (XT = bf16 or f32 x).  Replaces
-// w4a8_linear_bytes_fused (_w4a8_kernel_pairs_fused).
+// #12 W4A8 on byte pairs, the decode block (the wrapper sends M <
+// BYTES_TILE_MIN_M here, ops/w4_matmul.py).  Replaces
+// lightcompress_tpu/ops/pallas_matmul.py w4a8_matmul_bytes
+// (_w4a8_kernel_pairs, _pairs_group_loop).
 //
 // Bound: the packed weight read (memory).  The decode block of #2: one lane
 // per output channel, 4 warps splitting the group pairs, MT = 8 rows of int8
 // x in shared memory (natural K order, as the TPU kernel keeps it), per lane
 // 16 bytes of its weight row per step through the read-only cache.  Each
 // 4-byte word gives two __dp4a operands, the low nibbles against x of group
-// 2p and the high ones against group 2p+1, signed by signed.  #12 stages
-// pre-quantized rows and writes f32 times the act scale; #13 runs the
-// prologue of w4_common.cuh first (every block repeats it for its rows) and
-// writes XT.
+// 2p and the high ones against group 2p+1, signed by signed; f32 out times
+// the act scale.
 // ---------------------------------------------------------------------------
-template <int MT, typename XT>
+template <int MT>
 __global__ void __launch_bounds__(kDecodeThreads)
-w4a8_bytes_kernel(const XT* __restrict__ x, const float* __restrict__ xscale,
+w4a8_bytes_kernel(const int8_t* __restrict__ x,
+                  const float* __restrict__ xscale,
                   const int8_t* __restrict__ wb,
                   const __nv_bfloat16* __restrict__ s,
-                  const __nv_bfloat16* __restrict__ zs, void* __restrict__ out,
-                  int8_t* __restrict__ act_out, float* __restrict__ scale_out,
-                  int M, int N, int K, int rms, float eps) {
-  constexpr bool kFused = !std::is_same<XT, int8_t>::value;
-  using OutT = typename std::conditional<kFused, XT, float>::type;
+                  const __nv_bfloat16* __restrict__ zs,
+                  float* __restrict__ out, int M, int N, int K) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = K / kGroup, kh = K / 2;
   int8_t* xsh = reinterpret_cast<int8_t*>(smem);
   float* xsum = reinterpret_cast<float*>(smem + (size_t)MT * K);
   float* red = xsum + MT * G;
-  float* xs_sh = red + kDecodeWarps * MT * 32;
-  float* scratch = xs_sh + MT;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int m0 = blockIdx.y * MT;
   const int n = blockIdx.x * 32 + lane;
 
-  if constexpr (kFused)
-    quantize_rows<MT>(x, M, K, m0, rms, eps, xsh, xs_sh, scratch);
-  else
-    stage_rows<MT>(x, M, K, m0, xsh);
+  stage_rows<MT>(x, M, K, m0, xsh);
   __syncthreads();
   group_sums<MT>(xsh, K, xsum);
-  if constexpr (kFused) export_act<MT>(xsh, xs_sh, act_out, scale_out, M, K, m0);
   __syncthreads();
 
   float acc[MT];
@@ -124,8 +115,7 @@ w4a8_bytes_kernel(const XT* __restrict__ x, const float* __restrict__ xscale,
       acc[m] += s1 * (float)dodd[m] - z1 * xsum[m * G + g + 1];
     }
   }
-  store_rows<MT>(acc, red, kFused ? nullptr : xscale, xs_sh,
-                 static_cast<OutT*>(out), M, N, m0, n);
+  store_rows<MT>(acc, red, xscale, nullptr, out, M, N, m0, n);
 }
 
 // ---------------------------------------------------------------------------
@@ -285,6 +275,506 @@ w4a8_bytes_tile_kernel(const __grid_constant__ CUtensorMap xmap,
 }
 
 // ---------------------------------------------------------------------------
+// #13 fused W4A8 decode linear on the int8 tensor cores.  Replaces
+// lightcompress_tpu/ops/pallas_matmul.py w4a8_linear_bytes_fused
+// (_w4a8_kernel_pairs_fused, _pairs_group_loop).
+//
+// y = ((a0 + a1) + (a2 + a3) - corr) * xscale in x's type (XT = bf16 or
+// f32), with a_r the sum over the groups g = r, r + 4, ... in ascending
+// order of f32(x_g . c'_g) * s_g (the product and the sum each rounded) and
+// corr = the sum of xsum_g * zs_g in ascending g: the TPU kernel's four
+// accumulators of _pairs_group_loop, and its zero correction summed in
+// order (the plain version w4a8_matmul_pairs_tpu_order, bit for bit on
+// the kernel's own act codes and scales).  The prologue runs in the
+// kernel, as JAX fuses it: per row, ss = sum(x * x) and am = max|x| over
+// the whole row, r = rsqrt(ss / K + eps) with rms (__frsqrt_rn), sc =
+// max(am * r, 1e-8) / 127, codes rint(x * r / sc) (IEEE division; no
+// contraction), as w4_common.cuh quantize_rows.
+//
+// Bound: the packed weight read (memory), N*K/2 bytes.  The design:
+//   * A block takes 32 channels (4 n8 tiles) and MT = 16 or 32 rows (one
+//     or two m16 tiles of mma.sync m16n8k32 s8 x s8 -> s32); N 4096 gives
+//     128 blocks, no K split (a split could not keep the sequential
+//     accumulators).  Its 8 warps are 4 n8 tiles x 2 groups of a pair:
+//     warp (ct, h) multiplies group 2p + h of word pair p, so it holds the
+//     accumulators a_h (p even) and a_{h+2} (p odd) of its outputs, and the
+//     h = 0 warps the correction; the h = 1 warps hand theirs over through
+//     shared memory at the end.
+//   * One barrier a word pair (two pairs a step measured slower on the
+//     H100).  Weights: bytes p*128 .. +128 of the block's 32 channels (4
+//     KB, both groups of pair p) stream through a ring of kFusedSlots
+//     cp.async slots in the 128-byte swizzle; the first kFusedSlots - 1
+//     are issued before the prologue reads any x.  The B fragments come
+//     straight from those words in registers (ldmatrix, then S4PairsB: a
+//     32-bit word is four consecutive k of one channel, its low nibbles
+//     group 2p's codes and its high ones group 2p + 1's).  The block's
+//     rows of s and zs (all G groups) land in shared memory with pair 0's
+//     words: no global load waits inside a pair.
+//   * The prologue: every block reduces its rows' ss and am itself (one
+//     to eight warps a row, 16-byte loads, eight in flight a lane, in one
+//     fixed order: every block of a row tile gets the same bits), then
+//     quantizes pair p + 1's 256 columns of its rows into two swizzled
+//     [MT][128] x tiles right after pair p's barrier, beside pair p's
+//     products, from values loaded into registers two pairs ahead.
+//     rint(v * (1/sc)) (rounded by adding 1.5 * 2^23) equals rint(v / sc)
+//     unless v * (1/sc) lies within 2^-14 of a rounding tie, where the
+//     kernel divides.  The group sums come from the codes (warp
+//     reductions); rows past M are never quantized (they feed only
+//     outputs that are not stored).
+// ---------------------------------------------------------------------------
+constexpr int kFusedWarps = 8;
+constexpr int kFusedThreads = kFusedWarps * 32;
+constexpr int kFusedChan = 32;                       // channels a block
+constexpr int kFusedSlots = 8;                       // word pairs in flight
+constexpr int kFusedStage = kFusedChan * kTileRow;   // 4 KB of words a pair
+// |t - rint(t)| above this, t = v * (1/sc) may round otherwise than v / sc
+// (|t - v/sc| < 2^-15 for |v/sc| <= 127.01)
+constexpr float kTieGuard = 0.5f - 1.f / 16384.f;
+
+__device__ __forceinline__ float bf_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf_hi(uint32_t w) {
+  return __uint_as_float(w & 0xFFFF0000u);
+}
+
+// The weight unpack of the decode tile: the B operand of group 2p + h from
+// a 32-bit word of s4 byte pairs (low nibbles for h = 0, high for h = 1).
+template <int H>
+struct S4PairsB {
+  __device__ __forceinline__ int operator()(int w) const {
+    return H ? sext_hi((uint32_t)w) : sext_lo((uint32_t)w);
+  }
+};
+
+// 8 bytes from global to shared memory without registers
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// Eight values of x from the registers of one 16-byte (bf16) or two
+// (f32) loads.
+template <typename XT>
+__device__ __forceinline__ float x_value(const uint32_t* w, int k) {
+  if constexpr (sizeof(XT) == 2)
+    return k & 1 ? bf_hi(w[k >> 1]) : bf_lo(w[k >> 1]);
+  else
+    return __uint_as_float(w[k]);
+}
+
+// The integer dots of one group (the warp's n8 tile ct, its m16 tiles)
+// from a word-pair tile ws ([32][128], swizzled) and an x tile xt
+// ([MT][128], swizzled), the words' B operand mapped by bx.
+template <int MI, class BX>
+__device__ __forceinline__ void pair_dots(int (&d)[MI][4], const int8_t* ws,
+                                          const int8_t* xt, int ct, bool two,
+                                          BX bx) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[i][e] = 0;
+#pragma unroll
+  for (int k2 = 0; k2 < 2; ++k2) {
+    // ldmatrix x4: lane L names channel 8 ct + (L & 7) of 16-byte chunk
+    // 4 k2 + (L >> 3): b0, b1 of k steps 2 k2 and 2 k2 + 1
+    int r4[4];
+    ldsm_x4(r4, ws + swz(8 * ct + (lane & 7), 4 * k2 + (lane >> 3)));
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int b[2] = {bx(r4[2 * v]), bx(r4[2 * v + 1])};
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        if (i == 1 && !two) break;
+        int a[4], dk[4] = {0, 0, 0, 0};  // a k step's own chain
+        decode_a_frag(a, xt, i, 2 * k2 + v);
+        mma_s8(dk, a, b);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[i][e] += dk[e];
+      }
+    }
+  }
+}
+
+// Pair p's dots d (group 2p + h) into acc with the thread's channels c0,
+// c0 + 1 scales, and for h = 0 groups 2p and 2p + 1's corrections into
+// corr in order (xs2: their row sums, [2][MT]).  xsum * zs is exact (at
+// most 14 + 8 significant bits): the fused multiply-add rounds once, as
+// the product and the sum do.
+template <int MI, int MT>
+__device__ __forceinline__ void scale_pair(
+    float (&acc)[MI][4], float (&corr)[MI][4], const int (&d)[MI][4],
+    const __nv_bfloat16* s_sh, const __nv_bfloat16* zs_sh, const int* xs2,
+    int c0, int G, int p, int h) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const float sv[2] = {__bfloat162float(s_sh[c0 * G + 2 * p + h]),
+                       __bfloat162float(s_sh[(c0 + 1) * G + 2 * p + h])};
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc[i][e] = mac_rn(acc[i][e], exact_f32(d[i][e]), sv[e & 1]);
+  if (h == 0)
+#pragma unroll
+    for (int hq = 0; hq < 2; ++hq) {
+      const int* xq = xs2 + hq * MT + g;
+      const float zv[2] = {
+          __bfloat162float(zs_sh[c0 * G + 2 * p + hq]),
+          __bfloat162float(zs_sh[(c0 + 1) * G + 2 * p + hq])};
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          corr[i][e] = fmaf((float)xq[16 * i + 8 * (e >> 1)], zv[e & 1],
+                            corr[i][e]);
+    }
+}
+
+// two blocks an SM but for f32 x in 32-row tiles, whose prefetched values
+// would not fit in 128 registers a thread
+template <typename XT, int MT>
+__global__ void __launch_bounds__(kFusedThreads,
+                                  MT == 16 || sizeof(XT) == 2 ? 2 : 1)
+w4a8_bytes_fused_kernel(const XT* __restrict__ x,
+                        const int8_t* __restrict__ wb,
+                        const __nv_bfloat16* __restrict__ s,
+                        const __nv_bfloat16* __restrict__ zs,
+                        XT* __restrict__ out, int8_t* __restrict__ act_out,
+                        float* __restrict__ scale_out, int M, int N, int K,
+                        int rms, float eps) {
+  constexpr int MI = MT / 16;                             // m16 tiles
+  constexpr int kChunks = MT * 32 / kFusedThreads;  // 8-value chunks a pair
+  constexpr int kWords = 2 * (int)sizeof(XT);       // x words of a chunk
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
+  int8_t* wbuf = reinterpret_cast<int8_t*>(smem);   // [slots][32][128]
+  int8_t* xbuf = wbuf + kFusedSlots * kFusedStage;  // [2][2][MT][128]
+  const int G = K / kGroup;
+  // the block's scales and zero corrections, [32][G] bf16 each
+  __nv_bfloat16* s_sh =
+      reinterpret_cast<__nv_bfloat16*>(xbuf + 4 * MT * kTileRow);
+  __nv_bfloat16* zs_sh = s_sh + kFusedChan * G;
+  int* xsum_sh = reinterpret_cast<int*>(zs_sh + kFusedChan * G);  // [2][2][MT]
+  float* row_sh = reinterpret_cast<float*>(xsum_sh + 4 * MT);
+  float* st_sh = row_sh + 3 * MT;  // [MT][8 warps]: ss, am
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int ct = warp & 3, h = warp >> 2;
+  const int n0 = blockIdx.x * kFusedChan, m0 = blockIdx.y * MT;
+  const int mv = min(MT, M - m0);
+  const bool two = MI == 2 && mv > 16;  // the second m16 tile holds rows
+  const int kh = K / 2, P = G / 2;  // word pairs
+  const bool exporter = act_out != nullptr && blockIdx.x == 0;
+
+  // word pair p of the block's channels into slot p % kFusedSlots (row c,
+  // chunk q at swz(c, q)); each call one cp.async group, empty past P
+  auto stage_w = [&](int p) {
+    if (p < P) {
+      int8_t* dst = wbuf + (p % kFusedSlots) * kFusedStage;
+      for (int i = tid; i < kFusedChan * 8; i += kFusedThreads)
+        cp_async16(dst + swz(i >> 3, i & 7),
+                   wb + (size_t)(n0 + (i >> 3)) * kh + p * kTileRow +
+                       16 * (i & 7),
+                   true);
+    }
+    cp_async_commit();
+  };
+  // chunk j of a pair: row r = q / 32, group h' = (q / 16) % 2 of the
+  // pair, values 8 (q % 16) .. + 7 of the group, q = tid + 256 j; loaded
+  // two pairs ahead into one of two register buffers
+  using Raw = uint32_t[kChunks][kWords];
+  Raw raw_e, raw_o;  // even, odd pairs
+  auto load_x = [&](int p, Raw& raw) {
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      const int q = tid + kFusedThreads * j, r = q >> 5;
+      if (r >= mv) continue;
+      const uint4* src = reinterpret_cast<const uint4*>(
+          x + (size_t)(m0 + r) * K + 2 * kGroup * p + 8 * (q & 31));
+#pragma unroll
+      for (int v = 0; v < kWords / 4; ++v) {
+        const uint4 w4 = __ldg(src + v);
+        raw[j][4 * v] = w4.x;
+        raw[j][4 * v + 1] = w4.y;
+        raw[j][4 * v + 2] = w4.z;
+        raw[j][4 * v + 3] = w4.w;
+      }
+    }
+  };
+
+  // the block's s and zs rows, 8 bytes a copy, land with pair 0's words
+  for (int i = tid; i < kFusedChan * G / 2; i += kFusedThreads) {
+    const int w = i % (kFusedChan * G / 4), c = w / (G / 4);
+    const int k = 4 * (w % (G / 4));
+    const bool z = i >= kFusedChan * G / 4;
+    cp_async8((z ? zs_sh : s_sh) + c * G + k,
+              (z ? zs : s) + (size_t)(n0 + c) * G + k);
+  }
+  for (int p = 0; p < kFusedSlots - 1; ++p) stage_w(p);
+  load_x(0, raw_e);
+  load_x(1, raw_o);  // P >= 2: K % 512 == 0
+
+  // the rows' statistics: wpr warps a row (8 for one row, 4 for two, 2
+  // for three or four, else 1), the lanes along 16-byte vectors with eight
+  // loads in flight; a vector's squares summed as a tree, then into one of
+  // eight sums by its round, combined as a tree, the lanes by a butterfly,
+  // the row's warps in order: short sequential sums (the scale stays
+  // within a few ulps of the plain version's), one order for every block
+  constexpr int kPer = 16 / (int)sizeof(XT);  // values a vector
+  const int n_vec = K / kPer;
+  const int wpr = mv == 1 ? 8 : mv == 2 ? 4 : mv <= 4 ? 2 : 1;
+  {
+    const int wr = warp % wpr, stride = 32 * wpr;
+    for (int r = warp / wpr; r < mv; r += kFusedWarps / wpr) {
+      const uint4* row =
+          reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * K);
+      float part[8], am = 0.f;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) part[u] = 0.f;
+      for (int i0 = 32 * wr + lane; i0 < n_vec; i0 += 8 * stride) {
+        uint4 q[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (i0 + u * stride < n_vec) q[u] = __ldg(row + i0 + u * stride);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          if (i0 + u * stride >= n_vec) continue;
+          const uint32_t w[4] = {q[u].x, q[u].y, q[u].z, q[u].w};
+          float sq[kPer];
+#pragma unroll
+          for (int k = 0; k < kPer; ++k) {
+            float v;
+            if constexpr (sizeof(XT) == 2)
+              v = k & 1 ? bf_hi(w[k >> 1]) : bf_lo(w[k >> 1]);
+            else
+              v = __uint_as_float(w[k]);
+            sq[k] = __fmul_rn(v, v);
+            am = fmaxf(am, fabsf(v));
+          }
+#pragma unroll
+          for (int o = 1; o < kPer; o <<= 1)
+#pragma unroll
+            for (int k = 0; k < kPer; k += 2 * o)
+              sq[k] = __fadd_rn(sq[k], sq[k + o]);
+          part[u] = __fadd_rn(part[u], sq[0]);
+        }
+      }
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1)
+#pragma unroll
+        for (int u = 0; u < 8; u += 2 * o)
+          part[u] = __fadd_rn(part[u], part[u + o]);
+      float ss = part[0];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        ss = __fadd_rn(ss, __shfl_xor_sync(0xffffffffu, ss, o));
+        am = fmaxf(am, __shfl_xor_sync(0xffffffffu, am, o));
+      }
+      if (lane == 0) {
+        st_sh[2 * (r * kFusedWarps + wr)] = ss;
+        st_sh[2 * (r * kFusedWarps + wr) + 1] = am;
+      }
+    }
+  }
+  __syncthreads();  // every warp's partial statistics
+  if (tid < mv) {
+    const int r = tid;
+    float ss = st_sh[2 * r * kFusedWarps], am = st_sh[2 * r * kFusedWarps + 1];
+    for (int k = 1; k < wpr; ++k) {
+      ss = __fadd_rn(ss, st_sh[2 * (r * kFusedWarps + k)]);
+      am = fmaxf(am, st_sh[2 * (r * kFusedWarps + k) + 1]);
+    }
+    float rr = 1.f;
+    if (rms) {
+      rr = __frsqrt_rn(__fadd_rn(__fdiv_rn(ss, (float)K), eps));
+      am = __fmul_rn(am, rr);
+    }
+    const float sc = __fdiv_rn(fmaxf(am, 1e-8f), 127.f);
+    row_sh[r] = rr;
+    row_sh[MT + r] = sc;
+    row_sh[2 * MT + r] = __frcp_rn(sc);
+    if (exporter) scale_out[m0 + r] = sc;
+  }
+  __syncthreads();  // the rows' r, sc, 1/sc
+
+  // pair p's codes into x tiles [slot][h'] and their group sums.  A
+  // chunk's row is the same over the warp: rows past mv are skipped (their
+  // codes and sums feed only outputs that are never stored).  The rows'
+  // r, sc and 1/sc are held in registers
+  float q_rr[kChunks], q_sc[kChunks], q_inv[kChunks];
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    const int r = min(warp + kFusedWarps * j, MT - 1);
+    q_rr[j] = row_sh[r];
+    q_sc[j] = row_sh[MT + r];
+    q_inv[j] = row_sh[2 * MT + r];
+  }
+  auto quantize = [&](int p, const Raw& raw) {
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      const int q = tid + kFusedThreads * j, r = q >> 5, hq = (q >> 4) & 1;
+      const int c8 = q & 15, tile = (p & 1) * 2 + hq;
+      if (r >= mv) continue;  // uniform over the warp
+      // rint(t) and its integer from the bits of t + 1.5 * 2^23 (|t| <
+      // 2^22: its ulp is 1, so the add rounds t to nearest even); a chunk
+      // with a value near a tie takes rint(v / sc) by IEEE division
+      float v[8];
+      int c[8];
+      bool tie = false;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        v[k] = x_value<XT>(raw[j], k);
+        if (rms) v[k] = __fmul_rn(v[k], q_rr[j]);
+        const float tq = __fmul_rn(v[k], q_inv[j]);
+        const float y = __fadd_rn(tq, 12582912.f);
+        c[k] = __float_as_int(y) - 0x4B400000;
+        tie |= fabsf(__fsub_rn(tq, __fsub_rn(y, 12582912.f))) > kTieGuard;
+      }
+      if (tie)
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          c[k] = (int)rintf(__fdiv_rn(v[k], q_sc[j]));
+      const int sum =
+          ((c[0] + c[1]) + (c[2] + c[3])) + ((c[4] + c[5]) + (c[6] + c[7]));
+      const uint32_t lo = __byte_perm(__byte_perm(c[0], c[1], 0x40),
+                                      __byte_perm(c[2], c[3], 0x40), 0x5410);
+      const uint32_t hi = __byte_perm(__byte_perm(c[4], c[5], 0x40),
+                                      __byte_perm(c[6], c[7], 0x40), 0x5410);
+      // the group's sum: lanes 0-15 hold group 2p's chunks, 16-31 2p + 1's
+      const int s0 = __reduce_add_sync(0xffffffffu, hq ? 0 : sum);
+      const int s1 = __reduce_add_sync(0xffffffffu, hq ? sum : 0);
+      *reinterpret_cast<uint2*>(xbuf + tile * MT * kTileRow +
+                                swz(r, c8 >> 1) + 8 * (c8 & 1)) =
+          make_uint2(lo, hi);
+      if ((lane & 15) == 0) xsum_sh[tile * MT + r] = hq ? s1 : s0;
+      if (exporter)
+        *reinterpret_cast<uint2*>(act_out + (size_t)(m0 + r) * K +
+                                  2 * kGroup * p + 8 * (q & 31)) =
+            make_uint2(lo, hi);
+    }
+  };
+
+  // a thread's outputs, m16 tile i, element e: row 16 i + g + 8 (e >> 1),
+  // channel c0 + (e & 1); acc_e: groups 2p + h of even pairs p, acc_o of
+  // odd ones
+  const int c0 = 8 * ct + 2 * t;
+  float acc_e[MI][4], acc_o[MI][4], corr[MI][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_e[i][e] = acc_o[i][e] = corr[i][e] = 0.f;
+
+  // pair p; raw holds pair p + 1's values
+  auto step = [&](int p, Raw& raw) {
+    // words of pair p landed (every group but the newest kFusedSlots - 2);
+    // pair p's codes stored; every warp is past pair p - 1
+    cp_async_wait<kFusedSlots - 2>();
+    __syncthreads();
+    stage_w(p + kFusedSlots - 1);  // into the slot of pair p - 1
+    if (p + 1 < P) {
+      quantize(p + 1, raw);  // into the tiles pair p - 1 left
+      if (p + 3 < P) load_x(p + 3, raw);
+    }
+    const int8_t* ws = wbuf + (p % kFusedSlots) * kFusedStage;
+    const int8_t* xt = xbuf + ((p & 1) * 2 + h) * MT * kTileRow;
+    int d[MI][4];
+    if (h)
+      pair_dots<MI>(d, ws, xt, ct, two, S4PairsB<1>());
+    else
+      pair_dots<MI>(d, ws, xt, ct, two, S4PairsB<0>());
+    const int* xs2 = xsum_sh + (p & 1) * 2 * MT;
+    if (p & 1)
+      scale_pair<MI, MT>(acc_o, corr, d, s_sh, zs_sh, xs2, c0, G, p, h);
+    else
+      scale_pair<MI, MT>(acc_e, corr, d, s_sh, zs_sh, xs2, c0, G, p, h);
+  };
+  quantize(0, raw_e);
+  if (2 < P) load_x(2, raw_e);
+  for (int p = 0; p < P; p += 2) {  // P is even: K % 512 == 0
+    step(p, raw_o);
+    step(p + 1, raw_e);
+  }
+
+  // the h = 1 warps hand a1, a3 to the h = 0 warps of their channels (the
+  // word ring is free: every copy landed and was read)
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(wbuf) + (ct * 32 + lane) * 8 * MI;
+  if (h == 1) {
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        red[i * 4 + e] = acc_e[i][e];
+        red[4 * MI + i * 4 + e] = acc_o[i][e];
+      }
+  }
+  __syncthreads();
+  if (h == 0) {
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = 16 * i + g + 8 * hr;
+        if (r >= mv) continue;
+        const float xs = row_sh[MT + r];
+        float y[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 2 * hr + c;
+          y[c] = __fmul_rn(
+              __fsub_rn(__fadd_rn(__fadd_rn(acc_e[i][e], red[i * 4 + e]),
+                                  __fadd_rn(acc_o[i][e],
+                                            red[4 * MI + i * 4 + e])),
+                        corr[i][e]),
+              xs);
+        }
+        store2(out + (size_t)(m0 + r) * N + n0 + c0, y[0], y[1]);
+      }
+  }
+}
+
+size_t fused_smem(int mt, int K) {
+  return 128 + (size_t)kFusedSlots * kFusedStage + 4 * (size_t)mt * kTileRow +
+         2 * (size_t)kFusedChan * (K / kGroup) * 2 + 4 * (size_t)mt * 4 +
+         3 * (size_t)mt * 4 + 2 * (size_t)mt * kFusedWarps * 4;
+}
+
+template <typename XT, int MT>
+int launch_fused_mt(const XT* x, const void* wb, const void* s,
+                    const void* zs, void* out, void* act_out, void* scale_out,
+                    int M, int N, int K, int rms, float eps, void* stream) {
+  const size_t smem = fused_smem(MT, K);
+  cudaError_t e = prepare(w4a8_bytes_fused_kernel<XT, MT>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(N / kFusedChan, (M + MT - 1) / MT);
+  w4a8_bytes_fused_kernel<XT, MT>
+      <<<grid, kFusedThreads, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
+          x, (const int8_t*)wb, (const __nv_bfloat16*)s,
+          (const __nv_bfloat16*)zs, (XT*)out, (int8_t*)act_out,
+          (float*)scale_out, M, N, K, rms, eps);
+  return (int)cudaGetLastError();
+}
+
+// one m16 tile up to 16 rows, two (32-row tiles) above
+template <typename XT>
+int launch_bytes_fused(const XT* x, const void* wb, const void* s,
+                       const void* zs, void* out, void* act_out,
+                       void* scale_out, int M, int N, int K, int rms,
+                       float eps, void* stream) {
+  if (M < 1 || K % (4 * kGroup) || N % kFusedChan)
+    return (int)cudaErrorInvalidValue;
+  if (M <= 16)
+    return launch_fused_mt<XT, 16>(x, wb, s, zs, out, act_out, scale_out, M,
+                                   N, K, rms, eps, stream);
+  return launch_fused_mt<XT, 32>(x, wb, s, zs, out, act_out, scale_out, M, N,
+                                 K, rms, eps, stream);
+}
+
+// ---------------------------------------------------------------------------
 // #11 W4A8 on natural-order s4 bytes.  Replaces
 // lightcompress_tpu/ops/pallas_matmul.py w4a8_matmul_s4 (_w4a8_kernel_s4)
 // behind its byte-view entry point w4a8_matmul_s4_bytes.
@@ -400,20 +890,18 @@ int launch_s4(const void* xq, const void* xscale, const void* wb,
   return (int)cudaGetLastError();
 }
 
-template <typename XT>
-int launch_bytes(const XT* x, const void* xscale, const void* wb,
-                 const void* s, const void* zs, void* out, void* act_out,
-                 void* scale_out, int M, int N, int K, int rms, float eps,
-                 void* stream) {
+int launch_bytes(const void* xq, const void* xscale, const void* wb,
+                 const void* s, const void* zs, void* out, int M, int N,
+                 int K, void* stream) {
   const size_t smem = decode_smem_i8(8, K);
-  cudaError_t e = prepare(w4a8_bytes_kernel<8, XT>, smem);
+  cudaError_t e = prepare(w4a8_bytes_kernel<8>, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(N / 32, (M + 7) / 8);
-  w4a8_bytes_kernel<8, XT><<<grid, kDecodeThreads, smem,
-                             reinterpret_cast<cudaStream_t>(stream)>>>(
-      x, (const float*)xscale, (const int8_t*)wb, (const __nv_bfloat16*)s,
-      (const __nv_bfloat16*)zs, out, (int8_t*)act_out, (float*)scale_out, M,
-      N, K, rms, eps);
+  w4a8_bytes_kernel<8><<<grid, kDecodeThreads, smem,
+                         reinterpret_cast<cudaStream_t>(stream)>>>(
+      (const int8_t*)xq, (const float*)xscale, (const int8_t*)wb,
+      (const __nv_bfloat16*)s, (const __nv_bfloat16*)zs, (float*)out, M, N,
+      K);
   return (int)cudaGetLastError();
 }
 
@@ -447,21 +935,21 @@ int lc_w4a8_bytes_tile(const void* xq, const void* xscale, const void* wb,
 int lc_w4a8_bytes(const void* xq, const void* xscale, const void* wb,
                   const void* s, const void* zs, void* out, int M, int N,
                   int K, void* stream) {
-  return launch_bytes((const int8_t*)xq, xscale, wb, s, zs, out, nullptr,
-                      nullptr, M, N, K, 0, 0.f, stream);
+  return launch_bytes(xq, xscale, wb, s, zs, out, M, N, K, stream);
 }
 
 // #13: x (M, K) bf16 (x_f32 = 0) or f32 (1); out (M, N) in x's type;
-// act_out (M, K) int8 and scale_out (M,) f32 may be null.
+// act_out (M, K) int8 and scale_out (M,) f32 may be null.  K % 512 == 0,
+// N % 32 == 0.
 int lc_w4a8_bytes_fused(const void* x, int x_f32, const void* wb,
                         const void* s, const void* zs, void* out,
                         void* act_out, void* scale_out, int M, int N, int K,
                         int rms, float eps, void* stream) {
   if (x_f32)
-    return launch_bytes((const float*)x, nullptr, wb, s, zs, out, act_out,
-                        scale_out, M, N, K, rms, eps, stream);
-  return launch_bytes((const __nv_bfloat16*)x, nullptr, wb, s, zs, out,
-                      act_out, scale_out, M, N, K, rms, eps, stream);
+    return launch_bytes_fused((const float*)x, wb, s, zs, out, act_out,
+                              scale_out, M, N, K, rms, eps, stream);
+  return launch_bytes_fused((const __nv_bfloat16*)x, wb, s, zs, out, act_out,
+                            scale_out, M, N, K, rms, eps, stream);
 }
 
 // #11: xq (M, K) int8, xscale (M,) f32, wb (N, K/2) natural s4 bytes,

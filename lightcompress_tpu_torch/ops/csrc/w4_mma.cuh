@@ -98,6 +98,15 @@ __device__ __forceinline__ float mac_rn(float a, float d, float s) {
   return __fadd_rn(a, __fmul_rn(d, s));
 }
 
+// two outputs of one row, adjacent channels, as f32 or bf16 (rounded to
+// nearest even)
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 // The planes layout's int8 lanes: of four consecutive words w (the codes of
 // k = kw .. kw + 3 of every plane), p[i] holds plane 2b + i (b = 0 or 2)
 // in byte q = nibble 2b + i of word q.  Bytes b and b + 1 of the four

@@ -35,9 +35,11 @@
 //      once, bytes = E*(N*K/2 + 4*N*G) + x + out;
 //   #8 gathered: the packed weights of the distinct experts selected;
 //   #9 grouped: at a prefill's Mp rows the 2*rows*N*K int8 operations.
-// #6-#8 use no tensor cores (__dp4a on the CUDA cores); #9 runs on the
-// int8 tensor cores (wgmma) over TMA-fed stages, in the planes tile it
-// shares with #3 (w4_planes_wgmma.cuh).
+// #6 below STACKED_TILE_MIN_B rows (ops/moe_matmul.py), #7 and #8 use no
+// tensor cores (__dp4a on the CUDA cores); #9, and #6 from
+// STACKED_TILE_MIN_B rows on, run on the int8 tensor cores (wgmma) over
+// TMA-fed stages, in the planes tile they share with #3
+// (w4_planes_wgmma.cuh).
 
 #include "w4_planes_wgmma.cuh"
 
@@ -155,10 +157,18 @@ __device__ __forceinline__ void expert_rows(
 //
 // out[e, b, :] = x_e[b] . W[e]^T for every expert e, B <= 256 rows.  With
 // pair = 0 every expert reads the same x (B, K) (gate/up); with pair = 1
-// expert e reads its own rows x[e] (E, B, K) (the down projection).  Grid
-// (N/128, ceil(B/8), E): the TPU grid's expert and N-tile axes plus 8-row
-// chunks of B (a 256-row prefill is 32 chunks, each re-reading the expert's
-// weight from L2).  Bound: every expert's packed weight, read once.
+// expert e reads its own rows x[e] (E, B, K) (the down projection).  Two
+// bodies, chosen by B alone (stacked_body in ops/moe_matmul.py):
+//   * the decode block below (the wrapper sends B < STACKED_TILE_MIN_B
+//     here): grid (N/128, ceil(B/8), E), the TPU grid's expert and N-tile
+//     axes plus 8-row chunks of B, a lane per channel on __dp4a.  Bound:
+//     every expert's packed weight, read once;
+//   * the planes tile (lc_w4a8_stacked_tile): a block takes 64 rows of one
+//     expert (the kRowsStacked / kRowsPair mappings of
+//     w4_planes_wgmma.cuh), 128 channels, on wgmma; one launch, x never
+//     copied per expert.  Bound: the int8 operations of E * B rows (a
+//     tile pads B to a multiple of 64) beside the weight read.
+// Both equal w4a8_stacked_matmul_plain bit for bit.
 // ---------------------------------------------------------------------------
 template <int MT>
 __global__ void __launch_bounds__(kMoeThreads)
@@ -346,6 +356,22 @@ int lc_w4a8_stacked(const void* x, const void* xscale, const void* wp,
           (const __nv_bfloat16*)s, (const __nv_bfloat16*)zs, (float*)out,
           pair, B, N, K);
   return (int)cudaGetLastError();
+}
+
+// #6 on the planes tile: #6's arguments, and xsum_g null or the int16
+// row-sum scratch of launch_planes_wgmma (K > 49152: 64 * K / 128 values
+// for each of E * ceil(B / 64) row tiles).
+int lc_w4a8_stacked_tile(const void* x, const void* xscale, const void* wp,
+                         const void* s, const void* zs, void* xsum_g,
+                         void* out, int pair, int B, int N, int K, int E,
+                         void* stream) {
+  if (pair)
+    return launch_planes_wgmma<float, kRowsPair>(
+        x, xscale, wp, s, zs, nullptr, xsum_g, (float*)out, B, N, K, E, 0,
+        stream);
+  return launch_planes_wgmma<float, kRowsStacked>(
+      x, xscale, wp, s, zs, nullptr, xsum_g, (float*)out, B, N, K, E, 0,
+      stream);
 }
 
 // #7: #6's arguments.

@@ -1,14 +1,26 @@
 // The W4A8 planes tile on the int8 tensor cores (wgmma), one kernel body
-// shared by #3 (w4_matmul.cu: dense rows, any M, bf16 or f32 out) and #9
-// (w4_moe.cu: expert-sorted rows, one expert a 64-row tile, f32 out).
-// Replaces, as their body, the TPU kernels lightcompress_tpu/ops/
-// pallas_matmul.py _w4a8_kernel_mtiled (w4a8_matmul_planes_mtiled) and
-// _w4a8_kernel_grouped (w4a8_grouped_matmul), which the JAX package itself
-// calls one math: the grouped kernel is "the _w4a8_kernel_mtiled math with
-// an expert-indexed weight tile".
+// shared by #3 (w4_matmul.cu: dense rows, any M, bf16 or f32 out), #9
+// (w4_moe.cu: expert-sorted rows, one expert a 64-row tile, f32 out) and,
+// from STACKED_TILE_MIN_B rows on, #6 (w4_moe.cu: every expert on B rows,
+// f32 out).  Replaces, as their body, the TPU kernels lightcompress_tpu/ops/
+// pallas_matmul.py _w4a8_kernel_mtiled (w4a8_matmul_planes_mtiled),
+// _w4a8_kernel_grouped (w4a8_grouped_matmul) and _w4a8_kernel_stacked
+// (w4a8_stacked_matmul), which the JAX package itself calls one math: the
+// grouped kernel is "the _w4a8_kernel_mtiled math with an expert-indexed
+// weight tile", the stacked one the same sums for every expert.
 //
-// out[r] = x[r] . W[e]^T, e = block_eid[r / m_tile] (#9) or 0 (#3, block_eid
-// null).  Weight: E experts of untiled planes stacked as (E * N, K/8) int32
+// Three row mappings, chosen at compile time (kRows):
+//   kRowsDense: out[r] = x[r] . W[e]^T, e = block_eid[r / m_tile] (#9) or 0
+//     (#3, block_eid null); block x takes rows 64 x .. 64 x + 63;
+//   kRowsStacked, kRowsPair (#6, M = B): block x takes row tile t = x % T
+//     (T = ceil(B / 64)) of expert e = x / T; its x rows start at 64 t
+//     (stacked: every expert reads the same (B, K) x, whose tensor map
+//     spans B rows) or e * B + 64 t (pair: (E, B, K) x, a map of E * B
+//     rows), its outputs are rows e * B + 64 t + r of the (E, B, N) output,
+//     stores and xscale reads masked to 64 t + r < B.  In pair mode a
+//     tile's rows past B belong to the next expert: they are computed and
+//     never stored (row sums are per row).
+// Weight: E experts of untiled planes stacked as (E * N, K/8) int32
 // words (nibble j of word kw of row n holds code u of weight j*K/8 + kw),
 // s and zs (E, N, G) bf16; x (M, K) int8 in natural K order with an f32
 // scale per row.  A block takes 64 rows x 128 channels on the tiles of
@@ -18,7 +30,7 @@
 // M with zeros, and the stores and xscale reads are masked to m < M.  Any
 // K % 1024 == 0: up to ROWSUM_SMEM_K_MAX (ops/w4_matmul.py, 49152) the row
 // sums stay in shared memory beside the stages; above it (kBigK) they go to
-// a global int16 scratch (xsum_g, [M / 64][G][64], from the wrapper), and
+// a global int16 scratch (xsum_g, [gridDim.x][G][64], from the wrapper), and
 // the zero corrections are staged kZsGi word blocks at a time.
 //
 // Stages.  Word block gi (words gi*128 .. +128 of each channel, all eight
@@ -76,15 +88,9 @@ __device__ __forceinline__ int word_swz(int n, int c) {
   return (c >> 3) * kTileW + swz(n, c & 7);
 }
 
-// two outputs of one row, adjacent channels, as f32 or bf16
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
+enum { kRowsDense = 0, kRowsStacked = 1, kRowsPair = 2 };
 
-template <typename OutT, bool kBigK>
+template <typename OutT, bool kBigK, int kRows = kRowsDense>
 __global__ void __launch_bounds__(kPlanesThreads, 1)
 w4a8_planes_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                          const float* __restrict__ xscale,
@@ -115,14 +121,27 @@ w4a8_planes_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   // a thread's outputs d[4j + e]: row rw + 8 (e >> 1), channel
   // cw + 8j + (e & 1)
   const int rw = 16 * (warp & 3) + (lane >> 2), cw = 64 * wg + 2 * (lane & 3);
-  const int m0 = blockIdx.x * kTileM, n0 = blockIdx.y * kTileN;
-  const int e = block_eid != nullptr ? block_eid[m0 / m_tile] : 0;
-  if (e < 0 || e >= E) {
-    for (int i = tid; i < kTileM * kTileN; i += kPlanesThreads)
-      if (m0 + i / kTileN < M)
-        store(out + (size_t)(m0 + i / kTileN) * N + n0 + i % kTileN,
-              quiet_nan());
-    return;  // uniform over the block
+  const int n0 = blockIdx.y * kTileN;
+  // m0: the x map's first row of the tile (dense: also the output's);
+  // stacked: o0 the output's first row, t0 = 64 t the tile's first row of B
+  int m0, e;
+  [[maybe_unused]] int o0, t0;
+  if constexpr (kRows == kRowsDense) {
+    m0 = blockIdx.x * kTileM;
+    e = block_eid != nullptr ? block_eid[m0 / m_tile] : 0;
+    if (e < 0 || e >= E) {
+      for (int i = tid; i < kTileM * kTileN; i += kPlanesThreads)
+        if (m0 + i / kTileN < M)
+          store(out + (size_t)(m0 + i / kTileN) * N + n0 + i % kTileN,
+                quiet_nan());
+      return;  // uniform over the block
+    }
+  } else {
+    const int T = (M + kTileM - 1) / kTileM;
+    e = blockIdx.x / T;
+    t0 = (blockIdx.x % T) * kTileM;
+    o0 = e * M + t0;
+    m0 = (kRows == kRowsPair ? e * M : 0) + t0;
   }
   const __nv_bfloat16* s_e = s + ((size_t)e * N + n0) * G;
   const __nv_bfloat16* zs_e = zs + ((size_t)e * N + n0) * G;
@@ -342,56 +361,70 @@ w4a8_planes_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int m = m0 + rw + 8 * h;
-    if (m >= M) continue;
+    int m, o;  // the row of x (and xscale), of out
+    if constexpr (kRows == kRowsDense) {
+      m = o = m0 + rw + 8 * h;
+      if (m >= M) continue;
+    } else {
+      if (t0 + rw + 8 * h >= M) continue;
+      m = m0 + rw + 8 * h;
+      o = o0 + rw + 8 * h;
+    }
     const float xs = xscale[m];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int i = 4 * j + 2 * h;
-      store2(out + (size_t)m * N + n0 + cw + 8 * j,
+      store2(out + (size_t)o * N + n0 + cw + 8 * j,
              __fmul_rn(__fsub_rn(acc0[i], acc1[i]), xs),
              __fmul_rn(__fsub_rn(acc0[i + 1], acc1[i + 1]), xs));
     }
   }
 }
 
-// Launches the planes tile over x (M, K) int8 and the stacked weight of E
-// experts; block_eid null for one expert and dense rows.  K % 1024 == 0,
-// N % 128 == 0; with block_eid m_tile % 64 == 0.  xsum_g: null (the row
-// sums in shared memory, K <= 49152) or an int16 scratch of
-// ceil(M / 64) * 64 * K / 128 values.  Returns 0 or an error code (shared
+// Launches the planes tile over x int8 and the stacked weight of E experts.
+// kRowsDense: x (M, K), block_eid null for one expert and dense rows, with
+// block_eid m_tile % 64 == 0.  kRowsStacked / kRowsPair (#6): M = B, x
+// (B, K) or (E, B, K), out (E, B, N); block_eid and m_tile unused.
+// K % 1024 == 0, N % 128 == 0.  xsum_g: null (the row sums in shared
+// memory, K <= 49152) or an int16 scratch of 64 * K / 128 values for each
+// block of the grid's first dimension.  Returns 0 or an error code (shared
 // memory that does not fit is refused, never worked around).
-template <typename OutT>
+template <typename OutT, int kRows = kRowsDense>
 int launch_planes_wgmma(const void* x, const void* xscale, const void* wp,
                         const void* s, const void* zs, const void* block_eid,
                         void* xsum_g, OutT* out, int M, int N, int K, int E,
                         int m_tile, void* stream) {
   CUtensorMap xmap, wmap;
-  int rc = tensor_map_2d(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, x, K, M, K,
-                         kTileRow, kTileM);
+  const int x_rows = kRows == kRowsPair ? E * M : M;
+  int rc = tensor_map_2d(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, x, K, x_rows,
+                         K, kTileRow, kTileM);
   if (rc == 0)  // wp as (E * N, K / 8) int32 words
     rc = tensor_map_2d(&wmap, CU_TENSOR_MAP_DATA_TYPE_INT32, wp, K / 8,
                        (uint64_t)E * N, (uint64_t)K / 2, 32, kTileN);
   if (rc != 0) return rc;
-  const dim3 grid((M + kTileM - 1) / kTileM, N / kTileN);  // rows innermost
+  const int tiles = (M + kTileM - 1) / kTileM;
+  // rows innermost (stacked: an expert's row tiles, then the next expert)
+  const dim3 grid(kRows == kRowsDense ? tiles : E * tiles, N / kTileN);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (xsum_g != nullptr) {
-    e = prepare(w4a8_planes_wgmma_kernel<OutT, true>, kPlanesFixedSmem);
+    e = prepare(w4a8_planes_wgmma_kernel<OutT, true, kRows>,
+                kPlanesFixedSmem);
     if (e != cudaSuccess) return (int)e;
-    w4a8_planes_wgmma_kernel<OutT, true>
+    w4a8_planes_wgmma_kernel<OutT, true, kRows>
         <<<grid, kPlanesThreads, kPlanesFixedSmem, st>>>(
             xmap, (const float*)xscale, wmap, (const __nv_bfloat16*)s,
             (const __nv_bfloat16*)zs, (const int32_t*)block_eid,
             (int16_t*)xsum_g, out, M, N, K, E, m_tile);
   } else {
     const size_t smem = kPlanesFixedSmem + (size_t)(K / kGroup) * kTileM * 2;
-    e = prepare(w4a8_planes_wgmma_kernel<OutT, false>, smem);
+    e = prepare(w4a8_planes_wgmma_kernel<OutT, false, kRows>, smem);
     if (e != cudaSuccess) return (int)e;
-    w4a8_planes_wgmma_kernel<OutT, false><<<grid, kPlanesThreads, smem, st>>>(
-        xmap, (const float*)xscale, wmap, (const __nv_bfloat16*)s,
-        (const __nv_bfloat16*)zs, (const int32_t*)block_eid, nullptr, out, M,
-        N, K, E, m_tile);
+    w4a8_planes_wgmma_kernel<OutT, false, kRows>
+        <<<grid, kPlanesThreads, smem, st>>>(
+            xmap, (const float*)xscale, wmap, (const __nv_bfloat16*)s,
+            (const __nv_bfloat16*)zs, (const int32_t*)block_eid, nullptr,
+            out, M, N, K, E, m_tile);
   }
   return (int)cudaGetLastError();
 }

@@ -23,6 +23,11 @@ accumulator; then minus the f32 zero correction and times xscale.  Its
 plain version and kernel sum the dots in other orders, so they agree to
 f32 rounding, not bit for bit.
 
+#6 has two bodies, chosen by B alone (``stacked_body``): below
+``STACKED_TILE_MIN_B`` rows the decode block (a lane per channel), from
+there on the planes tile it shares with #3 and #9 (64 rows of one expert
+a block); both keep the TPU order, bit for bit.
+
 #10 is the grouped route's int8 per-channel expert (the ``stacked``
 fallback of ``quantize_linear_stacked``): codes (E, N, K) int8 and f32
 scales (E, N, 1); y = (f32(x . w) * scale) * xscale with an exact integer
@@ -47,6 +52,10 @@ from .w4_matmul import (GROUP, _aligned, _launch, _stream, rowsum_scratch,
 # rows of one expert segment of the grouped layout (moe_group_selections);
 # the kernel takes multiples of its 64-row tile
 M_TILE = 128
+# #6 runs on the planes tile from this many rows on, on its decode block
+# below (the crossover measured on the H100 by chip_smoke.py's
+# moe_kernels phase at Mixtral-8x7B's and Qwen3-30B-A3B's shapes)
+STACKED_TILE_MIN_B = 16
 
 
 # ---------------------------------------------------------------------------
@@ -169,8 +178,11 @@ def _lib() -> ctypes.CDLL:
     lib.lc_w4a8_grouped.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                     _I, _I, _I, _P]
     lib.lc_w4a8_stacked_smallm.argtypes = lib.lc_w4a8_stacked.argtypes
+    lib.lc_w4a8_stacked_tile.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                         _I, _I, _I, _P]
     for fn in (lib.lc_w4a8_stacked, lib.lc_w4a8_gathered,
-               lib.lc_w4a8_grouped, lib.lc_w4a8_stacked_smallm):
+               lib.lc_w4a8_grouped, lib.lc_w4a8_stacked_smallm,
+               lib.lc_w4a8_stacked_tile):
         fn.restype = ctypes.c_int
     return lib
 
@@ -233,7 +245,9 @@ def _index(t: torch.Tensor, n: int, name: str, device) -> torch.Tensor:
 
 
 def _stacked(kernel, plain, entry: str, xq, x_scale, wp, s, zs, pair):
-    """#6 or #7: the shared checks, the CPU's plain version, the launch."""
+    """#6 or #7: the shared checks, the CPU's plain version, the launch
+    (``entry``: the C function; #6's tile also takes the row-sum
+    scratch)."""
     K = xq.shape[-1]
     E, N = _check_experts(K, wp, s, zs, xq.device)
     B = xq.shape[-2]
@@ -245,21 +259,43 @@ def _stacked(kernel, plain, entry: str, xq, x_scale, wp, s, zs, pair):
         return out
     xq = _aligned(xq)
     xs = x_scale.float().contiguous()
+    scratch = ()
+    if entry == "lc_w4a8_stacked_tile":
+        t = rowsum_scratch(E * (-(-B // 64)) * 64, K, xq.device)
+        scratch = (None if t is None else t.data_ptr(),)
     with torch.cuda.device(xq.device):
         _launch(getattr(_lib(), entry), xq.data_ptr(), xs.data_ptr(),
-                wp.data_ptr(), s.data_ptr(), zs.data_ptr(), out.data_ptr(),
-                int(pair), B, N, K, E, _stream(xq.device))
+                wp.data_ptr(), s.data_ptr(), zs.data_ptr(), *scratch,
+                out.data_ptr(), int(pair), B, N, K, E, _stream(xq.device))
     kernel.launches += 1
     return out
+
+
+def stacked_body(B: int) -> str:
+    """The body of #6 that takes B rows: ``"tile"`` (the planes tile) from
+    STACKED_TILE_MIN_B rows on, else ``"decode"`` (the decode block, a lane
+    per channel).  By B alone."""
+    return "tile" if B >= STACKED_TILE_MIN_B else "decode"
+
+
+def _w4a8_stacked_matmul(xq, x_scale, wp, s, zs, pair: bool, body: str
+                         ) -> torch.Tensor:
+    """#6 on the named body (``stacked_body``); one launch, counted on
+    ``w4a8_stacked_matmul``."""
+    entry = {"tile": "lc_w4a8_stacked_tile",
+             "decode": "lc_w4a8_stacked"}[body]
+    return _stacked(w4a8_stacked_matmul, w4a8_stacked_matmul_plain, entry,
+                    xq, x_scale, wp, s, zs, pair)
 
 
 def w4a8_stacked_matmul(xq: torch.Tensor, x_scale: torch.Tensor,
                         wp: torch.Tensor, s: torch.Tensor, zs: torch.Tensor,
                         pair: bool = False) -> torch.Tensor:
     """#6: (B, K) int8 x shared by every expert, or with ``pair`` (E, B, K)
-    x whose slice e expert e reads -> (E, B, N) f32."""
-    return _stacked(w4a8_stacked_matmul, w4a8_stacked_matmul_plain,
-                    "lc_w4a8_stacked", xq, x_scale, wp, s, zs, pair)
+    x whose slice e expert e reads -> (E, B, N) f32, on the body
+    ``stacked_body(B)`` names."""
+    return _w4a8_stacked_matmul(xq, x_scale, wp, s, zs, pair,
+                                stacked_body(xq.shape[-2]))
 
 
 def w4a8_stacked_matmul_smallm(xq: torch.Tensor, x_scale: torch.Tensor,

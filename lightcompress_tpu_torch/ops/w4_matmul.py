@@ -20,6 +20,11 @@ Every entry point computes, with c the layout's code (u or c'),
 The fused linears (#13, #14) take the unquantized activations and run the
 JAX kernels' prologue first: an optional RMSNorm whose gamma is folded into
 the weights, then the per-token int8 quantization (``fused_act_quant``).
+#13 then keeps its TPU kernel's float order (``w4a8_matmul_pairs_tpu_order``:
+four accumulators by g % 4, the zero correction summed in order) and runs
+on an int8 tensor-core decode tile (``csrc/w4_bytes.cu``) that equals it
+bit for bit on the tile's own act codes; #12 and #14 keep the one
+accumulator of ``_grouped``.
 
 #3 (``w4a8_matmul_prefill``) and #5 (``w4a8_matmul_planes_ksplit``) keep
 the TPU kernels' float order (``w4a8_rows_tpu_order``: four accumulators
@@ -277,11 +282,37 @@ def w4a8_linear_planes_fused_plain(x, wp, s, zs, rms=False, eps=1e-6):
     return w4a8_matmul_decode_plain(xq, xs, wp, s, zs).to(x.dtype), xq, xs
 
 
+def w4a8_matmul_pairs_tpu_order(xq, x_scale, wb, s, zs) -> torch.Tensor:
+    """(M, K) int8 x with (M, 1) f32 scales against a byte-pair weight
+    ((N, K/2) int8, (N, G) s and zs) -> (M, N) f32 in the order of the TPU
+    kernel _w4a8_kernel_pairs_fused (_pairs_group_loop): for g ascending,
+    acc[g % 4] += f32(x_g . c'_g) * s_g and corr += xsum_g * zs_g, each
+    product and sum rounded; then ((a0 + a1) + (a2 + a3) - corr) *
+    x_scale.  #13's tile keeps it bit for bit.  The group dots are f32
+    matmuls of integers whose sums stay below 2^24, so they are exact;
+    xsum * zs is exact too (at most 14 + 8 significant bits)."""
+    M, K = xq.shape
+    G = s.shape[1]
+    x = xq.float().reshape(M, G, GROUP)
+    c = unpack_s4_pairs(wb).float().reshape(-1, G, GROUP)
+    xsum = x.sum(dim=-1)
+    zf = zs.float()
+    parts = [torch.matmul(x[:, g], c[:, g].t()) for g in range(G)]
+    corr = torch.zeros((M, c.shape[0]), dtype=torch.float32,
+                       device=xq.device)
+    for g in range(G):
+        corr = corr + xsum[:, g, None] * zf[:, g]
+    acc = _four_accumulators(parts, s, [(g, g % 4) for g in range(G)])
+    return (acc - corr) * x_scale.float()
+
+
 def w4a8_linear_bytes_fused_plain(x, wb, s, zs, rms=False, eps=1e-6):
-    """Plain #13: ``fused_act_quant`` then #12's arithmetic; returns
-    (y in ``x.dtype``, int8 codes, act scales)."""
+    """Plain #13: ``fused_act_quant`` then the TPU kernel's order
+    (``w4a8_matmul_pairs_tpu_order``); returns (y in ``x.dtype``, int8
+    codes, act scales)."""
     xq, xs = fused_act_quant(x, rms, eps)
-    return w4a8_matmul_bytes_plain(xq, xs, wb, s, zs).to(x.dtype), xq, xs
+    return (w4a8_matmul_pairs_tpu_order(xq, xs, wb, s, zs).to(x.dtype), xq,
+            xs)
 
 
 def _check_ksplit(K: int, splits: int) -> None:
@@ -688,6 +719,8 @@ def _fused_linear(kernel, x: torch.Tensor, w: torch.Tensor,
     xc = _aligned(x)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     xq = xs = None
+    if M == 0:
+        return out, xq, xs
     if export:
         xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
         xs = torch.empty((M, 1), dtype=torch.float32, device=x.device)
@@ -764,7 +797,9 @@ def w4a8_linear_bytes_fused(x: torch.Tensor, wb: torch.Tensor,
                             s: torch.Tensor, zs: torch.Tensor,
                             rms: bool = False, eps: float = 1e-6
                             ) -> torch.Tensor:
-    """#13: #14 on the byte-pair weight."""
+    """#13: #14's contract on the byte-pair weight, in its TPU kernel's
+    float order (``w4a8_matmul_pairs_tpu_order`` on the act codes the
+    prologue makes), on the int8 tensor-core decode tile."""
     return _fused_linear(w4a8_linear_bytes_fused, x, wb, s, zs, rms, eps,
                          False)[0]
 

@@ -387,6 +387,60 @@ def test_fused_and_s4_kernels_match_plain(dev, M, name, N, K, rms):
     assert [k.launches for k in W.KERNELS] == [0, 0, 0, 1, 1, 1, 0, 0, 0]
 
 
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("N,K", [(1024, 4096), (256, 14336)])
+@pytest.mark.parametrize("M", [1, 5, 8, 32, 33])
+def test_bytes_fused_tile_equals_tpu_order(dev, M, N, K, rms, xdtype):
+    """#13's int8 tensor-core tile: bit for bit the TPU kernel's order
+    (``w4a8_matmul_pairs_tpu_order``) on its own exported act codes and
+    scales, at most FLIPS_PER_CODE act-code flips against the plain
+    prologue, the same bits on a second call; one or two m16 tiles (M 32)
+    and a second row tile (M 33); K 4096 and 14 word blocks (14336)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(N + K + M)
+    w = torch.randn((N, K), generator=gen, device=dev) * 0.02
+    s4 = quantize_linear(w, WSPEC, layout="s4")
+    assert s4.layout == "s4"
+    x = (torch.randn((M, K), generator=gen, device=dev) * 3).to(xdtype)
+    wa = (s4.codes, s4.scales, s4.zeros)
+    kw = dict(rms=rms, eps=1e-5)
+    W.reset_launch_counts()
+    y, codes, scales = W._fused_with_act(W.w4a8_linear_bytes_fused, x, *wa,
+                                         **kw)
+    again = W.w4a8_linear_bytes_fused(x, *wa, **kw)
+    torch.cuda.synchronize()
+    assert y.dtype == xdtype and y.shape == (M, N)
+    assert torch.isfinite(y).all()
+    ref = W.w4a8_matmul_pairs_tpu_order(codes, scales, *wa).to(xdtype)
+    assert torch.equal(y, ref)
+    assert torch.equal(y, again)
+    _, pcodes, pscales = W.w4a8_linear_bytes_fused_plain(x, *wa, **kw)
+    assert int((codes != pcodes).sum()) <= FLIPS_PER_CODE * codes.numel()
+    assert ((scales - pscales).abs() <= 2.4e-7 * pscales.abs()).all()
+    assert W.w4a8_linear_bytes_fused.launches == 2
+
+
+def test_bytes_fused_rejects_what_it_cannot_take(dev):
+    """fp16 x, N % 32, K % 512 and f32 scales are refused on the card."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    w = torch.randn((256, 1024), generator=gen, device=dev) * 0.02
+    s4 = quantize_linear(w, WSPEC, layout="s4")
+    x = torch.randn((8, 1024), generator=gen, device=dev)
+    with pytest.raises(ValueError):
+        W.w4a8_linear_bytes_fused(x.half(), s4.codes, s4.scales, s4.zeros)
+    with pytest.raises(ValueError):
+        W.w4a8_linear_bytes_fused(x, s4.codes[:240], s4.scales[:240],
+                                  s4.zeros[:240])
+    with pytest.raises(ValueError):
+        W.w4a8_linear_bytes_fused(x[:, :640], s4.codes[:, :320],
+                                  s4.scales[:, :5], s4.zeros[:, :5])
+    with pytest.raises(ValueError):
+        W.w4a8_linear_bytes_fused(x, s4.codes, s4.scales.float(),
+                                  s4.zeros.float())
+
+
 # (name, N, K) of the seven linears of an unfused Llama-3-8B block
 BLOCK_SHAPES = [("q", 4096, 4096), ("k", 1024, 4096), ("v", 1024, 4096),
                 ("o", 4096, 4096), ("gate", 14336, 4096),
@@ -685,6 +739,27 @@ def test_smallm_kernel_pair_matches_plain(dev, experts, B):
     _smallm_close(got, MM.w4a8_stacked_matmul_smallm_plain(xq, xs, *args,
                                                            True))
     assert [k.launches for k in MM.KERNELS] == [0, 0, 0, 1, 0]
+
+
+@pytest.mark.parametrize("N,K", [(128, 2048), (256, 1024)])
+@pytest.mark.parametrize("pair", [False, True])
+@pytest.mark.parametrize("B", [1, 8, 9, 63, 64, 65, 200, 256])
+@pytest.mark.parametrize("body", ["tile", "decode"])
+def test_stacked_bodies_equal_plain_bit_for_bit(dev, body, B, pair, N, K):
+    """#6 on each body, forced, at E 3: bit for bit its plain version,
+    shared and per-expert (pair) rows, ragged last 64-row tiles (9, 63,
+    65, 200), one launch a call."""
+    E = 3
+    qp = _stacked(dev, E, N, K, N + K + B)
+    xq, xs = _acts(dev, (E, B, K) if pair else (B, K), B + int(pair))
+    args = (qp.codes, qp.scales, qp.zeros)
+    MM.reset_launch_counts()
+    got = MM._w4a8_stacked_matmul(xq, xs, *args, pair, body)
+    ref = MM.w4a8_stacked_matmul_plain(xq, xs, *args, pair)
+    torch.cuda.synchronize()
+    assert got.shape == (E, B, N) and torch.isfinite(got).all()
+    assert torch.equal(got, ref)
+    assert [k.launches for k in MM.KERNELS] == [1, 0, 0, 0, 0]
 
 
 QWEN3 = A.MoESpec(num_experts=128, top_k=8, moe_intermediate_size=768)

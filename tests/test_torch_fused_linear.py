@@ -15,6 +15,7 @@ from lightcompress_tpu.ops import pallas_matmul as jpm
 from lightcompress_tpu.ops import qlinear as jq
 from lightcompress_tpu.quant import QuantSpec as JQuantSpec
 from lightcompress_tpu_torch import convert
+from lightcompress_tpu_torch.device import bf16_ulp
 from lightcompress_tpu_torch.ops import qlinear as tq
 from lightcompress_tpu_torch.ops import w4_matmul as tw
 from lightcompress_tpu_torch.quant import QuantSpec
@@ -202,3 +203,60 @@ def test_s4_routes_like_jax(monkeypatch, M, route):
     if route is None:
         _close(y.numpy(), np.asarray(jq.qlinear_xla(jnp.asarray(x), qp)),
                TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("M", [1, 5, 8])
+def test_bytes_fused_tpu_order_matches_pallas(M, rms, dtype):
+    """Plain #13 in its TPU kernel's order (four accumulators by g % 4,
+    the zero correction summed in order) against the interpret kernel at
+    M 1, 5 and 8: f32 outputs within TOL (TOL_BF16 if an act code
+    flipped), bf16 outputs within one bf16 ulp at the largest |y|
+    (``bf16_ulp``: the interpret kernel's own prologue can flip an act
+    code, which moves an output across a bf16 rounding boundary; TOL_BF16,
+    2^-8 of max|y|, is below one ulp when max|y|'s mantissa exceeds 1);
+    act codes the JAX prologue's but for FLIPS_PER_CODE flips; and the
+    order function on the returned codes gives the returned y."""
+    _, qp = _jax_qp(256, 2048, seed=11, layout="s4")
+    rng = np.random.RandomState(12 + M)
+    x = jnp.asarray((rng.randn(M, 2048) * 3).astype(np.float32)).astype(
+        dtype)
+    ref = jpm.w4a8_linear_bytes_fused(x, qp.codes, qp.scales, qp.zeros,
+                                      rms=rms, eps=EPS, interpret=True)
+    p = _to_port(qp)
+    y, codes, scales = tw.w4a8_linear_bytes_fused_plain(
+        convert.tensor_from_numpy(x, "cpu"), p.codes, p.scales, p.zeros,
+        rms=rms, eps=EPS)
+    jcodes, _ = _jax_act(np.array(x.astype(jnp.float32)), rms)
+    flips = int((codes.numpy() != jcodes).sum())
+    assert flips <= FLIPS_PER_CODE * jcodes.size
+    ref = np.asarray(ref.astype(jnp.float32))
+    if dtype == "float32":
+        _close(y.numpy(), ref, TOL if not flips else TOL_BF16)
+    else:
+        np.testing.assert_allclose(y.float().numpy(), ref, rtol=0,
+                                   atol=bf16_ulp(float(np.abs(ref).max())))
+    assert y.dtype == (torch.float32 if dtype == "float32"
+                       else torch.bfloat16)
+    np.testing.assert_array_equal(
+        tw.w4a8_matmul_pairs_tpu_order(codes, scales, p.codes, p.scales,
+                                       p.zeros).to(y.dtype).float().numpy(),
+        y.float().numpy())
+
+
+@pytest.mark.parametrize("M,K", [(1, 512), (8, 4096), (33, 14336)])
+def test_pairs_tpu_order_matches_grouped_order(M, K):
+    """#13's order (``w4a8_matmul_pairs_tpu_order``) against #12's one
+    accumulator (``_grouped``, ``w4a8_matmul_bytes_plain``) on the same
+    codes: f32 sums of the same exact products in another order, within
+    TOL."""
+    _, qp = _jax_qp(128, K, seed=13, layout="s4")
+    p = _to_port(qp)
+    rng = np.random.RandomState(14)
+    xq, xs = tw.quantize_act_per_token(torch.from_numpy(
+        (rng.randn(M, K) * 3).astype(np.float32)))
+    got = tw.w4a8_matmul_pairs_tpu_order(xq, xs, p.codes, p.scales, p.zeros)
+    ref = tw.w4a8_matmul_bytes_plain(xq, xs, p.codes, p.scales, p.zeros)
+    assert got.dtype == torch.float32 and got.shape == (M, 128)
+    _close(got.numpy(), ref.numpy(), TOL)

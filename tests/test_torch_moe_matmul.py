@@ -127,8 +127,14 @@ def _close(got, ref):
 
 @pytest.mark.parametrize("pair,B,K,N", [(False, 5, 1024, 256),
                                         (True, 8, 2048, 128),
-                                        (False, 8, 2048, 256)])
+                                        (False, 8, 2048, 256),
+                                        (False, 65, 1024, 128),
+                                        (True, 65, 1024, 128),
+                                        (False, 200, 1024, 128),
+                                        (True, 200, 1024, 128)])
 def test_stacked_plain_matches_pallas(pair, B, K, N):
+    """Plain #6, which both of its bodies equal bit for bit, against the
+    interpret kernel; B 65 and 200 leave a ragged last 64-row tile."""
     E = 4
     jqp, tqp = _jax_experts(E, N, K, seed=B + K)
     (jxq, jxs), (txq, txs) = _quant(_act((E * B if pair else B, K), 1))
@@ -142,6 +148,26 @@ def test_stacked_plain_matches_pallas(pair, B, K, N):
                                  pair=pair)
     assert got.shape == (E, B, N) and tm.w4a8_stacked_matmul.launches == 0
     _close(got, ref)
+
+
+@pytest.mark.parametrize("d", [-1, 0, 1])
+def test_stacked_body_by_rows(d):
+    """#6 runs on the planes tile from STACKED_TILE_MIN_B rows on and on
+    its decode block below, by B alone; on the CPU either way the plain
+    version, one answer for both bodies."""
+    B = tm.STACKED_TILE_MIN_B + d
+    assert tm.stacked_body(B) == ("tile" if d >= 0 else "decode")
+    assert tm.stacked_body(1) == "decode" and tm.stacked_body(256) == "tile"
+    E, N, K = 2, 128, 1024
+    _, tqp = _jax_experts(E, N, K, seed=13)
+    _, (xq, xs) = _quant(_act((B, K), 6))
+    args = (xq, xs, tqp.codes, tqp.scales, tqp.zeros)
+    tm.reset_launch_counts()
+    outs = [tm._w4a8_stacked_matmul(*args, False, body)
+            for body in ("tile", "decode")]
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], tm.w4a8_stacked_matmul(*args))
+    assert tm.w4a8_stacked_matmul.launches == 0
 
 
 def test_gathered_plain_matches_pallas():

@@ -19,6 +19,13 @@ the plain versions before the card runs the kernels.
   schedule (four accumulators over a half, the halves added in either
   order) must equal plain #5 bit for bit.
 * #12 takes the tile from ``BYTES_TILE_MIN_M`` rows on, by M alone.
+* #6 on the planes tile: the stacked row mappings (block x = expert
+  x / T, row tile x % T; shared or per-expert x rows; a tile's rows past B
+  computed, never stored) give plain #6 bit for bit.
+* #13's decode tile: codes from rint(v * (1/sc)), divided only near a
+  tie, equal rint(v / sc); its schedule (warps by the group of a pair,
+  accumulators a_h and a_{h+2}, the correction in order) equals
+  ``w4a8_matmul_pairs_tpu_order`` bit for bit.
 * #1 and #4's bf16 tile (``csrc/w4a16_tile.cu``): the shared-memory
   layouts, the lane reads and the unpack to bf16 codes make m16n8k16 A
   and B fragments that assemble x . c^T for every plane, on plain and on
@@ -486,3 +493,100 @@ def test_grouped_plain_bad_expert_is_nan():
                                  m_tile=64)
     assert bool(torch.isnan(got[64:]).all())
     assert torch.equal(got[:64], good[:64])
+
+
+@pytest.mark.parametrize("pair", [False, True])
+@pytest.mark.parametrize("B", [1, 63, 65, 130])
+def test_stacked_tile_rows_equal_plain(pair, B):
+    """#6's row mappings on the planes tile: block x takes 64 rows of
+    expert x // T, x rows from (e * B if pair else 0) + 64 t, outputs e * B
+    + 64 t + r for 64 t + r < B; rows of a tile past B (the next expert's,
+    or zeros past the end) are computed and dropped.  Rendered with #9's
+    schedule, bit for bit plain #6."""
+    E, N, K = 3, 64, 1024
+    wp, s, zs = _experts(E, N, K, seed=B)
+    xq, xs = _rows(E * B if pair else B, K, seed=B + 1)
+    T = -(-B // 64)
+    rows = xq.shape[0]
+    xpad = torch.cat([xq, xq.new_zeros((64 * (E * T + 1), K))])
+    spad = torch.cat([xs, xs.new_ones((64 * (E * T + 1), 1))])
+    out = torch.full((E * B, N), float("nan"))
+    for blk in range(E * T):
+        e, t0 = blk // T, 64 * (blk % T)
+        m0 = (e * B if pair else 0) + t0
+        assert m0 < rows
+        y = _tile_order_rows(xpad[m0:m0 + 64], spad[m0:m0 + 64], wp[e],
+                             s[e], zs[e])
+        keep = min(64, B - t0)
+        out[e * B + t0:e * B + t0 + keep] = y[:keep]
+    ref = tm.w4a8_stacked_matmul_plain(
+        xq.reshape(E, B, K) if pair else xq,
+        xs.reshape(E, B, 1) if pair else xs, wp, s, zs, pair)
+    assert torch.equal(out.reshape(E, B, N), ref)
+
+
+def test_fused_quant_reciprocal_equals_division():
+    """#13's codes: t = v * (1/sc) rounded to even (by adding 1.5 * 2^23),
+    or rint(v / sc) where |t - rint(t)| exceeds the kernel's 0.5 - 2^-14
+    (the kernel divides the chunk of eight that holds such a t), equals
+    rint(v / sc)
+    (IEEE f32 throughout, as the kernel's __frcp_rn, __fmul_rn and
+    __fdiv_rn) on random rows and on values a few ulps from every tie."""
+    rng = np.random.RandomState(0)
+    guard = np.float32(0.5 - 2.0 ** -14)
+    amax = torch.from_numpy((rng.rand(64, 1) * 20 + 1e-3)
+                            .astype(np.float32))
+    sc = amax / 127.0
+    v = torch.from_numpy(rng.rand(64, 4096).astype(np.float32) * 2 - 1) \
+        * amax
+    # ties: (k + 0.5) * sc, nudged by -3 .. 3 ulps
+    k = torch.from_numpy(rng.randint(-127, 127, (64, 512))).float()
+    tie = (k + 0.5) * sc
+    for d in range(-3, 4):
+        v = torch.cat([v, torch.nextafter(tie, torch.sign(tie) * d * np.inf)
+                       if d else tie], dim=1)
+    v = torch.clamp(v, -amax, amax)
+    inv = 1.0 / sc
+    t = v * inv
+    # rint(t): t + 1.5 * 2^23 rounds to an integer, half to even (f32)
+    q = (t + 12582912.0) - 12582912.0
+    assert torch.equal(q, torch.round(t))
+    slow = (t - q).abs() > guard
+    q = torch.where(slow, torch.round(v / sc), q)
+    # the division is taken near every tie and rarely elsewhere
+    assert bool(slow[:, 4096:].all())
+    assert float(slow[:, :4096].float().mean()) < 1e-3
+    assert torch.equal(q, torch.round(v / sc))
+    assert float(q.abs().max()) <= 127
+
+
+@pytest.mark.parametrize("M,K", [(5, 1024), (16, 4096)])
+def test_fused_tile_schedule_equals_pairs_order(M, K):
+    """#13's tile: warp (ct, h) takes group 2p + h of pair p into its
+    accumulator of even p (a_h) or odd p (a_{h+2}); the h = 0 warps sum
+    the correction of groups 2p, 2p + 1 in order (exact products: a fused
+    multiply-add rounds as the sum does); y = ((a0 + a1) + (a2 + a3) -
+    corr) * xscale.  Bit for bit ``w4a8_matmul_pairs_tpu_order``."""
+    rng = np.random.RandomState(K + M)
+    N, G = 64, K // 128
+    u = torch.from_numpy(rng.randint(0, 16, (N, K)).astype(np.int32))
+    wb = W.pack_s4_pairs(u)
+    s = torch.from_numpy((rng.rand(N, G) * 0.02 + 1e-3)
+                         .astype(np.float32)).to(torch.bfloat16)
+    zs = torch.from_numpy(((rng.rand(N, G) - 0.5) * 0.1)
+                          .astype(np.float32)).to(torch.bfloat16)
+    xq, xs = _rows(M, K, seed=M)
+    c = W.unpack_s4_pairs(wb).reshape(N, G, 128)
+    x = xq.long().reshape(M, G, 128)
+    acc = {(h, odd): torch.zeros((M, N)) for h in (0, 1) for odd in (0, 1)}
+    corr = torch.zeros((M, N))
+    for p in range(G // 2):
+        for h in (0, 1):
+            g = 2 * p + h
+            d = torch.matmul(x[:, g], c[:, g].long().t())
+            key = (h, p & 1)
+            acc[key] = acc[key] + _exact_f32(d) * s[:, g].float()
+        for g in (2 * p, 2 * p + 1):
+            corr = corr + x[:, g].sum(-1).float()[:, None] * zs[:, g].float()
+    y = ((acc[0, 0] + acc[1, 0]) + (acc[0, 1] + acc[1, 1]) - corr) * xs
+    assert torch.equal(y, W.w4a8_matmul_pairs_tpu_order(xq, xs, wb, s, zs))
