@@ -8,10 +8,13 @@ Phases (each prints one JSON line with its seconds):
   2. every W4 kernel against its plain PyTorch version at the Llama-3-8B
      linear shapes and M of its engine phases (#1-#3 and #12 at a block's
      seven linears, #1 with a bf16 and an f32 store and the same bits on a
-     second call, #2 also at M 256 over the attention linears, #13 and
-     #14 at the fused build's four, #13 also at M 32, bit for bit its TPU
-     order on its own act codes and the same bits on a second call; #3 bit
-     for bit, also at M 300 and 1000, the fused q|k|v and gate|up, and
+     second call, #2 bit for bit in f32 and bf16, also at M 256 over the
+     attention linears; #2's two bodies at M 1-256 over a Llama-3-8B
+     block, Mixtral-8x7B's and Qwen3-30B-A3B's attention linears
+     (``planes_crossover``, a line of its own); #13 and #14 at the fused
+     build's four, both also at M 32, #14 at 33, bit for bit their TPU
+     orders on their own act codes and the same bits on a second call; #3
+     bit for bit, also at M 300 and 1000, the fused q|k|v and gate|up, and
      once at K 50176, past the planes tile's shared-memory row sums; #12's
      two bodies at M 1-256), with device times (kernel, plain, a library
      matmul, the bound);
@@ -362,10 +365,12 @@ PREFILL_FUSED = [("qkv", 6144, 4096), ("gateup", 28672, 4096)]
 
 def phase_kernels(dev) -> dict:
     """Each kernel against its plain version at every linear shape: #1
-    (bf16 and f32 stores, the same bits on a second call) and #2 at M 8
-    and 32 within their tolerances, #2 also at M 256 over the attention
-    linears (``engine_moe_small``'s 256-row prefill runs them there), #3 bit for bit (bf16 at every M of
-    PREFILL_M, f32 at 1024) and then at the fused build's q|k|v and
+    (bf16 and f32 stores, the same bits on a second call) within its
+    tolerance and #2 bit for bit (f32 and the engine's bf16 store, timed
+    in bf16, the same bits on a second call) at M 8 and 32, #2 also at M
+    256 over the attention linears (``engine_moe_small``'s 256-row prefill
+    runs them there, on #3's planes tile), #3 bit for bit (bf16 at every M
+    of PREFILL_M, f32 at 1024) and then at the fused build's q|k|v and
     gate|up (``prefill_fused``) and once past the shared-memory row sums
     (``k_cap``, K_CAP_CASE)."""
     t0 = time.time()
@@ -440,17 +445,30 @@ def phase_kernels(dev) -> dict:
                     raise AssertionError(f"#1 {name} M={M} {kind}: two "
                                          "calls differ")
             else:
+                # the store in the engine's bf16, bit for bit the plain
+                # version's; f32 too, once
                 xq, xs = W.quantize_act_per_token(x)
-                run = lambda: W.w4a8_matmul_decode(xq, xs, *args)
-                plain = lambda: W.w4a8_matmul_decode_plain(xq, xs, *args)
-                tol, out_bytes = TOL_F32, 4
-            err, scale, _ = check(kname, name, M, run(), plain(), tol, False)
+                check(kname, name, M, W.w4a8_matmul_decode(xq, xs, *args),
+                      W.w4a8_matmul_decode_plain(xq, xs, *args), TOL_F32,
+                      True)
+                run = lambda: W.w4a8_matmul_decode(xq, xs, *args,
+                                                   torch.bfloat16)
+                plain = lambda: W.w4a8_matmul_decode_plain(
+                    xq, xs, *args, torch.bfloat16)
+                tol, out_bytes = TOL_ULP, 2
+                if not torch.equal(run(), run()):
+                    raise AssertionError(f"#2 {name} M={M}: two calls "
+                                         "differ")
+            err, scale, _ = check(kname, name, M, run(), plain(), tol,
+                                  kname == "w4a8_matmul_decode")
             kind_ops = "int8" if kind == "int8" else "bf16"
             b_ms, b_by = bound(M, N, K, 1 if kind == "int8" else 2,
                                out_bytes, kind_ops)
             rows.append({
                 "kernel": kname, "linear": name, "M": M, "N": N, "K": K,
-                "store": kind, "max_abs_err": err, "max_abs_ref": scale,
+                "store": "bf16" if kind == "int8" else kind,
+                "body": W.planes_body(M) if kind == "int8" else None,
+                "max_abs_err": err, "max_abs_ref": scale,
                 "err_ulps": err / bf16_ulp(scale), "tol": tol,
                 "kernel_ms": time_ms(run, 20, pad),
                 "plain_ms": time_ms(plain, 3, pad),
@@ -496,8 +514,10 @@ def k_cap(dev, gen) -> dict:
 FUSED_SHAPES = [("qkv", 6144, 4096, True), ("o", 4096, 4096, False),
                 ("gateup", 28672, 4096, True), ("down", 4096, 14336, False)]
 FUSED_M = 8
-# #13 is also held at a decode step of 32 slots (two m16 tiles)
-FUSED_S4_M = (FUSED_M, 32)
+# #13 and #14 are also held at a decode step of 32 slots (two m16 tiles),
+# #14 at 33 too (a second row chunk)
+FUSED_ROWS = {"w4a8_linear_bytes_fused": (FUSED_M, 32),
+              "w4a8_linear_planes_fused": (FUSED_M, 32, 33)}
 # the M at which engine_s4 launches #12 on SHAPES: decode (8 slots) and its
 # prefill of 2 prompts x 128 rows
 S4_M = (8, 256)
@@ -508,15 +528,16 @@ BYTES_M_SCAN = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 def phase_fused_kernels(dev) -> dict:
     """#12 against its plain version at the shapes ``engine_s4`` launches it
     (one block's seven linears at M = 8 and 256); #13 and #14 at the fused
-    build's decode shapes, M = 8 (8 slots), #13 also at M = 32.  Times
-    (kernel, plain, a library matmul, the bound), the act codes the fused
-    kernels flip against the plain prologue, and the cost of the prologue
-    that every block of #13 and #14 recomputes: the fused kernel's time
-    less that of the same matmul on pre-quantized x (#12, #2), beside the
-    unfused path's torch act quant.  #13 must also equal its TPU order
-    (``w4a8_matmul_pairs_tpu_order``) on its own act codes and scales bit
-    for bit and give the same bits on a second call; its distance from
-    the plain version (from x) in bf16 ulps is recorded.  Then #12's crossover: both of its bodies (the decode
+    build's decode shapes, M = 8 (8 slots), both also at M = 32, #14 at 33
+    (``FUSED_ROWS``).  Times (kernel, plain, a library matmul, the bound),
+    the act codes the fused kernels flip against the plain prologue, and
+    the cost of the prologue that every block of #13 and #14 recomputes:
+    the fused kernel's time less that of the same matmul on pre-quantized
+    x (#12, #2), beside the unfused path's torch act quant.  #13 and #14
+    must also equal their TPU orders (``w4a8_matmul_pairs_tpu_order``,
+    ``w4a8_rows_phase_dot``) on their own act codes and scales bit for bit
+    and give the same bits on a second call; their distance from the plain
+    versions (from x) in bf16 ulps is recorded.  Then #12's crossover: both of its bodies (the decode
     block and the tile) against the plain version and timed over the seven
     linears at each M of BYTES_M_SCAN; ``tile_min_m_measured`` is the
     least M of the scan from which the tile is faster at every larger M,
@@ -570,17 +591,19 @@ def phase_fused_kernels(dev) -> dict:
         fk = dict(rms=rms, eps=LLAMA3_8B.rms_eps)
         pa = (planes.codes, planes.scales, planes.zeros)
         sa = (s4.codes, s4.scales, s4.zeros)
-        for M in FUSED_S4_M:
+        for M in sorted({m for ms in FUSED_ROWS.values() for m in ms}):
             x = (torch.randn((M, K), generator=gen, device=dev) * 3).to(
                 torch.bfloat16)
             xq, xs = W.quantize_act_per_token(x)
-            for kname, wa, unfused in (
+            for kname, wa, unfused, order in (
                     ("w4a8_linear_bytes_fused", sa,
-                     lambda: W.w4a8_matmul_bytes(xq, xs, *sa)),
+                     lambda: W.w4a8_matmul_bytes(xq, xs, *sa),
+                     W.w4a8_matmul_pairs_tpu_order),
                     ("w4a8_linear_planes_fused", pa,
-                     lambda: W.w4a8_matmul_decode(xq, xs, *pa))):
-                s4k = kname == "w4a8_linear_bytes_fused"
-                if M != FUSED_M and not s4k:
+                     lambda: W.w4a8_matmul_decode(xq, xs, *pa,
+                                                  torch.bfloat16),
+                     W.w4a8_rows_phase_dot)):
+                if M not in FUSED_ROWS[kname]:
                     continue
                 kern, kplain = getattr(W, kname), getattr(W, kname + "_plain")
                 run = lambda: kern(x, *wa, **fk)
@@ -588,19 +611,15 @@ def phase_fused_kernels(dev) -> dict:
                 y, codes, scales = W._fused_with_act(kern, x, *wa, **fk)
                 ref, rcodes, _ = plain()
                 flips = int((codes != rcodes).sum())
-                extra = {}
-                if s4k:
-                    own = W.w4a8_matmul_pairs_tpu_order(codes, scales,
-                                                        *wa).to(x.dtype)
-                    extra = dict(bit_equal_own_codes=torch.equal(y, own),
-                                 repeat_equal=torch.equal(y, run()),
-                                 err_ulps=bf16_ulps(y, ref))
-                    if not (extra["bit_equal_own_codes"]
-                            and extra["repeat_equal"]):
-                        raise AssertionError(
-                            f"#13 {name} M={M}: not its TPU order on its "
-                            f"own codes bit for bit, or a second call "
-                            f"differs")
+                own = order(codes, scales, *wa).to(x.dtype)
+                extra = dict(bit_equal_own_codes=torch.equal(y, own),
+                             repeat_equal=torch.equal(y, run()),
+                             err_ulps=bf16_ulps(y, ref))
+                if not (extra["bit_equal_own_codes"]
+                        and extra["repeat_equal"]):
+                    raise AssertionError(
+                        f"{kname} {name} M={M}: not its TPU order on its "
+                        f"own codes bit for bit, or a second call differs")
                 r = row(kname, name, M, N, K, y, ref, TOL_ULP, flips, True,
                         run, plain, lambda: torch.matmul(x, wd.t()))
                 r.update(rms=rms, act_code_flips=flips,
@@ -651,6 +670,88 @@ def bytes_crossover(dev, pad) -> list:
                 c["max_abs_err"] = max(c["max_abs_err"], err)
         del s4
     return [scan[M] for M in BYTES_M_SCAN]
+
+
+# #2's bodies timed at each M (the crossover) over a Llama-3-8B block's
+# seven linears (Mixtral-8x7B's attention linears are its q, k, v and o)
+# and Qwen3-30B-A3B's attention linears (hidden 2048, 32 query and 4 KV
+# heads of 128)
+PLANES_SCAN_M = (1, 8, 16, 32, 64, 128, 256)
+QWEN3_ATTN = [("q", 4096, 2048), ("k", 512, 2048), ("v", 512, 2048),
+              ("o", 2048, 4096)]
+
+
+def planes_crossover(dev) -> dict:
+    """#2's bodies (the planes decode tile with 16 and with 32 channels a
+    block, and #3's planes tile) bit for bit against the plain version and
+    timed (the bf16 store) at each M of PLANES_SCAN_M over each model's
+    linears, in random plane weights of their own (seed SEED + 9): per
+    model and M the bodies' summed ms, the decode tile at ``decode_chan``'s
+    channels; ``tile_min_m_measured``: per model, and for the three sets
+    together (``all``, the wrapper's one threshold), the least M of the
+    scan from which the tile is faster at every larger M, beside
+    PLANES_TILE_MIN_M; ``chan_ms``: per linear shape the decode tile's
+    time with 16 and with 32 channels summed over the scan's M below
+    PLANES_TILE_MIN_M, beside DECODE_CHAN16_MAX_N."""
+    t0 = time.time()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    pad = torch.empty(PAD, dtype=torch.uint8, device=dev)
+    linears = {("llama3_8b", n): (N, K) for n, N, K in SHAPES}
+    linears.update({("qwen3_attn", n): (N, K) for n, N, K in QWEN3_ATTN})
+    models = {"llama3_8b": [n for n, _, _ in SHAPES],
+              "mixtral_attn": list(ATTN_LINEARS),
+              "qwen3_attn": [n for n, _, _ in QWEN3_ATTN]}
+    bodies = {"decode16": ("decode", 16), "decode32": ("decode", 32),
+              "tile": ("tile", None)}
+    ms = {}  # (model, linear) -> body -> [ms at each M]
+    for (model, name), (N, K) in linears.items():
+        w = random_planes(gen, dev, N, K)
+        ms[model, name] = {b: [] for b in bodies}
+        for M in PLANES_SCAN_M:
+            xq, xs = W.quantize_act_per_token(
+                torch.randn((M, K), generator=gen, device=dev))
+            ref = W.w4a8_matmul_decode_plain(xq, xs, *w, torch.bfloat16)
+            for b, (body, chan) in bodies.items():
+                run = lambda: W._w4a8_matmul_decode(xq, xs, *w,
+                                                    torch.bfloat16, body,
+                                                    chan)
+                if not torch.equal(run(), ref):
+                    raise AssertionError(f"#2 {b} {model} {name} M={M}: "
+                                         "not bit for bit")
+                ms[model, name][b].append(time_ms(run, 20, pad))
+        del w
+    out = {"phase": "planes_crossover", "M": list(PLANES_SCAN_M),
+           "tile_min_m_set": W.PLANES_TILE_MIN_M,
+           "chan16_max_n_set": W.DECODE_CHAN16_MAX_N, "bit_equal": True}
+    from_m = {}
+    sums = {}
+    for model, names in models.items():
+        src = "qwen3_attn" if model == "qwen3_attn" else "llama3_8b"
+        dec = [sum(ms[src, n][f"decode{W.decode_chan(linears[src, n][0])}"]
+                   [i] for n in names) for i in range(len(PLANES_SCAN_M))]
+        tile = [sum(ms[src, n]["tile"][i] for n in names)
+                for i in range(len(PLANES_SCAN_M))]
+        sums[model] = (dec, tile)
+        out[model] = {"decode_ms": dec, "tile_ms": tile}
+    # "all": the three sets of linears together, the wrapper's one
+    # threshold
+    sums["all"] = tuple([sum(v[k][i] for v in list(sums.values()))
+                         for i in range(len(PLANES_SCAN_M))] for k in (0, 1))
+    for model, (dec, tile) in sums.items():
+        faster = [t < d for t, d in zip(tile, dec)]
+        from_m[model] = next((PLANES_SCAN_M[i] for i in range(len(faster))
+                              if all(faster[i:])), None)
+    out["tile_min_m_measured"] = from_m
+    below = [i for i, M in enumerate(PLANES_SCAN_M)
+             if M < W.PLANES_TILE_MIN_M]
+    out["chan_ms"] = {
+        f"{model}_{name}_{N}x{K}": {
+            b: sum(ms[model, name][b][i] for i in below)
+            for b in ("decode16", "decode32")}
+        for (model, name), (N, K) in linears.items()}
+    out["seconds"] = time.time() - t0
+    return out
 
 
 # the expert linears of one Mixtral-8x7B layer: (name, N, K, pair), the
@@ -2748,6 +2849,7 @@ def main() -> int:
     emit(phase_build())
     kern = phase_kernels(dev)
     emit(kern)
+    emit(planes_crossover(dev))
     attn = phase_attn_kernels(dev)
     emit(attn)
 

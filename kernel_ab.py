@@ -48,7 +48,22 @@ with the tree's chip_smoke helpers: wall and busy ms a step, prefill s.
 
 times #13 at each M of FUSED_S4_M over a Llama-3-8B block's four fused
 linears (q|k|v 6144 and gate|up 28672 with the RMSNorm, o and down
-without), random s4 byte pairs and scales from the seed, bf16 x."""
+without), random s4 byte pairs and scales from the seed, bf16 x.
+
+    cd <tree> && python3 <repo>/kernel_ab.py TAG planes
+
+times #2 at each M of P2_M over a Llama-3-8B block's seven linears (and
+its q, k, v and o alone; the f32 store, which every tree takes) and #14
+at each M of FUSED_S4_M over the fused build's four linears, random plane
+words and scales from the seed, bf16 x.
+
+    cd <tree> && python3 <repo>/kernel_ab.py TAG planes_engines
+
+profiles four decode steps of the kv8 W4A8 engine (Llama-3-8B, 8 slots,
+#2 on every decode linear) and of the fused planes engine (chip_smoke's
+gammas, #14 on every decode linear), and times the 256-row prefill of
+Mixtral-8x7B's ``engine_moe_small`` (#2 on its attention linears), with
+the tree's chip_smoke helpers: wall and busy ms a step, prefill s."""
 
 import dataclasses
 import gc
@@ -80,6 +95,8 @@ STACKED_MODELS = (
     ("qwen3", 128, [("gate", 768, 2048, False), ("up", 768, 2048, False)]))
 # #13's M: a decode step of 1, 8 and 32 slots
 FUSED_S4_M = (1, 8, 32)
+# #2's M: a decode step of 1 to 32 slots, up to a 256-row prefill
+P2_M = (1, 8, 32, 64, 128, 256)
 
 
 def time_ms(fn, reps: int, pad: torch.Tensor) -> float:
@@ -255,6 +272,76 @@ def fused_s4_ms(tag: str) -> None:
     print(json.dumps(out), flush=True)
 
 
+def planes_ms(tag: str) -> None:
+    """#2 at each M of P2_M over a Llama-3-8B block's seven linears (and
+    q, k, v, o) and #14 at each M of FUSED_S4_M over its four fused
+    linears (``planes`` in the docstring)."""
+    dev = torch.device("cuda")
+    pad = torch.empty(C.PAD, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = {"tag": tag, "gpu": C.smi()}
+    block = {m: 0.0 for m in P2_M}
+    attn = {m: 0.0 for m in P2_M}
+    for name, N, K in C.SHAPES:
+        w = C.random_planes(gen, dev, N, K)
+        for m in P2_M:
+            xq, xs = W.quantize_act_per_token(
+                torch.randn((m, K), generator=gen, device=dev))
+            t = time_ms(lambda: W.w4a8_matmul_decode(xq, xs, *w), 20, pad)
+            block[m] += t
+            if name in ("q", "k", "v", "o"):
+                attn[m] += t
+        del w
+    fused = {m: 0.0 for m in FUSED_S4_M}
+    for name, N, K, rms in C.FUSED_SHAPES:
+        w = C.random_planes(gen, dev, N, K)
+        for m in FUSED_S4_M:
+            x = (torch.randn((m, K), generator=gen, device=dev) * 3).to(
+                torch.bfloat16)
+            fused[m] += time_ms(lambda: W.w4a8_linear_planes_fused(
+                x, *w, rms=rms, eps=1e-5), 20, pad)
+        del w
+    out.update({f"p2_block_M{m}": t for m, t in block.items()})
+    out.update({f"p2_qkvo_M{m}": t for m, t in attn.items()})
+    out.update({f"p14_block_M{m}": t for m, t in fused.items()})
+    print(json.dumps(out), flush=True)
+
+
+def planes_engines(tag: str) -> None:
+    """The kv8 W4A8 and fused planes decode steps' profiles and
+    Mixtral-8x7B's 256-row prefill (``planes_engines`` in the
+    docstring)."""
+    dev = torch.device("cuda")
+    out = {"tag": tag, "gpu": C.smi()}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(C.SEED)
+    model = C.Llama(C.LLAMA3_8B, C.init_params(gen, C.LLAMA3_8B))
+    sw8 = C.build_serving_weights(model, C.WSPEC, act_bits=8, device=dev)
+    C.set_gammas(model, C.SEED + 2)
+    fused = C.build_serving_weights(model, C.WSPEC, act_bits=8, device=dev,
+                                    fused_rms=True, fuse_qkv=True)
+    del model
+    prompts = C.make_prompts(8, C.LLAMA3_8B.vocab_size)
+    keys = ("wall_ms_per_step", "device_busy_ms_per_step", "idle_share",
+            "kernels_per_step")
+    for name, sw, build in (("kv8", sw8, "w4a8"),
+                            ("fused_planes", fused, "fused_planes")):
+        prof = C.phase_profile(sw, prompts, dev, build=build)
+        out[name] = {k: prof[k] for k in keys}
+    del sw8, fused, sw
+    gc.collect()
+    torch.cuda.empty_cache()
+    swm, _ = C.phase_setup_moe(dev)
+    prompts = C.make_prompts(8, C.MIXTRAL_8X7B.vocab_size)
+    _, launches, stats = C.run_engine(swm, prompts[:2], 16, dev,
+                                      max_slots=4)
+    out["moe_small"] = {"prefill_s": stats["prefill_s"],
+                        "prefill_rows": stats["prefill_rows"],
+                        "decode_launches": launches["w4a8_matmul_decode"]}
+    print(json.dumps(out), flush=True)
+
+
 def engines(tag: str) -> None:
     """The fused s4 and Qwen3-30B-A3B decode steps' profiles and
     Mixtral-8x7B's 256-row dense prefill (``engines`` in the docstring)."""
@@ -322,5 +409,9 @@ if __name__ == "__main__":
         fused_s4_ms(tag)
     elif mode == "engines":
         engines(tag)
+    elif mode == "planes":
+        planes_ms(tag)
+    elif mode == "planes_engines":
+        planes_engines(tag)
     else:
         main(tag, mode == "tail")

@@ -226,20 +226,16 @@ __device__ void passed(const Params& p, int s) {
 __device__ __forceinline__ float bf(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-__device__ __forceinline__ float bf_lo(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float bf_hi(uint32_t w) {
-  return __uint_as_float(w & 0xFFFF0000u);
-}
 
 // The prologue of phase ph: the act codes and scales of its input (ctx;
 // rms(h); mid; rms(y)), a warp per unit of 1024 codes of a row over the
 // whole grid.  A row's sum of squares: the partials of the producing
 // phase's tiles, lane l taking tiles l, l + 32, ..., then a butterfly
 // (every warp of the row gets the same bits); its amax: the producing
-// epilogues' atomic maximum (order-free), or for ctx from the row itself.  Then, as w4_common.cuh quantize_rows: xf = v * rsqrt(ss / K
-// + eps) where rms, sc = max(amax, 1e-8) / 127, q = clip(rint(xf / sc)).
+// epilogues' atomic maximum (order-free), or for ctx from the row itself.
+// Then, in the order of w4_common.cuh's fused prologue: xf = v * rsqrt(ss
+// / K + eps) where rms, sc = max(amax, 1e-8) / 127, q = clip(rint(xf /
+// sc)).
 __device__ void prologue(const Params& p, int ph) {
   const int K = ph == kDown ? p.I : p.H;
   const bool rms = ph & 1;
@@ -620,40 +616,23 @@ layer_fused_kernel(const __grid_constant__ Params p) {
         for (int e = 0; e < 4; ++e)
           v[n][e] = __fadd_rn(__fadd_rn(acc[0][n][e], acc[1][n][e]),
                               __fadd_rn(acc[2][n][e], acc[3][n][e]));
-      {
-        // minus the eight planes' corrections sum_gi xsum * zs in plane
-        // order; xsum * zs is exact (at most 14 + 8 significant bits), so
-        // the fused multiply-add rounds once, as the product and the sum do
-        float c[8][2][4];
+      // minus the eight planes' corrections sum_gi xsum * zs in plane
+      // order (w4_mma.cuh, shared with #14)
+      auto terms = [&](int gl, int j, float (&xq)[2][4], float (&z)[2][4]) {
+        const float2 xv = *reinterpret_cast<const float2*>(
+            sm.xsum + (gl * 8 + j) * kRows + rb + 2 * g);
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int n = 0; n < 2; ++n) {
+          float zn[2];
+          bf2(sm.zsh + ((par * kMaxGi + gl) * 8 + j) * kChan + cb + 8 * n, zn);
 #pragma unroll
-          for (int n = 0; n < 2; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) c[j][n][e] = 0.f;
-        for (int gl = 0; gl < ng; ++gl)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float2 xv = *reinterpret_cast<const float2*>(
-                sm.xsum + (gl * 8 + j) * kRows + rb + 2 * g);
-            float z[2][2];
-#pragma unroll
-            for (int n = 0; n < 2; ++n)
-              bf2(sm.zsh + ((par * kMaxGi + gl) * 8 + j) * kChan + cb + 8 * n,
-                  z[n]);
-#pragma unroll
-            for (int n = 0; n < 2; ++n)
-#pragma unroll
-              for (int e = 0; e < 4; ++e)
-                c[j][n][e] = fmaf(e < 2 ? xv.x : xv.y, z[n][e & 1], c[j][n][e]);
+          for (int e = 0; e < 4; ++e) {
+            xq[n][e] = e < 2 ? xv.x : xv.y;
+            z[n][e] = zn[e & 1];
           }
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int n = 0; n < 2; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) v[n][e] = __fsub_rn(v[n][e], c[j][n][e]);
-      }
+        }
+      };
+      minus_corrections<true>(v, ng, terms);
       const int W = P.tiles * kChan;  // the parts' row width
       if (P.splits > 1) {
         // the splits meet: each stores its part; the last to arrive sums

@@ -46,8 +46,8 @@ __device__ __forceinline__ int sext_hi(uint32_t w) {
 // lightcompress_tpu/ops/pallas_matmul.py w4a8_matmul_bytes
 // (_w4a8_kernel_pairs, _pairs_group_loop).
 //
-// Bound: the packed weight read (memory).  The decode block of #2: one lane
-// per output channel, 4 warps splitting the group pairs, MT = 8 rows of int8
+// Bound: the packed weight read (memory).  One lane per output channel, 4
+// warps splitting the group pairs, MT = 8 rows of int8
 // x in shared memory (natural K order, as the TPU kernel keeps it), per lane
 // 16 bytes of its weight row per step through the read-only cache.  Each
 // 4-byte word gives two __dp4a operands, the low nibbles against x of group
@@ -115,7 +115,7 @@ w4a8_bytes_kernel(const int8_t* __restrict__ x,
       acc[m] += s1 * (float)dodd[m] - z1 * xsum[m * G + g + 1];
     }
   }
-  store_rows<MT>(acc, red, xscale, nullptr, out, M, N, m0, n);
+  store_rows<MT>(acc, red, xscale, out, M, N, m0, n);
 }
 
 // ---------------------------------------------------------------------------
@@ -289,7 +289,8 @@ w4a8_bytes_tile_kernel(const __grid_constant__ CUtensorMap xmap,
 // kernel, as JAX fuses it: per row, ss = sum(x * x) and am = max|x| over
 // the whole row, r = rsqrt(ss / K + eps) with rms (__frsqrt_rn), sc =
 // max(am * r, 1e-8) / 127, codes rint(x * r / sc) (IEEE division; no
-// contraction), as w4_common.cuh quantize_rows.
+// contraction): w4_common.cuh fused_row_scales and quantize8, shared with
+// #14.
 //
 // Bound: the packed weight read (memory), N*K/2 bytes.  The design:
 //   * A block takes 32 channels (4 n8 tiles) and MT = 16 or 32 rows (one
@@ -327,17 +328,6 @@ constexpr int kFusedThreads = kFusedWarps * 32;
 constexpr int kFusedChan = 32;                       // channels a block
 constexpr int kFusedSlots = 8;                       // word pairs in flight
 constexpr int kFusedStage = kFusedChan * kTileRow;   // 4 KB of words a pair
-// |t - rint(t)| above this, t = v * (1/sc) may round otherwise than v / sc
-// (|t - v/sc| < 2^-15 for |v/sc| <= 127.01)
-constexpr float kTieGuard = 0.5f - 1.f / 16384.f;
-
-__device__ __forceinline__ float bf_lo(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float bf_hi(uint32_t w) {
-  return __uint_as_float(w & 0xFFFF0000u);
-}
-
 // The weight unpack of the decode tile: the B operand of group 2p + h from
 // a 32-bit word of s4 byte pairs (low nibbles for h = 0, high for h = 1).
 template <int H>
@@ -353,16 +343,6 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
                    smem_u32(dst)),
                "l"(src)
                : "memory");
-}
-
-// Eight values of x from the registers of one 16-byte (bf16) or two
-// (f32) loads.
-template <typename XT>
-__device__ __forceinline__ float x_value(const uint32_t* w, int k) {
-  if constexpr (sizeof(XT) == 2)
-    return k & 1 ? bf_hi(w[k >> 1]) : bf_lo(w[k >> 1]);
-  else
-    return __uint_as_float(w[k]);
 }
 
 // The integer dots of one group (the warp's n8 tile ct, its m16 tiles)
@@ -518,88 +498,9 @@ w4a8_bytes_fused_kernel(const XT* __restrict__ x,
   load_x(0, raw_e);
   load_x(1, raw_o);  // P >= 2: K % 512 == 0
 
-  // the rows' statistics: wpr warps a row (8 for one row, 4 for two, 2
-  // for three or four, else 1), the lanes along 16-byte vectors with eight
-  // loads in flight; a vector's squares summed as a tree, then into one of
-  // eight sums by its round, combined as a tree, the lanes by a butterfly,
-  // the row's warps in order: short sequential sums (the scale stays
-  // within a few ulps of the plain version's), one order for every block
-  constexpr int kPer = 16 / (int)sizeof(XT);  // values a vector
-  const int n_vec = K / kPer;
-  const int wpr = mv == 1 ? 8 : mv == 2 ? 4 : mv <= 4 ? 2 : 1;
-  {
-    const int wr = warp % wpr, stride = 32 * wpr;
-    for (int r = warp / wpr; r < mv; r += kFusedWarps / wpr) {
-      const uint4* row =
-          reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * K);
-      float part[8], am = 0.f;
-#pragma unroll
-      for (int u = 0; u < 8; ++u) part[u] = 0.f;
-      for (int i0 = 32 * wr + lane; i0 < n_vec; i0 += 8 * stride) {
-        uint4 q[8];
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          if (i0 + u * stride < n_vec) q[u] = __ldg(row + i0 + u * stride);
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          if (i0 + u * stride >= n_vec) continue;
-          const uint32_t w[4] = {q[u].x, q[u].y, q[u].z, q[u].w};
-          float sq[kPer];
-#pragma unroll
-          for (int k = 0; k < kPer; ++k) {
-            float v;
-            if constexpr (sizeof(XT) == 2)
-              v = k & 1 ? bf_hi(w[k >> 1]) : bf_lo(w[k >> 1]);
-            else
-              v = __uint_as_float(w[k]);
-            sq[k] = __fmul_rn(v, v);
-            am = fmaxf(am, fabsf(v));
-          }
-#pragma unroll
-          for (int o = 1; o < kPer; o <<= 1)
-#pragma unroll
-            for (int k = 0; k < kPer; k += 2 * o)
-              sq[k] = __fadd_rn(sq[k], sq[k + o]);
-          part[u] = __fadd_rn(part[u], sq[0]);
-        }
-      }
-#pragma unroll
-      for (int o = 1; o < 8; o <<= 1)
-#pragma unroll
-        for (int u = 0; u < 8; u += 2 * o)
-          part[u] = __fadd_rn(part[u], part[u + o]);
-      float ss = part[0];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        ss = __fadd_rn(ss, __shfl_xor_sync(0xffffffffu, ss, o));
-        am = fmaxf(am, __shfl_xor_sync(0xffffffffu, am, o));
-      }
-      if (lane == 0) {
-        st_sh[2 * (r * kFusedWarps + wr)] = ss;
-        st_sh[2 * (r * kFusedWarps + wr) + 1] = am;
-      }
-    }
-  }
-  __syncthreads();  // every warp's partial statistics
-  if (tid < mv) {
-    const int r = tid;
-    float ss = st_sh[2 * r * kFusedWarps], am = st_sh[2 * r * kFusedWarps + 1];
-    for (int k = 1; k < wpr; ++k) {
-      ss = __fadd_rn(ss, st_sh[2 * (r * kFusedWarps + k)]);
-      am = fmaxf(am, st_sh[2 * (r * kFusedWarps + k) + 1]);
-    }
-    float rr = 1.f;
-    if (rms) {
-      rr = __frsqrt_rn(__fadd_rn(__fdiv_rn(ss, (float)K), eps));
-      am = __fmul_rn(am, rr);
-    }
-    const float sc = __fdiv_rn(fmaxf(am, 1e-8f), 127.f);
-    row_sh[r] = rr;
-    row_sh[MT + r] = sc;
-    row_sh[2 * MT + r] = __frcp_rn(sc);
-    if (exporter) scale_out[m0 + r] = sc;
-  }
-  __syncthreads();  // the rows' r, sc, 1/sc
+  // the rows' statistics and scales (w4_common.cuh)
+  fused_row_scales<XT, MT, kFusedWarps>(x, K, m0, mv, rms, eps, st_sh,
+                                        row_sh, exporter ? scale_out : nullptr);
 
   // pair p's codes into x tiles [slot][h'] and their group sums.  A
   // chunk's row is the same over the warp: rows past mv are skipped (their
@@ -619,31 +520,9 @@ w4a8_bytes_fused_kernel(const XT* __restrict__ x,
       const int q = tid + kFusedThreads * j, r = q >> 5, hq = (q >> 4) & 1;
       const int c8 = q & 15, tile = (p & 1) * 2 + hq;
       if (r >= mv) continue;  // uniform over the warp
-      // rint(t) and its integer from the bits of t + 1.5 * 2^23 (|t| <
-      // 2^22: its ulp is 1, so the add rounds t to nearest even); a chunk
-      // with a value near a tie takes rint(v / sc) by IEEE division
-      float v[8];
-      int c[8];
-      bool tie = false;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        v[k] = x_value<XT>(raw[j], k);
-        if (rms) v[k] = __fmul_rn(v[k], q_rr[j]);
-        const float tq = __fmul_rn(v[k], q_inv[j]);
-        const float y = __fadd_rn(tq, 12582912.f);
-        c[k] = __float_as_int(y) - 0x4B400000;
-        tie |= fabsf(__fsub_rn(tq, __fsub_rn(y, 12582912.f))) > kTieGuard;
-      }
-      if (tie)
-#pragma unroll
-        for (int k = 0; k < 8; ++k)
-          c[k] = (int)rintf(__fdiv_rn(v[k], q_sc[j]));
-      const int sum =
-          ((c[0] + c[1]) + (c[2] + c[3])) + ((c[4] + c[5]) + (c[6] + c[7]));
-      const uint32_t lo = __byte_perm(__byte_perm(c[0], c[1], 0x40),
-                                      __byte_perm(c[2], c[3], 0x40), 0x5410);
-      const uint32_t hi = __byte_perm(__byte_perm(c[4], c[5], 0x40),
-                                      __byte_perm(c[6], c[7], 0x40), 0x5410);
+      uint32_t lo, hi;
+      const int sum = quantize8<XT>(raw[j], rms, q_rr[j], q_sc[j], q_inv[j],
+                                    lo, hi);
       // the group's sum: lanes 0-15 hold group 2p's chunks, 16-31 2p + 1's
       const int s0 = __reduce_add_sync(0xffffffffu, hq ? 0 : sum);
       const int s1 = __reduce_add_sync(0xffffffffu, hq ? sum : 0);

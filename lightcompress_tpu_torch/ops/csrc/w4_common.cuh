@@ -33,78 +33,155 @@ __device__ __forceinline__ int pack_nibbles(uint32_t a, uint32_t b,
                (((c >> sh) & 0xFu) << 16) | (((d >> sh) & 0xFu) << 24));
 }
 
-// Block-wide sum and max of one value per thread, in one fixed order (warp
-// butterflies, then warps 0..3 in turn), so every block that reduces the
-// same inputs gets the same bits.  ``scratch`` holds 2 * kDecodeWarps
-// floats; all threads return the results.
-__device__ __forceinline__ void block_sum_max(float& sum, float& mx,
-                                              float* scratch) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, o));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();  // scratch may still be read from the previous row
-  if (lane == 0) {
-    scratch[warp] = sum;
-    scratch[kDecodeWarps + warp] = mx;
-  }
-  __syncthreads();
-  sum = scratch[0];
-  mx = scratch[kDecodeWarps];
-#pragma unroll
-  for (int w = 1; w < kDecodeWarps; ++w) {
-    sum = __fadd_rn(sum, scratch[w]);
-    mx = fmaxf(mx, scratch[kDecodeWarps + w]);
-  }
+// ---- the fused prologue of #13 and #14 ----
+// The TPU kernels run it once, at grid step 0, into VMEM scratch; CUDA
+// blocks cannot share it, so every block runs it for its own rows, from x,
+// which the L2 serves.  Per row, in the JAX kernels' float order: xf =
+// f32(x), times r = rsqrt(sum(xf * xf) / K + eps) with rms (__frsqrt_rn,
+// correctly rounded; xf * r is not rounded to bf16); sc = max(max|xf|,
+// 1e-8) / 127; codes clip(rint(xf / sc), -127, 127) with IEEE division and
+// no contracted multiply-adds.  max|xf| is taken as max|x| * r: rounding is
+// monotonic, so that equals the max of the rounded products.
+__device__ __forceinline__ float bf_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf_hi(uint32_t w) {
+  return __uint_as_float(w & 0xFFFF0000u);
 }
 
-// The fused prologue of kernels #13 and #14 (the TPU kernels run it once at
-// grid step 0 into VMEM scratch; CUDA blocks cannot share it, so every block
-// recomputes it for its own MT rows from x, which the L2 serves).  For each
-// row m of x[m0 .. m0+MT) (B, K), in the JAX kernels' float order:
-//   xf = f32(x); if rms: xf *= rsqrt(sum(xf*xf) / K + eps)  (not rounded to
-//   bf16); sc = max(max|xf|, 1e-8) / 127; q = clip(rint(xf / sc), -127, 127)
-// Exactly rounded throughout: IEEE division (__fdiv_rn), the correctly
-// rounded reciprocal square root __frsqrt_rn (rsqrtf is approximate), no
-// contracted multiply-adds, rintf (half to even).  max|xf| is taken as
-// max|x| * r: rounding is monotonic, so that equals the max of the rounded
-// products.  Codes go to xsh (MT, K), scales to xs_sh[MT]; rows past M get
-// zero codes.  ``scratch``: 2 * kDecodeWarps floats.
-template <int MT, typename T>
-__device__ void quantize_rows(const T* __restrict__ x, int M, int K, int m0,
-                              int rms, float eps, int8_t* xsh, float* xs_sh,
-                              float* scratch) {
-  for (int m = 0; m < MT; ++m) {
-    int8_t* qrow = xsh + (size_t)m * K;
-    if (m0 + m >= M) {
-      for (int i = threadIdx.x; i < K; i += blockDim.x) qrow[i] = 0;
-      if (threadIdx.x == 0) xs_sh[m] = 1.f;
-      continue;
+// Value k of x from the registers of one 16-byte (bf16) or two (f32) loads.
+template <typename XT>
+__device__ __forceinline__ float x_value(const uint32_t* w, int k) {
+  if constexpr (sizeof(XT) == 2)
+    return k & 1 ? bf_hi(w[k >> 1]) : bf_lo(w[k >> 1]);
+  else
+    return __uint_as_float(w[k]);
+}
+
+// |t - rint(t)| above this, t = v * (1/sc) may round otherwise than v / sc
+// (|t - v/sc| < 2^-15 for |v/sc| <= 127.01)
+constexpr float kTieGuard = 0.5f - 1.f / 16384.f;
+
+// The statistics and scales of rows m0 .. m0 + mv of x (B, K) for a block
+// of kWarps = 8 warps: wpr warps a row (8 for one row, 4 for two, 2 for
+// three or four, else 1), the lanes along 16-byte vectors with eight loads
+// in flight; a vector's squares summed as a tree, then into one of eight
+// sums by its round, combined as a tree, the lanes by a butterfly, the
+// row's warps in order: short sequential sums (the scale stays within a
+// few ulps of the plain version's), one order for every block.  Leaves
+// row r's r, sc and 1/sc at row_sh[r], row_sh[MT + r], row_sh[2 MT + r]
+// (st_sh: [MT][kWarps][2] floats of scratch) and, with scale_out, sc at
+// scale_out[m0 + r]; ends with a barrier.
+template <typename XT, int MT, int kWarps>
+__device__ void fused_row_scales(const XT* __restrict__ x, int K, int m0,
+                                 int mv, int rms, float eps, float* st_sh,
+                                 float* row_sh, float* scale_out) {
+  static_assert(kWarps == 8, "warps a row for 8 warps");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int kPer = 16 / (int)sizeof(XT);  // values a vector
+  const int n_vec = K / kPer;
+  const int wpr = mv == 1 ? 8 : mv == 2 ? 4 : mv <= 4 ? 2 : 1;
+  {
+    const int wr = warp % wpr, stride = 32 * wpr;
+    for (int r = warp / wpr; r < mv; r += kWarps / wpr) {
+      const uint4* row =
+          reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * K);
+      float part[8], am = 0.f;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) part[u] = 0.f;
+      for (int i0 = 32 * wr + lane; i0 < n_vec; i0 += 8 * stride) {
+        uint4 q[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (i0 + u * stride < n_vec) q[u] = __ldg(row + i0 + u * stride);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          if (i0 + u * stride >= n_vec) continue;
+          const uint32_t w[4] = {q[u].x, q[u].y, q[u].z, q[u].w};
+          float sq[kPer];
+#pragma unroll
+          for (int k = 0; k < kPer; ++k) {
+            const float v = x_value<XT>(w, k);
+            sq[k] = __fmul_rn(v, v);
+            am = fmaxf(am, fabsf(v));
+          }
+#pragma unroll
+          for (int o = 1; o < kPer; o <<= 1)
+#pragma unroll
+            for (int k = 0; k < kPer; k += 2 * o)
+              sq[k] = __fadd_rn(sq[k], sq[k + o]);
+          part[u] = __fadd_rn(part[u], sq[0]);
+        }
+      }
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1)
+#pragma unroll
+        for (int u = 0; u < 8; u += 2 * o)
+          part[u] = __fadd_rn(part[u], part[u + o]);
+      float ss = part[0];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        ss = __fadd_rn(ss, __shfl_xor_sync(0xffffffffu, ss, o));
+        am = fmaxf(am, __shfl_xor_sync(0xffffffffu, am, o));
+      }
+      if (lane == 0) {
+        st_sh[2 * (r * kWarps + wr)] = ss;
+        st_sh[2 * (r * kWarps + wr) + 1] = am;
+      }
     }
-    const T* row = x + (size_t)(m0 + m) * K;
-    float ss = 0.f, am = 0.f;
-    for (int i = threadIdx.x; i < K; i += blockDim.x) {
-      const float v = to_f32(row[i]);
-      ss = __fadd_rn(ss, __fmul_rn(v, v));
-      am = fmaxf(am, fabsf(v));
+  }
+  __syncthreads();  // every warp's partial statistics
+  if ((int)threadIdx.x < mv) {
+    const int r = threadIdx.x;
+    float ss = st_sh[2 * r * kWarps], am = st_sh[2 * r * kWarps + 1];
+    for (int k = 1; k < wpr; ++k) {
+      ss = __fadd_rn(ss, st_sh[2 * (r * kWarps + k)]);
+      am = fmaxf(am, st_sh[2 * (r * kWarps + k) + 1]);
     }
-    block_sum_max(ss, am, scratch);
-    float r = 1.f;
+    float rr = 1.f;
     if (rms) {
-      r = __frsqrt_rn(__fadd_rn(__fdiv_rn(ss, (float)K), eps));
-      am = __fmul_rn(am, r);
+      rr = __frsqrt_rn(__fadd_rn(__fdiv_rn(ss, (float)K), eps));
+      am = __fmul_rn(am, rr);
     }
     const float sc = __fdiv_rn(fmaxf(am, 1e-8f), 127.f);
-    for (int i = threadIdx.x; i < K; i += blockDim.x) {
-      float v = to_f32(row[i]);
-      if (rms) v = __fmul_rn(v, r);
-      const float q = fminf(fmaxf(rintf(__fdiv_rn(v, sc)), -127.f), 127.f);
-      qrow[i] = (int8_t)(int)q;
-    }
-    if (threadIdx.x == 0) xs_sh[m] = sc;
+    row_sh[r] = rr;
+    row_sh[MT + r] = sc;
+    row_sh[2 * MT + r] = __frcp_rn(sc);
+    if (scale_out != nullptr) scale_out[m0 + r] = sc;
   }
+  __syncthreads();  // the rows' r, sc, 1/sc
+}
+
+// The codes of eight values of x (x_value k of w, times rr with rms) at a
+// row's scale sc (inv = 1/sc), as int8 lanes: lo (values 0-3) and hi (4-7);
+// returns their sum.  rint(t) of t = v * inv and its integer come from the
+// bits of t + 1.5 * 2^23 (|t| < 2^22: its ulp is 1, so the add rounds t to
+// nearest even); if one of the eight lies within 2^-14 of a tie, all eight
+// take rint(v / sc) by IEEE division.
+template <typename XT>
+__device__ __forceinline__ int quantize8(const uint32_t* w, int rms,
+                                         float rr, float sc, float inv,
+                                         uint32_t& lo, uint32_t& hi) {
+  float v[8];
+  int c[8];
+  bool tie = false;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    v[k] = x_value<XT>(w, k);
+    if (rms) v[k] = __fmul_rn(v[k], rr);
+    const float tq = __fmul_rn(v[k], inv);
+    const float y = __fadd_rn(tq, 12582912.f);
+    c[k] = __float_as_int(y) - 0x4B400000;
+    tie |= fabsf(__fsub_rn(tq, __fsub_rn(y, 12582912.f))) > kTieGuard;
+  }
+  if (tie)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) c[k] = (int)rintf(__fdiv_rn(v[k], sc));
+  lo = __byte_perm(__byte_perm(c[0], c[1], 0x40),
+                   __byte_perm(c[2], c[3], 0x40), 0x5410);
+  hi = __byte_perm(__byte_perm(c[4], c[5], 0x40),
+                   __byte_perm(c[6], c[7], 0x40), 0x5410);
+  return ((c[0] + c[1]) + (c[2] + c[3])) + ((c[4] + c[5]) + (c[6] + c[7]));
 }
 
 // Copies MT rows of pre-quantized int8 x into shared memory (zeros past M).
@@ -135,23 +212,21 @@ __device__ __forceinline__ void group_sums(const int8_t* xsh, int K,
   }
 }
 
-// Shared memory of a decode block: MT int8 rows, their group sums, the
-// per-warp partial outputs, the row scales and the reduction scratch.
+// Shared memory of #12's decode block: MT int8 rows, their group sums and
+// the per-warp partial outputs.
 inline size_t decode_smem_i8(int mt, int K) {
   const int G = K / kGroup;
   return (size_t)mt * K + (size_t)mt * G * 4 +
-         (size_t)kDecodeWarps * mt * 32 * 4 + (size_t)mt * 4 +
-         2 * kDecodeWarps * 4;
+         (size_t)kDecodeWarps * mt * 32 * 4;
 }
 
-// The epilogue of a decode block: warp 0 adds the warps' partial sums of its
-// lane's channel n and stores row m0+m scaled by the row's act scale, as f32
-// (xscale from global memory: #2, #12) or in T (xs_sh: #13, #14).
-template <int MT, typename OutT>
+// The epilogue of #12's decode block: warp 0 adds the warps' partial sums of
+// its lane's channel n and stores row m0+m times the row's act scale, f32.
+template <int MT>
 __device__ __forceinline__ void store_rows(const float (&acc)[MT], float* red,
                                            const float* __restrict__ xscale,
-                                           const float* xs_sh, OutT* out,
-                                           int M, int N, int m0, int n) {
+                                           float* out, int M, int N, int m0,
+                                           int n) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int m = 0; m < MT; ++m) red[(warp * MT + m) * 32 + lane] = acc[m];
@@ -161,27 +236,9 @@ __device__ __forceinline__ void store_rows(const float (&acc)[MT], float* red,
     for (int m = 0; m < MT; ++m) {
       float v = 0.f;
       for (int w = 0; w < kDecodeWarps; ++w) v += red[(w * MT + m) * 32 + lane];
-      if (m0 + m < M) {
-        const float xs = xscale != nullptr ? xscale[m0 + m] : xs_sh[m];
-        store(out + (size_t)(m0 + m) * N + n, v * xs);
-      }
+      if (m0 + m < M) out[(size_t)(m0 + m) * N + n] = v * xscale[m0 + m];
     }
   }
-}
-
-// With ``act_out`` set, the blocks of the first channel tile also write their
-// rows' act codes and scales (the card tests count code flips against the
-// plain version with them).
-template <int MT>
-__device__ __forceinline__ void export_act(const int8_t* xsh,
-                                           const float* xs_sh,
-                                           int8_t* act_out, float* scale_out,
-                                           int M, int K, int m0) {
-  if (act_out == nullptr || blockIdx.x != 0) return;
-  for (int i = threadIdx.x; i < MT * K; i += blockDim.x)
-    if (m0 + i / K < M) act_out[(size_t)m0 * K + i] = xsh[i];
-  if (threadIdx.x < MT && m0 + (int)threadIdx.x < M)
-    scale_out[m0 + threadIdx.x] = xs_sh[threadIdx.x];
 }
 
 template <typename Kern>

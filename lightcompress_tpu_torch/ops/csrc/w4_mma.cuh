@@ -33,8 +33,9 @@
 //     one weight channel tile, which the L2 then serves to every row tile.
 //
 // The decode tile of the planes layout (#5, w4_ksplit.cu; the template for
-// the decode kernels #2, #11, #13 and #14, and for the bf16 tile of #1 and
-// #4 in w4a16_tile.cu, which swaps its operands), below the prefill
+// the decode tiles of #2 and #14 in w4_matmul.cu and #13 in w4_bytes.cu,
+// and for the bf16 tile of #1 and #4 in w4a16_tile.cu, which swaps its
+// operands), below the prefill
 // tile's helpers: mma.sync m16n8k32 with the B fragments unpacked in
 // registers from the 32 bytes of planes words each lane reads a k step
 // (decode_b_word, planes_b_frags), the A fragments from x staged in shared
@@ -409,6 +410,47 @@ __device__ __forceinline__ void decode_a_frag(int (&a)[4], const int8_t* xt,
                                               int i, int kk) {
   const int lane = threadIdx.x & 31;
   ldsm_x4(a, xt + swz(16 * i + (lane & 15), 2 * kk + (lane >> 4)));
+}
+
+// The zero corrections of the planes decode tiles (#2, #14, #15, #16),
+// subtracted from a thread's output elements v over the word blocks gl = 0
+// .. ng - 1 of the caller's gi range: terms(gl, j, xs, zs) gives each
+// element's group sum and zero correction of plane j's group of that word
+// block.  xsum * zs is exact (at most 14 + 8 significant bits), so a fused
+// multiply-add rounds once, as the product and the sum do.  kPerPlane
+// (_phase_dot's order: #14, #15, #16): each plane's sum over the word
+// blocks, subtracted in plane order; else (the TPU kernels' one
+// correction, #2): one sum in (gi, j) order, subtracted once.  Every op
+// rounded on its own.
+template <bool kPerPlane, int N1, int N2, class Terms>
+__device__ __forceinline__ void minus_corrections(float (&v)[N1][N2], int ng,
+                                                  Terms terms) {
+  constexpr int NC = kPerPlane ? 8 : 1;
+  float c[NC][N1][N2];
+#pragma unroll
+  for (int k = 0; k < NC; ++k)
+#pragma unroll
+    for (int a = 0; a < N1; ++a)
+#pragma unroll
+      for (int b = 0; b < N2; ++b) c[k][a][b] = 0.f;
+  for (int gl = 0; gl < ng; ++gl)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float xs[N1][N2], zv[N1][N2];
+      terms(gl, j, xs, zv);
+      const int k = kPerPlane ? j : 0;
+#pragma unroll
+      for (int a = 0; a < N1; ++a)
+#pragma unroll
+        for (int b = 0; b < N2; ++b)
+          c[k][a][b] = fmaf(xs[a][b], zv[a][b], c[k][a][b]);
+    }
+#pragma unroll
+  for (int k = 0; k < NC; ++k)
+#pragma unroll
+    for (int a = 0; a < N1; ++a)
+#pragma unroll
+      for (int b = 0; b < N2; ++b) v[a][b] = __fsub_rn(v[a][b], c[k][a][b]);
 }
 
 }  // namespace lcw4

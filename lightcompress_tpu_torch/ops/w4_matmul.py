@@ -20,18 +20,23 @@ Every entry point computes, with c the layout's code (u or c'),
 The fused linears (#13, #14) take the unquantized activations and run the
 JAX kernels' prologue first: an optional RMSNorm whose gamma is folded into
 the weights, then the per-token int8 quantization (``fused_act_quant``).
-#13 then keeps its TPU kernel's float order (``w4a8_matmul_pairs_tpu_order``:
-four accumulators by g % 4, the zero correction summed in order) and runs
-on an int8 tensor-core decode tile (``csrc/w4_bytes.cu``) that equals it
-bit for bit on the tile's own act codes; #12 and #14 keep the one
-accumulator of ``_grouped``.
+Each then keeps its TPU kernel's float order on an int8 tensor-core decode
+tile that equals it bit for bit on the tile's own act codes: #13
+``w4a8_matmul_pairs_tpu_order`` (four accumulators by g % 4, the zero
+correction summed in order; ``csrc/w4_bytes.cu``), #14
+``w4a8_rows_phase_dot`` (``_phase_dot``'s order: the four accumulators,
+then each plane's zero correction in plane order; ``csrc/w4_matmul.cu``).
+#12 keeps the one accumulator of ``_grouped``.
 
-#3 (``w4a8_matmul_prefill``) and #5 (``w4a8_matmul_planes_ksplit``) keep
-the TPU kernels' float order (``w4a8_rows_tpu_order``: four accumulators
-by plane j % 4 over (gi, j), then the zero correction) and equal their
-plain versions bit for bit.  #5 runs the planes layout in two K halves,
-each over the word columns [h*K/16, (h+1)*K/16) of every plane (the JAX
-``planes_ks`` tiles, untiled, are these planes words), and adds them.
+#2 (``w4a8_matmul_decode``), #3 (``w4a8_matmul_prefill``) and #5
+(``w4a8_matmul_planes_ksplit``) keep the TPU kernels' float order
+(``w4a8_rows_tpu_order``: four accumulators by plane j % 4 over (gi, j),
+then the zero correction) and equal their plain versions bit for bit.  #2
+has two bodies, chosen by M alone (``planes_body``): the planes decode tile
+below ``PLANES_TILE_MIN_M`` rows, #3's planes tile from there on; both give
+the same bits.  #5 runs the planes layout in two K halves, each over the
+word columns [h*K/16, (h+1)*K/16) of every plane (the JAX ``planes_ks``
+tiles, untiled, are these planes words), and adds them.
 
 Two more layouts, each with its kernel:
 
@@ -56,7 +61,8 @@ of it.  #12 has two bodies, chosen by M alone (``bytes_body``): the
 decode block below ``BYTES_TILE_MIN_M`` rows, the int8 tensor-core tile of
 ``csrc/w4_mma.cuh`` from there on.  #3 runs on the planes tile it shares
 with #9 (``csrc/w4_planes_wgmma.cuh``), #5 on the planes decode tile of
-``csrc/w4_mma.cuh``.  Each wrapper counts its kernel launches in its
+``csrc/w4_mma.cuh``, #2 and #14 on its unsplit sibling in
+``csrc/w4_matmul.cu``.  Each wrapper counts its kernel launches in its
 ``launches`` attribute.
 
 The plain versions' f32 matmuls are exact whether TF32 is on or off:
@@ -92,6 +98,14 @@ BYTES_TILE_MIN_M = 8
 # scratch of the row sums (``rowsum_scratch``)
 TILE_N = 128
 ROWSUM_SMEM_K_MAX = 49152
+# #2 takes #3's planes tile from this many rows on, its planes decode tile
+# below (the crossover over a Llama-3-8B block and Mixtral-8x7B's and
+# Qwen3-30B-A3B's attention linears together, measured on the H100 by
+# chip_smoke.py's planes_crossover line); both give the same bits
+PLANES_TILE_MIN_M = 128
+# #2's decode tile takes 16 channels a block up to this N (more blocks to
+# fill the SMs), 32 above (chip_smoke.py's planes_crossover line)
+DECODE_CHAN16_MAX_N = 2048
 
 
 # ---------------------------------------------------------------------------
@@ -262,11 +276,11 @@ def _grouped(x: torch.Tensor, codes: torch.Tensor, s: torch.Tensor,
     return y
 
 
-def w4a8_matmul_decode_plain(xq, x_scale, wp, s, zs) -> torch.Tensor:
-    """Plain #2: integer-exact group dots (every partial sum is an integer
-    below 2^24), f32 scale, times x_scale; returns (M, N) f32."""
-    return _grouped(xq.float(), unpack_int4_planes(wp, xq.shape[1]), s,
-                    zs) * x_scale.float()
+def w4a8_matmul_decode_plain(xq, x_scale, wp, s, zs,
+                             out_dtype=torch.float32) -> torch.Tensor:
+    """Plain #2 in its TPU kernels' order (``w4a8_rows_tpu_order``),
+    stored in ``out_dtype``."""
+    return w4a8_rows_tpu_order(xq, x_scale, wp, s, zs).to(out_dtype)
 
 
 def w4a8_matmul_bytes_plain(xq, x_scale, wb, s, zs) -> torch.Tensor:
@@ -276,10 +290,11 @@ def w4a8_matmul_bytes_plain(xq, x_scale, wb, s, zs) -> torch.Tensor:
 
 
 def w4a8_linear_planes_fused_plain(x, wp, s, zs, rms=False, eps=1e-6):
-    """Plain #14: ``fused_act_quant`` then #2's arithmetic; returns
-    (y in ``x.dtype``, int8 codes, act scales)."""
+    """Plain #14: ``fused_act_quant``, then its TPU kernel's order
+    (``w4a8_rows_phase_dot``) on those codes and scales; returns (y in
+    ``x.dtype``, int8 codes, act scales)."""
     xq, xs = fused_act_quant(x, rms, eps)
-    return w4a8_matmul_decode_plain(xq, xs, wp, s, zs).to(x.dtype), xq, xs
+    return w4a8_rows_phase_dot(xq, xs, wp, s, zs).to(x.dtype), xq, xs
 
 
 def w4a8_matmul_pairs_tpu_order(xq, x_scale, wb, s, zs) -> torch.Tensor:
@@ -484,7 +499,8 @@ _FUSED_ARGS = [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("w4_matmul")
-    lib.lc_w4a8_decode.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
+    lib.lc_w4a8_decode.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _P]
     lib.lc_w4a8_prefill.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _I, _P]
     lib.lc_w4a8_planes_fused.argtypes = _FUSED_ARGS
@@ -625,23 +641,72 @@ def _check_act(xq: torch.Tensor, x_scale: torch.Tensor) -> Tuple[int, int]:
     return M, K
 
 
-def w4a8_matmul_decode(xq: torch.Tensor, x_scale: torch.Tensor,
-                       wp: torch.Tensor, s: torch.Tensor,
-                       zs: torch.Tensor) -> torch.Tensor:
-    """#2: (M, K) int8 x with (M, 1) f32 scale -> (M, N) f32."""
+def planes_body(M: int) -> str:
+    """The body of #2 that takes M rows: ``"tile"`` (#3's planes tile) from
+    PLANES_TILE_MIN_M rows on, else ``"decode"`` (the planes decode tile).
+    By M alone."""
+    return "tile" if M >= PLANES_TILE_MIN_M else "decode"
+
+
+def decode_chan(N: int) -> int:
+    """Channels a block of #2's planes decode tile: 16 up to
+    DECODE_CHAN16_MAX_N, 32 above."""
+    return 16 if N <= DECODE_CHAN16_MAX_N else 32
+
+
+def _planes_tile(xq, xs, wp, s, zs, out: torch.Tensor) -> None:
+    """One launch of the planes tile of #3 (and #2 from PLANES_TILE_MIN_M
+    rows) into ``out`` (bf16 or f32), with the row-sum scratch past
+    ROWSUM_SMEM_K_MAX; on the card N % 128 == 0."""
+    M, K = xq.shape
+    N = wp.shape[0]
+    if N % TILE_N:
+        raise ValueError(f"the planes tile needs N % {TILE_N} == 0, got "
+                         f"N={N}")
+    scratch = rowsum_scratch(M, K, xq.device)
+    with torch.cuda.device(xq.device):
+        _launch(_lib().lc_w4a8_prefill, xq.data_ptr(), xs.data_ptr(),
+                wp.data_ptr(), s.data_ptr(), zs.data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
+                out.data_ptr(), int(out.dtype == torch.float32), M, N, K,
+                _stream(xq.device))
+
+
+def _w4a8_matmul_decode(xq, x_scale, wp, s, zs, out_dtype, body: str,
+                        chan: Optional[int] = None) -> torch.Tensor:
+    """#2 on the named body (``planes_body``; the decode tile with ``chan``
+    channels a block, by default ``decode_chan(N)``); one launch, counted
+    on ``w4a8_matmul_decode``."""
     M, K = _check_act(xq, x_scale)
     N = _check_weights(K, wp, s, zs, xq.device)
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError("#2 stores bf16 or f32")
     if xq.device.type == "cpu":
-        return w4a8_matmul_decode_plain(xq, x_scale, wp, s, zs)
+        return w4a8_matmul_decode_plain(xq, x_scale, wp, s, zs, out_dtype)
     xq = _aligned(xq)
     xs = x_scale.float().contiguous()
-    out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
-    with torch.cuda.device(xq.device):
-        _launch(_lib().lc_w4a8_decode, xq.data_ptr(), xs.data_ptr(),
-                wp.data_ptr(), s.data_ptr(), zs.data_ptr(), out.data_ptr(),
-                M, N, K, _stream(xq.device))
+    out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
+    if body == "tile":
+        _planes_tile(xq, xs, wp, s, zs, out)
+    else:
+        with torch.cuda.device(xq.device):
+            _launch(_lib().lc_w4a8_decode, xq.data_ptr(), xs.data_ptr(),
+                    wp.data_ptr(), s.data_ptr(), zs.data_ptr(),
+                    out.data_ptr(), int(out_dtype == torch.float32),
+                    chan or decode_chan(N), M, N, K, _stream(xq.device))
     w4a8_matmul_decode.launches += 1
     return out
+
+
+def w4a8_matmul_decode(xq: torch.Tensor, x_scale: torch.Tensor,
+                       wp: torch.Tensor, s: torch.Tensor, zs: torch.Tensor,
+                       out_dtype: torch.dtype = torch.float32
+                       ) -> torch.Tensor:
+    """#2: (M, K) int8 x with (M, 1) f32 scale -> (M, N) in ``out_dtype``
+    (f32 or bf16, stored by the kernel), in its TPU kernels' order
+    (``w4a8_rows_tpu_order``) on the body ``planes_body(M)`` names."""
+    return _w4a8_matmul_decode(xq, x_scale, wp, s, zs, out_dtype,
+                               planes_body(xq.shape[0]))
 
 
 def w4a8_matmul_prefill(xq: torch.Tensor, x_scale: torch.Tensor,
@@ -658,19 +723,10 @@ def w4a8_matmul_prefill(xq: torch.Tensor, x_scale: torch.Tensor,
         return w4a8_matmul_prefill_plain(xq, x_scale, wp, s, zs, out_dtype)
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError("the prefill kernel stores bf16 or f32")
-    if N % TILE_N:
-        raise ValueError(f"the prefill kernel needs N % {TILE_N} == 0, got "
-                         f"N={N}")
     xq = _aligned(xq)
     xs = x_scale.float().contiguous()
     out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
-    scratch = rowsum_scratch(M, K, xq.device)
-    with torch.cuda.device(xq.device):
-        _launch(_lib().lc_w4a8_prefill, xq.data_ptr(), xs.data_ptr(),
-                wp.data_ptr(), s.data_ptr(), zs.data_ptr(),
-                None if scratch is None else scratch.data_ptr(),
-                out.data_ptr(), int(out_dtype == torch.float32), M, N, K,
-                _stream(xq.device))
+    _planes_tile(xq, xs, wp, s, zs, out)
     w4a8_matmul_prefill.launches += 1
     return out
 
@@ -951,12 +1007,16 @@ def w4a8_matmul(x: torch.Tensor, qp,
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     xq, xs = quantize_act_per_token(x2)
+    # both kernels store bf16 and f32 themselves
+    store = x.dtype if x.dtype in (torch.bfloat16, torch.float32) \
+        else torch.float32
     if x2.shape[0] > DECODE_M_MAX:
         y = w4a8_matmul_prefill(xq, xs, qp.codes, qp.scales, qp.zeros,
-                                out_dtype=x.dtype)
+                                out_dtype=store)
     else:
-        y = w4a8_matmul_decode(xq, xs, qp.codes, qp.scales,
-                               qp.zeros).to(x.dtype)
+        y = w4a8_matmul_decode(xq, xs, qp.codes, qp.scales, qp.zeros,
+                               out_dtype=store)
+    y = y.to(x.dtype)
     if bias is not None:
         y = y + bias
     return y.reshape(*lead, -1)

@@ -46,9 +46,10 @@ def _weights(dev, N, K):
 @pytest.mark.parametrize("M", [1, 7, 33, 300, 1000])
 @pytest.mark.parametrize("N,K", [(128, 1024), (256, 14336), (6144, 4096)])
 def test_kernels_match_plain(dev, M, N, K):
-    """#1 and #2 within summation-order noise of their plain versions; #3
-    (the planes tile: ragged M against its 64-row tiles, the fused q|k|v
-    width 6144) equal to its plain version bit for bit in f32 and bf16."""
+    """#1 within summation-order noise of its plain version; #2 (on the
+    body ``planes_body(M)`` picks) and #3 (the planes tile: ragged M
+    against its 64-row tiles, the fused q|k|v width 6144) equal to their
+    plain versions bit for bit in f32 and bf16."""
     qp, gen = _weights(dev, N, K)
     args = (qp.codes, qp.scales, qp.zeros)
     x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
@@ -58,10 +59,10 @@ def test_kernels_match_plain(dev, M, N, K):
         # f32 output from the f32 input path: summation-order noise only
         (W.w4a16_matmul(x.float(), *args), W.w4a16_matmul_plain(x, *args),
          1e-4),
-        (W.w4a8_matmul_decode(xq, xs, *args),
-         W.w4a8_matmul_decode_plain(xq, xs, *args), 1e-4),
     ]
     exact = [
+        (W.w4a8_matmul_decode(xq, xs, *args),
+         W.w4a8_matmul_decode_plain(xq, xs, *args)),
         (W.w4a8_matmul_prefill(xq, xs, *args, out_dtype=torch.float32),
          W.w4a8_matmul_prefill_plain(xq, xs, *args, torch.float32)),
         (W.w4a8_matmul_prefill(xq, xs, *args),
@@ -77,6 +78,35 @@ def test_kernels_match_plain(dev, M, N, K):
     assert [k.launches for k in W.KERNELS] == [1, 1, 2, 0, 0, 0, 0, 0, 0]
 
 
+@pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,K", [(1024, 4096), (4096, 14336)])
+@pytest.mark.parametrize("M", [1, 8, 16, 32, 64, 256])
+def test_planes_decode_bodies_equal_plain(dev, M, N, K, store):
+    """#2 on both of its bodies (the planes decode tile with 16 and with 32
+    channels a block, and #3's planes tile) at M 1-256: bit for bit its
+    plain version (``w4a8_rows_tpu_order``) stored in f32 or bf16, the same
+    bits on a second call; each launch counted on #2."""
+    qp, gen = _weights(dev, N, K)
+    args = (qp.codes, qp.scales, qp.zeros)
+    xq, xs = W.quantize_act_per_token(
+        torch.randn((M, K), generator=gen, device=dev) * 3)
+    ref = W.w4a8_matmul_decode_plain(xq, xs, *args, store)
+    W.reset_launch_counts()
+    runs = [lambda c=c: W._w4a8_matmul_decode(xq, xs, *args, store,
+                                              "decode", c)
+            for c in (16, 32)]
+    runs.append(lambda: W._w4a8_matmul_decode(xq, xs, *args, store, "tile"))
+    for run in runs:
+        got = run()
+        again = run()
+        torch.cuda.synchronize()
+        assert got.dtype == store and torch.isfinite(got).all()
+        assert torch.equal(got, ref)
+        assert torch.equal(got, again)
+    assert W.w4a8_matmul_decode.launches == 6
+    assert torch.equal(W.w4a8_matmul_decode(xq, xs, *args, store), ref)
+
+
 def test_kernels_reject_what_they_cannot_take(dev):
     qp, _ = _weights(dev, 128, 1024)
     x = torch.zeros((4, 1024), device=dev, dtype=torch.bfloat16)
@@ -89,6 +119,12 @@ def test_kernels_reject_what_they_cannot_take(dev):
     with pytest.raises(ValueError):  # #3's tile takes N % 128 == 0
         W.w4a8_matmul_prefill(xq, xs, qp.codes[:64], qp.scales[:64],
                               qp.zeros[:64])
+    with pytest.raises(ValueError):  # so does #2's from PLANES_TILE_MIN_M
+        W._w4a8_matmul_decode(xq, xs, qp.codes[:64], qp.scales[:64],
+                              qp.zeros[:64], torch.float32, "tile")
+    with pytest.raises(RuntimeError):  # 24 channels a block: refused
+        W._w4a8_matmul_decode(xq, xs, qp.codes, qp.scales, qp.zeros,
+                              torch.float32, "decode", 24)
 
 
 def test_quantization_on_card_matches_cpu(dev):
@@ -419,6 +455,39 @@ def test_bytes_fused_tile_equals_tpu_order(dev, M, N, K, rms, xdtype):
     assert int((codes != pcodes).sum()) <= FLIPS_PER_CODE * codes.numel()
     assert ((scales - pscales).abs() <= 2.4e-7 * pscales.abs()).all()
     assert W.w4a8_linear_bytes_fused.launches == 2
+
+
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("N,K", [(1024, 4096), (256, 14336)])
+@pytest.mark.parametrize("M", [1, 8, 32, 33])
+def test_planes_fused_tile_equals_phase_dot(dev, M, N, K, rms, xdtype):
+    """#14 on the planes decode tile: bit for bit its TPU kernel's order
+    (``w4a8_rows_phase_dot``) on its own exported act codes and scales, at
+    most FLIPS_PER_CODE act-code flips against the plain prologue and one
+    bf16 ulp at max|y| from the plain version on x, the same bits
+    on a second call; one or two m16 tiles (M 32) and a second row tile
+    (M 33); K 4096 and 14 word blocks (14336)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(N + K + M + 1)
+    w = torch.randn((N, K), generator=gen, device=dev) * 0.02
+    planes = quantize_linear(w, WSPEC)
+    x = (torch.randn((M, K), generator=gen, device=dev) * 3).to(xdtype)
+    wa = (planes.codes, planes.scales, planes.zeros)
+    kw = dict(rms=rms, eps=1e-5)
+    W.reset_launch_counts()
+    y, codes, scales = W._fused_with_act(W.w4a8_linear_planes_fused, x, *wa,
+                                         **kw)
+    again = W.w4a8_linear_planes_fused(x, *wa, **kw)
+    torch.cuda.synchronize()
+    assert y.dtype == xdtype and y.shape == (M, N)
+    assert torch.isfinite(y).all()
+    ref = W.w4a8_rows_phase_dot(codes, scales, *wa).to(xdtype)
+    assert torch.equal(y, ref)
+    assert torch.equal(y, again)
+    _check_fused((y, codes, scales),
+                 W.w4a8_linear_planes_fused_plain(x, *wa, **kw))
+    assert W.w4a8_linear_planes_fused.launches == 2
 
 
 def test_bytes_fused_rejects_what_it_cannot_take(dev):

@@ -1,7 +1,8 @@
 """Port parity: the s4 byte-pair layout and the plain versions of kernels
 #12 (``w4a8_matmul_bytes``), #13 (``w4a8_linear_bytes_fused``) and #14
-(``w4a8_linear_planes_fused``) of lightcompress_tpu_torch against the JAX
-Pallas kernels run in interpret mode (CPU).  The JAX weights reach the
+(``w4a8_linear_planes_fused``; #13 and #14 in their TPU kernels' float
+orders) of lightcompress_tpu_torch against the JAX Pallas kernels run in
+interpret mode (CPU).  The JAX weights reach the
 port through ``convert.qlinear_from_numpy``."""
 
 import numpy as np
@@ -242,6 +243,45 @@ def test_bytes_fused_tpu_order_matches_pallas(M, rms, dtype):
     np.testing.assert_array_equal(
         tw.w4a8_matmul_pairs_tpu_order(codes, scales, p.codes, p.scales,
                                        p.zeros).to(y.dtype).float().numpy(),
+        y.float().numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("M", [1, 5, 8])
+def test_planes_fused_tpu_order_matches_pallas(M, rms, dtype):
+    """Plain #14 in its TPU kernel's order (``_phase_dot``'s: the four
+    accumulators, then each plane's zero correction in plane order:
+    ``w4a8_rows_phase_dot``) against the interpret kernel at M 1, 5 and 8,
+    gated as #13's (``test_bytes_fused_tpu_order_matches_pallas``): f32
+    outputs within TOL (TOL_BF16 if an act code flipped), bf16 outputs
+    within one bf16 ulp at the largest |y|; act codes the JAX prologue's
+    but for FLIPS_PER_CODE flips; and the order function on the returned
+    codes gives the returned y bit for bit."""
+    _, qp = _jax_qp(256, 2048, seed=17, layout="planes")
+    rng = np.random.RandomState(18 + M)
+    x = jnp.asarray((rng.randn(M, 2048) * 3).astype(np.float32)).astype(
+        dtype)
+    ref = jpm.w4a8_linear_planes_fused(x, qp.codes, qp.scales, qp.zeros,
+                                       rms=rms, eps=EPS, interpret=True)
+    p = _to_port(qp)
+    y, codes, scales = tw.w4a8_linear_planes_fused_plain(
+        convert.tensor_from_numpy(x, "cpu"), p.codes, p.scales, p.zeros,
+        rms=rms, eps=EPS)
+    jcodes, _ = _jax_act(np.array(x.astype(jnp.float32)), rms)
+    flips = int((codes.numpy() != jcodes).sum())
+    assert flips <= FLIPS_PER_CODE * jcodes.size
+    ref = np.asarray(ref.astype(jnp.float32))
+    if dtype == "float32":
+        _close(y.numpy(), ref, TOL if not flips else TOL_BF16)
+    else:
+        np.testing.assert_allclose(y.float().numpy(), ref, rtol=0,
+                                   atol=bf16_ulp(float(np.abs(ref).max())))
+    assert y.dtype == (torch.float32 if dtype == "float32"
+                       else torch.bfloat16)
+    np.testing.assert_array_equal(
+        tw.w4a8_rows_phase_dot(codes, scales, p.codes, p.scales,
+                               p.zeros).to(y.dtype).float().numpy(),
         y.float().numpy())
 
 

@@ -106,9 +106,11 @@ def test_w4a16_plain_matches_pallas(M, K):
     _close(got.numpy(), ref)
 
 
-@pytest.mark.parametrize("M", [1, 7, 32])
+@pytest.mark.parametrize("M", [1, 7, 32, 256])
 @pytest.mark.parametrize("K", [1024, 2048])
 def test_w4a8_decode_plain_matches_pallas(M, K):
+    """Plain #2 in its TPU kernels' order (``w4a8_rows_tpu_order``) against
+    the interpret kernel, M up to the decode regime's 256."""
     _, qp = _jax_qp(256, K, seed=6, scale_layout="contig")
     x = _bf16_exact(np.random.RandomState(7), (M, K))
     xq, xs = jpm.quantize_act_per_token(jnp.asarray(x))
@@ -119,6 +121,22 @@ def test_w4a8_decode_plain_matches_pallas(M, K):
                                 torch.from_numpy(np.array(xs)), p.codes,
                                 p.scales, p.zeros)
     _close(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("M", [1, 7, 64, 256, 300])
+@pytest.mark.parametrize("K", [1024, 2048])
+def test_decode_plain_equals_prefill_plain(M, K):
+    """#2's two bodies agree: plain #2 equals plain #3 in f32 bit for bit,
+    and #2 stored in bf16 equals plain #3's bf16 store."""
+    p = _to_port(_jax_qp(256, K, seed=15)[1])
+    args = (p.codes, p.scales, p.zeros)
+    xq, xs = tw.quantize_act_per_token(torch.from_numpy(
+        _bf16_exact(np.random.RandomState(16 + M), (M, K))))
+    ref = tw.w4a8_matmul_prefill_plain(xq, xs, *args, torch.float32)
+    got = tw.w4a8_matmul_decode_plain(xq, xs, *args)
+    assert got.dtype == torch.float32 and torch.equal(got, ref)
+    assert torch.equal(tw.w4a8_matmul_decode(xq, xs, *args, torch.bfloat16),
+                       tw.w4a8_matmul_prefill_plain(xq, xs, *args))
 
 
 @pytest.mark.parametrize("K", [1024, 2048])

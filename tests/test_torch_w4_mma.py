@@ -26,6 +26,13 @@ the plain versions before the card runs the kernels.
   tie, equal rint(v / sc); its schedule (warps by the group of a pair,
   accumulators a_h and a_{h+2}, the correction in order) equals
   ``w4a8_matmul_pairs_tpu_order`` bit for bit.
+* #2 and #14's planes decode tile (``csrc/w4_matmul.cu``): warps by
+  plane class q of Q (planes j = q mod Q, whole accumulators a_r, r = q
+  mod Q), their accumulators met through shared memory, the zero
+  corrections of every group in the epilogue, one sum (#2) or one a plane
+  (#14), row chunks of MT rows: ``w4a8_rows_tpu_order`` and
+  ``w4a8_rows_phase_dot`` bit for bit.  #2 takes #3's planes tile from
+  ``PLANES_TILE_MIN_M`` rows on, by M alone, at the same bits.
 * #1 and #4's bf16 tile (``csrc/w4a16_tile.cu``): the shared-memory
   layouts, the lane reads and the unpack to bf16 codes make m16n8k16 A
   and B fragments that assemble x . c^T for every plane, on plain and on
@@ -590,3 +597,102 @@ def test_fused_tile_schedule_equals_pairs_order(M, K):
             corr = corr + x[:, g].sum(-1).float()[:, None] * zs[:, g].float()
     y = ((acc[0, 0] + acc[1, 0]) + (acc[0, 1] + acc[1, 1]) - corr) * xs
     assert torch.equal(y, W.w4a8_matmul_pairs_tpu_order(xq, xs, wb, s, zs))
+
+
+def _planes_decode_schedule(xq, x_scale, wp, s, zs, Q, per_plane, MT):
+    """#2 and #14's planes decode tile: row chunks of MT rows; warp class q
+    of Q takes the planes j = q (mod Q) of every word block gi and holds
+    the accumulators a_r, r = q (mod Q): per gi, for its planes in order,
+    the exact integer dot (its four k steps' int32 parts, exact in any
+    order) as f32 (0x4B400000 + d) times s into a_{j % 4}; the classes
+    meet through shared memory, v = (a0 + a1) + (a2 + a3); then the zero
+    corrections of all groups from the group sums (exact products: a fused
+    multiply-add rounds as the sum does), one sum in (gi, j) order (#2) or
+    each plane's over gi, subtracted in plane order (#14); times
+    x_scale."""
+    M, K = xq.shape
+    N, G = s.shape
+    gpp, kp = G // 8, K // 8
+    u = W.unpack_int4_planes(wp, K).reshape(N, 8, kp).long()
+    sf, zf = s.float(), zs.float()
+    out = torch.full((M, N), float("nan"))
+    for m0 in range(0, M, MT):
+        x = xq[m0:m0 + MT].long()
+        rows = x.shape[0]
+        acc = [None] * 4
+        for q in range(Q):
+            mine = [torch.zeros((rows, N)) for _ in range(4 // Q)]
+            for gi in range(gpp):
+                for i in range(8 // Q):
+                    j = q + Q * i
+                    k0 = j * kp + gi * 128
+                    d = sum(x[:, k0 + 32 * kk:k0 + 32 * kk + 32]
+                            @ u[:, j, gi * 128 + 32 * kk:
+                                gi * 128 + 32 * kk + 32].t()
+                            for kk in range(4))
+                    a = i % (4 // Q)
+                    mine[a] = mine[a] + _exact_f32(d) * sf[:, j * gpp + gi]
+            for a in range(4 // Q):
+                acc[q + Q * a] = mine[a]
+        v = (acc[0] + acc[1]) + (acc[2] + acc[3])
+        xsum = x.reshape(rows, G, 128).sum(-1)
+        corr = [torch.zeros((rows, N)) for _ in range(8 if per_plane
+                                                      else 1)]
+        for gi in range(gpp):
+            for j in range(8):
+                g = j * gpp + gi
+                prod = xsum[:, g].float()[:, None] * zf[:, g]
+                assert torch.equal(prod.double(), xsum[:, g].double()[:, None]
+                                   * zf[:, g].double())
+                c = j if per_plane else 0
+                corr[c] = corr[c] + prod
+        for c in corr:
+            v = v - c
+        out[m0:m0 + MT] = v * x_scale[m0:m0 + MT]
+    return out
+
+
+@pytest.mark.parametrize("Q", [2, 4])
+@pytest.mark.parametrize("per_plane", [False, True])
+@pytest.mark.parametrize("M,K,MT", [(1, 1024, 16), (8, 3072, 16),
+                                    (33, 2048, 32)])
+def test_planes_decode_schedule_equals_plain(M, K, MT, per_plane, Q):
+    """The planes decode tile's schedule, by plane class (Q 2: 32 channels
+    a block, #14 and wide #2; Q 4: 16 channels), gives #2's TPU order
+    (``w4a8_rows_tpu_order``) or, with the corrections a plane, #14's
+    (``w4a8_rows_phase_dot``) bit for bit, over one or more row chunks."""
+    wp, s, zs = (t[0] for t in _experts(1, 64, K, seed=K + M))
+    xq, xs = _rows(M, K, seed=M + 11)
+    ref = (W.w4a8_rows_phase_dot if per_plane
+           else W.w4a8_rows_tpu_order)(xq, xs, wp, s, zs)
+    got = _planes_decode_schedule(xq, xs, wp, s, zs, Q, per_plane, MT)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("M", sorted({1, 8, W.PLANES_TILE_MIN_M - 1,
+                                      W.PLANES_TILE_MIN_M, 256}))
+def test_planes_body_by_m(M):
+    """#2 takes #3's planes tile from PLANES_TILE_MIN_M rows on, its planes
+    decode tile below (by M alone), and on the CPU either body (and either
+    store, f32 or bf16) is the plain version, which both equal."""
+    assert W.planes_body(M) == ("tile" if M >= W.PLANES_TILE_MIN_M
+                                else "decode")
+    wp, s, zs = (t[0] for t in _experts(1, 128, 1024, seed=M))
+    xq, xs = _rows(M, 1024, seed=M + 3)
+    ref = W.w4a8_rows_tpu_order(xq, xs, wp, s, zs)
+    for body in ("decode", "tile"):
+        for dt in (torch.float32, torch.bfloat16):
+            got = W._w4a8_matmul_decode(xq, xs, wp, s, zs, dt, body)
+            assert got.dtype == dt and torch.equal(got, ref.to(dt))
+    assert torch.equal(W.w4a8_matmul_decode(xq, xs, wp, s, zs), ref)
+
+
+@pytest.mark.parametrize("N", [64, 1024, W.DECODE_CHAN16_MAX_N,
+                               W.DECODE_CHAN16_MAX_N + 64, 14336])
+def test_decode_chan_by_n(N):
+    """#2's decode tile takes 16 channels a block up to
+    DECODE_CHAN16_MAX_N, 32 above; either divides the planes kernels' N %
+    64."""
+    chan = W.decode_chan(N)
+    assert chan == (16 if N <= W.DECODE_CHAN16_MAX_N else 32)
+    assert N % chan == 0
