@@ -1033,7 +1033,7 @@ def qwen3moe_kernel_rows(dev, gen, row) -> None:
     1024 tokens routed top-8 over 128 experts by a seeded router, at N
     2048 and at N 1000; #9 at its gate and up over the same grouping, as
     ``engine_qwen3moe``'s prefill launches it.  #9 and #10 must equal their
-    plain versions bit for bit."""
+    plain versions bit for bit, #10 also on a second call."""
     arch = QWEN3_30B_A3B
     E, top_k = arch.moe.num_experts, arch.moe.top_k
     N, K = Q_GATE_UP
@@ -1077,13 +1077,18 @@ def qwen3moe_kernel_rows(dev, gen, row) -> None:
         assert (qp.layout, qp.bits) == ("stacked", 8)
         wd = QM.dequant_weight_stacked(qp, torch.bfloat16)
         wa = (qp.codes, qp.scales)
+        y1, y2 = (M.w8a8_grouped_matmul(xq, xs, *wa, be) for _ in range(2))
+        if not torch.equal(y1, y2):
+            raise AssertionError(f"#10 {case}: a second call gave other "
+                                 "bits")
+        del y1, y2
         row("w8a8_grouped_matmul", case, "down", N, K,
             lambda: M.w8a8_grouped_matmul(xq, xs, *wa, be),
             lambda: M.w8a8_grouped_matmul_plain(xq, xs, *wa, be),
             lambda: torch.bmm(xpad, wd.transpose(1, 2)),
             E * (N * K + N * 4) + Mp * K + Mp * 4 + Mp * N * 4,
             2 * facts["selections"] * N * K, exact=True, **facts,
-            library_rows_per_expert=xpad.shape[1],
+            library_rows_per_expert=xpad.shape[1], repeat_equal=True,
             ops_bound_at_Mp_ms=2 * Mp * N * K / PEAK_OPS["int8"] * 1e3)
         del qp, wd, wa
     N, K = Q_GATE_UP
@@ -1260,6 +1265,8 @@ def phase_attn_kernels(dev) -> dict:
 # #22: a bf16 probability can round one step apart where the f32 sums
 # differ in their last bit; times a code of at most 127 (as the CPU tests)
 TOL_KV8 = 1e-3
+# #22's second row: 8 slots over 4097 columns, where its cluster splits S
+KV8_SPLIT_CASE = (8, 4097)
 # the five configurations of the bench phases: config fields and the
 # launches each kernel takes (per layer, once a step)
 BENCH_CONFIGS = {
@@ -1441,24 +1448,35 @@ def phase_bench_kernels(dev) -> dict:
             planes_bytes(H, I) + M * I + M * H * 4 + M * 4, 2 * M * H * I,
             "int8", M=M, bit_equal=True, repeat_equal=True)
 
-    S, Hk, G, D = cfg.ctx + 1, cfg.n_kv, cfg.n_heads // cfg.n_kv, \
-        cfg.head_dim
-    qg = torch.randn((B, Hk, G, D), generator=gen, device=dev).to(
-        torch.bfloat16)
-    kq, vq = (torch.randint(-127, 128, (B, Hk, S, D), generator=gen,
-                            device=dev, dtype=torch.int8) for _ in range(2))
-    ks, vs = ((torch.rand((B, Hk, S), generator=gen, device=dev) * 0.02
-               + 1e-3).to(torch.bfloat16) for _ in range(2))
-    args = (qg, kq, ks, vq, vs)
-    run = lambda: AT.decode_attention_kv8(*args)
-    plain = lambda: AT.decode_attention_kv8_plain(*args)
-    err, scale = error([run()], [plain()])
-    kf, vf = ((c.float() * s_[..., None].float()).to(torch.bfloat16)
-              for c, s_ in ((kq, ks), (vq, vs)))
-    row("decode_attention_kv8", err, scale, TOL_KV8, run, plain,
-        lambda: torch.nn.functional.scaled_dot_product_attention(qg, kf, vf),
-        2 * B * Hk * S * (D + 2) + B * Hk * G * D * (2 + 4),
-        4 * B * Hk * G * S * D, "bf16", S=S)
+    # #22 at the bench's B 32 over CTX + 1 columns first (the kernels line
+    # reads that row), then at 8 slots over 4097 (the cluster split at
+    # work); a second call the same bits
+    Hk, G, D = cfg.n_kv, cfg.n_heads // cfg.n_kv, cfg.head_dim
+    for Bk, S in ((B, cfg.ctx + 1), KV8_SPLIT_CASE):
+        qg = torch.randn((Bk, Hk, G, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        kq, vq = (torch.randint(-127, 128, (Bk, Hk, S, D), generator=gen,
+                                device=dev, dtype=torch.int8)
+                  for _ in range(2))
+        ks, vs = ((torch.rand((Bk, Hk, S), generator=gen, device=dev) * 0.02
+                   + 1e-3).to(torch.bfloat16) for _ in range(2))
+        args = (qg, kq, ks, vq, vs)
+        run = lambda: AT.decode_attention_kv8(*args)
+        plain = lambda: AT.decode_attention_kv8_plain(*args)
+        y, again = run(), run()
+        err, scale = error([y], [plain()])
+        if not torch.equal(y, again):
+            raise AssertionError(f"#22 B={Bk} S={S}: a second call gave "
+                                 "other bits")
+        kf, vf = ((c.float() * s_[..., None].float()).to(torch.bfloat16)
+                  for c, s_ in ((kq, ks), (vq, vs)))
+        row("decode_attention_kv8", err, scale, TOL_KV8, run, plain,
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qg, kf, vf),
+            2 * Bk * Hk * S * (D + 2) + Bk * Hk * G * D * (2 + 4),
+            4 * Bk * Hk * G * S * D, "bf16", B=Bk, S=S, repeat_equal=True,
+            parts=AT.kv8_card_parts(Bk * Hk, S, G, False, dev))
+        del kq, vq, kf, vf
     return {"phase": "bench_kernels", "rows": rows,
             "seconds": time.time() - t0}
 

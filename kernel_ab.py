@@ -63,7 +63,20 @@ profiles four decode steps of the kv8 W4A8 engine (Llama-3-8B, 8 slots,
 #2 on every decode linear) and of the fused planes engine (chip_smoke's
 gammas, #14 on every decode linear), and times the 256-row prefill of
 Mixtral-8x7B's ``engine_moe_small`` (#2 on its attention linears), with
-the tree's chip_smoke helpers: wall and busy ms a step, prefill s."""
+the tree's chip_smoke helpers: wall and busy ms a step, prefill s.
+
+    cd <tree> && python3 <repo>/kernel_ab.py TAG kv8_w8
+
+times #22 at each (B, S) of KV8_SHAPES (8 kv heads of 4 queries, bf16
+scales: the bench's B 32 over 2049 columns, 8 slots over 4097) and #10
+at Qwen3-30B-A3B's down over the grouping of 1024 seeded tokens at each N
+of W8_N (2048, and 1000: a ragged edge), random codes and scales from the
+seed; then profiles two steps of the port bench's ``attn=pallas``
+configuration (32 layers; busy and wall ms a step) and runs it for its
+tok/s, and times the prefill of ``engine_qwen3moe`` (Qwen3-30B-A3B at full
+width and depth, 32 slots, 8 prompts; three runs of 2 new tokens, the
+first carrying the process's first-call costs) with the tree's chip_smoke
+helpers."""
 
 import dataclasses
 import gc
@@ -97,6 +110,10 @@ STACKED_MODELS = (
 FUSED_S4_M = (1, 8, 32)
 # #2's M: a decode step of 1 to 32 slots, up to a 256-row prefill
 P2_M = (1, 8, 32, 64, 128, 256)
+# #22's (slots, columns): the bench's, and 8 slots where its cluster splits
+KV8_SHAPES = ((32, 2049), (8, 4097))
+# #10's channels at Qwen3-30B-A3B's down (K 768): its N, and a ragged one
+W8_N = (2048, 1000)
 
 
 def time_ms(fn, reps: int, pad: torch.Tensor) -> float:
@@ -384,6 +401,62 @@ def engines(tag: str) -> None:
     print(json.dumps(out), flush=True)
 
 
+def kv8_w8(tag: str) -> None:
+    """#22 and #10 alone, the ``attn=pallas`` bench step and
+    ``engine_qwen3moe``'s prefill (``kv8_w8`` in the docstring)."""
+    from lightcompress_tpu_torch import bench as TB
+    from lightcompress_tpu_torch.ops import attention as AT
+
+    dev = torch.device("cuda")
+    pad = torch.empty(C.PAD, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = {"tag": tag, "gpu": C.smi()}
+    H, G, D = 8, 4, 128
+    for B, S in KV8_SHAPES:
+        q = torch.randn((B, H, G, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        kq, vq = (torch.randint(-127, 128, (B, H, S, D), generator=gen,
+                                device=dev, dtype=torch.int8)
+                  for _ in range(2))
+        ks, vs = ((torch.rand((B, H, S), generator=gen, device=dev) * 0.02
+                   + 1e-3).to(torch.bfloat16) for _ in range(2))
+        out[f"p22_B{B}_S{S}"] = time_ms(
+            lambda: AT.decode_attention_kv8(q, kq, ks, vq, vs), 20, pad)
+        del kq, vq
+    E, K = 128, 768
+    topi = C.seeded_topi(1024, gen, dev, E, C.QWEN3_30B_A3B)
+    x = torch.randn((1024, K), generator=gen, device=dev).to(torch.bfloat16)
+    xq, xs, be, _ = C.grouped_operands(x, topi, E)
+    for N in W8_N:
+        codes = torch.randint(-127, 128, (E, N, K), generator=gen,
+                              device=dev, dtype=torch.int8)
+        scales = torch.rand((E, N, 1), generator=gen, device=dev) * 0.01
+        out[f"p10_N{N}"] = time_ms(lambda: M.w8a8_grouped_matmul(
+            xq, xs, codes, scales, be), 20, pad)
+        del codes
+    cfg = TB.BenchConfig(attn="pallas")
+    inputs = TB.build_inputs(cfg, dev, seed=C.SEED)
+    step = lambda: TB.renorm(TB.decode_step(cfg, *inputs))
+    prof = C.profiled(lambda: [step() for _ in range(2)], 2)
+    res = TB.run(cfg, dev, inputs=inputs)
+    out["bench_pallas"] = {
+        "busy_ms_per_step": prof["device_busy_ms_per_step"],
+        "wall_ms_per_step": prof["wall_ms_per_step"],
+        "idle_share": prof["idle_share"], "tok_s": res["value"]}
+    del inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    swq, _ = C.phase_setup_moe(dev, C.QWEN3_30B_A3B, "Qwen3-30B-A3B",
+                               C.SEED + 7, "setup_qwen3moe")
+    prompts = C.make_prompts(8, C.QWEN3_30B_A3B.vocab_size)
+    runs = [C.run_engine(swq, prompts, 2, dev, max_slots=32)[2]
+            for _ in range(3)]
+    out["qwen3moe_prefill_s"] = [r["prefill_s"] for r in runs]
+    out["qwen3moe_prefill_rows"] = runs[-1]["prefill_rows"]
+    print(json.dumps(out), flush=True)
+
+
 def profile_w4a16(tag: str) -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -413,5 +486,7 @@ if __name__ == "__main__":
         planes_ms(tag)
     elif mode == "planes_engines":
         planes_engines(tag)
+    elif mode == "kv8_w8":
+        kv8_w8(tag)
     else:
         main(tag, mode == "tail")

@@ -21,7 +21,9 @@ lightcompress_tpu/ops/pallas_attention.py, kernels #17-#22).
 * ``decode_attention_kv8`` (#22): bf16 q over the int8 cache (B, H, S, D)
   with per-token scales (B, H, S), every column (no length mask: the bench
   appends the fresh token first); f32 dots, a softmax normalized before
-  PV, ``pv = bf16(p * vs)``; returns the normalized context.
+  PV, ``pv = bf16(p * vs)``; returns the normalized context.  The kernel
+  splits S over a cluster of CTAs (``kv8_parts``);
+  ``decode_attention_kv8_parts_plain`` renders that schedule.
 
 Arithmetic of #17-#21 (the JAX kernels', in this order): q is quantized
 per (b, h, g) to int8 (``quantize_q``); scores are int32 dots, then
@@ -58,6 +60,15 @@ S_BLOCK = 512
 FLASH_BLOCK = 256
 # the dynamic shared memory a block may have on an H100 (227 KB)
 SMEM_MAX = 232448
+# #22's cluster sizes (CTAs splitting S per (slot, kv head)) and the bytes
+# of its ring of TMA chunks (four chunks of 128 rows of 128 code bytes)
+KV8_PARTS = (1, 2, 4, 8)
+KV8_RING_BYTES = 4 * 128 * 128
+# a #22 CTA's fixed time (its first copy's latency, the cluster's meetings,
+# the partials' sum, a wave's tail) in columns of its streaming time: the
+# value for which ``kv8_parts`` picks the fastest split at every B (1, 4,
+# 8, 32) and S (2049, 4097) of the H100 scan in PERF.md
+KV8_FIXED_COLUMNS = 600
 
 Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -226,6 +237,46 @@ def decode_attention_kv8_plain(q, kq, ks, vq, vs) -> torch.Tensor:
     return torch.matmul(pv.float(), vq.float())
 
 
+def kv8_columns(S: int, parts: int) -> int:
+    """Columns of one part of #22's split of S over ``parts`` CTAs: a
+    multiple of 16; the last parts may be short or empty."""
+    per = -(-S // parts)
+    return -(-per // 16) * 16
+
+
+def decode_attention_kv8_parts_plain(q, kq, ks, vq, vs,
+                                     parts: int) -> torch.Tensor:
+    """#22's function in its kernel's split schedule: S cut into runs of
+    ``kv8_columns(S, parts)`` columns, one a CTA of the cluster; each part's
+    max m_r and sum s_r of exp(s - m_r), merged in part order into the
+    row's (the larger max, the sums rescaled to it), ``pv = bf16((exp(s -
+    max) / sum) * vs)``, and the parts' PV dots added in part order.  An
+    empty part adds exactly 0."""
+    D, S = q.shape[-1], kq.shape[2]
+    per = kv8_columns(S, parts)
+    spans = [(r * per, min(S, (r + 1) * per)) for r in range(parts)
+             if r * per < S]
+    sc = torch.matmul(q.to(torch.bfloat16).float(),
+                      kq.float().transpose(-1, -2))
+    sc = sc * ks.float()[:, :, None, :] * D ** -0.5
+    m = total = None
+    for a, b in spans:
+        mr = sc[..., a:b].amax(dim=-1)
+        sr = torch.exp(sc[..., a:b] - mr[..., None]).sum(dim=-1)
+        if m is None:
+            m, total = mr, sr
+            continue
+        mm = torch.maximum(m, mr)
+        total = total * torch.exp(m - mm) + sr * torch.exp(mr - mm)
+        m = mm
+    e = torch.exp(sc - m[..., None])
+    pv = (e / total[..., None] * vs.float()[:, :, None, :]).to(torch.bfloat16)
+    ctx = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for a, b in spans:
+        ctx = ctx + torch.matmul(pv[..., a:b].float(), vq[:, :, a:b].float())
+    return ctx
+
+
 def bd_merge_new_token(q, qctx: Partials, k_new, v_new, kns, vns,
                        scale: float) -> torch.Tensor:
     """Fold the fresh token (int8 k_new/v_new (B, H, D), scales (B, H))
@@ -258,9 +309,10 @@ def _lib() -> ctypes.CDLL:
     lib.lc_attn_bd.argtypes = [_P] * 10 + [_I] * 5 + [_P]
     lib.lc_attn_bd4.argtypes = [_P] * 10 + [_I] * 5 + [_P]
     lib.lc_attn_i8.argtypes = [_P] * 12 + [_I] * 4 + [_P]
-    lib.lc_attn_kv8.argtypes = [_P] * 6 + [_I] * 5 + [_P]
+    lib.lc_attn_kv8.argtypes = [_P] * 6 + [_I] * 6 + [_P]
+    lib.lc_attn_kv8_clusters.argtypes = [_I] * 4
     for fn in (lib.lc_attn_bd, lib.lc_attn_bd4, lib.lc_attn_i8,
-               lib.lc_attn_kv8):
+               lib.lc_attn_kv8, lib.lc_attn_kv8_clusters):
         fn.restype = ctypes.c_int
     return lib
 
@@ -457,20 +509,69 @@ def decode_attention_i8(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     return out
 
 
-def kv8_smem_bytes(G: int, S: int) -> int:
-    """Dynamic shared memory of a #22 block: the f32 score row (G*S), q
-    in f32, the reduction scratch and the warps' PV sums."""
-    D = KERNEL_HEAD_DIM
-    return 4 * (G * S + G * D + 8 * G + 8 * G * D)
+def kv8_smem_bytes(G: int, S: int, parts: int = KV8_PARTS[-1]) -> int:
+    """Dynamic shared memory of one #22 CTA when S is split over ``parts``
+    (the kernel's ``kv8_smem``): alignment slack, the ring of TMA chunks,
+    the f32 scores of the part's columns (rows padded against bank
+    conflicts), the PV partial, the scratch.  At the largest split it
+    bounds S: S <= 81280 at G = 4."""
+    per = kv8_columns(S, parts)
+    return (1024 + KV8_RING_BYTES + G * (per + 4) * 4
+            + G * KERNEL_HEAD_DIM * 4 + 1024)
+
+
+def kv8_parts(pairs: int, S: int, G: int, clusters) -> int:
+    """#22's cluster size for ``pairs`` (slot, kv head) pairs: among the
+    parts of KV8_PARTS whose share of S fits a CTA's shared memory, the one
+    with the least waves * (columns of a part + KV8_FIXED_COLUMNS), where a
+    wave is ``clusters(parts)`` clusters (the card's co-resident ones);
+    ties go to fewer parts."""
+    best = None
+    for p in KV8_PARTS:
+        if kv8_smem_bytes(G, S, p) > SMEM_MAX:
+            continue
+        c = clusters(p)
+        if c < 1:
+            continue
+        cost = -(-pairs // c) * (kv8_columns(S, p) + KV8_FIXED_COLUMNS)
+        if best is None or cost < best[0]:
+            best = (cost, p)
+    if best is None:
+        raise ValueError(f"decode_attention_kv8 holds a part's scores in "
+                         f"shared memory: S={S} at G={G} needs "
+                         f"{kv8_smem_bytes(G, S)} bytes a CTA at "
+                         f"{KV8_PARTS[-1]} parts, above {SMEM_MAX}")
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def kv8_clusters(index: int, G: int, per: int, f32: bool, parts: int) -> int:
+    """The clusters of ``parts`` #22 CTAs over ``per`` columns a rank that
+    card ``index`` holds at once (CUDA's occupancy query)."""
+    with torch.cuda.device(index):
+        n = _lib().lc_attn_kv8_clusters(G, per, int(f32), parts)
+    if n < 0:
+        raise RuntimeError(f"lc_attn_kv8_clusters failed: CUDA error {-n}")
+    return n
+
+
+def kv8_card_parts(pairs: int, S: int, G: int, f32: bool,
+                   device: torch.device) -> int:
+    """``kv8_parts`` with the co-resident clusters of ``device``'s card."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return kv8_parts(pairs, S, G, lambda p: kv8_clusters(
+        index, G, kv8_columns(S, p), f32, p))
 
 
 def decode_attention_kv8(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
                          vq: torch.Tensor, vs: torch.Tensor) -> torch.Tensor:
     """#22: q (B, H, G, D) (taken as bf16) over the int8 cache K, V (B, H, S,
     D) with f32 or bf16 per-token scales (B, H, S), every column.  Returns
-    the normalized (B, H, G, D) f32.  On the card the score row sits in
-    shared memory: ``kv8_smem_bytes(G, S) <= SMEM_MAX`` (S <= 13368 at
-    G = 4); above it this raises."""
+    the normalized (B, H, G, D) f32.  On the card S is split over a
+    cluster of ``kv8_parts`` CTAs per (slot, kv head), each holding its
+    part's scores in shared memory: ``kv8_smem_bytes(G, S) <= SMEM_MAX``
+    (S <= 81280 at G = 4); above it this raises."""
     B, H, G, D = q.shape
     S = kq.shape[2]
     if kq.shape != (B, H, S, D) or vq.shape != kq.shape or \
@@ -497,17 +598,28 @@ def decode_attention_kv8(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     if ks.dtype != vs.dtype or ks.dtype not in (torch.bfloat16,
                                                 torch.float32):
         raise ValueError("the kernel takes bf16 or f32 scales, both alike")
-    if kv8_smem_bytes(G, S) > SMEM_MAX:
-        raise ValueError(f"decode_attention_kv8 holds the score row in "
-                         f"shared memory: S={S} at G={G} needs "
-                         f"{kv8_smem_bytes(G, S)} bytes, above {SMEM_MAX}")
+    parts = kv8_card_parts(B * H, S, G, ks.dtype == torch.float32, q.device)
+    return _kv8_launch(q, kq, ks, vq, vs, parts)
+
+
+def _kv8_launch(q, kq, ks, vq, vs, parts: int) -> torch.Tensor:
+    """#22's launch on a cluster of ``parts`` CTAs (the wrapper's checks
+    done; ``kernel_ab.py`` calls it to time other splits)."""
+    B, H, G, D = q.shape
+    S = kq.shape[2]
+    if kv8_smem_bytes(G, S, parts) > SMEM_MAX:
+        raise ValueError(f"decode_attention_kv8: S={S} at G={G} over "
+                         f"{parts} parts needs {kv8_smem_bytes(G, S, parts)} "
+                         f"bytes a CTA, above {SMEM_MAX}")
     qb = q.to(torch.bfloat16).contiguous()
+    if qb.data_ptr() % 16:
+        qb = qb.clone()
     ks, vs = ks.contiguous(), vs.contiguous()
     out = torch.empty((B, H, G, D), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         _launch(_lib().lc_attn_kv8, qb.data_ptr(), kq.data_ptr(),
                 ks.data_ptr(), vq.data_ptr(), vs.data_ptr(), out.data_ptr(),
-                B, H, G, S, int(ks.dtype == torch.float32),
+                B, H, G, S, int(ks.dtype == torch.float32), parts,
                 _stream(q.device))
     decode_attention_kv8.launches += 1
     return out

@@ -37,8 +37,8 @@
 // multiplies and then adds, __fmul_rn/__fadd_rn keep the two roundings.
 // Masked columns contribute exactly 0 in the TPU kernels, so these skip them.
 //
-// Bound on an H100 SXM: bytes.  A block reads each valid column's codes and
-// scales once (kv8: 128 + 128 + 2 + 2 bytes per kv head and token; kv4: 64 +
+// Bound of #17-#21 on an H100 SXM: bytes (#22: its own section below).  A
+// block reads each valid column's codes and scales once (kv8: 128 + 128 + 2 + 2 bytes per kv head and token; kv4: 64 +
 // 64 + 2 + 2) against 2*G*D int operations per code byte pair, far below
 // the int8 tensor-core rate.  Design: one block per (slot, kv head), grid
 // (H, B); the block reads its head's K once for all G query rows and V once
@@ -49,15 +49,17 @@
 // contiguous run of code bytes.  The whole-row kernels (#17, #18, #20) keep
 // 5 * G bytes of shared memory per column, so the buffer S is bounded by
 // the 227 KB a block may have (#18 at G = 4: S <= 11488; the wrapper raises
-// above it and names the flash route).  No tensor cores and no TMA: at 8
-// slots x 8 kv heads the 64 blocks fill half the SMs; splitting S across
-// blocks (with a cross-block merge) and cp.async/TMA staging are for later
+// above it and names the flash route).  No tensor cores and no TMA in
+// #17-#21: at 8 slots x 8 kv heads the 64 blocks fill half the SMs;
+// splitting S across blocks and TMA staging, as #22 does, are for later
 // work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "w4_mma.cuh"  // the TMA and mbarrier helpers (#22)
 
 namespace {
 
@@ -569,120 +571,414 @@ attn_i8_kernel(const int8_t* __restrict__ q8, const float* __restrict__ qs,
 // read: the caller appended the fresh token), the normalized context out:
 //   s = (f32 dot(bf16 q, bf16 k)) * ks * D^-0.5;  p = e / sum(e),
 //   e = exp(s - max(s));  pv = bf16(p * vs);  out = f32 dot(pv, bf16 v).
-// Unlike #17, q is not quantized, the dots are f32 (every product of a bf16
-// q and an int8 code is exact in f32), and p is normalized and rounded to
-// bf16 before PV.  Scores: 8 lanes share a cache row (16 codes each) and
-// add their partial dots with shuffles.  PV: a warp takes one row at a
-// time (4 features a lane, rows warp, warp + 8, ...), and the warps' sums
-// are added through shared memory at the end.  Shared memory: the score
-// row (G * S floats, so S is bounded by the 227 KB a block may have: S <=
-// 13368 at G 4; the wrapper raises above it), q in f32, the warps' PV sums.
+// Every product (a bf16 q or pv times an int8 code) is exact in f32; only
+// the order of the f32 sums differs from the plain version.
+//
+// Bound on an H100 SXM: bytes (K and V, 2 * 128 code bytes and 2 scales a
+// column and kv head), against 4 * G * D operations a column on the bf16
+// tensor cores.  What the design does about it:
+//   * A thread-block cluster of P CTAs (P = 1, 2, 4 or 8, chosen by the
+//     wrapper, ops/attention.kv8_parts) per (slot, kv head), grid
+//     (P * H, B): rank r takes the columns [r * per, (r + 1) * per), per =
+//     ceil(S / P) rounded up to 16, so that 8 slots fill the card as well as
+//     32.  A rank with no columns adds exactly 0.
+//   * The K slab and then the V slab of the rank's columns (contiguous runs
+//     of 128-byte rows) stream through a ring of kKvSlots chunks of 128 rows
+//     (16 KB each, 64 KB in flight a CTA), copied by the tensor memory
+//     accelerator in boxes of 16 rows with the 128-byte swizzle (the tail
+//     chunk takes only the boxes it needs) and counted by mbarriers.  Thread
+//     0 refills a slot once all eight warps have released it (after their
+//     products, which consumed the loaded registers); V's chunks
+//     follow K's in the same ring, so V's first 64 KB arrive while the
+//     softmax runs.
+//   * Both dots run on the bf16 tensor cores (mma.sync m16n8k16, f32
+//     accumulation), the int8 codes turned into bf16 exactly in registers
+//     (two masks and a bf16x2 subtract for two codes: 128 + (c & 127) less
+//     128 + (c & 128)), never through an int-to-float conversion (16 a clock
+//     an SM; at the bench's shape those alone would take most of the bound).
+//     Scores: A = 16 time steps x 16 features of K, B = q (its G rows the n8
+//     columns, zero past G); a thread reads 32 contiguous code bytes of each
+//     of its two rows, which fixes its features of every k step (the q
+//     fragments follow the same order).  PV: A = V^T (16 features x 16 time
+//     steps), B = pv^T; a thread reads a 16-byte run of features from four
+//     rows and pairs the two time steps of a feature with a byte permute.
+//     Both reads hit 32 distinct banks in the swizzled chunks.  A warp takes
+//     one m16 block of every chunk: 16 rows of K, or 16 time steps of V.
+//     CUDA cores with a byte-permute conversion to f32 were not built: their
+//     G f32 multiply-adds a code (G = 4: about 5 ops a code on the f32 pipe,
+//     twice the tensor-core route's issue) would bound the kernel at G >= 4.
+//   * The TPU's numerics round pv = bf16(p * vs) after normalizing, so the
+//     PV dot needs the whole row's max and sum.  Each thread keeps a running
+//     max and sum of exp(s - max) of its scores (the sum rescaled when the
+//     max grows, an online softmax; its f32 roundings differ from the plain
+//     version's sum of e within the gate), merged over the lanes by a fixed
+//     tree, over the warps in order, and over the ranks in order: the
+//     cluster meets once through distributed shared memory for the max and
+//     the sum, and once more for the PV partials (rank r adds features [r *
+//     D / P, (r + 1) * D / P) of every rank's partial in rank order).  Each
+//     CTA adds its warps' partials in warp order, so a second call gives the
+//     same bits.
+//   * Shared memory: the ring, the rank's f32 scores (G * per), its PV
+//     partial.  A warp makes its own pv B fragments in the PV loop (an exp
+//     and a division a lane a time step, the V scales read a chunk ahead),
+//     so no pass over the row stands between the sum and V's first chunk.
+//     S is bounded by a rank's share at P = 8: S <= 81280 at G = 4 (the
+//     wrapper raises above it).
 // ---------------------------------------------------------------------------
-template <int G>
-size_t kv8_smem(int S) {
-  return ((size_t)G * S + (size_t)G * kD + (size_t)kWarps * G +
-          (size_t)kWarps * G * kD) * 4;
+constexpr int kKvRows = 128;              // time steps of a ring chunk
+constexpr int kKvBox = 16;                // rows of one TMA box
+constexpr int kKvSlots = 4;               // ring depth
+constexpr int kKvChunk = kKvRows * kD;    // bytes of a chunk (16 KB)
+constexpr int kKvScratch = 1024;          // reductions and mbarriers
+
+// the f32 score rows of a rank's `per` columns: a stride that puts the
+// mma fragments' stores on distinct banks
+__host__ __device__ constexpr int kv8_sc_stride(int per) { return per + 4; }
+
+// dynamic shared memory of a CTA (ops/attention.kv8_smem_bytes): 1024 bytes
+// of alignment slack, the ring, the scores, the PV partial, the scratch
+inline size_t kv8_smem(int G, int per) {
+  return 1024 + (size_t)kKvSlots * kKvChunk +
+         (size_t)G * kv8_sc_stride(per) * 4 + (size_t)G * kD * 4 +
+         kKvScratch;
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of every CTA of the cluster; orders shared-memory writes
+// before it with reads after it, across the cluster
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the float at p in the shared memory of the cluster's CTA `rank`
+__device__ __forceinline__ float ld_cluster(const float* p, uint32_t rank) {
+  uint32_t a;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(lcw4::smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+          lcw4::smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The int8 codes in bytes 0 and 2 of z as a bf16 pair (byte 0 in the low
+// half), exactly: (128 + (c & 127)) + (-(128 + (c & 128))) in one bf16x2
+// multiply-add by 1; both terms and the difference are bf16 integers.
+__device__ __forceinline__ uint32_t codes02_bf16(uint32_t z) {
+  const uint32_t a = (z & 0x007F007Fu) | 0x43004300u;
+  const uint32_t nb = (z & 0x00800080u) | 0xC300C300u;
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(d)
+      : "r"(a), "r"(0x3F803F80u), "r"(nb));
+  return d;
+}
+
+// byte offset of 16-byte chunk c of row r of a ring chunk (the TMA's
+// 128-byte swizzle on a 1024-byte aligned slot)
+__device__ __forceinline__ int kv_swz(int r, int c) {
+  return r * kD + ((c ^ (r & 7)) << 4);
+}
+
+// (m, s) of a softmax over some columns merged with (m2, s2) of others: the
+// larger max and the sums rescaled to it (an empty side, max -inf, adds 0)
+__device__ __forceinline__ void softmax_merge(float& m, float& s, float m2,
+                                              float s2) {
+  const float mm = fmaxf(m, m2);
+  if (mm == -INFINITY) return;
+  s = __fadd_rn(s * expf(m - mm), s2 * expf(m2 - mm));
+  m = mm;
 }
 
 template <int G, typename ST>
 __global__ void __launch_bounds__(kThreads)
-attn_kv8_kernel(const __nv_bfloat16* __restrict__ q,
-                const int8_t* __restrict__ kq, const ST* __restrict__ ks,
-                const int8_t* __restrict__ vq, const ST* __restrict__ vs,
-                float* __restrict__ out, int S) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x, bh = b * H + h;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int sub = threadIdx.x & 7;
-  float* sc = reinterpret_cast<float*>(smem);  // [G][S]
-  float* qf = sc + (size_t)G * S;              // [G][kD]
-  float* red = qf + G * kD;                    // [kWarps][G]
-  float* part = red + kWarps * G;              // [kWarps][G][kD]
-  for (int i = threadIdx.x; i < G * kD; i += kThreads)
-    qf[i] = __bfloat162float(q[(size_t)bh * G * kD + i]);
-  __syncthreads();
+attn_kv8_kernel(const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap,
+                const __nv_bfloat16* __restrict__ q,
+                const ST* __restrict__ ks, const ST* __restrict__ vs,
+                float* __restrict__ out, int S, int parts, int per) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((1024 - (lcw4::smem_u32(smem_raw) & 1023)) & 1023);
+  const int ss = kv8_sc_stride(per);
+  float* sc = reinterpret_cast<float*>(ring + kKvSlots * kKvChunk);  // [G][ss]
+  float* part = sc + G * ss;        // [G][kD] the CTA's PV partial
+  float* redm = part + G * kD;      // [kWarps][8] the warps' maxima
+  float* reds = redm + kWarps * 8;  // [kWarps][8] and sums
+  float* xm = reds + kWarps * 8;    // [8] the CTA's maxima, read by the cluster
+  float* xs = xm + 8;               // [8] and sums
+  float* mrow = xs + 8;             // [8] the row's max
+  float* srow = mrow + 8;           // [8] the row's sum
+  uint64_t* full = reinterpret_cast<uint64_t*>(srow + 8);
+  uint64_t* empty = full + kKvSlots;
 
-  const int8_t* kh = kq + (size_t)bh * S * kD;
-  const ST* ksh = ks + (size_t)bh * S;
-  float mx[G];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;  // mma fragment coordinates
+  const int rank = (int)cluster_rank();
+  const int H = gridDim.x / parts, bh = blockIdx.y * H + blockIdx.x / parts;
+  const int t0 = rank * per, n = max(0, min(per, S - t0));
+  const int nk = (n + kKvRows - 1) / kKvRows;  // chunks of K, then of V
+  const int total = 2 * nk;
+  const int row0 = bh * S + t0;  // the rank's first row of the slabs
+
+  // chunk c (K for c < nk, then V) into slot c % kKvSlots: the boxes of its
+  // rows, thread 0 alone
+  auto issue = [&](int c) {
+    const int slot = c % kKvSlots, cl = c < nk ? c : c - nk;
+    const int boxes = (min(kKvRows, n - cl * kKvRows) + kKvBox - 1) / kKvBox;
+    lcw4::mbar_expect_tx(full + slot, boxes * kKvBox * kD);
+    for (int j = 0; j < boxes; ++j)
+      lcw4::tma_load_2d(ring + slot * kKvChunk + j * kKvBox * kD,
+                        c < nk ? (const void*)&kmap : (const void*)&vmap, 0,
+                        row0 + cl * kKvRows + j * kKvBox, full + slot);
+  };
+  // the warp is done with chunk c (its products have consumed the loaded
+  // registers); thread 0 refills the slot once all eight warps are.
+  // Released right after the loads, before the products, the refill's TMA
+  // writes overtook reads still in flight (wrong scores at G = 8, B 32).
+  auto release = [&](int c) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + c % kKvSlots);
+    if (tid == 0 && c + kKvSlots < total) {
+      lcw4::mbar_wait(empty + c % kKvSlots, (c / kKvSlots) & 1);
+      issue(c + kKvSlots);
+    }
+    __syncwarp();  // warp 0 whole again for its mma.sync
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < kKvSlots; ++i) {
+      lcw4::mbar_init(full + i, 1);
+      lcw4::mbar_init(empty + i, kWarps);
+    }
+    lcw4::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int c = 0; c < min(kKvSlots, total); ++c) issue(c);
+
+  // q as the scores' B fragments: k step kb of thread (g, tq) holds
+  // features 32 tq + 4 kb + {0, 2} (b0) and {1, 3} (b1) of query row g, the
+  // order in which codes02_bf16 lays out its K words; zero past G
+  uint32_t qb[8][2];
 #pragma unroll
-  for (int g = 0; g < G; ++g) mx[g] = -INFINITY;
-  for (int tb = 0; tb < S; tb += kThreads / 8) {
-    const int t = tb + (threadIdx.x >> 3);
-    const bool valid = t < S;
-    int4 kv = make_int4(0, 0, 0, 0);
-    if (valid)
-      kv = __ldg(reinterpret_cast<const int4*>(kh + (size_t)t * kD) + sub);
-    const int8_t* c = reinterpret_cast<const int8_t*>(&kv);
-    float ksv = 0.f;
-    if (valid) ksv = to_f32(ksh[t]);
+  for (int kb = 0; kb < 8; ++kb) {
+    qb[kb][0] = qb[kb][1] = 0u;
+    if (g < G) {
+      const uint2 v = *reinterpret_cast<const uint2*>(
+          q + ((size_t)bh * G + g) * kD + 32 * tq + 4 * kb);
+      qb[kb][0] = __byte_perm(v.x, v.y, 0x5410);
+      qb[kb][1] = __byte_perm(v.x, v.y, 0x7632);
+    }
+  }
+
+  // scores: warp w takes rows 16 w .. 16 w + 15 of every K chunk; thread
+  // (g, tq) reads 32 code bytes (chunks 2 tq and 2 tq + 1) of rows g and
+  // g + 8 and holds the scores of those rows for queries 2 tq, 2 tq + 1,
+  // with its running max and sum of exp(s - max) of each (an online
+  // softmax: the sum rescaled when the max grows).  The K scales are read
+  // a chunk ahead.
+  const ST* ksr = ks + row0;
+  auto ks_at = [&](int tl) { return tl < n ? to_f32(ksr[tl]) : 0.f; };
+  float mx[2] = {-INFINITY, -INFINITY}, sm[2] = {0.f, 0.f};
+  float kn[2] = {ks_at(16 * warp + g), ks_at(16 * warp + g + 8)};
+  for (int c = 0; c < nk; ++c) {
+    const int tl0 = c * kKvRows + 16 * warp;
+    const bool live = tl0 < n;
+    const float kv[2] = {kn[0], kn[1]};
+    kn[0] = ks_at(tl0 + kKvRows + g);
+    kn[1] = ks_at(tl0 + kKvRows + g + 8);
+    lcw4::mbar_wait(full + c % kKvSlots, (c / kKvSlots) & 1);
+    if (!live) {
+      release(c);
+      continue;
+    }
+    const unsigned char* sl = ring + (c % kKvSlots) * kKvChunk;
+    int4 w[2][2];
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float* qg = qf + g * kD + 16 * sub;
-      float a = 0.f;
+    for (int rr = 0; rr < 2; ++rr)
 #pragma unroll
-      for (int i = 0; i < 16; ++i) a = fmaf(qg[i], (float)c[i], a);
-      a += __shfl_xor_sync(0xffffffffu, a, 4);
-      a += __shfl_xor_sync(0xffffffffu, a, 2);
-      a += __shfl_xor_sync(0xffffffffu, a, 1);
-      if (valid && sub == 0) {
-        const float v = __fmul_rn(__fmul_rn(a, ksv), kScale);
-        sc[g * S + t] = v;
-        mx[g] = fmaxf(mx[g], v);
+      for (int hh = 0; hh < 2; ++hh)
+        w[rr][hh] = *reinterpret_cast<const int4*>(
+            sl + kv_swz(16 * warp + g + 8 * rr, 2 * tq + hh));
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kb = 0; kb < 8; ++kb) {
+      const uint32_t wa = reinterpret_cast<const uint32_t*>(&w[0][kb >> 2])[kb & 3];
+      const uint32_t wb = reinterpret_cast<const uint32_t*>(&w[1][kb >> 2])[kb & 3];
+      mma_bf16(acc, codes02_bf16(wa), codes02_bf16(wb), codes02_bf16(wa >> 8),
+               codes02_bf16(wb >> 8), qb[kb][0], qb[kb][1]);
+    }
+    release(c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int tl = tl0 + g + 8 * (e >> 1), qi = 2 * tq + (e & 1);
+      if (qi < G && tl < n) {
+        const float s = __fmul_rn(__fmul_rn(acc[e], kv[e >> 1]), kScale);
+        sc[qi * ss + tl] = s;
+        float& m = mx[e & 1];
+        float& a = sm[e & 1];
+        if (s > m) {
+          a = __fadd_rn(a * expf(m - s), 1.f);
+          m = s;
+        } else {
+          a = __fadd_rn(a, expf(s - m));
+        }
       }
     }
   }
-  block_reduce<G, true>(mx, red);
-  float sum[G];
+  // the row's max and sum: the lanes of a query (a fixed tree), the warps
+  // in order, then the cluster's ranks in order
 #pragma unroll
-  for (int g = 0; g < G; ++g) sum[g] = 0.f;
-  for (int t = threadIdx.x; t < S; t += kThreads)
+  for (int o = 4; o < 32; o <<= 1)
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float e = expf(sc[g * S + t] - mx[g]);
-      sc[g * S + t] = e;
-      sum[g] += e;
-    }
-  block_reduce<G, false>(sum, red);
-  const ST* vsh = vs + (size_t)bh * S;
-  for (int t = threadIdx.x; t < S; t += kThreads) {
-    const float vsv = to_f32(vsh[t]);
+    for (int j = 0; j < 2; ++j)
+      softmax_merge(mx[j], sm[j], __shfl_xor_sync(0xffffffffu, mx[j], o),
+                    __shfl_xor_sync(0xffffffffu, sm[j], o));
+  if (g == 0)
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float p = __fdiv_rn(sc[g * S + t], sum[g]);
-      sc[g * S + t] = __bfloat162float(__float2bfloat16(__fmul_rn(p, vsv)));
-    }
+    for (int j = 0; j < 2; ++j)
+      if (2 * tq + j < G) {
+        redm[warp * 8 + 2 * tq + j] = mx[j];
+        reds[warp * 8 + 2 * tq + j] = sm[j];
+      }
+  __syncthreads();
+  if (tid < G) {
+    float m = redm[tid], a = reds[tid];
+    for (int w = 1; w < kWarps; ++w)
+      softmax_merge(m, a, redm[w * 8 + tid], reds[w * 8 + tid]);
+    xm[tid] = m;
+    xs[tid] = a;
+  }
+  cluster_sync();  // 1: every rank's max and sum
+  if (tid < G) {
+    float m = ld_cluster(xm + tid, 0), a = ld_cluster(xs + tid, 0);
+    for (int r = 1; r < parts; ++r)
+      softmax_merge(m, a, ld_cluster(xm + tid, r), ld_cluster(xs + tid, r));
+    mrow[tid] = m;
+    srow[tid] = a;
   }
   __syncthreads();
 
-  const int8_t* vh = vq + (size_t)bh * S * kD;
-  float acc[G][4];
+  // PV: warp w takes time steps 16 w .. 16 w + 15 of every V chunk; m16
+  // tile 2 i + hh, row g + 8 j of thread (g, tq) is feature 16 g + 4 i +
+  // 2 hh + j, read as byte 2 hh + j of word i of the 16-byte chunk g of
+  // rows 2 tq, 2 tq + 1 (slots 2 tq, 2 tq + 1) and 2 tq + 8, 2 tq + 9.
+  // Its B fragment, pv = bf16((exp(s - max) / sum) * vs) of query g at
+  // those four time steps (0 past n), it computes itself, the V scales read
+  // a chunk ahead, so V's chunks are consumed as soon as the sum is known.
+  const ST* vsr = vs + row0;
+  const float m_g = g < G ? mrow[g] : 0.f, sum_g = g < G ? srow[g] : 1.f;
+  auto vs_at = [&](int tl) {
+    return (g < G && tl < n) ? to_f32(vsr[tl]) : 0.f;
+  };
+  float vn[4];
 #pragma unroll
-  for (int g = 0; g < G; ++g)
+  for (int j = 0; j < 4; ++j)
+    vn[j] = vs_at(16 * warp + 2 * tq + (j & 1) + 8 * (j >> 1));
+  float acc[8][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[g][j] = 0.f;
-  for (int t = warp; t < S; t += kWarps) {
-    const int w = __ldg(reinterpret_cast<const int*>(vh + (size_t)t * kD) +
-                        lane);
-    const int8_t* c = reinterpret_cast<const int8_t*>(&w);
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float p = sc[g * S + t];
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  for (int c = nk; c < total; ++c) {
+    const int tl0 = (c - nk) * kKvRows + 16 * warp;
+    const bool live = tl0 < n;
+    float pv[4];  // time steps 2 tq, 2 tq + 1, 2 tq + 8, 2 tq + 9
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[g][j] = fmaf(p, (float)c[j], acc[g][j]);
+    for (int j = 0; j < 4; ++j) {
+      const int tl = tl0 + 2 * tq + (j & 1) + 8 * (j >> 1);
+      pv[j] = (g < G && tl < n)
+                  ? __fmul_rn(__fdiv_rn(expf(sc[g * ss + tl] - m_g), sum_g),
+                              vn[j])
+                  : 0.f;
+      vn[j] = vs_at(tl + kKvRows);
     }
-  }
-#pragma unroll
-  for (int g = 0; g < G; ++g)
+    const __nv_bfloat162 p01 = __floats2bfloat162_rn(pv[0], pv[1]);
+    const __nv_bfloat162 p89 = __floats2bfloat162_rn(pv[2], pv[3]);
+    const uint32_t b0 = *reinterpret_cast<const uint32_t*>(&p01);
+    const uint32_t b1 = *reinterpret_cast<const uint32_t*>(&p89);
+    lcw4::mbar_wait(full + c % kKvSlots, (c / kKvSlots) & 1);
+    if (!live) {
+      release(c);
+      continue;
+    }
+    const unsigned char* sl = ring + (c % kKvSlots) * kKvChunk;
+    int4 v[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      part[(warp * G + g) * kD + 4 * lane + j] = acc[g][j];
-  __syncthreads();
-  for (int i = threadIdx.x; i < G * kD; i += kThreads) {
-    float a = part[i];
-    for (int w = 1; w < kWarps; ++w) a += part[w * G * kD + i];
-    out[(size_t)bh * G * kD + i] = a;
+      v[j] = *reinterpret_cast<const int4*>(
+          sl + kv_swz(16 * warp + 2 * tq + (j & 1) + 8 * (j >> 1), g));
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const uint32_t sel = hh ? 0x7632u : 0x5410u;
+        const uint32_t z0 = __byte_perm(
+            reinterpret_cast<const uint32_t*>(&v[0])[i],
+            reinterpret_cast<const uint32_t*>(&v[1])[i], sel);
+        const uint32_t z1 = __byte_perm(
+            reinterpret_cast<const uint32_t*>(&v[2])[i],
+            reinterpret_cast<const uint32_t*>(&v[3])[i], sel);
+        mma_bf16(acc[2 * i + hh], codes02_bf16(z0), codes02_bf16(z0 >> 8),
+                 codes02_bf16(z1), codes02_bf16(z1 >> 8), b0, b1);
+      }
+    release(c);
   }
+
+  // the warps' partials through the ring (every chunk has landed and been
+  // read), added in warp order into the CTA's partial
+  __syncthreads();
+  float* red2 = reinterpret_cast<float*>(ring);  // [kWarps][G][kD]
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = 2 * tq + (e & 1);
+        if (qi < G)
+          red2[(warp * G + qi) * kD + 16 * g + 4 * i + 2 * hh + (e >> 1)] =
+              acc[2 * i + hh][e];
+      }
+  __syncthreads();
+  for (int i = tid; i < G * kD; i += kThreads) {
+    float a = red2[i];
+    for (int w = 1; w < kWarps; ++w) a += red2[w * G * kD + i];
+    part[i] = a;
+  }
+  cluster_sync();  // 2: every rank's partial
+  const int nf = kD / parts;
+  for (int i = tid; i < G * nf; i += kThreads) {
+    const int qi = i / nf, f = rank * nf + i % nf;
+    float a = ld_cluster(part + qi * kD + f, 0);
+    for (int r = 1; r < parts; ++r) a += ld_cluster(part + qi * kD + f, r);
+    out[((size_t)bh * G + qi) * kD + f] = a;
+  }
+  cluster_sync();  // 3: no CTA leaves while another reads its partial
 }
 
 template <typename Kern>
@@ -738,26 +1034,83 @@ int launch_i8(const void* q8, const void* qs, const void* kq, const void* ks,
 
 template <int G, typename ST>
 int launch_kv8(const void* q, const void* kq, const void* ks, const void* vq,
-               const void* vs, void* out, int B, int H, int S,
+               const void* vs, void* out, int B, int H, int S, int parts,
                cudaStream_t st) {
-  const size_t smem = kv8_smem<G>(S);
+  const int per = ((S + parts - 1) / parts + 15) & ~15;
+  // K and V as (B * H * S, D) byte rows, boxes of kKvBox rows
+  CUtensorMap kmap, vmap;
+  const uint64_t rows = (uint64_t)B * H * S;
+  int rc = lcw4::tensor_map_2d(&kmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, kq, kD,
+                               rows, kD, kD, kKvBox);
+  if (rc == 0)
+    rc = lcw4::tensor_map_2d(&vmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, vq, kD,
+                             rows, kD, kD, kKvBox);
+  if (rc != 0) return rc;
+  const size_t smem = kv8_smem(G, per);
   cudaError_t e = prepare(attn_kv8_kernel<G, ST>, smem);
   if (e != cudaSuccess) return (int)e;
-  attn_kv8_kernel<G, ST><<<dim3(H, B), kThreads, smem, st>>>(
-      (const __nv_bfloat16*)q, (const int8_t*)kq, (const ST*)ks,
-      (const int8_t*)vq, (const ST*)vs, (float*)out, S);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(parts * H, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = parts;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, attn_kv8_kernel<G, ST>, kmap, vmap,
+                         (const __nv_bfloat16*)q, (const ST*)ks,
+                         (const ST*)vs, (float*)out, S, parts, per);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// the most clusters of `parts` #22 CTAs the card holds at once over a
+// rank's `per` columns, or minus a CUDA error
+template <int G, typename ST>
+int kv8_clusters(int per, int parts) {
+  const size_t smem = kv8_smem(G, per);
+  cudaError_t e = prepare(attn_kv8_kernel<G, ST>, smem);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(parts, 1);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = parts;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, attn_kv8_kernel<G, ST>, &cfg);
+  return e != cudaSuccess ? -(int)e : n;
+}
+
+template <typename ST>
+int kv8_clusters_g(int G, int per, int parts) {
+  switch (G) {
+    case 1: return kv8_clusters<1, ST>(per, parts);
+    case 2: return kv8_clusters<2, ST>(per, parts);
+    case 4: return kv8_clusters<4, ST>(per, parts);
+    case 8: return kv8_clusters<8, ST>(per, parts);
+    default: return -(int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename ST>
 int kv8_dispatch(const void* q, const void* kq, const void* ks,
                  const void* vq, const void* vs, void* out, int B, int H,
-                 int G, int S, cudaStream_t st) {
+                 int G, int S, int parts, cudaStream_t st) {
   switch (G) {
-    case 1: return launch_kv8<1, ST>(q, kq, ks, vq, vs, out, B, H, S, st);
-    case 2: return launch_kv8<2, ST>(q, kq, ks, vq, vs, out, B, H, S, st);
-    case 4: return launch_kv8<4, ST>(q, kq, ks, vq, vs, out, B, H, S, st);
-    case 8: return launch_kv8<8, ST>(q, kq, ks, vq, vs, out, B, H, S, st);
+    case 1: return launch_kv8<1, ST>(q, kq, ks, vq, vs, out, B, H, S, parts, st);
+    case 2: return launch_kv8<2, ST>(q, kq, ks, vq, vs, out, B, H, S, parts, st);
+    case 4: return launch_kv8<4, ST>(q, kq, ks, vq, vs, out, B, H, S, parts, st);
+    case 8: return launch_kv8<8, ST>(q, kq, ks, vq, vs, out, B, H, S, parts, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -817,15 +1170,29 @@ int lc_attn_i8(const void* q8, const void* qs, const void* kq, const void* ks,
 }
 
 // #22: q (B, H, G, D) bf16; kq, vq (B, H, S, D) int8; ks, vs (B, H, S) bf16
-// (scales_f32 = 0) or f32 (1); out (B, H, G, D) f32.  Any S >= 1.
+// (scales_f32 = 0) or f32 (1); out (B, H, G, D) f32; a cluster of `parts`
+// CTAs (1, 2, 4 or 8) per (slot, kv head).  Any S >= 1 whose share of a
+// rank fits the shared memory (ops/attention.kv8_smem_bytes).
+// #22's co-resident clusters of `parts` CTAs over `per` columns a rank
+// (ops/attention.kv8_parts), or minus a CUDA error.
+int lc_attn_kv8_clusters(int G, int per, int scales_f32, int parts) {
+  if (parts < 1 || parts > 8 || (parts & (parts - 1)) || per < 16 || per % 16)
+    return -(int)cudaErrorInvalidValue;
+  return scales_f32 ? kv8_clusters_g<float>(G, per, parts)
+                    : kv8_clusters_g<__nv_bfloat16>(G, per, parts);
+}
+
 int lc_attn_kv8(const void* q, const void* kq, const void* ks, const void* vq,
                 const void* vs, void* out, int B, int H, int G, int S,
-                int scales_f32, void* stream) {
-  if (S < 1) return (int)cudaErrorInvalidValue;
+                int scales_f32, int parts, void* stream) {
+  if (S < 1 || parts < 1 || parts > 8 || (parts & (parts - 1)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (scales_f32)
-    return kv8_dispatch<float>(q, kq, ks, vq, vs, out, B, H, G, S, st);
-  return kv8_dispatch<__nv_bfloat16>(q, kq, ks, vq, vs, out, B, H, G, S, st);
+    return kv8_dispatch<float>(q, kq, ks, vq, vs, out, B, H, G, S, parts,
+                               st);
+  return kv8_dispatch<__nv_bfloat16>(q, kq, ks, vq, vs, out, B, H, G, S,
+                                     parts, st);
 }
 
 }  // extern "C"

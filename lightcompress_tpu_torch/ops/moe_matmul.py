@@ -31,7 +31,8 @@ a block); both keep the TPU order, bit for bit.
 #10 is the grouped route's int8 per-channel expert (the ``stacked``
 fallback of ``quantize_linear_stacked``): codes (E, N, K) int8 and f32
 scales (E, N, 1); y = (f32(x . w) * scale) * xscale with an exact integer
-dot (``csrc/w8_grouped.cu``), equal to its plain version bit for bit.
+dot (``csrc/w8_grouped.cu``: persistent blocks over 128 x 128 tiles, a TMA
+ring feeding int8 wgmma), equal to its plain version bit for bit.
 
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel or raises.  Each wrapper counts its kernel launches in its
@@ -382,7 +383,9 @@ def w8a8_grouped_matmul(xq: torch.Tensor, x_scale: torch.Tensor,
     block_eid[r // m_tile] -> (Mp, N) f32, for (Mp, K) int8 rows sorted by
     expert into m_tile segments and int8 per-channel experts: codes (E, N,
     K) int8, scales (E, N, 1).  Any N: the kernel masks the ragged edge of
-    its last 128-channel tile."""
+    its last 128-channel tile.  On the card, persistent blocks (one an SM)
+    walk the 128-row (64-row where m_tile % 128 != 0) by 128-channel tiles
+    on TMA-fed int8 wgmma."""
     Mp, K = xq.shape
     if codes.dtype != torch.int8 or codes.dim() != 3 \
             or codes.shape[2] != K:
@@ -404,10 +407,9 @@ def w8a8_grouped_matmul(xq: torch.Tensor, x_scale: torch.Tensor,
                                          block_eid, m_tile)
     if xq.device.type != "cuda":
         raise ValueError(f"unsupported device {xq.device}")
-    if K % 16 or m_tile % 64 or Mp // 64 > 65535:
-        raise ValueError(f"the int8 grouped kernel takes K % 16 == 0, "
-                         f"m_tile % 64 == 0 and Mp <= 64 * 65535, got K={K} "
-                         f"m_tile={m_tile} Mp={Mp}")
+    if K % 16 or m_tile % 64:
+        raise ValueError(f"the int8 grouped kernel takes K % 16 == 0 and "
+                         f"m_tile % 64 == 0, got K={K} m_tile={m_tile}")
     if not codes.is_contiguous() or codes.data_ptr() % 16:
         raise ValueError("the kernel takes contiguous, 16-byte aligned "
                          "codes")

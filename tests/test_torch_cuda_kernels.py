@@ -856,16 +856,48 @@ def _w8_operands(dev, E, N, K, n, moe, seed):
     (4, 77, 784, 40, 2),         # ragged N under one tile, K % 64 != 0
     (8, 384, 1536, 300, 2)])
 def test_w8a8_grouped_kernel_matches_plain(dev, E, N, K, n, top_k):
-    """Bit for bit, padding rows 0, at every shape."""
+    """Bit for bit, padding rows 0, at every shape; a second call the
+    same bits."""
     moe = A.MoESpec(num_experts=E, top_k=top_k, moe_intermediate_size=K)
     qp, xq, xs, be, pad = _w8_operands(dev, E, N, K, n, moe, N + K)
     MM.reset_launch_counts()
     got = MM.w8a8_grouped_matmul(xq, xs, qp.codes, qp.scales, be)
+    again = MM.w8a8_grouped_matmul(xq, xs, qp.codes, qp.scales, be)
     ref = MM.w8a8_grouped_matmul_plain(xq, xs, qp.codes, qp.scales, be)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+    assert torch.equal(got, again)
     assert bool((got[pad] == 0).all())
-    assert [k.launches for k in MM.KERNELS] == [0, 0, 0, 0, 1]
+    assert [k.launches for k in MM.KERNELS] == [0, 0, 0, 0, 2]
+
+
+@pytest.mark.parametrize("Mp,N,K,m_tile", [
+    (128, 128, 768, 128),   # one tile: fewer tiles than SMs
+    (128, 77, 784, 128),    # one ragged tile, K % 128 != 0
+    (320, 200, 768, 64),    # 64-row tiles (m_tile % 128 != 0)
+    (384, 256, 1536, 192)])
+def test_w8a8_grouped_kernel_small_groupings(dev, Mp, N, K, m_tile):
+    """Groupings built directly (experts drawn at random, a bad id in the
+    last block): bit for bit the plain version, NaN where the id is out of
+    range, the same bits on a second call."""
+    E = 3
+    qp = _stacked(dev, E, N, K, Mp + N)
+    xq, xs = _acts(dev, (Mp, K), Mp + K)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(Mp)
+    be = torch.randint(0, E, (Mp // m_tile,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    if be.numel() > 1:
+        be[-1] = E
+    got = MM.w8a8_grouped_matmul(xq, xs, qp.codes, qp.scales, be, m_tile)
+    again = MM.w8a8_grouped_matmul(xq, xs, qp.codes, qp.scales, be, m_tile)
+    ref = MM.w8a8_grouped_matmul_plain(xq, xs, qp.codes, qp.scales, be,
+                                       m_tile)
+    torch.cuda.synchronize()
+    live = be.repeat_interleave(m_tile) < E
+    assert torch.equal(got[live], ref[live])
+    assert bool(torch.isnan(got[~live]).all())
+    assert torch.equal(got[live], again[live])
 
 
 def test_w8a8_grouped_kernel_bad_expert_id_writes_nan(dev):
@@ -934,37 +966,69 @@ def test_ksplit_kernel_matches_plain(dev, M, N, K):
     assert [k.launches for k in W.KERNELS] == [0, 0, 0, 0, 0, 0, 2, 0, 0]
 
 
-@pytest.mark.parametrize("scales", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("G", [1, 4, 8])
-@pytest.mark.parametrize("S", [1, 17, 129, 2049])
-def test_kv8_kernel_matches_plain(dev, S, G, scales):
-    """#22 at ragged S: the normalized context within 1e-3 of the largest
-    |ctx| (a bf16 step of one probability times a code)."""
-    from lightcompress_tpu_torch.ops import attention as T
-
+def _kv8_case(dev, B, S, G, scales, seed):
     gen = torch.Generator(device=dev)
-    gen.manual_seed(S + G)
-    B, H, D = 4, 8, 128
+    gen.manual_seed(seed)
+    H, D = 8, 128
     q = torch.randn((B, H, G, D), generator=gen, device=dev).to(
         torch.bfloat16)
     kq, vq = (torch.randint(-127, 128, (B, H, S, D), generator=gen,
                             device=dev, dtype=torch.int8) for _ in range(2))
     ks, vs = ((torch.rand((B, H, S), generator=gen, device=dev) * 0.02
                + 1e-3).to(scales) for _ in range(2))
+    return q, kq, ks, vq, vs
+
+
+@pytest.mark.parametrize("scales", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("S", [1, 17, 129, 2049, 4097])
+@pytest.mark.parametrize("B", [1, 4, 8, 32])
+def test_kv8_kernel_matches_plain(dev, B, S, G, scales):
+    """#22 at ragged S, on the cluster size ``kv8_parts`` picks for B: the
+    normalized context within 1e-3 of the largest |ctx| (a bf16 step of one
+    probability times a code), and a second call the same bits."""
+    from lightcompress_tpu_torch.ops import attention as T
+
+    args = _kv8_case(dev, B, S, G, scales, S + G + B)
     T.reset_launch_counts()
-    got = T.decode_attention_kv8(q, kq, ks, vq, vs)
-    ref = T.decode_attention_kv8_plain(q, kq, ks, vq, vs)
+    got = T.decode_attention_kv8(*args)
+    again = T.decode_attention_kv8(*args)
+    ref = T.decode_attention_kv8_plain(*args)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(got).all())
     assert (got - ref).abs().max() <= 1e-3 * ref.abs().max()
-    assert [k.launches for k in T.KERNELS] == [0, 0, 0, 0, 0, 1]
+    assert torch.equal(got, again)
+    assert [k.launches for k in T.KERNELS] == [0, 0, 0, 0, 0, 2]
+
+
+@pytest.mark.parametrize("parts", [1, 2, 4, 8])
+@pytest.mark.parametrize("S", [1, 3, 129, 1000])
+@pytest.mark.parametrize("G", [4, 8])
+def test_kv8_kernel_each_split_matches_its_schedule(dev, parts, S, G):
+    """#22 on each cluster size: within 1e-3 of its split schedule's plain
+    rendering, the same bits on a second call; at S 1 (parts past the
+    first empty) exactly bf16(vs) * v."""
+    from lightcompress_tpu_torch.ops import attention as T
+
+    args = _kv8_case(dev, 2, S, G, torch.bfloat16, S + parts)
+    got = T._kv8_launch(*args, parts)
+    again = T._kv8_launch(*args, parts)
+    ref = T.decode_attention_kv8_parts_plain(*args, parts)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max() <= 1e-3 * ref.abs().max()
+    assert torch.equal(got, again)
+    if S == 1:
+        q, _, _, vq, vs = args
+        want = vs.float()[..., None] * vq.float()
+        assert torch.equal(got, want.expand_as(got))
 
 
 def test_kv8_kernel_rejects_what_it_cannot_take(dev):
     from lightcompress_tpu_torch.ops import attention as T
 
     B, H, G, D = 1, 1, 4, 128
-    S = 13369  # one column past the shared memory of a block at G 4
+    # one column past a CTA's shared memory at G 4 on the widest split
+    S = 81281
     assert T.kv8_smem_bytes(G, S) > T.SMEM_MAX >= T.kv8_smem_bytes(G, S - 1)
     q = torch.zeros((B, H, G, D), dtype=torch.bfloat16, device=dev)
     kq = torch.zeros((B, H, S, D), dtype=torch.int8, device=dev)
