@@ -200,7 +200,7 @@ PAD = 64 << 20  # > the 50 MB L2: written between timed launches
 TOL_ULP = "bf16_ulp"  # bf16 outputs: one bf16 ulp at the largest |y|
 TOL_F32 = 1e-4        # f32 outputs: summation-order noise
 # #7 against its plain version: the same bf16 weights and exact products,
-# summed in f32 in another order
+# summed in f32 inside the tensor cores
 TOL_SMALLM = 1e-5
 KERNEL_INFO = {
     "w4a16_matmul": dict(
@@ -761,6 +761,9 @@ MOE_SHAPES = [("gate", 14336, 4096, False), ("up", 14336, 4096, False),
 MOE_E, MOE_TOP_K = 8, 2
 # #6 on each body at a decode step of 8 and 32 slots and a 256-row prefill
 STACKED_ROWS_B = (8, 32, 256)
+# #7's rows at Qwen3-30B-A3B's gate and up: the 8-slot decode and fewer
+# live slots
+SMALLM_ROWS_B = (1, 4, 8)
 # #6's two bodies timed at each B of the dense route (the crossover)
 STACKED_SCAN_B = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
@@ -848,9 +851,9 @@ def phase_moe_kernels(dev) -> dict:
     rows = []
 
     def row(kname, case, name, N, K, run, plain, library, nbytes, ops,
-            tol=TOL_F32, kind="int8", exact=False, **extra):
+            tol=TOL_F32, kind="int8", exact=False, repeat=False, **extra):
         """``exact``: the kernel must equal its plain version bit for
-        bit."""
+        bit; ``repeat``: a second call must give the same bits."""
         y, ref = run(), plain()
         torch.cuda.synchronize()
         err = float((y - ref).abs().max())
@@ -860,6 +863,11 @@ def phase_moe_kernels(dev) -> dict:
                 and (equal or not exact)):
             raise AssertionError(f"{kname} {case} {name}: max|err| {err} > "
                                  f"{tol} * {scale} or not bit-equal")
+        if repeat:
+            if not torch.equal(y, run()):
+                raise AssertionError(f"{kname} {case} {name}: a second "
+                                     "call gave other bits")
+            extra["repeat_equal"] = True
         b_ms, b_by = bytes_ops_bound(nbytes, ops, kind)
         rows.append(dict(
             kernel=kname, case=case, linear=name, N=N, K=K, **extra,
@@ -933,7 +941,7 @@ def phase_moe_kernels(dev) -> dict:
         lambda: torch.bmm(x, wd.transpose(1, 2)),
         MOE_E * expert_bytes(N, K) + xq.numel() + xs.numel() * 4
         + MOE_E * 8 * N * 4, 2 * MOE_E * 8 * N * K, tol=TOL_SMALLM,
-        kind="bf16", B=8, pair=True)
+        kind="bf16", repeat=True, B=8, pair=True)
     del qps, wds, wd, wa, qp
     torch.cuda.empty_cache()
     qwen3moe_kernel_rows(dev, gen, row)
@@ -1028,7 +1036,8 @@ Q_RAGGED_N = 1000
 
 def qwen3moe_kernel_rows(dev, gen, row) -> None:
     """#7 at Qwen3-30B-A3B's gate and up with the shared x of the 8-slot
-    decode (B = 8, E 128); #6 on each body there at B = 8, 32 (the dense
+    decode and of fewer live slots (B = 1, 4, 8; E 128), the same bits on
+    a second call; #6 on each body there at B = 8, 32 (the dense
     decode of ``engine_qwen3moe``'s 32 slots) and 256; #10 at its down over the 24576 grouped rows of
     1024 tokens routed top-8 over 128 experts by a seeded router, at N
     2048 and at N 1000; #9 at its gate and up over the same grouping, as
@@ -1037,9 +1046,10 @@ def qwen3moe_kernel_rows(dev, gen, row) -> None:
     arch = QWEN3_30B_A3B
     E, top_k = arch.moe.num_experts, arch.moe.top_k
     N, K = Q_GATE_UP
-    x = torch.randn((8, K), generator=gen, device=dev).to(torch.bfloat16)
-    xq, xs = W.quantize_act_per_token(x)
-    xe = x.expand(E, 8, K)
+    acts = {}
+    for B in SMALLM_ROWS_B:
+        x = torch.randn((B, K), generator=gen, device=dev).to(torch.bfloat16)
+        acts[B] = (x, *W.quantize_act_per_token(x))
     gate_up = {}
     for name in ("gate", "up"):
         w3 = (torch.randn((E, N, K), generator=gen, device=dev)
@@ -1049,13 +1059,15 @@ def qwen3moe_kernel_rows(dev, gen, row) -> None:
         assert qp.layout == "stacked_planes"
         wd = QM.dequant_weight_stacked(qp, torch.bfloat16)
         wa = (qp.codes, qp.scales, qp.zeros)
-        row("w4a8_stacked_matmul_smallm", "qwen3_B8", name, N, K,
-            lambda: M.w4a8_stacked_matmul_smallm(xq, xs, *wa),
-            lambda: M.w4a8_stacked_matmul_smallm_plain(xq, xs, *wa),
-            lambda: torch.bmm(xe, wd.transpose(1, 2)),
-            E * expert_bytes(N, K) + xq.numel() + 8 * 4 + E * 8 * N * 4,
-            2 * E * 8 * N * K, tol=TOL_SMALLM, kind="bf16", B=8,
-            pair=False)
+        for B, (x, xq, xs) in acts.items():
+            xe = x.expand(E, B, K)
+            row("w4a8_stacked_matmul_smallm", f"qwen3_B{B}", name, N, K,
+                lambda: M.w4a8_stacked_matmul_smallm(xq, xs, *wa),
+                lambda: M.w4a8_stacked_matmul_smallm_plain(xq, xs, *wa),
+                lambda: torch.bmm(xe, wd.transpose(1, 2)),
+                E * expert_bytes(N, K) + xq.numel() + B * 4 + E * B * N * 4,
+                2 * E * B * N * K, tol=TOL_SMALLM, kind="bf16", repeat=True,
+                B=B, pair=False)
         for B in STACKED_ROWS_B:
             stacked_rows(row, f"qwen3_B{B}", name, qp, wd, B, False, gen,
                          dev)
@@ -1498,9 +1510,10 @@ def dequant_codes(u, s, z):
 def phase_masked_s4_kernels(dev) -> dict:
     """#4 (masked planes, the root bench's f32 pre-divided scales, random
     codes, scales 0.01 and zero points 8) at the bench's fused entries at
-    B 32 (and with bf16 scales at its main entries), and #11 (natural s4 bytes, bf16 scales, random codes, scales and
-    zero points) at a Llama-3-8B block's seven linears at M 8 and 32, each
-    against its plain version (f32 outputs, 1e-4 of max|y|) with times of
+    B 32 (and with bf16 scales at its main entries), and #11 (natural s4
+    bytes, bf16 scales, random codes, scales and zero points) at a
+    Llama-3-8B block's seven linears at M 8 and 32, each against its plain
+    version (#4: f32 outputs, 1e-4 of max|y|; #11 bit for bit) with times of
     the kernel, the plain version, the bound and the library yardstick
     (torch.matmul over the pre-dequantized bf16 weight, on bf16 x or the
     dequantized int8 x), each the same bits on a second call; and #4
@@ -1515,21 +1528,25 @@ def phase_masked_s4_kernels(dev) -> dict:
     rows, vs_planes = [], []
 
     def row(kname, got, ref, run, plain, library, nbytes, ops, kind,
-            **extra):
+            exact=False, **extra):
+        """``exact``: the kernel must equal its plain version bit for
+        bit (#11), else be within TOL_F32 of max|y| (#4)."""
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
             raise AssertionError(f"{kname}: output not finite")
         err = float((got - ref).abs().max())
         scale = float(ref.abs().max())
-        if not err <= TOL_F32 * scale:
+        equal = bool(torch.equal(got, ref))
+        if not (err <= TOL_F32 * scale and (equal or not exact)):
             raise AssertionError(f"{kname} {extra}: max|err| {err} > "
-                                 f"{TOL_F32} * {scale}")
+                                 f"{TOL_F32} * {scale} or not bit-equal")
         if not torch.equal(run(), run()):
             raise AssertionError(f"{kname} {extra}: two calls differ")
         b_ms, b_by = bytes_ops_bound(nbytes, ops, kind)
         rows.append(dict(kernel=kname, max_abs_err=err, max_abs_ref=scale,
-                         err_ulps=err / bf16_ulp(scale),
-                         tol=TOL_F32, kernel_ms=time_ms(run, 20, pad),
+                         err_ulps=err / bf16_ulp(scale), bit_equal=equal,
+                         tol="bit_equal" if exact else TOL_F32,
+                         kernel_ms=time_ms(run, 20, pad),
                          plain_ms=time_ms(plain, 3, pad),
                          library_ms=time_ms(library, 20, pad),
                          bound_ms=b_ms, bound_by=b_by, **extra))
@@ -1595,8 +1612,8 @@ def phase_masked_s4_kernels(dev) -> dict:
             row("w4a8_matmul_s4_bytes", run(), plain(), run, plain,
                 lambda: torch.matmul(xd, wd.t()),
                 N * K // 2 + 2 * N * (K // 128) * 2 + M * K + 4 * M
-                + 4 * M * N, 2 * M * N * K, "int8", entry=name, N=N, K=K,
-                M=M, main=M == S4_NATURAL_M[0])
+                + 4 * M * N, 2 * M * N * K, "int8", exact=True, entry=name,
+                N=N, K=K, M=M, main=M == S4_NATURAL_M[0])
         del u, wb, wd
     return {"phase": "masked_s4_kernels", "rows": rows,
             "masked_vs_planes": vs_planes, "seconds": time.time() - t0}

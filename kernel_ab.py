@@ -76,7 +76,31 @@ configuration (32 layers; busy and wall ms a step) and runs it for its
 tok/s, and times the prefill of ``engine_qwen3moe`` (Qwen3-30B-A3B at full
 width and depth, 32 slots, 8 prompts; three runs of 2 new tokens, the
 first carrying the process's first-call costs) with the tree's chip_smoke
-helpers."""
+helpers.
+
+    cd <tree> && python3 <repo>/kernel_ab.py TAG smallm_s4
+
+times #7 at each B of SMALLM_B over Qwen3-30B-A3B's gate and up (E 128,
+768 x 2048, a shared x) and over Mixtral-8x7B's down in pair mode (E 8,
+4096 x 14336, each expert's own rows), and #11 at each M of S4_M over a
+Llama-3-8B block's seven linears (natural s4 bytes, bf16 scales), random
+codes and scales from the seed.
+
+    cd <tree> && python3 <repo>/kernel_ab.py TAG smallm_engine
+
+profiles four decode steps of ``engine_qwen3moe_smallm`` (Qwen3-30B-A3B
+at full width and depth, 8 slots, ``moe_gather_max=0``, ``moe_smallm=8``:
+every step's gate and up through #7) with the tree's chip_smoke helpers:
+wall and busy ms a step, the idle share, and #7's share of the busy
+time.
+
+    cd <tree> && python3 <repo>/kernel_ab.py TAG s4_parts
+
+times #11's tile (the tree's ``csrc/w4_bytes.cu``) over a Llama-3-8B
+block's seven linears at M 8 and 32 beside copies of it built with one
+part cut each (S4_CUTS: the h = 0 warps' corrections, the group dots, the
+x copies, all three), to show where its time goes; the cut builds give
+wrong outputs and are timed only.  Needs ``nvcc``."""
 
 import dataclasses
 import gc
@@ -114,6 +138,10 @@ P2_M = (1, 8, 32, 64, 128, 256)
 KV8_SHAPES = ((32, 2049), (8, 4097))
 # #10's channels at Qwen3-30B-A3B's down (K 768): its N, and a ragged one
 W8_N = (2048, 1000)
+# #7's rows: a decode step of 1 to 32 slots
+SMALLM_B = (1, 2, 4, 8, 16, 32)
+# #11's rows: a decode step of 1 to 32 slots, up to the JAX gate's 256
+S4_M = (1, 8, 16, 32, 64, 128, 256)
 
 
 def time_ms(fn, reps: int, pad: torch.Tensor) -> float:
@@ -457,6 +485,155 @@ def kv8_w8(tag: str) -> None:
     print(json.dumps(out), flush=True)
 
 
+def smallm_s4(tag: str) -> None:
+    """#7 and #11 alone (``smallm_s4`` in the docstring)."""
+    dev = torch.device("cuda")
+    pad = torch.empty(C.PAD, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = {"tag": tag, "gpu": C.smi()}
+    for model, E, linears in (
+            ("qwen3", 128, [("gate", 768, 2048, False),
+                            ("up", 768, 2048, False)]),
+            ("mixtral_down", 8, [("down", 4096, 14336, True)])):
+        ms = {B: 0.0 for B in SMALLM_B}
+        for name, N, K, pair in linears:
+            w = random_stacked(gen, dev, E, N, K)
+            for B in SMALLM_B:
+                x = torch.randn((E, B, K) if pair else (B, K), generator=gen,
+                                device=dev)
+                xq, xs = W.quantize_act_per_token(x.reshape(-1, K))
+                if pair:
+                    xq, xs = xq.reshape(E, B, K), xs.reshape(E, B, 1)
+                ms[B] += time_ms(lambda: M.w4a8_stacked_matmul_smallm(
+                    xq, xs, *w, pair=pair), 20, pad)
+            del w
+        out.update({f"p7_{model}_B{B}": t for B, t in ms.items()})
+    tot = {m: 0.0 for m in S4_M}
+    for name, N, K in C.SHAPES:
+        u = torch.randint(0, 16, (N, K), generator=gen, device=dev,
+                          dtype=torch.int32)
+        wb = W.pack_s4_bytes(u)
+        s = (torch.rand((N, K // 128), generator=gen, device=dev) * 0.02
+             + 0.005).to(torch.bfloat16)
+        zs = (torch.rand((N, K // 128), generator=gen, device=dev) * 0.1
+              - 0.05).to(torch.bfloat16)
+        for m in S4_M:
+            xq, xs = W.quantize_act_per_token(
+                torch.randn((m, K), generator=gen, device=dev))
+            tot[m] += time_ms(lambda: W.w4a8_matmul_s4_bytes(
+                xq, xs, wb, s, zs), 20, pad)
+        del u, wb
+    out.update({f"p11_block_M{m}": t for m, t in tot.items()})
+    print(json.dumps(out), flush=True)
+
+
+# #11's parts, cut in copies of csrc/w4_bytes.cu: (old, new) source edits
+S4_CORR = ("    if (h == 0 && p > 0) corrections(p - 1);",
+           "    if (h == 7 && p > 0) corrections(p - 1);")
+S4_DOTS = ("      s4_group_dots<MI>(d, st + j * kS4WTile, x0 + (2 * j + h) * kXT,"
+           " ct, h,\n                        two);",
+           "      for (int i = 0; i < MI; ++i)\n        for (int e = 0; e < 4;"
+           " ++e) d[i][e] = st[e];")
+S4_X = ("        const bool ok = r < mv && 4 * p + (q >> 3) < G;",
+        "        const bool ok = false;")
+S4_CUTS = {"whole": [], "no_corr": [S4_CORR], "no_dots": [S4_DOTS],
+           "no_x": [S4_X], "copies_only": [S4_CORR, S4_DOTS, S4_X]}
+
+
+def s4_parts(tag: str) -> None:
+    """#11 whole and with parts cut (``s4_parts`` in the docstring)."""
+    import ctypes
+    import os
+    import subprocess
+
+    from lightcompress_tpu_torch.ops import _build
+
+    dev = torch.device("cuda")
+    pad = torch.empty(C.PAD, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = {"tag": tag, "gpu": C.smi()}
+    work = os.path.join("build", "s4_parts")
+    os.makedirs(work, exist_ok=True)
+    src = (_build.CSRC / "w4_bytes.cu").read_text()
+    procs = {}
+    for name, cuts in S4_CUTS.items():
+        text = src
+        for a, b in cuts:
+            assert a in text, (name, a)
+            text = text.replace(a, b)
+        path = os.path.join(work, f"{name}.cu")
+        with open(path, "w") as f:
+            f.write(text)
+        so = os.path.abspath(os.path.join(work, f"lib{name}.so"))
+        procs[name] = (subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+             "-o", so, path], stdout=subprocess.DEVNULL), so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc failed for {name}")
+        lib = ctypes.CDLL(so)
+        lib.lc_w4a8_s4.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [
+            ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.lc_w4a8_s4.restype = ctypes.c_int
+        libs[name] = lib
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tot = {(n, m): 0.0 for n in libs for m in (8, 32)}
+    for lname, N, K in C.SHAPES:
+        u = torch.randint(0, 16, (N, K), generator=gen, device=dev,
+                          dtype=torch.int32)
+        wb = W.pack_s4_bytes(u)
+        s = (torch.rand((N, K // 128), generator=gen, device=dev) * 0.02
+             + 0.005).to(torch.bfloat16)
+        zs = (torch.rand((N, K // 128), generator=gen, device=dev) * 0.1
+              - 0.05).to(torch.bfloat16)
+        for m in (8, 32):
+            xq, xs = W.quantize_act_per_token(
+                torch.randn((m, K), generator=gen, device=dev))
+            y = torch.empty((m, N), device=dev)
+            for name, lib in libs.items():
+                def run():
+                    rc = lib.lc_w4a8_s4(xq.data_ptr(), xs.data_ptr(),
+                                        wb.data_ptr(), s.data_ptr(),
+                                        zs.data_ptr(), 1, y.data_ptr(), m, N,
+                                        K, stream)
+                    if rc:
+                        raise RuntimeError(f"{name}: CUDA error {rc}")
+                run()
+                if name == "whole":
+                    torch.cuda.synchronize()
+                    assert torch.equal(y, W.w4a8_matmul_s4_plain(
+                        xq, xs, wb, s, zs))
+                tot[name, m] += time_ms(run, 20, pad)
+        del u, wb
+    out.update({f"p11_{n}_block_M{m}": t for (n, m), t in tot.items()})
+    print(json.dumps(out), flush=True)
+
+
+def smallm_engine(tag: str) -> None:
+    """``engine_qwen3moe_smallm``'s decode step profiled (``smallm_engine``
+    in the docstring)."""
+    dev = torch.device("cuda")
+    out = {"tag": tag, "gpu": C.smi()}
+    swq, _ = C.phase_setup_moe(dev, C.QWEN3_30B_A3B, "Qwen3-30B-A3B",
+                               C.SEED + 7, "setup_qwen3moe")
+    prof = C.phase_profile(swq, C.make_prompts(8, C.QWEN3_30B_A3B.vocab_size),
+                           dev, build="qwen3moe_smallm", moe_gather_max=0,
+                           moe_smallm=8)
+    p7 = [t for t in prof["top"] if "smallm" in t["name"]]
+    busy = prof["device_busy_ms_per_step"]
+    res = {k: prof[k] for k in ("wall_ms_per_step", "device_busy_ms_per_step",
+                                "idle_share", "kernels_per_step")}
+    res.update(p7_ms_per_step=sum(t["ms_per_step"] for t in p7),
+               p7_calls_per_step=sum(t["calls_per_step"] for t in p7),
+               p7_share=sum(t["ms_per_step"] for t in p7) / busy,
+               top=prof["top"][:6])
+    out["qwen3moe_smallm"] = res
+    print(json.dumps(out), flush=True)
+
+
 def profile_w4a16(tag: str) -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -488,5 +665,11 @@ if __name__ == "__main__":
         planes_engines(tag)
     elif mode == "kv8_w8":
         kv8_w8(tag)
+    elif mode == "smallm_s4":
+        smallm_s4(tag)
+    elif mode == "smallm_engine":
+        smallm_engine(tag)
+    elif mode == "s4_parts":
+        s4_parts(tag)
     else:
         main(tag, mode == "tail")

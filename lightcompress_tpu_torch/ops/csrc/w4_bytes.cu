@@ -14,15 +14,15 @@
 // with the integer group dot finished before the scale is applied
 // (symmetric weights have zs = 0 exactly).
 //
-// Requirements checked by the Python wrappers: K % 512 == 0, N % 32 == 0,
-// contiguous tensors on the current device.
+// Requirements checked by the Python wrappers: K % 512 == 0 (#11: K % 128
+// == 0), N % 32 == 0, contiguous tensors on the current device.
 //
 // Bound on an H100 SXM (3.35 TB/s HBM, 1979 TOP/s int8): at M <= 256 the
 // bytes, N*K/2 + 4*N*G + M*K*b_x + M*N*b_out over 3.35 TB/s, so the packed
-// weight read is the bound.  The decode blocks (#11, #12 at small M)
-// compute with __dp4a on the CUDA cores, a lane per channel; #12 above
-// the decode regime runs the int8 tensor-core tile of w4_mma.cuh, #13 the
-// int8 mma.sync decode tile below it.
+// weight read is the bound.  #12's decode block (small M) computes with
+// __dp4a on the CUDA cores, a lane per channel; #12 above the decode regime
+// runs the int8 tensor-core tile of w4_mma.cuh, #13 and #11 the int8
+// mma.sync decode tiles below it.
 
 #include "w4_mma.cuh"
 
@@ -654,7 +654,7 @@ int launch_bytes_fused(const XT* x, const void* wb, const void* s,
 }
 
 // ---------------------------------------------------------------------------
-// #11 W4A8 on natural-order s4 bytes.  Replaces
+// #11 W4A8 on natural-order s4 bytes, on the int8 tensor cores.  Replaces
 // lightcompress_tpu/ops/pallas_matmul.py w4a8_matmul_s4 (_w4a8_kernel_s4)
 // behind its byte-view entry point w4a8_matmul_s4_bytes.
 //
@@ -664,109 +664,288 @@ int launch_bytes_fused(const XT* x, const void* wb, const void* s,
 // In the TPU kernel's order:
 //   a_r = sum over the groups g with g % 4 == r, in turn, of
 //         f32(x_g . c'_g) * s_g   (exact int32 group dots)
-//   y = ((a0 + a1) + (a2 + a3) - sum_g xsum_g * zs'_g) * x_scale
-// each product and sum rounded once.  Bound: the packed weight read
-// (memory).  Design: #12's decode block (a lane per channel, MT = 8 rows of
-// int8 x in shared memory), with warp w taking the groups g = w, w + 4, ...
-// in order, so that its accumulator is the TPU kernel's a_w; a 4-byte word
-// holds codes 8q .. 8q+7, sign-extended to four even and four odd ones and
-// put back in K order with two byte permutes for two __dp4a.
+//   y = ((a0 + a1) + (a2 + a3) - corr) * x_scale, corr = the sum of
+//       xsum_g * zs'_g in ascending g
+// each product and sum rounded once (__fmul_rn, __fadd_rn: with f32 zs'
+// the product xsum * zs' is not exact), bit for bit the plain version
+// w4a8_matmul_s4_plain.  Bound: the packed weight read (memory).  The
+// design: #13's int8 decode tile without its prologue (x arrives as codes
+// with their scales), in stages of four groups:
+//   * A block takes 32 channels (4 n8 tiles) and MT = 16 or 32 rows (one or
+//     two m16 tiles of mma.sync m16n8k32 s8 x s8 -> s32; more rows are a
+//     grid dimension, innermost, so that a channel tile's row tiles share
+//     its words in L2).  Stage p holds groups 4p .. 4p + 3 (bytes 256p ..
+//     +256 of a row); its 8 warps are 4 n8 tiles x 2: warp (ct, h) takes
+//     groups 4p + h and 4p + 2 + h, so it holds the whole accumulators
+//     a_h and a_{h+2} of its outputs; the h = 1 warps hand theirs over
+//     through shared memory at the end.  Groups past G (K % 512 != 0) are
+//     zeros, not multiplied.
+//   * A stage's 8 KB of words (two [32][128] tiles) and its rows' 512
+//     columns of x (four [MT][128] tiles) stream through a ring of
+//     s4_slots(MT) cp.async slots in the 128-byte swizzle, one barrier a
+//     stage; the block's rows of s and zs' (32 x G each, contiguous) land
+//     with stage 0.  Every thread sums 16-byte chunks of the stage's x
+//     (the row sums, shared through shared memory), and the h = 0 warps
+//     add the stage's corrections in order one stage later.  (Stages of
+//     two groups, the row sums taken by the h = 0 warps alone, measured
+//     slower: PERF.md.)
+//   * The B operand straight from the words (one ldmatrix x4 a group): a
+//     32-bit word is k 8q .. 8q + 7 of one channel, its low nibbles
+//     (sext_lo) the even k and its high ones (sext_hi) the odd k, so one
+//     word gives both B registers of a k32 step.  The A registers take the
+//     same order: 8 bytes of x at k 32 kk + 8t, evens then odds (two byte
+//     permutes).  The group dot is an exact integer, so any k order gives
+//     the TPU's bits.
 // ---------------------------------------------------------------------------
-template <int MT, typename ST>
-__global__ void __launch_bounds__(kDecodeThreads)
-w4a8_s4_kernel(const int8_t* __restrict__ xq,
-               const float* __restrict__ xscale,
-               const int8_t* __restrict__ wb, const ST* __restrict__ s,
-               const ST* __restrict__ zs, float* __restrict__ out, int M,
-               int N, int K) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int G = K / kGroup, kh = K / 2;
-  int8_t* xsh = reinterpret_cast<int8_t*>(smem);
-  float* xsum = reinterpret_cast<float*>(smem + (size_t)MT * K);
-  float* red = xsum + MT * G;  // [warp][2][MT][32]: a_warp, corr
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int m0 = blockIdx.y * MT;
-  const int n = blockIdx.x * 32 + lane;
+constexpr int kS4Threads = 256;  // 8 warps
+constexpr int kS4Chan = 32;      // channels a block
+constexpr int kS4WTile = kS4Chan * kTileRow;  // a [32][128] word tile
+constexpr int kS4Words = 2 * kS4WTile;        // 8 KB of words a stage
+// ring slots: two blocks an SM with K 14336's f32 scales
+__host__ __device__ constexpr int s4_slots(int mt) { return mt == 16 ? 5 : 3; }
 
-  stage_rows<MT>(xq, M, K, m0, xsh);
-  __syncthreads();
-  group_sums<MT>(xsh, K, xsum);
-  __syncthreads();
-
-  float acc[MT], corr[MT];
+// The exact dots of one group (warp (ct, h)): its 64 bytes of words at
+// chunks 4h .. 4h + 3 of word tile ws ([32][128], swizzled), x tile xt
+// ([MT][128], swizzled), the warp's n8 tile ct and its m16 tiles (the
+// second where two).
+template <int MI>
+__device__ __forceinline__ void s4_group_dots(int (&d)[MI][4],
+                                              const int8_t* ws,
+                                              const int8_t* xt, int ct,
+                                              int h, bool two) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int m = 0; m < MT; ++m) acc[m] = corr[m] = 0.f;
-  const int8_t* wrow = wb + (size_t)n * kh;
-  for (int g = warp; g < G; g += kDecodeWarps) {
-    int dot[MT];
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int m = 0; m < MT; ++m) dot[m] = 0;
-    const int4* wq = reinterpret_cast<const int4*>(wrow + g * (kGroup / 2));
+    for (int e = 0; e < 4; ++e) d[i][e] = 0;
+  // ldmatrix x4: lane L names channel 8 ct + (L & 7) of chunk 4h + (L >>
+  // 3): r4[kk] is word t of k step kk's 16 bytes of channel 8 ct + g
+  int r4[4];
+  ldsm_x4(r4, ws + swz(8 * ct + (lane & 7), 4 * h + (lane >> 3)));
 #pragma unroll
-    for (int c = 0; c < kGroup / 32; ++c) {
-      const int4 w = __ldg(wq + c);
-      const uint32_t ws[4] = {(uint32_t)w.x, (uint32_t)w.y, (uint32_t)w.z,
-                              (uint32_t)w.w};
+  for (int kk = 0; kk < 4; ++kk) {
+    const int b[2] = {sext_lo((uint32_t)r4[kk]), sext_hi((uint32_t)r4[kk])};
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const uint32_t lo = (uint32_t)sext_lo(ws[q]);
-        const uint32_t hi = (uint32_t)sext_hi(ws[q]);
-        const int a = (int)__byte_perm(lo, hi, 0x5140);  // codes 0 1 2 3
-        const int b = (int)__byte_perm(lo, hi, 0x7362);  // codes 4 5 6 7
-        const int k = g * kGroup + 32 * c + 8 * q;
+    for (int i = 0; i < MI; ++i) {
+      if (i == 1 && !two) break;
+      // rows 16 i + g (a0, a2) and + 8 (a1, a3): k 32 kk + 8t .. + 7
+      const int off = 8 * (t & 1);
+      const uint2 lo = *reinterpret_cast<const uint2*>(
+          xt + swz(16 * i + g, 2 * kk + (t >> 1)) + off);
+      const uint2 hi = *reinterpret_cast<const uint2*>(
+          xt + swz(16 * i + g + 8, 2 * kk + (t >> 1)) + off);
+      const int a[4] = {(int)__byte_perm(lo.x, lo.y, 0x6420),
+                        (int)__byte_perm(hi.x, hi.y, 0x6420),
+                        (int)__byte_perm(lo.x, lo.y, 0x7531),
+                        (int)__byte_perm(hi.x, hi.y, 0x7531)};
+      int dk[4] = {0, 0, 0, 0};  // a k step's own chain
+      mma_s8(dk, a, b);
 #pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const int8_t* xr = xsh + (size_t)m * K + k;
-          dot[m] = __dp4a(a, *reinterpret_cast<const int*>(xr), dot[m]);
-          dot[m] = __dp4a(b, *reinterpret_cast<const int*>(xr + 4), dot[m]);
-        }
-      }
-    }
-    const float sf = to_f32(s[(size_t)n * G + g]);
-    const float zf = to_f32(zs[(size_t)n * G + g]);
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      acc[m] = __fadd_rn(acc[m], __fmul_rn((float)dot[m], sf));
-      corr[m] = __fadd_rn(corr[m], __fmul_rn(xsum[m * G + g], zf));
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    red[((warp * 2) * MT + m) * 32 + lane] = acc[m];
-    red[((warp * 2 + 1) * MT + m) * 32 + lane] = corr[m];
-  }
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      float a[kDecodeWarps], c = 0.f;
-#pragma unroll
-      for (int w = 0; w < kDecodeWarps; ++w) {
-        a[w] = red[((w * 2) * MT + m) * 32 + lane];
-        c = __fadd_rn(c, red[((w * 2 + 1) * MT + m) * 32 + lane]);
-      }
-      const float y = __fsub_rn(
-          __fadd_rn(__fadd_rn(a[0], a[1]), __fadd_rn(a[2], a[3])), c);
-      if (m0 + m < M)
-        out[(size_t)(m0 + m) * N + n] = __fmul_rn(y, xscale[m0 + m]);
+      for (int e = 0; e < 4; ++e) d[i][e] += dk[e];
     }
   }
 }
 
+template <int MT, typename ST>
+__global__ void __launch_bounds__(kS4Threads, 2)
+w4a8_s4_tile_kernel(const int8_t* __restrict__ xq,
+                    const float* __restrict__ xscale,
+                    const int8_t* __restrict__ wb, const ST* __restrict__ s,
+                    const ST* __restrict__ zs, float* __restrict__ out, int M,
+                    int N, int K) {
+  constexpr int MI = MT / 16;
+  constexpr int S = s4_slots(MT);
+  constexpr int kXT = MT * kTileRow;         // an x tile [MT][128]
+  constexpr int kSlot = kS4Words + 4 * kXT;  // words, x of 4p .. 4p + 3
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
+  int8_t* ring = reinterpret_cast<int8_t*>(smem);
+  const int G = K / kGroup, kh = K / 2, P = (G + 3) / 4;  // stages
+  ST* s_sh = reinterpret_cast<ST*>(smem + (size_t)S * kSlot);  // [32][G]
+  ST* zs_sh = s_sh + kS4Chan * G;
+  int* xsum_sh = reinterpret_cast<int*>(zs_sh + kS4Chan * G);  // [2][4][MT]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int ct = warp & 3, h = warp >> 2;
+  const int m0 = blockIdx.x * MT, n0 = blockIdx.y * kS4Chan;
+  const int mv = min(MT, M - m0);
+  const bool two = MI == 2 && mv > 16;  // the second m16 tile holds rows
+
+  // the block's rows of s and zs' (32 G values each, contiguous), in
+  // 16-byte copies that land with stage 0
+  {
+    const int nb = kS4Chan * G * (int)sizeof(ST) / 16;
+    for (int i = tid; i < 2 * nb; i += kS4Threads) {
+      const bool z = i >= nb;
+      const int k = z ? i - nb : i;
+      cp_async16(reinterpret_cast<unsigned char*>(z ? zs_sh : s_sh) + 16 * k,
+                 reinterpret_cast<const unsigned char*>(
+                     (z ? zs : s) + (size_t)n0 * G) + 16 * k,
+                 true);
+    }
+  }
+  // stage p into slot p % S: bytes 256p .. +256 of the block's 32 rows
+  // (chunk q of row c in word tile q >> 3 at swz(c, q & 7)) and columns
+  // 512p .. +512 of its rows (chunk q of row r in x tile q >> 3 at swz(r,
+  // q & 7)); past the row's bytes, G's groups or M's rows, zeros.  Each
+  // call one cp.async group, empty past P
+  auto stage = [&](int p) {
+    if (p < P) {
+      int8_t* dst = ring + (p % S) * kSlot;
+      for (int i = tid; i < kS4Chan * 16; i += kS4Threads) {
+        const int c = i >> 4, q = i & 15, b = 2 * kTileRow * p + 16 * q;
+        const bool ok = b < kh;
+        cp_async16(dst + (q >> 3) * kS4WTile + swz(c, q & 7),
+                   ok ? wb + (size_t)(n0 + c) * kh + b : wb, ok);
+      }
+      for (int i = tid; i < MT * 32; i += kS4Threads) {
+        const int r = i >> 5, q = i & 31;
+        const bool ok = r < mv && 4 * p + (q >> 3) < G;
+        cp_async16(dst + kS4Words + (q >> 3) * kXT + swz(r, q & 7),
+                   ok ? xq + (size_t)(m0 + r) * K + 4 * kGroup * p + 16 * q
+                      : xq,
+                   ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // a thread's outputs, m16 tile i, element e: row 16 i + g + 8 (e >> 1),
+  // channel c0 + (e & 1); acc[j]: the groups 4p + 2j + h, a_{h + 2j}
+  const int c0 = 8 * ct + 2 * t;
+  float acc[2][MI][4], corr[MI][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[0][i][e] = acc[1][i][e] = corr[i][e] = 0.f;
+
+  // the corrections of stage q's groups in order, from their row sums
+  // (xsum_sh ring entry q & 1)
+  auto corrections = [&](int q) {
+    const int* xs4 = xsum_sh + (q & 1) * 4 * MT;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gq = 4 * q + j;
+      if (gq >= G) break;
+      const float zv[2] = {to_f32(zs_sh[c0 * G + gq]),
+                           to_f32(zs_sh[(c0 + 1) * G + gq])};
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          corr[i][e] = mac_rn(corr[i][e],
+                              (float)xs4[j * MT + 16 * i + g + 8 * (e >> 1)],
+                              zv[e & 1]);
+    }
+  };
+
+  for (int p = 0; p < S - 1; ++p) stage(p);
+  for (int p = 0; p < P; ++p) {
+    cp_async_wait<S - 2>();  // stage p landed (all but the newest S - 2)
+    __syncthreads();         // for every thread; every warp is past p - 1
+    stage(p + S - 1);        // into the slot of stage p - 1
+    const int8_t* st = ring + (p % S) * kSlot;
+    const int8_t* x0 = st + kS4Words;
+    // the stage's row sums: chunk i & 7 of row i >> 3 (x tile row / MT,
+    // row % MT), the 8 chunks of a row in 8 neighbouring lanes
+#pragma unroll
+    for (int i0 = 0; i0 < 4 * MT * 8; i0 += kS4Threads) {
+      const int i = i0 + tid, row = i >> 3;
+      const int4 v = *reinterpret_cast<const int4*>(
+          x0 + (row / MT) * kXT + swz(row % MT, i & 7));
+      int a = __dp4a(v.x, 0x01010101, 0);
+      a = __dp4a(v.y, 0x01010101, a);
+      a = __dp4a(v.z, 0x01010101, a);
+      a = __dp4a(v.w, 0x01010101, a);
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+      if ((i & 7) == 0) xsum_sh[(p & 1) * 4 * MT + row] = a;
+    }
+    if (h == 0 && p > 0) corrections(p - 1);  // written before the barrier
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int gq = 4 * p + 2 * j + h;
+      if (gq >= G) break;  // uniform over the warp
+      int d[MI][4];
+      s4_group_dots<MI>(d, st + j * kS4WTile, x0 + (2 * j + h) * kXT, ct, h,
+                        two);
+      const float sv[2] = {to_f32(s_sh[c0 * G + gq]),
+                           to_f32(s_sh[(c0 + 1) * G + gq])};
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[j][i][e] = mac_rn(acc[j][i][e], exact_f32(d[i][e]), sv[e & 1]);
+    }
+  }
+
+  // the last stage's row sums for the h = 0 warps; the h = 1 warps hand
+  // a1, a3 to them (the ring is free: every copy landed and was read)
+  __syncthreads();
+  if (h == 0) corrections(P - 1);
+  float* red = reinterpret_cast<float*>(ring) + (ct * 32 + lane) * 8 * MI;
+  if (h == 1) {
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        red[i * 4 + e] = acc[0][i][e];
+        red[4 * MI + i * 4 + e] = acc[1][i][e];
+      }
+  }
+  __syncthreads();
+  if (h == 0) {
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = 16 * i + g + 8 * hr;
+        if (r >= mv) continue;
+        const float xs = xscale[m0 + r];
+        float y[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 2 * hr + c;
+          y[c] = __fmul_rn(
+              __fsub_rn(__fadd_rn(__fadd_rn(acc[0][i][e], red[i * 4 + e]),
+                                  __fadd_rn(acc[1][i][e],
+                                            red[4 * MI + i * 4 + e])),
+                        corr[i][e]),
+              xs);
+        }
+        store2(out + (size_t)(m0 + r) * N + n0 + c0, y[0], y[1]);
+      }
+  }
+}
+
+template <int MT, typename ST>
+int launch_s4_mt(const void* xq, const void* xscale, const void* wb,
+                 const void* s, const void* zs, void* out, int M, int N,
+                 int K, void* stream) {
+  const size_t smem = 128 +
+                      (size_t)s4_slots(MT) * (kS4Words + 4 * MT * kTileRow) +
+                      (size_t)2 * kS4Chan * (K / kGroup) * sizeof(ST) +
+                      (size_t)2 * 4 * MT * 4;
+  auto kern = w4a8_s4_tile_kernel<MT, ST>;
+  cudaError_t e = prepare(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((M + MT - 1) / MT, N / kS4Chan);
+  kern<<<grid, kS4Threads, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
+      (const int8_t*)xq, (const float*)xscale, (const int8_t*)wb,
+      (const ST*)s, (const ST*)zs, (float*)out, M, N, K);
+  return (int)cudaGetLastError();
+}
+
+// one m16 tile up to 16 rows, two (32-row tiles) above
 template <typename ST>
 int launch_s4(const void* xq, const void* xscale, const void* wb,
               const void* s, const void* zs, void* out, int M, int N, int K,
               void* stream) {
-  const size_t smem = (size_t)8 * K + (size_t)8 * (K / kGroup) * 4 +
-                      (size_t)kDecodeWarps * 2 * 8 * 32 * 4;
-  cudaError_t e = prepare(w4a8_s4_kernel<8, ST>, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(N / 32, (M + 7) / 8);
-  w4a8_s4_kernel<8, ST><<<grid, kDecodeThreads, smem,
-                          reinterpret_cast<cudaStream_t>(stream)>>>(
-      (const int8_t*)xq, (const float*)xscale, (const int8_t*)wb,
-      (const ST*)s, (const ST*)zs, (float*)out, M, N, K);
-  return (int)cudaGetLastError();
+  if (M < 1 || K % kGroup || N % kS4Chan) return (int)cudaErrorInvalidValue;
+  if (M <= 16)
+    return launch_s4_mt<16, ST>(xq, xscale, wb, s, zs, out, M, N, K, stream);
+  return launch_s4_mt<32, ST>(xq, xscale, wb, s, zs, out, M, N, K, stream);
 }
 
 int launch_bytes(const void* xq, const void* xscale, const void* wb,
@@ -832,7 +1011,8 @@ int lc_w4a8_bytes_fused(const void* x, int x_f32, const void* wb,
 }
 
 // #11: xq (M, K) int8, xscale (M,) f32, wb (N, K/2) natural s4 bytes,
-// s, zs (N, G) f32 (s_bf16 = 0) or bf16 (1) -> out (M, N) f32.
+// s, zs (N, G) f32 (s_bf16 = 0) or bf16 (1) -> out (M, N) f32; K % 128
+// == 0, N % 32 == 0, M >= 1.
 int lc_w4a8_s4(const void* xq, const void* xscale, const void* wb,
                const void* s, const void* zs, int s_bf16, void* out, int M,
                int N, int K, void* stream) {

@@ -27,7 +27,7 @@
 // small-M kernel's order instead: per group-block gi one f32 dot of x (int8,
 // exact as bf16) with the bf16-rounded weights u*s, added to one
 // accumulator; the zero correction and xscale after the loop.  Its dots sum
-// in a thread's own order, so it matches its plain version to f32
+// inside the bf16 tensor cores, so it matches its plain version to f32
 // rounding, not bit for bit.
 //
 // Bounds on an H100 SXM (3.35 TB/s HBM, 1979 TOP/s int8 dense peak):
@@ -35,12 +35,14 @@
 //      once, bytes = E*(N*K/2 + 4*N*G) + x + out;
 //   #8 gathered: the packed weights of the distinct experts selected;
 //   #9 grouped: at a prefill's Mp rows the 2*rows*N*K int8 operations.
-// #6 below STACKED_TILE_MIN_B rows (ops/moe_matmul.py), #7 and #8 use no
-// tensor cores (__dp4a on the CUDA cores); #9, and #6 from
+// #6 below STACKED_TILE_MIN_B rows (ops/moe_matmul.py) and #8 use no
+// tensor cores (__dp4a on the CUDA cores); #7 runs on the bf16 tensor
+// cores (mma.sync) in #1's tile (w4_bf16_tile.cuh); #9, and #6 from
 // STACKED_TILE_MIN_B rows on, run on the int8 tensor cores (wgmma) over
 // TMA-fed stages, in the planes tile they share with #3
 // (w4_planes_wgmma.cuh).
 
+#include "w4_bf16_tile.cuh"
 #include "w4_planes_wgmma.cuh"
 
 namespace {
@@ -190,118 +192,238 @@ w4a8_stacked_kernel(const int8_t* __restrict__ x,
 // #7  Small-M stacked-expert W4A8 matmul.  Replaces lightcompress_tpu/ops/
 // pallas_matmul.py w4a8_stacked_matmul_smallm (_w4a8_kernel_stacked_bf16).
 //
-// #6's grid, rows and pair mode (8-row chunks of B, 128 channels, one
-// expert a block; thread t owns channel n).  Per gi the block stages the
-// MT rows' eight 128-value groups of that gi (plane j, natural K offset
-// j*K/8 + gi*128) as f32 in shared memory (MT*4 KB), then every thread
-// walks its 128 words of codes: nibble j of word c is weight u of group
-// j*gpp + gi, turned into bf16(u * s_j) (the product of two bf16 values is
-// exact in f32; __float2bfloat16_rn rounds it as the TPU's bf16 multiply
-// does) and multiplied by each row's x in f32 (exact products).  The dot of
-// the gi is added to the row's accumulator; the zero correction sums
-// xsum*zs in (gi, j) order; y = (acc - corr) * xscale.  Design against
-// the bound (every expert's packed weight read once, as #6): the same
-// weight walk as #6, with the scale fold and the bf16 rounding in place of
-// __dp4a; the x reads are shared-memory broadcasts.
+// #6's inputs and pair mode, the TPU small-M kernel's function: per expert
+// and group block gi, the dot of x's 8 groups j*gpp + gi (int8, exact in
+// bf16) with the weights bf16(u * s_j), summed in f32 and added to one
+// accumulator; the zero correction sums xsum*zs in (gi, j) order; y = (acc
+// - corr) * xscale.  Bound on an H100 SXM: every expert's packed weight,
+// read once (E*(N*K/2 + 4*N*G) bytes).  The design: #1's bf16 tensor-core
+// tile (w4a16_tile.cu) with an expert grid dimension:
+//   * mma.sync m16n8k16 bf16, 16 channels as A (a warp's m16 tile, 4 warps,
+//     64 channels a block) and 8 tokens as B (NT n8 tiles: 8, 16 or 32
+//     tokens a block; more rows are a grid dimension of 32-row chunks).
+//     The A registers come from the planes words in registers (byte_pair,
+//     code_pair), each bf16x2 then multiplied by its channel's {s_j, s_j}
+//     in one rounded bf16x2 product: bf16(u * s_j), the TPU's rounding.
+//   * Per gi the block copies its 64 rows' word block (32 KB) by cp.async
+//     in #1's swizzle, and meanwhile loads its rows' int8 x of the gi's 8
+//     groups (x[e] in pair mode), turns it into bf16 exactly and stores it
+//     as #1's x slab, with the groups' integer sums (__dp4a, then a
+//     butterfly over the 8 lanes of a group row).  One slot a block (48
+//     KB at 8 tokens): four blocks an SM, the copies of one under the
+//     products of another.
+//   * The tensor core sums a gi's 1024 products in four chains (planes j
+//     mod 4 of both bytes halves), added as (d0 + d1) + (d2 + d3) and then
+//     once into the accumulator; the dot's order inside the tensor core is
+//     not IEEE-sequential, so the gate is 1e-5 of max|y| against the plain
+//     version (expert_rows_smallm_plain).
+// Grid (ceil(B / 8 NT), N / 64, E): Qwen3-30B-A3B's gate or up (E 128, N
+// 768) is 1536 blocks, Mixtral-8x7B's down in pair mode (E 8, N 4096) 512.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
+constexpr int kSmallmWarps = 4;
+constexpr int kSmallmThreads = kSmallmWarps * 32;
+constexpr int kSmallmChan = kSmallmWarps * 16;         // 64 channels a block
+constexpr int kSmallmWords = kSmallmChan * kWordRow;   // 32 KB
 
-template <int MT>
-__global__ void __launch_bounds__(kMoeThreads)
-w4a8_stacked_smallm_kernel(const int8_t* __restrict__ x,
-                           const float* __restrict__ xscale,
-                           const int32_t* __restrict__ wp,
-                           const __nv_bfloat16* __restrict__ s,
-                           const __nv_bfloat16* __restrict__ zs,
-                           float* __restrict__ out, int pair, int B, int N,
-                           int K) {
-  __shared__ __align__(16) float xf[MT * 8 * kGroup];
-  __shared__ float xsc[MT * 8];
-  const int e = blockIdx.z, m0 = blockIdx.y * MT, tid = threadIdx.x;
+template <int NT>
+__global__ void __launch_bounds__(kSmallmThreads, NT == 1 ? 4 : 2)
+w4a8_stacked_smallm_tile_kernel(const int8_t* __restrict__ x,
+                                const float* __restrict__ xscale,
+                                const int32_t* __restrict__ wp,
+                                const __nv_bfloat16* __restrict__ s,
+                                const __nv_bfloat16* __restrict__ zs,
+                                float* __restrict__ out, int pair, int B,
+                                int N, int K) {
+  constexpr int TB = 8 * NT;          // tokens a block
+  constexpr int kXRow = kGroup * 2;   // bytes of a token's bf16 plane row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
+  unsigned char* xs = smem + kSmallmWords;  // the x slab [8][TB][256 B]
+  float* xsum_sh = reinterpret_cast<float*>(xs + 8 * TB * kXRow);
   const int kp = K / 8, G = K / kGroup, gpp = kp / kGroup;
-  const int n = blockIdx.x * kMoeThreads + tid;
-  const int nv = min(MT, B - m0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.x * TB, nv = min(TB, B - m0);
+  const int n0 = blockIdx.y * kSmallmChan, e = blockIdx.z;
   const size_t xrow = pair ? (size_t)e * B + m0 : (size_t)m0;
   const int8_t* x0 = x + xrow * K;
-  const size_t row = (size_t)e * N + n;
-  const int32_t* wrow = wp + row * kp;
-  const __nv_bfloat16* s_n = s + row * G;
-  const __nv_bfloat16* zs_n = zs + row * G;
+  const int32_t* wblk = wp + ((size_t)e * N + n0) * kp;
+  // the lane's channels n0 + 16 warp + g and + 8 (N % 128 == 0)
+  const size_t srow0 = ((size_t)e * N + n0 + 16 * warp + g) * G;
+  const size_t srow1 = srow0 + (size_t)8 * G;
 
-  float acc[MT], corr[MT];
+  // a thread's outputs, n8 tile nt, element q: channel 16 warp + g + 8 (q
+  // >> 1) of the block, token 8 nt + 2t + (q & 1)
+  float acc[NT][4], corr[NT][4];
 #pragma unroll
-  for (int m = 0; m < MT; ++m) acc[m] = corr[m] = 0.f;
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[nt][q] = corr[nt][q] = 0.f;
+
   for (int gi = 0; gi < gpp; ++gi) {
-    __syncthreads();  // every thread is done with the previous chunk
-    // xf[m][j][c] = x row m at natural K offset j*kp + gi*128 + c; four
-    // values a step; absent rows are zeros
-    for (int i = tid; i < MT * 8 * kGroup / 4; i += kMoeThreads) {
-      const int m = i / (8 * kGroup / 4), j = (i / (kGroup / 4)) & 7,
-                q = i % (kGroup / 4);
-      int v = 0;
-      if (m < nv)
-        v = *reinterpret_cast<const int*>(x0 + (size_t)m * K + j * kp +
-                                          gi * kGroup + 4 * q);
-      reinterpret_cast<float4*>(xf)[i] =
-          make_float4((float)(int8_t)v, (float)(int8_t)(v >> 8),
-                      (float)(int8_t)(v >> 16), (float)(int8_t)(v >> 24));
+    __syncthreads();  // every warp is done with the words and slab of gi - 1
+    // the word block of gi (row c: 512 bytes, chunk q at q ^ 4 (c & 1))
+    for (int i = tid; i < kSmallmChan * 32; i += kSmallmThreads) {
+      const int c = i >> 5, q = i & 31;
+      cp_async16(smem + c * kWordRow + ((q ^ ((c & 1) << 2)) << 4),
+                 wblk + (size_t)c * kp + gi * kGroup + 4 * q, true);
     }
-    __syncthreads();
-    if (tid < MT * 8) {
-      float a = 0.f;  // integer sums below 2^24: exact in any order
-      for (int c = 0; c < kGroup; ++c) a += xf[tid * kGroup + c];
-      xsc[tid] = a;
+    cp_async_commit();
+    // the gi's scales (bf16x2 {s, s}) and zero corrections of the lane's
+    // two channels
+    uint32_t sv[8][2];
+    float zv[8][2];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const size_t o = (size_t)j * gpp + gi;
+      const uint32_t a = __bfloat16_as_ushort(s[srow0 + o]);
+      const uint32_t b = __bfloat16_as_ushort(s[srow1 + o]);
+      sv[j][0] = a | (a << 16);
+      sv[j][1] = b | (b << 16);
+      zv[j][0] = __bfloat162float(zs[srow0 + o]);
+      zv[j][1] = __bfloat162float(zs[srow1 + o]);
     }
-    __syncthreads();
+    // the x slab of gi (plane j, token r: 256 bytes, chunk c at c ^ (r &
+    // 7)) from 16-byte chunks of int8 x; item i: row i >> 3 = j TB + r, 16
+    // values 16 (i & 7) .. of the row's group; the 8 items of a row are 8
+    // neighbouring lanes, which sum the group.  Rows past B are zeros
+#pragma unroll 1
+    for (int i0 = 0; i0 < 64 * TB; i0 += 4 * kSmallmThreads) {
+      int4 v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * kSmallmThreads + tid, row = i >> 3;
+        const int j = row / TB, r = row % TB;
+        v[u] = r < nv ? __ldg(reinterpret_cast<const int4*>(
+                            x0 + (size_t)r * K + j * kp + gi * kGroup +
+                            16 * (i & 7)))
+                      : make_int4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * kSmallmThreads + tid, row = i >> 3;
+        const int r = row % TB, c = 2 * (i & 7);
+        const int w[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+        uint32_t b[8];
+        int sum = 0;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          b[2 * q] = i8_pair_bf16((int8_t)w[q], (int8_t)(w[q] >> 8));
+          b[2 * q + 1] =
+              i8_pair_bf16((int8_t)(w[q] >> 16), (int8_t)(w[q] >> 24));
+          sum = __dp4a(w[q], 0x01010101, sum);
+        }
+        unsigned char* dst = xs + row * kXRow;
+        *reinterpret_cast<uint4*>(dst + ((c ^ (r & 7)) << 4)) =
+            make_uint4(b[0], b[1], b[2], b[3]);
+        *reinterpret_cast<uint4*>(dst + (((c + 1) ^ (r & 7)) << 4)) =
+            make_uint4(b[4], b[5], b[6], b[7]);
+#pragma unroll
+        for (int o = 1; o < 8; o <<= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        if ((i & 7) == 0) xsum_sh[row] = (float)sum;
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the words and the slab of gi, for every thread
 
-    float sj[8];
+    // the zero correction of gi, plane by plane
 #pragma unroll
-    for (int j = 0; j < 8; ++j) sj[j] = __bfloat162float(s_n[j * gpp + gi]);
-    float part[MT];
+    for (int j = 0; j < 8; ++j) {
+      const float* xq = xsum_sh + j * TB + 2 * t;
 #pragma unroll
-    for (int m = 0; m < MT; ++m) part[m] = 0.f;
-    const int4* wg = reinterpret_cast<const int4*>(wrow + gi * kGroup);
-#pragma unroll 2
-    for (int c = 0; c < kGroup / 4; ++c) {
-      const int4 w4 = __ldg(wg + c);
-      const uint32_t ws[4] = {(uint32_t)w4.x, (uint32_t)w4.y, (uint32_t)w4.z,
-                              (uint32_t)w4.w};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float wv[4];
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
         for (int q = 0; q < 4; ++q)
-          wv[q] = bf16_round(__fmul_rn((float)((ws[q] >> (4 * j)) & 0xFu),
-                                       sj[j]));
+          corr[nt][q] =
+              mac_rn(corr[nt][q], xq[8 * nt + (q & 1)], zv[j][q >> 1]);
+    }
+
+    const unsigned char* wrow = smem + (16 * warp + g) * kWordRow;
+    const unsigned char* wrow8 = wrow + 8 * kWordRow;
+    const int sw = (g & 1) << 2;  // rows g and g + 8: one parity
+    float d[4][NT][4];  // chain p: planes j = 4h + p
 #pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const float4 xv =
-              reinterpret_cast<const float4*>(xf + (m * 8 + j) * kGroup)[c];
-          // x * w is exact in f32: each add rounds once
-          part[m] = __fadd_rn(part[m], __fmul_rn(xv.x, wv[0]));
-          part[m] = __fadd_rn(part[m], __fmul_rn(xv.y, wv[1]));
-          part[m] = __fadd_rn(part[m], __fmul_rn(xv.z, wv[2]));
-          part[m] = __fadd_rn(part[m], __fmul_rn(xv.w, wv[3]));
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) d[p][nt][q] = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // planes 4h .. 4h + 3: bytes 2h, 2h + 1
+#pragma unroll 2
+      for (int kk = 0; kk < 8; ++kk) {
+        const int q = 4 * kk + t;  // the chunk of words 16 kk + 4t .. + 3
+        const uint4 wa =
+            *reinterpret_cast<const uint4*>(wrow + ((q ^ sw) << 4));
+        const uint4 wb =
+            *reinterpret_cast<const uint4*>(wrow8 + ((q ^ sw) << 4));
+#pragma unroll
+        for (int bb = 0; bb < 2; ++bb) {
+          const int b = 2 * h + bb;
+          // a0: row g, logical k 2t, 2t + 1 (words 0, 1); a1: row g + 8;
+          // a2: row g, k 2t + 8, 2t + 9 (words 2, 3); a3: row g + 8
+          const uint32_t pr[4] = {byte_pair(wa.x, wa.y, b),
+                                  byte_pair(wb.x, wb.y, b),
+                                  byte_pair(wa.z, wa.w, b),
+                                  byte_pair(wb.z, wb.w, b)};
+#pragma unroll
+          for (int nib = 0; nib < 2; ++nib) {
+            const int p = 2 * bb + nib, j = 4 * h + p;
+            uint32_t a[4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              a[r] = bf16x2_mul(code_pair<false>(pr[r], nib), sv[j][r & 1]);
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+              // token 8 nt + g, plane j, physical k 16 kk + 4t .. + 3
+              const int r = 8 * nt + g;
+              const uint2 bv = *reinterpret_cast<const uint2*>(
+                  xs + (j * TB + r) * kXRow +
+                  (((2 * kk + (t >> 1)) ^ (r & 7)) << 4) + 8 * (t & 1));
+              mma_bf16(d[p][nt], a, bv.x, bv.y);
+            }
+          }
         }
       }
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float zf = __bfloat162float(zs_n[j * gpp + gi]);
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int m = 0; m < MT; ++m) corr[m] = mac_rn(corr[m], xsc[m * 8 + j], zf);
-    }
-#pragma unroll
-    for (int m = 0; m < MT; ++m) acc[m] = __fadd_rn(acc[m], part[m]);
+      for (int q = 0; q < 4; ++q)
+        acc[nt][q] = __fadd_rn(
+            acc[nt][q], __fadd_rn(__fadd_rn(d[0][nt][q], d[1][nt][q]),
+                                  __fadd_rn(d[2][nt][q], d[3][nt][q])));
   }
-  const float* xs0 = xscale + xrow;
+  const int n = n0 + 16 * warp + g;
   float* out0 = out + ((size_t)e * B + m0) * N + n;
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
-    if (m < nv)
-      out0[(size_t)m * N] = __fmul_rn(__fsub_rn(acc[m], corr[m]), xs0[m]);
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int r = 8 * nt + 2 * t + (q & 1);
+      if (r < nv)
+        out0[(size_t)r * N + 8 * (q >> 1)] = __fmul_rn(
+            __fsub_rn(acc[nt][q], corr[nt][q]), xscale[xrow + r]);
+    }
+}
+
+template <int NT>
+int launch_smallm(const void* x, const void* xscale, const void* wp,
+                  const void* s, const void* zs, void* out, int pair, int B,
+                  int N, int K, int E, void* stream) {
+  constexpr int TB = 8 * NT;
+  const size_t smem = 128 + kSmallmWords + (size_t)8 * TB * kGroup * 2 +
+                      (size_t)8 * TB * 4;
+  auto kern = w4a8_stacked_smallm_tile_kernel<NT>;
+  cudaError_t e = prepare(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((B + TB - 1) / TB, N / kSmallmChan, E);
+  kern<<<grid, kSmallmThreads, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
+      (const int8_t*)x, (const float*)xscale, (const int32_t*)wp,
+      (const __nv_bfloat16*)s, (const __nv_bfloat16*)zs, (float*)out, pair,
+      B, N, K);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -374,17 +496,19 @@ int lc_w4a8_stacked_tile(const void* x, const void* xscale, const void* wp,
       stream);
 }
 
-// #7: #6's arguments.
+// #7: #6's arguments; the 8-, 16- or 32-token tile by B (more rows are
+// chunks of 32).
 int lc_w4a8_stacked_smallm(const void* x, const void* xscale, const void* wp,
                            const void* s, const void* zs, void* out, int pair,
                            int B, int N, int K, int E, void* stream) {
-  const dim3 grid(N / kMoeThreads, (B + kStackedRows - 1) / kStackedRows, E);
-  w4a8_stacked_smallm_kernel<kStackedRows>
-      <<<grid, kMoeThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-          (const int8_t*)x, (const float*)xscale, (const int32_t*)wp,
-          (const __nv_bfloat16*)s, (const __nv_bfloat16*)zs, (float*)out,
-          pair, B, N, K);
-  return (int)cudaGetLastError();
+  if (B <= 8)
+    return launch_smallm<1>(x, xscale, wp, s, zs, out, pair, B, N, K, E,
+                            stream);
+  if (B <= 16)
+    return launch_smallm<2>(x, xscale, wp, s, zs, out, pair, B, N, K, E,
+                            stream);
+  return launch_smallm<4>(x, xscale, wp, s, zs, out, pair, B, N, K, E,
+                          stream);
 }
 
 // #8: x (n_rows, K) int8, xscale (n_rows,) f32, e_idx/t_idx (n_sel,) int32;

@@ -60,7 +60,7 @@
 
 #include <cooperative_groups.h>
 
-#include "w4_mma.cuh"
+#include "w4_bf16_tile.cuh"
 
 namespace {
 
@@ -72,40 +72,6 @@ constexpr int kTWarps = 4;                    // m16 channel tiles a block
 constexpr int kTThreads = kTWarps * 32;
 constexpr int kTChan = kTWarps * 16;          // 64 channels a block
 constexpr int kTWords = kTChan * kWordRow;    // a block's word block, 32 KB
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// a - b on bf16x2 (as a * 1 + (-b)), exact on the small integers here
-__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
-      : "=r"(d)
-      : "r"(a), "r"(0x3F803F80u), "r"(b ^ 0x80008000u));
-  return d;
-}
-
-// byte b of word lo in bits 0-7 and of word hi in bits 16-23
-__device__ __forceinline__ uint32_t byte_pair(uint32_t lo, uint32_t hi,
-                                              int b) {
-  return __byte_perm(lo, hi, (uint32_t)(b | (b << 4) | ((4 + b) << 8) |
-                                        ((4 + b) << 12)));
-}
-
-// The bf16x2 A register of two codes from a byte pair p (byte_pair): the
-// low (nib 0) or high (nib 1) nibbles as 128 + c, less 128; with kSigned
-// (masked plane 7) as 128 + (c ^ 8), less 136: c - 8.
-template <bool kSigned>
-__device__ __forceinline__ uint32_t code_pair(uint32_t p, int nib) {
-  const uint32_t v = (nib ? p >> 4 : p) & 0x000F000Fu;
-  return kSigned ? bf16x2_sub(v ^ 0x43084308u, 0x43084308u)
-                 : bf16x2_sub(v | 0x43004300u, 0x43004300u);
-}
 
 // 2^(4j): plane j's factor of the masked layout
 __device__ __forceinline__ float pow16(int j) {

@@ -20,8 +20,10 @@ plain versions run that sequence of f32 ops, so the kernels
 TPU's small-M kernel: per group-block gi one dot, in f32, of x's int8
 values as bf16 with the weights u * s rounded to bf16, added to one
 accumulator; then minus the f32 zero correction and times xscale.  Its
-plain version and kernel sum the dots in other orders, so they agree to
-f32 rounding, not bit for bit.
+kernel runs on #1's bf16 tensor-core tile (the weights bf16(u * s) made
+in registers, one rounded bf16x2 product), whose dots sum inside the
+tensor core, so it agrees with its plain version to f32 rounding, not bit
+for bit.
 
 #6 has two bodies, chosen by B alone (``stacked_body``): below
 ``STACKED_TILE_MIN_B`` rows the decode block (a lane per channel), from

@@ -50,7 +50,10 @@ Two more layouts, each with its kernel:
   its high one (``pack_s4_bytes``), with zs' = (z - 8)*s, f32 or bf16.
 
 Both add their scaled group dots in four accumulators, (a0 + a1) +
-(a2 + a3), before the correction, as the TPU kernels do.
+(a2 + a3), before the correction, as the TPU kernels do; #11 sums its
+correction in ascending g (``_s4_tpu_order``, #13's order) on an int8
+tensor-core decode tile (``csrc/w4_bytes.cu``) and equals its plain
+version bit for bit.
 
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel (``csrc/w4_matmul.cu``, ``csrc/w4a16_tile.cu``, ``csrc/w4_bytes.cu``,
@@ -297,19 +300,20 @@ def w4a8_linear_planes_fused_plain(x, wp, s, zs, rms=False, eps=1e-6):
     return w4a8_rows_phase_dot(xq, xs, wp, s, zs).to(x.dtype), xq, xs
 
 
-def w4a8_matmul_pairs_tpu_order(xq, x_scale, wb, s, zs) -> torch.Tensor:
-    """(M, K) int8 x with (M, 1) f32 scales against a byte-pair weight
-    ((N, K/2) int8, (N, G) s and zs) -> (M, N) f32 in the order of the TPU
-    kernel _w4a8_kernel_pairs_fused (_pairs_group_loop): for g ascending,
-    acc[g % 4] += f32(x_g . c'_g) * s_g and corr += xsum_g * zs_g, each
-    product and sum rounded; then ((a0 + a1) + (a2 + a3) - corr) *
-    x_scale.  #13's tile keeps it bit for bit.  The group dots are f32
-    matmuls of integers whose sums stay below 2^24, so they are exact;
-    xsum * zs is exact too (at most 14 + 8 significant bits)."""
+def _s4_tpu_order(xq, x_scale, c, s, zs) -> torch.Tensor:
+    """(M, K) int8 x with (M, 1) f32 scales against signed codes c' ((N,
+    K) int32) with (N, G) s and zs -> (M, N) f32 in the order of the TPU
+    kernels _w4a8_kernel_s4 and _w4a8_kernel_pairs_fused
+    (_pairs_group_loop): for g ascending, acc[g % 4] += f32(x_g . c'_g) *
+    s_g and corr += xsum_g * zs_g, each product and sum rounded; then
+    ((a0 + a1) + (a2 + a3) - corr) * x_scale.  The group dots are f32
+    matmuls of integers whose sums stay below 2^24, so they are exact; with
+    bf16 zs, xsum * zs is exact too (at most 14 + 8 significant bits), with
+    f32 zs it is rounded once."""
     M, K = xq.shape
     G = s.shape[1]
     x = xq.float().reshape(M, G, GROUP)
-    c = unpack_s4_pairs(wb).float().reshape(-1, G, GROUP)
+    c = c.float().reshape(-1, G, GROUP)
     xsum = x.sum(dim=-1)
     zf = zs.float()
     parts = [torch.matmul(x[:, g], c[:, g].t()) for g in range(G)]
@@ -319,6 +323,14 @@ def w4a8_matmul_pairs_tpu_order(xq, x_scale, wb, s, zs) -> torch.Tensor:
         corr = corr + xsum[:, g, None] * zf[:, g]
     acc = _four_accumulators(parts, s, [(g, g % 4) for g in range(G)])
     return (acc - corr) * x_scale.float()
+
+
+def w4a8_matmul_pairs_tpu_order(xq, x_scale, wb, s, zs) -> torch.Tensor:
+    """(M, K) int8 x with (M, 1) f32 scales against a byte-pair weight
+    ((N, K/2) int8, (N, G) s and zs) -> (M, N) f32 in the TPU kernel
+    _w4a8_kernel_pairs_fused's order (``_s4_tpu_order``).  #13's tile
+    keeps it bit for bit."""
+    return _s4_tpu_order(xq, x_scale, unpack_s4_pairs(wb), s, zs)
 
 
 def w4a8_linear_bytes_fused_plain(x, wb, s, zs, rms=False, eps=1e-6):
@@ -472,17 +484,11 @@ def w4a16_matmul_planes_masked_plain(x, wp, s, zs) -> torch.Tensor:
 
 
 def w4a8_matmul_s4_plain(xq, x_scale, wb, s, zs) -> torch.Tensor:
-    """Plain #11 in the TPU kernel's order: exact integer group dots of the
-    natural s4 codes, f32(dot) * s into accumulator g % 4, (a0 + a1) +
-    (a2 + a3) minus the zero correction, times x_scale; (M, N) f32."""
-    M, K = xq.shape
-    G = s.shape[1]
-    x = xq.float().reshape(M, G, GROUP)
-    c = unpack_s4_bytes(wb).float().reshape(-1, G, GROUP)
-    parts = [torch.matmul(x[:, g], c[:, g].t()) for g in range(G)]
-    y = _four_accumulators(parts, s, [(g, g % 4) for g in range(G)]) \
-        - torch.matmul(x.sum(dim=-1), zs.float().t())
-    return y * x_scale.float()
+    """Plain #11 in the TPU kernel's order (``_s4_tpu_order``: exact
+    integer group dots of the natural s4 codes, f32(dot) * s into
+    accumulator g % 4, the zero correction summed in ascending g); (M, N)
+    f32.  #11's tile keeps it bit for bit."""
+    return _s4_tpu_order(xq, x_scale, unpack_s4_bytes(wb), s, zs)
 
 
 # ---------------------------------------------------------------------------
@@ -923,9 +929,11 @@ def w4a8_matmul_s4_bytes(xq: torch.Tensor, x_scale: torch.Tensor,
         return w4a8_matmul_s4_plain(xq, x_scale, wb, s, zs)
     if N % 32:
         raise ValueError(f"the s4 kernel needs N % 32 == 0, got N={N}")
+    out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
+    if M == 0 or N == 0:
+        return out
     xq, wb, s, zs = _aligned(xq), _aligned(wb), _aligned(s), _aligned(zs)
     xs = x_scale.float().contiguous()
-    out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
     with torch.cuda.device(xq.device):
         _launch(_bytes_lib().lc_w4a8_s4, xq.data_ptr(), xs.data_ptr(),
                 wb.data_ptr(), s.data_ptr(), zs.data_ptr(), s_bf16,

@@ -160,6 +160,28 @@ def test_s4_plain_matches_interpret_kernel(M, sdtype):
     assert _rel(got.numpy(), ref) < TOL
 
 
+@pytest.mark.parametrize("M", [1, 8, 33])
+@pytest.mark.parametrize("sdtype", [torch.float32, torch.bfloat16])
+def test_s4_plain_equals_pairs_tpu_order(M, sdtype):
+    """Plain #11 on natural s4 bytes equals #13's TPU order
+    (``w4a8_matmul_pairs_tpu_order``) on the same codes packed as byte
+    pairs, bit for bit: both keep the four accumulators by g % 4 and sum
+    the zero correction in ascending g."""
+    rng = np.random.RandomState(M)
+    N, K = 96, 1024
+    u = torch.from_numpy(rng.randint(0, 16, (N, K)).astype(np.int32))
+    s = torch.from_numpy((rng.rand(N, K // G) * 0.02 + 0.005)
+                         .astype(np.float32))
+    z = torch.from_numpy(rng.randint(0, 16, (N, K // G)).astype(np.float32))
+    sb, zb = s.to(sdtype), ((z - 8) * s).to(sdtype)
+    xq, xs = tw.quantize_act_per_token(
+        torch.from_numpy(rng.randn(M, K).astype(np.float32)))
+    got = tw.w4a8_matmul_s4_plain(xq, xs, tw.pack_s4_bytes(u), sb, zb)
+    want = tw.w4a8_matmul_pairs_tpu_order(xq, xs, tw.pack_s4_pairs(u), sb,
+                                          zb)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
 @pytest.mark.parametrize("which", ["masked", "s4"])
 def test_wrappers_refuse_k_off_the_group(which):
     x = torch.zeros((2, 1000))

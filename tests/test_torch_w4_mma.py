@@ -36,7 +36,13 @@ the plain versions before the card runs the kernels.
 * #1 and #4's bf16 tile (``csrc/w4a16_tile.cu``): the shared-memory
   layouts, the lane reads and the unpack to bf16 codes make m16n8k16 A
   and B fragments that assemble x . c^T for every plane, on plain and on
-  masked words.
+  masked words.  #7 runs the same tile (``csrc/w4_moe.cu``) on int8 x
+  staged into the same bf16 slab.
+* #11's int8 decode tile (``csrc/w4_bytes.cu``): natural s4 words as B
+  (low nibbles the even k, high the odd), x's evens and odds as A,
+  assemble each group's dot; its schedule (stages of four groups, warp h
+  holding a_h and a_{h+2}, groups past G none, the correction rounded
+  product by product) equals plain #11 bit for bit.
 
 The kernels themselves run in ``tests/test_torch_cuda_kernels.py`` (on the
 card)."""
@@ -597,6 +603,171 @@ def test_fused_tile_schedule_equals_pairs_order(M, K):
             corr = corr + x[:, g].sum(-1).float()[:, None] * zs[:, g].float()
     y = ((acc[0, 0] + acc[1, 0]) + (acc[0, 1] + acc[1, 1]) - corr) * xs
     assert torch.equal(y, W.w4a8_matmul_pairs_tpu_order(xq, xs, wb, s, zs))
+
+
+@pytest.mark.parametrize("M,K,sdtype", [(5, 1024, "bf16"), (17, 384, "f32"),
+                                         (33, 640, "bf16")])
+def test_s4_tile_schedule_equals_plain(M, K, sdtype):
+    """#11's tile: stage p holds groups 4p .. 4p + 3 (past G: none); warp
+    (ct, h) takes groups 4p + h and 4p + 2 + h into its accumulators a_h
+    and a_{h+2}; the h = 0 warps sum the correction of each stage's groups
+    in order, product and sum each rounded (f32 zs' makes the product
+    inexact); y = ((a0 + a1) + (a2 + a3) - corr) * xscale.  Bit for bit
+    plain #11, and that equals #13's order on the same codes packed as
+    byte pairs."""
+    rng = np.random.RandomState(K + M)
+    N, G = 64, K // 128
+    u = torch.from_numpy(rng.randint(0, 16, (N, K)).astype(np.int32))
+    wb = W.pack_s4_bytes(u)
+    dt = torch.bfloat16 if sdtype == "bf16" else torch.float32
+    s = torch.from_numpy((rng.rand(N, G) * 0.02 + 1e-3)
+                         .astype(np.float32)).to(dt)
+    zs = torch.from_numpy(((rng.rand(N, G) - 0.5) * 0.1)
+                          .astype(np.float32)).to(dt)
+    xq, xs = _rows(M, K, seed=M)
+    c = W.unpack_s4_bytes(wb).reshape(N, G, 128)
+    x = xq.long().reshape(M, G, 128)
+    acc = {(h, j): torch.zeros((M, N)) for h in (0, 1) for j in (0, 1)}
+    corr = torch.zeros((M, N))
+    for p in range((G + 3) // 4):
+        for h in (0, 1):
+            for j in (0, 1):
+                g = 4 * p + 2 * j + h
+                if g < G:
+                    d = torch.matmul(x[:, g], c[:, g].long().t())
+                    acc[h, j] = acc[h, j] + _exact_f32(d) * s[:, g].float()
+        for g in range(4 * p, min(4 * p + 4, G)):
+            corr = corr + (x[:, g].sum(-1).float()[:, None]
+                           * zs[:, g].float())
+    y = ((acc[0, 0] + acc[1, 0]) + (acc[0, 1] + acc[1, 1]) - corr) * xs
+    assert torch.equal(y, W.w4a8_matmul_s4_plain(xq, xs, wb, s, zs))
+    if K % 256 == 0:
+        assert torch.equal(y, W.w4a8_matmul_pairs_tpu_order(
+            xq, xs, W.pack_s4_pairs(u), s, zs))
+
+
+@pytest.mark.parametrize("K,p", [(384, 0), (640, 1), (1024, 1)])
+def test_s4_tile_fragments(K, p):
+    """#11's tile at stage p of a natural s4 weight (32 channels, 32 rows):
+    the stage's words (bytes 256p .. +256 of each row as two [32][128]
+    tiles, zeros past the row) and x tiles [4][32][128] (columns 512p ..
+    +512, zeros past K) lie swizzled as the copies put them; warp (ct, h)
+    takes group 4p + 2j + h from word tile j and x tile 2j + h: its
+    ldmatrix x4 (lane L: channel 8 ct + (L & 7), chunk 4h + (L >> 3))
+    gives lane (g, t) word t of k step kk's chunk: b0 = its low nibbles
+    (the even k of 32 kk + 8t .. + 7), b1 = its high ones (the odd k); the
+    lane's 8 bytes of x at k 32 kk + 8t, evens then odds (byte permutes
+    0x6420, 0x7531), are a0 / a2 (row g) and a1 / a3 (row g + 8).
+    Assembled by the m16n8k32 layouts, the four k steps give x_g . c'_g^T;
+    the eight lanes' sums of a row's chunks give its row sum."""
+    rng = np.random.RandomState(K + p)
+    N, M, G, kh = 32, 32, K // 128, K // 2
+    u = torch.from_numpy(rng.randint(0, 16, (N, K)).astype(np.int32))
+    wb = W.pack_s4_bytes(u).numpy().view(np.uint8).astype(np.int64)
+    c = W.unpack_s4_bytes(W.pack_s4_bytes(u)).numpy().astype(np.int64)
+    x = rng.randint(-127, 128, (M, K)).astype(np.int64)
+    wt = np.zeros((2, 32 * 128), dtype=np.int64)
+    for ch in range(N):
+        for q in range(16):
+            b = 256 * p + 16 * q
+            if b < kh:
+                o = _swz(ch, q & 7)
+                wt[q >> 3, o:o + 16] = wb[ch, b:b + 16]
+    xt = np.zeros((4, 32 * 128), dtype=np.int64)
+    for r in range(M):
+        for q in range(32):
+            if 4 * p + (q >> 3) < G:
+                o = _swz(r, q & 7)
+                xt[q >> 3, o:o + 16] = x[r, 512 * p + 16 * q:
+                                         512 * p + 16 * q + 16]
+
+    def word(buf, o):
+        return sum(int(buf[o + i] & 0xFF) << (8 * i) for i in range(4))
+
+    seen = 0
+    for h in (0, 1):
+        for j in (0, 1):
+            g_ = 4 * p + 2 * j + h
+            if g_ >= G:
+                continue
+            seen += 1
+            cols = slice(128 * g_, 128 * g_ + 128)
+            ws, xs = wt[j], xt[2 * j + h]
+            for ct in range(4):
+                d = np.zeros((M, 8), dtype=np.int64)
+                for kk in range(4):
+                    A = np.zeros((2, 16, 32), dtype=np.int64)
+                    B = np.zeros((32, 8), dtype=np.int64)
+                    for lane in range(32):
+                        g, t = lane >> 2, lane & 3
+                        w = word(ws, _swz(8 * ct + g, 4 * h + kk) + 4 * t)
+                        for reg, nib in ((0, w & 0x0F0F0F0F),
+                                         (1, (w >> 4) & 0x0F0F0F0F)):
+                            B[16 * reg + 4 * t:16 * reg + 4 * t + 4, g] = [
+                                (((nib >> (8 * e)) & 0xF) ^ 8) - 8
+                                for e in range(4)]
+                        for i in range(2):
+                            for hr in range(2):
+                                o = _swz(16 * i + g + 8 * hr,
+                                         2 * kk + (t >> 1)) + 8 * (t & 1)
+                                lo = np.array([word(xs, o)], dtype=np.int64)
+                                hi = np.array([word(xs, o + 4)],
+                                              dtype=np.int64)
+                                for reg, sel in ((0, 0x6420), (1, 0x7531)):
+                                    v = _lanes(_byte_perm(lo, hi, sel))[0]
+                                    A[i, g + 8 * hr, 16 * reg + 4 * t:
+                                      16 * reg + 4 * t + 4] = v
+                    for i in range(2):
+                        d[16 * i:16 * i + 16] += A[i] @ B
+                ch = slice(8 * ct, 8 * ct + 8)
+                assert np.array_equal(d, x[:, cols] @ c[ch, cols].T)
+            for r in range(M):
+                tot = sum(_lanes(np.array([word(xs, _swz(r, cc) + 4 * i)]))
+                          [0].sum() for cc in range(8) for i in range(4))
+                assert tot == x[r, cols].sum()
+    assert seen == min(4, G - 4 * p)
+
+
+@pytest.mark.parametrize("TB", [8, 32])
+def test_smallm_slab_staging(TB):
+    """#7's tile stages gi's int8 x as #1's bf16 slab: item i (16 values,
+    row i >> 3 = j TB + r, values 16 (i & 7) .. of token r's plane-j group
+    gi) into chunks 2 (i & 7) and + 1 of row (j, r) at c ^ (r & 7); each
+    value's bf16 is exact, and #1's B reads of the slab (token 8 nt + g,
+    physical k 16 kk + 4t .. + 3) find x there.  The 8 items of a row are
+    8 neighbouring lanes of one warp, so their butterfly sums the group."""
+    rng = np.random.RandomState(TB)
+    K, gi = 2048, 1
+    kp = K // 8
+    x = rng.randint(-128, 128, (TB, K)).astype(np.int64)
+    xb = x.astype(np.float32).view(np.uint32) >> 16
+    assert np.array_equal(_bf16_bits(xb), x.astype(np.float64))
+    slab = np.zeros((8, TB, 16, 8), dtype=np.int64)
+    sums = {}
+    for i in range(64 * TB):
+        row, q = i >> 3, i & 7
+        j, r = row // TB, row % TB
+        k0 = j * kp + gi * 128 + 16 * q
+        vals = xb[r, k0:k0 + 16]
+        slab[j, r, (2 * q) ^ (r & 7)] = vals[:8]
+        slab[j, r, (2 * q + 1) ^ (r & 7)] = vals[8:]
+        sums.setdefault(row, []).append(((i % 128) // 32, i % 32))
+    # a row's items sit in one warp, in one aligned group of 8 lanes
+    for v in sums.values():
+        warps, lanes = {w for w, _ in v}, sorted(ln for _, ln in v)
+        assert len(warps) == 1 and lanes == list(range(lanes[0],
+                                                       lanes[0] + 8))
+        assert lanes[0] % 8 == 0
+    for j in range(8):
+        for nt in range(TB // 8):
+            for kk in range(8):
+                for lane in range(32):
+                    g, t = lane >> 2, lane & 3
+                    r = 8 * nt + g
+                    c = (2 * kk + (t >> 1)) ^ (r & 7)
+                    e = slab[j, r, c, 4 * (t & 1):4 * (t & 1) + 4]
+                    k = j * kp + gi * 128 + 16 * kk + 4 * t
+                    assert np.array_equal(e, xb[r, k:k + 4])
 
 
 def _planes_decode_schedule(xq, x_scale, wp, s, zs, Q, per_plane, MT):
