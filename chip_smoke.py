@@ -20,7 +20,10 @@ Phases (each prints one JSON line with its seconds):
      matmul, the bound);
      then every decode-attention kernel against its plain version at the
      engine's shapes (8 slots, 8 KV heads of 4 query heads, head_dim 128,
-     ragged lengths), with times (kernel, plain, a library attention, the
+     ragged lengths; #19 and #21 also at full lengths and at their engine
+     phases' lengths, #19 also in 256-column blocks, against the plain
+     rendering of their rank split: m bit for bit, the same bits on a
+     second call), with times (kernel, plain, a library attention, the
      bound);
   3. the W4A8 engine at full Llama-3-8B width and depth (random weights from
      a seed): one batched prefill of 8 prompts (1024 rows) and 32 greedy
@@ -1167,16 +1170,19 @@ def ctx_error(out, ref):
     return float((out - ref).abs().max()), float(ref.abs().max())
 
 
-def attn_case(kname: str, S: int, dev, gen):
+def attn_case(kname: str, S: int, dev, gen, lengths=None,
+              s_block: int = AT.S_BLOCK):
     """Inputs of one decode-attention kernel at buffer S: (wrapper call,
     plain call, the bare kernel launch on prepared operands, the library
-    yardstick call, lengths)."""
+    yardstick call, lengths).  ``lengths`` None: ``ragged_lengths``; the
+    flash kernels take ``s_block`` (the engine's 512 by default), their
+    plain version the kernel's split (``AT.bd_flash_card_parts``)."""
     B, H, G, D = ATT_B, ATT_H, ATT_G, ATT_D
     q = torch.randn((B, H, G, D), generator=gen, device=dev).to(
         torch.bfloat16)
     k = torch.randn((B, H, S, D), generator=gen, device=dev) * 2
     v = torch.randn((B, H, S, D), generator=gen, device=dev)
-    L = ragged_lengths(S, dev)
+    L = ragged_lengths(S, dev) if lengths is None else lengths
     q8, qs = AT.quantize_q(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = AT._lib()
@@ -1208,21 +1214,27 @@ def attn_case(kname: str, S: int, dev, gen):
         args = (q, kt, ks, vt, vs, L)
         outs = [torch.empty(s, dtype=torch.float32, device=dev)
                 for s in ((B, H, G, D), (B, H, G), (B, H, G))]
-        ptrs = [t.data_ptr() for t in (q8, qs, *args[1:], *outs)]
-        sb = AT.flash_block(S, AT.S_BLOCK) if kname.endswith("_flash") \
-            else 0
-        fn = lib.lc_attn_bd4 if nib else lib.lc_attn_bd
-        bare = lambda: AT._launch(fn, *ptrs, B, H, G, S, sb, stream)
+        extra = {}
+        if kname.endswith("_flash"):
+            sb = AT.flash_block(S, s_block)
+            parts, slots = AT.bd_flash_card_parts(B * H, G, S, sb, nib, dev)
+            bare = lambda: AT._bd_flash_launch(q8, qs, *args[1:], outs, sb,
+                                               parts, slots, nib)
+            extra = dict(s_block=s_block)
+            plain_kw = dict(extra, parts=parts)
+        else:
+            ptrs = [t.data_ptr() for t in (q8, qs, *args[1:], *outs)]
+            fn = lib.lc_attn_bd4 if nib else lib.lc_attn_bd
+            bare = lambda: AT._launch(fn, *ptrs, B, H, G, S, stream)
+            plain_kw = {}
         if nib:
             kf, vf = (unpack_kv4(c) * s[..., None].float()
                       for c, s in ((kc, ks), (vc, vs)))
         else:
             kf, vf = (c.float() * s[..., None].float()
                       for c, s in ((kc, ks), (vc, vs)))
-        # the engine's column block: 512 (#19's own default is 256)
-        extra = dict(s_block=AT.S_BLOCK) if kname.endswith("_flash") else {}
         run = lambda: getattr(AT, kname)(*args, **extra)
-        plain = lambda: getattr(AT, kname + "_plain")(*args, **extra)
+        plain = lambda: getattr(AT, kname + "_plain")(*args, **plain_kw)
     kf, vf = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
     mask = (torch.arange(S, device=dev)[None] < L[:, None])[:, None, None]
     library = lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -1230,38 +1242,79 @@ def attn_case(kname: str, S: int, dev, gen):
     return run, plain, bare, library, L
 
 
+def engine_lengths(S: int, dev, gen) -> torch.Tensor:
+    """8 slots at the lengths of the engine phase over buffer S: prompts of
+    1500-2000 tokens in 4096 (``engine_bds``), 3000-4000 in 8192
+    (``engine_kv4_long``), plus the tokens generated."""
+    lo, hi = (1500, 2016) if S == 4096 else (3000, 4016)
+    return torch.randint(lo, hi + 1, (ATT_B,), generator=gen,
+                         device=dev).to(torch.int32)
+
+
+# the flash kernels' extra rows: (kernel, S, case, s_block); the main rows
+# (ragged lengths, 512-column blocks) stay first
+FLASH_ROWS = (("decode_attention_bd_flash", 4096, "full", AT.S_BLOCK),
+              ("decode_attention_bd_flash", 4096, "engine", AT.S_BLOCK),
+              ("decode_attention_bd_flash", 4096, "sb256", 256),
+              ("decode_attention_bd4_flash", 8192, "full", AT.S_BLOCK),
+              ("decode_attention_bd4_flash", 8192, "engine", AT.S_BLOCK))
+
+
 def phase_attn_kernels(dev) -> dict:
     """#20 at buffer 4096, #21 at 8192, #17 at 512 and 4096, #18 at 512
     and 4096, #19 at 4096 (512-column blocks) against their plain
-    versions; times of the bare kernel (operands prepared), of the
-    whole wrapper (with the query's int8 quantization), of the plain
-    version, and of the library yardstick: PyTorch's
-    scaled_dot_product_attention of the bf16 q over the pre-dequantized
-    bf16 K/V (another function over 2-4 times the bytes; the port never
-    calls it)."""
+    versions, ragged lengths; #19 and #21 also at full lengths and at their
+    engine phases' lengths, #19 in 256-column blocks, held to the plain
+    rendering of their split: m bit for bit, a second call the same bits.
+    Times of the bare kernel (operands prepared), of the whole wrapper
+    (with the query's int8 quantization), of the plain version, and of the
+    library yardstick: PyTorch's scaled_dot_product_attention of the bf16
+    q over the pre-dequantized bf16 K/V (another function over 2-4 times
+    the bytes; the port never calls it)."""
     t0 = time.time()
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     pad = torch.empty(PAD, dtype=torch.uint8, device=dev)
     rows = []
-    for kname, S in (("decode_attention_bd4", 4096),
-                     ("decode_attention_bd4_flash", 8192),
-                     ("decode_attention_i8", 512),
-                     ("decode_attention_i8", 4096),
-                     ("decode_attention_bd", 512),
-                     ("decode_attention_bd", 4096),
-                     ("decode_attention_bd_flash", 4096)):
-        run, plain, bare, library, L = attn_case(kname, S, dev, gen)
-        err, scale = ctx_error(run(), plain())
+    cases = [(k, S, "ragged", AT.S_BLOCK) for k, S in (
+        ("decode_attention_bd4", 4096), ("decode_attention_bd4_flash", 8192),
+        ("decode_attention_i8", 512), ("decode_attention_i8", 4096),
+        ("decode_attention_bd", 512), ("decode_attention_bd", 4096),
+        ("decode_attention_bd_flash", 4096))] + list(FLASH_ROWS)
+    for kname, S, case, sbk in cases:
+        lengths = {"ragged": None, "sb256": None,
+                   "full": torch.full((ATT_B,), S, dtype=torch.int32,
+                                      device=dev),
+                   "engine": engine_lengths(S, dev, gen)}[case]
+        run, plain, bare, library, L = attn_case(kname, S, dev, gen,
+                                                 lengths, sbk)
+        got, ref = run(), plain()
+        extra = {}
+        if kname.endswith("_flash"):
+            again = run()
+            torch.cuda.synchronize()
+            if not torch.equal(got[1], ref[1]):
+                raise AssertionError(f"{kname} S={S} {case}: m is not its "
+                                     f"plain version's bit for bit")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{kname} S={S} {case}: a second call "
+                                     f"gave other bits")
+            sb = AT.flash_block(S, sbk)
+            parts, slots = AT.bd_flash_card_parts(
+                ATT_B * ATT_H, ATT_G, S, sb,
+                kname.startswith("decode_attention_bd4"), dev)
+            extra = dict(s_block=sb, parts=parts, slots=slots,
+                         m_bit_equal=True, repeat_equal=True)
+        err, scale = ctx_error(got, ref)
         torch.cuda.synchronize()
         if not err <= TOL_CTX * scale:
-            raise AssertionError(f"{kname} S={S}: max|err| {err} > "
+            raise AssertionError(f"{kname} S={S} {case}: max|err| {err} > "
                                  f"{TOL_CTX} * {scale}")
         b_ms, b_by = attn_bound(kname, L)
         rows.append({
-            "kernel": kname, "S": S, "lengths": L.tolist(),
-            "max_abs_err": err, "max_abs_ref": scale, "tol": TOL_CTX,
-            "kernel_ms": time_ms(bare, 20, pad),
+            "kernel": kname, "S": S, "case": case, "lengths": L.tolist(),
+            **extra, "max_abs_err": err, "max_abs_ref": scale,
+            "tol": TOL_CTX, "kernel_ms": time_ms(bare, 20, pad),
             "wrapper_ms": time_ms(run, 20, pad),
             "plain_ms": time_ms(plain, 3, pad),
             "library_ms": time_ms(library, 20, pad),
@@ -1939,6 +1992,10 @@ def phase_profile(sw, prompts, dev, steps: int = 4, build: str = "w4a8",
             "lengths": eng.lengths.tolist(), **profiled(run, steps)}
 
 
+# the kernels a profile line lists by device time
+PROFILE_TOP = 12
+
+
 def profiled(run, steps: int) -> dict:
     """torch.profiler over ``run`` (``steps`` decode steps) after one
     warm-up call: wall and device busy time a step, the device's idle share
@@ -1964,7 +2021,7 @@ def profiled(run, steps: int) -> dict:
         k[0] += us
         k[1] += e.count
     busy_ms = sum(v[0] for v in kern.values()) / 1e3 / steps
-    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:12]
+    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:PROFILE_TOP]
     return {"steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
             "device_busy_ms_per_step": busy_ms,
             "idle_share": 1.0 - busy_ms / (wall * 1e3 / steps),
@@ -2513,7 +2570,7 @@ def summarize(rows, attn_rows, fused_rows, moe_rows, bench_rows,
             continue
         if kname in main_s:
             r = next(r for r in attn_rows if r["kernel"] == kname
-                     and r["S"] == main_s[kname])
+                     and r["S"] == main_s[kname] and r["case"] == "ragged")
             out.append(dict(
                 name=kname, route="cuda", **info, launches=launches[kname],
                 max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],

@@ -100,7 +100,39 @@ times #11's tile (the tree's ``csrc/w4_bytes.cu``) over a Llama-3-8B
 block's seven linears at M 8 and 32 beside copies of it built with one
 part cut each (S4_CUTS: the h = 0 warps' corrections, the group dots, the
 x copies, all three), to show where its time goes; the cut builds give
-wrong outputs and are timed only.  Needs ``nvcc``."""
+wrong outputs and are timed only.  Needs ``nvcc``.
+
+    cd <tree> && python3 <repo>/kernel_ab.py TAG bd_flash
+
+times #19 (kv8) and #21 (kv4): the bare kernel and its wrapper at
+chip_smoke's shapes (8 slots of 8 kv heads of 4 queries, ragged lengths,
+512-column blocks: #19 over 4096 columns, #21 over 8192), then the
+wrapper over every slot full at each S of FLASH_S, s_block of FLASH_SB and
+(B, G) of FLASH_BG, and at the engine phases' lengths (8 slots, #19 1500-
+2016 of 4096, #21 3000-4016 of 8192), random codes and scales from the
+seed; where the tree has the rank split, the bare kernel on each forced
+split and ring depth (FLASH_PARTS x 1-3 slots) at the ragged shapes; then
+profiles four decode steps of ``engine_bds`` and ``engine_kv4_long``
+(Llama-3-8B, 8 slots, chip_smoke's prompts) with the tree's
+``phase_profile``: wall and busy ms a step, and #19's or #21's share of
+the busy time.
+
+    cd <tree> && python3 <repo>/kernel_ab.py TAG attn_rows
+
+times the bare launch of every block-diagonal and int8 decode-attention
+kernel at chip_smoke's shapes (``attn_case``: 8 slots, ragged lengths;
+#17 and #18 at S 512 and 4096, #20 at 4096, #19 at 4096 and #21 at 8192 in
+512-column blocks), 50 launches each, the L2 flushed before each.
+
+    cd <tree> && python3 <repo>/kernel_ab.py TAG flash_stamps
+
+builds a copy of the tree's ``csrc/decode_attention.cu`` with
+``-DLC_FLASH_STAMPS`` (%globaltimer stamps of thread 0 of one CTA: rank 0
+of kv head 0 of slot 1, a full slot) and runs #19 (S 4096) and #21 (S
+8192) at chip_smoke's ragged shapes on 1 and 8 ranks: for each span
+between two consecutive stamp points (FLASH_POINTS), its median ns, count
+a launch and summed ns a launch over five launches, the L2 flushed before
+each.  Timing only.  Needs ``nvcc``."""
 
 import dataclasses
 import gc
@@ -142,6 +174,12 @@ W8_N = (2048, 1000)
 SMALLM_B = (1, 2, 4, 8, 16, 32)
 # #11's rows: a decode step of 1 to 32 slots, up to the JAX gate's 256
 S4_M = (1, 8, 16, 32, 64, 128, 256)
+# #19/#21's scan: buffers, column blocks, (slots, queries a kv head)
+FLASH_S = (512, 1280, 4096, 8192, 16384)
+FLASH_SB = (512, 256)
+FLASH_BG = ((1, 4), (8, 1), (8, 4), (8, 8), (32, 4), (32, 8))
+# the forced splits of the rank scan
+FLASH_PARTS = (1, 2, 4, 8, 16)
 
 
 def time_ms(fn, reps: int, pad: torch.Tensor) -> float:
@@ -634,6 +672,213 @@ def smallm_engine(tag: str) -> None:
     print(json.dumps(out), flush=True)
 
 
+def _flash_slabs(gen, dev, nib: bool, B: int, S: int):
+    """Random block-diagonal slabs of 8 kv heads (kv8 codes or kv4 bytes)
+    and bf16 scales in [1e-3, 0.021)."""
+    R = 64 if nib else 128
+    kt = torch.randint(-128, 128, (B, 8 * R, S), generator=gen, device=dev,
+                       dtype=torch.int8)
+    vt = torch.randint(-128, 128, (B, S, 8 * R), generator=gen, device=dev,
+                       dtype=torch.int8)
+    ks, vs = ((torch.rand((B, 8, S), generator=gen, device=dev) * 0.02
+               + 1e-3).to(torch.bfloat16) for _ in range(2))
+    return kt, ks, vt, vs
+
+
+def bd_flash(tag: str) -> None:
+    """#19 and #21 alone, their split scan where the tree has one, and the
+    ``engine_bds`` / ``engine_kv4_long`` steps' profiles (``bd_flash`` in
+    the docstring)."""
+    from lightcompress_tpu_torch.ops import attention as AT
+
+    dev = torch.device("cuda")
+    pad = torch.empty(C.PAD, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(C.SEED)
+    out = {"tag": tag, "gpu": C.smi()}
+    kernels = (("decode_attention_bd_flash", 4096, False),
+               ("decode_attention_bd4_flash", 8192, True))
+    for kname, S, _ in kernels:
+        run, _, bare, library, _ = C.attn_case(kname, S, dev, gen)
+        out[f"{kname}_S{S}"] = {
+            "kernel_ms": time_ms(bare, 20, pad),
+            "wrapper_ms": time_ms(run, 20, pad),
+            "library_ms": time_ms(library, 20, pad)}
+    scan = {}
+    for kname, _, nib in kernels:
+        fn = getattr(AT, kname)
+        for S in FLASH_S:
+            for B, G in FLASH_BG:
+                q = torch.randn((B, 8, G, 128), generator=gen,
+                                device=dev).to(torch.bfloat16)
+                slabs = _flash_slabs(gen, dev, nib, B, S)
+                L = torch.full((B,), S, dtype=torch.int32, device=dev)
+                for sb in FLASH_SB:
+                    scan[f"{kname}_S{S}_B{B}_G{G}_sb{sb}"] = time_ms(
+                        lambda: fn(q, *slabs, L, s_block=sb), 10, pad)
+                del slabs
+        S = dict((k, s) for k, s, _ in kernels)[kname]
+        lo = 1500 if S == 4096 else 3000
+        q = torch.randn((8, 8, 4, 128), generator=gen, device=dev).to(
+            torch.bfloat16)
+        slabs = _flash_slabs(gen, dev, nib, 8, S)
+        L = torch.randint(lo, lo + 517, (8,), generator=gen,
+                          device=dev).to(torch.int32)
+        scan[f"{kname}_S{S}_engine"] = time_ms(
+            lambda: fn(q, *slabs, L, s_block=512), 20, pad)
+    out["scan"] = scan
+    if hasattr(AT, "_bd_flash_launch"):
+        split = {}
+        for kname, S, nib in kernels:
+            B, G = 8, 4
+            q = torch.randn((B, 8, G, 128), generator=gen, device=dev).to(
+                torch.bfloat16)
+            slabs = _flash_slabs(gen, dev, nib, B, S)
+            q8, qs = AT.quantize_q(q)
+            L = C.ragged_lengths(S, dev)
+            outs = [torch.empty(sh, dtype=torch.float32, device=dev)
+                    for sh in ((B, 8, G, 128), (B, 8, G), (B, 8, G))]
+            for parts in FLASH_PARTS:
+                for slots in (1, 2, 3):
+                    split[f"{kname}_S{S}_P{parts}_slots{slots}"] = time_ms(
+                        lambda: AT._bd_flash_launch(q8, qs, *slabs, L, outs,
+                                                    512, parts, slots, nib),
+                        20, pad)
+            split[f"{kname}_S{S}_picked"] = AT.bd_flash_card_parts(
+                B * 8, G, S, 512, nib, dev)
+        out["split"] = split
+    # every kernel of the step (a tree without PROFILE_TOP lists 12: the
+    # old body is among them)
+    C.PROFILE_TOP = 1000
+    gen.manual_seed(C.SEED)
+    model = C.Llama(C.LLAMA3_8B, C.init_params(gen, C.LLAMA3_8B))
+    sw8 = C.build_serving_weights(model, C.WSPEC, act_bits=8, device=dev)
+    del model
+    vocab = C.LLAMA3_8B.vocab_size
+    for name, prompts, kw, kern in (
+            ("engine_bds", C.make_prompts(8, vocab, 1500, 2000),
+             dict(kv_bits=8, max_len=4096, prefill_buckets=(2048,),
+                  attn_impl="bds"), "attn_bd_flash_kernel<4, false>"),
+            ("engine_kv4_long", C.make_prompts(8, vocab, 3000, 4000),
+             dict(kv_bits=4, max_len=8192, prefill_buckets=(4096,)),
+             "attn_bd_flash_kernel<4, true>")):
+        prof = C.phase_profile(sw8, prompts, dev, **kw)
+        busy = prof["device_busy_ms_per_step"]
+        mine = [t for t in prof["top"] if kern in t["name"]]
+        out[name] = {k: prof[k] for k in (
+            "wall_ms_per_step", "device_busy_ms_per_step", "idle_share",
+            "kernels_per_step", "lengths", "attn_impl")}
+        out[name].update(
+            flash_ms_per_step=sum(t["ms_per_step"] for t in mine),
+            flash_calls_per_step=sum(t["calls_per_step"] for t in mine),
+            flash_share=sum(t["ms_per_step"] for t in mine) / busy,
+            top=prof["top"][:6])
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+
+
+# attn_rows' (kernel, S): chip_smoke's attention rows
+ATTN_ROWS = (("decode_attention_i8", 512), ("decode_attention_i8", 4096),
+             ("decode_attention_bd", 512), ("decode_attention_bd", 4096),
+             ("decode_attention_bd4", 4096),
+             ("decode_attention_bd_flash", 4096),
+             ("decode_attention_bd4_flash", 8192))
+
+
+def attn_rows(tag: str) -> None:
+    """The attention kernels' bare launches (``attn_rows`` in the
+    docstring)."""
+    dev = torch.device("cuda")
+    pad = torch.empty(C.PAD, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(C.SEED)
+    out = {"tag": tag, "gpu": C.smi()}
+    for kname, S in ATTN_ROWS:
+        _, _, bare, _, _ = C.attn_case(kname, S, dev, gen)
+        out[f"{kname}_S{S}"] = time_ms(bare, 50, pad)
+    print(json.dumps(out), flush=True)
+
+
+# flash_stamps' points (the kernel's FLASH_STAMP ids)
+FLASH_POINTS = {0: "start", 1: "prologue", 2: "k_waited", 3: "k_mma",
+                4: "k_refilled", 5: "k_scored", 6: "scores_done",
+                7: "max_met", 8: "softmax_done", 9: "sums_met",
+                10: "p8_made", 11: "v_waited", 12: "v_mma", 13: "v_refilled",
+                14: "pv_done", 15: "pv_met", 16: "blocks_done", 17: "merged"}
+
+
+def flash_stamps(tag: str) -> None:
+    """#19/#21's phase times from %globaltimer stamps (``flash_stamps`` in
+    the docstring)."""
+    import ctypes
+    import os
+    import subprocess
+
+    from lightcompress_tpu_torch.ops import _build
+    from lightcompress_tpu_torch.ops import attention as AT
+
+    dev = torch.device("cuda")
+    pad = torch.empty(C.PAD, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(C.SEED)
+    out = {"tag": tag, "gpu": C.smi()}
+    work = os.path.abspath(os.path.join("build", "flash_stamps"))
+    os.makedirs(work, exist_ok=True)
+    so = os.path.join(work, "libstamps.so")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DLC_FLASH_STAMPS",
+                    "-I", str(_build.CSRC), "-o", so,
+                    str(_build.CSRC / "decode_attention.cu")], check=True,
+                   stdout=subprocess.DEVNULL)
+    lib = ctypes.CDLL(so)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.lc_attn_bd_flash.argtypes = [P] * 12 + [I] * 8 + [P]
+    lib.lc_attn_bd_flash.restype = I
+    lib.lc_flash_stamps.argtypes = [P]
+    lib.lc_flash_stamps.restype = I
+    buf = (ctypes.c_ulonglong * 2048)()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    B, G, sb = 8, 4, 512
+    for kname, S, nib in (("decode_attention_bd_flash", 4096, False),
+                          ("decode_attention_bd4_flash", 8192, True)):
+        q = torch.randn((B, 8, G, 128), generator=gen, device=dev).to(
+            torch.bfloat16)
+        kt, ks, vt, vs = _flash_slabs(gen, dev, nib, B, S)
+        q8, qs = AT.quantize_q(q)
+        L = C.ragged_lengths(S, dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        outs = (torch.empty((B, 8, G, 128), **f32),
+                torch.empty((B, 8, G), **f32), torch.empty((B, 8, G), **f32))
+        for parts in (1, 8):
+            part = torch.empty(B * 8 * parts * G * 130, **f32)
+            cnt = torch.zeros(B * 8, dtype=torch.int32, device=dev)
+            spans = {}
+            for rep in range(6):
+                pad.zero_()
+                rc = lib.lc_attn_bd_flash(
+                    q8.data_ptr(), qs.data_ptr(), kt.data_ptr(),
+                    ks.data_ptr(), vt.data_ptr(), vs.data_ptr(),
+                    L.data_ptr(), *(t.data_ptr() for t in outs),
+                    part.data_ptr(), cnt.data_ptr(), B, 8, G, S, sb, parts,
+                    3, int(nib), stream)
+                torch.cuda.synchronize()
+                n = lib.lc_flash_stamps(buf)
+                if rc or n < 0:
+                    raise RuntimeError(f"stamps: CUDA error {rc} {n}")
+                pts = [(buf[2 * i], buf[2 * i + 1]) for i in range(n)]
+                if rep == 0:
+                    continue
+                for (a, ta), (b, tb) in zip(pts, pts[1:]):
+                    key = f"{FLASH_POINTS[a]}->{FLASH_POINTS[b]}"
+                    spans.setdefault(key, []).append(tb - ta)
+                spans.setdefault("total", []).append(pts[-1][1] - pts[0][1])
+            out[f"{kname}_S{S}_P{parts}"] = {
+                k: {"median_ns": statistics.median(v), "count": len(v) // 5,
+                    "sum_ns": sum(v) / 5}
+                for k, v in spans.items()}
+    print(json.dumps(out), flush=True)
+
+
 def profile_w4a16(tag: str) -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -671,5 +916,11 @@ if __name__ == "__main__":
         smallm_engine(tag)
     elif mode == "s4_parts":
         s4_parts(tag)
+    elif mode == "bd_flash":
+        bd_flash(tag)
+    elif mode == "flash_stamps":
+        flash_stamps(tag)
+    elif mode == "attn_rows":
+        attn_rows(tag)
     else:
         main(tag, mode == "tail")

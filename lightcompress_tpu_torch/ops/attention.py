@@ -13,7 +13,10 @@ lightcompress_tpu/ops/pallas_attention.py, kernels #17-#22).
   softmax max ``m`` and denominator ``d`` (B, H, G), for
   ``bd_merge_new_token`` to fold the fresh token in.  The flash forms
   split S into ``s_block`` columns and carry (o, m, d) across the blocks;
-  each block requantizes its probabilities with its own scale.
+  each block requantizes its probabilities with its own scale.  Their
+  kernel splits the blocks over ranks (``bd_flash_parts``) and merges the
+  ranks' (o, m, d) in rank order; ``parts`` of the plain versions renders
+  that schedule.
 * ``decode_attention_i8`` (#17): the same over the int8 ``hhd`` cache
   (B, H, S, D) with the fresh token as an extra softmax column; returns
   the normalized context.
@@ -58,8 +61,21 @@ KERNEL_GROUPS = (1, 2, 4, 8)
 S_BLOCK = 512
 # the JAX wrappers' default column block of #19 (``decode_attention_bd_flash``)
 FLASH_BLOCK = 256
-# the dynamic shared memory a block may have on an H100 (227 KB)
+# the dynamic shared memory a block may have on an H100 (227 KB), and an
+# SM's (228 KB; each resident block also takes 1 KB of it)
 SMEM_MAX = 232448
+SMEM_SM = 233472
+# #19/#21: the most ring slots a warp keeps in flight (the kernel takes
+# 1-3; three were no faster on the H100 scan in PERF.md), the most
+# ranks a (slot, kv head), and a CTA's fixed time (its first copies'
+# latency, the merge, a wave's tail) in blocks of its streaming time
+BD_FLASH_SLOTS = 2
+BD_FLASH_PARTS_MAX = 16
+BD_FLASH_FIXED_BLOCKS = 1
+# the CTAs a wave of #19/#21 counts, in co-resident CTAs: the ranks past a
+# slot's length leave at once, so a grid of twice the card's CTAs runs
+# about as one wave (the H100 scan in PERF.md)
+BD_FLASH_WAVE = 2
 # #22's cluster sizes (CTAs splitting S per (slot, kv head)) and the bytes
 # of its ring of TMA chunks (four chunks of 128 rows of 128 code bytes)
 KV8_PARTS = (1, 2, 4, 8)
@@ -140,13 +156,27 @@ def flash_block(S: int, s_block: int) -> int:
     return s_block
 
 
+def flash_ranks(blocks: int, parts: int):
+    """#19/#21's split of ``blocks`` column blocks over ``parts`` ranks:
+    (first, end) block of each rank that has one; a rank takes
+    ceil(blocks / parts) blocks."""
+    per = -(-blocks // parts)
+    return [(r * per, min(blocks, (r + 1) * per)) for r in range(parts)
+            if r * per < blocks]
+
+
 def _bd_partials_plain(q, kt, ks, vt, vs, lengths, nib: bool,
-                       s_block: Optional[int] = None) -> Partials:
+                       s_block: Optional[int] = None,
+                       parts: int = 1) -> Partials:
     """Plain #18-#21: the column blocks in order (one block of S without
     ``s_block``), (o, m, d) carried as ``m' = max(m, max(s_blk));
     a = exp(m - m'); d' = d*a + sum(e); o' = o*a + ctx_blk`` from
     m = -1e30.  A single block gives the whole-row kernels' result
-    exactly: a is 0, or 1 with o and d still 0."""
+    exactly: a is 0, or 1 with o and d still 0.  With ``parts`` > 1 the
+    blocks split over ranks (``flash_ranks``), each carried from
+    m = -1e30, merged in rank order as the flash kernel merges them:
+    m = max(m_r), o = sum_r o_r * exp(m_r - m), d likewise.  A rank with no
+    valid column adds exactly 0; ``parts`` = 1 is the sequence itself."""
     B, H, G, D = q.shape
     S = kt.shape[2]
     sb = S if s_block is None else flash_block(S, s_block)
@@ -155,19 +185,32 @@ def _bd_partials_plain(q, kt, ks, vt, vs, lengths, nib: bool,
     kp, vp = _bd_planes(kt, vt, H, nib)
     L = _lengths(lengths, B, S, q.device)
     col = torch.arange(S, device=q.device)
-    o = torch.zeros((B, H, G, D), device=q.device)
-    m = torch.full((B, H, G), -1e30, device=q.device)
-    d = torch.zeros((B, H, G), device=q.device)
-    for s0 in range(0, S, sb):
-        sl = slice(s0, s0 + sb)
-        valid = (col[sl][None, :] < L[:, None])[:, None, None, :]
-        m_new, e, ctx = _block_partials(
-            q8, qsc, [k[..., sl] for k in kp], ks[..., sl],
-            [v[:, :, sl] for v in vp], vs[..., sl], valid, m)
-        alpha = torch.exp(m - m_new)
-        o = o * alpha[..., None] + ctx
-        d = d * alpha + e.sum(dim=-1)
-        m = m_new
+    ranks = []
+    for first, end in flash_ranks(S // sb, parts):
+        o = torch.zeros((B, H, G, D), device=q.device)
+        m = torch.full((B, H, G), -1e30, device=q.device)
+        d = torch.zeros((B, H, G), device=q.device)
+        for s0 in range(first * sb, end * sb, sb):
+            sl = slice(s0, s0 + sb)
+            valid = (col[sl][None, :] < L[:, None])[:, None, None, :]
+            m_new, e, ctx = _block_partials(
+                q8, qsc, [k[..., sl] for k in kp], ks[..., sl],
+                [v[:, :, sl] for v in vp], vs[..., sl], valid, m)
+            alpha = torch.exp(m - m_new)
+            o = o * alpha[..., None] + ctx
+            d = d * alpha + e.sum(dim=-1)
+            m = m_new
+        ranks.append((o, m, d))
+    if len(ranks) == 1:
+        return ranks[0]
+    m = ranks[0][1]
+    for _, mr, _ in ranks[1:]:
+        m = torch.maximum(m, mr)
+    o = d = None
+    for orr, mr, dr in ranks:
+        w = torch.exp(mr - m)
+        ov, dv = orr * w[..., None], dr * w
+        o, d = (ov, dv) if o is None else (o + ov, d + dv)
     return o, m, d
 
 
@@ -177,9 +220,12 @@ def decode_attention_bd_plain(q, kt, ks, vt, vs, lengths=None) -> Partials:
 
 
 def decode_attention_bd_flash_plain(q, kt, ks, vt, vs, lengths=None,
-                                    s_block: int = FLASH_BLOCK) -> Partials:
-    """Plain #19: #18 in ``s_block`` column blocks."""
-    return _bd_partials_plain(q, kt, ks, vt, vs, lengths, False, s_block)
+                                    s_block: int = FLASH_BLOCK,
+                                    parts: int = 1) -> Partials:
+    """Plain #19: #18 in ``s_block`` column blocks (over ``parts`` ranks:
+    the kernel's split)."""
+    return _bd_partials_plain(q, kt, ks, vt, vs, lengths, False, s_block,
+                              parts)
 
 
 def decode_attention_bd4_plain(q, kt4, ks, vt4, vs, lengths=None
@@ -189,9 +235,12 @@ def decode_attention_bd4_plain(q, kt4, ks, vt4, vs, lengths=None
 
 
 def decode_attention_bd4_flash_plain(q, kt4, ks, vt4, vs, lengths=None,
-                                     s_block: int = S_BLOCK) -> Partials:
-    """Plain #21: #20 in ``s_block`` column blocks."""
-    return _bd_partials_plain(q, kt4, ks, vt4, vs, lengths, True, s_block)
+                                     s_block: int = S_BLOCK,
+                                     parts: int = 1) -> Partials:
+    """Plain #21: #20 in ``s_block`` column blocks (over ``parts`` ranks:
+    the kernel's split)."""
+    return _bd_partials_plain(q, kt4, ks, vt4, vs, lengths, True, s_block,
+                              parts)
 
 
 def decode_attention_i8_plain(q, kq, ks, vq, vs, k_new, kns, v_new, vns,
@@ -306,13 +355,16 @@ _I = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("decode_attention")
-    lib.lc_attn_bd.argtypes = [_P] * 10 + [_I] * 5 + [_P]
-    lib.lc_attn_bd4.argtypes = [_P] * 10 + [_I] * 5 + [_P]
+    lib.lc_attn_bd.argtypes = [_P] * 10 + [_I] * 4 + [_P]
+    lib.lc_attn_bd4.argtypes = [_P] * 10 + [_I] * 4 + [_P]
+    lib.lc_attn_bd_flash.argtypes = [_P] * 12 + [_I] * 8 + [_P]
+    lib.lc_attn_bd_flash_ctas.argtypes = [_I] * 4
     lib.lc_attn_i8.argtypes = [_P] * 12 + [_I] * 4 + [_P]
     lib.lc_attn_kv8.argtypes = [_P] * 6 + [_I] * 6 + [_P]
     lib.lc_attn_kv8_clusters.argtypes = [_I] * 4
-    for fn in (lib.lc_attn_bd, lib.lc_attn_bd4, lib.lc_attn_i8,
-               lib.lc_attn_kv8, lib.lc_attn_kv8_clusters):
+    for fn in (lib.lc_attn_bd, lib.lc_attn_bd4, lib.lc_attn_bd_flash,
+               lib.lc_attn_bd_flash_ctas, lib.lc_attn_i8, lib.lc_attn_kv8,
+               lib.lc_attn_kv8_clusters):
         fn.restype = ctypes.c_int
     return lib
 
@@ -371,8 +423,8 @@ def _check_bd(q, kt, ks, vt, vs, nib: bool) -> int:
     return S
 
 
-def _bd_launch(fn, q, kt, ks, vt, vs, lengths, S: int, sb: int) -> Partials:
-    """One launch of a block-diagonal kernel (``sb`` 0: the whole row)."""
+def _bd_launch(fn, q, kt, ks, vt, vs, lengths, S: int) -> Partials:
+    """One launch of a whole-row block-diagonal kernel (#18, #20)."""
     B, H, G, D = q.shape
     q8, qs = quantize_q(q)
     L = _lengths(lengths, B, S, q.device)
@@ -382,7 +434,7 @@ def _bd_launch(fn, q, kt, ks, vt, vs, lengths, S: int, sb: int) -> Partials:
     with torch.cuda.device(q.device):
         _launch(fn, q8.data_ptr(), qs.data_ptr(), kt.data_ptr(),
                 ks.data_ptr(), vt.data_ptr(), vs.data_ptr(), L.data_ptr(),
-                ctx.data_ptr(), m.data_ptr(), d.data_ptr(), B, H, G, S, sb,
+                ctx.data_ptr(), m.data_ptr(), d.data_ptr(), B, H, G, S,
                 _stream(q.device))
     return ctx, m, d
 
@@ -393,6 +445,133 @@ def _flash_block_checked(S: int, s_block: int) -> int:
         raise ValueError(f"the flash kernels need s_block % 16 == 0, got "
                          f"{sb}")
     return sb
+
+
+def bd_flash_smem_bytes(G: int, sb: int, nib: bool, slots: int,
+                        vsb: Optional[bool] = None) -> int:
+    """Dynamic shared memory of one #19/#21 CTA (the kernel's
+    ``flash_smem``): alignment slack, the ring (4 warps x ``slots`` chunks
+    of 64 columns of K, with their K and V scales, or 64 time steps of V,
+    and their mbarriers), the int32 PV sums (rows of 132 words), the
+    exchanges, the block's V scales (``vsb``; None: where they fit beside a
+    one-slot ring, as the kernel decides) and f32 scores (rows padded
+    against bank conflicts)."""
+    D = KERNEL_HEAD_DIM
+    if vsb is None:
+        vsb = bd_flash_smem_bytes(G, sb, nib, 1, True) <= SMEM_MAX
+    ring = 4 * slots * ((D // 2 if nib else D) * 64 + 256 + 8)
+    stride = (sb + 31) // 32 * 32 + 1
+    return (1024 + ring + G * 132 * 4 + 3 * 4 * 8 * 4 + 16
+            + (2 * sb if vsb else 0) + G * stride * 4)
+
+
+def bd_flash_slots(G: int, sb: int, nib: bool) -> int:
+    """The ring slots a warp of #19/#21 keeps: the most, up to
+    BD_FLASH_SLOTS, with which three CTAs share an SM (the registers allow
+    three), else two, else one CTA; raises where none fits (the block's
+    scores take 4 * G bytes a column)."""
+    for budget in (SMEM_SM // 3 - 1024, SMEM_SM // 2 - 1024, SMEM_MAX):
+        for n in range(BD_FLASH_SLOTS, 0, -1):
+            if bd_flash_smem_bytes(G, sb, nib, n) <= budget:
+                return n
+    raise ValueError(f"the flash kernel holds a block's scores in shared "
+                     f"memory: s_block={sb} at G={G} needs "
+                     f"{bd_flash_smem_bytes(G, sb, nib, 1)} bytes, above "
+                     f"{SMEM_MAX}")
+
+
+def bd_flash_parts(pairs: int, blocks: int, ctas: int) -> int:
+    """#19/#21's ranks a (slot, kv head) for ``pairs`` pairs over ``blocks``
+    column blocks of the buffer, where the card holds ``ctas`` CTAs at
+    once: among the splits into at most BD_FLASH_PARTS_MAX ranks (never
+    more than the blocks), the one with the least waves * (blocks a rank +
+    BD_FLASH_FIXED_BLOCKS), a wave being BD_FLASH_WAVE x ``ctas`` CTAs (a
+    rank past its slot's length leaves at once); ties go to fewer ranks.
+    The slots' lengths take no part: they live on the device, and a host
+    read would stall the stream."""
+    best = None
+    for p in range(1, min(blocks, BD_FLASH_PARTS_MAX) + 1):
+        per = -(-blocks // p)
+        if -(-blocks // per) != p:  # the same split as fewer ranks
+            continue
+        waves = -(-pairs * p // (BD_FLASH_WAVE * ctas))
+        cost = waves * (per + BD_FLASH_FIXED_BLOCKS)
+        if best is None or cost < best[0]:
+            best = (cost, p)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def bd_flash_ctas(index: int, G: int, sb: int, slots: int, nib: bool) -> int:
+    """The #19/#21 CTAs card ``index`` holds at once (CUDA's occupancy
+    query times the SMs)."""
+    with torch.cuda.device(index):
+        n = _lib().lc_attn_bd_flash_ctas(G, sb, slots, int(nib))
+    if n < 0:
+        raise RuntimeError(f"lc_attn_bd_flash_ctas failed: CUDA error {-n}")
+    return n * torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def bd_flash_card_parts(pairs: int, G: int, S: int, sb: int, nib: bool,
+                        device: torch.device) -> Tuple[int, int]:
+    """(ranks, ring slots) of #19/#21 on ``device``'s card: ``bd_flash_slots``
+    and ``bd_flash_parts`` with the card's occupancy."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    slots = bd_flash_slots(G, sb, nib)
+    return bd_flash_parts(pairs, S // sb,
+                          bd_flash_ctas(index, G, sb, slots, nib)), slots
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_counters(device: torch.device, size: int) -> torch.Tensor:
+    """#19/#21's meet counters on ``device``, one a (slot, kv head) for up to
+    ``size`` pairs: zero between calls (the last rank of a pair sets its
+    counter back), so one tensor of each size serves every call.  Calls
+    that share it must not overlap: the port issues them on one stream."""
+    return torch.zeros(size, dtype=torch.int32, device=device)
+
+
+def _bd_flash_launch(q8, qs, kt, ks, vt, vs, L, outs, sb: int, parts: int,
+                     slots: int, nib: bool) -> None:
+    """One launch of #19 (``nib`` False) or #21 on prepared operands: the
+    int8 query and its scales (``quantize_q``), the slabs, int32 lengths,
+    the outputs (ctx, m, d); ``parts`` ranks a (slot, kv head), ``slots``
+    ring slots a warp (``bd_flash_card_parts``; ``kernel_ab.py`` forces
+    others)."""
+    B, H, G, D = q8.shape
+    S = kt.shape[-1]
+    part = cnt = None
+    if parts > 1:
+        part = torch.empty(B * H * parts * G * (D + 2), dtype=torch.float32,
+                           device=q8.device)
+        size = 1 << max(10, (B * H - 1).bit_length())  # a power of two
+        cnt = _flash_counters(q8.device, size)
+    with torch.cuda.device(q8.device):
+        _launch(_lib().lc_attn_bd_flash, q8.data_ptr(), qs.data_ptr(),
+                kt.data_ptr(), ks.data_ptr(), vt.data_ptr(), vs.data_ptr(),
+                L.data_ptr(), *(t.data_ptr() for t in outs),
+                None if part is None else part.data_ptr(),
+                None if cnt is None else cnt.data_ptr(), B, H, G, S, sb,
+                parts, slots, int(nib), _stream(q8.device))
+
+
+def _bd_flash(q, kt, ks, vt, vs, lengths, S: int, s_block: int,
+              nib: bool) -> Partials:
+    """#19/#21 on the card: the query's quantization, the kernel's split,
+    one launch."""
+    B, H, G, D = q.shape
+    sb = _flash_block_checked(S, s_block)
+    parts, slots = bd_flash_card_parts(B * H, G, S, sb, nib, q.device)
+    # the kernel's bulk copies of the scales start on 16-byte boundaries
+    ks, vs = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (ks, vs))
+    q8, qs = quantize_q(q)
+    L = _lengths(lengths, B, S, q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    outs = (torch.empty((B, H, G, D), **f32), torch.empty((B, H, G), **f32),
+            torch.empty((B, H, G), **f32))
+    _bd_flash_launch(q8, qs, kt, ks, vt, vs, L, outs, sb, parts, slots, nib)
+    return outs
 
 
 def decode_attention_bd(q: torch.Tensor, kt: torch.Tensor, ks: torch.Tensor,
@@ -412,7 +591,7 @@ def decode_attention_bd(q: torch.Tensor, kt: torch.Tensor, ks: torch.Tensor,
             f"decode_attention_bd holds the whole score row in shared "
             f"memory: S={S} at G={G} needs {smem_bytes(G, S)} bytes, above "
             f"{SMEM_MAX}; use decode_attention_bd_flash (attn_impl='bds')")
-    out = _bd_launch(_lib().lc_attn_bd, q, kt, ks, vt, vs, lengths, S, 0)
+    out = _bd_launch(_lib().lc_attn_bd, q, kt, ks, vt, vs, lengths, S)
     decode_attention_bd.launches += 1
     return out
 
@@ -423,13 +602,14 @@ def decode_attention_bd_flash(q: torch.Tensor, kt: torch.Tensor,
                               lengths: Optional[torch.Tensor] = None,
                               s_block: int = FLASH_BLOCK) -> Partials:
     """#19: #18's contract, S split into ``s_block`` column blocks (halved
-    until it divides S)."""
+    until it divides S).  On the card the blocks split over
+    ``bd_flash_card_parts`` ranks a (slot, kv head); the CPU runs them in
+    one sequence (``parts`` 1)."""
     S = _check_bd(q, kt, ks, vt, vs, nib=False)
     if q.device.type == "cpu":
         return decode_attention_bd_flash_plain(q, kt, ks, vt, vs, lengths,
                                                s_block)
-    sb = _flash_block_checked(S, s_block)
-    out = _bd_launch(_lib().lc_attn_bd, q, kt, ks, vt, vs, lengths, S, sb)
+    out = _bd_flash(q, kt, ks, vt, vs, lengths, S, s_block, nib=False)
     decode_attention_bd_flash.launches += 1
     return out
 
@@ -443,7 +623,7 @@ def decode_attention_bd4(q: torch.Tensor, kt4: torch.Tensor,
     S = _check_bd(q, kt4, ks, vt4, vs, nib=True)
     if q.device.type == "cpu":
         return decode_attention_bd4_plain(q, kt4, ks, vt4, vs, lengths)
-    out = _bd_launch(_lib().lc_attn_bd4, q, kt4, ks, vt4, vs, lengths, S, 0)
+    out = _bd_launch(_lib().lc_attn_bd4, q, kt4, ks, vt4, vs, lengths, S)
     decode_attention_bd4.launches += 1
     return out
 
@@ -454,13 +634,12 @@ def decode_attention_bd4_flash(q: torch.Tensor, kt4: torch.Tensor,
                                lengths: Optional[torch.Tensor] = None,
                                s_block: int = S_BLOCK) -> Partials:
     """#21: #20's contract, S split into ``s_block`` column blocks (halved
-    until it divides S)."""
+    until it divides S), split over ranks on the card as #19."""
     S = _check_bd(q, kt4, ks, vt4, vs, nib=True)
     if q.device.type == "cpu":
         return decode_attention_bd4_flash_plain(q, kt4, ks, vt4, vs, lengths,
                                                 s_block)
-    sb = _flash_block_checked(S, s_block)
-    out = _bd_launch(_lib().lc_attn_bd4, q, kt4, ks, vt4, vs, lengths, S, sb)
+    out = _bd_flash(q, kt4, ks, vt4, vs, lengths, S, s_block, nib=True)
     decode_attention_bd4_flash.launches += 1
     return out
 

@@ -28,31 +28,30 @@
 // whole slab, a matrix-unit device; these compute what it computes, each
 // head's G query rows against that head's rows of the slab.
 //
-// Arithmetic, in the JAX kernels' order: integer dots (__dp4a over int8 q
-// and int8 codes or sign-extended nibbles, exact in int32); scores
-// (f32(s) * (qs * D^-0.5)) * ks; columns >= length are masked; the max is
-// floored at -1e30 (#18-#21); e = exp(s - m); pv = e * vs; ps = max(max(pv),
-// 1e-20) / 127; p8 = rint(pv / ps) (round half to even, IEEE division: the
-// build uses no fast-math); PV as an int32 dot times ps.  Where JAX
-// multiplies and then adds, __fmul_rn/__fadd_rn keep the two roundings.
-// Masked columns contribute exactly 0 in the TPU kernels, so these skip them.
+// Arithmetic, in the JAX kernels' order: integer dots (int8 q against int8
+// codes or sign-extended nibbles, exact in int32: __dp4a in #17, #18, #20,
+// the int8 tensor cores in #19, #21); scores (f32(s) * (qs * D^-0.5)) * ks;
+// columns >= length are masked; the max is floored at -1e30 (#18-#21); e =
+// exp(s - m); pv = e * vs; ps = max(max(pv), 1e-20) / 127; p8 = rint(pv /
+// ps) (round half to even, IEEE division: the build uses no fast-math); PV
+// as an int32 dot times ps.  Where JAX multiplies and then adds,
+// __fmul_rn/__fadd_rn keep the two roundings.  Masked columns contribute
+// exactly 0 in the TPU kernels, so these skip them.
 //
-// Bound of #17-#21 on an H100 SXM: bytes (#22: its own section below).  A
-// block reads each valid column's codes and scales once (kv8: 128 + 128 + 2 + 2 bytes per kv head and token; kv4: 64 +
-// 64 + 2 + 2) against 2*G*D int operations per code byte pair, far below
-// the int8 tensor-core rate.  Design: one block per (slot, kv head), grid
-// (H, B); the block reads its head's K once for all G query rows and V once
-// for the whole PV dot, with the scores of the valid columns held in shared
-// memory (the probability scale ps is a max over the whole row, or over one
-// s_block column block for #19/#21).  K column t is read down the head's
-// feature rows, 4 columns to a thread, coalesced along t; a V row is one
-// contiguous run of code bytes.  The whole-row kernels (#17, #18, #20) keep
-// 5 * G bytes of shared memory per column, so the buffer S is bounded by
-// the 227 KB a block may have (#18 at G = 4: S <= 11488; the wrapper raises
-// above it and names the flash route).  No tensor cores and no TMA in
-// #17-#21: at 8 slots x 8 kv heads the 64 blocks fill half the SMs;
-// splitting S across blocks and TMA staging, as #22 does, are for later
-// work.
+// Bound of #17-#21 on an H100 SXM: bytes (#19/#21 and #22: their own
+// sections below).  A block reads each valid column's codes and scales once
+// (kv8: 128 + 128 + 2 + 2 bytes per kv head and token; kv4: 64 + 64 + 2 + 2)
+// against 2*G*D int operations per code byte pair, far below the int8
+// tensor-core rate.  Design of the whole-row kernels (#17, #18, #20): one
+// block per (slot, kv head), grid (H, B); the block reads its head's K once
+// for all G query rows and V once for the whole PV dot, with the scores of
+// the valid columns held in shared memory (the probability scale ps is a
+// max over the whole row).  K column t is read down the head's feature
+// rows, 4 columns to a thread, coalesced along t; a V row is one contiguous
+// run of code bytes.  They keep 5 * G bytes of shared memory per column,
+// so the buffer S is bounded by the 227 KB a block may have (#18 at G = 4:
+// S <= 11488; the wrapper raises above it and names the flash route).  No
+// tensor cores and no copy ring in #17, #18, #20.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -397,82 +396,721 @@ attn_bd_kernel(const int8_t* __restrict__ q8, const float* __restrict__ qs,
 }
 
 // ---------------------------------------------------------------------------
-// #19 (kNib false) and #21 (kNib true): S in blocks of sb columns, in order
-// inside the block; the running (o, m, d) stay in registers and shared
-// memory:
+// #19 (kNib false) and #21 (kNib true): S in blocks of sb columns; each
+// block carries (o, m, d) as the TPU kernels' grid steps do:
 //   m' = max(m, max(max(s_blk), -1e30)); a = exp(m - m');
-//   d' = d*a + sum(e); o' = o*a + f32(p8 . v) * ps_blk.
-// Blocks at or past the slot's length leave (o, m, d) unchanged in the TPU
-// kernel (a = 1, e = 0), so the loop stops at the length.
+//   d' = d*a + sum(e); o' = o*a + f32(p8 . v) * ps_blk,
+// the probabilities requantized once a block with that block's scale, so a
+// unit of work is a whole block.  Blocks at or past the slot's length leave
+// (o, m, d) unchanged in the TPU kernel (a = 1, e = 0): they are skipped.
+//
+// Bound on an H100 SXM: bytes (K and V of the valid columns, as #17-#18),
+// against 4 * G * D int8 operations a column.  The design:
+//   * S split over ranks in whole blocks: P CTAs per (slot, kv head), grid
+//     (P, H, B); rank r runs the recurrence over blocks [r * bpr, (r + 1) *
+//     bpr), bpr = ceil((S / sb) / P), from m = -1e30.  The wrapper picks P
+//     from S, sb, the B * H pairs and the card's occupancy, never from the
+//     lengths (ops/attention.bd_flash_parts).  A rank past the slot's valid
+//     blocks exits at once.  The active ranks (the first ceil(ceil(L / sb) /
+//     bpr)) write their (o, m, d) to a scratch and count themselves on a
+//     per-pair integer counter; the last to arrive merges them in rank
+//     order, m = max(m_r), o = sum_r o_r * exp(m_r - m), d likewise, writes
+//     the outputs and sets the counter back to 0.  One active rank writes
+//     its outputs itself.
+//   * Each of the four warps streams its own chunks (64 columns of K: R
+//     feature rows of 64 bytes, with the columns' K and V scales; 64 time
+//     steps of V: rows of R bytes; chunk c of a block to warp c % 4)
+//     through a ring of `nslot` slots, K before V in every block, so its
+//     first V chunks are in flight while the block's softmax runs.  Lane 0
+//     issues a chunk as one TMA box (the chunks that hold valid columns;
+//     the scales by two bulk copies) on the slot's mbarrier, and refills a
+//     slot only after the products that read it (then __syncwarp).  Copies
+//     by cp.async, 16 bytes a lane, held the issuing warp about 0.55 us a
+//     chunk, a TMA box about 0.3 (kernel_ab.py ... flash_stamps).
+//   * Both dots on the int8 tensor cores (mma.sync m16n8k32 s8.s8.s32,
+//     exact, as __dp4a): scores with A = 16 time steps x 32 features of K,
+//     B = q8 (its G rows the n8 columns); PV with A = 16 features x 32 time
+//     steps of V, B = p8.  K is feature-major and V time-major, so both A
+//     operands take a 4 x 4 byte transpose in registers (eight byte
+//     permutes for four words); kv4's nibbles are sign-extended after it,
+//     q's low half against the low nibbles (features d), its high half
+//     against the high ones (d + 64).  The features (QK) and time steps
+//     (PV) a lane reads are permuted so that the chunks' 16-byte pieces,
+//     swizzled by row, fall on distinct banks; q and p8 follow the same
+//     order.  The scores are those of #17-#18 bit for bit, and m with them.
+//   * The softmax chain in the TPU's order and roundings (__fmul_rn, the
+//     IEEE division, rintf, the -1e30 floor) with three exchanges a block
+//     through shared memory (the block max; the sum of e and max of pv; the
+//     PV sums, int32 shared-memory atomics, exact in any order, on distinct
+//     banks), each after warp shuffles.  A warp makes its own p8 B
+//     fragments before its V chunk's wait: rint(pv * (1 / ps)) by adding
+//     1.5 * 2^23, the IEEE division near a tie (as #13's act codes).
+//   * Shared memory: the ring, the block's f32 scores (then pv) and V
+//     scales, the int32 PV sums, the exchanges: 4 * G bytes a column and
+//     the V scales' 2 where they fit, so every sb the whole-block kernel
+//     took still fits (past that the softmax reads the V scales from
+//     global memory).
 // ---------------------------------------------------------------------------
+constexpr int kFlashThreads = 128;
+constexpr int kFlashWarps = kFlashThreads / 32;
+constexpr int kChunk = 64;  // columns (K) or time steps (V) of a ring chunk
+constexpr int kFlashMaxParts = 16;  // ranks a (slot, kv head)
+// a query's row of the int32 PV sums: feature phi of lane group g at phi * 8
+// + g, rows 132 words apart, so that a warp's atomics hit distinct banks
+constexpr int kAccRow = 132;
+
+#ifdef LC_FLASH_STAMPS
+// timing only (kernel_ab.py ... flash_stamps): (point, %globaltimer) pairs
+// of thread 0 of one CTA (rank 0 of kv head 0 of slot 1), stores only (the
+// count in a register), read by lc_flash_stamps
+__device__ unsigned long long flash_stamps[2048];
+__device__ int flash_nstamps;
+#define FLASH_STAMP(id)                                                     \
+  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0 &&             \
+      blockIdx.z == 1 && nstamp_ < 1024) {                                  \
+    unsigned long long t_;                                                  \
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                 \
+    flash_stamps[2 * nstamp_] = (id);                                       \
+    flash_stamps[2 * nstamp_ + 1] = t_;                                     \
+    flash_nstamps = ++nstamp_;                                              \
+  }
+#else
+#define FLASH_STAMP(id)
+#endif
+
+// the f32 score rows of a block: a stride that spreads the score stores of
+// the mma fragments over the banks
+__host__ __device__ constexpr int flash_sc_stride(int sb) {
+  return ((sb + 31) & ~31) + 1;
+}
+
+// bytes of a ring slot's codes (R x 64; 1024-byte aligned for the TMA's
+// swizzle) and of its scales (a K chunk's 64 K then 64 V scales, bf16)
+__host__ __device__ constexpr int flash_slot_bytes(bool nib) {
+  return (nib ? kD2 : kD) * kChunk;
+}
+constexpr int kSlotScales = 4 * kChunk;
+
+// dynamic shared memory of a #19/#21 CTA (ops/attention.bd_flash_smem_bytes):
+// 1024 bytes of alignment slack, the ring (codes, scales, the slots'
+// mbarriers), the int32 PV sums, the exchanges (3 x 4 warps x 8 floats) and
+// the flag, the block's V scales (bf16; where they fit beside a one-slot
+// ring, else the softmax reads them from global memory), the scores
+constexpr size_t kSmemMax = 232448;
+inline size_t flash_smem(int G, int sb, bool nib, int nslot, bool vsb) {
+  const size_t ring = (size_t)kFlashWarps * nslot *
+                      (flash_slot_bytes(nib) + kSlotScales + 8);
+  return 1024 + ring + (size_t)G * kAccRow * 4 + 3 * kFlashWarps * 8 * 4 + 16 +
+         (vsb ? (size_t)sb * 2 : 0) + (size_t)G * flash_sc_stride(sb) * 4;
+}
+inline bool flash_vsb(int G, int sb, bool nib) {
+  return flash_smem(G, sb, nib, 1, true) <= kSmemMax;
+}
+
+// byte offset of 16-byte piece c of row r of a chunk of 64-byte rows (the
+// 64-byte swizzle) or of 128-byte rows (the 128-byte swizzle)
+__device__ __forceinline__ int sw64(int r, int c) {
+  return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+}
+__device__ __forceinline__ int sw128(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+// r & 7 of the rows (64-byte rows) that lane group tig reads with low bit
+// b: with sw64, the four groups' loads of one instruction hit distinct banks
+__device__ __forceinline__ int lane7_64(int tig, int b) {
+  return (tig & 1) | (b << 1) | ((tig >> 1) << 2);
+}
+// the same for 128-byte rows (sw128)
+__device__ __forceinline__ int lane7_128(int tig, int b) { return 2 * tig + b; }
+
+// 4 x 4 byte transpose: byte i of o[j] is byte j of w_i
+__device__ __forceinline__ void transpose4(uint32_t w0, uint32_t w1,
+                                           uint32_t w2, uint32_t w3,
+                                           uint32_t* o) {
+  const uint32_t t0 = __byte_perm(w0, w1, 0x5140);
+  const uint32_t t1 = __byte_perm(w0, w1, 0x7362);
+  const uint32_t t2 = __byte_perm(w2, w3, 0x5140);
+  const uint32_t t3 = __byte_perm(w2, w3, 0x7362);
+  o[0] = __byte_perm(t0, t2, 0x5410);
+  o[1] = __byte_perm(t0, t2, 0x7632);
+  o[2] = __byte_perm(t1, t3, 0x5410);
+  o[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+__device__ __forceinline__ void mma_i8(int (&c)[4], uint32_t a0, uint32_t a1,
+                                       uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// A warp's chunks of its rank, in order: block j (absolute), K (v = 0) then
+// V (v = 1), chunks c = warp, warp + 4, ... of the block's ceil(n / 64).
+struct FlashCursor {
+  int j, v, c;
+};
+
+// moves cur to its next chunk at or after itself; false past the last
+__device__ __forceinline__ bool flash_settle(FlashCursor& cur, int warp,
+                                             int jend, int L, int sb) {
+  while (cur.j < jend) {
+    const int n = min(sb, L - cur.j * sb);
+    if (cur.c < (n + kChunk - 1) / kChunk) return true;
+    cur.c = warp;
+    if (cur.v) ++cur.j;
+    cur.v ^= 1;
+  }
+  return false;
+}
+
+// 1D bulk copy of `bytes` (a multiple of 16) from global src into shared
+// dst, completing on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(lcw4::smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(lcw4::smem_u32(bar))
+      : "memory");
+}
+
+// One lane copies chunk cur into a ring slot (codes dst, scales sdst),
+// completing on bar: a K chunk is one TMA box of R feature rows x 64
+// columns (64-byte swizzle; columns past S as zeros) and the K and V
+// scales of its valid columns rounded up to 16 (bulk copies); a V chunk
+// one box of 64 time steps x R bytes (kv8: 128-byte swizzle, kv4: 64-byte).
+template <bool kNib>
+__device__ __forceinline__ void flash_issue(unsigned char* dst,
+                                            unsigned char* sdst,
+                                            uint64_t* bar,
+                                            const FlashCursor& cur,
+                                            const CUtensorMap* kmap,
+                                            const CUtensorMap* vmap,
+                                            const __nv_bfloat16* ksh,
+                                            const __nv_bfloat16* vsh, int bh,
+                                            int b, int h, int S, int L,
+                                            int sb) {
+  constexpr int R = kNib ? kD2 : kD;
+  const int col = cur.j * sb + cur.c * kChunk;
+  if (!cur.v) {
+    const int nv = min(kChunk, min(sb, L - cur.j * sb) - cur.c * kChunk);
+    const int sbytes = 32 * ((nv + 15) >> 4);
+    lcw4::mbar_expect_tx(bar, R * kChunk + 2 * sbytes);
+    lcw4::tma_load_2d(dst, kmap, col, bh * R, bar);
+    bulk_load(sdst, ksh + col, sbytes, bar);
+    bulk_load(sdst + 2 * kChunk, vsh + col, sbytes, bar);
+  } else {
+    lcw4::mbar_expect_tx(bar, kChunk * R);
+    lcw4::tma_load_2d(dst, vmap, h * R, b * S + col, bar);
+  }
+}
+
 template <int G, bool kNib>
-__global__ void __launch_bounds__(kThreads)
-attn_bd_flash_kernel(const int8_t* __restrict__ q8,
+__global__ void __launch_bounds__(kFlashThreads)
+attn_bd_flash_kernel(const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const int8_t* __restrict__ q8,
                      const float* __restrict__ qs,
-                     const int8_t* __restrict__ kt,
                      const __nv_bfloat16* __restrict__ ks,
-                     const int8_t* __restrict__ vt,
                      const __nv_bfloat16* __restrict__ vs,
                      const int* __restrict__ lengths,
                      float* __restrict__ ctx, float* __restrict__ m_out,
-                     float* __restrict__ d_out, int S, int sb) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kRow = kNib ? kD2 : kD;
-  constexpr int kOut = (G * kD + kThreads - 1) / kThreads;
-  const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x, bh = b * H + h;
-  Smem<G> sm(smem, sb);
+                     float* __restrict__ d_out, float* __restrict__ part,
+                     int* __restrict__ counters, int S, int sb, int nslot,
+                     int vsb_on) {
+  constexpr int CB = flash_slot_bytes(kNib);  // code bytes of a ring slot
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((1024 - (lcw4::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sring = ring + kFlashWarps * nslot * CB;  // the scales
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(sring + kFlashWarps * nslot * kSlotScales);
+  int* accs = reinterpret_cast<int*>(full + kFlashWarps * nslot);
+  float* red = reinterpret_cast<float*>(accs + G * kAccRow);  // [3][warps][8]
+  int* flag = reinterpret_cast<int*>(red + 3 * kFlashWarps * 8);
+  __nv_bfloat16* vsb = reinterpret_cast<__nv_bfloat16*>(flag + 4);  // [sb]
+  float* sc = reinterpret_cast<float*>(vsb + (vsb_on ? sb : 0));  // [G][ss]
+  const int ss = flash_sc_stride(sb);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;  // mma fragment coordinates
+  const int rank = blockIdx.x, P = gridDim.x, h = blockIdx.y, b = blockIdx.z;
+  const int H = gridDim.y, bh = b * H + h;
+#ifdef LC_FLASH_STAMPS
+  int nstamp_ = 0;
+#endif
+  FLASH_STAMP(0);
   const int L = min(max(lengths[b], 0), S);
-  load_q(sm, q8, bh);
-  float qsc[G], m[G], d[G], o[kOut];
-  q_scales(qs, bh, qsc);
-#pragma unroll
-  for (int g = 0; g < G; ++g) m[g] = -1e30f, d[g] = 0.f;
-#pragma unroll
-  for (int k = 0; k < kOut; ++k) o[k] = 0.f;
-  __syncthreads();
-  const uint32_t* kh = reinterpret_cast<const uint32_t*>(
-      kt + ((size_t)b * H * kRow + (size_t)h * kRow) * S);
-  const int8_t* vh = vt + (size_t)b * S * H * kRow + (size_t)h * kRow;
-  for (int c0 = 0; c0 < L; c0 += sb) {
-    const int n = min(sb, L - c0);
-    float mx[G], esum[G], ps[G], alpha[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) mx[g] = -INFINITY;
-    bd_scores<G, kNib>(sm, kh, ks + (size_t)bh * S, qsc, S, c0, n, mx);
-    block_reduce<G, true>(mx, sm.red);
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float mn = fmaxf(m[g], fmaxf(mx[g], -1e30f));
-      alpha[g] = expf(m[g] - mn);
-      m[g] = mn;
-    }
-    softmax_requant(sm, vs + (size_t)bh * S, m, c0, n, esum, ps);
-    bd_pv<G, kNib>(sm, vh, H * kRow, c0, n);
-#pragma unroll
-    for (int k = 0; k < kOut; ++k) {
-      const int i = threadIdx.x + k * kThreads;
-      if (i < G * kD) {
-        const int g = i / kD;
-        o[k] = __fadd_rn(__fmul_rn(o[k], alpha[g]),
-                         __fmul_rn((float)sm.acc[i], ps[g]));
+  const int nblk = S / sb, bpr = (nblk + P - 1) / P;
+  const int nvb = (L + sb - 1) / sb;       // the slot's valid blocks
+  const int nv = (nvb + bpr - 1) / bpr;    // its active ranks
+  const int j0 = rank * bpr, jend = min(j0 + bpr, nvb);
+  if (j0 >= jend) {  // no valid block; an empty slot's rank 0 writes
+                     // (0, -1e30, 0)
+    if (rank == 0) {
+      for (int i = tid; i < G * kD; i += kFlashThreads)
+        ctx[(size_t)bh * G * kD + i] = 0.f;
+      if (tid < G) {
+        m_out[bh * G + tid] = -1e30f;
+        d_out[bh * G + tid] = 0.f;
       }
     }
+    return;
+  }
+  const __nv_bfloat16* ksh = ks + (size_t)bh * S;
+  const __nv_bfloat16* vsh = vs + (size_t)bh * S;
+  unsigned char* wring = ring + warp * nslot * CB;
+  unsigned char* wsring = sring + warp * nslot * kSlotScales;
+  uint64_t* wfull = full + warp * nslot;
+
+  // q8 of the pair's G queries into the scores' room (read below, after
+  // the barrier), its load in flight while the ring's copies are issued
+  int8_t* qsh = reinterpret_cast<int8_t*>(sc);
+  if (tid < G * kD / 16)
+    reinterpret_cast<uint4*>(qsh)[tid] =
+        __ldg(reinterpret_cast<const uint4*>(q8 + (size_t)bh * G * kD) + tid);
+  // the ring: the warp's first nslot chunks, lane 0 issuing; a slot's
+  // mbarrier completes once its copies land
+  FlashCursor fill{j0, 0, warp};
+  bool more = flash_settle(fill, warp, jend, L, sb);
+  if (lane == 0) {
+    for (int s = 0; s < nslot; ++s) lcw4::mbar_init(wfull + s, 1);
+    lcw4::mbar_init_fence();
+  }
+  for (int s = 0; s < nslot && more; ++s) {
+    if (lane == 0)
+      flash_issue<kNib>(wring + s * CB, wsring + s * kSlotScales, wfull + s,
+                        fill, &kmap, &vmap, ksh, vsh, bh, b, h, S, L, sb);
+    fill.c += kFlashWarps;
+    more = flash_settle(fill, warp, jend, L, sb);
+  }
+  __syncwarp();
+  int k = 0;  // the warp's chunks consumed
+  // waits for the warp's chunk k
+  auto wait = [&]() {
+    lcw4::mbar_wait(wfull + k % nslot, (k / nslot) & 1);
+  };
+  // consumed chunk k: lane 0 refills its slot with the warp's chunk
+  // k + nslot once every lane's reads of it are in registers used
+  auto refill = [&]() {
+    __syncwarp();
+    if (more) {
+      if (lane == 0)
+        flash_issue<kNib>(wring + (k % nslot) * CB,
+                          wsring + (k % nslot) * kSlotScales,
+                          wfull + k % nslot, fill, &kmap, &vmap, ksh, vsh,
+                          bh, b, h, S, L, sb);
+      fill.c += kFlashWarps;
+      more = flash_settle(fill, warp, jend, L, sb);
+    }
+    ++k;
+  };
+
+  float o[G], m[G], d[G];
 #pragma unroll
-    for (int g = 0; g < G; ++g) d[g] = __fadd_rn(__fmul_rn(d[g], alpha[g]),
-                                                 esum[g]);
-    __syncthreads();  // every thread has read acc and p8 of this block
-    for (int i = threadIdx.x; i < G * kD; i += kThreads) sm.acc[i] = 0;
+  for (int q = 0; q < G; ++q) {
+    o[q] = 0.f, m[q] = -1e30f, d[q] = 0.f;
+    accs[q * kAccRow + tid] = 0;
+  }
+  __syncthreads();
+  // q8 as the scores' B fragments: k step ks, lane (g, tig) holds query g
+  // at the features of rows 8 a + lane7_64(tig, j & 1), a = 4 ks' + (j >> 1)
+  // (byte j of b0, j < 4; of b1, j - 4), the rows the A fragments gather;
+  // kv4: ks' = ks & 1, features + 64 for ks >= 2 (the high nibbles)
+  uint32_t qb[4][2];
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      uint32_t wd = 0u;
+      if (g < G) {
+        const int8_t* qg = qsh + g * kD;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = 4 * s + i, ka = kNib ? (ks & 1) : ks;
+          const int r = 8 * (4 * ka + (j >> 1)) + lane7_64(tig, j & 1);
+          const int f = r + ((kNib && ks >= 2) ? kD2 : 0);
+          wd |= (uint32_t)(uint8_t)qg[f] << (8 * i);
+        }
+      }
+      qb[ks][s] = wd;
+    }
+  float qsc[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+    qsc[e] = 2 * tig + e < G ? __fmul_rn(qs[bh * G + 2 * tig + e], kScale)
+                             : 0.f;
+  __syncthreads();  // q8 read before the first scores overwrite it
+  FLASH_STAMP(1);
+
+  for (int j = j0; j < jend; ++j) {
+    const int c0 = j * sb, n = min(sb, L - c0);
+    const int nc = (n + kChunk - 1) / kChunk;
+
+    // scores: chunk c (64 columns) of K; lane (g, tig) reads time steps
+    // 8 g .. 8 g + 7 of its rows and holds m16 tile i's rows g, g + 8 as
+    // time steps 8 g + 2 i, 8 g + 2 i + 1
+    float mx[2] = {-INFINITY, -INFINITY};
+    for (int c = warp; c < nc; c += kFlashWarps) {
+      const int tb = c * kChunk;
+      wait();
+      FLASH_STAMP(2);
+      const unsigned char* sl = wring + (k % nslot) * CB;
+      const unsigned char* ssl = wsring + (k % nslot) * kSlotScales;
+      // the K scales of time steps 8 g .. 8 g + 7; lanes tig 0 copy their
+      // V scales into the block's vsb (the slot is refilled before the
+      // softmax reads them)
+      float kv[8];
+      if (tb + 8 * g < n) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(ssl + 16 * g);
+        const __nv_bfloat16* kb = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) kv[u] = bf(kb[u]);
+        if (vsb_on && tig == 0)
+          *reinterpret_cast<uint4*>(vsb + tb + 8 * g) =
+              *reinterpret_cast<const uint4*>(ssl + 2 * kChunk + 16 * g);
+      }
+      int acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] = 0;
+#pragma unroll
+      for (int ka = 0; ka < (kNib ? 2 : 4); ++ka) {
+        uint2 wv[8];
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int r = 8 * (4 * ka + (jj >> 1)) + lane7_64(tig, jj & 1);
+          wv[jj] = *reinterpret_cast<const uint2*>(sl + sw64(r, g >> 1) +
+                                                   8 * (g & 1));
+        }
+        uint32_t x[2][8];  // [a0 rows, a2 rows][time step 8 g + u]
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          transpose4(wv[4 * s].x, wv[4 * s + 1].x, wv[4 * s + 2].x,
+                     wv[4 * s + 3].x, x[s]);
+          transpose4(wv[4 * s].y, wv[4 * s + 1].y, wv[4 * s + 2].y,
+                     wv[4 * s + 3].y, x[s] + 4);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if constexpr (kNib) {
+            mma_i8(acc[i], nib_lo(x[0][2 * i]), nib_lo(x[0][2 * i + 1]),
+                   nib_lo(x[1][2 * i]), nib_lo(x[1][2 * i + 1]), qb[ka][0],
+                   qb[ka][1]);
+            mma_i8(acc[i], nib_hi(x[0][2 * i]), nib_hi(x[0][2 * i + 1]),
+                   nib_hi(x[1][2 * i]), nib_hi(x[1][2 * i + 1]),
+                   qb[ka + 2][0], qb[ka + 2][1]);
+          } else {
+            mma_i8(acc[i], x[0][2 * i], x[0][2 * i + 1], x[1][2 * i],
+                   x[1][2 * i + 1], qb[ka][0], qb[ka][1]);
+          }
+        }
+      }
+      FLASH_STAMP(3);
+      refill();
+      FLASH_STAMP(4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int u = 2 * i + (e >> 1), t = tb + 8 * g + u;
+          const int qq = 2 * tig + (e & 1);
+          if (qq < G && t < n) {
+            const float v = __fmul_rn(
+                __fmul_rn(lcw4::exact_f32(acc[i][e]), qsc[e & 1]), kv[u]);
+            sc[qq * ss + t] = v;
+            mx[e & 1] = fmaxf(mx[e & 1], v);
+          }
+        }
+      FLASH_STAMP(5);
+    }
+    // exchange 1: the block's max
+    FLASH_STAMP(6);
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], off));
+    if (g == 0) {
+      red[warp * 8 + 2 * tig] = mx[0];
+      red[warp * 8 + 2 * tig + 1] = mx[1];
+    }
     __syncthreads();
-  }
+    FLASH_STAMP(7);
+    float alpha[G];
 #pragma unroll
-  for (int k = 0; k < kOut; ++k) {
-    const int i = threadIdx.x + k * kThreads;
-    if (i < G * kD) ctx[(size_t)bh * G * kD + i] = o[k];
+    for (int q = 0; q < G; ++q) {
+      float bm = red[q];
+#pragma unroll
+      for (int w = 1; w < kFlashWarps; ++w) bm = fmaxf(bm, red[w * 8 + q]);
+      const float mn = fmaxf(m[q], fmaxf(bm, -1e30f));
+      alpha[q] = expf(m[q] - mn);
+      m[q] = mn;
+    }
+
+    // e = exp(s - m'), pv = e * vs in place of the scores; sum(e), max(pv)
+    float es[G], pm[G];
+#pragma unroll
+    for (int q = 0; q < G; ++q) es[q] = 0.f, pm[q] = 0.f;
+    for (int t = tid; t < n; t += kFlashThreads) {
+      const float vsv = bf(vsb_on ? vsb[t] : vsh[c0 + t]);
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+        const float e = expf(sc[q * ss + t] - m[q]);
+        es[q] += e;
+        const float pv = __fmul_rn(e, vsv);
+        sc[q * ss + t] = pv;
+        pm[q] = fmaxf(pm[q], pv);
+      }
+    }
+    // exchange 2: sum(e) in warp order, max(pv); ps = max(max(pv), 1e-20) / 127
+    FLASH_STAMP(8);
+#pragma unroll
+    for (int q = 0; q < G; ++q)
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        es[q] += __shfl_xor_sync(0xffffffffu, es[q], off);
+        pm[q] = fmaxf(pm[q], __shfl_xor_sync(0xffffffffu, pm[q], off));
+      }
+    if (lane == 0)
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+        red[kFlashWarps * 8 + warp * 8 + q] = es[q];
+        red[2 * kFlashWarps * 8 + warp * 8 + q] = pm[q];
+      }
+    __syncthreads();
+    FLASH_STAMP(9);
+    float esum[G], ps[G], psg = 1.f;
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      float a = red[kFlashWarps * 8 + q], p = red[2 * kFlashWarps * 8 + q];
+#pragma unroll
+      for (int w = 1; w < kFlashWarps; ++w) {
+        a += red[kFlashWarps * 8 + w * 8 + q];
+        p = fmaxf(p, red[2 * kFlashWarps * 8 + w * 8 + q]);
+      }
+      esum[q] = a;
+      ps[q] = fmaxf(p, 1e-20f) / 127.0f;
+      if (g == q) psg = ps[q];
+    }
+
+    // PV: chunk c (64 time steps) of V; k step ks, lane (g, tig) reads the
+    // time steps 32 ks + 8 a + lane7(tig, jj & 1), a = jj >> 1 (jj < 4: the
+    // a0/a1 k range, else a2/a3), 16 features each (kv8: bytes 16 g ..
+    // 16 g + 15; kv4: bytes 8 g .. 8 g + 7, low then high nibbles), and
+    // holds m16 tile i's rows g, g + 8 as features phi = 2 i, 2 i + 1 of
+    // its 16; its B fragment is p8 of query g at the same time steps
+    int pacc[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pacc[i][e] = 0;
+    const bool pv_any = warp < nc;
+    // p8 = rint(pv / ps): t = pv * (1 / ps) rounded to even by adding 1.5 *
+    // 2^23, or the IEEE division where t lies within 2^-14 of a tie
+    // (lcw4::kTieGuard, as #13's act codes: t is within 2^-15 of pv / ps)
+    const float psinv = __frcp_rn(psg);
+    for (int c = warp; c < nc; c += kFlashWarps) {
+      const int tb = c * kChunk;
+      // the B fragments of both k steps before the chunk's wait, without
+      // branches (every lane reads a score in its row's bounds; codes past
+      // G or n are 0); a lane with a tie divides all sixteen
+      uint32_t bws[2][2];
+      {
+        const float* srow = sc + min(g, G - 1) * ss;
+        float pv[16];
+        int p8[16];
+        bool tie = false;
+#pragma unroll
+        for (int u = 0; u < 16; ++u) {
+          const int jj = u & 7;
+          const int t = tb + 32 * (u >> 3) + 8 * (jj >> 1) +
+                        (kNib ? lane7_64(tig, jj & 1) : lane7_128(tig, jj & 1));
+          pv[u] = (g < G && t < n) ? srow[min(t, ss - 1)] : 0.f;
+          const float tq = __fmul_rn(pv[u], psinv);
+          const float yq = __fadd_rn(tq, 12582912.f);
+          p8[u] = __float_as_int(yq) - 0x4B400000;
+          tie |= fabsf(__fsub_rn(tq, __fsub_rn(yq, 12582912.f))) >
+                 lcw4::kTieGuard;
+        }
+        if (tie)
+#pragma unroll
+          for (int u = 0; u < 16; ++u)
+            p8[u] = (int)rintf(__fdiv_rn(pv[u], psg));
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+          for (int s = 0; s < 2; ++s)
+            bws[kk][s] = __byte_perm(
+                __byte_perm(p8[8 * kk + 4 * s], p8[8 * kk + 4 * s + 1], 0x40),
+                __byte_perm(p8[8 * kk + 4 * s + 2], p8[8 * kk + 4 * s + 3],
+                            0x40),
+                0x5410);
+      }
+      FLASH_STAMP(10);
+      wait();
+      FLASH_STAMP(11);
+      const unsigned char* sl = wring + (k % nslot) * CB;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint32_t* bw = bws[kk];
+        uint32_t y[2][16];  // [a0/a1 time steps, a2/a3][feature phi]
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          if constexpr (kNib) {
+            uint2 v[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int jj = 4 * s + i;
+              const int t = 32 * kk + 8 * (jj >> 1) + lane7_64(tig, jj & 1);
+              v[i] = *reinterpret_cast<const uint2*>(sl + sw64(t, g >> 1) +
+                                                     8 * (g & 1));
+            }
+            uint32_t x[8];
+            transpose4(v[0].x, v[1].x, v[2].x, v[3].x, x);
+            transpose4(v[0].y, v[1].y, v[2].y, v[3].y, x + 4);
+#pragma unroll
+            for (int f = 0; f < 8; ++f) {
+              y[s][f] = (uint32_t)nib_lo(x[f]);
+              y[s][8 + f] = (uint32_t)nib_hi(x[f]);
+            }
+          } else {
+            uint4 v[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int jj = 4 * s + i;
+              const int t = 32 * kk + 8 * (jj >> 1) + lane7_128(tig, jj & 1);
+              v[i] = *reinterpret_cast<const uint4*>(sl + sw128(t, g));
+            }
+            transpose4(v[0].x, v[1].x, v[2].x, v[3].x, y[s]);
+            transpose4(v[0].y, v[1].y, v[2].y, v[3].y, y[s] + 4);
+            transpose4(v[0].z, v[1].z, v[2].z, v[3].z, y[s] + 8);
+            transpose4(v[0].w, v[1].w, v[2].w, v[3].w, y[s] + 12);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          mma_i8(pacc[i], y[0][2 * i], y[0][2 * i + 1], y[1][2 * i],
+                 y[1][2 * i + 1], bw[0], bw[1]);
+      }
+      FLASH_STAMP(12);
+      refill();
+      FLASH_STAMP(13);
+    }
+    FLASH_STAMP(14);
+    if (pv_any)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qq = 2 * tig + (e & 1);
+          if (qq < G)
+            atomicAdd(accs + qq * kAccRow + (2 * i + (e >> 1)) * 8 + g,
+                      pacc[i][e]);
+        }
+    // exchange 3: the block's int32 PV sums; (o, d) of feature tid, at
+    // (phi, g) of its lane group (kv8: 16 g + phi; kv4: 8 g + phi, and 64 +
+    // 8 g + phi - 8 from phi 8 on)
+    __syncthreads();
+    FLASH_STAMP(15);
+    const int acc_at =
+        kNib ? ((tid & 7) + (tid >= kD2 ? 8 : 0)) * 8 + ((tid & (kD2 - 1)) >> 3)
+             : (tid & 15) * 8 + (tid >> 4);
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      const int a = accs[q * kAccRow + acc_at];
+      accs[q * kAccRow + acc_at] = 0;
+      o[q] = __fadd_rn(__fmul_rn(o[q], alpha[q]),
+                       __fmul_rn(__int2float_rn(a), ps[q]));
+      d[q] = __fadd_rn(__fmul_rn(d[q], alpha[q]), esum[q]);
+    }
   }
-  if (threadIdx.x < G) {
-    m_out[bh * G + threadIdx.x] = m[threadIdx.x];
-    d_out[bh * G + threadIdx.x] = d[threadIdx.x];
+
+  FLASH_STAMP(16);
+  if (nv == 1) {  // the slot's only active rank
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      ctx[((size_t)bh * G + q) * kD + tid] = o[q];
+      if (tid == q) {
+        m_out[bh * G + q] = m[q];
+        d_out[bh * G + q] = d[q];
+      }
+    }
+    return;
   }
+  // the rank's (o, m, d) into the scratch [pairs][P][G][D + 2]; the last
+  // active rank to arrive merges them in rank order
+  float* mine = part + ((size_t)bh * P + rank) * G * (kD + 2);
+#pragma unroll
+  for (int q = 0; q < G; ++q) {
+    mine[q * (kD + 2) + tid] = o[q];
+    if (tid == q) {
+      mine[q * (kD + 2) + kD] = m[q];
+      mine[q * (kD + 2) + kD + 1] = d[q];
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *flag = atomicAdd(counters + bh, 1) == nv - 1;
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  // the ranks' m and d into shared memory (the scores' room), then their
+  // weights exp(m_r - m), m = max(m_r), one thread a (query, rank); the
+  // contexts' loads of all ranks in flight at once
+  const float* all = part + (size_t)bh * P * G * (kD + 2);
+  float* pm = sc;                            // [G][16] m_r, then weights
+  float* pd = sc + G * kFlashMaxParts;       // [G][16] d_r
+  float* mrow = pd + G * kFlashMaxParts;     // [G] m
+  for (int i = tid; i < G * nv; i += kFlashThreads) {
+    const int q = i / nv, r = i - q * nv;
+    const float* pr = all + ((size_t)r * G + q) * (kD + 2);
+    pm[q * kFlashMaxParts + r] = __ldcg(pr + kD);
+    pd[q * kFlashMaxParts + r] = __ldcg(pr + kD + 1);
+  }
+  __syncthreads();
+  float wgt = 0.f;
+  if (tid < G * nv) {
+    const int q = tid / nv, r = tid - q * nv;
+    float mm = pm[q * kFlashMaxParts];
+    for (int i = 1; i < nv; ++i) mm = fmaxf(mm, pm[q * kFlashMaxParts + i]);
+    wgt = expf(pm[q * kFlashMaxParts + r] - mm);
+    if (r == 0) mrow[q] = mm;
+  }
+  __syncthreads();
+  if (tid < G * nv) {
+    const int q = tid / nv, r = tid - q * nv;
+    pm[q * kFlashMaxParts + r] = wgt;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < G; ++q) {
+    float ov[kFlashMaxParts];
+#pragma unroll
+    for (int r = 0; r < kFlashMaxParts; ++r)
+      ov[r] = r < nv ? __ldcg(all + ((size_t)r * G + q) * (kD + 2) + tid)
+                     : 0.f;
+    float oa = __fmul_rn(ov[0], pm[q * kFlashMaxParts]);
+#pragma unroll
+    for (int r = 1; r < kFlashMaxParts; ++r)
+      if (r < nv)
+        oa = __fadd_rn(oa, __fmul_rn(ov[r], pm[q * kFlashMaxParts + r]));
+    ctx[((size_t)bh * G + q) * kD + tid] = oa;
+  }
+  if (tid < G) {
+    float da = __fmul_rn(pd[tid * kFlashMaxParts], pm[tid * kFlashMaxParts]);
+    for (int r = 1; r < nv; ++r)
+      da = __fadd_rn(da, __fmul_rn(pd[tid * kFlashMaxParts + r],
+                                   pm[tid * kFlashMaxParts + r]));
+    m_out[bh * G + tid] = mrow[tid];
+    d_out[bh * G + tid] = da;
+  }
+  if (tid == 0) counters[bh] = 0;  // ready for the next call
+  FLASH_STAMP(17);
 }
 
 // ---------------------------------------------------------------------------
@@ -990,29 +1628,60 @@ cudaError_t prepare(Kern kern, size_t smem) {
 template <int G, bool kNib>
 int launch_bd(const void* q8, const void* qs, const void* kt, const void* ks,
               const void* vt, const void* vs, const void* lengths, void* ctx,
-              void* m, void* d, int B, int H, int S, int sb,
-              cudaStream_t st) {
-  const size_t smem = Smem<G>::bytes(sb > 0 ? sb : S);
-  const dim3 grid(H, B);
-  cudaError_t e;
-  if (sb > 0) {
-    e = prepare(attn_bd_flash_kernel<G, kNib>, smem);
-    if (e != cudaSuccess) return (int)e;
-    attn_bd_flash_kernel<G, kNib><<<grid, kThreads, smem, st>>>(
-        (const int8_t*)q8, (const float*)qs, (const int8_t*)kt,
-        (const __nv_bfloat16*)ks, (const int8_t*)vt,
-        (const __nv_bfloat16*)vs, (const int*)lengths, (float*)ctx,
-        (float*)m, (float*)d, S, sb);
-  } else {
-    e = prepare(attn_bd_kernel<G, kNib>, smem);
-    if (e != cudaSuccess) return (int)e;
-    attn_bd_kernel<G, kNib><<<grid, kThreads, smem, st>>>(
-        (const int8_t*)q8, (const float*)qs, (const int8_t*)kt,
-        (const __nv_bfloat16*)ks, (const int8_t*)vt,
-        (const __nv_bfloat16*)vs, (const int*)lengths, (float*)ctx,
-        (float*)m, (float*)d, S);
-  }
+              void* m, void* d, int B, int H, int S, cudaStream_t st) {
+  const size_t smem = Smem<G>::bytes(S);
+  cudaError_t e = prepare(attn_bd_kernel<G, kNib>, smem);
+  if (e != cudaSuccess) return (int)e;
+  attn_bd_kernel<G, kNib><<<dim3(H, B), kThreads, smem, st>>>(
+      (const int8_t*)q8, (const float*)qs, (const int8_t*)kt,
+      (const __nv_bfloat16*)ks, (const int8_t*)vt, (const __nv_bfloat16*)vs,
+      (const int*)lengths, (float*)ctx, (float*)m, (float*)d, S);
   return (int)cudaGetLastError();
+}
+
+template <int G, bool kNib>
+int launch_bd_flash(const void* q8, const void* qs, const void* kt,
+                    const void* ks, const void* vt, const void* vs,
+                    const void* lengths, void* ctx, void* m, void* d,
+                    void* part, void* counters, int B, int H, int S, int sb,
+                    int parts, int nslot, cudaStream_t st) {
+  constexpr int R = kNib ? kD2 : kD;
+  // K as (B * H * R, S) byte rows, boxes of R rows x 64 columns (64-byte
+  // swizzle); V as (B * S, H * R), boxes of 64 rows x R bytes (kv8:
+  // 128-byte swizzle, kv4: 64-byte)
+  CUtensorMap kmap, vmap;
+  int rc = lcw4::tensor_map_2d(&kmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, kt, S,
+                               (uint64_t)B * H * R, S, kChunk, R,
+                               CU_TENSOR_MAP_SWIZZLE_64B);
+  if (rc == 0)
+    rc = lcw4::tensor_map_2d(
+        &vmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, vt, (uint64_t)H * R,
+        (uint64_t)B * S, (uint64_t)H * R, R, kChunk,
+        kNib ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc != 0) return rc;
+  const bool vsb = flash_vsb(G, sb, kNib);
+  const size_t smem = flash_smem(G, sb, kNib, nslot, vsb);
+  cudaError_t e = prepare(attn_bd_flash_kernel<G, kNib>, smem);
+  if (e != cudaSuccess) return (int)e;
+  attn_bd_flash_kernel<G, kNib><<<dim3(parts, H, B), kFlashThreads, smem,
+                                  st>>>(
+      kmap, vmap, (const int8_t*)q8, (const float*)qs,
+      (const __nv_bfloat16*)ks, (const __nv_bfloat16*)vs,
+      (const int*)lengths, (float*)ctx, (float*)m, (float*)d, (float*)part,
+      (int*)counters, S, sb, nslot, (int)vsb);
+  return (int)cudaGetLastError();
+}
+
+// the #19/#21 CTAs an SM holds at once, or minus a CUDA error
+template <int G, bool kNib>
+int flash_ctas(int sb, int nslot) {
+  const size_t smem = flash_smem(G, sb, kNib, nslot, flash_vsb(G, sb, kNib));
+  cudaError_t e = prepare(attn_bd_flash_kernel<G, kNib>, smem);
+  if (e != cudaSuccess) return -(int)e;
+  int n = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, attn_bd_flash_kernel<G, kNib>, kFlashThreads, smem);
+  return e != cudaSuccess ? -(int)e : n;
 }
 
 template <int G>
@@ -1119,16 +1788,40 @@ template <bool kNib>
 int bd_dispatch(const void* q8, const void* qs, const void* kt,
                 const void* ks, const void* vt, const void* vs,
                 const void* lengths, void* ctx, void* m, void* d, int B,
-                int H, int G, int S, int sb, void* stream) {
+                int H, int G, int S, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (sb < 0 || (sb > 0 && (sb % 16 || S % sb)))
-    return (int)cudaErrorInvalidValue;
   switch (G) {
-    case 1: return launch_bd<1, kNib>(q8, qs, kt, ks, vt, vs, lengths, ctx, m, d, B, H, S, sb, st);
-    case 2: return launch_bd<2, kNib>(q8, qs, kt, ks, vt, vs, lengths, ctx, m, d, B, H, S, sb, st);
-    case 4: return launch_bd<4, kNib>(q8, qs, kt, ks, vt, vs, lengths, ctx, m, d, B, H, S, sb, st);
-    case 8: return launch_bd<8, kNib>(q8, qs, kt, ks, vt, vs, lengths, ctx, m, d, B, H, S, sb, st);
+    case 1: return launch_bd<1, kNib>(q8, qs, kt, ks, vt, vs, lengths, ctx, m, d, B, H, S, st);
+    case 2: return launch_bd<2, kNib>(q8, qs, kt, ks, vt, vs, lengths, ctx, m, d, B, H, S, st);
+    case 4: return launch_bd<4, kNib>(q8, qs, kt, ks, vt, vs, lengths, ctx, m, d, B, H, S, st);
+    case 8: return launch_bd<8, kNib>(q8, qs, kt, ks, vt, vs, lengths, ctx, m, d, B, H, S, st);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool kNib>
+int flash_dispatch(const void* q8, const void* qs, const void* kt,
+                   const void* ks, const void* vt, const void* vs,
+                   const void* lengths, void* ctx, void* m, void* d,
+                   void* part, void* counters, int B, int H, int G, int S,
+                   int sb, int parts, int nslot, cudaStream_t st) {
+  switch (G) {
+    case 1: return launch_bd_flash<1, kNib>(q8, qs, kt, ks, vt, vs, lengths, ctx, m, d, part, counters, B, H, S, sb, parts, nslot, st);
+    case 2: return launch_bd_flash<2, kNib>(q8, qs, kt, ks, vt, vs, lengths, ctx, m, d, part, counters, B, H, S, sb, parts, nslot, st);
+    case 4: return launch_bd_flash<4, kNib>(q8, qs, kt, ks, vt, vs, lengths, ctx, m, d, part, counters, B, H, S, sb, parts, nslot, st);
+    case 8: return launch_bd_flash<8, kNib>(q8, qs, kt, ks, vt, vs, lengths, ctx, m, d, part, counters, B, H, S, sb, parts, nslot, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool kNib>
+int flash_ctas_g(int G, int sb, int nslot) {
+  switch (G) {
+    case 1: return flash_ctas<1, kNib>(sb, nslot);
+    case 2: return flash_ctas<2, kNib>(sb, nslot);
+    case 4: return flash_ctas<4, kNib>(sb, nslot);
+    case 8: return flash_ctas<8, kNib>(sb, nslot);
+    default: return -(int)cudaErrorInvalidValue;
   }
 }
 
@@ -1136,22 +1829,69 @@ int bd_dispatch(const void* q8, const void* qs, const void* kt,
 
 extern "C" {
 
-// #20 (sb = 0) and #21 (sb > 0, sb % 16 == 0, S % sb == 0) over the kv4
-// slabs; #18 and #19 over the kv8 slabs.
+// #20 over the kv4 slabs, #18 over the kv8 slabs: the whole row.
 int lc_attn_bd4(const void* q8, const void* qs, const void* kt4,
                 const void* ks, const void* vt4, const void* vs,
                 const void* lengths, void* ctx, void* m, void* d, int B,
-                int H, int G, int S, int sb, void* stream) {
+                int H, int G, int S, void* stream) {
   return bd_dispatch<true>(q8, qs, kt4, ks, vt4, vs, lengths, ctx, m, d, B,
-                           H, G, S, sb, stream);
+                           H, G, S, stream);
 }
 
 int lc_attn_bd(const void* q8, const void* qs, const void* kt,
                const void* ks, const void* vt, const void* vs,
                const void* lengths, void* ctx, void* m, void* d, int B,
-               int H, int G, int S, int sb, void* stream) {
-  return bd_dispatch<false>(q8, qs, kt, ks, vt, vs, lengths, ctx, m, d, B,
-                            H, G, S, sb, stream);
+               int H, int G, int S, void* stream) {
+  return bd_dispatch<false>(q8, qs, kt, ks, vt, vs, lengths, ctx, m, d, B, H,
+                            G, S, stream);
+}
+
+// #21 (nib = 1, the kv4 slabs) and #19 (nib = 0, kv8) in blocks of sb
+// columns (sb % 16 == 0, S % sb == 0), S split over `parts` CTAs per (slot,
+// kv head), `nslot` ring slots a warp (1-3); part: f32 [B*H][parts][G][D+2]
+// and counters: int32 [B*H], zero (the kernel leaves them zero), both
+// unused at parts = 1.
+int lc_attn_bd_flash(const void* q8, const void* qs, const void* kt,
+                     const void* ks, const void* vt, const void* vs,
+                     const void* lengths, void* ctx, void* m, void* d,
+                     void* part, void* counters, int B, int H, int G, int S,
+                     int sb, int parts, int nslot, int nib, void* stream) {
+  if (sb <= 0 || sb % 16 || S % sb || parts < 1 || parts > kFlashMaxParts ||
+      nslot < 1 || nslot > 3 ||
+      (parts > 1 && (part == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  return nib ? flash_dispatch<true>(q8, qs, kt, ks, vt, vs, lengths, ctx, m,
+                                    d, part, counters, B, H, G, S, sb, parts,
+                                    nslot, st)
+             : flash_dispatch<false>(q8, qs, kt, ks, vt, vs, lengths, ctx, m,
+                                     d, part, counters, B, H, G, S, sb, parts,
+                                     nslot, st);
+}
+
+#ifdef LC_FLASH_STAMPS
+// the (point, ns) pairs of the launches since the last call (n <= 1024 into
+// out), then none; returns n or minus a CUDA error
+int lc_flash_stamps(void* out) {
+  int n = 0;
+  cudaError_t e = cudaMemcpyFromSymbol(&n, flash_nstamps, sizeof(int));
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(out, flash_stamps,
+                             2 * n * sizeof(unsigned long long));
+  const int zero = 0;
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbol(flash_nstamps, &zero, sizeof(int));
+  return e == cudaSuccess ? n : -(int)e;
+}
+#endif
+
+// #19/#21's CTAs an SM holds at once (ops/attention.bd_flash_parts), or
+// minus a CUDA error
+int lc_attn_bd_flash_ctas(int G, int sb, int nslot, int nib) {
+  if (sb <= 0 || sb % 16 || nslot < 1 || nslot > 3)
+    return -(int)cudaErrorInvalidValue;
+  return nib ? flash_ctas_g<true>(G, sb, nslot)
+             : flash_ctas_g<false>(G, sb, nslot);
 }
 
 int lc_attn_i8(const void* q8, const void* qs, const void* kq, const void* ks,

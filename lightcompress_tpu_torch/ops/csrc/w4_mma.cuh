@@ -341,19 +341,18 @@ inline EncodeTiled encode_tiled() {
 
 // A 2D tensor map over rows x cols elements of type t at base (row stride
 // `stride` bytes), boxes of box_rows x box_cols elements landing with the
-// 128-byte swizzle of swz (on a 1024-byte aligned destination), elements
-// out of range as zeros; returns 0, or a nonzero code.
-inline int tensor_map_2d(CUtensorMap* m, CUtensorMapDataType t,
-                         const void* base, uint64_t cols, uint64_t rows,
-                         uint64_t stride, uint32_t box_cols,
-                         uint32_t box_rows) {
+// 128-byte swizzle of swz (on a 1024-byte aligned destination; or another
+// `swizzle`), elements out of range as zeros; returns 0, or a nonzero code.
+inline int tensor_map_2d(
+    CUtensorMap* m, CUtensorMapDataType t, const void* base, uint64_t cols,
+    uint64_t rows, uint64_t stride, uint32_t box_cols, uint32_t box_rows,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[2] = {cols, rows}, strides[1] = {stride};
   const cuuint32_t box[2] = {box_cols, box_rows}, unit[2] = {1, 1};
   const CUresult r = fn(m, t, 2, const_cast<void*>(base), dims, strides, box,
-                        unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;

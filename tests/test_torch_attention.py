@@ -147,6 +147,34 @@ def test_bd4_flash_matches_jax(masked):
         ta.decode_attention_bd4_flash(*targs, tl, s_block=64))
 
 
+@pytest.mark.parametrize("parts", [2, 3, 5])
+def test_bd4_flash_parts_matches_jax(parts):
+    """Plain #21 in its kernel's schedule (four 64-column blocks over
+    ``parts`` ranks; 5: more ranks than blocks), ragged lengths with an
+    empty slot, against the JAX kernel in interpret mode; ``parts`` 1 the
+    sequence of blocks bit for bit.  q lies on the int8 grid (``_grid_q``:
+    the jitted JAX wrapper quantizes it under XLA's rewrite of the
+    division)."""
+    from test_torch_attention_bd import _grid_q, sequence_plain
+
+    S = 256
+    jargs, targs = _bd4_case(S, 20 + parts)
+    q = _grid_q(np.random.RandomState(30 + parts), B, G)
+    jargs, targs = (q,) + jargs[1:], (_bf16(q),) + targs[1:]
+    lengths = np.array([0, 100, 193], np.int32)
+    tl = torch.from_numpy(lengths)
+    got = ta.decode_attention_bd4_flash_plain(*targs, tl, s_block=64,
+                                              parts=parts)
+    _check_partials(
+        jpa.decode_attention_bd4_flash(*jargs, jnp.asarray(lengths),
+                                       s_block=64, interpret=True), got)
+    seq = sequence_plain(*targs, tl, True, 64)
+    assert torch.equal(got[1], seq[1])
+    one = ta.decode_attention_bd4_flash_plain(*targs, tl, s_block=64)
+    for a, b in zip(one, seq):
+        assert torch.equal(a, b)
+
+
 def test_i8_append_masked_matches_jax():
     S = 256
     rng = np.random.RandomState(4)

@@ -93,6 +93,67 @@ def test_bd_flash_default_block_matches_jax():
         ta.decode_attention_bd_flash(*targs, torch.from_numpy(lens)))
 
 
+def sequence_plain(q, kt, ks, vt, vs, lengths, nib, s_block):
+    """The flash recurrence over every block in one sequence, as plain #19
+    and #21 ran it before their kernel split S over ranks."""
+    B, Hh, G, Dd = q.shape
+    S = kt.shape[2]
+    sb = ta.flash_block(S, s_block)
+    q8, qs = ta.quantize_q(q)
+    qsc = qs * Dd ** -0.5
+    kp, vp = ta._bd_planes(kt, vt, Hh, nib)
+    L = ta._lengths(lengths, B, S, q.device)
+    col = torch.arange(S)
+    o = torch.zeros((B, Hh, G, Dd))
+    m = torch.full((B, Hh, G), -1e30)
+    d = torch.zeros((B, Hh, G))
+    for s0 in range(0, S, sb):
+        sl = slice(s0, s0 + sb)
+        valid = (col[sl][None, :] < L[:, None])[:, None, None, :]
+        m_new, e, ctx = ta._block_partials(
+            q8, qsc, [k[..., sl] for k in kp], ks[..., sl],
+            [v[:, :, sl] for v in vp], vs[..., sl], valid, m)
+        alpha = torch.exp(m - m_new)
+        o = o * alpha[..., None] + ctx
+        d = d * alpha + e.sum(dim=-1)
+        m = m_new
+    return o, m, d
+
+
+@pytest.mark.parametrize("parts", [2, 3, 6])
+def test_bd_flash_parts_matches_jax(parts):
+    """Plain #19 in its kernel's schedule (four 256-column blocks over
+    ``parts`` ranks; 6: more ranks than blocks), ragged lengths with an
+    empty slot, against the JAX kernel in interpret mode; m bit for bit
+    the sequence's."""
+    S, s_block = 1024, 256
+    jargs, targs = _bd_case(3, 4, S, 70 + parts)
+    lens = np.array([0, 300, S - 17], np.int32)
+    got = ta.decode_attention_bd_flash_plain(
+        *targs, torch.from_numpy(lens), s_block=s_block, parts=parts)
+    _check_partials(
+        jpa.decode_attention_bd_flash(*jargs, jnp.asarray(lens),
+                                      s_block=s_block, interpret=True), got)
+    seq = sequence_plain(*targs, torch.from_numpy(lens), False, s_block)
+    assert torch.equal(got[1], seq[1])
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_bd_flash_one_part_is_the_sequence(masked):
+    """``parts`` = 1 (the CPU route) is the sequence of blocks bit for
+    bit."""
+    S = 1024
+    _, targs = _bd_case(3, 2, S, 80)
+    tl = torch.tensor([0, 700, S], dtype=torch.int32) if masked else None
+    got = ta.decode_attention_bd_flash_plain(*targs, tl, s_block=256,
+                                             parts=1)
+    for a, b in zip(got, sequence_plain(*targs, tl, False, 256)):
+        assert torch.equal(a, b)
+    for a, b in zip(got, ta.decode_attention_bd_flash(*targs, tl,
+                                                      s_block=256)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("flash", [False, True])
 def test_bd_merge_new_token_matches_jax(flash):
     """The merged, normalized context of the fresh int8 token and #18's

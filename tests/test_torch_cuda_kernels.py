@@ -328,6 +328,150 @@ def test_bd_whole_row_limit_raises(dev):
     assert torch.isfinite(c).all() and (d == S).all()
 
 
+def _flash_case(dev, nib, B, S, G, seed):
+    """q (B, 8, G, 128) bf16 and the kv8 (or kv4, ``nib``) block-diagonal
+    slabs of random K/V, with lengths: ragged (an empty slot, a full one,
+    the rest seeded), all 0, and None (every column)."""
+    from lightcompress_tpu_torch.serving.kv_cache import quantize_kv4
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q = torch.randn((B, ATT_H, G, ATT_D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k = torch.randn((B, ATT_H, S, ATT_D), generator=gen, device=dev) * 2
+    v = torch.randn((B, ATT_H, S, ATT_D), generator=gen, device=dev)
+    if nib:
+        slabs = _bd4_slabs(k, v, quantize_kv4)
+    else:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        slabs = (kq.transpose(2, 3).reshape(B, ATT_H * ATT_D, S).contiguous(),
+                 ks,
+                 vq.transpose(1, 2).reshape(B, S, ATT_H * ATT_D).contiguous(),
+                 vs)
+    ragged = torch.randint(0, S + 1, (B,), generator=gen, device=dev)
+    ragged[:8] = _ragged(min(B, 8), S, dev)
+    return q, slabs, (ragged.to(torch.int32),
+                      torch.zeros(B, dtype=torch.int32, device=dev), None)
+
+
+def _flash_fns(nib):
+    from lightcompress_tpu_torch.ops import attention as T
+
+    if nib:
+        return (T.decode_attention_bd4_flash,
+                T.decode_attention_bd4_flash_plain)
+    return T.decode_attention_bd_flash, T.decode_attention_bd_flash_plain
+
+
+def _check_flash(got, again, ref):
+    """``_check_partials``, m bit for bit (the scores are exact int32 dots
+    in both), and a second call's bits the first's."""
+    _check_partials(got, ref)
+    assert torch.equal(got[1], ref[1])
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+FLASH_BG = [(B, G) for B in (1, 8, 32) for G in (1, 2, 4, 8)]
+FLASH_CASES = [(nib, S, sb) for nib in (False, True)
+               for S in (512, 1280, 4096, 8192) + ((16384,) if nib else ())
+               for sb in (512, 256)]
+
+
+@pytest.mark.parametrize("nib,S,sb", FLASH_CASES)
+@pytest.mark.parametrize("B,G", FLASH_BG)
+def test_bd_flash_kernels_match_their_split(dev, nib, S, sb, B, G):
+    """#19 (kv8) and #21 (kv4) against their plain versions at the ranks
+    the wrapper picks (``bd_flash_card_parts``), S 512-16384 in blocks of
+    512 or 256 columns (halved to divide S), ragged, empty and full
+    slots; B 1-32, G 1-8 (G 8 at B 32: a ring slot refilled only after
+    its products)."""
+    from lightcompress_tpu_torch.ops import attention as T
+
+    q, slabs, lens = _flash_case(dev, nib, B, S, G, S + 7 * B + G + nib)
+    run, plain = _flash_fns(nib)
+    sbk = T.flash_block(S, sb)
+    parts, _ = T.bd_flash_card_parts(B * ATT_H, G, S, sbk, nib, dev)
+    T.reset_launch_counts()
+    for lengths in lens:
+        got = run(q, *slabs, lengths, s_block=sb)
+        again = run(q, *slabs, lengths, s_block=sb)
+        ref = plain(q, *slabs, lengths, s_block=sb, parts=parts)
+        torch.cuda.synchronize()
+        _check_flash(got, again, ref)
+        if lengths is not None and not lengths.any():
+            assert (got[0] == 0).all() and (got[2] == 0).all()
+            assert (got[1] == -1e30).all()
+    assert run.launches == 2 * len(lens)
+
+
+@pytest.mark.parametrize("slots", [1, 2, 3])
+@pytest.mark.parametrize("parts", [1, 2, 3, 5, 8, 16])
+@pytest.mark.parametrize("nib", [False, True])
+def test_bd_flash_each_split_matches_its_schedule(dev, nib, parts, slots):
+    """#19/#21 on each forced split (16 ranks over 8 blocks: half of them
+    past every block) and ring depth against the plain rendering of that
+    split; a second call the same bits."""
+    from lightcompress_tpu_torch.ops import attention as T
+
+    B, S, G, sb = 8, 4096, 4, 512
+    q, (kt, ks, vt, vs), lens = _flash_case(dev, nib, B, S, G,
+                                            parts + 10 * slots + nib)
+    _, plain = _flash_fns(nib)
+    q8, qs = T.quantize_q(q)
+    f32 = dict(dtype=torch.float32, device=dev)
+    for lengths in lens:
+        L = T._lengths(lengths, B, S, dev)
+        outs = [(torch.empty((B, ATT_H, G, ATT_D), **f32),
+                 torch.empty((B, ATT_H, G), **f32),
+                 torch.empty((B, ATT_H, G), **f32)) for _ in range(2)]
+        for o in outs:
+            T._bd_flash_launch(q8, qs, kt, ks, vt, vs, L, o, sb, parts,
+                               slots, nib)
+        ref = plain(q, kt, ks, vt, vs, lengths, s_block=sb, parts=parts)
+        torch.cuda.synchronize()
+        _check_flash(outs[0], outs[1], ref)
+
+
+@pytest.mark.parametrize("G,S", [(1, 40000), (4, 11488), (8, 5664)])
+@pytest.mark.parametrize("nib", [False, True])
+def test_bd_flash_largest_blocks(dev, nib, G, S):
+    """One block of the whole buffer, as large as the whole-block kernel
+    took (5 * G bytes of shared memory a column): at G 1 the block's V
+    scales do not fit beside the ring and the softmax reads them from
+    global memory."""
+    from lightcompress_tpu_torch.ops import attention as T
+
+    q, slabs, lens = _flash_case(dev, nib, 1, S, G, S + G + nib)
+    run, plain = _flash_fns(nib)
+    assert T.smem_bytes(G, S) <= T.SMEM_MAX
+    for lengths in lens:
+        got = run(q, *slabs, lengths, s_block=S)
+        again = run(q, *slabs, lengths, s_block=S)
+        ref = plain(q, *slabs, lengths, s_block=S, parts=1)
+        torch.cuda.synchronize()
+        _check_flash(got, again, ref)
+
+
+@pytest.mark.parametrize("nib", [False, True])
+def test_bd_flash_sixteen_column_blocks(dev, nib):
+    """The JAX default block (256) halved to 16 at S 11504 (719 blocks):
+    the kernel against the plain rendering of its split."""
+    from lightcompress_tpu_torch.ops import attention as T
+
+    B, S, G = 1, 11504, 4
+    q, slabs, lens = _flash_case(dev, nib, B, S, G, 11 + nib)
+    run, plain = _flash_fns(nib)
+    parts, _ = T.bd_flash_card_parts(B * ATT_H, G, S, 16, nib, dev)
+    for lengths in lens:
+        got = run(q, *slabs, lengths, s_block=T.FLASH_BLOCK)
+        again = run(q, *slabs, lengths, s_block=T.FLASH_BLOCK)
+        ref = plain(q, *slabs, lengths, s_block=T.FLASH_BLOCK, parts=parts)
+        torch.cuda.synchronize()
+        _check_flash(got, again, ref)
+
+
 @pytest.mark.parametrize("impl,kernel", [("bd", "decode_attention_bd"),
                                          ("bds", "decode_attention_bd_flash")])
 def test_bd_engine_launches_once_a_layer_and_step(dev, impl, kernel):
