@@ -1196,10 +1196,7 @@ def attn_case(kname: str, S: int, dev, gen, lengths=None,
         args = (q, kq, ks, vq, vs, kn[:, :, 0].contiguous(),
                 kns[:, :, 0].contiguous(), vn[:, :, 0].contiguous(),
                 vns[:, :, 0].contiguous(), L)
-        out = torch.empty((B, H, G, D), dtype=torch.float32, device=dev)
-        ptrs = [t.data_ptr() for t in (q8, qs, *args[1:], out)]
-        bare = lambda: AT._launch(lib.lc_attn_i8, *ptrs, B, H, G, S,
-                                  stream)
+        bare = split_bare(q8, qs, args[1:5], L, args[5:9])
         kf, vf = (c.float() * s[..., None].float() for c, s in ((kq, ks),
                                                                  (vq, vs)))
         run = lambda: AT.decode_attention_i8(*args)
@@ -1222,10 +1219,13 @@ def attn_case(kname: str, S: int, dev, gen, lengths=None,
                                                parts, slots, nib)
             extra = dict(s_block=s_block)
             plain_kw = dict(extra, parts=parts)
-        else:
+        elif nib:
             ptrs = [t.data_ptr() for t in (q8, qs, *args[1:], *outs)]
-            fn = lib.lc_attn_bd4 if nib else lib.lc_attn_bd
-            bare = lambda: AT._launch(fn, *ptrs, B, H, G, S, stream)
+            bare = lambda: AT._launch(lib.lc_attn_bd4, *ptrs, B, H, G, S,
+                                      stream)
+            plain_kw = {}
+        else:
+            bare = split_bare(q8, qs, args[1:5], L)
             plain_kw = {}
         if nib:
             kf, vf = (unpack_kv4(c) * s[..., None].float()
@@ -1242,30 +1242,101 @@ def attn_case(kname: str, S: int, dev, gen, lengths=None,
     return run, plain, bare, library, L
 
 
+def split_bare(q8, qs, cache, L, fresh=None):
+    """#17's (``fresh``: the fresh token) or #18's bare launch on prepared
+    operands: ``bare()`` on the cluster size and ring depth the wrapper
+    picks (``AT.split_card_parts``), ``bare(parts, slots)`` on forced ones;
+    returns the outputs."""
+    B, H, G, D = q8.shape
+    S = cache[0].shape[-1] if fresh is None else cache[0].shape[2]
+    picked = AT.split_card_parts(B * H, S, G, fresh is not None, q8.device)
+    f32 = dict(dtype=torch.float32, device=q8.device)
+    outs = {}
+
+    def bare(parts=picked[0], slots=picked[1]):
+        if (parts, slots) not in outs:
+            outs[parts, slots] = (torch.empty((B, H, G, D), **f32),) \
+                if fresh is not None else (
+                    torch.empty((B, H, G, D), **f32),
+                    torch.empty((B, H, G), **f32),
+                    torch.empty((B, H, G), **f32))
+        AT._split_launch(q8, qs, cache, L, outs[parts, slots], parts, slots,
+                         fresh)
+        return outs[parts, slots]
+
+    bare.picked = picked
+    return bare
+
+
 def engine_lengths(S: int, dev, gen) -> torch.Tensor:
     """8 slots at the lengths of the engine phase over buffer S: prompts of
-    1500-2000 tokens in 4096 (``engine_bds``), 3000-4000 in 8192
-    (``engine_kv4_long``), plus the tokens generated."""
-    lo, hi = (1500, 2016) if S == 4096 else (3000, 4016)
+    100-128 tokens in 512 (``engine_pallas``, ``engine_bd``), 1500-2000 in
+    4096 (``engine_bds``), 3000-4000 in 8192 (``engine_kv4_long``), plus
+    the tokens generated."""
+    lo, hi = {512: (100, 159), 4096: (1500, 2016),
+              8192: (3000, 4016)}[S]
     return torch.randint(lo, hi + 1, (ATT_B,), generator=gen,
                          device=dev).to(torch.int32)
 
 
-# the flash kernels' extra rows: (kernel, S, case, s_block); the main rows
-# (ragged lengths, 512-column blocks) stay first
-FLASH_ROWS = (("decode_attention_bd_flash", 4096, "full", AT.S_BLOCK),
+# #17/#18's split across cluster sizes: the chooser's against one CTA a
+# pair, #17's output within this relative error (only d's f32 order moves)
+SPLIT_REL = 1e-6
+# the flash kernels' and #17/#18's extra rows: (kernel, S, case, s_block);
+# the main rows (ragged lengths, 512-column blocks) stay first
+FLASH_ROWS = (("decode_attention_i8", 512, "engine", AT.S_BLOCK),
+              ("decode_attention_bd", 512, "engine", AT.S_BLOCK),
+              ("decode_attention_bd_flash", 4096, "full", AT.S_BLOCK),
               ("decode_attention_bd_flash", 4096, "engine", AT.S_BLOCK),
               ("decode_attention_bd_flash", 4096, "sb256", 256),
               ("decode_attention_bd4_flash", 8192, "full", AT.S_BLOCK),
               ("decode_attention_bd4_flash", 8192, "engine", AT.S_BLOCK))
 
 
+def split_checks(kname, S, case, got, ref, again, bare) -> dict:
+    """#17/#18's gates beyond the plain version's: a second call the same
+    bits; the chooser's cluster size against one CTA a pair (#18: ctx and m
+    the same bits; #17 within SPLIT_REL relative); #18's m its plain
+    version's bit for bit."""
+    parts, slots = bare.picked
+    mine = bare()
+    one = bare(1, AT.split_slots(ATT_G, AT.kv8_columns(S, 1)))
+    torch.cuda.synchronize()
+    where = f"{kname} S={S} {case}"
+    got = got if isinstance(got, tuple) else (got,)
+    again = again if isinstance(again, tuple) else (again,)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{where}: a second call gave other bits")
+    out = dict(parts=parts, slots=slots, repeat_equal=True,
+               split_equal=True)
+    if kname == "decode_attention_bd":
+        if not torch.equal(got[1], ref[1]):
+            raise AssertionError(f"{where}: m is not its plain version's "
+                                 f"bit for bit")
+        if not (torch.equal(mine[0], one[0]) and torch.equal(mine[1],
+                                                             one[1])):
+            raise AssertionError(f"{where}: ctx or m differ between "
+                                 f"{parts} CTAs a pair and 1")
+        out["m_bit_equal"] = True
+    else:
+        rel = float(((mine[0] - one[0]).abs()
+                     / one[0].abs().clamp_min(1e-30)).max())
+        if not rel <= SPLIT_REL:
+            raise AssertionError(f"{where}: {parts} CTAs a pair and 1 differ "
+                                 f"by {rel} relative")
+        out["split_max_rel"] = rel
+    return out
+
+
 def phase_attn_kernels(dev) -> dict:
     """#20 at buffer 4096, #21 at 8192, #17 at 512 and 4096, #18 at 512
     and 4096, #19 at 4096 (512-column blocks) against their plain
-    versions, ragged lengths; #19 and #21 also at full lengths and at their
-    engine phases' lengths, #19 in 256-column blocks, held to the plain
-    rendering of their split: m bit for bit, a second call the same bits.
+    versions, ragged lengths; #17 and #18 also at their engine phases'
+    lengths (``split_checks``: a second call, the chooser's cluster size
+    against one CTA, #18's m bit for bit); #19 and #21 also at full lengths
+    and at their engine phases' lengths, #19 in 256-column blocks, held to
+    the plain rendering of their split: m bit for bit, a second call the
+    same bits.
     Times of the bare kernel (operands prepared), of the whole wrapper
     (with the query's int8 quantization), of the plain version, and of the
     library yardstick: PyTorch's scaled_dot_product_attention of the bf16
@@ -1305,6 +1376,8 @@ def phase_attn_kernels(dev) -> dict:
                 kname.startswith("decode_attention_bd4"), dev)
             extra = dict(s_block=sb, parts=parts, slots=slots,
                          m_bit_equal=True, repeat_equal=True)
+        elif kname in ("decode_attention_i8", "decode_attention_bd"):
+            extra = split_checks(kname, S, case, got, ref, run(), bare)
         err, scale = ctx_error(got, ref)
         torch.cuda.synchronize()
         if not err <= TOL_CTX * scale:

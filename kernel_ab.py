@@ -117,6 +117,20 @@ profiles four decode steps of ``engine_bds`` and ``engine_kv4_long``
 ``phase_profile``: wall and busy ms a step, and #19's or #21's share of
 the busy time.
 
+    cd <tree> && python3 <repo>/kernel_ab.py TAG i8_bd
+
+times #17 (int8 hhd cache) and #18 (kv8 bd slabs): the bare kernel and its
+wrapper against SDPA at chip_smoke's shapes (8 slots of 8 kv heads of 4
+queries, ragged lengths, S 512 and 4096) and at the ``engine_pallas`` /
+``engine_bd`` lengths (S 512); where the tree has the cluster split, the
+bare kernel on each forced cluster size and ring depth (SPLIT_P x 1-2
+slots) with the chooser's pick; then the wrapper over every slot full at
+each S of I8BD_S and (B, G) of I8BD_BG (a shape a tree refuses records
+its error); then profiles four decode steps of ``engine_pallas`` and
+``engine_bd`` (Llama-3-8B, 8 slots, chip_smoke's prompts) with the tree's
+``phase_profile``: wall and busy ms a step, and #17's or #18's share of
+the busy time.
+
     cd <tree> && python3 <repo>/kernel_ab.py TAG attn_rows
 
 times the bare launch of every block-diagonal and int8 decode-attention
@@ -180,6 +194,10 @@ FLASH_SB = (512, 256)
 FLASH_BG = ((1, 4), (8, 1), (8, 4), (8, 8), (32, 4), (32, 8))
 # the forced splits of the rank scan
 FLASH_PARTS = (1, 2, 4, 8, 16)
+# #17/#18's scan: buffers, (slots, queries a kv head), forced cluster sizes
+I8BD_S = (512, 1024, 4096, 8192, 16384)
+I8BD_BG = ((1, 4), (8, 1), (8, 4), (8, 8), (32, 4), (32, 8))
+SPLIT_P = (1, 2, 4, 8)
 
 
 def time_ms(fn, reps: int, pad: torch.Tensor) -> float:
@@ -778,6 +796,103 @@ def bd_flash(tag: str) -> None:
     print(json.dumps(out), flush=True)
 
 
+def _i8_cache(gen, dev, B: int, S: int):
+    """A random int8 hhd cache of 8 kv heads (B, 8, S, 128) with bf16 scales
+    in [1e-3, 0.021), and a fresh token: (kq, ks, vq, vs, kn, kns, vn,
+    vns)."""
+    kq, vq = (torch.randint(-128, 128, (B, 8, S, 128), generator=gen,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    kn, vn = (torch.randint(-128, 128, (B, 8, 128), generator=gen,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ks, vs = ((torch.rand((B, 8, S), generator=gen, device=dev) * 0.02
+               + 1e-3).to(torch.bfloat16) for _ in range(2))
+    kns, vns = ((torch.rand((B, 8), generator=gen, device=dev) * 0.02
+                 + 1e-3).to(torch.bfloat16) for _ in range(2))
+    return kq, ks, vq, vs, kn, kns, vn, vns
+
+
+def i8_bd(tag: str) -> None:
+    """#17 and #18 alone, their cluster scan where the tree has one, and the
+    ``engine_pallas`` / ``engine_bd`` steps' profiles (``i8_bd`` in the
+    docstring)."""
+    from lightcompress_tpu_torch.ops import attention as AT
+
+    dev = torch.device("cuda")
+    pad = torch.empty(C.PAD, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(C.SEED)
+    out = {"tag": tag, "gpu": C.smi()}
+    split = hasattr(AT, "split_card_parts")
+    for kname, S, case in (("decode_attention_i8", 512, "ragged"),
+                           ("decode_attention_i8", 4096, "ragged"),
+                           ("decode_attention_bd", 512, "ragged"),
+                           ("decode_attention_bd", 4096, "ragged"),
+                           ("decode_attention_i8", 512, "engine"),
+                           ("decode_attention_bd", 512, "engine")):
+        lengths = None if case == "ragged" else torch.randint(
+            100, 160, (8,), generator=gen, device=dev).to(torch.int32)
+        run, _, bare, library, _ = C.attn_case(kname, S, dev, gen, lengths)
+        row = {"kernel_ms": time_ms(bare, 20, pad),
+               "wrapper_ms": time_ms(run, 20, pad),
+               "library_ms": time_ms(library, 20, pad)}
+        if split:
+            row["picked"] = list(bare.picked)
+            for p in SPLIT_P:
+                for slots in (1, 2):
+                    per = AT.kv8_columns(S, p)
+                    if AT.split_smem_bytes(4, per, slots) <= AT.SMEM_MAX:
+                        row[f"P{p}_slots{slots}"] = time_ms(
+                            lambda: bare(p, slots), 20, pad)
+        out[f"{kname}_S{S}_{case}"] = row
+    scan = {}
+    for S in I8BD_S:
+        for B, G in I8BD_BG:
+            q = torch.randn((B, 8, G, 128), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            L = torch.full((B,), S, dtype=torch.int32, device=dev)
+            cache = _i8_cache(gen, dev, B, S)
+            slabs = (cache[0].transpose(2, 3).reshape(B, 8 * 128, S)
+                     .contiguous(), cache[1],
+                     cache[2].transpose(1, 2).reshape(B, S, 8 * 128)
+                     .contiguous(), cache[3])
+            for kname, fn in (
+                    ("decode_attention_i8", lambda: AT.decode_attention_i8(
+                        q, *cache, lengths=L)),
+                    ("decode_attention_bd", lambda: AT.decode_attention_bd(
+                        q, *slabs, L))):
+                try:
+                    scan[f"{kname}_S{S}_B{B}_G{G}"] = time_ms(fn, 10, pad)
+                except (RuntimeError, ValueError) as e:
+                    scan[f"{kname}_S{S}_B{B}_G{G}"] = str(e)[:60]
+            del cache, slabs
+    out["scan"] = scan
+    C.PROFILE_TOP = 1000
+    gen.manual_seed(C.SEED)
+    model = C.Llama(C.LLAMA3_8B, C.init_params(gen, C.LLAMA3_8B))
+    sw8 = C.build_serving_weights(model, C.WSPEC, act_bits=8, device=dev)
+    del model
+    prompts = C.make_prompts(8, C.LLAMA3_8B.vocab_size)
+    for name, impl, kerns in (
+            ("engine_pallas", "pallas", ("attn_i8_kernel",
+                                         "attn_split_kernel<4, true>")),
+            ("engine_bd", "bd", ("attn_bd_kernel<4, false>",
+                                 "attn_split_kernel<4, false>"))):
+        prof = C.phase_profile(sw8, prompts, dev, attn_impl=impl)
+        busy = prof["device_busy_ms_per_step"]
+        mine = [t for t in prof["top"] if any(k in t["name"] for k in kerns)]
+        out[name] = {k: prof[k] for k in (
+            "wall_ms_per_step", "device_busy_ms_per_step", "idle_share",
+            "kernels_per_step", "lengths", "attn_impl")}
+        out[name].update(
+            attn_ms_per_step=sum(t["ms_per_step"] for t in mine),
+            attn_calls_per_step=sum(t["calls_per_step"] for t in mine),
+            attn_share=sum(t["ms_per_step"] for t in mine) / busy,
+            top=prof["top"][:6])
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+
+
 # attn_rows' (kernel, S): chip_smoke's attention rows
 ATTN_ROWS = (("decode_attention_i8", 512), ("decode_attention_i8", 4096),
              ("decode_attention_bd", 512), ("decode_attention_bd", 4096),
@@ -922,5 +1037,7 @@ if __name__ == "__main__":
         flash_stamps(tag)
     elif mode == "attn_rows":
         attn_rows(tag)
+    elif mode == "i8_bd":
+        i8_bd(tag)
     else:
         main(tag, mode == "tail")

@@ -5,7 +5,10 @@ lightcompress_tpu/ops/pallas_attention.py, kernels #17-#22).
 * ``decode_attention_bd`` (#18) and ``decode_attention_bd_flash`` (#19):
   one-token GQA decode over the kv8 block-diagonal ``bd`` slabs (K
   feature-major (B, H*D, S) int8, V time-major (B, S, H*D) int8, bf16
-  scales (B, H, S));
+  scales (B, H, S)); #18's kernel splits S over a cluster of CTAs
+  (``split_parts``) and meets the cluster three times (the row max, the
+  max of pv with the sums of e, the int32 PV sums), so its context and m
+  are the same bits at every split;
 * ``decode_attention_bd4`` (#20) and ``decode_attention_bd4_flash`` (#21):
   the same over the nibble-packed kv4 ``bd4`` slabs (K (B, H*D/2, S), V
   (B, S, H*D/2)).
@@ -19,7 +22,7 @@ lightcompress_tpu/ops/pallas_attention.py, kernels #17-#22).
   that schedule.
 * ``decode_attention_i8`` (#17): the same over the int8 ``hhd`` cache
   (B, H, S, D) with the fresh token as an extra softmax column; returns
-  the normalized context.
+  the normalized context.  Its kernel is #18's split (one template).
 
 * ``decode_attention_kv8`` (#22): bf16 q over the int8 cache (B, H, S, D)
   with per-token scales (B, H, S), every column (no length mask: the bench
@@ -76,15 +79,23 @@ BD_FLASH_FIXED_BLOCKS = 1
 # slot's length leave at once, so a grid of twice the card's CTAs runs
 # about as one wave (the H100 scan in PERF.md)
 BD_FLASH_WAVE = 2
-# #22's cluster sizes (CTAs splitting S per (slot, kv head)) and the bytes
-# of its ring of TMA chunks (four chunks of 128 rows of 128 code bytes)
-KV8_PARTS = (1, 2, 4, 8)
+# #17, #18 and #22's cluster sizes (CTAs splitting S per (slot, kv head)),
+# and the bytes of #22's ring of TMA chunks (four chunks of 128 rows of
+# 128 code bytes)
+CLUSTER_PARTS = (1, 2, 4, 8)
 KV8_RING_BYTES = 4 * 128 * 128
 # a #22 CTA's fixed time (its first copy's latency, the cluster's meetings,
 # the partials' sum, a wave's tail) in columns of its streaming time: the
 # value for which ``kv8_parts`` picks the fastest split at every B (1, 4,
 # 8, 32) and S (2049, 4097) of the H100 scan in PERF.md
 KV8_FIXED_COLUMNS = 600
+# #17/#18's most ring slots a warp keeps, and a CTA's fixed time (its first
+# copies' latency, the cluster's four meetings, a wave's tail) in columns
+# of its streaming time: the chooser's pick is the fastest forced split at
+# chip_smoke's S 4096 and within 5% of it at S 512 on the H100 (PERF.md,
+# PR 18)
+SPLIT_SLOTS = 2
+SPLIT_FIXED_COLUMNS = 256
 
 Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -355,16 +366,17 @@ _I = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("decode_attention")
-    lib.lc_attn_bd.argtypes = [_P] * 10 + [_I] * 4 + [_P]
+    lib.lc_attn_bd.argtypes = [_P] * 10 + [_I] * 6 + [_P]
     lib.lc_attn_bd4.argtypes = [_P] * 10 + [_I] * 4 + [_P]
     lib.lc_attn_bd_flash.argtypes = [_P] * 12 + [_I] * 8 + [_P]
     lib.lc_attn_bd_flash_ctas.argtypes = [_I] * 4
-    lib.lc_attn_i8.argtypes = [_P] * 12 + [_I] * 4 + [_P]
+    lib.lc_attn_i8.argtypes = [_P] * 12 + [_I] * 6 + [_P]
+    lib.lc_attn_split_clusters.argtypes = [_I] * 5
     lib.lc_attn_kv8.argtypes = [_P] * 6 + [_I] * 6 + [_P]
     lib.lc_attn_kv8_clusters.argtypes = [_I] * 4
     for fn in (lib.lc_attn_bd, lib.lc_attn_bd4, lib.lc_attn_bd_flash,
                lib.lc_attn_bd_flash_ctas, lib.lc_attn_i8, lib.lc_attn_kv8,
-               lib.lc_attn_kv8_clusters):
+               lib.lc_attn_kv8_clusters, lib.lc_attn_split_clusters):
         fn.restype = ctypes.c_int
     return lib
 
@@ -399,9 +411,9 @@ def _check(q: torch.Tensor, S: int, tensors, scales) -> None:
 
 
 def smem_bytes(G: int, cols: int) -> int:
-    """Dynamic shared memory of one block over ``cols`` score columns (the
-    kernels' ``Smem``): f32 scores and int8 codes per column and row, the
-    int32 PV sums, the q words, the reduction scratch."""
+    """Dynamic shared memory of one #20 block over ``cols`` score columns
+    (the kernel's ``Smem``): f32 scores and int8 codes per column and row,
+    the int32 PV sums, the q words, the reduction scratch."""
     D = KERNEL_HEAD_DIM
     return G * cols * 5 + G * D * 4 + G * D + 8 * G * 4
 
@@ -424,7 +436,7 @@ def _check_bd(q, kt, ks, vt, vs, nib: bool) -> int:
 
 
 def _bd_launch(fn, q, kt, ks, vt, vs, lengths, S: int) -> Partials:
-    """One launch of a whole-row block-diagonal kernel (#18, #20)."""
+    """One launch of the whole-row block-diagonal kernel (#20)."""
     B, H, G, D = q.shape
     q8, qs = quantize_q(q)
     L = _lengths(lengths, B, S, q.device)
@@ -574,24 +586,175 @@ def _bd_flash(q, kt, ks, vt, vs, lengths, S: int, s_block: int,
     return outs
 
 
+def split_smem_bytes(G: int, per: int, slots: int) -> int:
+    """Dynamic shared memory of one #17/#18 CTA over a rank's ``per``
+    columns (the kernel's ``split_smem``): alignment slack, the ring (4
+    warps x ``slots`` chunks of 64 columns' codes and their K and V scales,
+    or 64 time steps of V, and their mbarriers), the int32 PV sums (rows of
+    132 words), q8, the exchanges, the rank's V scales and f32 scores (rows
+    padded against bank conflicts)."""
+    D = KERNEL_HEAD_DIM
+    stride = (per + 31) // 32 * 32 + 9
+    return (1024 + 4 * slots * (D * 64 + 256 + 8) + G * 132 * 4 + G * D
+            + 1024 + 2 * per + G * stride * 4)
+
+
+def split_slots(G: int, per: int) -> int:
+    """The ring slots a warp of #17/#18 keeps over ``per`` columns a rank:
+    the most, up to SPLIT_SLOTS, with which three CTAs share an SM, else
+    two, else one CTA; raises where none fits (a rank's scores take 4 * G
+    bytes a column)."""
+    for budget in (SMEM_SM // 3 - 1024, SMEM_SM // 2 - 1024, SMEM_MAX):
+        for n in range(SPLIT_SLOTS, 0, -1):
+            if split_smem_bytes(G, per, n) <= budget:
+                return n
+    raise ValueError(f"a rank of #17/#18 holds its scores in shared memory: "
+                     f"{per} columns at G={G} need "
+                     f"{split_smem_bytes(G, per, 1)} bytes, above {SMEM_MAX}")
+
+
+def split_fits(G: int, S: int) -> bool:
+    """Whether #17/#18 take S columns at G queries a kv head: a rank's
+    share at the largest split fits a CTA's shared memory (S <= 86016 at
+    G = 4, 44800 at G = 8)."""
+    return split_smem_bytes(G, kv8_columns(S, CLUSTER_PARTS[-1]), 1) \
+        <= SMEM_MAX
+
+
+def cluster_parts(pairs: int, S: int, fits, clusters, fixed: int):
+    """The cluster size of #17, #18 or #22 for ``pairs`` (slot, kv head)
+    pairs over S columns: among the sizes of CLUSTER_PARTS for which
+    ``fits(parts)``, the one with the least waves * (columns of a part +
+    ``fixed``), where a wave is ``clusters(parts)`` clusters (the card's
+    co-resident ones); ties go to fewer parts; None where none fits.  The
+    slots' lengths take no part: they live on the device, and a host read
+    would stall the stream."""
+    best = None
+    for p in CLUSTER_PARTS:
+        if not fits(p):
+            continue
+        c = clusters(p)
+        if c < 1:
+            continue
+        cost = -(-pairs // c) * (kv8_columns(S, p) + fixed)
+        if best is None or cost < best[0]:
+            best = (cost, p)
+    return None if best is None else best[1]
+
+
+def split_parts(pairs: int, S: int, G: int, clusters) -> int:
+    """#17/#18's cluster size: ``cluster_parts`` over the sizes whose share
+    of S fits a CTA's shared memory, SPLIT_FIXED_COLUMNS."""
+    p = cluster_parts(
+        pairs, S, lambda x: split_smem_bytes(G, kv8_columns(S, x), 1)
+        <= SMEM_MAX, clusters, SPLIT_FIXED_COLUMNS)
+    if p is None:
+        _split_too_long("#17/#18", G, S)
+    return p
+
+
+def _split_too_long(name: str, G: int, S: int, hint: str = "") -> None:
+    """Raises: S does not fit #17/#18's shared memory at the largest
+    split."""
+    raise ValueError(
+        f"{name} holds a rank's score columns in shared memory: S={S} at "
+        f"G={G} needs "
+        f"{split_smem_bytes(G, kv8_columns(S, CLUSTER_PARTS[-1]), 1)} bytes "
+        f"a CTA at {CLUSTER_PARTS[-1]} parts, above {SMEM_MAX}{hint}")
+
+
+@functools.lru_cache(maxsize=None)
+def split_clusters(index: int, G: int, per: int, slots: int, i8: bool,
+                   parts: int) -> int:
+    """The clusters of ``parts`` #17 (``i8``) or #18 CTAs over ``per``
+    columns a rank with ``slots`` ring slots a warp that card ``index``
+    holds at once (CUDA's occupancy query)."""
+    with torch.cuda.device(index):
+        n = _lib().lc_attn_split_clusters(G, per, slots, int(i8), parts)
+    if n < 0:
+        raise RuntimeError(f"lc_attn_split_clusters failed: CUDA error {-n}")
+    return n
+
+
+def split_card_parts(pairs: int, S: int, G: int, i8: bool,
+                     device: torch.device) -> Tuple[int, int]:
+    """(cluster size, ring slots) of #17 (``i8``) or #18 on ``device``'s
+    card: ``split_parts`` with the card's co-resident clusters, and
+    ``split_slots`` at that size."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+
+    def clusters(p):
+        per = kv8_columns(S, p)
+        return split_clusters(index, G, per, split_slots(G, per), i8, p)
+
+    parts = split_parts(pairs, S, G, clusters)
+    return parts, split_slots(G, kv8_columns(S, parts))
+
+
+def _split_launch(q8, qs, cache, L, outs, parts: int, slots: int,
+                  fresh=None) -> None:
+    """One launch of #18 (``fresh`` None: ``cache`` the kv8 slabs (kt, ks,
+    vt, vs), ``outs`` (ctx, m, d)) or #17 (``cache`` (kq, ks, vq, vs),
+    ``fresh`` (k_new, kns, v_new, vns), ``outs`` (out,)) on prepared
+    operands: the int8 query and its scales (``quantize_q``), int32
+    lengths; a cluster of ``parts`` CTAs a (slot, kv head), ``slots`` ring
+    slots a warp (``split_card_parts``; ``kernel_ab.py`` and the card tests
+    force others)."""
+    B, H, G, D = q8.shape
+    k, ks, v, vs = cache
+    S = k.shape[-1] if fresh is None else k.shape[2]
+    ptrs = [t.data_ptr() for t in (q8, qs, k, ks, v, vs)]
+    with torch.cuda.device(q8.device):
+        if fresh is None:
+            _launch(_lib().lc_attn_bd, *ptrs, L.data_ptr(),
+                    *(t.data_ptr() for t in outs), B, H, G, S, parts, slots,
+                    _stream(q8.device))
+        else:
+            _launch(_lib().lc_attn_i8, *ptrs,
+                    *(t.data_ptr() for t in fresh), L.data_ptr(),
+                    outs[0].data_ptr(), B, H, G, S, parts, slots,
+                    _stream(q8.device))
+
+
+def _split(q, cache, lengths, S: int, fresh=None):
+    """#17 (``fresh``) or #18 on the card: the query's quantization, the
+    cluster size, one launch."""
+    B, H, G, D = q.shape
+    parts, slots = split_card_parts(B * H, S, G, fresh is not None,
+                                    q.device)
+    k, ks, v, vs = cache
+    # the kernel's bulk copies of the scales start on 16-byte boundaries
+    ks, vs = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (ks, vs))
+    q8, qs = quantize_q(q)
+    L = _lengths(lengths, B, S, q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    if fresh is None:
+        outs = (torch.empty((B, H, G, D), **f32),
+                torch.empty((B, H, G), **f32), torch.empty((B, H, G), **f32))
+    else:
+        outs = (torch.empty((B, H, G, D), **f32),)
+    _split_launch(q8, qs, (k, ks, v, vs), L, outs, parts, slots, fresh)
+    return outs
+
+
 def decode_attention_bd(q: torch.Tensor, kt: torch.Tensor, ks: torch.Tensor,
                         vt: torch.Tensor, vs: torch.Tensor,
                         lengths: Optional[torch.Tensor] = None) -> Partials:
     """#18: q (B, H, G, D) over the kv8 ``bd`` slabs of one layer; columns
     ``< lengths`` (all when None).  Returns (ctx unnormalized, m, d).  On
-    the card the whole score row sits in shared memory: S is bounded by
-    ``smem_bytes(G, S) <= SMEM_MAX`` (S <= 11488 at G = 4); above it this
-    raises and the flash kernel (``attn_impl="bds"``) takes the buffer."""
+    the card S splits over a cluster of ``split_card_parts`` CTAs per (slot,
+    kv head), each holding its share's scores in shared memory: S is
+    bounded by ``split_fits`` (S <= 86016 at G = 4); above it this raises
+    and the flash kernel (``attn_impl="bds"``) takes the buffer."""
     S = _check_bd(q, kt, ks, vt, vs, nib=False)
     if q.device.type == "cpu":
         return decode_attention_bd_plain(q, kt, ks, vt, vs, lengths)
     G = q.shape[2]
-    if smem_bytes(G, S) > SMEM_MAX:
-        raise ValueError(
-            f"decode_attention_bd holds the whole score row in shared "
-            f"memory: S={S} at G={G} needs {smem_bytes(G, S)} bytes, above "
-            f"{SMEM_MAX}; use decode_attention_bd_flash (attn_impl='bds')")
-    out = _bd_launch(_lib().lc_attn_bd, q, kt, ks, vt, vs, lengths, S)
+    if not split_fits(G, S):
+        _split_too_long("decode_attention_bd", G, S, "; use "
+                        "decode_attention_bd_flash (attn_impl='bds')")
+    out = _split(q, (kt, ks, vt, vs), lengths, S)
     decode_attention_bd.launches += 1
     return out
 
@@ -656,7 +819,8 @@ def decode_attention_i8(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     per-token scales (B, H, S), plus the fresh token k_new/v_new (B, H, D)
     int8 with scales (B, H); columns ``< lengths`` of the cache (all when
     None).  Returns the normalized (B, H, G, D) f32.  Only the engine's
-    append form is ported: the fresh token is required."""
+    append form is ported: the fresh token is required.  On the card #18's
+    split kernel runs it, bounded alike (``split_fits``)."""
     if k_new is None or kns is None or v_new is None or vns is None:
         raise NotImplementedError("decode_attention_i8 without the fresh "
                                   "token (the no-append form) is not ported")
@@ -675,20 +839,15 @@ def decode_attention_i8(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     k_new, v_new, kns, vns = (t.contiguous() for t in (k_new, v_new, kns,
                                                         vns))
     _check(q, S, [kq, vq, k_new, v_new], [ks, vs, kns, vns])
-    q8, qs = quantize_q(q)
-    L = _lengths(lengths, B, S, q.device)
-    out = torch.empty((B, H, G, D), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        _launch(_lib().lc_attn_i8, q8.data_ptr(), qs.data_ptr(),
-                kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
-                k_new.data_ptr(), kns.data_ptr(), v_new.data_ptr(),
-                vns.data_ptr(), L.data_ptr(), out.data_ptr(), B, H, G,
-                S, _stream(q.device))
+    if not split_fits(G, S):
+        _split_too_long("decode_attention_i8", G, S)
+    out, = _split(q, (kq, ks, vq, vs), lengths, S,
+                  fresh=(k_new, kns, v_new, vns))
     decode_attention_i8.launches += 1
     return out
 
 
-def kv8_smem_bytes(G: int, S: int, parts: int = KV8_PARTS[-1]) -> int:
+def kv8_smem_bytes(G: int, S: int, parts: int = CLUSTER_PARTS[-1]) -> int:
     """Dynamic shared memory of one #22 CTA when S is split over ``parts``
     (the kernel's ``kv8_smem``): alignment slack, the ring of TMA chunks,
     the f32 scores of the part's columns (rows padded against bank
@@ -700,27 +859,17 @@ def kv8_smem_bytes(G: int, S: int, parts: int = KV8_PARTS[-1]) -> int:
 
 
 def kv8_parts(pairs: int, S: int, G: int, clusters) -> int:
-    """#22's cluster size for ``pairs`` (slot, kv head) pairs: among the
-    parts of KV8_PARTS whose share of S fits a CTA's shared memory, the one
-    with the least waves * (columns of a part + KV8_FIXED_COLUMNS), where a
-    wave is ``clusters(parts)`` clusters (the card's co-resident ones);
-    ties go to fewer parts."""
-    best = None
-    for p in KV8_PARTS:
-        if kv8_smem_bytes(G, S, p) > SMEM_MAX:
-            continue
-        c = clusters(p)
-        if c < 1:
-            continue
-        cost = -(-pairs // c) * (kv8_columns(S, p) + KV8_FIXED_COLUMNS)
-        if best is None or cost < best[0]:
-            best = (cost, p)
-    if best is None:
+    """#22's cluster size: ``cluster_parts`` over the sizes whose share of
+    S fits a CTA's shared memory, KV8_FIXED_COLUMNS."""
+    p = cluster_parts(pairs, S,
+                      lambda x: kv8_smem_bytes(G, S, x) <= SMEM_MAX,
+                      clusters, KV8_FIXED_COLUMNS)
+    if p is None:
         raise ValueError(f"decode_attention_kv8 holds a part's scores in "
                          f"shared memory: S={S} at G={G} needs "
                          f"{kv8_smem_bytes(G, S)} bytes a CTA at "
-                         f"{KV8_PARTS[-1]} parts, above {SMEM_MAX}")
-    return best[1]
+                         f"{CLUSTER_PARTS[-1]} parts, above {SMEM_MAX}")
+    return p
 
 
 @functools.lru_cache(maxsize=None)

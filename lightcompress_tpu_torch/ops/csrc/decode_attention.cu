@@ -2,7 +2,7 @@
 // (sm_90a), CUDA C++ with a plain C interface bound from Python with ctypes
 // (ops/_build.py, ops/attention.py).
 //
-//   #18 attn_bd_kernel<G, false>        replaces
+//   #18 attn_split_kernel<G, false>     replaces
 //                                       lightcompress_tpu/ops/pallas_attention.py
 //                                       decode_attention_bd (_attn_kernel_bd)
 //   #19 attn_bd_flash_kernel<G, false>  replaces decode_attention_bd_flash
@@ -11,7 +11,7 @@
 //                                       (_attn_kernel_bd4)
 //   #21 attn_bd_flash_kernel<G, true>   replaces decode_attention_bd4_flash
 //                                       (_attn_kernel_bd4_flash)
-//   #17 attn_i8_kernel                  replaces decode_attention_i8
+//   #17 attn_split_kernel<G, true>      replaces decode_attention_i8
 //                                       (_attn_kernel_i8_append, masked)
 //   #22 attn_kv8_kernel<G, ST>          replaces decode_attention_kv8
 //                                       (_attn_kernel)
@@ -29,8 +29,8 @@
 // head's G query rows against that head's rows of the slab.
 //
 // Arithmetic, in the JAX kernels' order: integer dots (int8 q against int8
-// codes or sign-extended nibbles, exact in int32: __dp4a in #17, #18, #20,
-// the int8 tensor cores in #19, #21); scores (f32(s) * (qs * D^-0.5)) * ks;
+// codes or sign-extended nibbles, exact in int32: __dp4a in #20, the int8
+// tensor cores in #17-#19, #21); scores (f32(s) * (qs * D^-0.5)) * ks;
 // columns >= length are masked; the max is floored at -1e30 (#18-#21); e =
 // exp(s - m); pv = e * vs; ps = max(max(pv), 1e-20) / 127; p8 = rint(pv /
 // ps) (round half to even, IEEE division: the build uses no fast-math); PV
@@ -38,20 +38,19 @@
 // __fmul_rn/__fadd_rn keep the two roundings.  Masked columns contribute
 // exactly 0 in the TPU kernels, so these skip them.
 //
-// Bound of #17-#21 on an H100 SXM: bytes (#19/#21 and #22: their own
+// Bound of #17-#21 on an H100 SXM: bytes (#17-#19/#21 and #22: their own
 // sections below).  A block reads each valid column's codes and scales once
 // (kv8: 128 + 128 + 2 + 2 bytes per kv head and token; kv4: 64 + 64 + 2 + 2)
 // against 2*G*D int operations per code byte pair, far below the int8
-// tensor-core rate.  Design of the whole-row kernels (#17, #18, #20): one
-// block per (slot, kv head), grid (H, B); the block reads its head's K once
-// for all G query rows and V once for the whole PV dot, with the scores of
-// the valid columns held in shared memory (the probability scale ps is a
-// max over the whole row).  K column t is read down the head's feature
-// rows, 4 columns to a thread, coalesced along t; a V row is one contiguous
-// run of code bytes.  They keep 5 * G bytes of shared memory per column,
-// so the buffer S is bounded by the 227 KB a block may have (#18 at G = 4:
-// S <= 11488; the wrapper raises above it and names the flash route).  No
-// tensor cores and no copy ring in #17, #18, #20.
+// tensor-core rate.  #20 is a whole-row kernel: one block per (slot, kv
+// head), grid (H, B); the block reads its head's K once for all G query
+// rows and V once for the whole PV dot, with the scores of the valid
+// columns held in shared memory (the probability scale ps is a max over
+// the whole row).  K column t is read down the head's feature rows, 4
+// columns to a thread, coalesced along t; a V row is one contiguous run of
+// code bytes.  It keeps 5 * G bytes of shared memory per column, so its
+// buffer S is bounded by the 227 KB a block may have.  No tensor cores and
+// no copy ring in #20.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -355,8 +354,9 @@ __device__ __forceinline__ void q_scales(const float* qs, int bh,
 }
 
 // ---------------------------------------------------------------------------
-// #18 (kNib false) and #20 (kNib true): the whole buffer in one pass;
-// (ctx unnormalized, m, d).
+// #20 (kNib true): the whole buffer in one pass; (ctx unnormalized, m, d).
+// The kv8 branches (kNib false) are no longer instantiated: #18 runs
+// attn_split_kernel below.
 // ---------------------------------------------------------------------------
 template <int G, bool kNib>
 __global__ void __launch_bounds__(kThreads)
@@ -545,6 +545,144 @@ __device__ __forceinline__ void mma_i8(int (&c)[4], uint32_t a0, uint32_t a1,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// A K chunk's scores on the tile (#18, #19: kv8 feature rows; #21: kv4):
+// acc[i] += m16 tile i (lane (g, tig): time steps 8 g + 2 i, + 1 as rows g,
+// g + 8) times q8's B fragments qb; lane (g, tig) reads time steps 8 g ..
+// 8 g + 7 of the rows 8 a + lane7_64(tig, b) and transposes them
+template <bool kNib>
+__device__ __forceinline__ void bd_chunk_scores(const unsigned char* sl,
+                                                int g, int tig,
+                                                const uint32_t (&qb)[4][2],
+                                                int (&acc)[4][4]) {
+#pragma unroll
+  for (int ka = 0; ka < (kNib ? 2 : 4); ++ka) {
+    uint2 wv[8];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int r = 8 * (4 * ka + (jj >> 1)) + lane7_64(tig, jj & 1);
+      wv[jj] = *reinterpret_cast<const uint2*>(sl + sw64(r, g >> 1) +
+                                               8 * (g & 1));
+    }
+    uint32_t x[2][8];  // [a0 rows, a2 rows][time step 8 g + u]
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      transpose4(wv[4 * s].x, wv[4 * s + 1].x, wv[4 * s + 2].x,
+                 wv[4 * s + 3].x, x[s]);
+      transpose4(wv[4 * s].y, wv[4 * s + 1].y, wv[4 * s + 2].y,
+                 wv[4 * s + 3].y, x[s] + 4);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (kNib) {
+        mma_i8(acc[i], nib_lo(x[0][2 * i]), nib_lo(x[0][2 * i + 1]),
+               nib_lo(x[1][2 * i]), nib_lo(x[1][2 * i + 1]), qb[ka][0],
+               qb[ka][1]);
+        mma_i8(acc[i], nib_hi(x[0][2 * i]), nib_hi(x[0][2 * i + 1]),
+               nib_hi(x[1][2 * i]), nib_hi(x[1][2 * i + 1]),
+               qb[ka + 2][0], qb[ka + 2][1]);
+      } else {
+        mma_i8(acc[i], x[0][2 * i], x[0][2 * i + 1], x[1][2 * i],
+               x[1][2 * i + 1], qb[ka][0], qb[ka][1]);
+      }
+    }
+  }
+}
+
+// The PV B fragments of the chunk at column tb: p8 of query g (score row
+// srow, stride ss; zero where live_g is false or t >= n) at the lane's
+// time steps 32 kk + 8 a + lane7(tig, jj & 1), a = jj >> 1.  p8 = rint(pv
+// / ps): t = pv * (1 / ps) rounded to even by adding 1.5 * 2^23, or the
+// IEEE division where t lies within 2^-14 of a tie (lcw4::kTieGuard, as
+// #13's act codes: t is within 2^-15 of pv / ps); without branches (every
+// lane reads a score in its row's bounds); a lane with a tie divides all
+// sixteen
+template <bool kNib>
+__device__ __forceinline__ void p8_frags(const float* srow, int ss, int tb,
+                                         int n, bool live_g, int tig,
+                                         float psinv, float psg,
+                                         uint32_t (&bws)[2][2]) {
+  float pv[16];
+  int p8[16];
+  bool tie = false;
+#pragma unroll
+  for (int u = 0; u < 16; ++u) {
+    const int jj = u & 7;
+    const int t = tb + 32 * (u >> 3) + 8 * (jj >> 1) +
+                  (kNib ? lane7_64(tig, jj & 1) : lane7_128(tig, jj & 1));
+    pv[u] = (live_g && t < n) ? srow[min(t, ss - 1)] : 0.f;
+    const float tq = __fmul_rn(pv[u], psinv);
+    const float yq = __fadd_rn(tq, 12582912.f);
+    p8[u] = __float_as_int(yq) - 0x4B400000;
+    tie |= fabsf(__fsub_rn(tq, __fsub_rn(yq, 12582912.f))) > lcw4::kTieGuard;
+  }
+  if (tie)
+#pragma unroll
+    for (int u = 0; u < 16; ++u) p8[u] = (int)rintf(__fdiv_rn(pv[u], psg));
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+      bws[kk][s] = __byte_perm(
+          __byte_perm(p8[8 * kk + 4 * s], p8[8 * kk + 4 * s + 1], 0x40),
+          __byte_perm(p8[8 * kk + 4 * s + 2], p8[8 * kk + 4 * s + 3], 0x40),
+          0x5410);
+}
+
+// A V chunk's PV on the tile: pacc[i] += m16 tile i (lane (g, tig): rows
+// g, g + 8 as features phi = 2 i, 2 i + 1 of its 16; kv8: 16 g + phi;
+// kv4: 8 g + phi, and 64 + 8 g + phi - 8 from phi 8 on) times p8's B
+// fragments bws[kk]; lane (g, tig) reads, at k step kk, the time steps
+// 32 kk + 8 a + lane7(tig, jj & 1), a = jj >> 1 (jj < 4: the a0/a1 k
+// range, else a2/a3), 16 features each (kv8: bytes 16 g .. 16 g + 15; kv4:
+// bytes 8 g .. 8 g + 7, low then high nibbles)
+template <bool kNib>
+__device__ __forceinline__ void bd_chunk_pv(const unsigned char* sl, int g,
+                                            int tig,
+                                            const uint32_t (&bws)[2][2],
+                                            int (&pacc)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    uint32_t y[2][16];  // [a0/a1 time steps, a2/a3][feature phi]
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      if constexpr (kNib) {
+        uint2 v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int jj = 4 * s + i;
+          const int t = 32 * kk + 8 * (jj >> 1) + lane7_64(tig, jj & 1);
+          v[i] = *reinterpret_cast<const uint2*>(sl + sw64(t, g >> 1) +
+                                                 8 * (g & 1));
+        }
+        uint32_t x[8];
+        transpose4(v[0].x, v[1].x, v[2].x, v[3].x, x);
+        transpose4(v[0].y, v[1].y, v[2].y, v[3].y, x + 4);
+#pragma unroll
+        for (int f = 0; f < 8; ++f) {
+          y[s][f] = (uint32_t)nib_lo(x[f]);
+          y[s][8 + f] = (uint32_t)nib_hi(x[f]);
+        }
+      } else {
+        uint4 v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int jj = 4 * s + i;
+          const int t = 32 * kk + 8 * (jj >> 1) + lane7_128(tig, jj & 1);
+          v[i] = *reinterpret_cast<const uint4*>(sl + sw128(t, g));
+        }
+        transpose4(v[0].x, v[1].x, v[2].x, v[3].x, y[s]);
+        transpose4(v[0].y, v[1].y, v[2].y, v[3].y, y[s] + 4);
+        transpose4(v[0].z, v[1].z, v[2].z, v[3].z, y[s] + 8);
+        transpose4(v[0].w, v[1].w, v[2].w, v[3].w, y[s] + 12);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      mma_i8(pacc[i], y[0][2 * i], y[0][2 * i + 1], y[1][2 * i],
+             y[1][2 * i + 1], bws[kk][0], bws[kk][1]);
+  }
 }
 
 // A warp's chunks of its rank, in order: block j (absolute), K (v = 0) then
@@ -778,38 +916,7 @@ attn_bd_flash_kernel(const __grid_constant__ CUtensorMap kmap,
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][e] = 0;
-#pragma unroll
-      for (int ka = 0; ka < (kNib ? 2 : 4); ++ka) {
-        uint2 wv[8];
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          const int r = 8 * (4 * ka + (jj >> 1)) + lane7_64(tig, jj & 1);
-          wv[jj] = *reinterpret_cast<const uint2*>(sl + sw64(r, g >> 1) +
-                                                   8 * (g & 1));
-        }
-        uint32_t x[2][8];  // [a0 rows, a2 rows][time step 8 g + u]
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-          transpose4(wv[4 * s].x, wv[4 * s + 1].x, wv[4 * s + 2].x,
-                     wv[4 * s + 3].x, x[s]);
-          transpose4(wv[4 * s].y, wv[4 * s + 1].y, wv[4 * s + 2].y,
-                     wv[4 * s + 3].y, x[s] + 4);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if constexpr (kNib) {
-            mma_i8(acc[i], nib_lo(x[0][2 * i]), nib_lo(x[0][2 * i + 1]),
-                   nib_lo(x[1][2 * i]), nib_lo(x[1][2 * i + 1]), qb[ka][0],
-                   qb[ka][1]);
-            mma_i8(acc[i], nib_hi(x[0][2 * i]), nib_hi(x[0][2 * i + 1]),
-                   nib_hi(x[1][2 * i]), nib_hi(x[1][2 * i + 1]),
-                   qb[ka + 2][0], qb[ka + 2][1]);
-          } else {
-            mma_i8(acc[i], x[0][2 * i], x[0][2 * i + 1], x[1][2 * i],
-                   x[1][2 * i + 1], qb[ka][0], qb[ka][1]);
-          }
-        }
-      }
+      bd_chunk_scores<kNib>(sl, g, tig, qb, acc);
       FLASH_STAMP(3);
       refill();
       FLASH_STAMP(4);
@@ -898,105 +1005,25 @@ attn_bd_flash_kernel(const __grid_constant__ CUtensorMap kmap,
       if (g == q) psg = ps[q];
     }
 
-    // PV: chunk c (64 time steps) of V; k step ks, lane (g, tig) reads the
-    // time steps 32 ks + 8 a + lane7(tig, jj & 1), a = jj >> 1 (jj < 4: the
-    // a0/a1 k range, else a2/a3), 16 features each (kv8: bytes 16 g ..
-    // 16 g + 15; kv4: bytes 8 g .. 8 g + 7, low then high nibbles), and
-    // holds m16 tile i's rows g, g + 8 as features phi = 2 i, 2 i + 1 of
-    // its 16; its B fragment is p8 of query g at the same time steps
+    // PV: chunk c (64 time steps) of V (bd_chunk_pv), its p8 B fragments
+    // made before the chunk's wait (p8_frags)
     int pacc[8][4];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) pacc[i][e] = 0;
     const bool pv_any = warp < nc;
-    // p8 = rint(pv / ps): t = pv * (1 / ps) rounded to even by adding 1.5 *
-    // 2^23, or the IEEE division where t lies within 2^-14 of a tie
-    // (lcw4::kTieGuard, as #13's act codes: t is within 2^-15 of pv / ps)
     const float psinv = __frcp_rn(psg);
     for (int c = warp; c < nc; c += kFlashWarps) {
       const int tb = c * kChunk;
-      // the B fragments of both k steps before the chunk's wait, without
-      // branches (every lane reads a score in its row's bounds; codes past
-      // G or n are 0); a lane with a tie divides all sixteen
       uint32_t bws[2][2];
-      {
-        const float* srow = sc + min(g, G - 1) * ss;
-        float pv[16];
-        int p8[16];
-        bool tie = false;
-#pragma unroll
-        for (int u = 0; u < 16; ++u) {
-          const int jj = u & 7;
-          const int t = tb + 32 * (u >> 3) + 8 * (jj >> 1) +
-                        (kNib ? lane7_64(tig, jj & 1) : lane7_128(tig, jj & 1));
-          pv[u] = (g < G && t < n) ? srow[min(t, ss - 1)] : 0.f;
-          const float tq = __fmul_rn(pv[u], psinv);
-          const float yq = __fadd_rn(tq, 12582912.f);
-          p8[u] = __float_as_int(yq) - 0x4B400000;
-          tie |= fabsf(__fsub_rn(tq, __fsub_rn(yq, 12582912.f))) >
-                 lcw4::kTieGuard;
-        }
-        if (tie)
-#pragma unroll
-          for (int u = 0; u < 16; ++u)
-            p8[u] = (int)rintf(__fdiv_rn(pv[u], psg));
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-          for (int s = 0; s < 2; ++s)
-            bws[kk][s] = __byte_perm(
-                __byte_perm(p8[8 * kk + 4 * s], p8[8 * kk + 4 * s + 1], 0x40),
-                __byte_perm(p8[8 * kk + 4 * s + 2], p8[8 * kk + 4 * s + 3],
-                            0x40),
-                0x5410);
-      }
+      p8_frags<kNib>(sc + min(g, G - 1) * ss, ss, tb, n, g < G, tig, psinv,
+                     psg, bws);
       FLASH_STAMP(10);
       wait();
       FLASH_STAMP(11);
       const unsigned char* sl = wring + (k % nslot) * CB;
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        const uint32_t* bw = bws[kk];
-        uint32_t y[2][16];  // [a0/a1 time steps, a2/a3][feature phi]
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-          if constexpr (kNib) {
-            uint2 v[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int jj = 4 * s + i;
-              const int t = 32 * kk + 8 * (jj >> 1) + lane7_64(tig, jj & 1);
-              v[i] = *reinterpret_cast<const uint2*>(sl + sw64(t, g >> 1) +
-                                                     8 * (g & 1));
-            }
-            uint32_t x[8];
-            transpose4(v[0].x, v[1].x, v[2].x, v[3].x, x);
-            transpose4(v[0].y, v[1].y, v[2].y, v[3].y, x + 4);
-#pragma unroll
-            for (int f = 0; f < 8; ++f) {
-              y[s][f] = (uint32_t)nib_lo(x[f]);
-              y[s][8 + f] = (uint32_t)nib_hi(x[f]);
-            }
-          } else {
-            uint4 v[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int jj = 4 * s + i;
-              const int t = 32 * kk + 8 * (jj >> 1) + lane7_128(tig, jj & 1);
-              v[i] = *reinterpret_cast<const uint4*>(sl + sw128(t, g));
-            }
-            transpose4(v[0].x, v[1].x, v[2].x, v[3].x, y[s]);
-            transpose4(v[0].y, v[1].y, v[2].y, v[3].y, y[s] + 4);
-            transpose4(v[0].z, v[1].z, v[2].z, v[3].z, y[s] + 8);
-            transpose4(v[0].w, v[1].w, v[2].w, v[3].w, y[s] + 12);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          mma_i8(pacc[i], y[0][2 * i], y[0][2 * i + 1], y[1][2 * i],
-                 y[1][2 * i + 1], bw[0], bw[1]);
-      }
+      bd_chunk_pv<kNib>(sl, g, tig, bws, pacc);
       FLASH_STAMP(12);
       refill();
       FLASH_STAMP(13);
@@ -1111,96 +1138,6 @@ attn_bd_flash_kernel(const __grid_constant__ CUtensorMap kmap,
   }
   if (tid == 0) counters[bh] = 0;  // ready for the next call
   FLASH_STAMP(17);
-}
-
-// ---------------------------------------------------------------------------
-// #17: int8 cache (B, H, S, D) plus the fresh token as one more softmax
-// column, not requantized:
-//   m = max(max(s), s_new); denom = sum(e) + e_new;
-//   out = (f32(p8 . v) * ps + e_new * vns * v_new) / denom.
-// Scores: 8 lanes share a cache row (16 bytes each) and add their partial
-// dots with shuffles, so a warp reads four whole 128-byte rows per load.
-// PV: i8_pv over the head's rows.
-// ---------------------------------------------------------------------------
-template <int G>
-__global__ void __launch_bounds__(kThreads)
-attn_i8_kernel(const int8_t* __restrict__ q8, const float* __restrict__ qs,
-               const int8_t* __restrict__ kq,
-               const __nv_bfloat16* __restrict__ ks,
-               const int8_t* __restrict__ vq,
-               const __nv_bfloat16* __restrict__ vs,
-               const int8_t* __restrict__ kn,
-               const __nv_bfloat16* __restrict__ kns,
-               const int8_t* __restrict__ vn,
-               const __nv_bfloat16* __restrict__ vns,
-               const int* __restrict__ lengths, float* __restrict__ out,
-               int S) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x, bh = b * H + h;
-  const int lane = threadIdx.x & 31, sub = threadIdx.x & 7;
-  Smem<G> sm(smem, S);
-  const int L = min(max(lengths[b], 0), S);
-  load_q(sm, q8, bh);
-  float qsc[G], mx[G], snew[G], esum[G], ps[G];
-  q_scales(qs, bh, qsc);
-  __syncthreads();
-
-  // the fresh token's score, in every warp (no shared memory round trip)
-  const int knw = reinterpret_cast<const int*>(kn + (size_t)bh * kD)[lane];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    int s = __dp4a(knw, sm.qw[g * kQW + lane], 0);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-    snew[g] = __fmul_rn(__fmul_rn((float)s, qsc[g]), bf(kns[bh]));
-    mx[g] = -INFINITY;
-  }
-
-  const int8_t* kh = kq + (size_t)bh * S * kD;
-  const __nv_bfloat16* ksh = ks + (size_t)bh * S;
-  for (int tb = 0; tb < L; tb += kThreads / 8) {
-    const int t = tb + (threadIdx.x >> 3);
-    const bool valid = t < L;
-    int4 kv = make_int4(0, 0, 0, 0);
-    if (valid)
-      kv = __ldg(reinterpret_cast<const int4*>(kh + (size_t)t * kD) + sub);
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const int* qg = sm.qw + g * kQW + 4 * sub;
-      int s = __dp4a(kv.x, qg[0], 0);
-      s = __dp4a(kv.y, qg[1], s);
-      s = __dp4a(kv.z, qg[2], s);
-      s = __dp4a(kv.w, qg[3], s);
-      s += __shfl_xor_sync(0xffffffffu, s, 4);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      if (valid && sub == 0) {
-        const float v = __fmul_rn(__fmul_rn((float)s, qsc[g]), bf(ksh[t]));
-        sm.sc[g * sm.cap + t] = v;
-        mx[g] = fmaxf(mx[g], v);
-      }
-    }
-  }
-  block_reduce<G, true>(mx, sm.red);
-  float en[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    mx[g] = fmaxf(mx[g], snew[g]);
-    en[g] = expf(snew[g] - mx[g]);
-  }
-  softmax_requant(sm, vs + (size_t)bh * S, mx, 0, L, esum, ps);
-
-  i8_pv(sm, vq + (size_t)bh * S * kD, kD, 0, L);
-
-  const float vnsf = bf(vns[bh]);
-  for (int i = threadIdx.x; i < G * kD; i += kThreads) {
-    const int g = i / kD, dd = i % kD;
-    const float pvn = __fmul_rn(en[g], vnsf);
-    const float c = __fadd_rn(__fmul_rn((float)sm.acc[i], ps[g]),
-                              __fmul_rn(pvn, (float)vn[(size_t)bh * kD + dd]));
-    out[(size_t)bh * G * kD + i] = c / __fadd_rn(esum[g], en[g]);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1619,6 +1556,526 @@ attn_kv8_kernel(const __grid_constant__ CUtensorMap kmap,
   cluster_sync();  // 3: no CTA leaves while another reads its partial
 }
 
+// ---------------------------------------------------------------------------
+// #17 (kI8 true) and #18 (kI8 false): one pass over the buffer, S split over
+// a thread-block cluster.
+//   #18: the kv8 bd slabs; (ctx unnormalized, m, d).
+//   #17: the int8 hhd cache (B, H, S, D) plus the fresh token as one more
+//        softmax column, not requantized:
+//          m = max(max(s), s_new); denom = sum(e) + e_new;
+//          out = (f32(p8 . v) * ps + (e_new * vns) * v_new) / denom.
+//
+// Bound on an H100 SXM: bytes (K and V of the valid columns, 2 * 128 code
+// bytes and 2 scales a column and kv head), against 4 * G * D int8
+// operations a column.  The TPU kernels' probability scale ps is a max over
+// the whole row, so the scores, the softmax and the PV dot depend on each
+// other in turn; a whole-row block per (slot, kv head) left half of the
+// card idle at 8 slots of 8 kv heads and streamed each head alone.  The
+// design:
+//   * S split over a cluster of P CTAs (P = 1, 2, 4 or 8, chosen on the host
+//     from S, B * H, G and the card's cluster occupancy, never from the
+//     lengths: ops/attention.split_parts) per (slot, kv head), grid (P * H,
+//     B): rank r takes the columns [r * per, (r + 1) * per), per = ceil(S /
+//     P) rounded up to 16, and holds their f32 scores (then pv) and V scales
+//     in shared memory, so the shared-memory cap bounds a rank's columns,
+//     not the row.
+//   * Each of the four warps streams its own chunks of 64 columns (K, then
+//     V; chunk c of the rank to warp c % 4) through a ring of `nslot` slots
+//     on mbarriers, lane 0 issuing one TMA box a chunk (#18: K feature-major,
+//     R rows x 64 columns, 64-byte swizzle, with the chunk's K and V scales
+//     by two bulk copies; V time-major, 64 rows x 128 bytes, 128-byte
+//     swizzle; #17: the (B * H * S, D) rows of K and of V, 64 rows x 128
+//     bytes, 128-byte swizzle, K's chunks with the scales), and refilling a
+//     slot only after the products that read it and a __syncwarp (PR 15's
+//     rule).  On rank 0 a warp's first K chunk goes out before the slot's
+//     length is read (over the rank's columns of the buffer), so for a
+//     short slot the length's load and the copy overlap.  A warp's V chunks follow its K chunks in its
+//     ring, so its first V copies are in flight while the cluster meets
+//     and the softmax runs.
+//   * Both dots on the int8 tensor cores (mma.sync m16n8k32 s8.s8.s32,
+//     exact): scores with A = 16 time steps x 32 features of K, B = q8 (its
+//     G rows the n8 columns); PV with A = 16 features x 32 time steps of V,
+//     B = p8.  #18's K is feature-major, so its A fragments take #19's 4 x 4
+//     byte transposes; #17's K rows are time-major and load as A fragments
+//     as they are (lane (g, tig) reads 32 bytes of time steps g and g + 8,
+//     features 32 tig .. 32 tig + 31; q8 follows the same feature order).
+//     V is time-major in both caches: #19's kv8 PV fragments.
+//   * Three meets of the cluster through distributed shared memory, each
+//     read in rank order: (a) the row max m (#18 floored at -1e30, #17
+//     with the fresh token's score); (b) the max of pv, giving ps by IEEE
+//     division, and the f32 sums of e, giving d; (c) the int32 PV partials
+//     (rank r adds features [r * D / P, (r + 1) * D / P) of every rank's
+//     partial: exact), times ps.  So m, ps, p8 and the unnormalized context
+//     are the same bits at every P; only d, and #17's output through d,
+//     follow the f32 order of the sums (lanes by a fixed tree, warps and
+//     ranks in order: a second call gives the same bits).
+//   * The cluster barrier rule: every rank, one with no valid column too,
+//     runs every barrier.cluster of the kernel (four), and none leaves
+//     before the last, after which no rank reads another's shared memory.
+//     A rank that skipped one would hang the cluster or read freed memory.
+//     A rank's chunk count follows its valid columns, and a warp waits only
+//     on chunks it issued (a first chunk past them before the last meet).
+// ---------------------------------------------------------------------------
+constexpr int kSplitScratch = 1024;  // bytes of the exchanges
+
+// the f32 score rows of a rank's `per` columns: a stride that keeps the
+// mma fragments' score stores of both layouts within two lanes a bank
+__host__ __device__ constexpr int split_sc_stride(int per) {
+  return ((per + 31) & ~31) + 9;
+}
+
+// dynamic shared memory of a #17/#18 CTA (ops/attention.split_smem_bytes):
+// 1024 bytes of alignment slack, the ring (codes, scales, the slots'
+// mbarriers), the int32 PV sums, q8, the exchanges, the rank's V scales
+// (bf16) and scores
+inline size_t split_smem(int G, int per, int nslot) {
+  return 1024 +
+         (size_t)kFlashWarps * nslot * (kD * kChunk + kSlotScales + 8) +
+         (size_t)G * kAccRow * 4 + (size_t)G * kD + kSplitScratch +
+         (size_t)per * 2 + (size_t)G * split_sc_stride(per) * 4;
+}
+
+// the int at p in the shared memory of the cluster's CTA `rank`
+__device__ __forceinline__ int ld_cluster_s32(const int* p, uint32_t rank) {
+  uint32_t a;
+  int v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(lcw4::smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.s32 %0, [%1];\n" : "=r"(v) : "r"(a)
+               : "memory");
+  return v;
+}
+
+// the two halves of cluster_sync: this thread's arrival (its shared-memory
+// reads and writes before it ordered with the cluster's after the wait)
+// and the wait for every thread of the cluster
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the operands of #17/#18 besides the TMA maps (#18: kn .. vns null, out
+// the unnormalized ctx; #17: m and d null)
+struct SplitPtrs {
+  const int8_t* q8;
+  const float* qs;
+  const __nv_bfloat16* ks;
+  const __nv_bfloat16* vs;
+  const int* lengths;
+  const int8_t* kn;
+  const __nv_bfloat16* kns;
+  const int8_t* vn;
+  const __nv_bfloat16* vns;
+  float* out;
+  float* m;
+  float* d;
+};
+
+template <int G, bool kI8>
+__global__ void __launch_bounds__(kFlashThreads)
+attn_split_kernel(const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap,
+                  const SplitPtrs p, int S, int parts, int per, int nslot) {
+  constexpr int CB = kD * kChunk;  // code bytes of a ring slot
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((1024 - (lcw4::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sring = ring + kFlashWarps * nslot * CB;  // the scales
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(sring + kFlashWarps * nslot * kSlotScales);
+  int* accs = reinterpret_cast<int*>(full + kFlashWarps * nslot);
+  int8_t* qsh = reinterpret_cast<int8_t*>(accs + G * kAccRow);  // [G][kD]
+  float* red = reinterpret_cast<float*>(qsh + G * kD);  // [3][warps][8]
+  float* xm = red + 3 * kFlashWarps * 8;  // [8] the CTA's max (meet a)
+  float* xs = xm + 8;                     // [8] its sum of e (meet b)
+  float* xp = xs + 8;                     // [8] its max of pv (meet b)
+  float* rm = xp + 8;                     // [8] the row's m
+  float* rd = rm + 8;                     // [8] d
+  float* rps = rd + 8;                    // [8] ps
+  float* rsn = rps + 8;                   // [8] #17: s_new, then e_new
+  __nv_bfloat16* vsb =
+      reinterpret_cast<__nv_bfloat16*>(red + kSplitScratch / 4);  // [per]
+  float* sc = reinterpret_cast<float*>(vsb + per);                 // [G][ss]
+  const int ss = split_sc_stride(per);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;  // mma fragment coordinates
+  const int rank = (int)cluster_rank();
+  const int H = gridDim.x / parts, h = blockIdx.x / parts, b = blockIdx.y;
+  const int bh = b * H + h;
+  const int t0 = rank * per;                  // the rank's first column
+  const int span = max(0, min(per, S - t0));  // its columns of the buffer
+  const __nv_bfloat16* ksr = p.ks + (size_t)bh * S + t0;
+  const __nv_bfloat16* vsr = p.vs + (size_t)bh * S + t0;
+  unsigned char* wring = ring + warp * nslot * CB;
+  unsigned char* wsring = sring + warp * nslot * kSlotScales;
+  uint64_t* wfull = full + warp * nslot;
+
+  // lane 0: the K chunk at the rank's column cl (its TMA box and the K and
+  // V scales of `cols` columns, a multiple of 16 within the buffer) or the
+  // V chunk there (v) into the warp's slot
+  auto issue_at = [&](int slot, int cl, bool v, int cols) {
+    const int col = t0 + cl;
+    unsigned char* dst = wring + slot * CB;
+    uint64_t* bar = wfull + slot;
+    if (!v) {
+      unsigned char* sdst = wsring + slot * kSlotScales;
+      lcw4::mbar_expect_tx(bar, CB + 4 * cols);
+      if constexpr (kI8)
+        lcw4::tma_load_2d(dst, &kmap, 0, bh * S + col, bar);
+      else
+        lcw4::tma_load_2d(dst, &kmap, col, bh * kD, bar);
+      bulk_load(sdst, ksr + cl, 2 * cols, bar);
+      bulk_load(sdst + 2 * kChunk, vsr + cl, 2 * cols, bar);
+    } else {
+      lcw4::mbar_expect_tx(bar, CB);
+      if constexpr (kI8)
+        lcw4::tma_load_2d(dst, &vmap, 0, bh * S + col, bar);
+      else
+        lcw4::tma_load_2d(dst, &vmap, h * kD, b * S + col, bar);
+    }
+  };
+  // rank 0 (which holds a slot's first columns: any valid column at all)
+  // issues the warp's first K chunk before the slot's length is read (over
+  // its columns of the buffer; the length cuts what is used); the other
+  // ranks wait for the length, so no rank streams a chunk past it
+  const int cols0 = rank == 0 ? min(kChunk, span - warp * kChunk) : 0;
+  if (lane == 0) {
+    if (warp == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(&kmap) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(&vmap) : "memory");
+    }
+    for (int s = 0; s < nslot; ++s) lcw4::mbar_init(wfull + s, 1);
+    lcw4::mbar_init_fence();
+    if (cols0 > 0) issue_at(0, warp * kChunk, false, cols0);
+  }
+  // the per-thread operands, in flight with it: the queries' scales; #17
+  // the fresh token's word of the lane, its scales, and the thread's
+  // feature of v_new in meet (c) (rank r's features r * nf + tid % nf)
+  float qsc[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+    qsc[e] = 2 * tig + e < G ? __fmul_rn(p.qs[bh * G + 2 * tig + e], kScale)
+                             : 0.f;
+  int knw = 0;
+  float qsw[2] = {0.f, 0.f}, knsf = 0.f, vnsf = 0.f, vnf = 0.f;
+  if constexpr (kI8) {
+    knw = __ldg(reinterpret_cast<const int*>(p.kn + (size_t)bh * kD) + lane);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      if (warp + kFlashWarps * j < G)
+        qsw[j] = __fmul_rn(p.qs[bh * G + warp + kFlashWarps * j], kScale);
+    knsf = bf(p.kns[bh]);
+    vnsf = bf(p.vns[bh]);
+    const int nf = kD / parts;
+    vnf = (float)p.vn[(size_t)bh * kD + rank * nf + tid % nf];
+  }
+  const int L = min(max(p.lengths[b], 0), S);
+  const int n = max(0, min(span, L - t0));   // the rank's valid columns
+  const int nc = (n + kChunk - 1) / kChunk;  // its chunks of K (and of V)
+  // the warp's chunks: K chunks warp, warp + 4, .. (fill indices 0 ..
+  // nkw - 1), then the V chunks of the same columns; fill 0, when there
+  // is one, is the chunk already issued
+  const int nkw = warp < nc ? (nc - 1 - warp) / kFlashWarps + 1 : 0;
+  const int nfill = 2 * nkw;
+  auto issue = [&](int f) {
+    const bool v = f >= nkw;
+    const int cl = (warp + kFlashWarps * (v ? f - nkw : f)) * kChunk;
+    issue_at(f % nslot, cl, v, v ? 0 : (min(kChunk, n - cl) + 15) & ~15);
+  };
+  if (lane == 0)
+    for (int f = cols0 > 0 ? 1 : 0; f < min(nslot, nfill); ++f) issue(f);
+  __syncwarp();
+  int k = 0;  // the warp's chunks consumed
+  auto wait = [&]() {
+    lcw4::mbar_wait(wfull + k % nslot, (k / nslot) & 1);
+  };
+  // consumed chunk k: lane 0 refills its slot with the warp's fill
+  // k + nslot once every lane's reads of it are in registers used
+  auto refill = [&]() {
+    __syncwarp();
+    if (lane == 0 && k + nslot < nfill) issue(k + nslot);
+    ++k;
+  };
+
+  // q8 of the pair's G queries; the PV sums zeroed
+  if (tid < G * kD / 16)
+    reinterpret_cast<uint4*>(qsh)[tid] = __ldg(
+        reinterpret_cast<const uint4*>(p.q8 + (size_t)bh * G * kD) + tid);
+  for (int i = tid; i < G * kAccRow; i += kFlashThreads) accs[i] = 0;
+  __syncthreads();
+  if constexpr (kI8) {
+    // the fresh token's score, a warp a query
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int q = warp + kFlashWarps * j;
+      if (q >= G) break;
+      int s = __dp4a(knw, reinterpret_cast<const int*>(qsh + q * kD)[lane], 0);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (lane == 0) rsn[q] = __fmul_rn(__fmul_rn((float)s, qsw[j]), knsf);
+    }
+  }
+  // q8 as the scores' B fragments of k step ks: #18 as #19 (query g at the
+  // features of rows 8 a + lane7_64(tig, j & 1), a = 4 ks + (j >> 1), byte j
+  // of b0, j < 4, of b1, j - 4); #17 features 32 tig + 8 ks + 0..3 (b0)
+  // and + 4..7 (b1), the order of its K words
+  uint32_t qb[4][2];
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    qb[ks][0] = qb[ks][1] = 0u;
+    if (g < G) {
+      const int8_t* qg = qsh + g * kD;
+      if constexpr (kI8) {
+        const uint2 w =
+            *reinterpret_cast<const uint2*>(qg + 32 * tig + 8 * ks);
+        qb[ks][0] = w.x;
+        qb[ks][1] = w.y;
+      } else {
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int j = 4 * s + i;
+            const int r = 8 * (4 * ks + (j >> 1)) + lane7_64(tig, j & 1);
+            qb[ks][s] |= (uint32_t)(uint8_t)qg[r] << (8 * i);
+          }
+      }
+    }
+  }
+
+  // scores: the warp's K chunks.  #18: lane (g, tig) reads time steps 8 g
+  // .. 8 g + 7 and holds m16 tile i's rows g, g + 8 as time steps 8 g +
+  // 2 i, 8 g + 2 i + 1; #17: m16 tile i is time steps 16 i .. 16 i + 15,
+  // rows g, g + 8 as read.  Lanes tig 0 copy the chunk's V scales into vsb.
+  float mx[2] = {-INFINITY, -INFINITY};
+  for (int j = 0; j < nkw; ++j) {
+    const int tb = (warp + kFlashWarps * j) * kChunk;
+    wait();
+    const unsigned char* sl = wring + (k % nslot) * CB;
+    const unsigned char* ssl = wsring + (k % nslot) * kSlotScales;
+    float kv[8];  // the K scales of the lane's 8 time steps
+    if (tb + 8 * g < n && tig == 0)
+      *reinterpret_cast<uint4*>(vsb + tb + 8 * g) =
+          *reinterpret_cast<const uint4*>(ssl + 2 * kChunk + 16 * g);
+    int acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] = 0;
+    if constexpr (kI8) {
+      // kv[2 i + rr]: time step 16 i + g + 8 rr
+      const __nv_bfloat16* kb = reinterpret_cast<const __nv_bfloat16*>(ssl);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int t = 16 * (u >> 1) + g + 8 * (u & 1);
+        kv[u] = tb + t < n ? bf(kb[t]) : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        uint4 w[2][2];  // [row g, g + 8][features 32 tig + 16 hh ..]
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            w[rr][hh] = *reinterpret_cast<const uint4*>(
+                sl + sw128(16 * i + g + 8 * rr, 2 * tig + hh));
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          const uint32_t* w0 =
+              reinterpret_cast<const uint32_t*>(&w[0][ks >> 1]);
+          const uint32_t* w1 =
+              reinterpret_cast<const uint32_t*>(&w[1][ks >> 1]);
+          const int o = 2 * (ks & 1);
+          mma_i8(acc[i], w0[o], w1[o], w0[o + 1], w1[o + 1], qb[ks][0],
+                 qb[ks][1]);
+        }
+      }
+    } else {
+      // kv[u]: time step 8 g + u
+      if (tb + 8 * g < n) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(ssl + 16 * g);
+        const __nv_bfloat16* kr = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) kv[u] = bf(kr[u]);
+      }
+      bd_chunk_scores<false>(sl, g, tig, qb, acc);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int u = 2 * i + (e >> 1);
+        const int t = tb + (kI8 ? 16 * i + g + 8 * (e >> 1) : 8 * g + u);
+        const int qq = 2 * tig + (e & 1);
+        if (qq < G && t < n) {
+          const float v = __fmul_rn(
+              __fmul_rn(lcw4::exact_f32(acc[i][e]), qsc[e & 1]), kv[u]);
+          sc[qq * ss + t] = v;
+          mx[e & 1] = fmaxf(mx[e & 1], v);
+        }
+      }
+    refill();  // after the last use of the slot's scales
+  }
+
+  // meet (a): the row max, ranks in order
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1)
+      mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], off));
+  if (g == 0) {
+    red[warp * 8 + 2 * tig] = mx[0];
+    red[warp * 8 + 2 * tig + 1] = mx[1];
+  }
+  __syncthreads();
+  if (tid < G) {
+    float a = red[tid];
+#pragma unroll
+    for (int w = 1; w < kFlashWarps; ++w) a = fmaxf(a, red[w * 8 + tid]);
+    xm[tid] = a;
+  }
+  cluster_sync();  // 1
+  if (tid < G) {
+    float a = ld_cluster(xm + tid, 0);
+    for (int r = 1; r < parts; ++r) a = fmaxf(a, ld_cluster(xm + tid, r));
+    if constexpr (kI8) {
+      a = fmaxf(a, rsn[tid]);
+      rsn[tid] = expf(rsn[tid] - a);  // e_new
+    } else {
+      a = fmaxf(a, -1e30f);
+    }
+    rm[tid] = a;
+  }
+  __syncthreads();
+
+  // e = exp(s - m), pv = e * vs in place of the scores; sum(e), max(pv)
+  float es[G], pm[G];
+#pragma unroll
+  for (int q = 0; q < G; ++q) es[q] = 0.f, pm[q] = 0.f;
+  for (int t = tid; t < n; t += kFlashThreads) {
+    const float vsv = bf(vsb[t]);
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      const float e = expf(sc[q * ss + t] - rm[q]);
+      es[q] += e;
+      const float pv = __fmul_rn(e, vsv);
+      sc[q * ss + t] = pv;
+      pm[q] = fmaxf(pm[q], pv);
+    }
+  }
+  // meet (b): sum(e) and max(pv); ps = max(max(pv), 1e-20) / 127
+#pragma unroll
+  for (int q = 0; q < G; ++q)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      es[q] += __shfl_xor_sync(0xffffffffu, es[q], off);
+      pm[q] = fmaxf(pm[q], __shfl_xor_sync(0xffffffffu, pm[q], off));
+    }
+  if (lane == 0)
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      red[kFlashWarps * 8 + warp * 8 + q] = es[q];
+      red[2 * kFlashWarps * 8 + warp * 8 + q] = pm[q];
+    }
+  __syncthreads();
+  if (tid < G) {
+    float a = red[kFlashWarps * 8 + tid];
+    float pmax = red[2 * kFlashWarps * 8 + tid];
+#pragma unroll
+    for (int w = 1; w < kFlashWarps; ++w) {
+      a += red[kFlashWarps * 8 + w * 8 + tid];
+      pmax = fmaxf(pmax, red[2 * kFlashWarps * 8 + w * 8 + tid]);
+    }
+    xs[tid] = a;
+    xp[tid] = pmax;
+  }
+  cluster_sync();  // 2
+  if (tid < G) {
+    float a = ld_cluster(xs + tid, 0), pmax = ld_cluster(xp + tid, 0);
+    for (int r = 1; r < parts; ++r) {
+      a += ld_cluster(xs + tid, r);
+      pmax = fmaxf(pmax, ld_cluster(xp + tid, r));
+    }
+    rd[tid] = a;
+    rps[tid] = fmaxf(pmax, 1e-20f) / 127.0f;
+  }
+  __syncthreads();
+
+  // PV: the warp's V chunks on #19's kv8 fragments (bd_chunk_pv), the p8
+  // B fragments made before the chunk's wait (p8_frags)
+  int pacc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pacc[i][e] = 0;
+  const float psg = g < G ? rps[g] : 1.f;
+  const float psinv = __frcp_rn(psg);
+  for (int j = 0; j < nkw; ++j) {
+    uint32_t bws[2][2];
+    p8_frags<false>(sc + min(g, G - 1) * ss, ss,
+                    (warp + kFlashWarps * j) * kChunk, n, g < G, tig, psinv,
+                    psg, bws);
+    wait();
+    bd_chunk_pv<false>(wring + (k % nslot) * CB, g, tig, bws, pacc);
+    refill();
+  }
+  if (nkw > 0)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qq = 2 * tig + (e & 1);
+        if (qq < G)
+          atomicAdd(accs + qq * kAccRow + (2 * i + (e >> 1)) * 8 + g,
+                    pacc[i][e]);
+      }
+  cluster_sync();  // 3: every rank's PV sums
+  // meet (c): rank r's features [r * nf, (r + 1) * nf) of every rank's
+  // sums, ranks in order (feature f at (f & 15) * 8 + (f >> 4)); a thread
+  // takes i = tid, tid + 128, .. < G * nf (at most G), all of feature
+  // rank * nf + tid % nf; the remote reads done, it announces the last
+  // meet before its stores
+  const int nf = kD / parts, f = rank * nf + tid % nf;
+  const int at0 = (f & 15) * 8 + (f >> 4);
+  int a[G];
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    const int q = (tid + kFlashThreads * j) / nf;
+    if (q < G) {
+      a[j] = ld_cluster_s32(accs + q * kAccRow + at0, 0);
+      for (int r = 1; r < parts; ++r)
+        a[j] += ld_cluster_s32(accs + q * kAccRow + at0, r);
+    }
+  }
+  cluster_arrive();  // 4: no rank leaves while another reads its sums
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    const int q = (tid + kFlashThreads * j) / nf;
+    if (q >= G) break;
+    const float c = __fmul_rn(__int2float_rn(a[j]), rps[q]);
+    if constexpr (kI8) {
+      const float pvn = __fmul_rn(rsn[q], vnsf);
+      const float num = __fadd_rn(c, __fmul_rn(pvn, vnf));
+      p.out[((size_t)bh * G + q) * kD + f] = num / __fadd_rn(rd[q], rsn[q]);
+    } else {
+      p.out[((size_t)bh * G + q) * kD + f] = c;
+    }
+  }
+  if constexpr (!kI8)
+    if (rank == 0 && tid < G) {
+      p.m[bh * G + tid] = rm[tid];
+      p.d[bh * G + tid] = rd[tid];
+    }
+  // a first chunk past the valid columns lands before the CTA leaves
+  if (nkw == 0 && cols0 > 0) lcw4::mbar_wait(wfull, 0);
+  cluster_wait();  // 4
+}
+
 template <typename Kern>
 cudaError_t prepare(Kern kern, size_t smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1682,23 +2139,6 @@ int flash_ctas(int sb, int nslot) {
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &n, attn_bd_flash_kernel<G, kNib>, kFlashThreads, smem);
   return e != cudaSuccess ? -(int)e : n;
-}
-
-template <int G>
-int launch_i8(const void* q8, const void* qs, const void* kq, const void* ks,
-              const void* vq, const void* vs, const void* kn,
-              const void* kns, const void* vn, const void* vns,
-              const void* lengths, void* out, int B, int H, int S,
-              cudaStream_t st) {
-  const size_t smem = Smem<G>::bytes(S);
-  cudaError_t e = prepare(attn_i8_kernel<G>, smem);
-  if (e != cudaSuccess) return (int)e;
-  attn_i8_kernel<G><<<dim3(H, B), kThreads, smem, st>>>(
-      (const int8_t*)q8, (const float*)qs, (const int8_t*)kq,
-      (const __nv_bfloat16*)ks, (const int8_t*)vq, (const __nv_bfloat16*)vs,
-      (const int8_t*)kn, (const __nv_bfloat16*)kns, (const int8_t*)vn,
-      (const __nv_bfloat16*)vns, (const int*)lengths, (float*)out, S);
-  return (int)cudaGetLastError();
 }
 
 template <int G, typename ST>
@@ -1784,6 +2224,107 @@ int kv8_dispatch(const void* q, const void* kq, const void* ks,
   }
 }
 
+// #17 (kI8) or #18 on a cluster of `parts` CTAs per (slot, kv head), `nslot`
+// ring slots a warp; k, v: #18's slabs (K as (B * H * D, S) byte rows,
+// boxes of D rows x 64 columns, 64-byte swizzle; V as (B * S, H * D), boxes
+// of 64 rows x D bytes, 128-byte swizzle) or #17's caches (both (B * H * S,
+// D) byte rows, boxes of 64 rows, 128-byte swizzle)
+template <int G, bool kI8>
+int launch_split(const SplitPtrs& p, const void* k, const void* v, int B,
+                 int H, int S, int parts, int nslot, cudaStream_t st) {
+  const int per = ((S + parts - 1) / parts + 15) & ~15;
+  CUtensorMap kmap, vmap;
+  int rc;
+  if (kI8) {
+    const uint64_t rows = (uint64_t)B * H * S;
+    rc = lcw4::tensor_map_2d(&kmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, k, kD, rows,
+                             kD, kD, kChunk);
+    if (rc == 0)
+      rc = lcw4::tensor_map_2d(&vmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, v, kD,
+                               rows, kD, kD, kChunk);
+  } else {
+    rc = lcw4::tensor_map_2d(&kmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, k, S,
+                             (uint64_t)B * H * kD, S, kChunk, kD,
+                             CU_TENSOR_MAP_SWIZZLE_64B);
+    if (rc == 0)
+      rc = lcw4::tensor_map_2d(&vmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, v,
+                               (uint64_t)H * kD, (uint64_t)B * S,
+                               (uint64_t)H * kD, kD, kChunk);
+  }
+  if (rc != 0) return rc;
+  const size_t smem = split_smem(G, per, nslot);
+  cudaError_t e = prepare(attn_split_kernel<G, kI8>, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(parts * H, B);
+  cfg.blockDim = dim3(kFlashThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = parts;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, attn_split_kernel<G, kI8>, kmap, vmap, p, S,
+                         parts, per, nslot);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// the most clusters of `parts` #17/#18 CTAs the card holds at once over a
+// rank's `per` columns, or minus a CUDA error
+template <int G, bool kI8>
+int split_clusters(int per, int nslot, int parts) {
+  const size_t smem = split_smem(G, per, nslot);
+  cudaError_t e = prepare(attn_split_kernel<G, kI8>, smem);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(parts, 1);
+  cfg.blockDim = dim3(kFlashThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = parts;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, attn_split_kernel<G, kI8>, &cfg);
+  return e != cudaSuccess ? -(int)e : n;
+}
+
+template <bool kI8>
+int split_dispatch(const SplitPtrs& p, const void* k, const void* v, int B,
+                   int H, int G, int S, int parts, int nslot,
+                   cudaStream_t st) {
+  switch (G) {
+    case 1: return launch_split<1, kI8>(p, k, v, B, H, S, parts, nslot, st);
+    case 2: return launch_split<2, kI8>(p, k, v, B, H, S, parts, nslot, st);
+    case 4: return launch_split<4, kI8>(p, k, v, B, H, S, parts, nslot, st);
+    case 8: return launch_split<8, kI8>(p, k, v, B, H, S, parts, nslot, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool kI8>
+int split_clusters_g(int G, int per, int nslot, int parts) {
+  switch (G) {
+    case 1: return split_clusters<1, kI8>(per, nslot, parts);
+    case 2: return split_clusters<2, kI8>(per, nslot, parts);
+    case 4: return split_clusters<4, kI8>(per, nslot, parts);
+    case 8: return split_clusters<8, kI8>(per, nslot, parts);
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
+
+inline bool split_args_ok(int S, int parts, int nslot) {
+  return S >= 16 && S % 16 == 0 && parts >= 1 && parts <= 8 &&
+         (parts & (parts - 1)) == 0 && nslot >= 1 && nslot <= 2;
+}
+
 template <bool kNib>
 int bd_dispatch(const void* q8, const void* qs, const void* kt,
                 const void* ks, const void* vt, const void* vs,
@@ -1829,7 +2370,7 @@ int flash_ctas_g(int G, int sb, int nslot) {
 
 extern "C" {
 
-// #20 over the kv4 slabs, #18 over the kv8 slabs: the whole row.
+// #20 over the kv4 slabs: the whole row.
 int lc_attn_bd4(const void* q8, const void* qs, const void* kt4,
                 const void* ks, const void* vt4, const void* vs,
                 const void* lengths, void* ctx, void* m, void* d, int B,
@@ -1838,12 +2379,21 @@ int lc_attn_bd4(const void* q8, const void* qs, const void* kt4,
                            H, G, S, stream);
 }
 
+// #18 over the kv8 slabs (K (B, H*D, S), V (B, S, H*D)): S split over a
+// cluster of `parts` CTAs (1, 2, 4 or 8) per (slot, kv head), `nslot` ring
+// slots a warp (1 or 2); S % 16 == 0, ks and vs 16-byte aligned, a rank's
+// share within the shared memory (ops/attention.split_smem_bytes).
 int lc_attn_bd(const void* q8, const void* qs, const void* kt,
                const void* ks, const void* vt, const void* vs,
                const void* lengths, void* ctx, void* m, void* d, int B,
-               int H, int G, int S, void* stream) {
-  return bd_dispatch<false>(q8, qs, kt, ks, vt, vs, lengths, ctx, m, d, B, H,
-                            G, S, stream);
+               int H, int G, int S, int parts, int nslot, void* stream) {
+  if (!split_args_ok(S, parts, nslot)) return (int)cudaErrorInvalidValue;
+  SplitPtrs p = {(const int8_t*)q8, (const float*)qs,
+                 (const __nv_bfloat16*)ks, (const __nv_bfloat16*)vs,
+                 (const int*)lengths, nullptr, nullptr, nullptr, nullptr,
+                 (float*)ctx, (float*)m, (float*)d};
+  return split_dispatch<false>(p, kt, vt, B, H, G, S, parts, nslot,
+                               reinterpret_cast<cudaStream_t>(stream));
 }
 
 // #21 (nib = 1, the kv4 slabs) and #19 (nib = 0, kv8) in blocks of sb
@@ -1894,19 +2444,31 @@ int lc_attn_bd_flash_ctas(int G, int sb, int nslot, int nib) {
              : flash_ctas_g<false>(G, sb, nslot);
 }
 
+// #17 over the int8 cache (B, H, S, D) with the fresh token kn, vn (B, H,
+// D) and its scales kns, vns (B, H); out (B, H, G, D) normalized; parts and
+// nslot as #18's.
 int lc_attn_i8(const void* q8, const void* qs, const void* kq, const void* ks,
                const void* vq, const void* vs, const void* kn,
                const void* kns, const void* vn, const void* vns,
                const void* lengths, void* out, int B, int H, int G, int S,
-               void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  switch (G) {
-    case 1: return launch_i8<1>(q8, qs, kq, ks, vq, vs, kn, kns, vn, vns, lengths, out, B, H, S, st);
-    case 2: return launch_i8<2>(q8, qs, kq, ks, vq, vs, kn, kns, vn, vns, lengths, out, B, H, S, st);
-    case 4: return launch_i8<4>(q8, qs, kq, ks, vq, vs, kn, kns, vn, vns, lengths, out, B, H, S, st);
-    case 8: return launch_i8<8>(q8, qs, kq, ks, vq, vs, kn, kns, vn, vns, lengths, out, B, H, S, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+               int parts, int nslot, void* stream) {
+  if (!split_args_ok(S, parts, nslot)) return (int)cudaErrorInvalidValue;
+  SplitPtrs p = {(const int8_t*)q8, (const float*)qs,
+                 (const __nv_bfloat16*)ks, (const __nv_bfloat16*)vs,
+                 (const int*)lengths, (const int8_t*)kn,
+                 (const __nv_bfloat16*)kns, (const int8_t*)vn,
+                 (const __nv_bfloat16*)vns, (float*)out, nullptr, nullptr};
+  return split_dispatch<true>(p, kq, vq, B, H, G, S, parts, nslot,
+                              reinterpret_cast<cudaStream_t>(stream));
+}
+
+// #17's (i8 = 1) or #18's co-resident clusters of `parts` CTAs over `per`
+// columns a rank with `nslot` ring slots a warp (ops/attention.split_parts),
+// or minus a CUDA error
+int lc_attn_split_clusters(int G, int per, int nslot, int i8, int parts) {
+  if (!split_args_ok(per, parts, nslot)) return -(int)cudaErrorInvalidValue;
+  return i8 ? split_clusters_g<true>(G, per, nslot, parts)
+            : split_clusters_g<false>(G, per, nslot, parts);
 }
 
 // #22: q (B, H, G, D) bf16; kq, vq (B, H, S, D) int8; ks, vs (B, H, S) bf16

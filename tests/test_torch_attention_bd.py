@@ -197,11 +197,14 @@ def test_quantize_q_matches_jax_eager():
 
 
 def test_bd_whole_row_limit():
-    """#18 keeps 5 * G bytes of shared memory per column: the wrapper's
-    limit admits S 11488 at G 4 (the largest multiple of 16 that fits in
-    227 KB) and S 5664 at G 8."""
-    assert ta.smem_bytes(4, 11488) <= ta.SMEM_MAX < ta.smem_bytes(4, 11504)
-    assert ta.smem_bytes(8, 5664) <= ta.SMEM_MAX < ta.smem_bytes(8, 5680)
+    """#18 splits S over a cluster of up to 8 CTAs, each keeping 4 * G + 2
+    bytes of shared memory per column of its share: the wrapper's limit
+    admits S 86016 at G 4 (the largest multiple of 16 whose share at 8
+    parts fits in 227 KB) and S 44800 at G 8."""
+    for G, S in ((4, 86016), (8, 44800)):
+        per = ta.kv8_columns(S, ta.CLUSTER_PARTS[-1])
+        assert ta.split_smem_bytes(G, per, 1) <= ta.SMEM_MAX
+        assert ta.split_fits(G, S) and not ta.split_fits(G, S + 16)
 
 
 def test_bd_shapes_checked():

@@ -311,11 +311,13 @@ def test_bd_kernels_match_plain(dev, S, G):
 
 
 def test_bd_whole_row_limit_raises(dev):
-    """Above #18's shared-memory limit the wrapper raises and names the
-    flash route; #19 takes the same buffer."""
+    """Above #18's shared-memory limit (a rank's share of S at 8 parts: S
+    86016 at G 4) the wrapper raises and names the flash route; #19 takes
+    the same buffer.  #17 raises alike."""
     from lightcompress_tpu_torch.ops import attention as T
 
-    B, S = 1, 11504
+    B, S = 1, 86032
+    assert T.split_fits(ATT_G, S - 16) and not T.split_fits(ATT_G, S)
     q = torch.zeros((B, ATT_H, ATT_G, ATT_D), device=dev,
                     dtype=torch.bfloat16)
     kt = torch.zeros((B, ATT_H * ATT_D, S), device=dev, dtype=torch.int8)
@@ -326,6 +328,111 @@ def test_bd_whole_row_limit_raises(dev):
     c, m, d = T.decode_attention_bd_flash(q, kt, sc, vt, sc)
     torch.cuda.synchronize()
     assert torch.isfinite(c).all() and (d == S).all()
+    kq = kt.reshape(B, ATT_H, S, ATT_D)
+    fresh = (torch.zeros((B, ATT_H, ATT_D), device=dev, dtype=torch.int8),
+             sc[:, :, 0], torch.zeros((B, ATT_H, ATT_D), device=dev,
+                                      dtype=torch.int8), sc[:, :, 0])
+    with pytest.raises(ValueError, match="shared memory"):
+        T.decode_attention_i8(q, kq, sc, kq, sc, *fresh)
+
+
+def _split_case(dev, B, S, G, seed):
+    """q (B, 8, G, 128) bf16, the int8 hhd cache with bf16 scales, its kv8
+    bd slabs, the fresh token, and lengths: ragged (an empty slot, a full
+    one, one of a single column, the rest seeded), all 0, None."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q = torch.randn((B, ATT_H, G, ATT_D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k = torch.randn((B, ATT_H, S, ATT_D), generator=gen, device=dev) * 2
+    v = torch.randn((B, ATT_H, S, ATT_D), generator=gen, device=dev)
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    kt = kq.transpose(2, 3).reshape(B, ATT_H * ATT_D, S).contiguous()
+    vt = vq.transpose(1, 2).reshape(B, S, ATT_H * ATT_D).contiguous()
+    kn, kns = quantize_kv(k[:, :, :1] * 1.5)
+    vn, vns = quantize_kv(v[:, :, :1])
+    fresh = (kn[:, :, 0].contiguous(), kns[:, :, 0].contiguous(),
+             vn[:, :, 0].contiguous(), vns[:, :, 0].contiguous())
+    ragged = torch.randint(0, S + 1, (B,), generator=gen, device=dev)
+    ragged[:3] = torch.tensor([0, S, 1], device=dev)[:B]
+    return q, (kq, ks, vq, vs), (kt, ks, vt, vs), fresh, (
+        ragged.to(torch.int32), torch.zeros(B, dtype=torch.int32,
+                                            device=dev), None)
+
+
+SPLIT_BG = [(1, 1), (8, 2), (8, 4), (3, 8), (16, 8), (32, 8)]
+SPLIT_CASES = [(S, B, G) for S in (16, 512, 4096) for B, G in SPLIT_BG] + \
+    [(16384, 8, 4), (16384, 2, 8)]
+
+
+@pytest.mark.parametrize("S,B,G", SPLIT_CASES)
+@pytest.mark.parametrize("kind", ["bd", "i8"])
+def test_split_kernels_equal_across_parts(dev, kind, S, B, G):
+    """#18 (``bd``) and #17 (``i8``) on every cluster size (1, 2, 4, 8) and
+    ring depth (1, 2): #18's ctx and m the same bits at every split and m
+    its plain version's bit for bit; #17 within 1e-6 relative across
+    splits (only d's f32 order differs) and within 2e-2 of its largest
+    value against its plain version; a second call the same bits; the
+    wrappers one launch a call.  S 16-16384 (past the old whole-row cap of
+    11488 at G 4), B 1-32, G 1-8 (G 8 at B 16 and 32: a ring slot
+    refilled only after its products), ragged, empty and full slots."""
+    from lightcompress_tpu_torch.ops import attention as T
+
+    q, cache, slabs, fresh, lens = _split_case(dev, B, S, G,
+                                               S + 3 * B + G + len(kind))
+    i8 = kind == "i8"
+    q8, qs = T.quantize_q(q)
+    f32 = dict(dtype=torch.float32, device=dev)
+    for lengths in lens:
+        L = T._lengths(lengths, B, S, dev)
+        outs = {}
+        for parts in T.CLUSTER_PARTS:
+            for slots in (1, 2):
+                if T.split_smem_bytes(G, T.kv8_columns(S, parts), slots) \
+                        > T.SMEM_MAX:
+                    continue
+                o = (torch.empty((B, ATT_H, G, ATT_D), **f32),) if i8 else \
+                    (torch.empty((B, ATT_H, G, ATT_D), **f32),
+                     torch.empty((B, ATT_H, G), **f32),
+                     torch.empty((B, ATT_H, G), **f32))
+                T._split_launch(q8, qs, cache if i8 else slabs, L, o, parts,
+                                slots, fresh if i8 else None)
+                outs[parts, slots] = o
+        T.reset_launch_counts()
+        if i8:
+            got = T.decode_attention_i8(q, *cache, *fresh, lengths=lengths)
+            again = T.decode_attention_i8(q, *cache, *fresh,
+                                          lengths=lengths)
+            ref = T.decode_attention_i8_plain(q, *cache, *fresh,
+                                              lengths=lengths)
+        else:
+            got = T.decode_attention_bd(q, *slabs, lengths)
+            again = T.decode_attention_bd(q, *slabs, lengths)
+            ref = T.decode_attention_bd_plain(q, *slabs, lengths)
+        torch.cuda.synchronize()
+        assert [k.launches for k in T.KERNELS] == (
+            [2, 0, 0, 0, 0, 0] if i8 else [0, 0, 0, 2, 0, 0])
+        first = next(iter(outs.values()))  # the fewest parts that fit
+        if i8:
+            assert torch.equal(got, again)
+            assert torch.isfinite(got).all()
+            assert (got - ref).abs().max() <= 2e-2 * ref.abs().max()
+            for o in list(outs.values()) + [(got,)]:
+                assert ((o[0] - first[0]).abs()
+                        <= 1e-6 * first[0].abs()).all()
+        else:
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+            _check_partials(got, ref)
+            assert torch.equal(got[1], ref[1])
+            for o in list(outs.values()) + [got]:
+                assert torch.equal(o[0], first[0])
+                assert torch.equal(o[1], first[1])
+                assert ((o[2] - first[2]).abs()
+                        <= 1e-6 * first[2].abs()).all()
+            if lengths is not None and not lengths.any():
+                assert (got[0] == 0).all() and (got[2] == 0).all()
+                assert (got[1] == -1e30).all()
 
 
 def _flash_case(dev, nib, B, S, G, seed):
