@@ -23,8 +23,10 @@ Phases (each prints one JSON line with its seconds):
      ragged lengths; #19 and #21 also at full lengths and at their engine
      phases' lengths, #19 also in 256-column blocks, against the plain
      rendering of their rank split: m bit for bit, the same bits on a
-     second call), with times (kernel, plain, a library attention, the
-     bound);
+     second call; #17, #18 and #20 also at their engine phases' lengths,
+     #20 also at S 512 and full lengths, with their cluster sizes, the
+     chooser's against one CTA a pair), with times (kernel, plain, a
+     library attention, the bound);
   3. the W4A8 engine at full Llama-3-8B width and depth (random weights from
      a seed): one batched prefill of 8 prompts (1024 rows) and 32 greedy
      tokens each;
@@ -52,7 +54,8 @@ Phases (each prints one JSON line with its seconds):
      versions;
   7. MoE: the five expert kernels (#6 stacked on each of its bodies at B
      8, 32 and 256, bit for bit, at Mixtral-8x7B's and Qwen3-30B-A3B's
-     gate/up shapes, #8 gathered, #9 grouped at Mixtral-8x7B's shapes; #7
+     gate/up shapes, #8 gathered at 1-4 tokens bit for bit, #9 grouped at
+     Mixtral-8x7B's shapes; #7
      small-M stacked at Qwen3-30B-A3B's gate/up and Mixtral's down; #10
      int8 grouped at Qwen3-30B-A3B's down, and at a ragged N) against
      their plain versions, with times, and #6's two bodies at B 1-256
@@ -824,12 +827,32 @@ def grouped_operands(x, topi, experts: int):
     return xq, xs, be, facts
 
 
+# #8's token counts (2-8 selections at top-2; duplicate experts from 3 on)
+GATHERED_N = (4, 1, 2, 3)
+
+
+def gathered_bad_index(xq, xs, wa, e_idx, t_idx) -> dict:
+    """#8's gate beyond its row's: a selection whose expert is out of range
+    a NaN row, the others the same bits."""
+    bad = e_idx.clone()
+    bad[0] = wa[0].shape[0]
+    got = M.w4a8_gathered_matmul(xq, xs, *wa, bad, t_idx)
+    want = M.w4a8_gathered_matmul_plain(xq, xs, *wa, bad, t_idx)
+    if not (got[0].isnan().all() and want[0].isnan().all()
+            and torch.equal(got[1:], want[1:])):
+        raise AssertionError("w4a8_gathered_matmul: an expert out of range "
+                             "is not a NaN row, or moved other rows")
+    return dict(bad_index_nan=True)
+
+
 def phase_moe_kernels(dev) -> dict:
     """#6, #8 and #9 against their plain versions at the expert shapes of
     Mixtral-8x7B (8 experts; gate and up 14336 x 4096, down 4096 x 14336):
     #6 on each of its bodies at B = 8 (the dense decode of 8 slots), 32 and
     256 (a 2-prompt prefill), bit for bit, ``routed`` marking the body
-    ``stacked_body`` picks, #8 at n = 4 and 1 tokens (8 and 2 selections), #9 at the
+    ``stacked_body`` picks, #8 at n = 4, 1, 2 and 3 tokens (8, 2, 4 and 6
+    selections) bit for bit, a second call the same bits, an expert out
+    of range a NaN row, #9 at the
     3072 grouped rows of 1024 tokens routed by a seeded router (every
     expert live) and at 300 tokens routed among 5 experts (3 absent,
     padding-only blocks), #7 at the down in pair mode (B = 8); then #6,
@@ -883,7 +906,7 @@ def phase_moe_kernels(dev) -> dict:
         for name, N, K, pair in MOE_SHAPES:
             qp, wd = qps[name], wds[name]
             stacked_rows(row, f"B{B}", name, qp, wd, B, pair, gen, dev)
-    for n in (4, 1):
+    for n in GATHERED_N:
         topi = seeded_topi(n, gen, dev)
         e_idx = topi.reshape(-1).to(torch.int32)
         n_sel = e_idx.shape[0]
@@ -907,7 +930,8 @@ def phase_moe_kernels(dev) -> dict:
                 lambda: torch.bmm(xsel, wsel.transpose(1, 2)),
                 live * expert_bytes(N, K) + xq.numel() + rows_x * 4
                 + n_sel * N * 4 + n_sel * 8, 2 * n_sel * N * K,
-                n_sel=n_sel, experts_read=live)
+                exact=True, repeat=True, n_sel=n_sel, experts_read=live,
+                **gathered_bad_index(xq, xs, wa, e_idx, t_idx))
             del wsel
     for case, n, experts in (("all_live", 1024, MOE_E), ("absent", 300, 5)):
         topi = seeded_topi(n, gen, dev, experts)
@@ -1184,8 +1208,6 @@ def attn_case(kname: str, S: int, dev, gen, lengths=None,
     v = torch.randn((B, H, S, D), generator=gen, device=dev)
     L = ragged_lengths(S, dev) if lengths is None else lengths
     q8, qs = AT.quantize_q(q)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = AT._lib()
     if kname == "decode_attention_i8":
         kq, ks = quantize_kv(k)
         vq, vs = quantize_kv(v)
@@ -1196,7 +1218,7 @@ def attn_case(kname: str, S: int, dev, gen, lengths=None,
         args = (q, kq, ks, vq, vs, kn[:, :, 0].contiguous(),
                 kns[:, :, 0].contiguous(), vn[:, :, 0].contiguous(),
                 vns[:, :, 0].contiguous(), L)
-        bare = split_bare(q8, qs, args[1:5], L, args[5:9])
+        bare = split_bare(q8, qs, args[1:5], L, "i8", args[5:9])
         kf, vf = (c.float() * s[..., None].float() for c, s in ((kq, ks),
                                                                  (vq, vs)))
         run = lambda: AT.decode_attention_i8(*args)
@@ -1219,13 +1241,8 @@ def attn_case(kname: str, S: int, dev, gen, lengths=None,
                                                parts, slots, nib)
             extra = dict(s_block=s_block)
             plain_kw = dict(extra, parts=parts)
-        elif nib:
-            ptrs = [t.data_ptr() for t in (q8, qs, *args[1:], *outs)]
-            bare = lambda: AT._launch(lib.lc_attn_bd4, *ptrs, B, H, G, S,
-                                      stream)
-            plain_kw = {}
         else:
-            bare = split_bare(q8, qs, args[1:5], L)
+            bare = split_bare(q8, qs, args[1:5], L, "bd4" if nib else "bd")
             plain_kw = {}
         if nib:
             kf, vf = (unpack_kv4(c) * s[..., None].float()
@@ -1242,14 +1259,15 @@ def attn_case(kname: str, S: int, dev, gen, lengths=None,
     return run, plain, bare, library, L
 
 
-def split_bare(q8, qs, cache, L, fresh=None):
-    """#17's (``fresh``: the fresh token) or #18's bare launch on prepared
-    operands: ``bare()`` on the cluster size and ring depth the wrapper
-    picks (``AT.split_card_parts``), ``bare(parts, slots)`` on forced ones;
-    returns the outputs."""
+def split_bare(q8, qs, cache, L, mode, fresh=None):
+    """The split kernel's bare launch in ``mode`` (``AT.SPLIT_MODES``: #18
+    "bd", #20 "bd4" over the kv4 slabs, #17 "i8" with ``fresh``, the fresh
+    token) on prepared operands: ``bare()`` on the cluster size and ring
+    depth the wrapper picks (``AT.split_card_parts``), ``bare(parts,
+    slots)`` on forced ones; returns the outputs."""
     B, H, G, D = q8.shape
-    S = cache[0].shape[-1] if fresh is None else cache[0].shape[2]
-    picked = AT.split_card_parts(B * H, S, G, fresh is not None, q8.device)
+    S = cache[0].shape[2] if mode == "i8" else cache[0].shape[-1]
+    picked = AT.split_card_parts(B * H, S, G, mode, q8.device)
     f32 = dict(dtype=torch.float32, device=q8.device)
     outs = {}
 
@@ -1261,10 +1279,11 @@ def split_bare(q8, qs, cache, L, fresh=None):
                     torch.empty((B, H, G), **f32),
                     torch.empty((B, H, G), **f32))
         AT._split_launch(q8, qs, cache, L, outs[parts, slots], parts, slots,
-                         fresh)
+                         mode, fresh)
         return outs[parts, slots]
 
     bare.picked = picked
+    bare.mode = mode
     return bare
 
 
@@ -1286,6 +1305,8 @@ SPLIT_REL = 1e-6
 # the main rows (ragged lengths, 512-column blocks) stay first
 FLASH_ROWS = (("decode_attention_i8", 512, "engine", AT.S_BLOCK),
               ("decode_attention_bd", 512, "engine", AT.S_BLOCK),
+              ("decode_attention_bd4", 4096, "engine", AT.S_BLOCK),
+              ("decode_attention_bd4", 4096, "full", AT.S_BLOCK),
               ("decode_attention_bd_flash", 4096, "full", AT.S_BLOCK),
               ("decode_attention_bd_flash", 4096, "engine", AT.S_BLOCK),
               ("decode_attention_bd_flash", 4096, "sb256", 256),
@@ -1294,13 +1315,13 @@ FLASH_ROWS = (("decode_attention_i8", 512, "engine", AT.S_BLOCK),
 
 
 def split_checks(kname, S, case, got, ref, again, bare) -> dict:
-    """#17/#18's gates beyond the plain version's: a second call the same
-    bits; the chooser's cluster size against one CTA a pair (#18: ctx and m
-    the same bits; #17 within SPLIT_REL relative); #18's m its plain
-    version's bit for bit."""
+    """#17/#18/#20's gates beyond the plain version's: a second call the
+    same bits; the chooser's cluster size against one CTA a pair (#18, #20:
+    ctx and m the same bits; #17 within SPLIT_REL relative); #18's and
+    #20's m their plain versions' bit for bit."""
     parts, slots = bare.picked
     mine = bare()
-    one = bare(1, AT.split_slots(ATT_G, AT.kv8_columns(S, 1)))
+    one = bare(1, AT.split_slots(ATT_G, AT.kv8_columns(S, 1), bare.mode))
     torch.cuda.synchronize()
     where = f"{kname} S={S} {case}"
     got = got if isinstance(got, tuple) else (got,)
@@ -1309,7 +1330,7 @@ def split_checks(kname, S, case, got, ref, again, bare) -> dict:
         raise AssertionError(f"{where}: a second call gave other bits")
     out = dict(parts=parts, slots=slots, repeat_equal=True,
                split_equal=True)
-    if kname == "decode_attention_bd":
+    if kname in ("decode_attention_bd", "decode_attention_bd4"):
         if not torch.equal(got[1], ref[1]):
             raise AssertionError(f"{where}: m is not its plain version's "
                                  f"bit for bit")
@@ -1329,11 +1350,12 @@ def split_checks(kname, S, case, got, ref, again, bare) -> dict:
 
 
 def phase_attn_kernels(dev) -> dict:
-    """#20 at buffer 4096, #21 at 8192, #17 at 512 and 4096, #18 at 512
-    and 4096, #19 at 4096 (512-column blocks) against their plain
-    versions, ragged lengths; #17 and #18 also at their engine phases'
-    lengths (``split_checks``: a second call, the chooser's cluster size
-    against one CTA, #18's m bit for bit); #19 and #21 also at full lengths
+    """#20 at buffer 4096 and 512, #21 at 8192, #17 at 512 and 4096, #18
+    at 512 and 4096, #19 at 4096 (512-column blocks) against their plain
+    versions, ragged lengths; #17, #18 and #20 also at their engine phases'
+    lengths, #20 also at full ones (``split_checks``: a second call, the
+    chooser's cluster size against one CTA, #18's and #20's m bit for
+    bit); #19 and #21 also at full lengths
     and at their engine phases' lengths, #19 in 256-column blocks, held to
     the plain rendering of their split: m bit for bit, a second call the
     same bits.
@@ -1349,6 +1371,7 @@ def phase_attn_kernels(dev) -> dict:
     rows = []
     cases = [(k, S, "ragged", AT.S_BLOCK) for k, S in (
         ("decode_attention_bd4", 4096), ("decode_attention_bd4_flash", 8192),
+        ("decode_attention_bd4", 512),
         ("decode_attention_i8", 512), ("decode_attention_i8", 4096),
         ("decode_attention_bd", 512), ("decode_attention_bd", 4096),
         ("decode_attention_bd_flash", 4096))] + list(FLASH_ROWS)
@@ -1376,7 +1399,8 @@ def phase_attn_kernels(dev) -> dict:
                 kname.startswith("decode_attention_bd4"), dev)
             extra = dict(s_block=sb, parts=parts, slots=slots,
                          m_bit_equal=True, repeat_equal=True)
-        elif kname in ("decode_attention_i8", "decode_attention_bd"):
+        elif kname in ("decode_attention_i8", "decode_attention_bd",
+                       "decode_attention_bd4"):
             extra = split_checks(kname, S, case, got, ref, run(), bare)
         err, scale = ctx_error(got, ref)
         torch.cuda.synchronize()

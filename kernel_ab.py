@@ -146,7 +146,24 @@ of kv head 0 of slot 1, a full slot) and runs #19 (S 4096) and #21 (S
 8192) at chip_smoke's ragged shapes on 1 and 8 ranks: for each span
 between two consecutive stamp points (FLASH_POINTS), its median ns, count
 a launch and summed ns a launch over five launches, the L2 flushed before
-each.  Timing only.  Needs ``nvcc``."""
+each.  Timing only.  Needs ``nvcc``.
+
+    cd <tree> && python3 <repo>/kernel_ab.py TAG gathered_bd4
+
+times #8 at each n of GB_N tokens routed top-2 by chip_smoke's seeded
+router over a Mixtral-8x7B layer's three expert linears (the down in pair
+mode), each linear against torch.bmm over the gathered bf16 experts;
+then #20: the bare kernel and its wrapper against SDPA at chip_smoke's
+shapes (8 slots of 8 kv heads of 4 queries; ragged lengths at S 4096 and
+512, and the ``engine_kv4`` lengths, 1500-2016 of 4096), where the tree
+has #20 on the cluster split, each forced cluster size and ring depth
+(SPLIT_P x 1-2 slots) with the chooser's pick; then the wrapper over every
+slot full at each S of GB_S and (B, G) of GB_BG (a shape a tree refuses
+records its error); then profiles four decode steps of ``engine_kv4``,
+``engine_fused_s4`` and the 4-slot ``engine_moe_small`` (every step's
+expert linears through #8) with the tree's chip_smoke helpers: wall and
+busy ms a step, the idle share, and #20's or #8's share of the busy
+time.  Needs ``nvcc``."""
 
 import dataclasses
 import gc
@@ -198,6 +215,11 @@ FLASH_PARTS = (1, 2, 4, 8, 16)
 I8BD_S = (512, 1024, 4096, 8192, 16384)
 I8BD_BG = ((1, 4), (8, 1), (8, 4), (8, 8), (32, 4), (32, 8))
 SPLIT_P = (1, 2, 4, 8)
+# gathered_bd4's scans: #8's tokens (2-8 selections), #20's buffers and
+# (slots, queries a kv head)
+GB_N = (1, 2, 3, 4)
+GB_S = (512, 1024, 2048, 4096, 8192)
+GB_BG = ((1, 4), (8, 1), (8, 4), (8, 8), (16, 8), (32, 4), (32, 8))
 
 
 def time_ms(fn, reps: int, pad: torch.Tensor) -> float:
@@ -874,9 +896,11 @@ def i8_bd(tag: str) -> None:
     prompts = C.make_prompts(8, C.LLAMA3_8B.vocab_size)
     for name, impl, kerns in (
             ("engine_pallas", "pallas", ("attn_i8_kernel",
-                                         "attn_split_kernel<4, true>")),
+                                         "attn_split_kernel<4, true>",
+                                         "attn_split_kernel<4, 1>")),
             ("engine_bd", "bd", ("attn_bd_kernel<4, false>",
-                                 "attn_split_kernel<4, false>"))):
+                                 "attn_split_kernel<4, false>",
+                                 "attn_split_kernel<4, 0>"))):
         prof = C.phase_profile(sw8, prompts, dev, attn_impl=impl)
         busy = prof["device_busy_ms_per_step"]
         mine = [t for t in prof["top"] if any(k in t["name"] for k in kerns)]
@@ -890,6 +914,140 @@ def i8_bd(tag: str) -> None:
             top=prof["top"][:6])
         gc.collect()
         torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+
+
+def _share(prof, match) -> dict:
+    """A profile's wall and busy ms a step, idle share, and the share of
+    the busy time in the kernels whose names ``match`` accepts."""
+    mine = [t for t in prof["top"] if match(t["name"])]
+    res = {k: prof[k] for k in ("wall_ms_per_step", "device_busy_ms_per_step",
+                                "idle_share", "kernels_per_step")}
+    res.update(kernel_ms_per_step=sum(t["ms_per_step"] for t in mine),
+               kernel_calls_per_step=sum(t["calls_per_step"] for t in mine),
+               kernel_share=sum(t["ms_per_step"] for t in mine)
+               / prof["device_busy_ms_per_step"],
+               top=prof["top"][:6])
+    return res
+
+
+def _is_p20(name: str) -> bool:
+    return "attn_bd_kernel<4, true>" in name or \
+        "attn_split_kernel<4, 2>" in name
+
+
+def _is_p8(name: str) -> bool:
+    return "w4a8_gathered_kernel" in name or (
+        "planes_decode_kernel" in name and "true>" in name)
+
+
+def gathered_bd4(tag: str) -> None:
+    """#8 and #20 alone, #20's cluster scan where the tree has one, and the
+    ``engine_kv4``, ``engine_fused_s4`` and 4-slot ``engine_moe_small``
+    steps' profiles (``gathered_bd4`` in the docstring)."""
+    from lightcompress_tpu_torch.ops import attention as AT
+
+    dev = torch.device("cuda")
+    pad = torch.empty(C.PAD, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(C.SEED + 4)
+    out = {"tag": tag, "gpu": C.smi()}
+    p8 = {}
+    for name, N, K, pair in C.MOE_SHAPES:
+        w3 = (torch.randn((C.MOE_E, N, K), generator=gen, device=dev)
+              * 0.02).to(torch.bfloat16)
+        qp = QM.quantize_linear_stacked(w3, C.WSPEC)
+        del w3
+        wd = QM.dequant_weight_stacked(qp, torch.bfloat16)
+        wa = (qp.codes, qp.scales, qp.zeros)
+        for n in GB_N:
+            topi = C.seeded_topi(n, gen, dev)
+            e_idx = topi.reshape(-1).to(torch.int32)
+            n_sel = e_idx.shape[0]
+            t_idx = (torch.arange(n_sel, device=dev) if pair else
+                     torch.arange(n, device=dev).repeat_interleave(
+                         C.MOE_TOP_K)).to(torch.int32)
+            x = torch.randn((n_sel if pair else n, K), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            xq, xs = W.quantize_act_per_token(x)
+            wsel = wd[e_idx.long()]
+            xsel = x[t_idx.long()][:, None]
+            row = {"n_sel": n_sel,
+                   "experts": len(torch.unique(e_idx)),
+                   "kernel_ms": time_ms(lambda: M.w4a8_gathered_matmul(
+                       xq, xs, *wa, e_idx, t_idx), 20, pad),
+                   "library_ms": time_ms(lambda: torch.bmm(
+                       xsel, wsel.transpose(1, 2)), 20, pad)}
+            p8[f"n{n}_{name}"] = row
+            del wsel
+        del qp, wd
+        gc.collect()
+        torch.cuda.empty_cache()
+    for n in GB_N:
+        p8[f"n{n}_sum"] = {k: sum(p8[f"n{n}_{nm}"][k]
+                                  for nm, _, _, _ in C.MOE_SHAPES)
+                           for k in ("kernel_ms", "library_ms")}
+    out["p8"] = p8
+    gen.manual_seed(C.SEED)
+    kname = "decode_attention_bd4"
+    for S, case in ((4096, "ragged"), (512, "ragged"), (4096, "engine")):
+        lengths = None if case == "ragged" else torch.randint(
+            1500, 2017, (8,), generator=gen, device=dev).to(torch.int32)
+        run, _, bare, library, _ = C.attn_case(kname, S, dev, gen, lengths)
+        row = {"kernel_ms": time_ms(bare, 20, pad),
+               "wrapper_ms": time_ms(run, 20, pad),
+               "library_ms": time_ms(library, 20, pad)}
+        if hasattr(bare, "picked"):
+            row["picked"] = list(bare.picked)
+            for p in SPLIT_P:
+                for slots in (1, 2):
+                    per = AT.kv8_columns(S, p)
+                    if AT.split_smem_bytes(4, per, slots, "bd4") \
+                            <= AT.SMEM_MAX:
+                        row[f"P{p}_slots{slots}"] = time_ms(
+                            lambda: bare(p, slots), 20, pad)
+        out[f"p20_S{S}_{case}"] = row
+    scan = {}
+    for S in GB_S:
+        for B, G in GB_BG:
+            q = torch.randn((B, 8, G, 128), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            L = torch.full((B,), S, dtype=torch.int32, device=dev)
+            kt, vt = (torch.randint(-128, 128, shape, generator=gen,
+                                    device=dev, dtype=torch.int8)
+                      for shape in ((B, 8 * 64, S), (B, S, 8 * 64)))
+            ks, vs = ((torch.rand((B, 8, S), generator=gen, device=dev)
+                       * 0.02 + 1e-3).to(torch.bfloat16) for _ in range(2))
+            try:
+                scan[f"S{S}_B{B}_G{G}"] = time_ms(
+                    lambda: AT.decode_attention_bd4(q, kt, ks, vt, vs, L),
+                    10, pad)
+            except (RuntimeError, ValueError) as e:
+                scan[f"S{S}_B{B}_G{G}"] = str(e)[:60]
+            del kt, vt
+    out["p20_scan"] = scan
+    C.PROFILE_TOP = 1000
+    gen.manual_seed(C.SEED)
+    model = C.Llama(C.LLAMA3_8B, C.init_params(gen, C.LLAMA3_8B))
+    sw8 = C.build_serving_weights(model, C.WSPEC, act_bits=8, device=dev)
+    C.set_gammas(model, C.SEED + 2)
+    sws4 = C.build_serving_weights(model, C.WSPEC, act_bits=8, device=dev,
+                                   **C.S4_FUSED)
+    del model
+    kv4 = dict(kv_bits="auto", max_len=4096, prefill_buckets=(2048,))
+    prompts = C.make_prompts(8, C.LLAMA3_8B.vocab_size, 1500, 2000)
+    out["engine_kv4"] = _share(C.phase_profile(sw8, prompts, dev, **kv4),
+                               _is_p20)
+    del sw8
+    out["engine_fused_s4"] = _share(C.phase_profile(
+        sws4, prompts, dev, build="fused_s4", **kv4), _is_p20)
+    del sws4
+    gc.collect()
+    torch.cuda.empty_cache()
+    swm, _ = C.phase_setup_moe(dev)
+    out["engine_moe_small"] = _share(C.phase_profile(
+        swm, C.make_prompts(4, C.MIXTRAL_8X7B.vocab_size), dev,
+        build="moe_small", max_slots=4), _is_p8)
     print(json.dumps(out), flush=True)
 
 
@@ -1039,5 +1197,7 @@ if __name__ == "__main__":
         attn_rows(tag)
     elif mode == "i8_bd":
         i8_bd(tag)
+    elif mode == "gathered_bd4":
+        gathered_bd4(tag)
     else:
         main(tag, mode == "tail")

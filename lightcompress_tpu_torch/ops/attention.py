@@ -11,7 +11,9 @@ lightcompress_tpu/ops/pallas_attention.py, kernels #17-#22).
   are the same bits at every split;
 * ``decode_attention_bd4`` (#20) and ``decode_attention_bd4_flash`` (#21):
   the same over the nibble-packed kv4 ``bd4`` slabs (K (B, H*D/2, S), V
-  (B, S, H*D/2)).
+  (B, S, H*D/2)); #20's kernel is #18's split (one template, the nibble
+  mode: ``split_parts(..., mode="bd4")``), so its context and m are the
+  same bits at every split too.
   These four return the *unnormalized* context (B, H, G, D) f32 with the
   softmax max ``m`` and denominator ``d`` (B, H, G), for
   ``bd_merge_new_token`` to fold the fresh token in.  The flash forms
@@ -366,15 +368,14 @@ _I = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("decode_attention")
-    lib.lc_attn_bd.argtypes = [_P] * 10 + [_I] * 6 + [_P]
-    lib.lc_attn_bd4.argtypes = [_P] * 10 + [_I] * 4 + [_P]
+    lib.lc_attn_bd.argtypes = [_P] * 10 + [_I] * 7 + [_P]
     lib.lc_attn_bd_flash.argtypes = [_P] * 12 + [_I] * 8 + [_P]
     lib.lc_attn_bd_flash_ctas.argtypes = [_I] * 4
     lib.lc_attn_i8.argtypes = [_P] * 12 + [_I] * 6 + [_P]
     lib.lc_attn_split_clusters.argtypes = [_I] * 5
     lib.lc_attn_kv8.argtypes = [_P] * 6 + [_I] * 6 + [_P]
     lib.lc_attn_kv8_clusters.argtypes = [_I] * 4
-    for fn in (lib.lc_attn_bd, lib.lc_attn_bd4, lib.lc_attn_bd_flash,
+    for fn in (lib.lc_attn_bd, lib.lc_attn_bd_flash,
                lib.lc_attn_bd_flash_ctas, lib.lc_attn_i8, lib.lc_attn_kv8,
                lib.lc_attn_kv8_clusters, lib.lc_attn_split_clusters):
         fn.restype = ctypes.c_int
@@ -410,14 +411,6 @@ def _check(q: torch.Tensor, S: int, tensors, scales) -> None:
             raise ValueError("the kernels take contiguous bf16 scales")
 
 
-def smem_bytes(G: int, cols: int) -> int:
-    """Dynamic shared memory of one #20 block over ``cols`` score columns
-    (the kernel's ``Smem``): f32 scores and int8 codes per column and row,
-    the int32 PV sums, the q words, the reduction scratch."""
-    D = KERNEL_HEAD_DIM
-    return G * cols * 5 + G * D * 4 + G * D + 8 * G * 4
-
-
 def _check_bd(q, kt, ks, vt, vs, nib: bool) -> int:
     """Shapes of the block-diagonal slabs (``nib``: kv4, else kv8), and on
     the card the kernels' device, type and layout checks; returns S."""
@@ -433,22 +426,6 @@ def _check_bd(q, kt, ks, vt, vs, nib: bool) -> int:
     if q.device.type == "cuda":
         _check(q, S, [kt, vt], [ks, vs])
     return S
-
-
-def _bd_launch(fn, q, kt, ks, vt, vs, lengths, S: int) -> Partials:
-    """One launch of the whole-row block-diagonal kernel (#20)."""
-    B, H, G, D = q.shape
-    q8, qs = quantize_q(q)
-    L = _lengths(lengths, B, S, q.device)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    ctx, m, d = (torch.empty((B, H, G, D), **f32),
-                 torch.empty((B, H, G), **f32), torch.empty((B, H, G), **f32))
-    with torch.cuda.device(q.device):
-        _launch(fn, q8.data_ptr(), qs.data_ptr(), kt.data_ptr(),
-                ks.data_ptr(), vt.data_ptr(), vs.data_ptr(), L.data_ptr(),
-                ctx.data_ptr(), m.data_ptr(), d.data_ptr(), B, H, G, S,
-                _stream(q.device))
-    return ctx, m, d
 
 
 def _flash_block_checked(S: int, s_block: int) -> int:
@@ -586,39 +563,48 @@ def _bd_flash(q, kt, ks, vt, vs, lengths, S: int, s_block: int,
     return outs
 
 
-def split_smem_bytes(G: int, per: int, slots: int) -> int:
-    """Dynamic shared memory of one #17/#18 CTA over a rank's ``per``
-    columns (the kernel's ``split_smem``): alignment slack, the ring (4
-    warps x ``slots`` chunks of 64 columns' codes and their K and V scales,
-    or 64 time steps of V, and their mbarriers), the int32 PV sums (rows of
-    132 words), q8, the exchanges, the rank's V scales and f32 scores (rows
-    padded against bank conflicts)."""
+# the split kernel's operand modes, its kMode (lc_attn_bd's and
+# lc_attn_split_clusters' ``mode``): #18 over the kv8 bd slabs, #17 over
+# the int8 hhd cache and the fresh token, #20 over the kv4 bd4 slabs
+SPLIT_MODES = {"bd": 0, "i8": 1, "bd4": 2}
+
+
+def split_smem_bytes(G: int, per: int, slots: int, mode: str = "bd") -> int:
+    """Dynamic shared memory of one #17/#18/#20 CTA (``mode``, as
+    SPLIT_MODES) over a rank's ``per`` columns (the kernel's
+    ``split_smem``): alignment slack, the ring (4 warps x ``slots`` chunks
+    of 64 columns' codes (R x 64 bytes: R = D/2 for #20's nibbles, else D)
+    and their K and V scales, or 64 time steps of V, and their mbarriers),
+    the int32 PV sums (rows of 132 words), q8, the exchanges, the rank's V
+    scales and f32 scores (rows padded against bank conflicts)."""
     D = KERNEL_HEAD_DIM
+    R = D // 2 if mode == "bd4" else D
     stride = (per + 31) // 32 * 32 + 9
-    return (1024 + 4 * slots * (D * 64 + 256 + 8) + G * 132 * 4 + G * D
+    return (1024 + 4 * slots * (R * 64 + 256 + 8) + G * 132 * 4 + G * D
             + 1024 + 2 * per + G * stride * 4)
 
 
-def split_slots(G: int, per: int) -> int:
-    """The ring slots a warp of #17/#18 keeps over ``per`` columns a rank:
-    the most, up to SPLIT_SLOTS, with which three CTAs share an SM, else
-    two, else one CTA; raises where none fits (a rank's scores take 4 * G
-    bytes a column)."""
+def split_slots(G: int, per: int, mode: str = "bd") -> int:
+    """The ring slots a warp of the split kernel in ``mode`` keeps over
+    ``per`` columns a rank: the most, up to SPLIT_SLOTS, with which three CTAs
+    share an SM, else two, else one CTA; raises where none fits (a rank's
+    scores take 4 * G bytes a column)."""
     for budget in (SMEM_SM // 3 - 1024, SMEM_SM // 2 - 1024, SMEM_MAX):
         for n in range(SPLIT_SLOTS, 0, -1):
-            if split_smem_bytes(G, per, n) <= budget:
+            if split_smem_bytes(G, per, n, mode) <= budget:
                 return n
-    raise ValueError(f"a rank of #17/#18 holds its scores in shared memory: "
-                     f"{per} columns at G={G} need "
-                     f"{split_smem_bytes(G, per, 1)} bytes, above {SMEM_MAX}")
+    raise ValueError(f"a rank of #17/#18/#20 holds its scores in shared "
+                     f"memory: {per} columns at G={G} need "
+                     f"{split_smem_bytes(G, per, 1, mode)} bytes, above "
+                     f"{SMEM_MAX}")
 
 
-def split_fits(G: int, S: int) -> bool:
-    """Whether #17/#18 take S columns at G queries a kv head: a rank's
-    share at the largest split fits a CTA's shared memory (S <= 86016 at
-    G = 4, 44800 at G = 8)."""
-    return split_smem_bytes(G, kv8_columns(S, CLUSTER_PARTS[-1]), 1) \
-        <= SMEM_MAX
+def split_fits(G: int, S: int, mode: str = "bd") -> bool:
+    """Whether the split kernel in ``mode`` takes S columns at G queries a
+    kv head: a rank's share at the largest split fits a CTA's shared
+    memory (S <= 86016 at G = 4, 44800 at G = 8; "bd4" 93184 and 48640)."""
+    return split_smem_bytes(G, kv8_columns(S, CLUSTER_PARTS[-1]), 1,
+                            mode) <= SMEM_MAX
 
 
 def cluster_parts(pairs: int, S: int, fits, clusters, fixed: int):
@@ -642,74 +628,81 @@ def cluster_parts(pairs: int, S: int, fits, clusters, fixed: int):
     return None if best is None else best[1]
 
 
-def split_parts(pairs: int, S: int, G: int, clusters) -> int:
-    """#17/#18's cluster size: ``cluster_parts`` over the sizes whose share
-    of S fits a CTA's shared memory, SPLIT_FIXED_COLUMNS."""
+def split_parts(pairs: int, S: int, G: int, clusters,
+                mode: str = "bd") -> int:
+    """The split kernel's cluster size in ``mode``: ``cluster_parts`` over
+    the sizes whose share of S fits a CTA's shared memory,
+    SPLIT_FIXED_COLUMNS."""
     p = cluster_parts(
-        pairs, S, lambda x: split_smem_bytes(G, kv8_columns(S, x), 1)
+        pairs, S, lambda x: split_smem_bytes(G, kv8_columns(S, x), 1, mode)
         <= SMEM_MAX, clusters, SPLIT_FIXED_COLUMNS)
     if p is None:
-        _split_too_long("#17/#18", G, S)
+        _split_too_long("#17/#18/#20", G, S, mode=mode)
     return p
 
 
-def _split_too_long(name: str, G: int, S: int, hint: str = "") -> None:
-    """Raises: S does not fit #17/#18's shared memory at the largest
-    split."""
+def _split_too_long(name: str, G: int, S: int, hint: str = "",
+                    mode: str = "bd") -> None:
+    """Raises: S does not fit the split kernel's shared memory in ``mode``
+    at the largest split."""
+    need = split_smem_bytes(G, kv8_columns(S, CLUSTER_PARTS[-1]), 1, mode)
     raise ValueError(
         f"{name} holds a rank's score columns in shared memory: S={S} at "
-        f"G={G} needs "
-        f"{split_smem_bytes(G, kv8_columns(S, CLUSTER_PARTS[-1]), 1)} bytes "
-        f"a CTA at {CLUSTER_PARTS[-1]} parts, above {SMEM_MAX}{hint}")
+        f"G={G} needs {need} bytes a CTA at {CLUSTER_PARTS[-1]} parts, "
+        f"above {SMEM_MAX}{hint}")
 
 
 @functools.lru_cache(maxsize=None)
-def split_clusters(index: int, G: int, per: int, slots: int, i8: bool,
+def split_clusters(index: int, G: int, per: int, slots: int, mode: str,
                    parts: int) -> int:
-    """The clusters of ``parts`` #17 (``i8``) or #18 CTAs over ``per``
-    columns a rank with ``slots`` ring slots a warp that card ``index``
-    holds at once (CUDA's occupancy query)."""
+    """The clusters of ``parts`` CTAs of the split kernel in ``mode``
+    (``SPLIT_MODES``: #18 "bd", #17 "i8", #20 "bd4") over ``per`` columns
+    a rank with ``slots`` ring slots a warp that card ``index`` holds at
+    once (CUDA's occupancy query)."""
     with torch.cuda.device(index):
-        n = _lib().lc_attn_split_clusters(G, per, slots, int(i8), parts)
+        n = _lib().lc_attn_split_clusters(G, per, slots, SPLIT_MODES[mode],
+                                          parts)
     if n < 0:
         raise RuntimeError(f"lc_attn_split_clusters failed: CUDA error {-n}")
     return n
 
 
-def split_card_parts(pairs: int, S: int, G: int, i8: bool,
+def split_card_parts(pairs: int, S: int, G: int, mode: str,
                      device: torch.device) -> Tuple[int, int]:
-    """(cluster size, ring slots) of #17 (``i8``) or #18 on ``device``'s
-    card: ``split_parts`` with the card's co-resident clusters, and
-    ``split_slots`` at that size."""
+    """(cluster size, ring slots) of the split kernel in ``mode`` (#18
+    "bd", #17 "i8", #20 "bd4") on ``device``'s card: ``split_parts`` with
+    the card's co-resident clusters, and ``split_slots`` at that size."""
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
 
     def clusters(p):
         per = kv8_columns(S, p)
-        return split_clusters(index, G, per, split_slots(G, per), i8, p)
+        return split_clusters(index, G, per, split_slots(G, per, mode), mode,
+                              p)
 
-    parts = split_parts(pairs, S, G, clusters)
-    return parts, split_slots(G, kv8_columns(S, parts))
+    parts = split_parts(pairs, S, G, clusters, mode)
+    return parts, split_slots(G, kv8_columns(S, parts), mode)
 
 
-def _split_launch(q8, qs, cache, L, outs, parts: int, slots: int,
+def _split_launch(q8, qs, cache, L, outs, parts: int, slots: int, mode: str,
                   fresh=None) -> None:
-    """One launch of #18 (``fresh`` None: ``cache`` the kv8 slabs (kt, ks,
-    vt, vs), ``outs`` (ctx, m, d)) or #17 (``cache`` (kq, ks, vq, vs),
-    ``fresh`` (k_new, kns, v_new, vns), ``outs`` (out,)) on prepared
-    operands: the int8 query and its scales (``quantize_q``), int32
-    lengths; a cluster of ``parts`` CTAs a (slot, kv head), ``slots`` ring
-    slots a warp (``split_card_parts``; ``kernel_ab.py`` and the card tests
-    force others)."""
+    """One launch of the split kernel in ``mode``: #18 ("bd": ``cache`` the
+    kv8 slabs (kt, ks, vt, vs), ``outs`` (ctx, m, d)), #20 ("bd4": the kv4
+    slabs, likewise) or #17 ("i8": ``cache`` (kq, ks, vq, vs), ``fresh``
+    (k_new, kns, v_new, vns), ``outs`` (out,)) on prepared operands: the
+    int8 query and its scales (``quantize_q``), int32 lengths; a cluster
+    of ``parts`` CTAs a (slot, kv head), ``slots`` ring slots a warp
+    (``split_card_parts``; ``kernel_ab.py`` and the card tests force
+    others)."""
     B, H, G, D = q8.shape
     k, ks, v, vs = cache
-    S = k.shape[-1] if fresh is None else k.shape[2]
+    S = k.shape[-1] if mode != "i8" else k.shape[2]
     ptrs = [t.data_ptr() for t in (q8, qs, k, ks, v, vs)]
     with torch.cuda.device(q8.device):
-        if fresh is None:
+        if mode != "i8":
             _launch(_lib().lc_attn_bd, *ptrs, L.data_ptr(),
                     *(t.data_ptr() for t in outs), B, H, G, S, parts, slots,
-                    _stream(q8.device))
+                    SPLIT_MODES[mode], _stream(q8.device))
         else:
             _launch(_lib().lc_attn_i8, *ptrs,
                     *(t.data_ptr() for t in fresh), L.data_ptr(),
@@ -717,24 +710,24 @@ def _split_launch(q8, qs, cache, L, outs, parts: int, slots: int,
                     _stream(q8.device))
 
 
-def _split(q, cache, lengths, S: int, fresh=None):
-    """#17 (``fresh``) or #18 on the card: the query's quantization, the
-    cluster size, one launch."""
+def _split(q, cache, lengths, S: int, mode: str, fresh=None):
+    """The split kernel in ``mode`` (#18 "bd", #20 "bd4", #17 "i8" with
+    ``fresh``) on the card: the query's quantization, the cluster size,
+    one launch."""
     B, H, G, D = q.shape
-    parts, slots = split_card_parts(B * H, S, G, fresh is not None,
-                                    q.device)
+    parts, slots = split_card_parts(B * H, S, G, mode, q.device)
     k, ks, v, vs = cache
     # the kernel's bulk copies of the scales start on 16-byte boundaries
     ks, vs = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (ks, vs))
     q8, qs = quantize_q(q)
     L = _lengths(lengths, B, S, q.device)
     f32 = dict(dtype=torch.float32, device=q.device)
-    if fresh is None:
+    if mode != "i8":
         outs = (torch.empty((B, H, G, D), **f32),
                 torch.empty((B, H, G), **f32), torch.empty((B, H, G), **f32))
     else:
         outs = (torch.empty((B, H, G, D), **f32),)
-    _split_launch(q8, qs, (k, ks, v, vs), L, outs, parts, slots, fresh)
+    _split_launch(q8, qs, (k, ks, v, vs), L, outs, parts, slots, mode, fresh)
     return outs
 
 
@@ -754,7 +747,7 @@ def decode_attention_bd(q: torch.Tensor, kt: torch.Tensor, ks: torch.Tensor,
     if not split_fits(G, S):
         _split_too_long("decode_attention_bd", G, S, "; use "
                         "decode_attention_bd_flash (attn_impl='bds')")
-    out = _split(q, (kt, ks, vt, vs), lengths, S)
+    out = _split(q, (kt, ks, vt, vs), lengths, S, "bd")
     decode_attention_bd.launches += 1
     return out
 
@@ -782,11 +775,19 @@ def decode_attention_bd4(q: torch.Tensor, kt4: torch.Tensor,
                          vs: torch.Tensor,
                          lengths: Optional[torch.Tensor] = None) -> Partials:
     """#20: q (B, H, G, D) over the bd4 slabs of one layer; columns
-    ``< lengths`` (all when None).  Returns (ctx unnormalized, m, d)."""
+    ``< lengths`` (all when None).  Returns (ctx unnormalized, m, d).  On
+    the card #18's split kernel in its nibble mode (S over a cluster of
+    ``split_card_parts(..., "bd4", ...)`` CTAs), bounded by
+    ``split_fits(G, S, "bd4")``; above it this raises and the flash
+    kernel (``decode_attention_bd4_flash``) takes the buffer."""
     S = _check_bd(q, kt4, ks, vt4, vs, nib=True)
     if q.device.type == "cpu":
         return decode_attention_bd4_plain(q, kt4, ks, vt4, vs, lengths)
-    out = _bd_launch(_lib().lc_attn_bd4, q, kt4, ks, vt4, vs, lengths, S)
+    G = q.shape[2]
+    if not split_fits(G, S, "bd4"):
+        _split_too_long("decode_attention_bd4", G, S, "; use "
+                        "decode_attention_bd4_flash", mode="bd4")
+    out = _split(q, (kt4, ks, vt4, vs), lengths, S, "bd4")
     decode_attention_bd4.launches += 1
     return out
 
@@ -839,9 +840,9 @@ def decode_attention_i8(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     k_new, v_new, kns, vns = (t.contiguous() for t in (k_new, v_new, kns,
                                                         vns))
     _check(q, S, [kq, vq, k_new, v_new], [ks, vs, kns, vns])
-    if not split_fits(G, S):
-        _split_too_long("decode_attention_i8", G, S)
-    out, = _split(q, (kq, ks, vq, vs), lengths, S,
+    if not split_fits(G, S, "i8"):
+        _split_too_long("decode_attention_i8", G, S, mode="i8")
+    out, = _split(q, (kq, ks, vq, vs), lengths, S, "i8",
                   fresh=(k_new, kns, v_new, vns))
     decode_attention_i8.launches += 1
     return out

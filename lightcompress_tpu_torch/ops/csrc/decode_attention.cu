@@ -2,16 +2,16 @@
 // (sm_90a), CUDA C++ with a plain C interface bound from Python with ctypes
 // (ops/_build.py, ops/attention.py).
 //
-//   #18 attn_split_kernel<G, false>     replaces
+//   #18 attn_split_kernel<G, kSplitKv8> replaces
 //                                       lightcompress_tpu/ops/pallas_attention.py
 //                                       decode_attention_bd (_attn_kernel_bd)
 //   #19 attn_bd_flash_kernel<G, false>  replaces decode_attention_bd_flash
 //                                       (_attn_kernel_bd_flash)
-//   #20 attn_bd_kernel<G, true>         replaces decode_attention_bd4
+//   #20 attn_split_kernel<G, kSplitKv4> replaces decode_attention_bd4
 //                                       (_attn_kernel_bd4)
 //   #21 attn_bd_flash_kernel<G, true>   replaces decode_attention_bd4_flash
 //                                       (_attn_kernel_bd4_flash)
-//   #17 attn_split_kernel<G, true>      replaces decode_attention_i8
+//   #17 attn_split_kernel<G, kSplitI8>  replaces decode_attention_i8
 //                                       (_attn_kernel_i8_append, masked)
 //   #22 attn_kv8_kernel<G, ST>          replaces decode_attention_kv8
 //                                       (_attn_kernel)
@@ -29,8 +29,8 @@
 // head's G query rows against that head's rows of the slab.
 //
 // Arithmetic, in the JAX kernels' order: integer dots (int8 q against int8
-// codes or sign-extended nibbles, exact in int32: __dp4a in #20, the int8
-// tensor cores in #17-#19, #21); scores (f32(s) * (qs * D^-0.5)) * ks;
+// codes or sign-extended nibbles, exact in int32 on the int8 tensor cores);
+// scores (f32(s) * (qs * D^-0.5)) * ks;
 // columns >= length are masked; the max is floored at -1e30 (#18-#21); e =
 // exp(s - m); pv = e * vs; ps = max(max(pv), 1e-20) / 127; p8 = rint(pv /
 // ps) (round half to even, IEEE division: the build uses no fast-math); PV
@@ -38,19 +38,10 @@
 // __fmul_rn/__fadd_rn keep the two roundings.  Masked columns contribute
 // exactly 0 in the TPU kernels, so these skip them.
 //
-// Bound of #17-#21 on an H100 SXM: bytes (#17-#19/#21 and #22: their own
-// sections below).  A block reads each valid column's codes and scales once
-// (kv8: 128 + 128 + 2 + 2 bytes per kv head and token; kv4: 64 + 64 + 2 + 2)
-// against 2*G*D int operations per code byte pair, far below the int8
-// tensor-core rate.  #20 is a whole-row kernel: one block per (slot, kv
-// head), grid (H, B); the block reads its head's K once for all G query
-// rows and V once for the whole PV dot, with the scores of the valid
-// columns held in shared memory (the probability scale ps is a max over
-// the whole row).  K column t is read down the head's feature rows, 4
-// columns to a thread, coalesced along t; a V row is one contiguous run of
-// code bytes.  It keeps 5 * G bytes of shared memory per column, so its
-// buffer S is bounded by the 227 KB a block may have.  No tensor cores and
-// no copy ring in #20.
+// Bound of #17-#21 on an H100 SXM: bytes (their sections below).  A kernel
+// reads each valid column's codes and scales once (kv8: 128 + 128 + 2 + 2
+// bytes per kv head and token; kv4: 64 + 64 + 2 + 2) against 2*G*D int
+// operations per code byte pair, far below the int8 tensor-core rate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,7 +56,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kD = 128;                       // head_dim
 constexpr int kD2 = kD / 2;                   // kv4 bytes per head and token
-constexpr int kQW = kD / 4;                   // int32 words of one q row
 constexpr float kScale = 0.08838834764831845f;  // 128 ** -0.5
 
 __device__ __forceinline__ float bf(__nv_bfloat16 v) {
@@ -77,7 +67,7 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 }
 
 // The four bytes of x hold two nibbles each; these return the low (or high)
-// nibbles sign-extended to four int8 lanes, ready for __dp4a.
+// nibbles sign-extended to four int8 lanes (s8 operands of mma.sync).
 __device__ __forceinline__ int nib_lo(uint32_t x) {
   const uint32_t n = x & 0x0F0F0F0Fu;
   return (int)(n | ((n & 0x08080808u) * 0x1Eu));
@@ -85,314 +75,6 @@ __device__ __forceinline__ int nib_lo(uint32_t x) {
 __device__ __forceinline__ int nib_hi(uint32_t x) {
   const uint32_t n = (x >> 4) & 0x0F0F0F0Fu;
   return (int)(n | ((n & 0x08080808u) * 0x1Eu));
-}
-
-// Byte j of each of w0..w3, as bytes 0..3 of the result.
-__device__ __forceinline__ uint32_t gather_byte(uint32_t w0, uint32_t w1,
-                                                uint32_t w2, uint32_t w3,
-                                                int j) {
-  const uint32_t sel = (uint32_t)j | ((uint32_t)(j + 4) << 4);
-  return __byte_perm(__byte_perm(w0, w1, sel), __byte_perm(w2, w3, sel),
-                     0x5410);
-}
-
-// Block-wide max or sum of G values per thread; every thread gets the
-// result in v.  red holds kWarps * G floats.
-template <int G, bool kMax>
-__device__ __forceinline__ void block_reduce(float (&v)[G], float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float o = __shfl_xor_sync(0xffffffffu, v[g], off);
-      v[g] = kMax ? fmaxf(v[g], o) : v[g] + o;
-    }
-    if (lane == 0) red[warp * G + g] = v[g];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    float a = red[g];
-    for (int w = 1; w < kWarps; ++w)
-      a = kMax ? fmaxf(a, red[w * G + g]) : a + red[w * G + g];
-    v[g] = a;
-  }
-  __syncthreads();
-}
-
-// Shared memory of one block over at most `cap` score columns: scores
-// (later pv) f32 [G][cap], p8 int8 [G][cap], the int32 PV sums [G][D], the
-// q words [G][D/4], the reduction scratch.  cap % 16 == 0 keeps every part
-// 16-byte aligned and every 4-column word of p8 4-byte aligned.
-template <int G>
-struct Smem {
-  float* sc;
-  int8_t* p8;
-  int* acc;
-  int* qw;
-  float* red;
-  int cap;
-  __device__ Smem(unsigned char* base, int n) : cap(n) {
-    sc = reinterpret_cast<float*>(base);
-    p8 = reinterpret_cast<int8_t*>(sc + (size_t)G * n);
-    acc = reinterpret_cast<int*>(p8 + (size_t)G * n);
-    qw = acc + G * kD;
-    red = reinterpret_cast<float*>(qw + G * kQW);
-  }
-  static size_t bytes(int n) {
-    return (size_t)G * n * 5 + (size_t)G * kD * 4 + (size_t)G * kQW * 4 +
-           (size_t)kWarps * G * 4;
-  }
-};
-
-template <int G>
-__device__ __forceinline__ void load_q(Smem<G>& sm, const int8_t* q8,
-                                       int bh) {
-  const int* src = reinterpret_cast<const int*>(q8 + (size_t)bh * G * kD);
-  for (int i = threadIdx.x; i < G * kQW; i += kThreads) sm.qw[i] = src[i];
-  for (int i = threadIdx.x; i < G * kD; i += kThreads) sm.acc[i] = 0;
-}
-
-// Block-diagonal scores of columns [c0, c0 + n) of one (slot, kv head) into
-// sm.sc (relative column), returning each thread's max per row.  kh points
-// at the head's first K row (kNib: packed nibble rows, else int8 feature
-// rows); rows are S bytes apart.  A thread takes 4 columns (one word of
-// every row) and walks the rows 4 at a time.
-template <int G, bool kNib>
-__device__ __forceinline__ void bd_scores(const Smem<G>& sm,
-                                          const uint32_t* kh,
-                                          const __nv_bfloat16* ksh,
-                                          const float (&qsc)[G], int S,
-                                          int c0, int n, float (&mx)[G]) {
-  constexpr int kRows = kNib ? kD2 : kD;
-  const int S4 = S / 4, nw = (n + 3) / 4, w0 = c0 / 4;
-  for (int c = threadIdx.x; c < nw; c += kThreads) {
-    int s[G][4];
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[g][j] = 0;
-#pragma unroll 2
-    for (int d4 = 0; d4 < kRows / 4; ++d4) {
-      const uint32_t* r = kh + (size_t)(4 * d4) * S4 + w0 + c;
-      const uint32_t a0 = __ldg(r), a1 = __ldg(r + S4), a2 = __ldg(r + 2 * S4),
-                     a3 = __ldg(r + 3 * S4);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint32_t x = gather_byte(a0, a1, a2, a3, j);
-        if constexpr (kNib) {
-          const int lo = nib_lo(x), hi = nib_hi(x);
-#pragma unroll
-          for (int g = 0; g < G; ++g) {
-            s[g][j] = __dp4a(lo, sm.qw[g * kQW + d4], s[g][j]);
-            s[g][j] = __dp4a(hi, sm.qw[g * kQW + kQW / 2 + d4], s[g][j]);
-          }
-        } else {
-#pragma unroll
-          for (int g = 0; g < G; ++g)
-            s[g][j] = __dp4a((int)x, sm.qw[g * kQW + d4], s[g][j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int t = 4 * c + j;
-      if (t >= n) continue;
-      const float ksv = bf(ksh[c0 + t]);
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float v = __fmul_rn(__fmul_rn((float)s[g][j], qsc[g]), ksv);
-        sm.sc[g * sm.cap + t] = v;
-        mx[g] = fmaxf(mx[g], v);
-      }
-    }
-  }
-}
-
-// e = exp(s - m) over the n valid columns; pv = e * vs replaces the score;
-// returns the row sums of e and the row maxima of pv (block-reduced) and
-// writes p8 = rint(pv / ps) for columns [0, round_up(n, 4)) (0 past n).
-template <int G>
-__device__ __forceinline__ void softmax_requant(const Smem<G>& sm,
-                                                const __nv_bfloat16* vsh,
-                                                const float (&m)[G], int c0,
-                                                int n, float (&esum)[G],
-                                                float (&ps)[G]) {
-  float pmax[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) esum[g] = 0.f, pmax[g] = 0.f;
-  for (int t = threadIdx.x; t < n; t += kThreads) {
-    const float vsv = bf(vsh[c0 + t]);
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float e = expf(sm.sc[g * sm.cap + t] - m[g]);
-      esum[g] += e;
-      const float pv = __fmul_rn(e, vsv);
-      sm.sc[g * sm.cap + t] = pv;
-      pmax[g] = fmaxf(pmax[g], pv);
-    }
-  }
-  block_reduce<G, false>(esum, sm.red);
-  block_reduce<G, true>(pmax, sm.red);
-#pragma unroll
-  for (int g = 0; g < G; ++g) ps[g] = fmaxf(pmax[g], 1e-20f) / 127.0f;
-  const int nr = (n + 3) / 4 * 4;
-  for (int t = threadIdx.x; t < nr; t += kThreads) {
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-      sm.p8[g * sm.cap + t] =
-          t < n ? (int8_t)(int)rintf(sm.sc[g * sm.cap + t] / ps[g])
-                : (int8_t)0;
-  }
-  __syncthreads();
-}
-
-// kv4 PV: sm.acc[g][d] += sum_t p8[g][t] * v[t][d] over columns [c0, c0+n);
-// vh points at the head's packed bytes of column 0, rows `stride` bytes
-// apart.  16 threads share a row (4 packed bytes each), 16 row quads at once.
-template <int G>
-__device__ __forceinline__ void bd4_pv(const Smem<G>& sm, const int8_t* vh,
-                                       int stride, int c0, int n) {
-  const int wc = threadIdx.x & 15, tg = threadIdx.x >> 4;
-  const int nq = (n + 3) / 4;
-  int alo[G][4], ahi[G][4];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) alo[g][j] = 0, ahi[g][j] = 0;
-  for (int q4 = tg; q4 < nq; q4 += kThreads / 16) {
-    const int t0 = 4 * q4;
-    const int8_t* r = vh + (size_t)(c0 + t0) * stride + 4 * wc;
-    const uint32_t a0 = __ldg(reinterpret_cast<const uint32_t*>(r));
-    const uint32_t a1 = __ldg(reinterpret_cast<const uint32_t*>(r + stride));
-    const uint32_t a2 =
-        __ldg(reinterpret_cast<const uint32_t*>(r + 2 * stride));
-    const uint32_t a3 =
-        __ldg(reinterpret_cast<const uint32_t*>(r + 3 * stride));
-    int pw[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-      pw[g] = *reinterpret_cast<const int*>(sm.p8 + g * sm.cap + t0);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t x = gather_byte(a0, a1, a2, a3, j);
-      const int lo = nib_lo(x), hi = nib_hi(x);
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        alo[g][j] = __dp4a(lo, pw[g], alo[g][j]);
-        ahi[g][j] = __dp4a(hi, pw[g], ahi[g][j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      atomicAdd(&sm.acc[g * kD + 4 * wc + j], alo[g][j]);
-      atomicAdd(&sm.acc[g * kD + kD2 + 4 * wc + j], ahi[g][j]);
-    }
-  __syncthreads();
-}
-
-// int8 PV: sm.acc[g][d] += sum_t p8[g][t] * v[t][d] over columns [c0,
-// c0+n); vh points at the head's D code bytes of column 0, rows `stride`
-// bytes apart.  A warp owns 4-row quads, one 4-byte word of each row per
-// lane (a whole 128-byte row per warp load).
-template <int G>
-__device__ __forceinline__ void i8_pv(const Smem<G>& sm, const int8_t* vh,
-                                      int stride, int c0, int n) {
-  const int wc = threadIdx.x & 31, tg = threadIdx.x >> 5;
-  const int nq = (n + 3) / 4;
-  int a[G][4];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) a[g][j] = 0;
-  for (int q4 = tg; q4 < nq; q4 += kWarps) {
-    const int t0 = 4 * q4;
-    const int8_t* r = vh + (size_t)(c0 + t0) * stride + 4 * wc;
-    const uint32_t a0 = __ldg(reinterpret_cast<const uint32_t*>(r));
-    const uint32_t a1 = __ldg(reinterpret_cast<const uint32_t*>(r + stride));
-    const uint32_t a2 =
-        __ldg(reinterpret_cast<const uint32_t*>(r + 2 * stride));
-    const uint32_t a3 =
-        __ldg(reinterpret_cast<const uint32_t*>(r + 3 * stride));
-    int pw[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-      pw[g] = *reinterpret_cast<const int*>(sm.p8 + g * sm.cap + t0);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int x = (int)gather_byte(a0, a1, a2, a3, j);
-#pragma unroll
-      for (int g = 0; g < G; ++g) a[g][j] = __dp4a(x, pw[g], a[g][j]);
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      atomicAdd(&sm.acc[g * kD + 4 * wc + j], a[g][j]);
-  __syncthreads();
-}
-
-template <int G, bool kNib>
-__device__ __forceinline__ void bd_pv(const Smem<G>& sm, const int8_t* vh,
-                                      int stride, int c0, int n) {
-  if constexpr (kNib)
-    bd4_pv(sm, vh, stride, c0, n);
-  else
-    i8_pv(sm, vh, stride, c0, n);
-}
-
-template <int G>
-__device__ __forceinline__ void q_scales(const float* qs, int bh,
-                                         float (&qsc)[G]) {
-#pragma unroll
-  for (int g = 0; g < G; ++g) qsc[g] = __fmul_rn(qs[bh * G + g], kScale);
-}
-
-// ---------------------------------------------------------------------------
-// #20 (kNib true): the whole buffer in one pass; (ctx unnormalized, m, d).
-// The kv8 branches (kNib false) are no longer instantiated: #18 runs
-// attn_split_kernel below.
-// ---------------------------------------------------------------------------
-template <int G, bool kNib>
-__global__ void __launch_bounds__(kThreads)
-attn_bd_kernel(const int8_t* __restrict__ q8, const float* __restrict__ qs,
-               const int8_t* __restrict__ kt,
-               const __nv_bfloat16* __restrict__ ks,
-               const int8_t* __restrict__ vt,
-               const __nv_bfloat16* __restrict__ vs,
-               const int* __restrict__ lengths, float* __restrict__ ctx,
-               float* __restrict__ m_out, float* __restrict__ d_out, int S) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kRow = kNib ? kD2 : kD;  // code bytes of one head and token
-  const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x, bh = b * H + h;
-  Smem<G> sm(smem, S);
-  const int L = min(max(lengths[b], 0), S);
-  load_q(sm, q8, bh);
-  float qsc[G], mx[G], esum[G], ps[G];
-  q_scales(qs, bh, qsc);
-#pragma unroll
-  for (int g = 0; g < G; ++g) mx[g] = -INFINITY;
-  __syncthreads();
-  const uint32_t* kh = reinterpret_cast<const uint32_t*>(
-      kt + ((size_t)b * H * kRow + (size_t)h * kRow) * S);
-  bd_scores<G, kNib>(sm, kh, ks + (size_t)bh * S, qsc, S, 0, L, mx);
-  block_reduce<G, true>(mx, sm.red);
-#pragma unroll
-  for (int g = 0; g < G; ++g) mx[g] = fmaxf(mx[g], -1e30f);
-  softmax_requant(sm, vs + (size_t)bh * S, mx, 0, L, esum, ps);
-  bd_pv<G, kNib>(sm, vt + (size_t)b * S * H * kRow + (size_t)h * kRow,
-                 H * kRow, 0, L);
-  for (int i = threadIdx.x; i < G * kD; i += kThreads)
-    ctx[(size_t)bh * G * kD + i] = __fmul_rn((float)sm.acc[i], ps[i / kD]);
-  if (threadIdx.x < G) {
-    m_out[bh * G + threadIdx.x] = mx[threadIdx.x];
-    d_out[bh * G + threadIdx.x] = esum[threadIdx.x];
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1557,15 +1239,17 @@ attn_kv8_kernel(const __grid_constant__ CUtensorMap kmap,
 }
 
 // ---------------------------------------------------------------------------
-// #17 (kI8 true) and #18 (kI8 false): one pass over the buffer, S split over
-// a thread-block cluster.
+// #17 (kSplitI8), #18 (kSplitKv8) and #20 (kSplitKv4): one pass over the
+// buffer, S split over a thread-block cluster.
 //   #18: the kv8 bd slabs; (ctx unnormalized, m, d).
+//   #20: the kv4 bd4 slabs (R = D/2 bytes a head and token, two nibbles a
+//        byte); (ctx unnormalized, m, d), as #18.
 //   #17: the int8 hhd cache (B, H, S, D) plus the fresh token as one more
 //        softmax column, not requantized:
 //          m = max(max(s), s_new); denom = sum(e) + e_new;
 //          out = (f32(p8 . v) * ps + (e_new * vns) * v_new) / denom.
 //
-// Bound on an H100 SXM: bytes (K and V of the valid columns, 2 * 128 code
+// Bound on an H100 SXM: bytes (K and V of the valid columns, 2 * R code
 // bytes and 2 scales a column and kv head), against 4 * G * D int8
 // operations a column.  The TPU kernels' probability scale ps is a max over
 // the whole row, so the scores, the softmax and the PV dot depend on each
@@ -1584,8 +1268,10 @@ attn_kv8_kernel(const __grid_constant__ CUtensorMap kmap,
 //     on mbarriers, lane 0 issuing one TMA box a chunk (#18: K feature-major,
 //     R rows x 64 columns, 64-byte swizzle, with the chunk's K and V scales
 //     by two bulk copies; V time-major, 64 rows x 128 bytes, 128-byte
-//     swizzle; #17: the (B * H * S, D) rows of K and of V, 64 rows x 128
-//     bytes, 128-byte swizzle, K's chunks with the scales), and refilling a
+//     swizzle; #20: K R rows x 64 columns and V 64 rows x R bytes, both
+//     in the 64-byte swizzle, #21's boxes; #17: the (B * H * S, D) rows of
+//     K and of V, 64 rows x 128 bytes, 128-byte swizzle, K's chunks with
+//     the scales), and refilling a
 //     slot only after the products that read it and a __syncwarp (PR 15's
 //     rule).  On rank 0 a warp's first K chunk goes out before the slot's
 //     length is read (over the rank's columns of the buffer), so for a
@@ -1596,17 +1282,23 @@ attn_kv8_kernel(const __grid_constant__ CUtensorMap kmap,
 //     exact): scores with A = 16 time steps x 32 features of K, B = q8 (its
 //     G rows the n8 columns); PV with A = 16 features x 32 time steps of V,
 //     B = p8.  #18's K is feature-major, so its A fragments take #19's 4 x 4
-//     byte transposes; #17's K rows are time-major and load as A fragments
+//     byte transposes; #20's take #21's (its nibbles sign-extended after
+//     the transpose, q's low half against the low nibbles, features d, its
+//     high half against the high ones, d + 64); #17's K rows are time-major
+//     and load as A fragments
 //     as they are (lane (g, tig) reads 32 bytes of time steps g and g + 8,
 //     features 32 tig .. 32 tig + 31; q8 follows the same feature order).
-//     V is time-major in both caches: #19's kv8 PV fragments.
+//     V is time-major in every cache: #19's kv8 PV fragments (#17, #18),
+//     #21's kv4 ones (#20).
 //   * Three meets of the cluster through distributed shared memory, each
-//     read in rank order: (a) the row max m (#18 floored at -1e30, #17
+//     read in rank order: (a) the row max m (#18, #20 floored at -1e30, #17
 //     with the fresh token's score); (b) the max of pv, giving ps by IEEE
 //     division, and the f32 sums of e, giving d; (c) the int32 PV partials
 //     (rank r adds features [r * D / P, (r + 1) * D / P) of every rank's
 //     partial: exact), times ps.  So m, ps, p8 and the unnormalized context
-//     are the same bits at every P; only d, and #17's output through d,
+//     are the same bits at every P (the TPU kernels' ps is a max over the
+//     whole row, so #20 meets as #18 and not as #21's per-block scale);
+//     only d, and #17's output through d,
 //     follow the f32 order of the sums (lanes by a fixed tree, warps and
 //     ranks in order: a second call gives the same bits).
 //   * The cluster barrier rule: every rank, one with no valid column too,
@@ -1617,6 +1309,9 @@ attn_kv8_kernel(const __grid_constant__ CUtensorMap kmap,
 //     on chunks it issued (a first chunk past them before the last meet).
 // ---------------------------------------------------------------------------
 constexpr int kSplitScratch = 1024;  // bytes of the exchanges
+// the split's operands: #18's kv8 bd slabs, #17's int8 hhd cache, #20's
+// kv4 bd4 slabs (lc_attn_split_clusters' `mode`)
+constexpr int kSplitKv8 = 0, kSplitI8 = 1, kSplitKv4 = 2;
 
 // the f32 score rows of a rank's `per` columns: a stride that keeps the
 // mma fragments' score stores of both layouts within two lanes a bank
@@ -1624,13 +1319,14 @@ __host__ __device__ constexpr int split_sc_stride(int per) {
   return ((per + 31) & ~31) + 9;
 }
 
-// dynamic shared memory of a #17/#18 CTA (ops/attention.split_smem_bytes):
-// 1024 bytes of alignment slack, the ring (codes, scales, the slots'
-// mbarriers), the int32 PV sums, q8, the exchanges, the rank's V scales
-// (bf16) and scores
-inline size_t split_smem(int G, int per, int nslot) {
+// dynamic shared memory of a #17/#18/#20 CTA (ops/attention.split_smem_bytes):
+// 1024 bytes of alignment slack, the ring (codes: R x 64 bytes a slot, R =
+// D/2 for #20's nibbles (nib), else D; scales, the slots' mbarriers), the
+// int32 PV sums, q8, the exchanges, the rank's V scales (bf16) and scores
+inline size_t split_smem(int G, int per, int nslot, bool nib) {
   return 1024 +
-         (size_t)kFlashWarps * nslot * (kD * kChunk + kSlotScales + 8) +
+         (size_t)kFlashWarps * nslot *
+             (flash_slot_bytes(nib) + kSlotScales + 8) +
          (size_t)G * kAccRow * 4 + (size_t)G * kD + kSplitScratch +
          (size_t)per * 2 + (size_t)G * split_sc_stride(per) * 4;
 }
@@ -1657,8 +1353,8 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// the operands of #17/#18 besides the TMA maps (#18: kn .. vns null, out
-// the unnormalized ctx; #17: m and d null)
+// the operands of #17/#18/#20 besides the TMA maps (#18, #20: kn .. vns
+// null, out the unnormalized ctx; #17: m and d null)
 struct SplitPtrs {
   const int8_t* q8;
   const float* qs;
@@ -1674,12 +1370,14 @@ struct SplitPtrs {
   float* d;
 };
 
-template <int G, bool kI8>
+template <int G, int kMode>
 __global__ void __launch_bounds__(kFlashThreads)
 attn_split_kernel(const __grid_constant__ CUtensorMap kmap,
                   const __grid_constant__ CUtensorMap vmap,
                   const SplitPtrs p, int S, int parts, int per, int nslot) {
-  constexpr int CB = kD * kChunk;  // code bytes of a ring slot
+  constexpr bool kI8 = kMode == kSplitI8, kNib = kMode == kSplitKv4;
+  constexpr int R = kNib ? kD2 : kD;  // code bytes a head and token
+  constexpr int CB = R * kChunk;      // code bytes of a ring slot
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* ring =
       smem_raw + ((1024 - (lcw4::smem_u32(smem_raw) & 1023)) & 1023);
@@ -1727,7 +1425,7 @@ attn_split_kernel(const __grid_constant__ CUtensorMap kmap,
       if constexpr (kI8)
         lcw4::tma_load_2d(dst, &kmap, 0, bh * S + col, bar);
       else
-        lcw4::tma_load_2d(dst, &kmap, col, bh * kD, bar);
+        lcw4::tma_load_2d(dst, &kmap, col, bh * R, bar);
       bulk_load(sdst, ksr + cl, 2 * cols, bar);
       bulk_load(sdst + 2 * kChunk, vsr + cl, 2 * cols, bar);
     } else {
@@ -1735,7 +1433,7 @@ attn_split_kernel(const __grid_constant__ CUtensorMap kmap,
       if constexpr (kI8)
         lcw4::tma_load_2d(dst, &vmap, 0, bh * S + col, bar);
       else
-        lcw4::tma_load_2d(dst, &vmap, h * kD, b * S + col, bar);
+        lcw4::tma_load_2d(dst, &vmap, h * R, b * S + col, bar);
     }
   };
   // rank 0 (which holds a slot's first columns: any valid column at all)
@@ -1820,10 +1518,12 @@ attn_split_kernel(const __grid_constant__ CUtensorMap kmap,
       if (lane == 0) rsn[q] = __fmul_rn(__fmul_rn((float)s, qsw[j]), knsf);
     }
   }
-  // q8 as the scores' B fragments of k step ks: #18 as #19 (query g at the
-  // features of rows 8 a + lane7_64(tig, j & 1), a = 4 ks + (j >> 1), byte j
-  // of b0, j < 4, of b1, j - 4); #17 features 32 tig + 8 ks + 0..3 (b0)
-  // and + 4..7 (b1), the order of its K words
+  // q8 as the scores' B fragments of k step ks: #18 and #20 as #19 and #21
+  // (query g at the features of rows 8 a + lane7_64(tig, j & 1), a = 4 ks'
+  // + (j >> 1), byte j of b0, j < 4, of b1, j - 4; #18: ks' = ks; #20:
+  // ks' = ks & 1, features + 64 for ks >= 2, the high nibbles); #17
+  // features 32 tig + 8 ks + 0..3 (b0) and + 4..7 (b1), the order of its K
+  // words
   uint32_t qb[4][2];
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks) {
@@ -1840,15 +1540,16 @@ attn_split_kernel(const __grid_constant__ CUtensorMap kmap,
         for (int s = 0; s < 2; ++s)
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            const int j = 4 * s + i;
-            const int r = 8 * (4 * ks + (j >> 1)) + lane7_64(tig, j & 1);
-            qb[ks][s] |= (uint32_t)(uint8_t)qg[r] << (8 * i);
+            const int j = 4 * s + i, ka = kNib ? (ks & 1) : ks;
+            const int r = 8 * (4 * ka + (j >> 1)) + lane7_64(tig, j & 1);
+            const int f = r + ((kNib && ks >= 2) ? kD2 : 0);
+            qb[ks][s] |= (uint32_t)(uint8_t)qg[f] << (8 * i);
           }
       }
     }
   }
 
-  // scores: the warp's K chunks.  #18: lane (g, tig) reads time steps 8 g
+  // scores: the warp's K chunks.  #18, #20: lane (g, tig) reads time steps 8 g
   // .. 8 g + 7 and holds m16 tile i's rows g, g + 8 as time steps 8 g +
   // 2 i, 8 g + 2 i + 1; #17: m16 tile i is time steps 16 i .. 16 i + 15,
   // rows g, g + 8 as read.  Lanes tig 0 copy the chunk's V scales into vsb.
@@ -1903,7 +1604,7 @@ attn_split_kernel(const __grid_constant__ CUtensorMap kmap,
 #pragma unroll
         for (int u = 0; u < 8; ++u) kv[u] = bf(kr[u]);
       }
-      bd_chunk_scores<false>(sl, g, tig, qb, acc);
+      bd_chunk_scores<kNib>(sl, g, tig, qb, acc);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -2006,8 +1707,9 @@ attn_split_kernel(const __grid_constant__ CUtensorMap kmap,
   }
   __syncthreads();
 
-  // PV: the warp's V chunks on #19's kv8 fragments (bd_chunk_pv), the p8
-  // B fragments made before the chunk's wait (p8_frags)
+  // PV: the warp's V chunks on #19's kv8 or #21's kv4 fragments
+  // (bd_chunk_pv), the p8 B fragments made before the chunk's wait
+  // (p8_frags)
   int pacc[8][4];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -2017,11 +1719,11 @@ attn_split_kernel(const __grid_constant__ CUtensorMap kmap,
   const float psinv = __frcp_rn(psg);
   for (int j = 0; j < nkw; ++j) {
     uint32_t bws[2][2];
-    p8_frags<false>(sc + min(g, G - 1) * ss, ss,
+    p8_frags<kNib>(sc + min(g, G - 1) * ss, ss,
                     (warp + kFlashWarps * j) * kChunk, n, g < G, tig, psinv,
                     psg, bws);
     wait();
-    bd_chunk_pv<false>(wring + (k % nslot) * CB, g, tig, bws, pacc);
+    bd_chunk_pv<kNib>(wring + (k % nslot) * CB, g, tig, bws, pacc);
     refill();
   }
   if (nkw > 0)
@@ -2036,12 +1738,15 @@ attn_split_kernel(const __grid_constant__ CUtensorMap kmap,
       }
   cluster_sync();  // 3: every rank's PV sums
   // meet (c): rank r's features [r * nf, (r + 1) * nf) of every rank's
-  // sums, ranks in order (feature f at (f & 15) * 8 + (f >> 4)); a thread
+  // sums, ranks in order (feature f at (phi, g) of its lane group, phi * 8
+  // + g: kv8 f = 16 g + phi; kv4 f = 8 g + phi, and 64 + 8 g + phi - 8
+  // from phi 8 on); a thread
   // takes i = tid, tid + 128, .. < G * nf (at most G), all of feature
   // rank * nf + tid % nf; the remote reads done, it announces the last
   // meet before its stores
   const int nf = kD / parts, f = rank * nf + tid % nf;
-  const int at0 = (f & 15) * 8 + (f >> 4);
+  const int at0 = kNib ? ((f & 7) + (f >= kD2 ? 8 : 0)) * 8 + ((f & 63) >> 3)
+                       : (f & 15) * 8 + (f >> 4);
   int a[G];
 #pragma unroll
   for (int j = 0; j < G; ++j) {
@@ -2080,20 +1785,6 @@ template <typename Kern>
 cudaError_t prepare(Kern kern, size_t smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
-}
-
-template <int G, bool kNib>
-int launch_bd(const void* q8, const void* qs, const void* kt, const void* ks,
-              const void* vt, const void* vs, const void* lengths, void* ctx,
-              void* m, void* d, int B, int H, int S, cudaStream_t st) {
-  const size_t smem = Smem<G>::bytes(S);
-  cudaError_t e = prepare(attn_bd_kernel<G, kNib>, smem);
-  if (e != cudaSuccess) return (int)e;
-  attn_bd_kernel<G, kNib><<<dim3(H, B), kThreads, smem, st>>>(
-      (const int8_t*)q8, (const float*)qs, (const int8_t*)kt,
-      (const __nv_bfloat16*)ks, (const int8_t*)vt, (const __nv_bfloat16*)vs,
-      (const int*)lengths, (float*)ctx, (float*)m, (float*)d, S);
-  return (int)cudaGetLastError();
 }
 
 template <int G, bool kNib>
@@ -2224,18 +1915,21 @@ int kv8_dispatch(const void* q, const void* kq, const void* ks,
   }
 }
 
-// #17 (kI8) or #18 on a cluster of `parts` CTAs per (slot, kv head), `nslot`
-// ring slots a warp; k, v: #18's slabs (K as (B * H * D, S) byte rows,
-// boxes of D rows x 64 columns, 64-byte swizzle; V as (B * S, H * D), boxes
-// of 64 rows x D bytes, 128-byte swizzle) or #17's caches (both (B * H * S,
-// D) byte rows, boxes of 64 rows, 128-byte swizzle)
-template <int G, bool kI8>
+// #17, #18 or #20 (kMode) on a cluster of `parts` CTAs per (slot, kv head),
+// `nslot` ring slots a warp; k, v: #18's or #20's slabs (K as (B * H * R,
+// S) byte rows, boxes of R rows x 64 columns, 64-byte swizzle; V as (B * S,
+// H * R), boxes of 64 rows x R bytes, kv8: 128-byte swizzle, kv4: 64-byte)
+// or #17's caches (both (B * H * S, D) byte rows, boxes of 64 rows,
+// 128-byte swizzle)
+template <int G, int kMode>
 int launch_split(const SplitPtrs& p, const void* k, const void* v, int B,
                  int H, int S, int parts, int nslot, cudaStream_t st) {
+  constexpr bool kNib = kMode == kSplitKv4;
+  constexpr int R = kNib ? kD2 : kD;
   const int per = ((S + parts - 1) / parts + 15) & ~15;
   CUtensorMap kmap, vmap;
   int rc;
-  if (kI8) {
+  if (kMode == kSplitI8) {
     const uint64_t rows = (uint64_t)B * H * S;
     rc = lcw4::tensor_map_2d(&kmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, k, kD, rows,
                              kD, kD, kChunk);
@@ -2244,16 +1938,17 @@ int launch_split(const SplitPtrs& p, const void* k, const void* v, int B,
                                rows, kD, kD, kChunk);
   } else {
     rc = lcw4::tensor_map_2d(&kmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, k, S,
-                             (uint64_t)B * H * kD, S, kChunk, kD,
+                             (uint64_t)B * H * R, S, kChunk, R,
                              CU_TENSOR_MAP_SWIZZLE_64B);
     if (rc == 0)
-      rc = lcw4::tensor_map_2d(&vmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, v,
-                               (uint64_t)H * kD, (uint64_t)B * S,
-                               (uint64_t)H * kD, kD, kChunk);
+      rc = lcw4::tensor_map_2d(
+          &vmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, v, (uint64_t)H * R,
+          (uint64_t)B * S, (uint64_t)H * R, R, kChunk,
+          kNib ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
   }
   if (rc != 0) return rc;
-  const size_t smem = split_smem(G, per, nslot);
-  cudaError_t e = prepare(attn_split_kernel<G, kI8>, smem);
+  const size_t smem = split_smem(G, per, nslot, kNib);
+  cudaError_t e = prepare(attn_split_kernel<G, kMode>, smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(parts * H, B);
@@ -2267,18 +1962,18 @@ int launch_split(const SplitPtrs& p, const void* k, const void* v, int B,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, attn_split_kernel<G, kI8>, kmap, vmap, p, S,
-                         parts, per, nslot);
+  e = cudaLaunchKernelEx(&cfg, attn_split_kernel<G, kMode>, kmap, vmap, p,
+                         S, parts, per, nslot);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// the most clusters of `parts` #17/#18 CTAs the card holds at once over a
-// rank's `per` columns, or minus a CUDA error
-template <int G, bool kI8>
+// the most clusters of `parts` #17/#18/#20 CTAs the card holds at once over
+// a rank's `per` columns, or minus a CUDA error
+template <int G, int kMode>
 int split_clusters(int per, int nslot, int parts) {
-  const size_t smem = split_smem(G, per, nslot);
-  cudaError_t e = prepare(attn_split_kernel<G, kI8>, smem);
+  const size_t smem = split_smem(G, per, nslot, kMode == kSplitKv4);
+  cudaError_t e = prepare(attn_split_kernel<G, kMode>, smem);
   if (e != cudaSuccess) return -(int)e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(parts, 1);
@@ -2292,30 +1987,30 @@ int split_clusters(int per, int nslot, int parts) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   int n = 0;
-  e = cudaOccupancyMaxActiveClusters(&n, attn_split_kernel<G, kI8>, &cfg);
+  e = cudaOccupancyMaxActiveClusters(&n, attn_split_kernel<G, kMode>, &cfg);
   return e != cudaSuccess ? -(int)e : n;
 }
 
-template <bool kI8>
+template <int kMode>
 int split_dispatch(const SplitPtrs& p, const void* k, const void* v, int B,
                    int H, int G, int S, int parts, int nslot,
                    cudaStream_t st) {
   switch (G) {
-    case 1: return launch_split<1, kI8>(p, k, v, B, H, S, parts, nslot, st);
-    case 2: return launch_split<2, kI8>(p, k, v, B, H, S, parts, nslot, st);
-    case 4: return launch_split<4, kI8>(p, k, v, B, H, S, parts, nslot, st);
-    case 8: return launch_split<8, kI8>(p, k, v, B, H, S, parts, nslot, st);
+    case 1: return launch_split<1, kMode>(p, k, v, B, H, S, parts, nslot, st);
+    case 2: return launch_split<2, kMode>(p, k, v, B, H, S, parts, nslot, st);
+    case 4: return launch_split<4, kMode>(p, k, v, B, H, S, parts, nslot, st);
+    case 8: return launch_split<8, kMode>(p, k, v, B, H, S, parts, nslot, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <bool kI8>
+template <int kMode>
 int split_clusters_g(int G, int per, int nslot, int parts) {
   switch (G) {
-    case 1: return split_clusters<1, kI8>(per, nslot, parts);
-    case 2: return split_clusters<2, kI8>(per, nslot, parts);
-    case 4: return split_clusters<4, kI8>(per, nslot, parts);
-    case 8: return split_clusters<8, kI8>(per, nslot, parts);
+    case 1: return split_clusters<1, kMode>(per, nslot, parts);
+    case 2: return split_clusters<2, kMode>(per, nslot, parts);
+    case 4: return split_clusters<4, kMode>(per, nslot, parts);
+    case 8: return split_clusters<8, kMode>(per, nslot, parts);
     default: return -(int)cudaErrorInvalidValue;
   }
 }
@@ -2323,21 +2018,6 @@ int split_clusters_g(int G, int per, int nslot, int parts) {
 inline bool split_args_ok(int S, int parts, int nslot) {
   return S >= 16 && S % 16 == 0 && parts >= 1 && parts <= 8 &&
          (parts & (parts - 1)) == 0 && nslot >= 1 && nslot <= 2;
-}
-
-template <bool kNib>
-int bd_dispatch(const void* q8, const void* qs, const void* kt,
-                const void* ks, const void* vt, const void* vs,
-                const void* lengths, void* ctx, void* m, void* d, int B,
-                int H, int G, int S, void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  switch (G) {
-    case 1: return launch_bd<1, kNib>(q8, qs, kt, ks, vt, vs, lengths, ctx, m, d, B, H, S, st);
-    case 2: return launch_bd<2, kNib>(q8, qs, kt, ks, vt, vs, lengths, ctx, m, d, B, H, S, st);
-    case 4: return launch_bd<4, kNib>(q8, qs, kt, ks, vt, vs, lengths, ctx, m, d, B, H, S, st);
-    case 8: return launch_bd<8, kNib>(q8, qs, kt, ks, vt, vs, lengths, ctx, m, d, B, H, S, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 template <bool kNib>
@@ -2370,30 +2050,32 @@ int flash_ctas_g(int G, int sb, int nslot) {
 
 extern "C" {
 
-// #20 over the kv4 slabs: the whole row.
-int lc_attn_bd4(const void* q8, const void* qs, const void* kt4,
-                const void* ks, const void* vt4, const void* vs,
-                const void* lengths, void* ctx, void* m, void* d, int B,
-                int H, int G, int S, void* stream) {
-  return bd_dispatch<true>(q8, qs, kt4, ks, vt4, vs, lengths, ctx, m, d, B,
-                           H, G, S, stream);
-}
-
-// #18 over the kv8 slabs (K (B, H*D, S), V (B, S, H*D)): S split over a
-// cluster of `parts` CTAs (1, 2, 4 or 8) per (slot, kv head), `nslot` ring
-// slots a warp (1 or 2); S % 16 == 0, ks and vs 16-byte aligned, a rank's
-// share within the shared memory (ops/attention.split_smem_bytes).
+// #18 (mode kSplitKv8) over the kv8 slabs (K (B, H*D, S), V (B, S, H*D))
+// or #20 (mode kSplitKv4) over the kv4 slabs (K (B, H*D/2, S), V (B, S,
+// H*D/2)): S split over a cluster of `parts` CTAs (1, 2, 4 or 8) per
+// (slot, kv head), `nslot` ring slots a warp (1 or 2); S % 16 == 0, ks
+// and vs 16-byte aligned, a rank's share within the shared memory
+// (ops/attention.split_smem_bytes).
 int lc_attn_bd(const void* q8, const void* qs, const void* kt,
                const void* ks, const void* vt, const void* vs,
                const void* lengths, void* ctx, void* m, void* d, int B,
-               int H, int G, int S, int parts, int nslot, void* stream) {
+               int H, int G, int S, int parts, int nslot, int mode,
+               void* stream) {
   if (!split_args_ok(S, parts, nslot)) return (int)cudaErrorInvalidValue;
   SplitPtrs p = {(const int8_t*)q8, (const float*)qs,
                  (const __nv_bfloat16*)ks, (const __nv_bfloat16*)vs,
                  (const int*)lengths, nullptr, nullptr, nullptr, nullptr,
                  (float*)ctx, (float*)m, (float*)d};
-  return split_dispatch<false>(p, kt, vt, B, H, G, S, parts, nslot,
-                               reinterpret_cast<cudaStream_t>(stream));
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kSplitKv8:
+      return split_dispatch<kSplitKv8>(p, kt, vt, B, H, G, S, parts, nslot,
+                                       st);
+    case kSplitKv4:
+      return split_dispatch<kSplitKv4>(p, kt, vt, B, H, G, S, parts, nslot,
+                                       st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // #21 (nib = 1, the kv4 slabs) and #19 (nib = 0, kv8) in blocks of sb
@@ -2458,17 +2140,21 @@ int lc_attn_i8(const void* q8, const void* qs, const void* kq, const void* ks,
                  (const int*)lengths, (const int8_t*)kn,
                  (const __nv_bfloat16*)kns, (const int8_t*)vn,
                  (const __nv_bfloat16*)vns, (float*)out, nullptr, nullptr};
-  return split_dispatch<true>(p, kq, vq, B, H, G, S, parts, nslot,
-                              reinterpret_cast<cudaStream_t>(stream));
+  return split_dispatch<kSplitI8>(p, kq, vq, B, H, G, S, parts, nslot,
+                                  reinterpret_cast<cudaStream_t>(stream));
 }
 
-// #17's (i8 = 1) or #18's co-resident clusters of `parts` CTAs over `per`
-// columns a rank with `nslot` ring slots a warp (ops/attention.split_parts),
-// or minus a CUDA error
-int lc_attn_split_clusters(int G, int per, int nslot, int i8, int parts) {
+// #18's (mode 0), #17's (1) or #20's (2) co-resident clusters of `parts`
+// CTAs over `per` columns a rank with `nslot` ring slots a warp
+// (ops/attention.split_parts), or minus a CUDA error
+int lc_attn_split_clusters(int G, int per, int nslot, int mode, int parts) {
   if (!split_args_ok(per, parts, nslot)) return -(int)cudaErrorInvalidValue;
-  return i8 ? split_clusters_g<true>(G, per, nslot, parts)
-            : split_clusters_g<false>(G, per, nslot, parts);
+  switch (mode) {
+    case kSplitKv8: return split_clusters_g<kSplitKv8>(G, per, nslot, parts);
+    case kSplitI8: return split_clusters_g<kSplitI8>(G, per, nslot, parts);
+    case kSplitKv4: return split_clusters_g<kSplitKv4>(G, per, nslot, parts);
+    default: return -(int)cudaErrorInvalidValue;
+  }
 }
 
 // #22: q (B, H, G, D) bf16; kq, vq (B, H, S, D) int8; ks, vs (B, H, S) bf16

@@ -33,17 +33,19 @@
 // Bounds on an H100 SXM (3.35 TB/s HBM, 1979 TOP/s int8 dense peak):
 //   #6, #7 stacked (B <= 256): the packed weight of all E experts read
 //      once, bytes = E*(N*K/2 + 4*N*G) + x + out;
-//   #8 gathered: the packed weights of the distinct experts selected;
+//   #8 gathered: the packed weights of the distinct experts selected
+//      (memory);
 //   #9 grouped: at a prefill's Mp rows the 2*rows*N*K int8 operations.
-// #6 below STACKED_TILE_MIN_B rows (ops/moe_matmul.py) and #8 use no
-// tensor cores (__dp4a on the CUDA cores); #7 runs on the bf16 tensor
-// cores (mma.sync) in #1's tile (w4_bf16_tile.cuh); #9, and #6 from
-// STACKED_TILE_MIN_B rows on, run on the int8 tensor cores (wgmma) over
-// TMA-fed stages, in the planes tile they share with #3
+// #6 below STACKED_TILE_MIN_B rows (ops/moe_matmul.py) uses no tensor
+// cores (__dp4a on the CUDA cores); #8 runs on the int8 tensor cores
+// (mma.sync) in #2's planes decode tile (w4_planes_decode.cuh); #7 on
+// the bf16 tensor cores (mma.sync) in #1's tile (w4_bf16_tile.cuh); #9,
+// and #6 from STACKED_TILE_MIN_B rows on, run on the int8 tensor cores
+// (wgmma) over TMA-fed stages, in the planes tile they share with #3
 // (w4_planes_wgmma.cuh).
 
 #include "w4_bf16_tile.cuh"
-#include "w4_planes_wgmma.cuh"
+#include "w4_planes_decode.cuh"
 
 namespace {
 
@@ -61,7 +63,7 @@ __device__ __forceinline__ float finish(float a0, float a1, float a2,
 }
 
 // ---------------------------------------------------------------------------
-// The decode block of #6 and #8: rows [0, nv) of x (row r at xrow0 + r*K,
+// The decode block of #6: rows [0, nv) of x (row r at xrow0 + r*K,
 // its act scale at xs0[r]) against one expert's weight; output row r at
 // out0 + r*N.  Thread t owns channel n = blockIdx.x*128 + t and walks the
 // whole of K in the TPU order, so each output's sums run in one thread.
@@ -432,34 +434,36 @@ int launch_smallm(const void* x, const void* xscale, const void* wp,
 //
 // out[s] = x[t_idx[s]] . W[e_idx[s]]^T.  The TPU prefetches the index
 // vectors as scalars for its BlockSpec maps and replicates the token row to
-// 8 sublanes; here a block (one selection, 128 channels) loads its own
-// e_idx[s] and t_idx[s] and stages that one row.  Only the selected experts'
-// weights are read; selections that share an expert re-read its weight (no
-// dedup, as on the TPU), which the 50 MB L2 serves when they run close
-// together.  Bound: the bytes of the distinct experts selected.  An index
-// out of range fills the row with NaN.
+// 8 sublanes, one selection a grid step, so selections that share an expert
+// read its weight again.  Bound on an H100 SXM: the packed weights of the
+// distinct experts selected (memory).  Here the planes decode tile of #2
+// (w4_planes_decode.cuh, mma.sync m16n8k32 on the int8 tensor cores) with
+// gathered rows: grid (n_sel, N / C); block (s, c) reads e_idx and t_idx on
+// the device and works only where s leads its expert's tile (the first of
+// every 16 valid selections of the expert, gather_tile); its tile's rows
+// are those selections' x rows, copied by index straight into the staged
+// x tile, and its outputs go to their rows.  So each distinct expert's
+// weight streams from HBM once a call, and no host sync or torch gather
+// runs.  A selection with an index out of range fills its row with NaN.
+// C = 32 channels a block: the down (N 4096, K 14336) at one token puts 256
+// CTAs on the 132 SMs, two an SM at once, and 32 channels read 1.5-1.65x
+// faster than 16 at the down on the H100 (16 puts twice the blocks on the
+// SMs but reads half the bytes a word block).
+// The float order is #2's, the TPU kernel's, so the result equals
+// w4a8_gathered_matmul_plain bit for bit.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kMoeThreads)
-w4a8_gathered_kernel(const int8_t* __restrict__ x,
-                     const float* __restrict__ xscale,
-                     const int32_t* __restrict__ wp,
-                     const __nv_bfloat16* __restrict__ s,
-                     const __nv_bfloat16* __restrict__ zs,
-                     const int32_t* __restrict__ e_idx,
-                     const int32_t* __restrict__ t_idx,
-                     float* __restrict__ out, int n_rows, int E, int N,
-                     int K) {
-  const int sel = blockIdx.y;
-  const int e = e_idx[sel], t = t_idx[sel];
-  if (e < 0 || e >= E || t < 0 || t >= n_rows) {
-    out[(size_t)sel * N + blockIdx.x * kMoeThreads + threadIdx.x] =
-        quiet_nan();
-    return;  // uniform over the block
-  }
-  const size_t G = K / kGroup, kp = K / 8;
-  expert_rows<1>(x + (size_t)t * K, xscale + t, wp + (size_t)e * N * kp,
-                 s + (size_t)e * N * G, zs + (size_t)e * N * G,
-                 out + (size_t)sel * N, 1, N, K);
+int launch_gathered(const void* x, const void* xscale, const void* wp,
+                    const void* s, const void* zs, const void* e_idx,
+                    const void* t_idx, void* out, int n_rows, int n_sel,
+                    int N, int K, int E, void* stream) {
+  constexpr int NT = 4;  // 32 channels a block
+  if (n_sel < 1 || K % (8 * kGroup) || N % (8 * NT))
+    return (int)cudaErrorInvalidValue;
+  const GatherIdx gx = {(const int32_t*)e_idx, (const int32_t*)t_idx, E,
+                        n_rows};
+  return launch_decode_mt<NT, 16, int8_t, float, true>(
+      (const int8_t*)x, xscale, wp, s, zs, (float*)out, nullptr, nullptr,
+      n_sel, N, K, 0, 0.f, stream, gx);
 }
 
 }  // namespace
@@ -517,14 +521,8 @@ int lc_w4a8_gathered(const void* x, const void* xscale, const void* wp,
                      const void* s, const void* zs, const void* e_idx,
                      const void* t_idx, void* out, int n_rows, int n_sel,
                      int N, int K, int E, void* stream) {
-  const dim3 grid(N / kMoeThreads, n_sel);
-  w4a8_gathered_kernel<<<grid, kMoeThreads, 0,
-                         reinterpret_cast<cudaStream_t>(stream)>>>(
-      (const int8_t*)x, (const float*)xscale, (const int32_t*)wp,
-      (const __nv_bfloat16*)s, (const __nv_bfloat16*)zs,
-      (const int32_t*)e_idx, (const int32_t*)t_idx, (float*)out, n_rows, E,
-      N, K);
-  return (int)cudaGetLastError();
+  return launch_gathered(x, xscale, wp, s, zs, e_idx, t_idx, out, n_rows,
+                         n_sel, N, K, E, stream);
 }
 
 // ---------------------------------------------------------------------------

@@ -25,6 +25,11 @@ in registers, one rounded bf16x2 product), whose dots sum inside the
 tensor core, so it agrees with its plain version to f32 rounding, not bit
 for bit.
 
+#8 runs on #2's planes decode tile (int8 tensor cores) with gathered
+rows: a block leads the tile of up to ``GATHER_TILE_ROWS`` selections of
+one expert, so each distinct expert's weight streams once a call; the
+indices stay on the device.
+
 #6 has two bodies, chosen by B alone (``stacked_body``): below
 ``STACKED_TILE_MIN_B`` rows the decode block (a lane per channel), from
 there on the planes tile it shares with #3 and #9 (64 rows of one expert
@@ -59,6 +64,9 @@ M_TILE = 128
 # below (the crossover measured on the H100 by chip_smoke.py's
 # moe_kernels phase at Mixtral-8x7B's and Qwen3-30B-A3B's shapes)
 STACKED_TILE_MIN_B = 16
+# #8: the selections of one expert a block's tile takes (one m16 tile of
+# the planes decode tile; the kernel's blocks are 32 channels wide)
+GATHER_TILE_ROWS = 16
 
 
 # ---------------------------------------------------------------------------
@@ -114,12 +122,16 @@ def w4a8_stacked_matmul_smallm_plain(xq, x_scale, wp, s, zs, pair=False):
 
 
 def w4a8_gathered_matmul_plain(xq, x_scale, wp, s, zs, e_idx, t_idx):
-    """Plain #8: out[s] = x[t_idx[s]] . W[e_idx[s]]^T, (n_sel, N) f32."""
-    out = torch.empty((e_idx.shape[0], wp.shape[1]), dtype=torch.float32,
-                      device=xq.device)
+    """Plain #8: out[s] = x[t_idx[s]] . W[e_idx[s]]^T, (n_sel, N) f32; a
+    selection with an index out of range is a NaN row, as the kernel
+    writes it."""
+    out = torch.full((e_idx.shape[0], wp.shape[1]), float("nan"),
+                     dtype=torch.float32, device=xq.device)
     e_idx, t_idx = e_idx.long(), t_idx.long()
-    for e in torch.unique(e_idx).tolist():
-        sel = torch.nonzero(e_idx == e)[:, 0]
+    ok = (e_idx >= 0) & (e_idx < wp.shape[0]) & (t_idx >= 0) & \
+        (t_idx < xq.shape[0])
+    for e in torch.unique(e_idx[ok]).tolist():
+        sel = torch.nonzero((e_idx == e) & ok)[:, 0]
         rows = t_idx[sel]
         out[sel] = expert_rows_plain(xq[rows], x_scale[rows], wp[e], s[e],
                                      zs[e])
@@ -317,7 +329,9 @@ def w4a8_gathered_matmul(xq: torch.Tensor, x_scale: torch.Tensor,
                          e_idx: torch.Tensor, t_idx: torch.Tensor
                          ) -> torch.Tensor:
     """#8: out[s] = x[t_idx[s]] . W[e_idx[s]]^T -> (n_sel, N) f32, for
-    (n, K) int8 x; only the selected experts' weights are read."""
+    (n, K) int8 x; each distinct selected expert's weight is read once, a
+    selection with an index out of range is a NaN row.  The indices stay
+    on the device (no host sync)."""
     n, K = xq.shape
     E, N = _check_experts(K, wp, s, zs, xq.device)
     _check_rows(xq, x_scale, (n,))
@@ -327,8 +341,6 @@ def w4a8_gathered_matmul(xq: torch.Tensor, x_scale: torch.Tensor,
     if xq.device.type == "cpu":
         return w4a8_gathered_matmul_plain(xq, x_scale, wp, s, zs, e_idx,
                                           t_idx)
-    if n_sel > 65535:
-        raise ValueError(f"{n_sel} selections exceed the kernel's grid")
     out = torch.empty((n_sel, N), dtype=torch.float32, device=xq.device)
     if n_sel == 0:
         return out

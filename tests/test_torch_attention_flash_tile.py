@@ -428,12 +428,14 @@ def test_flash_parts_never_read_lengths():
 
 @pytest.mark.parametrize("G", [1, 2, 4, 8])
 def test_flash_smem_fits_every_block_the_old_kernel_took(G):
-    """The whole-block kernel held 5 * G bytes a column (``smem_bytes``);
-    the tile holds 4 * G and a ring of at least one slot, so every s_block
-    the old kernel could launch still fits, and the engine's 512 columns
-    keep two CTAs an SM."""
-    sb = (ta.SMEM_MAX - ta.smem_bytes(G, 0)) // (5 * G) // 16 * 16
-    assert ta.smem_bytes(G, sb) <= ta.SMEM_MAX
+    """The whole-block kernel held 5 * G bytes a column beside its q words,
+    PV sums and reduction scratch (5 * G * D + 32 * G bytes); the tile
+    holds 4 * G and a ring of at least one slot, so every s_block the old
+    kernel could launch still fits, and the engine's 512 columns keep two
+    CTAs an SM."""
+    D = ta.KERNEL_HEAD_DIM
+    sb = (ta.SMEM_MAX - 5 * G * D - 32 * G) // (5 * G) // 16 * 16
+    assert 5 * G * (sb + D) + 32 * G <= ta.SMEM_MAX
     for nib in (False, True):
         n = ta.bd_flash_slots(G, sb, nib)
         assert ta.bd_flash_smem_bytes(G, sb, nib, n) <= ta.SMEM_MAX

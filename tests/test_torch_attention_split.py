@@ -1,17 +1,18 @@
-"""#17 and #18's S split over a thread-block cluster (``attn_split_kernel``
-in ``ops/csrc/decode_attention.cu``) rendered on the CPU, before the card
-runs the kernel.
+"""#17, #18 and #20's S split over a thread-block cluster
+(``attn_split_kernel`` in ``ops/csrc/decode_attention.cu``) rendered on the
+CPU, before the card runs the kernel.
 
 * The split's arithmetic in torch: S cut into ranks of
   ``kv8_columns(S, parts)`` columns; the row max met over the ranks in
-  order (#18 floored at -1e30, #17 with the fresh token's score); the max
-  of pv (giving ps) and the f32 sums of e (giving d) met likewise; the
-  ranks' int32 PV sums added exactly, times ps.  It equals plain #18 bit
-  for bit in ctx and m, and plain #17 within 1e-6 relative (only d's f32
+  order (#18 and #20 floored at -1e30, #17 with the fresh token's score);
+  the max of pv (giving ps) and the f32 sums of e (giving d) met likewise;
+  the ranks' int32 PV sums added exactly, times ps.  It equals plain #18
+  and, over the kv4 nibble slabs, plain #20 bit for bit in ctx and m, d
+  within 1e-6 relative, and plain #17 within 1e-6 relative (only d's f32
   order differs), at 1, 2, 4 and 8 ranks, with ragged and empty slots.
-* The cluster-size chooser (``split_parts``) at the engines' and
-  chip_smoke's shapes, from the card's cluster counts alone (never the
-  lengths), and the shared-memory cap of a rank.
+* The cluster-size chooser (``split_parts``, its nibble mode too) at the
+  engines' and chip_smoke's shapes, from the card's cluster counts alone
+  (never the lengths), and the shared-memory cap of a rank.
 * #17's tensor-core fragments in numpy: its time-major K rows load as the
   m16n8k32 A fragments with no transpose (q8 in the same feature order as
   B), its V rows take #19's byte-transposed kv8 PV fragments; the lanes'
@@ -33,20 +34,31 @@ from test_torch_serving import one_torch_thread  # noqa: F401
 H, D = 2, 128
 
 
-def _case(G, S, seed, lengths):
+def _case(G, S, seed, lengths, nib=False):
     """q (B, H, G, D) bf16, the int8 hhd cache (B, H, S, D) with bf16
-    scales, its bd slabs, the fresh token, int32 lengths."""
+    scales, its bd slabs, the fresh token, int32 lengths.  ``nib``: codes
+    in [-8, 7] and the bd4 slabs that pack them (the low nibble of byte
+    row h * D/2 + d feature d, the high one feature d + D/2)."""
     gen = torch.Generator().manual_seed(seed)
     B = len(lengths)
     q = torch.randn((B, H, G, D), generator=gen).to(torch.bfloat16)
-    kq = torch.randint(-127, 128, (B, H, S, D), generator=gen,
+    lo, hi = (-8, 8) if nib else (-127, 128)
+    kq = torch.randint(lo, hi, (B, H, S, D), generator=gen,
                        dtype=torch.int8)
-    vq = torch.randint(-127, 128, (B, H, S, D), generator=gen,
+    vq = torch.randint(lo, hi, (B, H, S, D), generator=gen,
                        dtype=torch.int8)
     ks, vs = ((torch.rand((B, H, S), generator=gen) * 0.02 + 1e-3).to(
         torch.bfloat16) for _ in range(2))
-    kt = kq.transpose(2, 3).reshape(B, H * D, S).contiguous()
-    vt = vq.transpose(1, 2).reshape(B, S, H * D).contiguous()
+    if nib:
+        def pack(c):
+            c = c.to(torch.int32)
+            return ((c[..., :D // 2] & 0xF)
+                    | ((c[..., D // 2:] & 0xF) << 4)).to(torch.int8)
+        kt = pack(kq).transpose(2, 3).reshape(B, H * D // 2, S).contiguous()
+        vt = pack(vq).transpose(1, 2).reshape(B, S, H * D // 2).contiguous()
+    else:
+        kt = kq.transpose(2, 3).reshape(B, H * D, S).contiguous()
+        vt = vq.transpose(1, 2).reshape(B, S, H * D).contiguous()
     kn = torch.randint(-127, 128, (B, H, D), generator=gen, dtype=torch.int8)
     vn = torch.randint(-127, 128, (B, H, D), generator=gen, dtype=torch.int8)
     kns, vns = ((torch.rand((B, H), generator=gen) * 0.02 + 1e-3).to(
@@ -136,6 +148,26 @@ def test_split_render_equals_plain(case, G, parts):
     assert ((out - ref).abs() <= 1e-6 * ref.abs()).all()
 
 
+@pytest.mark.parametrize("parts", [1, 2, 4, 8])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("case", sorted(LENGTHS))
+def test_split_render_equals_plain_bd4(case, G, parts):
+    """#20's split (the kernel's nibble mode: the same meets as #18, ps a
+    max over the whole row) over the kv4 bd4 slabs at S 208: ctx and m bit
+    for bit plain #20's, d within 1e-6 relative, at every rank count; an
+    empty slot's (0, -1e30, 0)."""
+    S = 208
+    q, (kq, ks, vq, vs), (kt4, vt4), _, L = _case(
+        G, S, 11 * G + parts + len(case), LENGTHS[case], nib=True)
+    ctx, m, d = split_render(q, kq, ks, vq, vs, L, parts)
+    rc, rm, rd = ta.decode_attention_bd4_plain(q, kt4, ks, vt4, vs, L)
+    assert torch.equal(ctx, rc) and torch.equal(m, rm)
+    assert ((d - rd).abs() <= 1e-6 * rd.abs()).all()
+    if case == "empty":
+        assert (ctx == 0).all() and (m == -1e30).all() and (d == 0).all()
+    assert torch.equal(split_render(q, kq, ks, vq, vs, L, 1)[0], ctx)
+
+
 # ---------------------------------------------------------------------------
 # the chooser and the cap
 # ---------------------------------------------------------------------------
@@ -151,30 +183,46 @@ def test_split_parts_never_read_lengths():
     device, and a host read would stall the stream."""
     for fn in (ta.split_parts, ta.split_card_parts, ta.split_clusters):
         assert "lengths" not in inspect.signature(fn).parameters
+    assert "mode" in inspect.signature(ta.split_parts).parameters
+    assert set(ta.SPLIT_MODES) == {"bd", "i8", "bd4"}
 
 
-@pytest.mark.parametrize("pairs,S,G", [(64, 512, 4), (64, 4096, 4),
-                                       (8, 4096, 4), (256, 4096, 8),
-                                       (8, 16384, 4), (64, 16, 1)])
-def test_split_parts_at_the_main_shapes(pairs, S, G):
-    """The engines' and chip_smoke's shapes (8 slots of 8 kv heads over 512
-    and 4096 columns) and others: the pick is a cluster size whose share
-    fits, at the least modelled cost, fewer parts on ties; more parts where
-    the card has room for them."""
-    p = ta.split_parts(pairs, S, G, _h100_clusters)
+MAIN_SHAPES = [(64, 512, 4), (64, 4096, 4), (8, 4096, 4), (256, 4096, 8),
+               (8, 16384, 4), (64, 16, 1)]
+
+
+def _check_main_shape(pairs, S, G, mode):
+    """The pick is a cluster size whose share fits, at the least modelled
+    cost, fewer parts on ties; more parts where the card has room for
+    them."""
+    p = ta.split_parts(pairs, S, G, _h100_clusters, mode)
     assert p in ta.CLUSTER_PARTS
-    assert ta.split_smem_bytes(G, ta.kv8_columns(S, p), 1) <= ta.SMEM_MAX
+    assert ta.split_smem_bytes(G, ta.kv8_columns(S, p), 1, mode) \
+        <= ta.SMEM_MAX
 
     def cost(x):
         return -(-pairs // _h100_clusters(x)) * (
             ta.kv8_columns(S, x) + ta.SPLIT_FIXED_COLUMNS)
 
     fits = [x for x in ta.CLUSTER_PARTS
-            if ta.split_smem_bytes(G, ta.kv8_columns(S, x), 1)
+            if ta.split_smem_bytes(G, ta.kv8_columns(S, x), 1, mode)
             <= ta.SMEM_MAX]
     assert all(cost(p) < cost(x) for x in fits if x < p)
     assert all(cost(p) <= cost(x) for x in fits if x > p)
-    assert ta.split_parts(pairs, S, G, lambda x: 10 ** 6) >= p
+    assert ta.split_parts(pairs, S, G, lambda x: 10 ** 6, mode) >= p
+
+
+@pytest.mark.parametrize("pairs,S,G", MAIN_SHAPES)
+def test_split_parts_at_the_main_shapes(pairs, S, G):
+    """The engines' and chip_smoke's shapes (8 slots of 8 kv heads over 512
+    and 4096 columns) and others, in #17/#18's mode (``_check_main_shape``)."""
+    _check_main_shape(pairs, S, G, "bd")
+
+
+@pytest.mark.parametrize("pairs,S,G", MAIN_SHAPES)
+def test_split_parts_at_the_main_shapes_bd4(pairs, S, G):
+    """The same shapes in #20's nibble mode."""
+    _check_main_shape(pairs, S, G, "bd4")
 
 
 def test_split_parts_at_the_cap():
@@ -192,6 +240,34 @@ def test_split_parts_at_the_cap():
                 n = ta.split_slots(G, per)
                 assert 1 <= n <= ta.SPLIT_SLOTS
                 assert ta.split_smem_bytes(G, per, n) <= ta.SMEM_MAX
+
+
+# the largest S #20's split takes at G queries a kv head (a rank's share
+# at 8 parts within 227 KB; its ring slots hold R = 64 bytes a column)
+BD4_CAP = {1: 282880, 2: 169216, 4: 93184, 8: 48640}
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_split_parts_at_the_cap_bd4(G):
+    """The nibble mode's cap: the ring's smaller slots leave more room for
+    the scores than #18's (86016 at G 4); at the cap only 8 parts fit, one
+    column more and ``split_fits`` and the chooser refuse; every ring
+    depth ``split_slots`` picks fits."""
+    S = BD4_CAP[G]
+    assert ta.split_fits(G, S, "bd4")
+    assert not ta.split_fits(G, S + 16, "bd4")
+    assert ta.split_smem_bytes(G, ta.kv8_columns(S, 8), 1, "bd4") \
+        <= ta.SMEM_MAX < ta.split_smem_bytes(G, ta.kv8_columns(S, 8), 1)
+    assert ta.split_parts(64, S, G, _h100_clusters, "bd4") == 8
+    with pytest.raises(ValueError):
+        ta.split_parts(64, S + 16, G, _h100_clusters, "bd4")
+    for S in (16, 512, 4096, 8192, S):
+        for parts in ta.CLUSTER_PARTS:
+            per = ta.kv8_columns(S, parts)
+            if ta.split_smem_bytes(G, per, 1, "bd4") <= ta.SMEM_MAX:
+                n = ta.split_slots(G, per, "bd4")
+                assert 1 <= n <= ta.SPLIT_SLOTS
+                assert ta.split_smem_bytes(G, per, n, "bd4") <= ta.SMEM_MAX
 
 
 @pytest.mark.parametrize("S,parts", [(16, 8), (208, 8), (512, 4),

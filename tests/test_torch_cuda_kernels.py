@@ -216,24 +216,30 @@ def _check_partials(got, ref):
     assert (n - rn).abs().max() <= 2e-2 * rn.abs().max()
 
 
-@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("B,G", [(1, 1), (8, 2), (8, 4), (16, 8), (32, 8)])
 @pytest.mark.parametrize("S", [512, 4096, 8192])
-def test_bd4_kernels_match_plain(dev, B, S):
+def test_bd4_kernels_match_plain(dev, B, S, G):
+    """#20 (the split kernel's nibble mode) and #21 against their plain
+    versions, ragged, empty and full slots, B 1-32, G 1-8 (G 8 at B 16 and
+    32: a ring slot refilled only after its products): #20's m bit for bit,
+    a second call the same bits, and on every forced cluster size (1, 2, 4,
+    8) and ring depth (1, 2) ctx and m the same bits as the wrapper's, d
+    within 1e-6 relative (``_split_across_parts``)."""
     from lightcompress_tpu_torch.ops import attention as T
 
-    q, k, v, qkv4 = _attn_inputs(dev, B, S, S + B)
-    kt4, ks, vt4, vs = _bd4_slabs(k, v, qkv4)
-    L = _ragged(B, S, dev)
-    T.reset_launch_counts()
-    for lengths in (L, None):
-        _check_partials(T.decode_attention_bd4(q, kt4, ks, vt4, vs, lengths),
-                        T.decode_attention_bd4_plain(q, kt4, ks, vt4, vs,
-                                                     lengths))
+    q, slabs, lens = _flash_case(dev, True, B, S, G, S + B + G)
+    for lengths in lens:
+        T.reset_launch_counts()
+        got = T.decode_attention_bd4(q, *slabs, lengths)
+        again = T.decode_attention_bd4(q, *slabs, lengths)
+        ref = T.decode_attention_bd4_plain(q, *slabs, lengths)
         _check_partials(
-            T.decode_attention_bd4_flash(q, kt4, ks, vt4, vs, lengths),
-            T.decode_attention_bd4_flash_plain(q, kt4, ks, vt4, vs, lengths))
-    torch.cuda.synchronize()
-    assert [k.launches for k in T.KERNELS] == [0, 2, 2, 0, 0, 0]
+            T.decode_attention_bd4_flash(q, *slabs, lengths),
+            T.decode_attention_bd4_flash_plain(q, *slabs, lengths))
+        torch.cuda.synchronize()
+        assert [k.launches for k in T.KERNELS] == [0, 2, 1, 0, 0, 0]
+        _check_flash(got, again, ref)
+        _split_across_parts(T, q, slabs, lengths, got, "bd4")
 
 
 @pytest.mark.parametrize("B", [1, 8])
@@ -258,9 +264,11 @@ def test_i8_kernel_matches_plain(dev, B, S):
 
 
 def test_attention_launch_refused_raises(dev):
-    """#20 holds the whole score row in shared memory: at S = 16384 it
-    needs 320 KiB, above the 227 KiB a block may have, so the launch is
-    refused and the wrapper raises."""
+    """A rank of #20's split holds its share's scores in shared memory:
+    forced to one CTA a pair at S = 16384 it needs about 270 KB, above the
+    227 KiB a block may have, so the launch is refused and the launch
+    raises; past ``split_fits`` (S 93184 at G 4) the wrapper raises and
+    names the flash kernel, which takes that buffer."""
     from lightcompress_tpu_torch.ops import attention as T
 
     B, S = 1, 16384
@@ -271,10 +279,28 @@ def test_attention_launch_refused_raises(dev):
     vt4 = torch.zeros((B, S, ATT_H * ATT_D // 2), device=dev,
                       dtype=torch.int8)
     sc = torch.ones((B, ATT_H, S), device=dev, dtype=torch.bfloat16)
+    assert T.split_smem_bytes(ATT_G, S, 1, "bd4") > T.SMEM_MAX
+    q8, qs = T.quantize_q(q)
+    f32 = dict(dtype=torch.float32, device=dev)
+    outs = (torch.empty((B, ATT_H, ATT_G, ATT_D), **f32),
+            torch.empty((B, ATT_H, ATT_G), **f32),
+            torch.empty((B, ATT_H, ATT_G), **f32))
     with pytest.raises(RuntimeError, match="CUDA error"):
-        T.decode_attention_bd4(q, kt4, sc, vt4, sc)
+        T._split_launch(q8, qs, (kt4, sc, vt4, sc), T._lengths(None, B, S,
+                                                               dev),
+                        outs, 1, 1, "bd4")
     with pytest.raises(ValueError):
         T.decode_attention_bd4(q, kt4, sc.float(), vt4, sc)
+    S = 93200
+    assert T.split_fits(ATT_G, S - 16, "bd4")
+    assert not T.split_fits(ATT_G, S, "bd4")
+    kt4 = torch.zeros((B, ATT_H * ATT_D // 2, S), device=dev,
+                      dtype=torch.int8)
+    vt4 = torch.zeros((B, S, ATT_H * ATT_D // 2), device=dev,
+                      dtype=torch.int8)
+    sc = torch.ones((B, ATT_H, S), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bd4_flash"):
+        T.decode_attention_bd4(q, kt4, sc, vt4, sc)
 
 
 @pytest.mark.parametrize("G", [1, 2, 4])
@@ -336,10 +362,11 @@ def test_bd_whole_row_limit_raises(dev):
         T.decode_attention_i8(q, kq, sc, kq, sc, *fresh)
 
 
-def _split_case(dev, B, S, G, seed):
+def _split_case(dev, B, S, G, seed, nib=False):
     """q (B, 8, G, 128) bf16, the int8 hhd cache with bf16 scales, its kv8
-    bd slabs, the fresh token, and lengths: ragged (an empty slot, a full
-    one, one of a single column, the rest seeded), all 0, None."""
+    bd slabs (``nib``: the kv4 bd4 slabs of the same K and V), the fresh
+    token, and lengths: ragged (an empty slot, a full one, one of a single
+    column, the rest seeded), all 0, None."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     q = torch.randn((B, ATT_H, G, ATT_D), generator=gen, device=dev).to(
@@ -350,6 +377,9 @@ def _split_case(dev, B, S, G, seed):
     vq, vs = quantize_kv(v)
     kt = kq.transpose(2, 3).reshape(B, ATT_H * ATT_D, S).contiguous()
     vt = vq.transpose(1, 2).reshape(B, S, ATT_H * ATT_D).contiguous()
+    if nib:
+        from lightcompress_tpu_torch.serving.kv_cache import quantize_kv4
+        kt, ks, vt, vs = _bd4_slabs(k, v, quantize_kv4)
     kn, kns = quantize_kv(k[:, :, :1] * 1.5)
     vn, vns = quantize_kv(v[:, :, :1])
     fresh = (kn[:, :, 0].contiguous(), kns[:, :, 0].contiguous(),
@@ -366,55 +396,90 @@ SPLIT_CASES = [(S, B, G) for S in (16, 512, 4096) for B, G in SPLIT_BG] + \
     [(16384, 8, 4), (16384, 2, 8)]
 
 
+def _split_outs(T, q8, qs, cache, L, mode, fresh=None):
+    """The split kernel in ``mode`` (#18 "bd", #20 "bd4", #17 "i8" with
+    ``fresh``) on every cluster size (1, 2, 4, 8) and ring depth (1, 2)
+    whose share fits: {(parts, slots): outputs}, fewest parts first."""
+    B, H, G, D = q8.shape
+    S = cache[0].shape[2] if mode == "i8" else cache[0].shape[-1]
+    f32 = dict(dtype=torch.float32, device=q8.device)
+    outs = {}
+    for parts in T.CLUSTER_PARTS:
+        for slots in (1, 2):
+            if T.split_smem_bytes(G, T.kv8_columns(S, parts), slots,
+                                  mode) > T.SMEM_MAX:
+                continue
+            o = (torch.empty((B, H, G, D), **f32),) if fresh is not None \
+                else (torch.empty((B, H, G, D), **f32),
+                      torch.empty((B, H, G), **f32),
+                      torch.empty((B, H, G), **f32))
+            T._split_launch(q8, qs, cache, L, o, parts, slots, mode, fresh)
+            outs[parts, slots] = o
+    return outs
+
+
+def _split_across_parts(T, q, slabs, lengths, got, mode):
+    """#18 ("bd") or #20 ("bd4") on every forced cluster size and ring depth:
+    ctx and m the same bits as ``got`` (the wrapper's), d within 1e-6
+    relative; an empty slot's (0, -1e30, 0)."""
+    B, S = q.shape[0], slabs[0].shape[-1]
+    q8, qs = T.quantize_q(q)
+    outs = _split_outs(T, q8, qs, slabs, T._lengths(lengths, B, S, q.device),
+                       mode)
+    torch.cuda.synchronize()
+    first = next(iter(outs.values()))  # the fewest parts that fit
+    for o in list(outs.values()) + [got]:
+        assert torch.equal(o[0], first[0])
+        assert torch.equal(o[1], first[1])
+        assert ((o[2] - first[2]).abs() <= 1e-6 * first[2].abs()).all()
+    if lengths is not None and not lengths.any():
+        assert (got[0] == 0).all() and (got[2] == 0).all()
+        assert (got[1] == -1e30).all()
+
+
 @pytest.mark.parametrize("S,B,G", SPLIT_CASES)
-@pytest.mark.parametrize("kind", ["bd", "i8"])
+@pytest.mark.parametrize("kind", ["bd", "i8", "bd4"])
 def test_split_kernels_equal_across_parts(dev, kind, S, B, G):
-    """#18 (``bd``) and #17 (``i8``) on every cluster size (1, 2, 4, 8) and
-    ring depth (1, 2): #18's ctx and m the same bits at every split and m
-    its plain version's bit for bit; #17 within 1e-6 relative across
-    splits (only d's f32 order differs) and within 2e-2 of its largest
-    value against its plain version; a second call the same bits; the
-    wrappers one launch a call.  S 16-16384 (past the old whole-row cap of
-    11488 at G 4), B 1-32, G 1-8 (G 8 at B 16 and 32: a ring slot
-    refilled only after its products), ragged, empty and full slots."""
+    """#18 (``bd``), #20 (``bd4``) and #17 (``i8``) on every cluster size
+    (1, 2, 4, 8) and ring depth (1, 2): #18's and #20's ctx and m the same
+    bits at every split and m its plain version's bit for bit; #17 within
+    1e-6 relative across splits (only d's f32 order differs) and within
+    2e-2 of its largest value against its plain version; a second call the
+    same bits; the wrappers one launch a call.  S 16-16384 (past the old
+    whole-row cap of 11488 at G 4), B 1-32, G 1-8 (G 8 at B 16 and 32: a
+    ring slot refilled only after its products), ragged, empty and full
+    slots."""
     from lightcompress_tpu_torch.ops import attention as T
 
-    q, cache, slabs, fresh, lens = _split_case(dev, B, S, G,
-                                               S + 3 * B + G + len(kind))
+    nib = kind == "bd4"
+    q, cache, slabs, fresh, lens = _split_case(
+        dev, B, S, G, S + 3 * B + G + len(kind), nib)
     i8 = kind == "i8"
     q8, qs = T.quantize_q(q)
-    f32 = dict(dtype=torch.float32, device=dev)
     for lengths in lens:
-        L = T._lengths(lengths, B, S, dev)
-        outs = {}
-        for parts in T.CLUSTER_PARTS:
-            for slots in (1, 2):
-                if T.split_smem_bytes(G, T.kv8_columns(S, parts), slots) \
-                        > T.SMEM_MAX:
-                    continue
-                o = (torch.empty((B, ATT_H, G, ATT_D), **f32),) if i8 else \
-                    (torch.empty((B, ATT_H, G, ATT_D), **f32),
-                     torch.empty((B, ATT_H, G), **f32),
-                     torch.empty((B, ATT_H, G), **f32))
-                T._split_launch(q8, qs, cache if i8 else slabs, L, o, parts,
-                                slots, fresh if i8 else None)
-                outs[parts, slots] = o
         T.reset_launch_counts()
         if i8:
+            L = T._lengths(lengths, B, S, dev)
+            outs = _split_outs(T, q8, qs, cache, L, "i8", fresh)
+            T.reset_launch_counts()
             got = T.decode_attention_i8(q, *cache, *fresh, lengths=lengths)
             again = T.decode_attention_i8(q, *cache, *fresh,
                                           lengths=lengths)
             ref = T.decode_attention_i8_plain(q, *cache, *fresh,
                                               lengths=lengths)
         else:
-            got = T.decode_attention_bd(q, *slabs, lengths)
-            again = T.decode_attention_bd(q, *slabs, lengths)
-            ref = T.decode_attention_bd_plain(q, *slabs, lengths)
+            run = T.decode_attention_bd4 if nib else T.decode_attention_bd
+            plain = T.decode_attention_bd4_plain if nib else \
+                T.decode_attention_bd_plain
+            got = run(q, *slabs, lengths)
+            again = run(q, *slabs, lengths)
+            ref = plain(q, *slabs, lengths)
         torch.cuda.synchronize()
         assert [k.launches for k in T.KERNELS] == (
-            [2, 0, 0, 0, 0, 0] if i8 else [0, 0, 0, 2, 0, 0])
-        first = next(iter(outs.values()))  # the fewest parts that fit
+            [2, 0, 0, 0, 0, 0] if i8 else
+            [0, 2, 0, 0, 0, 0] if nib else [0, 0, 0, 2, 0, 0])
         if i8:
+            first = next(iter(outs.values()))  # the fewest parts that fit
             assert torch.equal(got, again)
             assert torch.isfinite(got).all()
             assert (got - ref).abs().max() <= 2e-2 * ref.abs().max()
@@ -422,17 +487,8 @@ def test_split_kernels_equal_across_parts(dev, kind, S, B, G):
                 assert ((o[0] - first[0]).abs()
                         <= 1e-6 * first[0].abs()).all()
         else:
-            assert all(torch.equal(a, b) for a, b in zip(got, again))
-            _check_partials(got, ref)
-            assert torch.equal(got[1], ref[1])
-            for o in list(outs.values()) + [got]:
-                assert torch.equal(o[0], first[0])
-                assert torch.equal(o[1], first[1])
-                assert ((o[2] - first[2]).abs()
-                        <= 1e-6 * first[2].abs()).all()
-            if lengths is not None and not lengths.any():
-                assert (got[0] == 0).all() and (got[2] == 0).all()
-                assert (got[1] == -1e30).all()
+            _check_flash(got, again, ref)
+            _split_across_parts(T, q, slabs, lengths, got, kind)
 
 
 def _flash_case(dev, nib, B, S, G, seed):
@@ -552,7 +608,7 @@ def test_bd_flash_largest_blocks(dev, nib, G, S):
 
     q, slabs, lens = _flash_case(dev, nib, 1, S, G, S + G + nib)
     run, plain = _flash_fns(nib)
-    assert T.smem_bytes(G, S) <= T.SMEM_MAX
+    assert 5 * G * (S + ATT_D) + 32 * G <= T.SMEM_MAX
     for lengths in lens:
         got = run(q, *slabs, lengths, s_block=S)
         again = run(q, *slabs, lengths, s_block=S)
@@ -895,20 +951,26 @@ def test_stacked_kernel_matches_plain(dev, experts, B, pair):
     assert [k.launches for k in MM.KERNELS] == [1, 0, 0, 0, 0]
 
 
-@pytest.mark.parametrize("case", ["n1", "n4", "one_expert"])
+@pytest.mark.parametrize("case", ["n1", "n2", "n3", "n4", "one_expert",
+                                  "many", "bad_index"])
 @pytest.mark.parametrize("name", ["gate", "down"])
 def test_gathered_kernel_matches_plain(dev, experts, case, name):
-    """n = 1 and 4 tokens routed top-2 by a seeded router (2 and 8
-    selections); every selection on one expert."""
+    """#8 equals its plain version bit for bit: n = 1-4 tokens routed
+    top-2 by a seeded router (2-8 selections, duplicate experts at n 3 and
+    4), every selection on one expert, 40
+    selections on one expert (three 16-row tiles), and indices out of
+    range (NaN rows); ``down`` in pair mode (t_idx = arange).  A second
+    call gives the same bits; one launch a call."""
     qp = experts[name]
     K = qp.codes.shape[2] * 8
-    n = 1 if case == "n1" else 4
+    n = {"many": 20, "bad_index": 4}.get(case, int(case[1]) if
+                                          case[0] == "n" else 4)
     gen = torch.Generator(device=dev)
-    gen.manual_seed(n)
+    gen.manual_seed(n + len(case))
     topi, _ = A.moe_route(MIXTRAL.moe, torch.randn((n, 8), generator=gen,
                                                     device=dev))
     e_idx = topi.reshape(-1).to(torch.int32)
-    if case == "one_expert":
+    if case in ("one_expert", "many"):
         e_idx = torch.full_like(e_idx, 5)
     n_sel = e_idx.shape[0]
     if name == "down":
@@ -918,12 +980,21 @@ def test_gathered_kernel_matches_plain(dev, experts, case, name):
         t_idx = torch.arange(n, dtype=torch.int32,
                              device=dev).repeat_interleave(2)
         xq, xs = _acts(dev, (n, K), n)
+    if case == "bad_index":
+        e_idx[1], e_idx[6], t_idx[3] = 8, -1, xq.shape[0]
     args = (qp.codes, qp.scales, qp.zeros)
+    ref = MM.w4a8_gathered_matmul_plain(xq, xs, *args, e_idx, t_idx)
     MM.reset_launch_counts()
     got = MM.w4a8_gathered_matmul(xq, xs, *args, e_idx, t_idx)
-    _moe_close(got, MM.w4a8_gathered_matmul_plain(xq, xs, *args, e_idx,
-                                                  t_idx))
     assert [k.launches for k in MM.KERNELS] == [0, 1, 0, 0, 0]
+    outs = [got, MM.w4a8_gathered_matmul(xq, xs, *args, e_idx, t_idx)]
+    torch.cuda.synchronize()
+    bad = ref.isnan().all(dim=1)
+    assert int(bad.sum()) == (3 if case == "bad_index" else 0)
+    assert torch.isfinite(ref[~bad]).all()
+    for o in outs:
+        assert torch.equal(o.isnan(), ref.isnan())
+        assert torch.equal(o[~bad], ref[~bad])
 
 
 # Qwen3-30B-A3B's gate/up (N 768, K 2048: gpp 2) over 16 of its 128

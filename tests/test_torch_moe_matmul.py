@@ -187,6 +187,102 @@ def test_gathered_plain_matches_pallas():
     _close(got, ref)
 
 
+def gathered_tiles(e_idx, t_idx, E: int, n_rows: int,
+                   rows: int = tm.GATHER_TILE_ROWS):
+    """#8's grouping rendered on the CPU, as its blocks find it on the
+    device (``gather_tile`` in ops/csrc/w4_planes_decode.cuh): the valid
+    selections of each expert (both indices in range) ranked in selection
+    order; the selection of every rank that is a multiple of ``rows`` leads
+    a tile of the next ``rows`` ranks.  Returns ``(tiles, nan_rows)``:
+    tiles as (leader, expert, x rows, output rows) in leader order, and the
+    selections with an index out of range.  Every other selection's block
+    does nothing."""
+    e_idx, t_idx = e_idx.tolist(), t_idx.tolist()
+    valid = [0 <= e < E and 0 <= t < n_rows for e, t in zip(e_idx, t_idx)]
+    tiles, nan_rows = [], []
+    for sel, e in enumerate(e_idx):
+        if not valid[sel]:
+            nan_rows.append(sel)
+            continue
+        members = [i for i in range(len(e_idx)) if valid[i] and e_idx[i] == e]
+        rank = members.index(sel)
+        if rank % rows == 0:
+            mine = members[rank:rank + rows]
+            tiles.append((sel, e, [t_idx[i] for i in mine], mine))
+    return tiles, nan_rows
+
+
+def _render_gathered(xq, xs, qp, e_idx, t_idx, rows):
+    """#8's output from its grouping (``gathered_tiles``): each tile's rows
+    through the expert's plain rows, NaN rows where an index is out of
+    range; the tiles checked as the kernel forms them."""
+    E, n = qp.codes.shape[0], xq.shape[0]
+    tiles, nan_rows = gathered_tiles(e_idx, t_idx, E, n, rows)
+    out = torch.full((e_idx.shape[0], qp.codes.shape[1]), float("nan"))
+    seen = []
+    for lead, e, xrows, orows in tiles:
+        assert orows[0] == lead and 1 <= len(orows) <= rows
+        assert all(int(e_idx[i]) == e for i in orows)
+        assert [int(t_idx[i]) for i in orows] == xrows
+        xr = torch.tensor(xrows)
+        out[orows] = tm.expert_rows_plain(xq[xr], xs[xr], qp.codes[e],
+                                          qp.scales[e], qp.zeros[e])
+        seen += orows
+    assert sorted(seen + nan_rows) == list(range(e_idx.shape[0]))
+    # each distinct expert's weight once a tile of ``rows`` selections
+    counts = torch.bincount(e_idx[seen].long(), minlength=E)
+    assert len(tiles) == int((-(-counts // rows)).sum())
+    return out
+
+
+GATHER_CASES = [(n, pair, 16) for n in (1, 2, 3, 4) for pair in (False, True)]
+
+
+@pytest.mark.parametrize("n,pair,rows", GATHER_CASES + [(4, False, 2),
+                                                        (4, True, 3)])
+def test_gathered_tiles_render_the_kernel(n, pair, rows):
+    """#8's grouping rendered on the CPU: n tokens routed top-2 over 4
+    experts (duplicate experts from n 3 on), the down's pair mode (t_idx =
+    arange over n * 2 rows), and tiles of 2 or 3 rows (an expert over
+    several tiles).  Bit for bit the plain version; to f32 ulps JAX's
+    interpret-mode kernel."""
+    E, N, K = 4, 256, 1024
+    jqp, tqp = _jax_experts(E, N, K, seed=20 + n)
+    e_idx = _routing(n, 2, E, seed=n + 7 * pair).reshape(-1)
+    n_sel = e_idx.shape[0]
+    t_idx = np.arange(n_sel) if pair else np.repeat(np.arange(n), 2)
+    t_idx = t_idx.astype(np.int32)
+    (jxq, jxs), (txq, txs) = _quant(_act((n_sel if pair else n, K), n))
+    te, tt = torch.from_numpy(e_idx), torch.from_numpy(t_idx)
+    got = _render_gathered(txq, txs, tqp, te, tt, rows)
+    assert torch.equal(got, tm.w4a8_gathered_matmul_plain(
+        txq, txs, tqp.codes, tqp.scales, tqp.zeros, te, tt))
+    ref = jpm.w4a8_gathered_matmul(jxq, jxs, jqp.codes, jqp.scales,
+                                   jnp.asarray(e_idx), jnp.asarray(t_idx),
+                                   interpret=True)
+    _close(got, ref)
+
+
+def test_gathered_tiles_nan_rows():
+    """Selections with an expert or a token out of range lead no tile and
+    are NaN rows, in the rendering and in the plain version; the others
+    keep their bits."""
+    E, N, K, n = 4, 128, 1024, 3
+    _, tqp = _jax_experts(E, N, K, seed=31)
+    _, (xq, xs) = _quant(_act((n, K), 9))
+    e_idx = torch.tensor([1, 4, 1, -1, 2, 1], dtype=torch.int32)
+    t_idx = torch.tensor([0, 0, 3, 1, 2, 2], dtype=torch.int32)
+    tiles, nan_rows = gathered_tiles(e_idx, t_idx, E, n)
+    assert nan_rows == [1, 2, 3]
+    assert [(lead, e) for lead, e, _, _ in tiles] == [(0, 1), (4, 2)]
+    got = _render_gathered(xq, xs, tqp, e_idx, t_idx, 16)
+    ref = tm.w4a8_gathered_matmul_plain(xq, xs, tqp.codes, tqp.scales,
+                                        tqp.zeros, e_idx, t_idx)
+    assert torch.equal(got.isnan(), ref.isnan())
+    assert ref[nan_rows].isnan().all() and torch.isfinite(ref[[0, 4, 5]]).all()
+    assert torch.equal(got[[0, 4, 5]], ref[[0, 4, 5]])
+
+
 def test_grouped_plain_matches_pallas():
     """Rows grouped as moe_mlp_grouped groups them, with two experts
     absent (padding-only blocks) and the zero dummy row."""
