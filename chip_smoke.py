@@ -95,7 +95,18 @@ bench itself at B 32, CTX 2048 and 32 layers in six configurations
 o), each kernel launched exactly as the configuration routes it; one
 step of each at 2 layers with every kernel against its plain version;
 and #11's entry point over a block's seven linears.
-Between 8 and 9 comes the main path's front half: a random Llama-3-8B
+Between 8 and 9 come the quantizer core and the main path's front half.
+``quant_core``: seeded bf16 weights at Llama-3-8B's q and down shapes and
+8 x 512 x 4096 seeded activations through the quantizer's paths on the
+card and on the CPU (int4 g128 with the minmax, mse and hqq ranges, per
+head, per block, e4m3/e5m2 in both float modes, W48, the static act
+qparams by minmax, moving minmax and the histogram search), each path's
+seconds and gate (the mse and hqq searches over the whole weights), and
+GPTQ's column step fed the same U on both, the card's graphed block loop
+against the CPU's eager one (the CI config's linears: codes and W_new as
+the CPU test holds them to JAX; Llama-3-8B's q at groups of 128 and 32:
+the codes' disagreement beside a CPU run fed U moved by one ulp).  Then a random
+Llama-3-8B
 (full width and depth, bf16, seed 0) written as a safetensors checkpoint
 by the port's ``save_params`` and read back (``calib_setup``); the
 pipeline on it (``run_pipeline``: AWQ W4 g128, 32 x 512 synthetic
@@ -103,8 +114,16 @@ calibration tokens, PPL at pretrain, transformed and fake_quant, token
 consistency; ``calib_awq``); the AWQ model's serving weights
 (``algo=``) through the W4A8 engine with exact launches and against the
 plain versions (``engine_calibrated``); the RTN pipeline's fake-quant PPL
-(``calib_rtn``); and the CI config's tiny model calibrated on the card
-and on the CPU (``small_calib_vs_cpu``).
+(``calib_rtn``); the GPTQ pipeline (W4 g128, actorder, true_sequential,
+quant_out, 16 x 512 calibration tokens, PPL at pretrain and fake_quant,
+the seconds of its Hessians, factors and column loops, peak memory, and
+block 0's output errors |X (W - W_q)| under GPTQ below RTN's:
+``calib_gptq``); the GPTQ model served at W4A16, #1 on every decode
+linear with exact launches, and against the plain versions
+(``engine_gptq``); and the CI configs' tiny model calibrated (AWQ, and
+GPTQ, its codes' disagreement held to that of a CPU run with its
+Hessians moved by one ulp) on the card and on the CPU
+(``small_calib_vs_cpu``).
 Each engine phase sets every launch count to 0 just before it runs and
 reads the counts just after.
 Any failure raises and the script exits non-zero.  Without a CUDA device
@@ -129,13 +148,18 @@ import numpy as np
 import torch
 
 from lightcompress_tpu_torch import bench as TB
+from lightcompress_tpu_torch import quant as Q
+from lightcompress_tpu_torch.compression.quantization import gptq as G
 from lightcompress_tpu_torch.config import DotDict
+from lightcompress_tpu_torch.data import CalibDataset
 from lightcompress_tpu_torch.device import bf16_ulp
 from lightcompress_tpu_torch.models import arch as A
 from lightcompress_tpu_torch.models import (ArchSpec, Llama, Qwen3Moe,
                                             arch_from_hf_config, init_params)
 from lightcompress_tpu_torch.models.arch import MoESpec
-from lightcompress_tpu_torch.models.hf_loader import load_model, save_params
+from lightcompress_tpu_torch.models.hf_loader import (ShardReader,
+                                                      _llama_key_map,
+                                                      load_model, save_params)
 from lightcompress_tpu_torch.ops import _build
 from lightcompress_tpu_torch.ops import attention as AT
 from lightcompress_tpu_torch.ops import layer_fused as LF
@@ -3016,16 +3040,488 @@ def phase_small_calib_vs_cpu(dev) -> dict:
                if hasattr(sws["cpu"].blocks[i][n], "codes"))
     rel = {k: abs(r_card[k] - v) / v for k, v in r_cpu.items()
            if k.startswith("ppl_")}
+    gptq = small_gptq_vs_cpu(dev, str(path))
     res = {"phase": "small_calib_vs_cpu", "ppl_cpu": r_cpu,
            "ppl_card": r_card, "ppl_rel": rel, "index_differs": differ,
-           "blocks_compared": agree, "same_codes": same,
+           "blocks_compared": agree, "same_codes": same, "gptq": gptq,
            "seconds": time.time() - t0}
     emit(res)
     if not (all(v <= TOL_SMALL_PPL for v in rel.values()) and same
-            and 0 <= r_card["token_consistency"] <= 1):
+            and 0 <= r_card["token_consistency"] <= 1 and gptq["ok"]):
         raise AssertionError(f"small calibration, card vs CPU: {res}")
     return res
 
+
+# ---------------------------------------------------------------------------
+# the quantizer core and GPTQ (the slice after the kernels)
+# ---------------------------------------------------------------------------
+
+# (path name, spec fields, gate): "exact" bit for bit card vs CPU;
+# "ref_manual" the same grid point (1e-5 relative) in >= 99.9% of values,
+# the rest one grid step apart (log2 and pow differ by ulps); "mse" ranges
+# equal in >= 99% of rows, where not the card's chosen error within 1e-6
+# relative of the CPU's; "hqq" scales bit for bit, zeros within 1e-5
+# relative (sums in other orders)
+QC_G128 = dict(bit=4, symmetric=False, granularity="per_group",
+               group_size=128)
+QUANT_CORE_PATHS = [
+    ("int4_g128_minmax", QC_G128, "exact"),
+    ("int4_g128_mse", dict(QC_G128, calib_algo="mse"), "mse"),
+    ("int4_g128_hqq", dict(QC_G128, calib_algo="hqq"), "hqq"),
+    ("int4_per_head32", dict(bit=4, symmetric=False,
+                             granularity="per_head", head_num=32), "exact"),
+    ("int8_per_block128", dict(bit=8, symmetric=True,
+                               granularity="per_block", block_size=128),
+     "exact"),
+    ("e4m3_hw", dict(bit="e4m3", granularity="per_channel"), "exact"),
+    ("e5m2_hw", dict(bit="e5m2", granularity="per_channel"), "exact"),
+    ("e4m3_ref_manual", dict(bit="e4m3", granularity="per_channel",
+                             float_mode="ref_manual"), "ref_manual"),
+    ("e5m2_ref_manual", dict(bit="e5m2", granularity="per_channel",
+                             float_mode="ref_manual"), "ref_manual"),
+]
+# the searches, whose gates read their ranges or qparams: computed once on
+# each side over the whole weight (hqq's stop test is one mean over the
+# whole tensor, so a slice would be another problem), the values from them
+QC_SEARCHES = ("mse", "hqq")
+QC_W48 = (dict(bit=8, symmetric=True, granularity="per_channel"), QC_G128)
+QC_ACT = ("static_minmax", "static_moving_minmax", "static_hist")
+
+
+def timed_call(fn, dev):
+    """(fn(), seconds), synchronised on the card."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def ref_manual_share(got, want, m_bits: int):
+    """(share on the same grid point, all within one grid step)."""
+    got, want = got.double(), want.double()
+    mag = torch.maximum(got.abs(), want.abs())
+    d = (got - want).abs()
+    return (float((d <= 1e-5 * mag).double().mean()),
+            bool((d <= 2.0 ** -m_bits * mag * (1 + 1e-6)).all()))
+
+
+# rows of the grouped view a CPU mse call takes: each row's search is its
+# own, so chunks that stay in the CPU's cache give the whole call's bits,
+# about 5x sooner
+QC_MSE_CPU_ROWS = 4096
+
+
+def search_qparams(w, spec):
+    """(grouped view, qparams) of the weight by spec's search, and for mse
+    its range."""
+    t2 = Q.reshape_tensor(w.float(), spec)
+    if spec.calib_algo == "mse":
+        if t2.device.type == "cuda":
+            rng = Q.mse_range(t2, spec)
+        else:
+            parts = [Q.mse_range(c, spec) for c in t2.split(QC_MSE_CPU_ROWS)]
+            rng = tuple(torch.cat(r) for r in zip(*parts))
+        return t2, Q.qparams_from_range(rng, spec), rng
+    return (*Q.get_tensor_qparams(w, spec), None)
+
+
+def mse_gate(t2, rng_card, rng_cpu, spec) -> dict:
+    """mse ranges on the card and the CPU: the share of rows whose range
+    is the same, and the largest relative gap between the errors the two
+    chosen ranges give (on the CPU view t2)."""
+    cmn, cmx = (a.cpu() for a in rng_card)
+    pmn, pmx = rng_cpu
+    same = (cmn == pmn) & (cmx == pmx)
+
+    def err(mn, mx):
+        qp = Q.qparams_from_range((mn, mx), spec)
+        q = Q.quant_dequant(t2, qp, spec)
+        return ((q - t2).abs() ** 2.4).sum(dim=-1, keepdim=True)
+
+    e_card, e_cpu = err(cmn, cmx), err(pmn, pmx)
+    gap = float(((e_card - e_cpu).abs() / e_cpu.abs().clamp_min(1e-30))
+                .max())
+    return {"rows_same": float(same.float().mean()), "err_rel_max": gap,
+            "ok": float(same.float().mean()) >= 0.99 and gap <= 1e-6}
+
+
+def search_row(w, spec, dev) -> dict:
+    """A search's qparams (mse or hqq) over the whole weight on the card
+    and the CPU, timed, and its gate; the fake-quant values from them."""
+    cpu = torch.device("cpu")
+    (t_c, qc, rc), card_s = timed_call(lambda: search_qparams(w, spec), dev)
+    (t_p, qp, rp), cpu_s = timed_call(lambda: search_qparams(w.cpu(), spec),
+                                      cpu)
+    row = {"card_s": card_s, "cpu_s": cpu_s}
+    if spec.calib_algo == "mse":
+        row.update(mse_gate(t_p, rc, rp, spec))
+    else:
+        z_rel = float((qc.zeros.cpu() - qp.zeros).abs().max()
+                      / qp.zeros.abs().max())
+        row.update(scales_equal=torch.equal(qc.scales.cpu(), qp.scales),
+                   zeros_rel=z_rel)
+        row["ok"] = row["scales_equal"] and z_rel <= 1e-5
+    card, ref = (Q.quant_dequant(t, q, spec) for t, q in ((t_c, qc),
+                                                          (t_p, qp)))
+    row["values_equal"] = float((card.cpu() == ref).float().mean())
+    return row
+
+
+def phase_quant_core(dev) -> dict:
+    """The quantizer core on the card and on the CPU: seeded bf16 weights
+    at Llama-3-8B's q (4096 x 4096) and down (4096 x 14336) shapes through
+    each path of ``QUANT_CORE_PATHS`` and W48, and 8 x 512 x 4096 seeded
+    activations through the static per-tensor act qparams (minmax, moving
+    minmax, the histogram search); each path's seconds on both and its
+    gate; and GPTQ's column step on both fed the same U
+    (``GPTQ_COLUMN_CASES``)."""
+    t_phase = time.time()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+    ws = {name: (0.02 * torch.randn(n, k, generator=gen, device=dev)).to(
+        torch.bfloat16) for name, n, k in (("q", 4096, 4096),
+                                           ("down", 4096, 14336))}
+    acts = [torch.randn(1, 512, 4096, generator=gen, device=dev).to(
+        torch.bfloat16) * (1 + i) for i in range(8)]
+    cpu = torch.device("cpu")
+    rows, failed = [], []
+    for name, kw, gate in QUANT_CORE_PATHS:
+        spec = QuantSpec(**kw)
+        for wname, w in ws.items():
+            row = {"path": name, "weight": wname}
+            if gate in QC_SEARCHES:
+                row.update(search_row(w, spec, dev))
+                rows.append(row)
+                if not row["ok"]:
+                    failed.append(row)
+                continue
+            card, row["card_s"] = timed_call(
+                lambda: Q.fake_quant_weight_dynamic(w, spec), dev)
+            ref, row["cpu_s"] = timed_call(
+                lambda: Q.fake_quant_weight_dynamic(w.cpu(), spec), cpu)
+            card = card.cpu()
+            if gate == "exact":
+                row["ok"] = torch.equal(card, ref)
+            else:  # ref_manual
+                share, within = ref_manual_share(card, ref, spec.m_bits)
+                row.update(same_point=share, within_step=within,
+                           ok=share >= 0.999 and within)
+            row["values_equal"] = float((card == ref).float().mean())
+            rows.append(row)
+            if not row["ok"]:
+                failed.append(row)
+    spec8, spec4 = (QuantSpec(**kw) for kw in QC_W48)
+    for wname, w in ws.items():
+        card, card_s = timed_call(
+            lambda: Q.fake_quant_weight_w48(w, spec8, spec4), dev)
+        ref, cpu_s = timed_call(
+            lambda: Q.fake_quant_weight_w48(w.cpu(), spec8, spec4), cpu)
+        row = {"path": "w48", "weight": wname, "card_s": card_s,
+               "cpu_s": cpu_s, "ok": torch.equal(card.cpu(), ref)}
+        rows.append(row)
+        if not row["ok"]:
+            failed.append(row)
+    for i, case in enumerate(GPTQ_COLUMN_CASES):
+        rows.append(gptq_column_row(*case, SEED + 20 + i, dev))
+        if not rows[-1]["ok"]:
+            failed.append(rows[-1])
+    acts_cpu = [a.cpu() for a in acts]
+    for algo in QC_ACT:
+        spec = QuantSpec(bit=8, symmetric=True, granularity="per_tensor",
+                         calib_algo=algo)
+        qc, card_s = timed_call(lambda: Q.static_act_qparams(acts, spec),
+                                dev)
+        qp, cpu_s = timed_call(lambda: Q.static_act_qparams(acts_cpu, spec),
+                               cpu)
+        row = {"path": algo, "weight": "acts_8x512x4096", "card_s": card_s,
+               "cpu_s": cpu_s, "scale": float(qp.scales),
+               "ok": torch.equal(qc.scales.cpu(), qp.scales)}
+        rows.append(row)
+        if not row["ok"]:
+            failed.append(row)
+    res = {"phase": "quant_core", "rows": rows,
+           "seconds": time.time() - t_phase}
+    emit(res)
+    if failed:
+        raise AssertionError(f"quant_core: card vs CPU: {failed}")
+    return res
+
+
+# (name, out, in, tokens, group, block): the CI config's linears (the
+# tiny Llama: q/o 64 x 64, k/v 32 x 64, gate/up 128 x 64, down 64 x 128;
+# 64 calibration tokens; groups and blocks of 16) and Llama-3-8B's q
+# (2048 tokens; groups of 128 and of 32 in blocks of 128).  On the card
+# each runs the graphed block loop, on the CPU the eager one with the
+# global groups
+GPTQ_COLUMN_CASES = [("ci_q", 64, 64, 64, 16, 16),
+                     ("ci_k", 32, 64, 64, 16, 16),
+                     ("ci_gate", 128, 64, 64, 16, 16),
+                     ("ci_down", 64, 128, 64, 16, 16),
+                     ("llama_q", 4096, 4096, 2048, 128, 128),
+                     ("llama_q_g32", 4096, 4096, 2048, 32, 128)]
+# where the CI shapes' column step is held card vs CPU, as the CPU test
+# holds the port's to JAX's on JAX's U: codes and W_new
+GPTQ_CODES_SHARE = 0.999
+GPTQ_W_REL = 1e-5
+# at Llama width one flipped code at a tie moves the later columns by a
+# fraction of a step, which flips others: the card's disagreement with
+# the CPU is held to that of the CPU fed U moved by one ulp,
+# GPTQ_CHAOS_RATIO times over
+GPTQ_CHAOS_RATIO = 2.0
+
+
+def gptq_codes(W, scales, zeros, gs: int) -> torch.Tensor:
+    s = scales.repeat_interleave(gs, 1)
+    z = zeros.repeat_interleave(gs, 1)
+    return (torch.round(W / s) + z).clamp(WSPEC.qmin, WSPEC.qmax)
+
+
+def ulp_moved(U: torch.Tensor, seed: int) -> torch.Tensor:
+    """U with each entry moved by at most one f32 ulp (a seeded sign)."""
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    return U * (1 + 2.0 ** -23 * torch.randint(-1, 2, U.shape,
+                                               generator=gen).to(U))
+
+
+def gptq_column_row(name, oc, ic, tokens, gs, bs, seed, dev) -> dict:
+    """GPTQ's column step (actorder, W4 asymmetric, groups of gs, blocks
+    of bs) on the card and on the CPU fed the same permuted W and U, factored
+    on the card from seeded tokens: the share of equal codes and W_new's
+    largest difference relative to its largest entry; at Llama width also
+    the CPU's share against itself fed U moved by one ulp."""
+    cpu = torch.device("cpu")
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    W = 0.02 * torch.randn(oc, ic, generator=gen)
+    X = torch.randn(tokens, ic, generator=gen) * (
+        0.2 + 2 * torch.rand(ic, generator=gen))
+    Xd = X.to(dev)
+    Wp, U, _ = G.gptq_factor(W.to(dev), 2 / tokens * (Xd.T @ Xd),
+                             actorder=True)
+    spec = WSPEC.with_(group_size=gs)
+    (wc, sc, zc), card_s = timed_call(
+        lambda: G.gptq_columns(Wp, U, spec, blocksize=bs, group_size=gs),
+        dev)
+    Wp, U = Wp.cpu(), U.cpu()
+    (wp, sp, zp), cpu_s = timed_call(
+        lambda: G.gptq_columns(Wp, U, spec, blocksize=bs, group_size=gs),
+        cpu)
+    wc, sc, zc = wc.cpu(), sc.cpu(), zc.cpu()
+    cp = gptq_codes(wp, sp, zp, gs)
+    share = float((gptq_codes(wc, sc, zc, gs) == cp).double().mean())
+    w_rel = float((wc - wp).abs().max() / wp.abs().max())
+    row = {"path": "gptq_columns", "weight": name, "shape": [oc, ic],
+           "tokens": tokens, "group": gs, "block": bs, "card_s": card_s,
+           "cpu_s": cpu_s,
+           "codes_equal": share, "w_rel": w_rel}
+    if oc <= 128:
+        row["ok"] = share >= GPTQ_CODES_SHARE and w_rel <= GPTQ_W_REL
+        return row
+    wu, su, zu = G.gptq_columns(Wp, ulp_moved(U, seed), spec, blocksize=bs,
+                                group_size=gs)
+    ulp = float((gptq_codes(wu, su, zu, gs) == cp).double().mean())
+    row.update(codes_equal_cpu_ulp=ulp,
+               ok=1 - share <= GPTQ_CHAOS_RATIO * (1 - ulp))
+    return row
+
+
+def gptq_config(path: str, **kw) -> DotDict:
+    """The pipeline's GPTQ config: W4 asymmetric per group 128, actorder,
+    true_sequential, quant_out, blocksize 128, percdamp 0.01."""
+    cfg = calib_config(path, method="GPTQ", **kw)
+    cfg.quant["special"] = {"actorder": True, "static_groups": False,
+                            "percdamp": 0.01, "blocksize": 128,
+                            "true_sequential": True}
+    cfg.quant["quant_out"] = True
+    return cfg
+
+
+def gptq_vs_rtn_block0(algo, path: str, cfg, dev) -> dict:
+    """GPTQ's objective on block 0: for each linear, |X (W - W_q)| over
+    the block's calibration inputs X (the float path's), W the checkpoint's
+    weight, W_q GPTQ's (``algo.w_qdq`` of its updated weight) and RTN's
+    with the same groups."""
+    reader = ShardReader(path)
+    bp0 = {}
+    try:
+        for canon, key in _llama_key_map(0).items():
+            t = reader.get(key, dev)
+            if t is None:
+                continue
+            node = bp0
+            *parts, leaf = canon.split(".")
+            for p in parts:
+                node = node.setdefault(p, {})
+            node[leaf] = t
+    finally:
+        reader.close()
+    model = algo.model
+    batches, _ = CalibDataset(None, cfg.calib).get_calib_dataset()
+    x = model.collect_first_block_input([torch.from_numpy(b)
+                                         for b in batches])
+    feats = {}
+    for xb in x:
+        for k, v in model.block_forward(0, xb, block_params=bp0)[1].items():
+            feats.setdefault(k, []).append(v)
+    out = {}
+    for name in model.get_block_linear_names(0):
+        X = torch.cat([f.reshape(-1, f.shape[-1]) for f in feats[name]]
+                      ).float()
+        W0 = A.resolve(bp0, name)["weight"]
+        wg = algo.w_qdq(A.resolve(model.blocks[0], name)["weight"], 0, name)
+        wr = Q.fake_quant_weight_dynamic(W0, algo.wspec)
+        out[name] = {
+            k: float(torch.linalg.matrix_norm(X @ (W0.float()
+                                                   - wq.float()).T))
+            for k, wq in (("gptq", wg), ("rtn", wr))}
+        del X
+    return out
+
+
+def phase_calib_gptq(dev, path: str, layers: int):
+    """``run_pipeline`` on the checkpoint on the card: GPTQ W4 asymmetric
+    per group 128 (actorder, true_sequential, quant_out, blocksize 128,
+    percdamp 0.01), bf16, 16 synthetic calibration samples of 512 tokens,
+    synthetic PPL (8192 tokens) at pretrain and fake_quant; block seconds,
+    the Hessian / factor / column-loop seconds, peak memory.  Gates: every
+    PPL finite; on block 0 each linear's output error under GPTQ below
+    RTN's.  Returns the calibrated algorithm."""
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    tim = {}
+    cfg = gptq_config(path, n_samples=16,
+                      eval_pos=("pretrain", "fake_quant"),
+                      token_consist=False)
+    results, algo = run_pipeline(cfg, device=dev, timings=tim,
+                                 return_algo=True)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    blocks = tim.pop("blocks")
+    t1 = time.time()
+    errs = gptq_vs_rtn_block0(algo, path, cfg, dev)
+    res = {"phase": "calib_gptq", "layers": layers, "ppl": results,
+           "block_s_median": statistics.median(blocks),
+           "block_s_max": max(blocks), "block_s": blocks,
+           "gptq_s": algo.seconds, "phase_s": tim,
+           "max_memory_allocated_gb": peak, "block0_out_err": errs,
+           "block0_check_s": time.time() - t1,
+           "seconds": time.time() - t0}
+    emit(res)
+    finite = all(np.isfinite(v) for v in results.values())
+    if not (finite and all(e["gptq"] < e["rtn"] for e in errs.values())):
+        raise AssertionError(f"calib_gptq: {results} {errs}")
+    return algo
+
+
+def phase_engine_gptq(dev, algo) -> dict:
+    """The GPTQ model's serving weights (``algo=``: its searched groups
+    through ``w_qdq``, re-coded) at W4A16 through the engine: 8 prompts,
+    32 new tokens, kv8 ``xla``, 8 slots; #1 on every decode linear (the
+    1024-row prefill dequantizes and matmuls, as in JAX); then its prefill
+    logits against the plain versions."""
+    t0 = time.time()
+    sw = build_serving_weights(algo.model, WSPEC, act_bits=16, device=dev,
+                               algo=algo)
+    torch.cuda.synchronize()
+    emit({"phase": "gptq_build", "serving_gb": serving_bytes(sw) / 1e9,
+          "seconds": time.time() - t0})
+    algo.model.params.clear()
+    free_cuda()
+    layers = sw.arch.num_layers
+    prompts = make_prompts(8, sw.arch.vocab_size)
+    launches = engine_phase("engine_gptq", sw, prompts, 32, dev, None,
+                            expect={"w4a16_matmul": (0, 7 * layers)})
+    engine_vs_plain("gptq", sw, prompts, dev)
+    return launches
+
+
+# configs/ci/gptq_w_only_tiny_synthetic.yml as a dict (the card has no
+# PyYAML); the model path is filled in
+GPTQ_CI_CONFIG = {
+    "base": {"seed": 0},
+    "model": {"type": "Llama", "path": None, "torch_dtype": "float32"},
+    "calib": {"name": "synthetic", "n_samples": 4, "bs": 1, "seq_len": 16,
+              "preproc": "synthetic_random", "seed": 0},
+    "eval": {"eval_pos": ["fake_quant"], "name": "synthetic",
+             "seq_len": 16, "bs": 1},
+    "quant": {"method": "GPTQ",
+              "weight": {"bit": 4, "symmetric": False,
+                         "granularity": "per_group", "group_size": 16},
+              "special": {"actorder": True, "static_groups": False,
+                          "percdamp": 0.01, "blocksize": 16,
+                          "true_sequential": True},
+              "quant_out": True}}
+def one_ulp_hessians():
+    """GPTQ's Hessians each moved by at most one f32 ulp (a seeded sign a
+    entry), as another device's summation order moves them."""
+    orig = G.GPTQ.compute_hessian
+    gen = torch.Generator()
+    gen.manual_seed(SEED + 12)
+
+    def moved(self, xs):
+        H = orig(self, xs)
+        return H * (1 + 2.0 ** -23 * torch.randint(
+            -1, 2, H.shape, generator=gen).to(H))
+
+    return moved
+
+
+def codes_agree(sw_a, sw_b) -> float:
+    same = total = 0
+    for ea, eb in zip(sw_a.blocks, sw_b.blocks):
+        for n, e in ea.items():
+            if hasattr(e, "codes"):
+                same += int((eb[n].codes.cpu() == e.codes.cpu()).sum())
+                total += e.codes.numel()
+    return same / total
+
+
+def small_gptq_vs_cpu(dev, path: str) -> dict:
+    """The GPTQ CI config calibrated on the card and on the CPU from one
+    tiny checkpoint: PPL within ``TOL_SMALL_PPL``; the share of equal
+    serving codes (``algo=``) and the largest relative difference of the
+    searched scales, beside the CPU's own share against a CPU run whose
+    Hessians moved by one ulp.  The config's 64 tokens a batch make H as
+    wide as its rank at best, so a one-ulp move can flip a rounding tie
+    that GPTQ's updates spread (and, through quant_out, a later block's
+    order): the card's share of differing codes is held to the one-ulp
+    run's, ``GPTQ_CHAOS_RATIO`` times over (the column step itself is held
+    card vs CPU on the same U in ``quant_core``)."""
+    cfg = DotDict(GPTQ_CI_CONFIG)
+    cfg.model["path"] = path
+    runs = {d: run_pipeline(cfg, device=d, return_algo=True)
+            for d in ("cpu", dev)}
+    saved, G.GPTQ.compute_hessian = G.GPTQ.compute_hessian, \
+        one_ulp_hessians()
+    try:
+        runs["cpu_ulp"] = run_pipeline(cfg, device="cpu", return_algo=True)
+    finally:
+        G.GPTQ.compute_hessian = saved
+    spec = QuantSpec(bit=4, symmetric=False, granularity="per_group",
+                     group_size=16)
+    sws = {k: build_serving_weights(a.model, spec, act_bits=16,
+                                    device=a.model.device, algo=a)
+           for k, (_, a) in runs.items()}
+    (r_cpu, a_cpu), (r_card, a_card) = runs["cpu"], runs[dev]
+    scale_rel = max(
+        float((a_card.layer_state[i][n]["gptq"]["scales"].cpu() - sp).abs()
+              .max() / sp.abs().max())
+        for i in range(len(a_cpu.layer_state))
+        for n, st in a_cpu.layer_state[i].items()
+        for sp in (st["gptq"]["scales"],))
+    rel = abs(r_card["ppl_fake_quant"] - r_cpu["ppl_fake_quant"]) \
+        / r_cpu["ppl_fake_quant"]
+    agree = codes_agree(sws["cpu"], sws[dev])
+    agree_ulp = codes_agree(sws["cpu"], sws["cpu_ulp"])
+    return {"ppl_cpu": r_cpu, "ppl_card": r_card,
+            "ppl_cpu_ulp": runs["cpu_ulp"][0], "ppl_rel": rel,
+            "codes_agree": agree, "codes_agree_cpu_ulp": agree_ulp,
+            "scale_rel_max": scale_rel,
+            "ok": rel <= TOL_SMALL_PPL
+            and 1 - agree <= GPTQ_CHAOS_RATIO * (1 - agree_ulp)}
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3216,15 +3712,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # the quantizer core, card against CPU
+    phase_quant_core(dev)
+    free_cuda()
     # the main path's front half: a Llama-3-8B checkpoint written and read
-    # by the port, calibrated (AWQ, then RTN) and evaluated by its
-    # pipeline, and the calibrated model served
+    # by the port, calibrated (AWQ, then RTN, then GPTQ) and evaluated by
+    # its pipeline, and the AWQ and GPTQ models served
     path = phase_calib_setup(dev)
     algo = phase_calib_awq(dev, path, LLAMA3_8B_CONFIG["num_hidden_layers"])
     runs.append(phase_engine_calibrated(dev, algo))
     del algo
     free_cuda()
     phase_calib_rtn(dev, path)
+    free_cuda()
+    algo = phase_calib_gptq(dev, path, LLAMA3_8B_CONFIG["num_hidden_layers"])
+    runs.append(phase_engine_gptq(dev, algo))
+    del algo
     free_cuda()
     shutil.rmtree(CALIB_DIR, ignore_errors=True)
     phase_small_calib_vs_cpu(dev)

@@ -1,15 +1,17 @@
 """AutoClipper, the per-group weight-clip grid search of AWQ's
-``weight_clip`` (port of clip version v1 of
+``weight_clip`` (port of
 lightcompress_tpu/compression/quantization/auto_clip.py).
 
 For each linear of a block but q and k, each output group's range is
 shrunk by 1 - i/n_grid for i < max_shrink * n_grid; the fake-quantized
-clipped weight's output on a token subsample is compared with the float
-output, and each group keeps the shrink of least MSE (a later one only
-where strictly better, as the JAX ``err < best_err``).  v1 clamps the
-weights to the range found.  v2 (learnable sigmoid clip factors) raises
-``NotImplementedError`` naming ROADMAP A2, and stacked MoE experts naming
-ROADMAP A9.
+clipped weight's output on a token subsample (its act fake-quantized in a
+w-a config) is compared with the float output, and each group keeps the
+shrink of least MSE (a later one only where strictly better, as the JAX
+``err < best_err``).  v1 clamps the weights to the range found; v2 stores
+the range as sigmoid clip factors (``upbound_factor``,
+``lowbound_factor`` in the algorithm's layer state), which ``w_qdq`` reads
+through the learnable range.  Stacked MoE experts raise
+``NotImplementedError`` naming ROADMAP A9.
 
 The output comparison holds (out channels, tokens, groups) in f32: about
 0.94 GB for Llama-3-8B's down projection at 512 tokens.
@@ -23,20 +25,32 @@ import torch
 
 from ...device import div
 from ...models.base import resolve
-from ...quant import QuantSpec, fake_quant_weight_dynamic
+from ...quant import (QuantSpec, fake_quant_weight_dynamic, minmax_range,
+                      reshape_tensor)
+from ...quant.quantizer import act_qdq_compiled, compiled_qdq, \
+    learnable_range
+
+
+def _logit(x: torch.Tensor) -> torch.Tensor:
+    # clamped away from {0, 1}: the grid includes shrink 1.0, whose ratio
+    # is exactly 1 and whose plain logit is +inf
+    x = x.clamp(1e-6, 1.0 - 1e-6)
+    return torch.log(x / (1.0 - x))
 
 
 class AutoClipper:
     def __init__(self, wspec: QuantSpec, clip_version: str, clip_sym: bool,
-                 n_grid: int = 20, max_shrink: float = 0.5):
-        if clip_version != "v1":
-            raise NotImplementedError(
-                f"clip_version {clip_version!r} (learnable clip factors) "
-                f"is not ported: ROADMAP A2")
+                 n_grid: int = 20, max_shrink: float = 0.5,
+                 w_only: bool = True, aspec: Optional[QuantSpec] = None):
+        if clip_version not in ("v1", "v2"):
+            raise ValueError(f"clip_version {clip_version!r}")
         self.wspec = wspec
+        self.clip_version = clip_version
         self.clip_sym = clip_sym
         self.n_grid = n_grid
         self.max_shrink = max_shrink
+        self.w_only = w_only
+        self.aspec = aspec
 
     def run(self, algo, block_idx: int, bp: Dict,
             input_feat: Dict[str, List[torch.Tensor]],
@@ -55,7 +69,7 @@ class AutoClipper:
                             for x in input_feat[name]], dim=0)
             max_val, min_val = self.auto_clip_layer(w, xs, n_sample_token)
             del xs
-            self.apply_clip(node, min_val, max_val)
+            self.apply_clip(algo, block_idx, name, node, min_val, max_val)
 
     def _group_size(self, w: torch.Tensor) -> int:
         if self.wspec.granularity == "per_group":
@@ -82,6 +96,8 @@ class AutoClipper:
             org_max = w4.amax(dim=-1, keepdim=True)
         org_min = w4.amin(dim=-1, keepdim=True)
         org_out = torch.einsum("onjg,injg->oij", w4, x4)  # (oc, N, G)
+        if not self.w_only and self.aspec is not None:
+            x4 = act_qdq_compiled(x4, self.aspec)
         best_err = torch.full((w4.shape[0], w4.shape[2], 1), float("inf"),
                               device=w4.device)
         best_max, best_min = org_max[:, 0], org_min[:, 0]
@@ -90,8 +106,7 @@ class AutoClipper:
             shrink = 1.0 - div(torch.tensor(float(i)), self.n_grid)
             max_val = org_max * shrink
             min_val = -max_val if self.clip_sym else org_min * shrink
-            q_w = fake_quant_weight_dynamic(
-                torch.clamp(w4, min_val, max_val), self.wspec)
+            q_w = self._q_weight(w4, min_val, max_val, org_min, org_max)
             cur = torch.einsum("onjg,injg->oij", q_w, x4)
             err = ((cur - org_out) ** 2).mean(dim=1)[:, :, None]
             del q_w, cur
@@ -101,12 +116,42 @@ class AutoClipper:
             best_min = torch.where(better, min_val[:, 0], best_min)
         return best_max, best_min
 
-    def apply_clip(self, node: Dict, min_val: torch.Tensor,
-                   max_val: torch.Tensor) -> None:
-        """v1: clamp each group of the weight to its best range."""
+    def _q_weight(self, w4, min_val, max_val, org_min, org_max):
+        """A candidate range's fake-quantized weight: v1 clamps then
+        quantizes dynamically; v2 quantizes through the learnable range of
+        the candidate's clip factors (as JAX's compiled search does)."""
+        if self.clip_version == "v1":
+            return fake_quant_weight_dynamic(
+                torch.clamp(w4, min_val, max_val), self.wspec)
+        rng = learnable_range(w4, self.wspec, _logit(min_val / org_min),
+                              _logit(max_val / org_max))
+        return compiled_qdq(w4, rng, self.wspec)
+
+    def apply_clip(self, algo, block_idx: int, name: str, node: Dict,
+                   min_val: torch.Tensor, max_val: torch.Tensor) -> None:
+        """v1: clamp each group of the weight to its best range; v2: store
+        the range as clip factors in the algorithm's layer state."""
         w = node["weight"]
+        if self.clip_version == "v2":
+            up, low = self._v2_factors(w, min_val, max_val)
+            st = algo.state(block_idx, name)
+            st["upbound_factor"], st["lowbound_factor"] = up, low
+            return
         gs = self._group_size(w)
         w4 = w.float().reshape(w.shape[0], 1, -1, gs)
         mn = -max_val if self.clip_sym else min_val
         clipped = torch.clamp(w4, mn[:, None], max_val[:, None])
         node["weight"] = clipped.reshape(w.shape).to(w.dtype)
+
+    def _v2_factors(self, w: torch.Tensor, min_val: torch.Tensor,
+                    max_val: torch.Tensor):
+        """The sigmoid clip factors of one weight, shaped as the learnable
+        range reads them (the rows of ``reshape_tensor``)."""
+        org_mn, org_mx = minmax_range(reshape_tensor(w.float(), self.wspec),
+                                      self.wspec)
+        shape = org_mx.shape
+        if self.clip_sym:
+            amax = torch.maximum(org_mx.abs(), org_mn.abs()).clamp_min(1e-5)
+            return _logit(max_val.reshape(shape) / amax), None
+        return (_logit(max_val.reshape(shape) / org_mx),
+                _logit(min_val.reshape(shape) / org_mn))

@@ -5,10 +5,11 @@ For each subset the per-input-channel scale is searched on a grid of
 ``n_grid`` (20) ratios: scales = mean|x|^ratio (``trans_version`` v2), or
 mean|x|^ratio / w_max^(1 - ratio) (v1), normalised by sqrt(max * min); the
 subset's weights times the scales are fake-quantized, its sub-forward is
-re-run on x / scales, and the ratio with the least output MSE (the first
-on ties, as ``argmin``) wins.  JAX maps the ratios in one jitted
-``lax.map``; the port loops over them one at a time, so one scaled copy of
-the subset's weights exists at a time (20 would not fit at full width).
+re-run on x / scales (fake-quantized in a w-a config), and the ratio with
+the least output MSE (the first on ties, as ``argmin``) wins.  JAX maps
+the ratios in one jitted ``lax.map``; the port loops over them one at a
+time, so one scaled copy of the subset's weights exists at a time (20
+would not fit at full width).
 
 The per-expert MoE down search (``_transform_moe_down``) raises
 ``NotImplementedError`` naming ROADMAP A9.
@@ -23,6 +24,7 @@ import torch
 from ...device import div
 from ...models.base import Subset, resolve
 from ...quant import fake_quant_weight_dynamic, reshape_tensor
+from ...quant.quantizer import act_qdq_compiled
 from ...registry import ALGO_REGISTRY
 from .base import BaseBlockwiseQuantization, _struct_copy
 
@@ -89,7 +91,10 @@ class Awq(BaseBlockwiseQuantization):
                 w = node["weight"].float() * scales[None, :]
                 node["weight"] = fake_quant_weight_dynamic(
                     w, self.wspec).to(node["weight"].dtype)
-            out = model.inspect_forward(block_idx, subset, x / scales,
+            x_s = x / scales
+            if not self.w_only and self.aspec is not None:
+                x_s = act_qdq_compiled(x_s, self.aspec)
+            out = model.inspect_forward(block_idx, subset, x_s,
                                         block_params=bp_s)
             losses.append(((org_out - out.float()) ** 2).mean())
             scales_all.append(scales)

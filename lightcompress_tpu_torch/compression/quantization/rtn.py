@@ -1,6 +1,7 @@
 """RTN, round to nearest (port of lightcompress_tpu/compression/
 quantization/rtn.py): no transform; the weights are quantized at deploy
-time by the base class's ``w_qdq``."""
+time by the base class's ``w_qdq``.  The block loop still runs: it
+collects the acts whose static qparams ``block_opt`` registers."""
 
 from __future__ import annotations
 

@@ -23,6 +23,9 @@ so this module imports neither JAX nor the JAX package.  Two entry points:
 
 ``s4_bytes_from_numpy`` reads #11's natural s4 bytes (N/NT, NT, K/2)
 (``pack_s4_bytes``) and their (N/NT, NT, G) scales (``tile_scales_s4``).
+``layer_state_from_numpy`` carries a calibration algorithm's searched
+state (static qparams, GPTQ's groups and permutation, clip factors, act
+qparams).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch
 from .device import DeviceLike, resolve_device
 from .models.arch import ArchSpec, MoESpec
 from .ops.qlinear import QLinearParams
+from .quant import QParams
 from .serving.quantized_model import ServingWeights
 
 # the entries of a serving block that are {"weight": array}, not linears
@@ -244,3 +248,24 @@ def serving_weights_from_numpy(arch: ArchSpec, embed, norm: Dict[str, Any],
         act_bits=act_bits,
         fused_rms=fused_rms,
     )
+
+
+def layer_state_from_numpy(layer_state, device: DeviceLike = None):
+    """A JAX algorithm's searched state (its ``layer_state``: a list of
+    {linear name: state}, the arrays as numpy) -> the port's: the static
+    ``qparams`` and ``act_qparams`` (a (scales, zeros) tuple) as the
+    port's ``QParams``, GPTQ's ``gptq`` entry (scales,
+    zeros, perm, group_size, n_out), the clip factors
+    (``upbound_factor``, ``lowbound_factor``), ``dim_ic``.  Assign it to
+    an algorithm's ``layer_state`` to deploy the JAX search through the
+    port's ``w_qdq``."""
+    def conv(v):
+        if v is None or isinstance(v, (bool, int, float, str)):
+            return v
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        if isinstance(v, tuple):  # QParams, a named tuple in JAX too
+            return QParams(*(conv(x) for x in v))
+        return tensor_from_numpy(v, device)
+
+    return [conv(dict(block)) for block in layer_state]

@@ -284,21 +284,33 @@ def causal_mask(t_q: int, t_k: int, device=None) -> torch.Tensor:
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         mask: Optional[torch.Tensor], kv_groups: int = 1) -> torch.Tensor:
+         mask: Optional[torch.Tensor], kv_groups: int = 1,
+         matmul_hook: Optional[Callable] = None,
+         softmax_hook: Optional[Callable] = None) -> torch.Tensor:
     """Grouped-query attention; q (B, H, Tq, D), k/v (B, Hkv, Tk, D).
 
     Products and sums in f32 (bf16 inputs are exact in f32), softmax in
     f32, probabilities cast to q's dtype (the JAX version's value dtype)
     before the second product.  The repeated K/V are never materialised:
-    queries are grouped by their KV head instead."""
+    queries are grouped by their KV head instead.  The act-quant hooks:
+    ``matmul_hook(which, a, b) -> (a, b)`` on q and k ("qk") and on the
+    probabilities and v ("pv"), ``softmax_hook(p)`` on the probabilities
+    (the JAX ``sdpa``'s)."""
     B, H, Tq, D = q.shape
     nkv = H // kv_groups
+    if matmul_hook is not None:
+        q, k = matmul_hook("qk", q, k.to(q.dtype))
     qg = q.float().reshape(B, nkv, kv_groups * Tq, D)
     scores = torch.matmul(qg, k.float().transpose(-1, -2)) * D ** -0.5
     scores = scores.reshape(B, H, Tq, -1)
     if mask is not None:
         scores = scores + mask
-    probs = torch.softmax(scores, dim=-1).to(q.dtype).float()
+    probs = torch.softmax(scores, dim=-1)
+    if softmax_hook is not None:
+        probs = softmax_hook(probs)
+    if matmul_hook is not None:
+        probs, v = matmul_hook("pv", probs, v.to(q.dtype))
+    probs = probs.to(q.dtype).float()
     out = torch.matmul(probs.reshape(B, nkv, kv_groups * Tq, -1),
                        v.to(q.dtype).float())
     return out.reshape(B, H, Tq, D).to(q.dtype)
@@ -310,7 +322,8 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _attention(arch: ArchSpec, ap: Dict, h1: torch.Tensor, cos, sin,
-               mask: Optional[torch.Tensor], linear_fn: LinearFn):
+               mask: Optional[torch.Tensor], linear_fn: LinearFn,
+               hooks: Tuple = (None, None)):
     """q/k/v, qk_norm, rope and attention on the normed x; returns the
     context (B, T, nh*hd) before ``attn.o`` and the post-rope (k, v)."""
     B, T, _ = h1.shape
@@ -321,7 +334,7 @@ def _attention(arch: ArchSpec, ap: Dict, h1: torch.Tensor, cos, sin,
     q, k = qk_normed(arch, ap, q, k)
     if cos is not None:
         q, k = apply_rope(q, k, cos, sin)
-    ctx = sdpa(q, k, v, mask, kv_groups=nh // nkv)
+    ctx = sdpa(q, k, v, mask, nh // nkv, *hooks)
     return ctx.transpose(1, 2).reshape(B, T, nh * hd), (k, v)
 
 
@@ -336,14 +349,17 @@ def _mlp_tail(arch: ArchSpec, bp: Dict, h: torch.Tensor,
 
 def block_forward(arch: ArchSpec, bp: Dict, x: torch.Tensor, cos, sin,
                   mask: Optional[torch.Tensor],
-                  linear_fn: LinearFn = default_linear):
+                  linear_fn: LinearFn = default_linear,
+                  hooks: Tuple = (None, None)):
     """One block on (B, T, H).  Returns (y, feats, (k, v)): ``feats`` maps
-    each linear's canonical name to its input, k/v are post-rope."""
+    each linear's canonical name to its input, k/v are post-rope.
+    ``hooks``: the attention's (matmul_hook, softmax_hook)."""
     feats: Dict[str, torch.Tensor] = {}
     h1 = apply_norm(x, bp["ln1"], arch)
     for n in ("attn.q", "attn.k", "attn.v"):
         feats[n] = h1
-    ctx, kv = _attention(arch, bp["attn"], h1, cos, sin, mask, linear_fn)
+    ctx, kv = _attention(arch, bp["attn"], h1, cos, sin, mask, linear_fn,
+                         hooks)
     feats["attn.o"] = ctx
     h = x + _call(linear_fn, "attn.o", bp["attn"]["o"], ctx)
     return _mlp_tail(arch, bp, h, linear_fn, feats), feats, kv
@@ -482,10 +498,13 @@ def embed_forward(arch: ArchSpec, params: Dict,
 
 
 def model_forward(arch: ArchSpec, params: Dict, input_ids: torch.Tensor,
-                  linear_fns: Optional[List[LinearFn]] = None
+                  linear_fns: Optional[List[LinearFn]] = None,
+                  matmul_hook: Optional[Callable] = None,
+                  softmax_hook: Optional[Callable] = None
                   ) -> torch.Tensor:
     """Full causal-LM forward returning float32 logits (B, T, V);
-    ``linear_fns`` gives each block its ``LinearFn``."""
+    ``linear_fns`` gives each block its ``LinearFn``; the hooks quantize
+    inside every attention (``sdpa``)."""
     T = input_ids.shape[1]
     dev = input_ids.device
     x = embed_forward(arch, params, input_ids)
@@ -493,5 +512,6 @@ def model_forward(arch: ArchSpec, params: Dict, input_ids: torch.Tensor,
     cos, sin = rope_cos_sin(arch, torch.arange(T, device=dev))
     for idx, bp in enumerate(params["blocks"]):
         lf = linear_fns[idx] if linear_fns is not None else default_linear
-        x = block_forward(arch, bp, x, cos, sin, mask, lf)[0]
+        x = block_forward(arch, bp, x, cos, sin, mask, lf,
+                          (matmul_hook, softmax_hook))[0]
     return head_forward(arch, params, x)

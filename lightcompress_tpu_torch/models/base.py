@@ -75,6 +75,9 @@ class BaseModel:
         # per-block deployed linear_fn (None = default_linear); the
         # weight-only deployments bake their weights instead
         self.linear_fns: Optional[List[A.LinearFn]] = None
+        # the act-quant hooks inside attention (``quant_attn``)
+        self.attn_matmul_hook: Optional[Callable] = None
+        self.attn_softmax_hook: Optional[Callable] = None
 
     # -- topology ----------------------------------------------------------
     @property
@@ -163,26 +166,44 @@ class BaseModel:
         """f32 logits of the current deployment."""
         return A.model_forward(self.arch, self.params,
                                input_ids.to(self.device).long(),
-                               linear_fns=self.linear_fns)
+                               linear_fns=self.linear_fns,
+                               matmul_hook=self.attn_matmul_hook,
+                               softmax_hook=self.attn_softmax_hook)
 
     # -- deploy ------------------------------------------------------------
     def deploy_float(self) -> None:
         self.linear_fns = None
 
     def deploy_fake_quant(self, w_qdq_fns: List[Dict[str, Callable]],
-                          a_qdq_fns=None, kv_hooks=None) -> None:
+                          a_qdq_fns: Optional[List[Dict[str, Callable]]]
+                          = None, kv_hooks=None) -> None:
         """Bake each block's weight qdq (``{name: fn(w, name)}``) into its
-        params once.  Act quant and KV quant are not ported (ROADMAP A2,
-        A8)."""
-        if a_qdq_fns is not None or kv_hooks is not None:
+        params once, and install each block's act qdq (``{name: fn(x)}``)
+        as its linear function.  KV quant is not ported (ROADMAP A8 KV
+        quant)."""
+        if kv_hooks is not None:
             raise NotImplementedError(
-                "act and KV fake quant are not ported: ROADMAP A2, A8")
+                "KV fake quant is not ported: ROADMAP A8 KV quant")
         for idx, bp in enumerate(self.params["blocks"]):
             fns = w_qdq_fns[idx] if idx < len(w_qdq_fns) else {}
             for name, fn in fns.items():
                 node = resolve(bp, name)
                 node["weight"] = fn(node["weight"], name)
         self.linear_fns = None
+        if a_qdq_fns is None:
+            return
+
+        def make_fn(afns):
+            def lf(name, w, b, x):
+                if name in afns:
+                    x = afns[name](x)
+                return A.default_linear(name, w, b, x)
+
+            return lf
+
+        self.linear_fns = [make_fn((a_qdq_fns[i] if i < len(a_qdq_fns)
+                                    else {}) or {})
+                           for i in range(self.num_blocks)]
 
 
 @MODEL_REGISTRY

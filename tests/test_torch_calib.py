@@ -266,18 +266,14 @@ def test_config_and_data_pieces():
 
 
 @pytest.mark.parametrize("change,item", [
-    ({"act": {"bit": 8}}, "A2"), ({"kvcache": {"method": "Naive"}}, "A8"),
-    ({"weight": {"bit": 4, "calib_algo": "mse"}}, "A2"),
-    ({"special": {"weight_clip": True, "clip_version": "v2"}}, "A2"),
-    ({"special": {"do_gqa_trans": True}}, "A8"),
-    ({"ignored_layers": {"block_ids": [0]}}, "A2")])
+    ({"kvcache": {"method": "Naive"}}, "A8 KV quant"),
+    ({"token_reduction": {"method": "ToMe"}}, "A12"),
+    ({"weight": {"bit": 4, "ste": True}}, "A8"),
+    ({"special": {"online_rotate": True}}, "A8 QuaRot"),
+    ({"special": {"do_gqa_trans": True}}, "A8")])
 def test_unported_options_raise(tiny_ckpt, change, item):
     tm = load_model(tiny_ckpt, dtype=torch.float32, device="cpu")
     quant = copy.deepcopy(AWQ)
-    config = DotDict({})
-    if "ignored_layers" in change:
-        config = DotDict(change)
-    else:
-        quant.update(change)
+    quant.update(change)
     with pytest.raises(NotImplementedError, match=item):
-        ALGO_REGISTRY["Awq"](tm, DotDict(quant), [], None, config)
+        ALGO_REGISTRY["Awq"](tm, DotDict(quant), [], None, DotDict({}))
