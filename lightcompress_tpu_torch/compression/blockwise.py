@@ -4,6 +4,14 @@ to collect the inputs of its linears (the block forward returns them),
 hand them to the algorithm's ``block_transform``, and feed the block's
 outputs to the next.
 
+The loop runs under the algorithm's ``timer`` (``utils.profiling``; the
+pipeline hands it its own): phases ``block_loop/<method>`` and
+``block_loop/<method>/block``, as JAX's.  ``save_artifacts`` writes the
+act scales (``special.save_scale``) to ``<scale_path>/scales.pkl`` and the
+v2 clip factors (``special.save_clip``) to ``<clip_path>/clips.pkl``, as
+numpy arrays under JAX's keys, each only where there is something to
+save.
+
 One process: the port has no data-parallel calibration yet (ROADMAP A14),
 so the JAX package's cross-rank means are the identity here.
 """
@@ -19,11 +27,7 @@ import torch
 
 from ..config import DotDict
 from ..models import arch as A
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+from ..utils.profiling import PhaseTimer
 
 
 class BlockwiseOpt:
@@ -40,26 +44,41 @@ class BlockwiseOpt:
         self.block_idx: int = -1
         self.n_samples = sum(int(b.shape[0]) for b in input_batches)
         self.act_scales: Dict[str, torch.Tensor] = {}
+        # block idx -> {"<linear>.upbound_factor" | "<linear>.lowbound_factor"
+        # -> factors or None}: the v2 clip factors ``special.save_clip`` keeps
+        self.weight_clips: Dict[int, Dict[str, Optional[torch.Tensor]]] = {}
         # seconds each block took (synchronised on the card)
         self.block_seconds: List[float] = []
+        self.timer = PhaseTimer(model.device)
 
     def run_block_loop(self) -> None:
-        for idx in range(self.model.num_blocks):
-            self.block_idx = idx
-            t0 = time.time()
-            self.block_opt(idx)
-            _sync(self.model.device)
-            self.block_seconds.append(time.time() - t0)
+        method = self.compress_config.get("method", type(self).__name__)
+        with self.timer.phase(f"block_loop/{method}"):
+            for idx in range(self.model.num_blocks):
+                self.block_idx = idx
+                t0 = time.time()
+                with self.timer.phase("block"):  # synchronised at its end
+                    self.block_opt(idx)
+                self.block_seconds.append(time.time() - t0)
         self.save_artifacts()
 
     def save_artifacts(self) -> None:
         special = self.compress_config.get("special", {})
-        if special.get("save_scale", False) and self.act_scales:
-            path = special["scale_path"]
+
+        def dump(path, name, obj):
             os.makedirs(path, exist_ok=True)
-            with open(os.path.join(path, "scales.pkl"), "wb") as f:
-                pickle.dump({k: v.float().cpu().numpy()
-                             for k, v in self.act_scales.items()}, f)
+            with open(os.path.join(path, name), "wb") as f:
+                pickle.dump(obj, f)
+
+        if special.get("save_scale", False) and self.act_scales:
+            dump(special["scale_path"], "scales.pkl",
+                 {k: v.float().cpu().numpy()
+                  for k, v in self.act_scales.items()})
+        if special.get("save_clip", False) and self.weight_clips:
+            dump(special["clip_path"], "clips.pkl",
+                 {b: {k: None if v is None else v.float().cpu().numpy()
+                      for k, v in clips.items()}
+                  for b, clips in self.weight_clips.items()})
 
     def collect_block_io(self, block_idx: int,
                          linear_fn: Optional[A.LinearFn] = None):

@@ -10,7 +10,9 @@ shrink of least MSE (a later one only where strictly better, as the JAX
 ``err < best_err``).  v1 clamps the weights to the range found; v2 stores
 the range as sigmoid clip factors (``upbound_factor``,
 ``lowbound_factor`` in the algorithm's layer state), which ``w_qdq`` reads
-through the learnable range.  Stacked MoE experts raise
+through the learnable range; with ``save_clip`` it also records them in
+the algorithm's ``weight_clips`` under JAX's keys (``blockwise.py`` writes
+them to ``clips.pkl``).  Stacked MoE experts raise
 ``NotImplementedError`` naming ROADMAP A9.
 
 The output comparison holds (out channels, tokens, groups) in f32: about
@@ -41,7 +43,8 @@ def _logit(x: torch.Tensor) -> torch.Tensor:
 class AutoClipper:
     def __init__(self, wspec: QuantSpec, clip_version: str, clip_sym: bool,
                  n_grid: int = 20, max_shrink: float = 0.5,
-                 w_only: bool = True, aspec: Optional[QuantSpec] = None):
+                 w_only: bool = True, aspec: Optional[QuantSpec] = None,
+                 save_clip: bool = False):
         if clip_version not in ("v1", "v2"):
             raise ValueError(f"clip_version {clip_version!r}")
         self.wspec = wspec
@@ -51,6 +54,7 @@ class AutoClipper:
         self.max_shrink = max_shrink
         self.w_only = w_only
         self.aspec = aspec
+        self.save_clip = save_clip
 
     def run(self, algo, block_idx: int, bp: Dict,
             input_feat: Dict[str, List[torch.Tensor]],
@@ -136,6 +140,10 @@ class AutoClipper:
             up, low = self._v2_factors(w, min_val, max_val)
             st = algo.state(block_idx, name)
             st["upbound_factor"], st["lowbound_factor"] = up, low
+            if self.save_clip:
+                algo.weight_clips.setdefault(block_idx, {}).update({
+                    f"{name}.upbound_factor": up,
+                    f"{name}.lowbound_factor": low})
             return
         gs = self._group_size(w)
         w4 = w.float().reshape(w.shape[0], 1, -1, gs)

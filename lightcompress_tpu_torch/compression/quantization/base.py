@@ -99,10 +99,14 @@ class BaseBlockwiseQuantization(BlockwiseOpt):
         if self.weight_clip or special.get("search_clip_init", False):
             from .auto_clip import AutoClipper
 
+            self.save_clip = special.get("save_clip", False)
+            if self.save_clip:
+                self.clip_path = special["clip_path"]
             self.auto_clipper = AutoClipper(
                 self.wspec, special.get("clip_version", "v1"),
                 special.get("clip_sym", self.wspec.symmetric),
-                w_only=self.w_only, aspec=self.aspec)
+                w_only=self.w_only, aspec=self.aspec,
+                save_clip=self.save_clip)
 
         # float layers among the quantized ones
         ig = self.config.get("ignored_layers", None) if self.config else None

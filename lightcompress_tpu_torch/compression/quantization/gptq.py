@@ -40,7 +40,7 @@ from ...quant import QParams, QuantSpec
 from ...quant.quantizer import compiled_qparams, mean_xla, minmax_range, \
     mse_range
 from ...registry import ALGO_REGISTRY
-from ..blockwise import _sync
+from ...utils.profiling import sync
 from .base import BaseBlockwiseQuantization
 
 
@@ -228,14 +228,14 @@ def gptq_quantize_layer(W: torch.Tensor, H: torch.Tensor, spec: QuantSpec,
     (synchronised on the card)."""
     t0 = time.time()
     Wp, U, perm = gptq_factor(W, H, actorder, percdamp, n_out)
-    _sync(Wp.device)
+    sync(Wp.device)
     t1 = time.time()
     W_new, scales, zeros = gptq_columns(Wp, U, spec, blocksize, group_size,
                                         static_groups, n_out)
     del U, Wp
     W_new = W_new[:, torch.argsort(perm)]
     if seconds is not None:
-        _sync(W_new.device)
+        sync(W_new.device)
         seconds["factor"] = seconds.get("factor", 0.0) + t1 - t0
         seconds["columns"] = seconds.get("columns", 0.0) + time.time() - t1
     return W_new, scales, zeros, perm
@@ -287,7 +287,7 @@ class GPTQ(BaseBlockwiseQuantization):
                 continue
             t0 = time.time()
             H = self.compute_hessian(input_feat[name])
-            _sync(H.device)
+            sync(H.device)
             self.seconds["hessian"] = self.seconds.get("hessian", 0.0) \
                 + time.time() - t0
             n_out = 0

@@ -9,9 +9,14 @@ runs on the card unless ``--device cpu`` asks for the CPU, and prints
 
 Ported: the ``ppl`` eval on ``synthetic`` data (``n_tokens`` random ids
 from the eval ``seed``) and the token consistency; ``save_trans`` and
-``save_fake``.  The text datasets (ROADMAP A4), the other eval types and
-the real-quant exports and OpenCompass bridge (ROADMAP A13) raise
-``NotImplementedError`` when a config asks for them.
+``save_fake``; ``base.profile_out``, the JSON of the run's phase timer
+(``utils.profiling.PhaseTimer``: ``load_model``, ``eval/<pos>``,
+``calib_data``, ``block_loop/<method>`` and ``block_loop/<method>/block``,
+each ``{count, total_s, mean_s}``, and ``__wall__``, as JAX's), and
+``base.trace_dir``, a ``torch.profiler`` Chrome trace of the block loop
+(``utils.profiling.device_trace``).  The text datasets (ROADMAP A4), the
+other eval types and the real-quant exports and OpenCompass bridge
+(ROADMAP A13) raise ``NotImplementedError`` when a config asks for them.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from .device import DeviceLike, resolve_device
 from .eval import PerplexityEval, TokenConsistencyEval
 from .models.hf_loader import load_model
 from .registry import ALGO_REGISTRY
+from .utils.profiling import PhaseTimer, device_trace
 
 log = logging.getLogger("lightcompress_tpu_torch")
 
@@ -120,17 +126,24 @@ def _check_unported(config: DotDict) -> None:
                                   "ROADMAP A13")
 
 
-class _Clock:
-    """Seconds of named phases, synchronised on the card."""
-
-    def __init__(self, device: torch.device, out: Optional[Dict]):
-        self.device, self.out = device, out
-
-    def __call__(self, name: str, t0: float) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        if self.out is not None:
-            self.out[name] = time.time() - t0
+def _fill_timings(timings: Optional[Dict], timer: PhaseTimer, algo,
+                  tc_s: float) -> None:
+    """The ``timings`` of ``run_pipeline`` from the run's phases."""
+    if timings is None:
+        return
+    for name in timer.report():
+        if name == "load_model" or name.startswith("eval/"):
+            timings["load" if name == "load_model" else name] = \
+                timer.total(name)
+    if algo is not None:
+        # the calibration data and every block loop (one a modality)
+        timings["calibration"] = sum(
+            timer.total(n) for n in timer.report()
+            if n == "calib_data" or n.count("/") == 1
+            and n.startswith("block_loop/"))
+        timings["blocks"] = list(algo.block_seconds)
+    if tc_s:
+        timings["token_consistency"] = tc_s
 
 
 def run_pipeline(config: DotDict, device: DeviceLike = None,
@@ -141,48 +154,48 @@ def run_pipeline(config: DotDict, device: DeviceLike = None,
     ``return_algo`` also the calibrated algorithm (its ``model`` holds the
     float transformed params).  ``timings``, if given, receives the
     seconds of each phase (``load``, ``eval/<pos>``, ``calibration``,
-    ``token_consistency``) and ``blocks``, the seconds of each block."""
+    ``token_consistency``) and ``blocks``, the seconds of each block.
+    ``base.profile_out`` and ``base.trace_dir``: module docstring."""
     _check_unported(config)
     dev = resolve_device(device)
-    clock = _Clock(dev, timings)
+    timer = PhaseTimer(dev)
+    base = config.get("base", {}) or {}
     dtype = _model_dtype(config)
     results: Dict[str, float] = {}
+    tc_s = 0.0
 
-    t0 = time.time()
-    model = load_model(config.model.path, dtype=dtype, device=dev)
-    clock("load", t0)
+    with timer.phase("load_model"):
+        model = load_model(config.model.path, dtype=dtype, device=dev)
     evals = build_eval(model, config)
     if evals and "pretrain" in evals["positions"]:
-        t0 = time.time()
-        _run_evals(evals, model, "pretrain", results)
-        clock("eval/pretrain", t0)
+        with timer.phase("eval/pretrain"):
+            _run_evals(evals, model, "pretrain", results)
 
     algo = None
     for modality in get_modalities(config):
         ccfg = get_compress_config(config, modality)
         if not ccfg or "method" not in ccfg:
             continue
-        t0 = time.time()
-        ds = CalibDataset(model.tokenizer, config.calib)
-        calib_batches, padding_masks = ds.get_calib_dataset()
-        first = model.collect_first_block_input(
-            [torch.from_numpy(b) for b in calib_batches])
+        with timer.phase("calib_data"):
+            ds = CalibDataset(model.tokenizer, config.calib)
+            calib_batches, padding_masks = ds.get_calib_dataset()
+            first = model.collect_first_block_input(
+                [torch.from_numpy(b) for b in calib_batches])
         algo = ALGO_REGISTRY[ccfg.method](model, ccfg, first, padding_masks,
                                           config)
         del first
-        algo.run_block_loop()
+        algo.timer = timer
+        with device_trace(base.get("trace_dir"), dev):
+            algo.run_block_loop()
         algo.input_batches = []  # the last block's outputs
-        clock("calibration", t0)
-        if timings is not None:
-            timings["blocks"] = list(algo.block_seconds)
     if algo is None:
+        _fill_timings(timings, timer, algo, tc_s)
         return (results, None) if return_algo else results
 
     if evals and "transformed" in evals["positions"]:
         algo.deploy("transformed")
-        t0 = time.time()
-        _run_evals(evals, model, "transformed", results)
-        clock("eval/transformed", t0)
+        with timer.phase("eval/transformed"):
+            _run_evals(evals, model, "transformed", results)
 
     save_cfg = config.get("save", {}) or {}
     if save_cfg.get("save_trans", False):
@@ -194,9 +207,8 @@ def run_pipeline(config: DotDict, device: DeviceLike = None,
         if not (evals and pos in evals["positions"]):
             continue
         algo.deploy(pos)
-        t0 = time.time()
-        _run_evals(evals, model, pos, results)
-        clock(f"eval/{pos}", t0)
+        with timer.phase(f"eval/{pos}"):
+            _run_evals(evals, model, pos, results)
         if evals["token_consist"] is not None:
             t0 = time.time()
             origin = load_model(config.model.path, dtype=dtype, device=dev)
@@ -208,7 +220,8 @@ def run_pipeline(config: DotDict, device: DeviceLike = None,
             gc.collect()
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
-            clock("token_consistency", t0)
+                torch.cuda.synchronize(dev)
+            tc_s += time.time() - t0
         algo.restore_float()
 
     if save_cfg.get("save_fake", False):
@@ -216,6 +229,10 @@ def run_pipeline(config: DotDict, device: DeviceLike = None,
         algo.save_model(os.path.join(save_cfg["save_path"],
                                      "fake_quant_model"))
         algo.restore_float()
+    if base.get("profile_out"):
+        timer.dump(base["profile_out"])
+    timer.log_report()
+    _fill_timings(timings, timer, algo, tc_s)
     return (results, algo) if return_algo else results
 
 

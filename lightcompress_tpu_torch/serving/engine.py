@@ -5,12 +5,16 @@ Slots share one batched decode step; new requests are admitted into free
 slots between steps, one batched prefill per length bucket; finished
 sequences retire at once.  Prefill attention is plain torch ops.  The cache
 is updated in place.  Decode attention takes one of these routes
-(``attn_impl``, picked as the JAX engine picks on a TPU):
+(``attn_impl``, picked as the JAX engine picks on a TPU; ``ROUTES`` maps
+each served (kv_bits, attn_impl) to its decode body):
 
 * ``xla`` (kv8, the default) or its explicit name ``xla8a``: append-first
   masked attention, plain torch: the fresh token is quantized and written
   into the cache first, then one attention runs over the buffer where
   ``col <= length``;
+* ``xla8`` (kv8): JAX's concat variant: the int8 cache and the quantized
+  fresh token concatenated, one attention where ``col < length`` or at the
+  fresh column, then the token is written;
 * ``bd4`` (kv4): the nibble-packed ``bd4`` cache stays read-only while
   kernel #20 (buffer < 8192) or #21 (from 8192) attends over
   ``col < length``; the fresh token, quantized to int8, is merged in by
@@ -20,26 +24,39 @@ is updated in place.  Decode attention takes one of these routes
   or #19 (512-column blocks); the int8 token is merged, then cached;
 * ``pallas`` (kv8, probe-only in the JAX engine): kernel #17 over the
   read-only int8 cache with the fresh token as an in-register column, then
-  the token is written.
+  the token is written;
+* the generic path (JAX's ``read_kv`` + ``_block_apply`` + ``append_kv``)
+  for every other ``attn_impl`` on the kv4 ``hhd`` cache (nibble-packed
+  half planes: ``xla``, which every MoE engine takes at ``kv_bits="auto"``
+  from ``max_len`` 4096, ``xla4r`` without a chunk, and the kv8 names) and
+  on the kv16 cache (every ``attn_impl``): the layer's cache dequantized to
+  bf16, the unquantized fresh K/V concatenated at column T, one attention
+  under the ``j < length | j == T`` mask, then the token quantized into
+  the cache.
 
 ``decode_chunk`` n > 1 runs the decode in chunks of up to n steps, each
 step's tokens sampled on the device and fed to the next, the host reading
 the tokens once per chunk (JAX's ``_decode_chunk``).  A chunked kv8
-``xla`` engine (``xla8r``) keeps the cache read-only through the chunk:
-every layer's fresh token goes to a ring of the chunk's width, attention
+``xla`` engine (``xla8r``) and a chunked kv4 ``xla4r`` engine keep the
+cache read-only through the chunk: every layer's fresh token goes to a
+ring of the chunk's width (int8, or packed int4 for ``xla4r``), attention
 merges the cache (``col <`` the chunk-entry length), the ring's earlier
 columns and the fresh token flash-style, and ``flush_ring_to_cache``
-writes the ring once per chunk.  Every other route loops its per-step
-decode inside the chunk.
+writes the ring once per chunk.  Every other route (a chunked kv4 ``xla``
+engine and every kv16 engine among them) loops its per-step decode inside
+the chunk.
 
-On every route, weights built with ``fused_rms`` at ``act_bits=8`` take the
-fused decode linears where JAX does (``fused_ok``): q/k/v (or the merged
-qkv) and gate/up (or gateup) run RMSNorm and the int8 act quant inside
-kernel #14 (planes) or #13 (s4), ``attn.o`` and ``mlp.down`` the act quant
-alone.  Prefill takes the plain linears: the folded ln weights are ones.
+On every route but the generic path, weights built with ``fused_rms`` at
+``act_bits=8`` take the fused decode linears where JAX does
+(``fused_ok``): q/k/v (or the merged qkv) and gate/up (or gateup) run
+RMSNorm and the int8 act quant inside kernel #14 (planes) or #13 (s4),
+``attn.o`` and ``mlp.down`` the act quant alone.  Prefill and the generic
+path take the plain linears: the folded ln weights are ones.
 
-A MoE model (``arch.moe``) serves on the ``xla`` route at kv8, on the ring
-when chunked (as the JAX engine forces it).  Its blocks' MLP
+A MoE model (``arch.moe``) serves on ``xla`` (as the JAX engine forces
+it): kv8 on the append-first route, on the ring when chunked; kv4 (from
+``max_len`` 4096 at ``kv_bits="auto"``) and kv16 on the generic path.
+Its blocks' MLP
 (``_moe_mlp``) picks one of four expert routes by the token count n of
 the call, as the JAX engine does on a TPU (``pick_moe_route``): ``gathered`` (kernel #8, only the selected
 experts read), ``grouped`` (kernel #9 over expert-sorted rows; an int8
@@ -75,9 +92,10 @@ from ..ops.qlinear import QLinearParams
 from ..ops.w4_matmul import (quantize_act_per_token,
                              w4a8_linear_bytes_fused,
                              w4a8_linear_planes_fused)
-from .kv_cache import (KVCache, Ring, append_kv_bd, append_kv_quantized,
-                       append_slots, flush_ring_to_cache, quantize_kv,
-                       quantize_kv4)
+from .kv_cache import (KVCache, Ring, append_kv, append_kv_bd,
+                       append_kv_quantized, append_slots, flush_ring_to_cache,
+                       kv4_planes, quantize_kv, quantize_kv4, read_kv,
+                       unpack_kv4)
 from .quantized_model import (ServingWeights, apply_qlinear,
                               apply_qlinear_gathered, apply_qlinear_stacked,
                               head_logits, moe_mlp_grouped)
@@ -90,10 +108,21 @@ PREFILL_ROWS = 4096
 # from this length on the bd4 route takes the flash kernel (#21)
 BD4_ALIGN = 512
 BD4_FLASH_MIN = 8192
-# (kv_bits, attn_impl) pairs the port serves; xla8r is the ring of a
-# chunked engine
-ROUTES = {(8, "xla"), (8, "xla8a"), (8, "xla8r"), (8, "pallas"), (8, "bd"),
-          (8, "bds"), (4, "bd4")}
+# (kv_bits, attn_impl) after the JAX engine's fallbacks -> the per-step
+# decode body its gate picks (lightcompress_tpu/serving/engine.py:
+# 1735-1753) on the cache layout the engine makes: the kv8 names on the
+# int8 hhd cache (bd/bds on bd slabs), bd4 on the nibble slabs, and the
+# generic path on the kv4 hhd and kv16 caches.  xla8r and xla4r are the
+# rings of chunked engines; each falls back to xla elsewhere, as in JAX.
+ROUTES = {
+    (8, "xla"): "xla8a", (8, "xla8a"): "xla8a", (8, "xla8r"): "xla8a",
+    (8, "xla8"): "xla8", (8, "pallas"): "pallas", (8, "bd"): "bd",
+    (8, "bds"): "bds", (4, "bd4"): "bd4",
+    **{(4, a): "generic" for a in ("xla", "xla4r", "xla8", "xla8a",
+                                   "pallas", "bd", "bds")},
+    **{(16, a): "generic" for a in ("xla", "xla8", "xla8a", "pallas", "bd",
+                                    "bds", "bd4")},
+}
 PROBE_ONLY = ("pallas", "bd", "bds")
 # token rows per dense all-expert block above the #6 regime (bounds the
 # (E, rows, I) f32 transients)
@@ -111,14 +140,12 @@ def pick_attn_impl(kv_bits: Union[int, str], chunked: bool = False) -> str:
 
 
 def _unported(kv_bits, attn_impl: str) -> str:
-    """The ROADMAP item of a JAX route the port does not serve."""
-    if attn_impl == "xla4r" or (kv_bits == 4 and attn_impl == "xla"):
-        return "A6b, the kv4 hhd cache and its ring"
-    if kv_bits == 16:
-        return "A6c, the kv16 engine"
-    if attn_impl == "xla8":
-        return "A6, the xla8 concat variant"
-    return "A6"
+    """Why the port refuses a (kv_bits, attn_impl) the JAX engine takes."""
+    if kv_bits == 8 and attn_impl == "bd4":
+        return ("ROADMAP C, reference faults: JAX hands the int8 hhd cache "
+                "to the bd4 kernel, whose block shapes fail at the first "
+                "decode step")
+    return "ROADMAP A6: JAX's other attn_impl names"
 
 
 @dataclasses.dataclass
@@ -374,9 +401,14 @@ def _decode_mlp(sw, entry, h, moe: MoEOptions = MoEOptions()):
 
 
 def _block_apply(sw: ServingWeights, entry, x: torch.Tensor, cos, sin,
-                 mask: torch.Tensor, moe: MoEOptions = MoEOptions()):
-    """One block on (N, T, H) prompts with no earlier KV.  Returns
-    (y, k, v) with post-rope K/V (N, Hkv, T, D)."""
+                 mask: torch.Tensor, moe: MoEOptions = MoEOptions(),
+                 k_full: Optional[torch.Tensor] = None,
+                 v_full: Optional[torch.Tensor] = None):
+    """One block on (N, T, H) with its earlier K/V (N, Hkv, Tc, D) in bf16
+    (none for a prefill): attention over them and the block's own
+    post-rope K/V under ``mask``, broadcast to (N, heads, T, Tc + T).
+    Returns (y, k, v) with the block's post-rope K/V (N, Hkv, T, D)
+    (JAX's ``_block_apply``)."""
     arch, ab = sw.arch, sw.act_bits
     N, T, _ = x.shape
     nh, nkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
@@ -387,10 +419,27 @@ def _block_apply(sw: ServingWeights, entry, x: torch.Tensor, cos, sin,
     v = v.reshape(N, T, nkv, hd).transpose(1, 2)
     q, k = A.qk_normed(arch, entry, q, k)
     q, k = A.apply_rope(q, k, cos, sin)
-    ctx = A.sdpa(q, k, v, mask, kv_groups=nh // nkv)
+    k_all, v_all = k, v
+    if k_full is not None:
+        k_all = torch.cat([k_full, k.to(k_full.dtype)], dim=2)
+        v_all = torch.cat([v_full, v.to(v_full.dtype)], dim=2)
+    ctx = A.sdpa(q, k_all, v_all, mask, kv_groups=nh // nkv)
     ctx = ctx.transpose(1, 2).reshape(N, T, nh * hd)
     h = x + apply_qlinear(entry["attn.o"], ctx, act_bits=ab)
     return _mlp_tail(sw, entry, h, ab, moe), k, v
+
+
+def _int8_attention(qg, kc, ksc, vc, vsc, visible) -> torch.Tensor:
+    """JAX's masked einsum attention over int8 codes (S, K, T, D) and bf16
+    scales (S, K, T): bf16 scores times the f32 scales, softmax over the
+    visible columns, bf16 PV.  Returns (S, K, G, D) bf16."""
+    qg = qg.to(torch.bfloat16)
+    hd = qg.shape[-1]
+    sc = torch.matmul(qg, kc.to(torch.bfloat16).transpose(-1, -2))
+    sc = sc.float() * ksc[:, :, None, :].float() * hd ** -0.5
+    probs = torch.softmax(sc.masked_fill(~visible, float("-inf")), dim=-1)
+    pv = (probs * vsc[:, :, None, :].float()).to(torch.bfloat16)
+    return torch.matmul(pv, vc.to(torch.bfloat16))
 
 
 def _attend_xla8a(qg, kq, ks, vq, vs, cache: KVCache, li: int,
@@ -398,25 +447,33 @@ def _attend_xla8a(qg, kq, ks, vq, vs, cache: KVCache, li: int,
     """Append-first masked attention: write the fresh K/V at each slot's
     length, then attend over the full buffer with ``col <= length``."""
     append_kv_quantized(cache, li, kq, ks, vq, vs, lengths)
-    qg = qg.to(torch.bfloat16)
-    hd = qg.shape[-1]
-    kc, vc = cache.k[li], cache.v[li]  # (S, nkv, T, hd) int8
-    ksc, vsc = cache.k_scale[li], cache.v_scale[li]  # (S, nkv, T) bf16
-    sc = torch.matmul(qg, kc.to(torch.bfloat16).transpose(-1, -2))
-    sc = sc.float() * ksc[:, :, None, :].float() * hd ** -0.5
-    col = torch.arange(kc.shape[2], device=qg.device)
-    vis = col[None, None, None, :] <= lengths[:, None, None, None]
-    sc = sc.masked_fill(~vis, float("-inf"))
-    probs = torch.softmax(sc, dim=-1)
-    pv = (probs * vsc[:, :, None, :].float()).to(torch.bfloat16)
-    return torch.matmul(pv, vc.to(torch.bfloat16))  # (S, nkv, G, hd)
+    col = torch.arange(cache.k.shape[3], device=qg.device)
+    return _int8_attention(qg, cache.k[li], cache.k_scale[li], cache.v[li],
+                           cache.v_scale[li],
+                           col <= lengths[:, None, None, None])
+
+
+def _attend_xla8(qg, kq, ks, vq, vs, cache: KVCache, li: int,
+                 lengths: torch.Tensor) -> torch.Tensor:
+    """JAX's concat variant: the int8 cache and the quantized fresh token
+    concatenated on the time axis, attention where ``col < length`` or at
+    the fresh column Tc - 1; then the token is written."""
+    cat = functools.partial(torch.cat, dim=2)
+    kc, vc = cat([cache.k[li], kq]), cat([cache.v[li], vq])
+    Tc = kc.shape[2]
+    col = torch.arange(Tc, device=qg.device)
+    ctx = _int8_attention(
+        qg, kc, cat([cache.k_scale[li], ks]), vc, cat([cache.v_scale[li], vs]),
+        (col < lengths[:, None, None, None]) | (col == Tc - 1))
+    append_kv_quantized(cache, li, kq, ks, vq, vs, lengths)
+    return ctx
 
 
 @dataclasses.dataclass
 class RingStep:
     """One step of a ring chunk: the chunk's ring, the slots' chunk-entry
     lengths, this step's ring column, and the fresh tokens (kq, ks, vq, vs)
-    of the layers run so far."""
+    of the layers run so far (int8, or packed int4 on an ``xla4r`` ring)."""
     ring: Ring
     lengths0: torch.Tensor
     pos: int = 0
@@ -434,6 +491,26 @@ class RingStep:
         self.fresh = []
 
 
+def _flash_term(sc: torch.Tensor, visible: torch.Tensor):
+    """A masked score term of a flash merge: (max floored at -1e30, exp,
+    sum)."""
+    sc = sc.masked_fill(~visible, float("-inf"))
+    m = torch.clamp(sc.amax(dim=-1), min=-1e30)
+    p = torch.exp(sc - m[..., None])
+    return m, p, p.sum(dim=-1)
+
+
+def _merge3(m1, l1, ctx1, m2, l2, ctx2, sc3, v3) -> torch.Tensor:
+    """The ring routes' flash merge of the cache term, the ring term and
+    the fresh token (score sc3 (S, K, G), value v3 (S, K, D)); f32."""
+    m = torch.maximum(torch.maximum(m1, m2), sc3)
+    a1, a2, a3 = (torch.exp(t - m) for t in (m1, m2, sc3))
+    denom = l1 * a1 + l2 * a2 + a3
+    ctx = (ctx1 * a1[..., None] + ctx2 * a2[..., None]
+           + v3[:, :, None, :] * a3[..., None])
+    return ctx / denom[..., None]
+
+
 def _attend_ring(qg, kq, ks, vq, vs, cache: KVCache, li: int,
                  rs: RingStep) -> torch.Tensor:
     """The ``xla8r`` attention of one layer (JAX's deferred, fused ring with
@@ -449,18 +526,11 @@ def _attend_ring(qg, kq, ks, vq, vs, cache: KVCache, li: int,
     qb = qg.to(torch.bfloat16)
     kc, vc = cache.k[li], cache.v[li]  # (S, H, T, hd) int8
     ksc, vsc = cache.k_scale[li], cache.v_scale[li]  # (S, H, T) bf16
-
-    def term(sc, visible):
-        sc = sc.masked_fill(~visible, float("-inf"))
-        m = torch.clamp(sc.amax(dim=-1), min=-1e30)
-        p = torch.exp(sc - m[..., None])
-        return m, p, p.sum(dim=-1)
-
     sc1 = torch.matmul(qb, kc.to(torch.bfloat16).transpose(-1, -2))
     sc1 = sc1.float() * ksc[:, :, None, :].float() * scale
     col = torch.arange(kc.shape[2], device=qg.device)
-    m1, p1, l1 = term(sc1, col[None, None, None, :]
-                      < rs.lengths0[:, None, None, None])
+    m1, p1, l1 = _flash_term(sc1, col[None, None, None, :]
+                             < rs.lengths0[:, None, None, None])
     ctx1 = torch.matmul((p1 * vsc[:, :, None, :].float()).to(torch.bfloat16),
                         vc.to(torch.bfloat16)).float()
     rkv, rsc = rs.ring.kv[li], rs.ring.s[li]  # (S, 2H, W, hd), (S, 2H, W)
@@ -468,27 +538,80 @@ def _attend_ring(qg, kq, ks, vq, vs, cache: KVCache, li: int,
     sc2 = torch.matmul(qf, rkv[:, :H].float().transpose(-1, -2))
     sc2 = sc2 * rsc[:, :H, None, :].float() * scale
     wcol = torch.arange(rkv.shape[2], device=qg.device)
-    m2, p2, l2 = term(sc2, wcol < rs.pos)
+    m2, p2, l2 = _flash_term(sc2, wcol < rs.pos)
     ctx2 = torch.matmul(p2 * rsc[:, H:, None, :].float(), rkv[:, H:].float())
     sc3 = torch.matmul(qf, kq.float().transpose(-1, -2))[..., 0]
     sc3 = sc3 * ks.float() * scale  # ks (S, H, 1) meets (S, H, G)
     v3 = vq[:, :, 0].float() * vs.float()  # (S, H, hd)
-    m = torch.maximum(torch.maximum(m1, m2), sc3)
-    a1, a2, a3 = (torch.exp(t - m) for t in (m1, m2, sc3))
-    denom = l1 * a1 + l2 * a2 + a3
-    ctx = (ctx1 * a1[..., None] + ctx2 * a2[..., None]
-           + v3[:, :, None, :] * a3[..., None])
-    return ctx / denom[..., None]
+    return _merge3(m1, l1, ctx1, m2, l2, ctx2, sc3, v3)
+
+
+def _planes_dot(a: torch.Tensor, packed: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """a (..., D) against nibble pairs (..., W, D/2) as JAX's two plane
+    einsums in ``dtype``: a's low half with the low plane plus its high
+    half with the high plane, each product and the sum rounded to
+    ``dtype``.  (..., W) scores."""
+    lo, hi = kv4_planes(packed)
+    h = a.shape[-1] // 2
+    return (torch.matmul(a[..., :h], lo.to(dtype).transpose(-1, -2))
+            + torch.matmul(a[..., h:], hi.to(dtype).transpose(-1, -2)))
+
+
+def _planes_pv(p: torch.Tensor, packed: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """p (..., W) against nibble pairs (..., W, D/2): the low and high
+    planes' products in ``dtype``, concatenated to (..., D)."""
+    lo, hi = kv4_planes(packed)
+    return torch.cat([torch.matmul(p, lo.to(dtype)),
+                      torch.matmul(p, hi.to(dtype))], dim=-1)
+
+
+def _attend_ring4(qg, k4, k4s, v4, v4s, cache: KVCache, li: int,
+                  rs: RingStep) -> torch.Tensor:
+    """The ``xla4r`` attention of one layer (JAX's deferred fused kv4
+    ring, engine.py:673-786) over the packed kv4 ``hhd`` cache and a
+    packed ring: the cache at ``col < lengths0`` through two bf16 plane
+    einsums (summed in bf16, then the f32 K scale and hd**-0.5; PV in
+    bf16 on each plane); the ring's columns ``< pos`` in f32 on its
+    planes; the fresh token from its unpacked int4 codes times their
+    scales in f32; merged as ``_attend_ring``'s terms.  Returns
+    (S, K, G, D) f32."""
+    H, hd = k4.shape[1], qg.shape[-1]
+    scale = hd ** -0.5
+    qb = qg.to(torch.bfloat16)
+    kc, vc = cache.k[li], cache.v[li]  # (S, H, T, hd/2) packed
+    ksc, vsc = cache.k_scale[li], cache.v_scale[li]
+    sc1 = _planes_dot(qb, kc, torch.bfloat16)
+    sc1 = sc1.float() * ksc[:, :, None, :].float() * scale
+    col = torch.arange(kc.shape[2], device=qg.device)
+    m1, p1, l1 = _flash_term(sc1, col[None, None, None, :]
+                             < rs.lengths0[:, None, None, None])
+    pv1 = (p1 * vsc[:, :, None, :].float()).to(torch.bfloat16)
+    ctx1 = _planes_pv(pv1, vc, torch.bfloat16).float()
+    rkv, rsc = rs.ring.kv[li], rs.ring.s[li]  # (S, 2H, W, hd/2), (S, 2H, W)
+    qf = qb.float()
+    sc2 = _planes_dot(qf, rkv[:, :H], torch.float32)
+    sc2 = sc2 * rsc[:, :H, None, :].float() * scale
+    wcol = torch.arange(rkv.shape[2], device=qg.device)
+    m2, p2, l2 = _flash_term(sc2, wcol < rs.pos)
+    ctx2 = _planes_pv(p2 * rsc[:, H:, None, :].float(), rkv[:, H:],
+                      torch.float32)
+    kf = unpack_kv4(k4[:, :, 0]) * k4s.float()  # k4s (S, H, 1)
+    v3 = unpack_kv4(v4[:, :, 0]) * v4s.float()
+    sc3 = torch.matmul(qf, kf[..., None])[..., 0] * scale
+    return _merge3(m1, l1, ctx1, m2, l2, ctx2, sc3, v3)
 
 
 def _block_apply_decode(sw: ServingWeights, entry, x: torch.Tensor, cos,
                         sin, cache: KVCache, li: int, lengths: torch.Tensor,
                         impl: str, moe: MoEOptions = MoEOptions(),
                         ring: Optional[RingStep] = None) -> torch.Tensor:
-    """One decode block on (S, 1, H) through the attention route ``impl``
-    (module docstring); the fresh token ends up in the cache at each
-    slot's length, or with ``ring`` in the step's fresh tokens."""
-    arch, ab = sw.arch, sw.act_bits
+    """One decode block on (S, 1, H) through the decode body ``impl`` (a
+    value of ``ROUTES`` but the generic path; module docstring); the fresh
+    token ends up in the cache at each slot's length, or with ``ring`` in
+    the step's fresh tokens (packed int4 on a kv4 cache's ring)."""
+    arch = sw.arch
     S = x.shape[0]
     nh, nkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
     q, k, v = _decode_qkv(sw, entry, x)
@@ -497,15 +620,22 @@ def _block_apply_decode(sw: ServingWeights, entry, x: torch.Tensor, cos,
     v = v.reshape(S, 1, nkv, hd).transpose(1, 2)
     q, k = A.qk_normed(arch, entry, q, k)
     q, k = A.apply_rope(q, k, cos, sin)
-    kq, ks = quantize_kv(k)
-    vq, vs = quantize_kv(v)
     # q head h attends kv head h // groups -> (S, nkv, G, hd)
     qg = q[:, :, 0, :].reshape(S, nkv, nh // nkv, hd)
     if ring is not None:
-        ctx = _attend_ring(qg, kq, ks, vq, vs, cache, li, ring)
-        ring.fresh.append((kq, ks, vq, vs))
-    elif impl in ("xla", "xla8a", "xla8r"):
+        kv4 = cache.bits == 4
+        quant = quantize_kv4 if kv4 else quantize_kv
+        fresh = (*quant(k), *quant(v))
+        ctx = (_attend_ring4 if kv4 else _attend_ring)(qg, *fresh, cache,
+                                                       li, ring)
+        ring.fresh.append(fresh)
+        return _decode_tail(sw, entry, x, ctx, moe)
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    if impl == "xla8a":
         ctx = _attend_xla8a(qg, kq, ks, vq, vs, cache, li, lengths)
+    elif impl == "xla8":
+        ctx = _attend_xla8(qg, kq, ks, vq, vs, cache, li, lengths)
     elif impl == "pallas":
         ctx = decode_attention_i8(
             qg, cache.k[li], cache.k_scale[li], cache.v[li],
@@ -531,11 +661,19 @@ def _block_apply_decode(sw: ServingWeights, entry, x: torch.Tensor, cos,
                          lengths)
         else:
             append_kv_bd(cache, li, kq, ks, vq, vs, lengths)
-    ctx = ctx.reshape(S, 1, nh * hd).to(x.dtype)
+    return _decode_tail(sw, entry, x, ctx, moe)
+
+
+def _decode_tail(sw: ServingWeights, entry, x: torch.Tensor,
+                 ctx: torch.Tensor, moe: MoEOptions) -> torch.Tensor:
+    """The decode block after attention: the o projection (fused where
+    ``fused_ok``), the residual and the MLP."""
+    S = x.shape[0]
+    ctx = ctx.reshape(S, 1, -1).to(x.dtype)
     if fused_ok(sw, entry["attn.o"]):
         h = x + _flin(sw, entry["attn.o"], ctx[:, 0], False)[:, None]
     else:
-        h = x + apply_qlinear(entry["attn.o"], ctx, act_bits=ab)
+        h = x + apply_qlinear(entry["attn.o"], ctx, act_bits=sw.act_bits)
     return _decode_mlp(sw, entry, h, moe)
 
 
@@ -544,14 +682,17 @@ class LLMEngine:
     (the card unless ``device="cpu"``).  The weights must already be on
     that device.
 
-    ``kv_bits`` 8, 4 or "auto" (4 from ``max_len`` 4096 on, as in the JAX
-    engine); ``attn_impl`` "auto", "xla" (or "xla8a"), "xla8r", "bd",
-    "bds", "bd4" or "pallas" (module docstring; a MoE model always takes
-    ``xla``, so it serves at kv8); ``decode_chunk`` the decode steps per
-    chunk (1: per-step decode; "xla8r" without a chunk falls back to
-    "xla", as in JAX).  ``moe_gather_max``, ``moe_grouped``,
+    ``kv_bits`` 8, 4, 16 or "auto" (4 from ``max_len`` 4096 on, as in
+    the JAX engine); ``attn_impl`` "auto", "xla", "xla8a", "xla8",
+    "xla8r", "xla4r", "bd", "bds", "bd4" or "pallas", resolved to a decode
+    body by ``ROUTES`` (module docstring; a MoE model always takes
+    ``xla``); ``decode_chunk`` the decode steps per chunk (1: per-step
+    decode; "xla8r" and "xla4r" fall back to "xla" without a chunk or at
+    other bits, as in JAX).  ``moe_gather_max``, ``moe_grouped``,
     ``moe_grouped_min`` and ``moe_smallm`` set the expert routes
-    (``MoEOptions``).  Other JAX routes raise ``NotImplementedError``."""
+    (``MoEOptions``).  ``kv_bits=8`` with ``attn_impl="bd4"`` raises
+    ``NotImplementedError`` (a fault of the JAX engine, ``_unported``), as
+    do JAX's other names."""
 
     def __init__(self, weights: ServingWeights, max_slots: int = 8,
                  max_len: int = 1024, kv_bits: Union[int, str] = 8,
@@ -568,6 +709,8 @@ class LLMEngine:
                              f"engine on {self.device}")
         if kv_bits == "auto":
             kv_bits = 4 if max_len >= 4096 else 8
+        if kv_bits not in (4, 8, 16):
+            raise ValueError("kv_bits is 4, 8, 16 or 'auto'")
         self.decode_chunk = max(1, int(decode_chunk))
         chunked = self.decode_chunk > 1
         if attn_impl == "auto":
@@ -579,16 +722,35 @@ class LLMEngine:
                 "REPORT r4); use attn_impl='auto'", stacklevel=2)
         if weights.arch.moe is not None:
             attn_impl = "xla"  # as the JAX engine routes MoE blocks
+        # the rings are the chunk's window, each on its own cache
         if attn_impl == "xla8r" and (kv_bits != 8 or not chunked):
-            attn_impl = "xla"  # the ring is the chunk's window
+            attn_impl = "xla"
+        if attn_impl == "xla4r" and (kv_bits != 4 or not chunked):
+            attn_impl = "xla"
         if (kv_bits, attn_impl) not in ROUTES:
             raise NotImplementedError(
                 f"kv_bits={kv_bits} with attn_impl={attn_impl!r} is not "
-                f"ported (ROADMAP {_unported(kv_bits, attn_impl)}); the port "
-                f"serves {sorted(ROUTES)}")
+                f"ported ({_unported(kv_bits, attn_impl)}); the port serves "
+                f"{sorted(ROUTES)}")
         self.attn_impl = attn_impl
-        # a chunked kv8 xla engine decodes on the ring (JAX's _use_xla8)
-        self.ring = chunked and attn_impl in ("xla", "xla8r")
+        self.body = ROUTES[(kv_bits, attn_impl)]
+        self.layout = {"bd4": "bd4", "bd": "bd", "bds": "bd"}.get(self.body,
+                                                                 "hhd")
+        # a chunked engine decodes on a ring where JAX's _decode_chunk
+        # does: kv8 xla (its _use_xla8) or xla8r, and kv4 xla4r
+        self.ring = chunked and (attn_impl == "xla4r" or (
+            kv_bits == 8 and attn_impl in ("xla", "xla8r")))
+        # the physical time axis: a ring chunk entered at max_len - k
+        # flushes a whole chunk-wide slab, so a chunked hhd engine whose
+        # attn_impl is xla, xla8r or xla4r has a chunk of headroom (JAX
+        # adds it whether or not it rides the ring); bd and bd4 buffers
+        # round up to the flash block.  The lengths mask keeps the logical
+        # max_len.
+        self.buf_len = max_len + (
+            self.decode_chunk if chunked and self.layout == "hhd"
+            and attn_impl in ("xla", "xla8r", "xla4r") else 0)
+        if self.layout != "hhd":
+            self.buf_len = -(-self.buf_len // BD4_ALIGN) * BD4_ALIGN
         self.moe = MoEOptions(moe_gather_max, moe_grouped, moe_grouped_min,
                               moe_smallm)
         self.sw = weights
@@ -605,19 +767,9 @@ class LLMEngine:
     def reset(self):
         a = self.arch
         if self.cache is None:
-            layout = {"bd4": "bd4", "bd": "bd", "bds": "bd"}.get(
-                self.attn_impl, "hhd")
-            # the physical time axis: a ring chunk entered at max_len - k
-            # flushes a whole chunk-wide slab, so the ring's cache has a
-            # chunk of headroom; bd and bd4 buffers round up to the flash
-            # block.  The lengths mask keeps the logical max_len.
-            self.buf_len = self.max_len + (self.decode_chunk if self.ring
-                                           else 0)
-            if layout != "hhd":
-                self.buf_len = -(-self.buf_len // BD4_ALIGN) * BD4_ALIGN
             self.cache = KVCache.create(
                 a.num_layers, self.max_slots, a.num_kv_heads, self.buf_len,
-                a.head_dim, bits=self.kv_bits, layout=layout,
+                a.head_dim, bits=self.kv_bits, layout=self.layout,
                 device=self.device)
         else:
             self.cache.zero_()
@@ -670,15 +822,39 @@ class LLMEngine:
         lengths = self.lengths
         x = sw.embed[cur_tokens][:, None, :]  # (S, 1, H)
         cos, sin = A.rope_cos_sin(arch, lengths[:, None])  # (S, 1, D)
+        generic = ring is None and self.body == "generic"
+        if generic:
+            # the buffer's columns and the fresh token at column T
+            T = self.buf_len
+            j = torch.arange(T + 1, device=self.device)
+            visible = (j < lengths[:, None, None, None]) | (j == T)
+            mask = torch.where(visible, 0.0, torch.finfo(torch.float32).min)
         for li, entry in enumerate(sw.blocks):
-            x = _block_apply_decode(sw, entry, x, cos, sin, self.cache, li,
-                                    lengths, self.attn_impl, self.moe, ring)
+            if generic:
+                x, k_new, v_new = _block_apply(
+                    sw, entry, x, cos, sin, mask, self.moe,
+                    *read_kv(self.cache, li))
+                append_kv(self.cache, li, k_new, v_new, lengths)
+            else:
+                x = _block_apply_decode(sw, entry, x, cos, sin, self.cache,
+                                        li, lengths, self.body, self.moe,
+                                        ring)
         if ring is not None:
             ring.write()
         xl = A.rmsnorm(x, sw.norm.get("weight"), arch.rms_eps)
         logits = head_logits(sw, xl)[:, 0]
         self.lengths = torch.where(active_mask, lengths + 1, lengths)
         return logits
+
+    def ring_step(self, width: int) -> RingStep:
+        """A ring chunk's first step at the slots' current lengths: a ring
+        of ``width`` columns, its entries packed as the cache's (head_dim/2
+        bytes on a kv4 cache)."""
+        a = self.arch
+        return RingStep(Ring.create(a.num_layers, self.max_slots,
+                                    a.num_kv_heads, width,
+                                    self.cache.k.shape[-1], self.device),
+                        self.lengths.clone())
 
     @torch.no_grad()
     def _decode_chunk(self, n: int, active_mask: torch.Tensor,
@@ -690,12 +866,7 @@ class LLMEngine:
         the last step."""
         buf = torch.empty((n, self.max_slots), dtype=torch.int64,
                           device=self.device)
-        ring = None
-        if self.ring:
-            a = self.arch
-            ring = RingStep(Ring.create(a.num_layers, self.max_slots,
-                                        a.num_kv_heads, n, a.head_dim,
-                                        self.device), self.lengths.clone())
+        ring = self.ring_step(n) if self.ring else None
         cur = self.cur_tokens
         for i in range(n):
             if ring is not None:

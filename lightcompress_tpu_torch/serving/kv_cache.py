@@ -1,17 +1,21 @@
 """Slot KV cache (port of lightcompress_tpu/serving/kv_cache.py: the dense
-``hhd`` layout at 8 and 16 bits, the block-diagonal int8 ``bd`` slabs and
-the nibble-packed ``bd4`` slabs).
+``hhd`` layout at 4, 8 and 16 bits, the block-diagonal int8 ``bd`` slabs
+and the nibble-packed ``bd4`` slabs).
 
 ``hhd``: (L, S, H, T, D) per slot, int8 with a bf16 scale per (head, token)
-or bf16 passthrough.  ``bd`` (kv8, for ``ops.attention``'s #18/#19): K
+or bf16 passthrough; at 4 bits (L, S, H, T, D/2) int8 bytes holding two
+int4 codes (``quantize_kv4``'s half planes) with a bf16 scale per (head,
+token).  ``bd`` (kv8, for ``ops.attention``'s #18/#19): K
 feature-major (L, S, H*D, T) with row h*D + d holding feature d of head h,
 V time-major (L, S, T, H*D), int8 codes, bf16 scales (L, S, H, T).
 ``bd4`` (kv4, for #20/#21): the same slabs of int8 bytes holding two int4
 codes (``quantize_kv4``), K (L, S, H*D/2, T), V (L, S, T, H*D/2).
 Appends write in place into the preallocated buffers (the JAX package's
 dynamic_update_slice loops, with donation, do the same).  A decode chunk's
-ring (``flush_ring_to_cache``) is written into the ``hhd`` cache once per
-chunk.
+ring (``flush_ring_to_cache``; at 4 bits its entries are packed as the
+cache's) is written into the ``hhd`` cache once per chunk.  ``read_kv``
+and ``read_kv_slot`` dequantize to bf16 (the per-step read of JAX's
+generic decode path and of its chunked prefill).
 """
 
 from __future__ import annotations
@@ -26,8 +30,8 @@ from ..device import DeviceLike, div, resolve_device
 
 @dataclasses.dataclass
 class KVCache:
-    k: torch.Tensor  # (L, S, H, T, D) int8 | bf16; bd: (L, S, H*D, T);
-    #                  bd4: (L, S, H*D/2, T)
+    k: torch.Tensor  # (L, S, H, T, D) int8 | bf16; kv4: (L, S, H, T, D/2);
+    #                  bd: (L, S, H*D, T); bd4: (L, S, H*D/2, T)
     v: torch.Tensor  # bd: (L, S, T, H*D); bd4: (L, S, T, H*D/2)
     k_scale: Optional[torch.Tensor]  # (L, S, H, T) bf16 (int8, int4 only)
     v_scale: Optional[torch.Tensor]
@@ -58,15 +62,14 @@ class KVCache:
                 bits, layout)
         if layout != "hhd":
             raise ValueError(f"unknown cache layout {layout!r}")
-        shape = sshape + (head_dim,)
-        if bits == 8:
+        if bits in (4, 8):
+            if bits == 4 and head_dim % 2:
+                raise ValueError("the kv4 cache packs an even head_dim")
+            shape = sshape + (head_dim * bits // 8,)
             return KVCache(zeros(shape, torch.int8), zeros(shape, torch.int8),
                            zeros(sshape, torch.bfloat16),
-                           zeros(sshape, torch.bfloat16), 8)
-        if bits == 4:
-            raise NotImplementedError(
-                "the kv4 hhd cache (the JAX XLA unpack route) is not ported; "
-                "kv4 takes layout='bd4'")
+                           zeros(sshape, torch.bfloat16), bits)
+        shape = sshape + (head_dim,)
         if bits != 16:
             raise ValueError("the slot cache holds int4, int8 or bf16")
         return KVCache(zeros(shape, torch.bfloat16),
@@ -144,25 +147,39 @@ def append_slots(cache: KVCache, layer: int, slots: torch.Tensor,
     return cache
 
 
-def _positions(cache: KVCache, lengths: torch.Tensor) -> torch.Tensor:
-    """Each slot's write position; as with dynamic_update_slice, a position
-    past the buffer clamps to its last column."""
-    return lengths.clamp(max=cache.k_scale.shape[3] - 1)
+def _positions(cache: KVCache, lengths: torch.Tensor,
+               n: int = 1) -> torch.Tensor:
+    """Each slot's first write position for ``n`` tokens; as with
+    dynamic_update_slice, a start past T - n clamps to T - n (every layout
+    keeps its time axis at dimension 3)."""
+    return lengths.clamp(0, cache.k.shape[3] - n)
 
 
 def append_kv_quantized(cache: KVCache, layer: int, kq, ks, vq, vs,
                         lengths: torch.Tensor) -> KVCache:
-    """Decode: write every slot's one fresh token, already quantized
-    ((S, H, 1, D) codes, (S, H, 1) scales), at that slot's length (int8
-    ``hhd`` cache)."""
-    S = kq.shape[0]
-    pos = _positions(cache, lengths)
-    rows = torch.arange(S, device=lengths.device)
-    cache.k[layer, rows, :, pos] = kq[:, :, 0].to(cache.k.dtype)
-    cache.v[layer, rows, :, pos] = vq[:, :, 0].to(cache.v.dtype)
-    cache.k_scale[layer, rows, :, pos] = ks[:, :, 0]
-    cache.v_scale[layer, rows, :, pos] = vs[:, :, 0]
+    """Decode: write every slot's fresh tokens, already quantized or cast
+    ((S, H, n, D) codes, (S, H, n) scales or None), at that slot's length
+    (the ``hhd`` cache)."""
+    S, _, n = kq.shape[:3]
+    pos = _positions(cache, lengths, n)[:, None] + torch.arange(
+        n, device=lengths.device)
+    rows = torch.arange(S, device=lengths.device)[:, None]
+    # advanced indices split by a slice lead the result: (S, n, H, ...)
+    cache.k[layer, rows, :, pos] = kq.transpose(1, 2).to(cache.k.dtype)
+    cache.v[layer, rows, :, pos] = vq.transpose(1, 2).to(cache.v.dtype)
+    if ks is not None:
+        cache.k_scale[layer, rows, :, pos] = ks.transpose(1, 2)
+        cache.v_scale[layer, rows, :, pos] = vs.transpose(1, 2)
     return cache
+
+
+def append_kv(cache: KVCache, layer: int, k_new: torch.Tensor,
+              v_new: torch.Tensor, lengths: torch.Tensor) -> KVCache:
+    """Decode on the ``hhd`` cache: quantize (S, H, n, D) K/V by the
+    cache's bits (``quantize_kv4``, ``quantize_kv`` or a cast to bf16) and
+    write them at each slot's length (JAX's ``append_kv``)."""
+    return append_kv_quantized(cache, layer, *_quantized(cache, k_new, v_new),
+                               lengths)
 
 
 def append_kv_bd(cache: KVCache, layer: int, kq: torch.Tensor,
@@ -183,10 +200,11 @@ def append_kv_bd(cache: KVCache, layer: int, kq: torch.Tensor,
 
 @dataclasses.dataclass
 class Ring:
-    """A decode chunk's fresh tokens (``xla8r``): k and v of every layer in
-    one int8 buffer ``kv`` (L, S, 2H, W, D) (k in head rows [0, H), v in
-    [H, 2H)) and their bf16 scales ``s`` (L, S, 2H, W); column w holds the
-    token of chunk step w (the JAX engine's fused ring)."""
+    """A decode chunk's fresh tokens (``xla8r``, ``xla4r``): k and v of
+    every layer in one int8 buffer ``kv`` (L, S, 2H, W, D) (k in head rows
+    [0, H), v in [H, 2H); the ``xla4r`` ring's D is the packed head_dim/2)
+    and their bf16 scales ``s`` (L, S, 2H, W); column w holds the token of
+    chunk step w (the JAX engine's fused ring)."""
     kv: torch.Tensor
     s: torch.Tensor
 
@@ -201,8 +219,8 @@ class Ring:
 
 def flush_ring_to_cache(cache: KVCache, ring: Ring,
                         lengths0: torch.Tensor) -> KVCache:
-    """Write a chunk's ring into the int8 ``hhd`` cache, every layer at
-    once: slot s's W columns at positions lengths0[s] .. + W - 1 (the
+    """Write a chunk's ring into the int8 or packed int4 ``hhd`` cache,
+    every layer at once: slot s's W columns at positions lengths0[s] .. + W - 1 (the
     chunk-entry length).  As with dynamic_update_slice, a start past
     T - W clamps to T - W (the engine's flush headroom keeps real tokens
     clear of that).  Columns of inactive slots land past their length,
@@ -222,19 +240,37 @@ def flush_ring_to_cache(cache: KVCache, ring: Ring,
     return cache
 
 
+def _dequant(codes: torch.Tensor, scale: torch.Tensor,
+             bits: int) -> torch.Tensor:
+    """(..., T, D) codes (packed D/2 at 4 bits) times their (..., T)
+    scales in f32, as bf16."""
+    c = unpack_kv4(codes) if bits == 4 else codes.float()
+    return (c * scale[..., None].float()).to(torch.bfloat16)
+
+
+def read_kv(cache: KVCache, layer: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dequantized (S, H, T, D) bf16 K/V of one layer of the ``hhd``
+    cache (JAX's ``read_kv``); a bf16 cache as stored."""
+    if cache.layout != "hhd":
+        raise ValueError("read_kv reads the hhd cache")
+    k, v = cache.k[layer], cache.v[layer]
+    if cache.bits == 16:
+        return k, v
+    return (_dequant(k, cache.k_scale[layer], cache.bits),
+            _dequant(v, cache.v_scale[layer], cache.bits))
+
+
 def read_kv_slot(cache: KVCache, layer: int, slot: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dequantized (1, H, T, D) bf16 views of one slot of one layer."""
     k, v = cache.k[layer, slot], cache.v[layer, slot]
     if cache.bits == 16:
         return k[None], v[None]
-    ksc = cache.k_scale[layer, slot][..., None].float()
-    vsc = cache.v_scale[layer, slot][..., None].float()
+    ksc, vsc = cache.k_scale[layer, slot], cache.v_scale[layer, slot]
     if cache.layout in ("bd", "bd4"):
-        H, T = ksc.shape[:2]
+        H, T = ksc.shape
         k = k.reshape(H, -1, T).transpose(1, 2)
         v = v.reshape(T, H, -1).transpose(0, 1)
-        if cache.layout == "bd4":
-            k, v = unpack_kv4(k), unpack_kv4(v)
-    k, v = k.float() * ksc, v.float() * vsc
-    return k[None].to(torch.bfloat16), v[None].to(torch.bfloat16)
+    return (_dequant(k, ksc, cache.bits)[None],
+            _dequant(v, vsc, cache.bits)[None])

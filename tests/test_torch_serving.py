@@ -144,6 +144,16 @@ def test_slot_append_and_read():
     assert (kr[0, :, 5:] == 0).all() and (vr[0, :, :5] == -kr[0, :, :5]).all()
 
 
+def _sync_cache(jcache, tcache):
+    """Copy a JAX cache's codes and scales into the port's (a bf16 cache
+    has no scales)."""
+    for name in ("k", "v", "k_scale", "v_scale"):
+        src = getattr(jcache, name)
+        if src is not None:
+            getattr(tcache, name).copy_(torch.from_numpy(
+                np.array(src.astype(jnp.float32))))
+
+
 def _teacher_forced(jeng, teng, tokens, n_prompt, n_steps, sync=False):
     """Feed one fixed token stream through prefill and decode of both
     engines (slot 0 of 2); per step the two logits vectors.  With
@@ -165,9 +175,7 @@ def _teacher_forced(jeng, teng, tokens, n_prompt, n_steps, sync=False):
     active = [True] + [False] * (jeng.max_slots - 1)
     for i in range(n_steps):
         if sync:
-            for name in ("k", "v", "k_scale", "v_scale"):
-                getattr(teng.cache, name).copy_(torch.from_numpy(
-                    np.asarray(getattr(cache, name).astype(jnp.float32))))
+            _sync_cache(cache, teng.cache)
         tok = tokens[n_prompt + i]
         jcur = jcur.at[0].set(tok)
         tcur[0] = tok

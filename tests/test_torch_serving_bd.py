@@ -157,7 +157,8 @@ def test_greedy_generate_matches_jax(weights, case):
 @pytest.mark.parametrize("impl", ["bd", "bds"])
 def test_bd_engine_buffer_and_warning(weights, impl):
     """The bd buffer rounds max_len up to 512, as JAX's does; bd/bds carry
-    JAX's probe-only notice; kv4 has no bd route."""
+    JAX's probe-only notice; at kv4 the name takes JAX's generic path on
+    the kv4 hhd cache, as JAX's engine builds it."""
     jsw, tsw = weights[16]
     kw = dict(max_slots=1, prefill_buckets=(16,))
     with pytest.warns(UserWarning, match="probe-only"):
@@ -168,6 +169,12 @@ def test_bd_engine_buffer_and_warning(weights, impl):
     assert (e.buf_len, e.cache.k.shape, e.cache.v.shape) == (
         1024, (2, 1, 2 * 128, 1024), (2, 1, 1024, 2 * 128))
     assert e.buf_len == j.buf_len
-    with pytest.raises(NotImplementedError):
-        LLMEngine(tsw, max_len=64, kv_bits=4, attn_impl=impl, device="cpu",
-                  **kw)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        e = LLMEngine(tsw, max_len=64, kv_bits=4, attn_impl=impl,
+                      device="cpu", **kw)
+        j = JEngine(jsw, max_len=64, kv_bits=4,
+                    attn_impl=impl + "_interpret", **kw)
+    assert (e.body, e.cache.bits, e.cache.layout, e.buf_len) == (
+        "generic", j.cache.bits, j.cache.layout, j.buf_len)
+    assert tuple(e.cache.k.shape) == tuple(j.cache.k.shape)

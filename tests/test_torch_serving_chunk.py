@@ -124,11 +124,15 @@ def test_ring_retire_and_readmit(weights):
     assert agree >= total - 3, (got, ref)
 
 
-def _ring_teacher_forced(jeng, teng, tokens, n_prompt, n_steps, W):
+def _ring_teacher_forced(jeng, teng, tokens, n_prompt, n_steps, W,
+                         sync=False, jit=True):
     """One fixed token stream through prefill and ring chunks of W steps
     in both engines (slot 0 of 2, the ring flushed after each chunk); per
-    step the two logits vectors."""
-    from lightcompress_tpu_torch.serving.engine import RingStep
+    step the two logits vectors.  The rings' entries are as wide as the
+    caches' (head_dim/2 packed bytes on a kv4 cache).  With ``sync`` the
+    port is handed JAX's cache and ring before every step; without
+    ``jit`` JAX's ring step runs op by op."""
+    from test_torch_serving import _sync_cache
 
     T = jeng.prefill_buckets[0]
     ids = np.zeros((1, T), np.int32)
@@ -144,15 +148,19 @@ def _ring_teacher_forced(jeng, teng, tokens, n_prompt, n_steps, W):
     a = jeng.arch
     shape = (a.num_layers, 2, 2 * a.num_kv_heads, W)
     active = [True, False]
-    step = jax.jit(jeng._decode_step_ring)
+    step = jax.jit(jeng._decode_step_ring) if jit else \
+        jeng._decode_step_ring
     for c0 in range(0, n_steps, W):
-        ring = {"rkv": jnp.zeros(shape + (a.head_dim,), jnp.int8),
+        ring = {"rkv": jnp.zeros(shape + (teng.cache.k.shape[-1],),
+                                 jnp.int8),
                 "rs": jnp.zeros(shape, jnp.bfloat16)}
-        rs = RingStep(tkv.Ring.create(a.num_layers, 2, a.num_kv_heads, W,
-                                      a.head_dim, teng.device),
-                      teng.lengths.clone())
+        rs = teng.ring_step(W)
         lengths0 = lengths
         for w in range(W):
+            if sync:
+                _sync_cache(cache, teng.cache)
+                rs.ring.kv.copy_(_t(ring["rkv"]))
+                rs.ring.s.copy_(_t(ring["rs"]))
             tok = tokens[n_prompt + c0 + w]
             ring, lengths, jlog = step(
                 jeng.sw, cache, ring, lengths0, lengths,
@@ -261,14 +269,21 @@ def test_chunk_buffer_matches_jax(weights, kw, buf_len):
 
 
 def test_chunked_kv4_raises(weights):
-    """A chunked kv4 engine takes the kv4 ring ``xla4r`` in JAX, which is
-    not ported (ROADMAP A6b); the per-step bd4 route may still be chunked."""
+    """What a chunked kv4 engine takes, as JAX's ``_decode_chunk``: the kv4
+    ring ``xla4r`` (``auto`` or named, a chunk of flush headroom); a
+    chunked kv4 ``xla`` engine loops the per-step generic decode (JAX's
+    headroom too); ``bd4`` stays per step; the ``xla8`` concat variant
+    serves, per step inside a chunk.  Only ``kv_bits=8`` with ``bd4``
+    still raises (a fault of the JAX engine)."""
     _, tsw = weights[16]
-    for kw in (dict(kv_bits=4), dict(kv_bits="auto", max_len=4096),
-               dict(kv_bits=4, attn_impl="xla4r")):
-        with pytest.raises(NotImplementedError, match="A6b"):
-            _port(tsw, decode_chunk=4, **kw)
-    eng = _port(tsw, kv_bits=4, attn_impl="bd4", decode_chunk=4)
-    assert (eng.attn_impl, eng.ring) == ("bd4", False)
-    with pytest.raises(NotImplementedError, match="xla8"):
-        _port(tsw, attn_impl="xla8")
+    for kw, impl, ring, buf in (
+            (dict(kv_bits=4), "xla4r", True, 68),
+            (dict(kv_bits="auto", max_len=4096), "xla4r", True, 4100),
+            (dict(kv_bits=4, attn_impl="xla4r"), "xla4r", True, 68),
+            (dict(kv_bits=4, attn_impl="xla"), "xla", False, 68),
+            (dict(kv_bits=4, attn_impl="bd4"), "bd4", False, 512),
+            (dict(attn_impl="xla8"), "xla8", False, 64)):
+        eng = _port(tsw, decode_chunk=4, **kw)
+        assert (eng.attn_impl, eng.ring, eng.buf_len) == (impl, ring, buf)
+    with pytest.raises(NotImplementedError, match="reference faults"):
+        _port(tsw, decode_chunk=4, attn_impl="bd4")

@@ -84,8 +84,11 @@ def test_greedy_generate_matches_jax(weights, case):
 
 
 def test_engine_routes(weights):
-    """``auto`` picks as the JAX engine does on a TPU; unported kv4 routes
-    raise instead of rerouting; ``pallas`` carries the probe-only notice."""
+    """``auto`` picks as the JAX engine does on a TPU; the kv4 names JAX
+    sends to its generic path (``xla``, ``pallas``, ``xla4r`` without a
+    chunk, which falls back to ``xla``) serve there on the kv4 ``hhd``
+    cache; ``kv_bits=8`` with ``bd4`` still raises (a fault of the JAX
+    engine); ``pallas`` carries the probe-only notice."""
     _, tsw = weights[16]
     kw = dict(max_slots=1, prefill_buckets=(16,), device="cpu")
     assert LLMEngine(tsw, max_len=4096, kv_bits="auto", **kw).attn_impl \
@@ -95,11 +98,14 @@ def test_engine_routes(weights):
                                                               1024)
     assert LLMEngine(tsw, max_len=2048, kv_bits="auto", **kw).attn_impl \
         == "xla"
-    for bad in (dict(kv_bits=4, attn_impl="xla"),
-                dict(kv_bits=4, attn_impl="pallas"),
-                dict(kv_bits=8, attn_impl="bd4"),
-                dict(kv_bits=4, attn_impl="xla4r")):
-        with pytest.raises(NotImplementedError):
-            LLMEngine(tsw, max_len=64, **bad, **kw)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for impl, want in (("xla", "xla"), ("pallas", "pallas"),
+                           ("xla4r", "xla")):
+            e = LLMEngine(tsw, max_len=64, kv_bits=4, attn_impl=impl, **kw)
+            assert (e.attn_impl, e.body, e.cache.layout, e.buf_len,
+                    e.cache.k.shape[-1]) == (want, "generic", "hhd", 64, 64)
+    with pytest.raises(NotImplementedError, match="reference faults"):
+        LLMEngine(tsw, max_len=64, kv_bits=8, attn_impl="bd4", **kw)
     with pytest.warns(UserWarning, match="probe-only"):
         LLMEngine(tsw, max_len=64, attn_impl="pallas", **kw)

@@ -337,16 +337,18 @@ def test_route_choice_matches_jax_conditions():
 
 def test_engine_routes_and_refusals(monkeypatch):
     """A MoE engine takes the xla attention route whatever it is asked
-    (as JAX forces it), so kv4 raises; the default routes a 2-slot decode
-    through #8's plain version and a 32-row prefill through #6's."""
+    (as JAX forces it), so kv4 serves on the generic path of the kv4 hhd
+    cache; the default routes a 2-slot decode through #8's plain version
+    and a 32-row prefill through #6's."""
     _, tsw, _ = _weights("planes", 8, jnp.bfloat16)
     with pytest.warns(UserWarning, match="probe-only"):
         eng = LLMEngine(tsw, max_slots=2, max_len=64, attn_impl="pallas",
                         device="cpu")
     assert eng.attn_impl == "xla"
     for kw in (dict(kv_bits=4), dict(kv_bits="auto", max_len=4096)):
-        with pytest.raises(NotImplementedError):
-            LLMEngine(tsw, max_slots=2, device="cpu", **kw)
+        eng = LLMEngine(tsw, max_slots=2, device="cpu", **kw)
+        assert (eng.attn_impl, eng.kv_bits, eng.cache.layout, eng.body) \
+            == ("xla", 4, "hhd", "generic")
     with pytest.raises(ValueError):
         LLMEngine(tsw, max_slots=2, device="cpu", moe_grouped="1")
     calls = []
