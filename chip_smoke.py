@@ -62,7 +62,14 @@ Phases (each prints one JSON line with its seconds):
      and decode);
   6. the engine's prefill logits (the ``xla`` and ``bd`` engines)
      against a forward of the same serving weights through the plain
-     versions;
+     versions; then the W8A8 build (W8 per channel, symmetric, ``rows``;
+     ``int8_matmul_dynamic`` on every linear) and the e4m3 build (its
+     first 8 blocks, dequant-then-matmul) through the kv8 ``xla`` engine
+     (no W4 or attention kernel launched), each with torch.profiler over
+     two decode steps and its teacher-forced decode logits against the
+     plain forward over the dequantized weights (corr >= 0.999), and
+     ``int8_matmul_dynamic`` at the q and down shapes, M 1, 8 and 256, bit
+     for bit card vs CPU (``engine_w8a8``, ``engine_fp8``);
   7. MoE: the five expert kernels (#6 stacked on each of its bodies at B
      8, 32 and 256, bit for bit, at Mixtral-8x7B's and Qwen3-30B-A3B's
      gate/up shapes, #8 gathered at 1-4 tokens bit for bit, #9 grouped at
@@ -93,7 +100,8 @@ Phases (each prints one JSON line with its seconds):
      the plain versions;
   9. a small Llama through each engine route (the rings, the kv4 hhd
      cache's generic path, kv16 and xla8 among them; the last four handed
-     the CPU's cache and ring before each decode step) and
+     the CPU's cache and ring before each decode step), its W8A8 and e4m3
+     builds, and
      fused build, a small Mixtral-shaped model through each expert route,
      and a small Qwen3-MoE-shaped model through the grouped route with the
      int8 down and the small-M route, on the card against the same on the
@@ -129,11 +137,18 @@ the codes' disagreement beside a CPU run fed U moved by one ulp).  Then a random
 Llama-3-8B
 (full width and depth, bf16, seed 0) written as a safetensors checkpoint
 by the port's ``save_params`` and read back (``calib_setup``); the
-pipeline on it (``run_pipeline``: AWQ W4 g128, 32 x 512 synthetic
+pipeline on it (``run_pipeline``: AWQ W4 g128, 16 x 512 synthetic
 calibration tokens, PPL at pretrain, transformed and fake_quant, token
-consistency; ``calib_awq``); the AWQ model's serving weights
-(``algo=``) through the W4A8 engine with exact launches and against the
-plain versions (``engine_calibrated``); the RTN pipeline's fake-quant PPL
+consistency; ``calib_awq``); the AWQ model's real-quant exports through
+``run_exports`` (AutoAWQ over every block; vllm, native and trtllm over
+two), each read back and every linear equal to ``real_quant_weight``'s
+codes, scales and zeros (``export_real_quant``); the AWQ model's serving
+weights (``algo=``) through the W4A8 engine with exact launches and
+against the plain versions (``engine_calibrated``), then written by
+``export_serving`` and read by ``load_serving`` (the same tensors, the
+same greedy tokens and teacher-forced logits bit for bit, exact launches;
+a fused s4 build of two blocks likewise through #13: ``serving_ckpt``);
+the RTN pipeline's fake-quant PPL
 (``calib_rtn``); the GPTQ pipeline (W4 g128, actorder, true_sequential,
 quant_out, 16 x 512 calibration tokens, PPL at pretrain and fake_quant,
 the seconds of its Hessians, factors and column loops, peak memory, and
@@ -165,6 +180,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 import warnings
 from pathlib import Path
 
@@ -192,6 +208,11 @@ from lightcompress_tpu_torch.ops import w4_matmul as W
 from lightcompress_tpu_torch.ops.qlinear import (QLinearParams,
                                                  dequant_weight, qlinear_plain,
                                                  quantize_linear)
+from lightcompress_tpu_torch.export import (_AWQ_ORDER, run_exports,
+                                           unpack_int4)
+from lightcompress_tpu_torch.models import st_io
+from lightcompress_tpu_torch.models.base import resolve
+from lightcompress_tpu_torch.ops.scaled_matmul import int8_matmul_dynamic
 from lightcompress_tpu_torch.pipeline import run_pipeline
 from lightcompress_tpu_torch.quant import QuantSpec
 from lightcompress_tpu_torch.serving import (LLMEngine, SamplingParams,
@@ -199,6 +220,8 @@ from lightcompress_tpu_torch.serving import (LLMEngine, SamplingParams,
                                              head_logits)
 from lightcompress_tpu_torch.serving import engine as EN
 from lightcompress_tpu_torch.serving import quantized_model as QM
+from lightcompress_tpu_torch.serving.checkpoint import (export_serving,
+                                                        load_serving)
 from lightcompress_tpu_torch.serving.engine import Request
 from lightcompress_tpu_torch.serving.kv_cache import (
     KVCache, Ring, append_kv, append_kv_bd, append_slots,
@@ -2158,8 +2181,9 @@ def profiled(run, steps: int) -> dict:
     step, and the top kernels by device time."""
     run()  # warm-up
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    # device activity only: the readings are the kernels' (the host's ops
+    # would add tens of thousands of events a step and no reading)
+    acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         run()
@@ -2186,10 +2210,13 @@ def profiled(run, steps: int) -> dict:
 
 
 def plain_linear(qp, x, act_bits: int):
-    """The engine's W4 routing, through the plain versions only."""
+    """The engine's W4 routing, through the plain versions only; 8-bit
+    and float weights dequantized, then matmul (no act quant)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if qp.layout == "s4":
+    if qp.bits == 8:
+        y = qlinear_plain(x2, qp)
+    elif qp.layout == "s4":
         if act_bits == 8 and x2.shape[0] <= W.DECODE_M_MAX:
             xq, xs = W.quantize_act_per_token(x2)
             y = W.w4a8_matmul_bytes_plain(xq, xs, qp.codes, qp.scales,
@@ -2289,7 +2316,9 @@ def plain_hidden(sw, prompts, T: int, dev):
 # expert changes; its kv8 witness agreed at 15 of 16 steps, kv4 at 13,
 # each disagreement at a margin under the step's largest difference):
 # corr >= MOE_CORR_MIN at every step, the argmax shares reported beside
-# the kv8 witness's
+# the kv8 witness's; "corr999" (the W8A8 and e4m3 builds against the plain
+# forward over their dequantized weights): corr >= 0.999 at every step,
+# the argmax share reported
 DECODE_ARGMAX_MIN = 0.9
 MOE_CORR_MIN = 0.99
 
@@ -2361,6 +2390,8 @@ def decode_vs_plain(name: str, sw, prompt, cont, dev, gate: str,
             d["step"] for d in res["witness_kv8"]["argmax_differs"]}
     elif gate == "share":
         ok = res["argmax_equal_share"] >= DECODE_ARGMAX_MIN
+    elif gate == "corr999":
+        ok = res["min_corr"] >= 0.999
     else:
         ok = res["min_corr"] >= MOE_CORR_MIN
     if not (ok and res["finite"]):
@@ -2500,8 +2531,14 @@ LINEAR_FIELDS = ("codes", "scales", "zeros")
 
 
 def same_tensor(a, b) -> bool:
-    return (a is None and b is None) or (
-        a is not None and b is not None and torch.equal(a, b.cpu()))
+    if a is None or b is None:
+        return a is None and b is None
+    b = b.to(a.device)
+    if a.dtype != b.dtype:
+        return False
+    if a.element_size() == 1 and a.is_floating_point():  # e4m3, e5m2
+        a, b = a.view(torch.uint8), b.view(torch.uint8)
+    return torch.equal(a, b)
 
 
 def same_codes(sws) -> bool:
@@ -2725,6 +2762,9 @@ def phase_small_vs_cpu(dev, steps: int = 3) -> dict:
     res["routes"], ok = compare_routes(sws, prompts, forced, dev,
                                        SMALL_ROUTES)
     ok = ok and res["same_codes"]
+    w8, w8_ok = small_w8_vs_cpu(dev, model, prompts, forced)
+    res.update(w8)
+    ok = ok and w8_ok
     set_gammas(model, SEED + 2)
     for bname, (bkw, names, n, share_max) in SMALL_FUSED.items():
         sws = {d: build_serving_weights(model, WSPEC, act_bits=8, device=d,
@@ -2952,6 +2992,8 @@ class LazyBlocks:
 def serving_bytes(sw) -> int:
     """Bytes of every tensor of the serving weights."""
     def size(v):
+        if v is None:
+            return 0
         if isinstance(v, torch.Tensor):
             return v.numel() * v.element_size()
         if isinstance(v, dict):
@@ -3025,6 +3067,11 @@ CALIB_DIR = Path(__file__).resolve().parent / "build" / "calib"
 TOL_TRANSFORMED = 1e-2
 # the tiny f32 calibration, card against CPU: summation order
 TOL_SMALL_PPL = 1e-3
+
+
+# calib_awq's calibration samples of 512 tokens: 16, cut from 32 for time
+# (the AWQ search took 136-150 s of the run over 32; PERF.md lists the cut)
+AWQ_SAMPLES = 16
 
 
 def calib_config(path: str, method: str = "Awq", n_samples: int = 32,
@@ -3112,16 +3159,17 @@ def search_summary(algo) -> dict:
 
 def phase_calib_awq(dev, path: str, layers: int):
     """``run_pipeline`` on the checkpoint on the card: AWQ W4 asymmetric
-    per-group 128 (v2 transform, v1 clip), bf16, 32 synthetic calibration
-    samples of 512 tokens, synthetic PPL (seq_len 512, 8192 tokens) at
+    per-group 128 (v2 transform, v1 clip), bf16, AWQ_SAMPLES synthetic
+    calibration samples of 512 tokens, synthetic PPL (seq_len 512, 8192
+    tokens) at
     pretrain, transformed and fake_quant, token consistency.  Gates: every
     PPL finite, transformed within 1e-2 of pretrain, token consistency in
     [0, 1].  Returns the calibrated algorithm."""
     t0 = time.time()
     torch.cuda.reset_peak_memory_stats()
     tim = {}
-    results, algo = run_pipeline(calib_config(path), device=dev,
-                                 timings=tim, return_algo=True)
+    results, algo = run_pipeline(calib_config(path, n_samples=AWQ_SAMPLES),
+                                 device=dev, timings=tim, return_algo=True)
     blocks = tim.pop("blocks")
     ppl = {k: v for k, v in results.items() if k.startswith("ppl_")}
     tc = results["token_consistency"]
@@ -3138,14 +3186,19 @@ def phase_calib_awq(dev, path: str, layers: int):
     return algo
 
 
-def phase_engine_calibrated(dev, algo) -> dict:
+def phase_engine_calibrated(dev, algo) -> list:
     """The AWQ model's serving weights (``algo=``: its clipped ranges
     served) at W4A8 through the engine: 8 prompts, 32 new tokens, kv8
     ``xla``, 8 slots; #3 on every prefill linear, #2 on every decode
-    linear; then its prefill logits against the plain versions."""
+    linear; then its prefill logits against the plain versions, and its
+    serving checkpoint (``phase_serving_ckpt``, with a fused s4 build of
+    the first two blocks).  Returns the engine phases' launches."""
     t0 = time.time()
     sw = build_serving_weights(algo.model, WSPEC, act_bits=8, device=dev,
                                algo=algo)
+    sw_s4 = build_serving_weights(depth_view(algo.model, 2), WSPEC,
+                                  act_bits=8, device=dev, algo=algo,
+                                  **S4_FUSED)
     torch.cuda.synchronize()
     emit({"phase": "calibrated_build", "serving_gb": serving_bytes(sw) / 1e9,
           "seconds": time.time() - t0})
@@ -3153,12 +3206,13 @@ def phase_engine_calibrated(dev, algo) -> dict:
     free_cuda()
     layers = sw.arch.num_layers
     prompts = make_prompts(8, sw.arch.vocab_size)
+    outs = []
     launches = engine_phase(
-        "engine_calibrated", sw, prompts, 32, dev, None,
+        "engine_calibrated", sw, prompts, 32, dev, None, outs=outs,
         expect={"w4a8_matmul_prefill": (7 * layers, 0),
                 "w4a8_matmul_decode": (0, 7 * layers)})
     engine_vs_plain("calibrated", sw, prompts, dev)
-    return launches
+    return [launches] + phase_serving_ckpt(dev, sw, sw_s4, prompts, outs)
 
 
 def phase_calib_rtn(dev, path: str) -> None:
@@ -3220,16 +3274,18 @@ def phase_small_calib_vs_cpu(dev) -> dict:
                if hasattr(sws["cpu"].blocks[i][n], "codes"))
     rel = {k: abs(r_card[k] - v) / v for k, v in r_cpu.items()
            if k.startswith("ppl_")}
+    exports = exports_agree({"cpu": a_cpu, dev: a_card}, agree,
+                            EXPORT_DIR / "tiny")
     gptq = small_gptq_vs_cpu(dev, str(path))
     c3 = small_c3_vs_cpu(dev, str(path))
     res = {"phase": "small_calib_vs_cpu", "ppl_cpu": r_cpu,
            "ppl_card": r_card, "ppl_rel": rel, "index_differs": differ,
            "blocks_compared": agree, "same_codes": same, "gptq": gptq,
-           "c3": c3, "seconds": time.time() - t0}
+           "c3": c3, "exports": exports, "seconds": time.time() - t0}
     emit(res)
     if not (all(v <= TOL_SMALL_PPL for v in rel.values()) and same
             and 0 <= r_card["token_consistency"] <= 1 and gptq["ok"]
-            and c3["ok"]):
+            and c3["ok"] and exports["ok"]):
         raise AssertionError(f"small calibration, card vs CPU: {res}")
     return res
 
@@ -3757,6 +3813,358 @@ def small_gptq_vs_cpu(dev, path: str) -> dict:
             "ok": rel <= TOL_SMALL_PPL
             and 1 - agree <= GPTQ_CHAOS_RATIO * (1 - agree_ulp)}
 
+# ---------------------------------------------------------------------------
+# the pipeline's outputs: real-quant exports, serving checkpoints; the W8A8
+# and e4m3 serving builds
+# ---------------------------------------------------------------------------
+
+EXPORT_DIR = CALIB_DIR.parent / "export"
+CKPT_DIR = CALIB_DIR.parent / "serving_ckpt"
+W8SPEC = QuantSpec(bit=8, symmetric=True, granularity="per_channel")
+FP8SPEC = QuantSpec(bit="e4m3", symmetric=True, granularity="per_channel")
+# engine_fp8's cut: its e4m3 linears dequantize to bf16 at every call (as
+# JAX's qlinear_xla does), so it runs the first FP8_LAYERS blocks of the
+# Llama-3-8B model, FP8_NEW tokens
+FP8_LAYERS = 8
+FP8_NEW = 16
+# the AWQ model's formats written over every block / over its first two
+EXPORT_FULL = ("autoawq",)
+EXPORT_TWO = ("vllm", "native", "trtllm")
+
+
+def depth_view(model, layers: int):
+    """The model over its first ``layers`` blocks, sharing their tensors."""
+    arch = dataclasses.replace(model.arch, num_layers=layers)
+    params = dict(model.params, blocks=model.params["blocks"][:layers])
+    return type(model)(arch, params, config=model.config)
+
+
+def algo_view(algo, layers: int):
+    """What ``export.export_real_quant`` reads of a calibrated algorithm,
+    over its model's first ``layers`` blocks."""
+    return types.SimpleNamespace(
+        model=depth_view(algo.model, layers), wspec=algo.wspec,
+        layer_state=algo.layer_state[:layers], w_only=algo.w_only,
+        aspec=algo.aspec, act_static=algo.act_static,
+        quant_config=algo.quant_config)
+
+
+def unpack_awq(qw: torch.Tensor) -> torch.Tensor:
+    """AutoAWQ's (rows, oc/8) words -> (rows, oc) nibbles: nibble i of a
+    word holds output channel _AWQ_ORDER[i] of its eight."""
+    shifts = torch.arange(8, device=qw.device, dtype=torch.int32) * 4
+    u = (qw[:, :, None] >> shifts) & 0xF
+    out = torch.empty_like(u)
+    out[:, :, list(_AWQ_ORDER)] = u
+    return out.reshape(qw.shape[0], -1)
+
+
+def exported_equal(fmt: str, sf, base: str, codes, scales, zeros,
+                   dev) -> bool:
+    """One linear read back from a real-quant file equals
+    ``real_quant_weight``'s codes, scales and zeros (AutoAWQ: its fp16
+    scales and rounded zeros)."""
+    def get(k):
+        return sf.get(base + k, dev)
+
+    u = codes.to(torch.int32) & 0xF
+    if fmt == "autoawq":
+        return (torch.equal(unpack_awq(get(".qweight")).t(), u)
+                and torch.equal(get(".scales").t(), scales.half())
+                and torch.equal(unpack_awq(get(".qzeros")).t(),
+                                torch.round(zeros).to(torch.int32)))
+    names = ((".weight_packed", ".weight_scale", ".weight_zero_point")
+             if fmt in ("vllm", "sgl") else
+             (".qweight_packed", ".scales", ".zeros"))
+    return (torch.equal(unpack_int4(get(names[0])), u)
+            and torch.equal(get(names[1]), scales.float())
+            and torch.equal(get(names[2]), zeros.float()))
+
+
+def check_export(fmt: str, algo, layers: int, root: Path, dev) -> dict:
+    """Read a format's file back with st_io and hold every linear written
+    to ``real_quant_weight`` of the same weights and qparams."""
+    t0 = time.time()
+    path = root / f"{fmt}_quant_model"
+    sf = st_io.SafetensorsFile(str(path / "quant_model.safetensors"))
+    ok, n = True, 0
+    try:
+        for idx in range(layers):
+            bp = algo.model.params["blocks"][idx]
+            for name in algo.model.get_block_linear_names(idx):
+                qp = algo.layer_state[idx].get(name, {}).get("qparams")
+                c, s, z = Q.real_quant_weight(
+                    resolve(bp, name)["weight"].float(), algo.wspec, qp=qp)
+                ok = ok and exported_equal(fmt, sf, f"blocks.{idx}.{name}",
+                                           c, s, z, dev)
+                n += 1
+    finally:
+        sf.close()
+    with open(path / "quantization_config.json") as f:
+        qcfg = json.load(f)
+    return {"layers": layers, "linears": n, "equal": ok,
+            "quant_method": qcfg.get("quant_method"),
+            "verify_s": time.time() - t0}
+
+
+def phase_export_real_quant(dev, algo) -> None:
+    """The calibrated AWQ model's real-quant exports through
+    ``run_exports`` (the pipeline's ``save_*`` keys): AutoAWQ over every
+    block, vllm, native and trtllm (with ``trtllm-build``'s command where
+    it is absent) over the first two; each file read back and every
+    linear's codes, scales and zeros equal to ``real_quant_weight``'s;
+    seconds and GB written; the files deleted."""
+    t0 = time.time()
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    L = algo.model.num_blocks
+    res = {"phase": "export_real_quant", "formats": {}}
+    for keys, a, layers in ((EXPORT_FULL, algo, L),
+                            (EXPORT_TWO, algo_view(algo, 2), 2)):
+        cfg = {"save": {**{f"save_{k}": True for k in keys},
+                        "save_path": str(EXPORT_DIR)}}
+        t1 = time.time()
+        written = run_exports(a, cfg)
+        torch.cuda.synchronize()
+        write_s = time.time() - t1
+        for fmt in keys:
+            res["formats"][fmt] = dict(
+                gb=written[fmt] / 1e9, write_s=write_s,
+                **check_export(fmt, a, layers, EXPORT_DIR, dev))
+    res["build_cmd"] = (EXPORT_DIR / "trtllm_engine" /
+                        "build_cmd.txt").exists()
+    gb = sum(v["gb"] for v in res["formats"].values())
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    res.update(gb_written=gb, seconds=time.time() - t0)
+    emit(res)
+    if not (all(v["equal"] and v["linears"] == 7 * v["layers"]
+                for v in res["formats"].values()) and res["build_cmd"]):
+        raise AssertionError(f"export_real_quant: {res}")
+
+
+def same_serving(a, b) -> bool:
+    """Two serving weights hold the same linears (codes, scales, zeros,
+    bias, layout, flags), norms, embedding and head."""
+    def eq(x, y):
+        if x is None or y is None:
+            return x is None and y is None
+        return x.shape == y.shape and torch.equal(x.float(), y.float())
+    ok = eq(a.embed, b.embed) and same_tensor(a.lm_head.cpu(), b.lm_head) \
+        and eq(a.lm_head_scale, b.lm_head_scale) \
+        and all(eq(a.norm[k], b.norm[k]) for k in a.norm)
+    for ea, eb in zip(a.blocks, b.blocks):
+        ok = ok and set(ea) == set(eb)
+        for n, va in ea.items():
+            vb = eb.get(n)
+            if isinstance(va, QLinearParams):
+                ok = ok and all(getattr(va, f) == getattr(vb, f) for f in (
+                    "layout", "tiled", "bits", "is_float", "group_size")) \
+                    and all(same_tensor(getattr(va, f), getattr(vb, f))
+                            for f in ("codes", "scales", "zeros", "bias"))
+            else:
+                ok = ok and all(eq(va[k], vb[k]) for k in va)
+    return ok
+
+
+def ckpt_roundtrip(name: str, sw, dev, **fields):
+    """``export_serving`` then ``load_serving`` of ``sw``, the build
+    fields the files do not record (``act_bits``, ``fused_rms``) set on
+    the loaded weights: (the loaded weights, a dict of GB, write and load
+    seconds, tensors equal)."""
+    path = CKPT_DIR / name
+    shutil.rmtree(path, ignore_errors=True)
+    t0 = time.time()
+    nbytes = export_serving(sw, str(path))
+    write_s = time.time() - t0
+    t0 = time.time()
+    back = dataclasses.replace(load_serving(str(path), device=dev),
+                               **fields)
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    shutil.rmtree(path, ignore_errors=True)
+    return back, {"gb": nbytes / 1e9, "write_s": write_s, "load_s": load_s,
+                  "write_gb_s": nbytes / write_s / 1e9,
+                  "load_gb_s": nbytes / load_s / 1e9,
+                  "same_weights": same_serving(sw, back)}
+
+
+def phase_serving_ckpt(dev, sw, sw_s4, prompts, outs) -> list:
+    """The calibrated AWQ planes build (W4A8) written by ``export_serving``
+    and read back by ``load_serving``: the same tensors; then the kv8
+    engine on the loaded build: the in-memory build's greedy tokens
+    (``outs``) with #3 and #2 launched exactly, and its teacher-forced
+    decode logits bit for bit.  The fused s4 build (two blocks) likewise,
+    its decode steps through #13.  Returns the engine phase's launches."""
+    t0 = time.time()
+    back, io = ckpt_roundtrip("awq", sw, dev, act_bits=sw.act_bits)
+    layers = sw.arch.num_layers
+    got = []
+    launches = engine_phase(
+        "engine_serving_ckpt", back, prompts, len(outs[0]), dev, None,
+        outs=got, expect={"w4a8_matmul_prefill": (7 * layers, 0),
+                          "w4a8_matmul_decode": (0, 7 * layers)})
+    cont = outs[0][:9]
+    with torch.no_grad():
+        la, _ = forced_logits(sw, prompts[0], cont, dev)
+        lb, _ = forced_logits(back, prompts[0], cont, dev)
+    del back
+    free_cuda()
+    res = {"phase": "serving_ckpt", "build": "awq_planes_w4a8", **io,
+           "tokens_equal": got == [list(o) for o in outs],
+           "logits_steps": len(cont), "logits_equal": torch.equal(la, lb)}
+    s4_back, s4_io = ckpt_roundtrip("fused_s4", sw_s4, dev, act_bits=8,
+                                    fused_rms=True)
+    steps = 4
+    n13 = []  # #13's launches in the in-memory run, then the loaded one's
+    logits = []
+    for build in (sw_s4, s4_back):
+        reset_launch_counts()
+        with torch.no_grad():
+            logits.append(forced_logits(build, prompts[1],
+                                        outs[1][:steps + 1], dev)[0])
+        n13.append({k.__name__: k.launches
+                    for k in KERNELS}["w4a8_linear_bytes_fused"])
+    res["fused_s4"] = dict(s4_io, layers=sw_s4.arch.num_layers,
+                           logits_equal=torch.equal(*logits),
+                           linear_bytes_fused_launches=n13)
+    res["seconds"] = time.time() - t0
+    emit(res)
+    want13 = 4 * sw_s4.arch.num_layers * steps
+    if not (res["same_weights"] and res["tokens_equal"]
+            and res["logits_equal"] and res["fused_s4"]["same_weights"]
+            and res["fused_s4"]["logits_equal"]
+            and n13 == [want13, want13]):
+        raise AssertionError(f"serving_ckpt: {res}")
+    return [launches]
+
+
+def int8_mm_rows(sw, dev) -> list:
+    """``int8_matmul_dynamic`` at Llama-3-8B's q and down (the W8 build's
+    block-0 codes) at M 1, 8 and 256 on the card against the CPU, bit for
+    bit, with the card's time."""
+    pad = torch.empty(PAD, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(SEED + 22)
+    rows = []
+    for name in ("attn.q", "mlp.down"):
+        qp = sw.blocks[0][name]
+        w_cpu, s_cpu = qp.codes.cpu(), qp.scales.cpu()
+        N, K = qp.codes.shape
+        for M_ in (1, 8, 256):
+            x = torch.randn((M_, K), generator=gen).to(torch.bfloat16)
+            xd = x.to(dev)
+            got = int8_matmul_dynamic(xd, qp.codes, qp.scales)
+            want = int8_matmul_dynamic(x, w_cpu, s_cpu)
+            ms = time_ms(lambda: int8_matmul_dynamic(xd, qp.codes,
+                                                     qp.scales), 10, pad)
+            rows.append({"linear": name, "M": M_, "N": N, "K": K,
+                         "bit_equal": torch.equal(got.cpu(), want),
+                         "ms": ms})
+    return rows
+
+
+def phase_engine_w8(name: str, sw, prompts, n_new: int, dev,
+                    mm: bool) -> dict:
+    """A W8A8 or e4m3 build through the kv8 ``xla`` engine (no W4 kernel,
+    no attention kernel launched), a 2-step ``profile_decode``, and its
+    teacher-forced decode logits against the plain forward over the
+    dequantized weights (``decode_vs_plain``, gate corr999); with ``mm``
+    the int8 products card vs CPU."""
+    outs = []
+    launches = engine_phase(name, sw, prompts, n_new, dev, None, expect={},
+                            outs=outs, route=dict(attn_impl="xla",
+                                                  kv_bits=8))
+    t0 = time.time()
+    emit(dict(phase_profile(sw, prompts, dev, steps=2, build=name[7:]),
+              seconds=time.time() - t0))
+    decode_vs_plain(name[7:], sw, prompts[0], outs[0][:17], dev, "corr999")
+    if mm:
+        t0 = time.time()
+        rows = int8_mm_rows(sw, dev)
+        emit({"phase": "int8_matmul_dynamic", "rows": rows,
+              "seconds": time.time() - t0})
+        if not all(r["bit_equal"] for r in rows):
+            raise AssertionError(f"int8_matmul_dynamic card vs CPU: {rows}")
+    return launches
+
+
+# small_w8_vs_cpu's cache-share limits: W8A8 snaps the card's and the
+# CPU's last bits back to equal int8 act codes (the W4A8 limit, 0.1); the
+# e4m3 build's linears are bf16 dequant-then-matmul, the route of ROADMAP
+# C1, whose layer-1 caches differed in 14-20% of their entries on the
+# first run (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): C1's limit, 0.3
+SMALL_W8_SHARE = {"w8a8": 0.1, "fp8": 0.3}
+
+
+def small_w8_vs_cpu(dev, model, prompts, forced) -> tuple:
+    """The small Llama's W8A8 and e4m3 builds on the card against the CPU:
+    the same codes, then the kv8 route (corr >= 0.999 per row, the cache
+    shares under SMALL_W8_SHARE)."""
+    res, ok = {}, True
+    for name, spec in (("w8a8", W8SPEC), ("fp8", FP8SPEC)):
+        sws = {d: build_serving_weights(model, spec, act_bits=8, device=d)
+               for d in ("cpu", dev)}
+        routes, r_ok = compare_routes(sws, prompts, forced, dev,
+                                      {"kv8": SMALL_ROUTES["kv8"]},
+                                      SMALL_W8_SHARE[name])
+        res[name] = {"same_codes": same_codes(sws), "routes": routes}
+        ok = ok and r_ok and res[name]["same_codes"]
+    return res, ok
+
+
+# exports_agree: f32 scales of the card's and the CPU's AWQ models (whose
+# transformed weights differ in last bits: the searches' f32 sums run in
+# other orders) within this relative distance
+TOL_EXPORT_SCALE = 1e-6
+
+
+def exports_agree(algos: dict, agree, root: Path) -> dict:
+    """The tiny AWQ model's AutoAWQ and vllm exports from the card's and
+    the CPU's calibrations: the same tensor names, dtypes and shapes and
+    equal JSON; in the blocks whose AWQ grid indices agree the integer
+    tensors (codes, packed zeros) bit for bit and the f32 scales within
+    TOL_EXPORT_SCALE (AutoAWQ's fp16 scales bit for bit)."""
+    dirs = {}
+    for d, a in algos.items():
+        dirs[d] = root / str(d)
+        shutil.rmtree(dirs[d], ignore_errors=True)
+        run_exports(a, {"save": {"save_autoawq": True, "save_vllm": True,
+                                 "save_path": str(dirs[d])}})
+    res = {}
+    for fmt in ("autoawq", "vllm"):
+        f = [dirs[d] / f"{fmt}_quant_model" for d in algos]
+        h = [st_io.read_header(str(p / "quant_model.safetensors"))
+             for p in f]
+        blobs = [(p / "quant_model.safetensors").read_bytes() for p in f]
+        shapes = all(h[0][0][k]["shape"] == h[1][0][k]["shape"]
+                     and h[0][0][k]["dtype"] == h[1][0][k]["dtype"]
+                     for k in h[0][0]) and set(h[0][0]) == set(h[1][0])
+        compared = [k for k in h[0][0] if int(k.split(".")[1]) in agree]
+
+        def raw(i, k):
+            lo, hi = h[i][0][k]["data_offsets"]
+            return blobs[i][h[i][1] + lo:h[i][1] + hi]
+        same, scale_rel = True, 0.0
+        for k in compared:
+            if h[0][0][k]["dtype"] == "F32" and not k.endswith("zero_point"):
+                a, b = (np.frombuffer(raw(i, k), np.float32)
+                        for i in (0, 1))
+                scale_rel = max(scale_rel, float(
+                    (np.abs(a - b) / np.abs(a).clip(1e-30)).max()))
+            else:
+                same = same and raw(0, k) == raw(1, k)
+        cfgs = [json.loads((p / "quantization_config.json").read_text())
+                for p in f]
+        res[fmt] = {"names_shapes_dtypes": shapes,
+                    "tensors_compared": len(compared), "bit_equal": same,
+                    "scale_rel_max": scale_rel,
+                    "config_equal": cfgs[0] == cfgs[1]}
+    shutil.rmtree(root, ignore_errors=True)
+    res["ok"] = all(v["names_shapes_dtypes"] and v["bit_equal"]
+                    and v["scale_rel_max"] <= TOL_EXPORT_SCALE
+                    and v["config_equal"] for v in res.values())
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3796,10 +4204,16 @@ def main() -> int:
                                                      fuse_qkv=True)),
                                ("fused_s4", S4_FUSED),
                                ("s4", dict(layout="s4")))}
+    # W8A8 and e4m3 (the latter over the first FP8_LAYERS blocks)
+    sw_w8 = build_serving_weights(model, W8SPEC, act_bits=8, device=dev)
+    sw_fp8 = build_serving_weights(depth_view(model, FP8_LAYERS), FP8SPEC,
+                                   device=dev)
     del model
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    emit({"phase": "setup", "builds": ["w4a8", *builds],
+    emit({"phase": "setup", "builds": ["w4a8", *builds, "w8a8", "fp8"],
+          "w8a8_gb": serving_bytes(sw_w8) / 1e9,
+          "fp8_gb": serving_bytes(sw_fp8) / 1e9, "fp8_layers": FP8_LAYERS,
           "seconds": time.time() - t0})
     vocab = LLAMA3_8B.vocab_size
     layers = LLAMA3_8B.num_layers
@@ -3907,8 +4321,14 @@ def main() -> int:
             ("fused_s4", builds["fused_s4"], prompts[:2], {}),
             ("s4", builds["s4"], prompts[:2], {})):
         engine_vs_plain(name, sw, ps, dev, **kw)
+    # W8A8 at full width and depth, e4m3 over FP8_LAYERS blocks: no W4 or
+    # attention kernel; the int8 products exact (torch._int_mm)
+    runs.append(phase_engine_w8("engine_w8a8", sw_w8, prompts, 32, dev,
+                                True))
+    runs.append(phase_engine_w8("engine_fp8", sw_fp8, prompts, FP8_NEW,
+                                dev, False))
     # the Llama builds go before Mixtral's are made
-    del sw8, sw16, builds, sw
+    del sw8, sw16, builds, sw, sw_w8, sw_fp8
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3993,7 +4413,9 @@ def main() -> int:
     t0 = time.time()
     emit(dict(phase_profile(swq, prompts_q, dev, build="qwen3moe",
                             max_slots=32), seconds=time.time() - t0))
-    engine_vs_plain("qwen3moe", swq, prompts_q, dev)
+    # 4 prompts (512 rows, still the grouped route): the plain versions of
+    # #9/#10 over 1024 rows took 28 s of the run (a cut for time; PERF.md)
+    engine_vs_plain("qwen3moe", swq, prompts_q[:4], dev)
     del swq
     gc.collect()
     torch.cuda.empty_cache()
@@ -4006,7 +4428,8 @@ def main() -> int:
     # its pipeline, and the AWQ and GPTQ models served
     path = phase_calib_setup(dev)
     algo = phase_calib_awq(dev, path, LLAMA3_8B_CONFIG["num_hidden_layers"])
-    runs.append(phase_engine_calibrated(dev, algo))
+    phase_export_real_quant(dev, algo)
+    runs.extend(phase_engine_calibrated(dev, algo))
     del algo
     free_cuda()
     phase_calib_rtn(dev, path)

@@ -17,8 +17,10 @@ It reads the root bench's environment names:
 - ``BENCH_KV_BITS`` 8 (int8 cache with bf16 per-token scales, default) or
   16 (bf16 cache);
 - ``BENCH_ATTN`` ``xla`` (default: the cache concatenated with the fresh
-  token, then einsum attention in torch) or ``pallas`` (the same
-  concatenated cache through kernel #22 ``decode_attention_kv8``);
+  token, then einsum attention in torch), ``pallas`` (the same
+  concatenated cache through kernel #22 ``decode_attention_kv8``) or
+  ``i8full`` (through ``ops/scaled_matmul.py`` ``int8_decode_attention``,
+  both dots exact int8 products, as the root bench runs it under XLA);
 - ``BENCH_FUSED`` 1 (default: q|k|v and gate|up merged, four linears a
   block) or 0 (seven);
 - ``BENCH_TAIL`` 0 (default), 1 (the post-attention half of a block in one
@@ -45,7 +47,7 @@ It reads the root bench's environment names:
 
 Knobs that reach no kernel ported here raise ``NotImplementedError``
 naming their ROADMAP item: ``BENCH_KV_APPEND`` other than ``concat``,
-``BENCH_ATTN`` ``i8app``, ``i8full``, ``bd``, ``bds``, ``bd4``, ``bds4``,
+``BENCH_ATTN`` ``i8app``, ``bd``, ``bds``, ``bd4``, ``bds4``,
 ``BENCH_KV_BITS=4``, ``BENCH_WLAYOUT=s4``,
 ``BENCH_FUSEDLIN``, ``BENCH_DOWNSPLIT``, ``BENCH_KV_STACKED``, and
 ``BENCH_ENGINE=1``: the root bench also runs an engine step in a
@@ -80,6 +82,7 @@ from .ops import attention as AT
 from .ops import layer_fused as LF
 from .ops import w4_matmul as W
 from .ops.qlinear import QLinearParams, qlinear_apply
+from .ops.scaled_matmul import int8_decode_attention
 
 GROUP = 128
 
@@ -159,23 +162,20 @@ def validate(cfg: BenchConfig) -> None:
         raise NotImplementedError(
             f"BENCH_ATTN={cfg.attn} at BENCH_KV_BITS={cfg.kv_bits} is not "
             f"ported: {_DEFERRED}")
-    if cfg.attn == "i8full":
-        raise NotImplementedError(
-            "BENCH_ATTN=i8full is not ported: ROADMAP A5 "
-            "(ops/scaled_matmul.py int8_decode_attention)")
     if cfg.scales in ("f32", "raw"):
         raise NotImplementedError(
             f"BENCH_SCALES={cfg.scales} is not ported (the port's kernels "
             f"take bf16 scales): {_DEFERRED}")
-    if cfg.attn not in ("xla", "pallas") or cfg.kv_bits not in (8, 16) \
+    if cfg.attn not in ("xla", "pallas", "i8full") \
+            or cfg.kv_bits not in (8, 16) \
             or cfg.act_bits not in (8, 16) or cfg.tail not in (0, 1, 2) \
             or cfg.scales not in ("contig", "bf16"):
         raise ValueError(f"unknown bench config {cfg}")
     if cfg.tail and (not cfg.fused or cfg.scales == "contig"):
         raise ValueError("TAIL kernels take split scale/zero tiles "
                          "(BENCH_SCALES=bf16) and the fused layout")
-    if cfg.attn == "pallas" and cfg.kv_bits != 8:
-        raise ValueError("BENCH_ATTN=pallas is the int8-cache kernel")
+    if cfg.attn in ("pallas", "i8full") and cfg.kv_bits != 8:
+        raise ValueError(f"BENCH_ATTN={cfg.attn} reads the int8 cache")
     names = (("qkv", "o", "gateup", "down") if cfg.fused
              else ("q", "k", "v", "o", "gate", "up", "down"))
     if set(cfg.masked) - set(names):
@@ -350,6 +350,8 @@ def decode_step(cfg: BenchConfig, layers, x: torch.Tensor, k_cache, v_cache,
             qg = q.reshape(B, cfg.n_kv, G, D).to(bf16)
             if cfg.attn == "pallas":
                 ctx = AT.decode_attention_kv8(qg, kc, ksc, vc, vsc)
+            elif cfg.attn == "i8full":
+                ctx = int8_decode_attention(qg, kc, ksc, vc, vsc)
             else:
                 sc = torch.matmul(qg, kc.to(bf16).transpose(-1, -2))
                 sc = sc * ksc[:, :, None, :] * scale

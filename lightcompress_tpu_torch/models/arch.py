@@ -102,6 +102,9 @@ class ArchSpec:
     # llama3 rope scaling (factor, low_freq_factor, high_freq_factor,
     # original_max_position_embeddings); None = off
     rope_llama3: Optional[Tuple[float, float, float, int]] = None
+    # the config's max_position_embeddings, recorded (serving checkpoints
+    # write it); the forwards build their rope tables from the positions
+    max_position_embeddings: int = 4096
     dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self):

@@ -61,8 +61,8 @@ MOE_SUBSETS = LLAMA_SUBSETS[:2] + (
 
 class BaseModel:
     """Holds arch + params (+ the HF config it was loaded from) and exposes
-    the pipeline-facing API.  The tokenizer is None: the port reads no
-    tokenizer yet (ROADMAP A4)."""
+    the pipeline-facing API, and the tokenizer ``load_model`` found (or
+    None)."""
 
     subsets: Tuple[Subset, ...] = LLAMA_SUBSETS
 

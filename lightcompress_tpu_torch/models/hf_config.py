@@ -84,5 +84,6 @@ def arch_from_hf_config(cfg: Dict[str, Any],
         tie_word_embeddings=cfg.get("tie_word_embeddings", False),
         moe=moe,
         rope_llama3=llama3_rope(cfg),
+        max_position_embeddings=cfg.get("max_position_embeddings", 4096),
         dtype=dtype,
     )

@@ -7,8 +7,11 @@ The tensors go through the port's own safetensors reader and writer
 (``st_io``): BF16, F16 and F32, one tensor at a time from a mapped file
 onto the requested device.  ``pytorch_model.bin`` checkpoints, the MoE
 checkpoints (Mixtral, Qwen3-MoE; their config reader exists) and the other
-families raise ``NotImplementedError`` naming ROADMAP A12.  No tokenizer
-is read (ROADMAP A4): the synthetic calibration and eval data need none.
+families raise ``NotImplementedError`` naming ROADMAP A12.
+``load_model(with_tokenizer=True)`` also reads the directory's tokenizer
+through ``transformers.AutoTokenizer`` (local files only) where that
+package is installed, and takes ``None`` where it is not or finds none, as
+JAX's loader does; the synthetic calibration and eval data need none.
 """
 
 from __future__ import annotations
@@ -133,10 +136,33 @@ def load_params(model_dir: str, arch: A.ArchSpec,
     return params
 
 
+# the files a transformers tokenizer is read from; a directory with none of
+# them has no tokenizer, and the (slow) import of transformers is skipped
+TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json",
+                   "tokenizer.model", "vocab.json", "vocab.txt",
+                   "spiece.model")
+
+
+def load_tokenizer(model_dir: str):
+    """The directory's ``transformers`` tokenizer, or None (no tokenizer
+    files, no package, any failure), as JAX's loader takes it."""
+    if not any(os.path.exists(os.path.join(model_dir, f))
+               for f in TOKENIZER_FILES):
+        return None
+    try:
+        from transformers import AutoTokenizer
+
+        return AutoTokenizer.from_pretrained(model_dir,
+                                             local_files_only=True)
+    except Exception:
+        return None
+
+
 def load_model(model_dir: str, dtype: torch.dtype = torch.bfloat16,
-               device: DeviceLike = None):
+               device: DeviceLike = None, with_tokenizer: bool = True):
     """The registered adapter of an HF model directory, its params on
-    ``device`` (the card unless the caller asks for the CPU)."""
+    ``device`` (the card unless the caller asks for the CPU), with its
+    tokenizer (``load_tokenizer``) unless ``with_tokenizer`` is False."""
     with open(os.path.join(model_dir, "config.json")) as f:
         cfg = json.load(f)
     arch = arch_from_hf_config(cfg, dtype=dtype)
@@ -145,7 +171,8 @@ def load_model(model_dir: str, dtype: torch.dtype = torch.bfloat16,
         raise NotImplementedError(f"loading model_type {mt!r} is not "
                                   f"ported: ROADMAP A12")
     params = load_params(model_dir, arch, device)
-    return MODEL_REGISTRY[ADAPTERS[mt]](arch, params, tokenizer=None,
+    tok = load_tokenizer(model_dir) if with_tokenizer else None
+    return MODEL_REGISTRY[ADAPTERS[mt]](arch, params, tokenizer=tok,
                                         config=cfg)
 
 

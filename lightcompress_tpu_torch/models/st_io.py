@@ -20,13 +20,24 @@ from typing import Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
-# dtype name -> (numpy type of the raw bytes, torch dtype); BF16 arrives as
-# raw uint16 and is reinterpreted, never converted
+# dtype name -> (numpy type of the raw bytes, torch dtype); BF16 and the
+# e4m3/e5m2 codes arrive as raw uint16/uint8 and are reinterpreted, never
+# converted (numpy has no such types: the reader needs none)
 DTYPES = {
     "BF16": (np.uint16, torch.bfloat16),
     "F16": (np.float16, torch.float16),
     "F32": (np.float32, torch.float32),
+    "F64": (np.float64, torch.float64),
+    "I8": (np.int8, torch.int8),
+    "U8": (np.uint8, torch.uint8),
+    "I16": (np.int16, torch.int16),
+    "I32": (np.int32, torch.int32),
+    "I64": (np.int64, torch.int64),
+    "F8_E4M3": (np.uint8, torch.float8_e4m3fn),
+    "F8_E5M2": (np.uint8, torch.float8_e5m2),
 }
+# the torch dtypes whose bytes are read as another numpy type
+_VIEWED = (torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2)
 _NAMES = {t: name for name, (_, t) in DTYPES.items()}
 
 
@@ -68,8 +79,8 @@ class SafetensorsFile:
                           // np.dtype(np_t).itemsize,
                           offset=self._data + begin)
         t = torch.from_numpy(a.reshape(info["shape"]))
-        if torch_t == torch.bfloat16:
-            t = t.view(torch.bfloat16)
+        if torch_t in _VIEWED:
+            t = t.view(torch_t)
         # the copy onto the device (or a host copy) leaves the map
         t = t.to(device, copy=True)
         return t if dtype is None else t.to(dtype)
@@ -82,8 +93,8 @@ class SafetensorsFile:
 
 def write(path: str, tensors: Dict[str, torch.Tensor],
           metadata: Optional[Dict[str, str]] = None) -> int:
-    """Write ``tensors`` (BF16, F16 or F32, any device) in key order, one
-    at a time; returns the bytes written."""
+    """Write ``tensors`` (any dtype of ``DTYPES``, any device) in key order,
+    one at a time; returns the bytes written."""
     header: Dict = {}
     if metadata:
         header["__metadata__"] = {k: str(v) for k, v in metadata.items()}
@@ -104,7 +115,8 @@ def write(path: str, tensors: Dict[str, torch.Tensor],
         f.write(blob)
         for k in keys:
             t = tensors[k].detach().contiguous()
-            if t.dtype == torch.bfloat16:
-                t = t.view(torch.int16)
+            if t.dtype in _VIEWED:
+                t = t.view(torch.int16 if t.dtype == torch.bfloat16
+                           else torch.uint8)
             f.write(memoryview(t.cpu().numpy()).cast("B"))
     return 8 + len(blob) + offset

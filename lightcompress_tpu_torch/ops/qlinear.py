@@ -24,10 +24,29 @@ planes with pre-divided scales and zero corrections (``w4_matmul``'s
 ``pack_int4_planes_masked``), f32 or bf16, applied by #4 through the
 bench's own dispatch, as the root bench applies it.
 
+A fifth, ``rows``, holds JAX's other serving weights, with raw zero
+points (JAX's dequant ``(u - z) * s``):
+
+* 4 bits: the vLLM-order nibbles of ``w4_matmul.pack_int4`` (N, K/8) int32,
+  f32 scales and zeros (N, G), applied dequant-then-matmul;
+* 8 bits (``bits`` 8, what JAX labels every integer width but 4): the
+  codes (int8 at 8 bits, int32 below) with f32 scales (N, 1) or (1,),
+  symmetric, applied by ``scaled_matmul.int8_matmul_dynamic``;
+* float (``is_float``, e4m3 or e5m2): the codes with f32 scales (N, G),
+  applied dequant-then-matmul (``qlinear_plain``, JAX's ``qlinear_xla``).
+
+JAX builds three more ``rows`` weights that its serving path then fails
+on; ``quantize_linear`` raises ``NotImplementedError`` naming each
+(``REFERENCE_FAULTS``): asymmetric integer codes below 4 or above it
+(fault 1: their zeros are dropped), grouped integer codes other than 4
+bits (fault 2: a broadcast error) and per-block or per-tensor float codes
+(fault 3: the dequant's reshape fails).
+
 Stacked MoE experts (``serving.quantized_model.quantize_linear_stacked``)
 use the same class with a leading expert dim: ``stacked_planes`` (4-bit
-planes per expert) or ``stacked`` (the int8 per-channel fallback, ``bits``
-8).
+planes per expert) or ``stacked`` (JAX's ``rows`` per expert: the int8
+per-channel fallback of planes-ineligible W4 experts, ``bits`` 8; the
+int4 ``rows`` storage; other widths and floats).
 """
 
 from __future__ import annotations
@@ -38,20 +57,38 @@ from typing import Optional
 import torch
 
 from ..quant import QuantSpec, real_quant_weight
-from .w4_matmul import (GROUP, pack_int4_planes, pack_s4_pairs,
-                        s4_matmul_available, unpack_int4_planes,
+from .w4_matmul import (GROUP, pack_int4, pack_int4_planes, pack_s4_pairs,
+                        s4_matmul_available, unpack_int4, unpack_int4_planes,
                         unpack_s4_pairs, w4a8_matmul, w4a8_matmul_ks,
                         w4a8_prefill_available, w4a8_s4_matmul, w4a16_matmul,
                         w4a16_matmul_available)
 
-LAYOUTS = ("planes", "s4")
+LAYOUTS = ("planes", "s4", "rows")
+
+# the JAX serving builds its own serving path then fails on (ROADMAP C)
+REFERENCE_FAULTS = {
+    1: "asymmetric integer codes other than 4 bits go to "
+       "int8_matmul_dynamic with their zeros dropped (a wrong output)",
+    2: "grouped integer codes other than 4 bits are labelled bits=8 and "
+       "fail in int8_matmul_dynamic's w_scales.reshape(-1) (ValueError: "
+       "Incompatible shapes for broadcasting)",
+    3: "per-block and per-tensor float codes fail in dequant_weight's "
+       "reshape (TypeError: cannot reshape array)",
+}
+
+
+def reference_fault(n: int, what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: reference fault {n} (ROADMAP C): the JAX serving path "
+        f"fails here: {REFERENCE_FAULTS[n]}; no fix is guessed")
 
 
 @dataclasses.dataclass
 class QLinearParams:
     codes: torch.Tensor  # planes, planes_ks (N, K/8) int32 | s4 (N, K/2)
     scales: torch.Tensor  # (N, G)
-    zeros: torch.Tensor  # (N, G) premultiplied: z*s (planes), (z-8)*s (s4)
+    # (N, G) premultiplied: z*s (planes), (z-8)*s (s4); raw z (rows) or None
+    zeros: Optional[torch.Tensor]
     bias: Optional[torch.Tensor]
     group_size: int = 0  # 0 = per channel (G = 1)
     layout: str = "planes"
@@ -59,18 +96,46 @@ class QLinearParams:
     # (planes: the condition above; s4: always), which its kernels and
     # the fused decode linears take
     tiled: bool = False
-    # the codes' bit width: 4, or 8 for the stacked int8 fallback
+    # the codes' bit width: 4, or 8 for JAX's every other integer width
     bits: int = 4
+    # float codes (e4m3, e5m2), ``bits`` 8
+    is_float: bool = False
+
+
+def _rows_8(codes: torch.Tensor, scales: torch.Tensor,
+            zeros: Optional[torch.Tensor], bias, spec: QuantSpec
+            ) -> QLinearParams:
+    """JAX's weights of every width but 4 (``rows``, ``bits`` 8), refused
+    where its serving path fails on them."""
+    gs = spec.group_size if spec.granularity == "per_group" else 0
+    if spec.is_float:
+        if spec.granularity in ("per_block", "per_tensor"):
+            raise reference_fault(
+                3, f"{spec.bit} {spec.granularity} serving weights")
+        return QLinearParams(codes, scales.float(), None, bias, 0, "rows",
+                             False, 8, True)
+    if gs:
+        raise reference_fault(
+            2, f"{spec.bit}-bit per-group serving weights (group {gs})")
+    if zeros is not None:
+        raise reference_fault(
+            1, f"asymmetric {spec.bit}-bit serving weights")
+    return QLinearParams(codes, scales.float(), None, bias, 0, "rows", False,
+                         8)
 
 
 def quantize_linear(w: torch.Tensor, spec: QuantSpec,
                     bias: Optional[torch.Tensor] = None,
                     layout: str = "planes") -> QLinearParams:
-    if spec.bit != 4:
-        raise ValueError(f"{spec.bit}-bit serving linears are not ported")
+    """RTN real quant of one serving linear.  4 bits: ``layout`` "planes",
+    "s4" (with JAX's fallback to planes where its shapes do not fit) or
+    "rows"; any other width or float format is stored ``rows`` whatever
+    ``layout`` says, as in JAX."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout {layout!r} is not ported; {LAYOUTS}")
     codes, scales, zeros = real_quant_weight(w.float(), spec)
+    if spec.is_float or spec.bit != 4:
+        return _rows_8(codes, scales, zeros, bias, spec)
     gs = spec.group_size if spec.granularity == "per_group" else 0
     s4 = scales.float()
     if zeros is None:
@@ -80,6 +145,9 @@ def quantize_linear(w: torch.Tensor, spec: QuantSpec,
     else:
         z4 = zeros.float()
     N, K = codes.shape
+    if layout == "rows":
+        return QLinearParams(pack_int4(codes), s4, z4, bias, gs, "rows",
+                             False)
     if layout == "s4":
         if gs == GROUP and K % (4 * gs) == 0 and N % 128 == 0:
             # the stored code is c' = u - 8, so w = c'*s - (z - 8)*s
@@ -98,7 +166,24 @@ def quantize_linear(w: torch.Tensor, spec: QuantSpec,
 
 def dequant_weight(qp: QLinearParams,
                    dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """Materialize the (N, K) weight: c*s - zs per group."""
+    """Materialize the (N, K) weight: c*s - zs per group (planes, s4),
+    (u - z)*s (rows), codes times their scales (8 bits, float)."""
+    if qp.bits == 8:
+        c = qp.codes.float()
+        N, K = c.shape
+        # one scale a row (N, 1), a float's per group (N, G), or one a
+        # tensor (1,)
+        s = qp.scales.float()
+        s = s.expand(N, 1) if s.numel() == 1 else s.reshape(N, -1)
+        w = c.reshape(N, s.shape[1], -1) * s[..., None]
+        return w.reshape(N, K).to(dtype)
+    if qp.layout == "rows":
+        u = unpack_int4(qp.codes).float()
+        N, K = u.shape
+        G = qp.scales.shape[1]
+        w = ((u.reshape(N, G, -1) - qp.zeros.float()[..., None])
+             * qp.scales.float()[..., None])
+        return w.reshape(N, K).to(dtype)
     if qp.layout == "s4":
         c = unpack_s4_pairs(qp.codes).float()
     else:

@@ -115,6 +115,36 @@ DECODE_CHAN16_MAX_N = 2048
 # packing
 # ---------------------------------------------------------------------------
 
+def pack_nibbles(u: torch.Tensor) -> torch.Tensor:
+    """(..., 8) nibbles -> (...) int32 words, nibble i at bits 4i."""
+    shifts = torch.arange(8, dtype=torch.int64, device=u.device) * 4
+    # the sum of disjoint nibbles is their bitwise or; summed in int64,
+    # then words >= 2^31 are mapped to their two's-complement int32 value
+    words = ((u.to(torch.int64) & 0xF) << shifts).sum(dim=-1)
+    words = torch.where(words >= 2**31, words - 2**32, words)
+    return words.to(torch.int32)
+
+
+def pack_int4(codes: torch.Tensor) -> torch.Tensor:
+    """(N, K) int4 codes (0..15 or -8..7) -> (N, K/8) int32 in the vLLM
+    order (JAX's ``export.pack_int4``): 8 consecutive codes a word, code i
+    at bits 4i.  The ``rows`` serving layout and the real-quant exports."""
+    n, k = codes.shape
+    if k % 8:
+        raise ValueError(f"K={k} is not a multiple of 8")
+    return pack_nibbles(codes.reshape(n, k // 8, 8))
+
+
+def unpack_int4(packed: torch.Tensor, signed: bool = False) -> torch.Tensor:
+    """Inverse of ``pack_int4``: (N, K/8) -> (N, K) int32 in [0, 15], or
+    [-8, 7] with ``signed``."""
+    n, words = packed.shape
+    shifts = torch.arange(8, dtype=torch.int32, device=packed.device) * 4
+    u = ((packed.to(torch.int32)[:, :, None] >> shifts) & 0xF).reshape(
+        n, words * 8)
+    return torch.where(u >= 8, u - 16, u) if signed else u
+
+
 def pack_int4_planes(codes: torch.Tensor) -> torch.Tensor:
     """(N, K) codes in [0, 15] -> (N, K/8) int32, plane layout."""
     n, k = codes.shape

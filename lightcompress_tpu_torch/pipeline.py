@@ -14,9 +14,13 @@ from the eval ``seed``) and the token consistency; ``save_trans`` and
 ``calib_data``, ``block_loop/<method>`` and ``block_loop/<method>/block``,
 each ``{count, total_s, mean_s}``, and ``__wall__``, as JAX's), and
 ``base.trace_dir``, a ``torch.profiler`` Chrome trace of the block loop
-(``utils.profiling.device_trace``).  The text datasets (ROADMAP A4), the
-other eval types and the real-quant exports and OpenCompass bridge
-(ROADMAP A13) raise ``NotImplementedError`` when a config asks for them.
+(``utils.profiling.device_trace``); the real-quant exports of the
+``save_*`` keys (``export.run_exports``: vllm, sgl, lightllm, autoawq,
+mlcllm, lightx2v, native, trtllm) after ``save_fake``; calibration on text
+(``data.dataset``: ``custom_txt`` files and the preprocs over a
+tokenizer's ids).  The text eval sets and the ``load_from_disk`` datasets
+(ROADMAP A4), the other eval types and the OpenCompass bridge (ROADMAP
+A13) raise ``NotImplementedError`` when a config asks for them.
 """
 
 from __future__ import annotations
@@ -35,16 +39,12 @@ from .config import DotDict, get_compress_config, get_modalities, load_config
 from .data import CalibDataset
 from .device import DeviceLike, resolve_device
 from .eval import PerplexityEval, TokenConsistencyEval
+from .export import run_exports
 from .models.hf_loader import load_model
 from .registry import ALGO_REGISTRY
 from .utils.profiling import PhaseTimer, device_trace
 
 log = logging.getLogger("lightcompress_tpu_torch")
-
-# the save_* keys of the real-quant exports (JAX export.run_exports)
-EXPORTS = ("save_vllm", "save_sgl", "save_lightllm", "save_autoawq",
-           "save_mlcllm", "save_lightx2v", "save_native", "save_trtllm")
-
 
 def _model_dtype(config: DotDict) -> torch.dtype:
     return (torch.bfloat16 if config.model.get("torch_dtype") == "bfloat16"
@@ -116,11 +116,6 @@ def _run_evals(evals, model, pos: str, results: Dict[str, float]) -> None:
 
 
 def _check_unported(config: DotDict) -> None:
-    save_cfg = config.get("save", {}) or {}
-    for key in EXPORTS:
-        if save_cfg.get(key, False):
-            raise NotImplementedError(f"save.{key} (a real-quant export) "
-                                      f"is not ported: ROADMAP A13")
     if config.get("opencompass", None):
         raise NotImplementedError("the OpenCompass bridge is not ported: "
                                   "ROADMAP A13")
@@ -211,7 +206,8 @@ def run_pipeline(config: DotDict, device: DeviceLike = None,
             _run_evals(evals, model, pos, results)
         if evals["token_consist"] is not None:
             t0 = time.time()
-            origin = load_model(config.model.path, dtype=dtype, device=dev)
+            origin = load_model(config.model.path, dtype=dtype, device=dev,
+                                with_tokenizer=False)
             results["token_consistency"] = evals["token_consist"].eval(
                 model, origin)
             log.info("EVAL: token consistency = %.4f",
@@ -229,6 +225,7 @@ def run_pipeline(config: DotDict, device: DeviceLike = None,
         algo.save_model(os.path.join(save_cfg["save_path"],
                                      "fake_quant_model"))
         algo.restore_float()
+    run_exports(algo, config)
     if base.get("profile_out"):
         timer.dump(base["profile_out"])
     timer.log_report()

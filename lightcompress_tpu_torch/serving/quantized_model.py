@@ -1,16 +1,18 @@
-"""Serving weights: adapter params -> packed W4 serving weights (port of
+"""Serving weights: adapter params -> packed serving weights (port of
 lightcompress_tpu/serving/quantized_model.py: RTN with the ``layout``,
 ``fused_rms`` and ``fuse_qkv`` options, or a calibrated model's weights
-through its algorithm's ``w_qdq`` (``algo=``), the int8 per-channel head,
-``head_logits`` and ``apply_qlinear``; for MoE blocks the stacked experts
-(``quantize_linear_stacked``), their dense, gathered and grouped linears and
-the selection grouping of the grouped route; the q/k norm gammas of
-``qk_norm``)."""
+through its algorithm's ``w_qdq`` (``algo=``); W4 in the planes, s4 or
+rows layouts, every other width and the float formats in ``rows`` (W8A8
+through ``scaled_matmul.int8_matmul_dynamic``, float dequant-then-matmul);
+the int8 per-channel or bf16 head, ``head_logits`` and ``apply_qlinear``;
+for MoE blocks the stacked experts (``quantize_linear_stacked``), their
+dense, gathered and grouped linears and the selection grouping of the
+grouped route; the q/k norm gammas of ``qk_norm``)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -21,9 +23,11 @@ from ..ops.moe_matmul import (M_TILE, w4a8_grouped_matmul,
                               w4a8_stacked_matmul,
                               w4a8_stacked_matmul_smallm,
                               w8a8_grouped_matmul)
-from ..ops.qlinear import QLinearParams, qlinear_apply, quantize_linear
+from ..ops.qlinear import (QLinearParams, qlinear_apply, qlinear_plain,
+                           quantize_linear, reference_fault)
+from ..ops.scaled_matmul import int8_matmul_dynamic
 from ..ops.w4_matmul import (DECODE_M_MAX, quantize_act_per_token,
-                             unpack_int4_planes)
+                             unpack_int4, unpack_int4_planes)
 from ..quant import QuantSpec, real_quant_weight
 
 # vocab rows per head matmul: bounds the f32 copy of the head codes that
@@ -36,8 +40,8 @@ class ServingWeights:
     arch: A.ArchSpec
     embed: torch.Tensor  # bf16 (vocab, hidden)
     norm: Dict[str, torch.Tensor]
-    lm_head: torch.Tensor  # int8 per-channel codes (vocab, hidden)
-    lm_head_scale: torch.Tensor  # (vocab,) f32
+    lm_head: torch.Tensor  # int8 per-channel codes or bf16 (vocab, hidden)
+    lm_head_scale: Optional[torch.Tensor]  # (vocab,) f32; None: bf16 head
     blocks: List[Dict[str, Any]]  # linear name -> QLinearParams; ln1/ln2
     act_bits: int = 16  # 16 = W4A16; 8 = W4A8 (per-token dynamic int8 acts)
     # True: the RMSNorm gammas are folded into the pre-norm linears'
@@ -45,6 +49,8 @@ class ServingWeights:
     # weights are ones; the plain path stays exact and the decode step
     # takes the fused linears (#13, #14) where the engine allows
     fused_rms: bool = False
+    # the weights' bit width as JAX records it (8 for the float formats)
+    wbits: int = 4
 
 
 _LLAMA_NORMS = ("ln1", "ln2")
@@ -72,7 +78,16 @@ def quantize_linear_stacked(w3: torch.Tensor, spec: QuantSpec,
     ``bits`` 8: the effective bit width is recorded, not hidden).  Each
     expert is quantized on its own, as JAX quantizes them, through
     ``device.div``: both quantizations work row by row, so the experts'
-    rows go through one call as an (E*oc, ic) weight."""
+    rows go through one call as an (E*oc, ic) weight.
+
+    ``layout="rows"`` at 4 bits (JAX's ``rows``, or its
+    ``LCTPU_STACKED_INT8_FALLBACK=0``), and every other width or float
+    format, store JAX's ``rows`` per expert in ``stacked``: 4 bits as
+    ``w4_matmul.pack_int4`` nibbles (E, oc, ic/8) int32 with f32 scales and
+    raw zeros (E, oc, G); other widths' codes with their scales and zeros
+    (``bits`` 8, ``is_float`` for e4m3/e5m2), one expert at a time.  Scales
+    that JAX's stacked dequant cannot reshape (per tensor, per block, a
+    float per group) raise naming reference fault 3."""
     E, oc, ic = w3.shape
     gs = spec.group_size if spec.granularity == "per_group" else 0
     rows = w3.reshape(E * oc, ic).float()
@@ -89,16 +104,42 @@ def quantize_linear_stacked(w3: torch.Tensor, spec: QuantSpec,
         return QLinearParams(
             codes.reshape(E, oc, ic), scales.float().reshape(E, oc, 1),
             None, None, 0, "stacked", False, 8)
-    raise NotImplementedError(
-        f"{spec.bit}-bit stacked experts with layout={layout!r} (the int4 "
-        f"'rows' storage) are not ported")
+    if layout not in ("auto", "rows"):
+        raise ValueError(f"stacked layout {layout!r}: 'auto' or 'rows'")
+    if (spec.granularity in ("per_tensor", "per_block")
+            or (spec.is_float and gs)):
+        raise reference_fault(
+            3, f"stacked {spec.bit} {spec.granularity} experts (JAX's "
+               f"dequant_weight_stacked reshape)")
+    parts = [quantize_linear(w3[e].float(), spec, layout="rows")
+             if spec.bit == 4 else _stacked_rows(w3[e], spec)
+             for e in range(E)]
+    p0 = parts[0]
+    return QLinearParams(
+        torch.stack([p.codes for p in parts]),
+        torch.stack([p.scales for p in parts]),
+        None if p0.zeros is None else torch.stack([p.zeros for p in parts]),
+        None, p0.group_size, "stacked", False, p0.bits, p0.is_float)
+
+
+def _stacked_rows(w: torch.Tensor, spec: QuantSpec) -> QLinearParams:
+    """One expert's JAX ``rows`` entry of any width but 4: the codes, f32
+    scales and zeros as JAX's ``quantize_linear`` keeps them (a float's
+    group size 0)."""
+    codes, scales, zeros = real_quant_weight(w.float(), spec)
+    gs = (spec.group_size if spec.granularity == "per_group"
+          and not spec.is_float else 0)
+    return QLinearParams(codes, scales.float(),
+                         None if zeros is None else zeros.float(), None, gs,
+                         "rows", False, 8, spec.is_float)
 
 
 def dequant_weight_stacked(qp: QLinearParams,
                            dtype: torch.dtype = torch.bfloat16
                            ) -> torch.Tensor:
     """(E, oc, ic) weights of a stacked expert entry: c*s - zs per group
-    (planes), or codes * scale per channel (int8), in f32, then ``dtype``."""
+    (planes), or JAX's ``(u - z) * s`` per group (``stacked``: int8, the
+    int4 nibbles, other widths, floats), in f32, then ``dtype``."""
     E, N = qp.codes.shape[:2]
     if qp.layout == "stacked_planes":
         K = qp.codes.shape[2] * 8
@@ -107,10 +148,20 @@ def dequant_weight_stacked(qp: QLinearParams,
         w = (u.reshape(E, N, G, K // G) * qp.scales.float()[..., None]
              - qp.zeros.float()[..., None])
         return w.reshape(E, N, K).to(dtype)
-    if qp.layout == "stacked" and qp.bits == 8:
-        return (qp.codes.float() * qp.scales.float()).to(dtype)
-    raise ValueError(f"not a stacked expert entry: {qp.layout!r}, "
-                     f"{qp.bits} bits")
+    if qp.layout != "stacked":
+        raise ValueError(f"not a stacked expert entry: {qp.layout!r}, "
+                         f"{qp.bits} bits")
+    if qp.bits == 4:
+        u = unpack_int4(qp.codes.reshape(E * N, -1)).float().reshape(
+            E, N, -1)
+    else:
+        u = qp.codes.float()
+    K = u.shape[2]
+    G = qp.scales.shape[2]
+    u = u.reshape(E, N, G, K // G)
+    if qp.zeros is not None:
+        u = u - qp.zeros.float()[..., None]
+    return (u * qp.scales.float()[..., None]).reshape(E, N, K).to(dtype)
 
 
 def _bf16_matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -242,14 +293,18 @@ def moe_mlp_grouped(entry: Dict[str, Any], x2: torch.Tensor,
 
 
 def build_serving_weights(model, wspec: QuantSpec, act_bits: int = 16,
-                          layout: str = "planes", fused_rms: bool = False,
+                          layout: Optional[str] = None,
+                          fused_rms: bool = False,
                           fuse_qkv: bool = False,
                           device: DeviceLike = None,
-                          algo=None) -> ServingWeights:
-    """RTN real-quant of every block linear to the W4 ``layout`` ("planes",
-    or "s4" with the JAX fallback to planes where its shapes do not fit);
-    the embedding stays bf16 and the head is int8 per channel.  The
-    quantization runs on ``device`` and the weights stay there.
+                          algo=None, head_bits: int = 8) -> ServingWeights:
+    """RTN real-quant of every block linear: W4 to ``layout`` ("planes", the
+    default, "s4" with the JAX fallback to planes where its shapes do not
+    fit, or "rows"); any other ``wspec`` that JAX serves to ``rows``
+    (``ops.qlinear``; the ones JAX fails on raise naming the reference
+    fault).  The embedding stays bf16; the head is int8 per channel
+    (``head_bits`` 8) or bf16 (16).  The quantization runs on ``device``
+    and the weights stay there.
 
     With ``algo`` (a calibrated algorithm of ``compression``), each weight
     is first replaced by ``algo.w_qdq``'s fake-quantized weight, which the
@@ -272,10 +327,11 @@ def build_serving_weights(model, wspec: QuantSpec, act_bits: int = 16,
     merges the stacked gate/up, and ``fused_rms`` is off for MoE models
     (the router and every expert hang off ln2), as in JAX."""
     dev = resolve_device(device)
-    if wspec.bit != 4:
-        raise ValueError("the ported serving path is W4")
     if act_bits not in (8, 16):
         raise ValueError("act_bits is 8 or 16")
+    if head_bits not in (8, 16):
+        raise ValueError("head_bits is 8 or 16")
+    layout = layout or ("planes" if wspec.bit == 4 else "rows")
     arch, params = model.arch, model.params
     fused_rms = fused_rms and arch.moe is None
     blocks_out = []
@@ -330,10 +386,14 @@ def build_serving_weights(model, wspec: QuantSpec, act_bits: int = 16,
         blocks_out.append(entry)
     head_w = (params["embed"]["weight"] if arch.tie_word_embeddings
               else params["lm_head"]["weight"])
-    hw = head_w.to(dev).float()
-    head_scale = div(hw.abs().amax(dim=1).clamp_min(1e-6), 127.0)
-    head_w = torch.round(hw / head_scale[:, None]).clamp(-127, 127).to(
-        torch.int8)
+    head_scale = None
+    if head_bits == 8:
+        hw = head_w.to(dev).float()
+        head_scale = div(hw.abs().amax(dim=1).clamp_min(1e-6), 127.0)
+        head_w = torch.round(hw / head_scale[:, None]).clamp(-127, 127).to(
+            torch.int8)
+    else:
+        head_w = head_w.to(dev, torch.bfloat16)
     return ServingWeights(
         arch=arch,
         embed=params["embed"]["weight"].to(dev, torch.bfloat16),
@@ -343,22 +403,35 @@ def build_serving_weights(model, wspec: QuantSpec, act_bits: int = 16,
         blocks=blocks_out,
         act_bits=act_bits,
         fused_rms=fused_rms,
+        wbits=wspec.bit if isinstance(wspec.bit, int) else 8,
     )
 
 
 def head_logits(sw: ServingWeights, xl: torch.Tensor) -> torch.Tensor:
-    """lm_head matmul: bf16-rounded activations times the int8 head codes
-    as bf16 operands, f32 accumulation, f32 logits (..., vocab) scaled per
-    vocab row.  Done in vocab chunks so the f32 operand copy stays small."""
+    """lm_head matmul: bf16-rounded activations times the head (int8 codes
+    or bf16 weights) as bf16 operands, f32 accumulation, f32 logits (...,
+    vocab), an int8 head's scaled per vocab row.  Done in vocab chunks so
+    the f32 operand copy stays small."""
     x = xl.to(torch.bfloat16).float()
     parts = []
     for v0 in range(0, sw.lm_head.shape[0], HEAD_CHUNK):
         w = sw.lm_head[v0:v0 + HEAD_CHUNK].to(torch.bfloat16).float()
         parts.append(torch.matmul(x, w.t()))
-    return torch.cat(parts, dim=-1) * sw.lm_head_scale.float()
+    logits = torch.cat(parts, dim=-1)
+    if sw.lm_head_scale is None:
+        return logits
+    return logits * sw.lm_head_scale.float()
 
 
 def apply_qlinear(entry: QLinearParams, x: torch.Tensor,
                   act_bits: int = 16) -> torch.Tensor:
-    """A serving linear (W4, planes or s4; not a stacked expert entry)."""
-    return qlinear_apply(x, entry, act_bits=act_bits)
+    """A serving linear (not a stacked expert entry), by stored format as
+    the JAX dispatch: 4 bits through ``qlinear_apply``, integer codes of
+    ``bits`` 8 through ``int8_matmul_dynamic`` (whatever ``act_bits`` says:
+    W8A8), float codes dequant-then-matmul."""
+    if entry.bits == 4:
+        return qlinear_apply(x, entry, act_bits=act_bits)
+    if not entry.is_float:
+        return int8_matmul_dynamic(x, entry.codes, entry.scales,
+                                   bias=entry.bias)
+    return qlinear_plain(x, entry)

@@ -54,6 +54,8 @@ CONFIGS = {
     "tail2": (dict(tail=2, scales="bf16"), dict(TAIL=2, SCALES="bf16"),
               False),
     "pallas": (dict(attn="pallas"), dict(ATTN_IMPL="pallas"), False),
+    # the fully-int8 attention of ops/scaled_matmul.py, both dots exact
+    "i8full": (dict(attn="i8full"), dict(ATTN_IMPL="i8full"), False),
     "ksplit": (dict(ksplit=True), {}, True),
     "act16": (dict(act_bits=16), dict(ACT_BITS=16), False),
     "kv16": (dict(kv_bits=16), dict(KV_BITS=16), False),
@@ -218,7 +220,7 @@ def test_make_layer_qweights_like_root_bench(root_bench):
 @pytest.mark.parametrize("env", [
     dict(BENCH_KV_APPEND="nocopy"), dict(BENCH_KV_APPEND="dus"),
     dict(BENCH_KV_APPEND="dusl"), dict(BENCH_ATTN="i8app"),
-    dict(BENCH_ATTN="i8full"), dict(BENCH_ATTN="bd"),
+    dict(BENCH_ATTN="bd4"), dict(BENCH_ATTN="bd"),
     dict(BENCH_ATTN="bds"), dict(BENCH_ATTN="bd4", BENCH_KV_BITS="4"),
     dict(BENCH_ATTN="bds4", BENCH_KV_BITS="4"), dict(BENCH_KV_BITS="4"),
     dict(BENCH_WLAYOUT="s4"),
@@ -237,7 +239,8 @@ def test_deferred_knobs_raise(env):
     dict(BENCH_KSPLIT="1", BENCH_ACT_BITS="16"),
     dict(BENCH_MASKED="qkv", BENCH_TAIL="1", BENCH_SCALES="bf16"),
     dict(BENCH_MASKED="down", BENCH_TAIL="2", BENCH_SCALES="bf16"),
-    dict(BENCH_MASKED="q,o")])
+    dict(BENCH_MASKED="q,o"),
+    dict(BENCH_ATTN="i8full", BENCH_KV_BITS="16")])
 def test_root_asserts_raise(env):
     """The root bench's ``main()`` asserts (TAIL on the contiguous scale
     slab), and configs whose kernels cannot take their layout."""
@@ -284,11 +287,12 @@ def _ksplit_case(N, K, seed):
 def test_planes_ks_readers_invert_the_tiling():
     packed, s, z, wp5, szs = _ksplit_case(256, 6144, seed=0)
     np.testing.assert_array_equal(convert.untile_codes_ksplit(
-        np.asarray(wp5)), np.asarray(packed))
+        convert.tensor_from_numpy(wp5, "cpu")).numpy(), np.asarray(packed))
     f32 = jpm.tile_scales_combined_ksplit(s, z * s, 128, 6144 // 8 // G128)
-    rs, rzs = convert.split_combined_ksplit(np.asarray(f32))
-    np.testing.assert_array_equal(rs, np.asarray(s))
-    np.testing.assert_array_equal(rzs, np.asarray(z * s))
+    rs, rzs = convert.split_combined_ksplit(
+        convert.tensor_from_numpy(f32, "cpu"))
+    np.testing.assert_array_equal(rs.numpy(), np.asarray(s))
+    np.testing.assert_array_equal(rzs.numpy(), np.asarray(z * s))
     qp = convert.qlinear_from_numpy(np.asarray(wp5), np.asarray(szs), None,
                                     None, 4, G128, "planes_ks", device="cpu")
     assert (qp.layout, qp.tiled, qp.codes.dtype) == ("planes_ks", True,

@@ -261,7 +261,9 @@ def test_config_and_data_pieces():
                                                       [1] * 5]
     with pytest.raises(NotImplementedError, match="A4"):
         CalibDataset(None, dict(CALIB, name="pileval"))
-    with pytest.raises(NotImplementedError, match="A4"):
+    # the text preprocs are ported (tests/test_torch_dataset_text.py); a
+    # model without a tokenizer cannot run them
+    with pytest.raises(ValueError, match="tokenizer"):
         CalibDataset(None, dict(CALIB, preproc="pileval_awq")).get_samples()
 
 

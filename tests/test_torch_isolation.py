@@ -55,6 +55,7 @@ def test_port_imports_with_jax_blocked():
                 "serving.engine", "serving.quantized_model", "convert",
                 "pipeline", "models.hf_loader", "models.st_io",
                 "compression.quantization.awq", "eval.ppl", "data.dataset",
+                "ops.scaled_matmul", "serving.checkpoint", "export",
                 "__main__"):
         assert f"lightcompress_tpu_torch.{mod}" in mods
     code = _BLOCKER.format(blocked=BLOCKED, modules=mods)

@@ -52,8 +52,9 @@ def test_masked_packers_bit_for_bit(plane7):
     np.testing.assert_array_equal(
         tw.unpack_int4_planes_masked(got_wp, K).numpy(), codes)
     # the pre-division: JAX's tile_scales_masked untiled
-    want_s = convert.untile_scales(np.asarray(jpm.tile_scales_masked(
-        jnp.asarray(scales), 32, gpp)))
+    want_s = convert.untile_scales(convert.tensor_from_numpy(
+        jpm.tile_scales_masked(jnp.asarray(scales), 32, gpp),
+        "cpu")).numpy()
     got_s = tw.masked_scales(torch.from_numpy(scales))
     assert got_s.dtype == torch.float32
     np.testing.assert_array_equal(got_s.numpy(), want_s)

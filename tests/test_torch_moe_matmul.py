@@ -75,9 +75,14 @@ def test_quantize_linear_stacked_matches_jax(E, oc, ic, sym, layout):
 
 
 def test_quantize_linear_stacked_rows_refused():
-    with pytest.raises(NotImplementedError):
-        tqm.quantize_linear_stacked(torch.zeros(2, 128, 768),
-                                    QuantSpec(**G128), layout="rows")
+    """The int4 ``rows`` storage is ported (tests/test_torch_serving_w8.py);
+    per-tensor stacked rows, which JAX's stacked dequant cannot reshape,
+    are refused naming reference fault 3."""
+    with pytest.raises(NotImplementedError, match="reference fault 3"):
+        tqm.quantize_linear_stacked(
+            torch.zeros(2, 128, 768),
+            QuantSpec(**dict(G128, granularity="per_tensor", group_size=0)),
+            layout="rows")
 
 
 def _routing(n, top_k, E, seed, absent=()):

@@ -75,9 +75,11 @@ def test_command_line_on_the_cpu(tiny_ckpt, tmp_path):
 
 
 def test_unported_exports_raise(tiny_ckpt):
+    """The real-quant exports are ported (tests/test_torch_export.py); the
+    OpenCompass bridge and the text eval sets still raise."""
     cfg = load_config(str(CI))
     cfg.model.path = tiny_ckpt
-    cfg.save["save_vllm"] = True
+    cfg["opencompass"] = {"cfg_path": "x.py"}
     with pytest.raises(NotImplementedError, match="A13"):
         run_pipeline(cfg, device="cpu")
     cfg = load_config(str(CI))
