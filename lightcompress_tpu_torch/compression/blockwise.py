@@ -83,16 +83,20 @@ class BlockwiseOpt:
     def collect_block_io(self, block_idx: int,
                          linear_fn: Optional[A.LinearFn] = None):
         """Every calibration batch through block ``block_idx``: (feats:
-        linear name -> list of its inputs, outputs)."""
+        linear name -> list of its inputs, outputs).  Each batch's post-rope
+        (k, v) is kept in ``_last_kv_states`` (the static KV calibration
+        reads it)."""
         bp = self.model.blocks[block_idx]
         feats_acc: Dict[str, List[torch.Tensor]] = {}
-        outs = []
+        outs, kvs = [], []
         for x in self.input_batches:
-            y, feats, _ = self.model.block_forward(
+            y, feats, kv = self.model.block_forward(
                 block_idx, x, linear_fn=linear_fn, block_params=bp)
             outs.append(y)
+            kvs.append(kv)
             for k, v in feats.items():
                 feats_acc.setdefault(k, []).append(v)
+        self._last_kv_states = kvs
         return feats_acc, outs
 
     def block_forward_batches(self, block_idx: int,

@@ -118,7 +118,14 @@ class Awq(BaseBlockwiseQuantization):
                                              input_feat)
                 return
             if fc1["weight"].shape[0] != fc2["weight"].shape[1]:
-                return  # GQA: o's inputs are not v's outputs
+                # GQA: o's inputs are not v's outputs
+                if self.has_gqa and self.do_gqa_trans:
+                    raise NotImplementedError(
+                        "AWQ with do_gqa_trans on a GQA model: JAX's search "
+                        "gives o's hidden-wide scales to v's kv_dim rows and "
+                        "fails (TypeError, incompatible shapes); a reference "
+                        "fault, ROADMAP C")
+                return
         if not self.trans:
             return
         x = torch.cat(input_feat[subset.input], dim=0)

@@ -3,16 +3,17 @@ lightcompress_tpu/compression/quantization/base.py): the config's weight
 and act specs (W48, the ``w_1``/``w_2`` mixed-bit specs, dynamic or static
 per-tensor act quant with its flags, the ignored layers), the per-layer
 state (``layer_state``: searched qparams, clip factors, act qparams), the
-fake-quant callbacks (``w_qdq``, ``a_qdq``, ``fq_linear_fn``), the
+fake-quant callbacks (``w_qdq``, ``a_qdq``, ``fq_linear_fn``, each
+linear's input first through QuaRot's online rotation), the
 equivalent-transform primitives on the parameter tree (``scale_*``,
-``shift_*``), the static act calibration, the block loop step and the
-deployments.
+``shift_*``; ``special.do_gqa_trans`` scales v's rows and o's repeated
+columns under GQA), the static act calibration, the KV-cache fake quant
+(``quant.kvcache``: a ``KV_REGISTRY`` module, static qparams from each
+block's last K/V), the block loop step and the deployments.
 
-KV-cache quant (``quant.kvcache``: ROADMAP A8 KV quant), the online
-rotation (``special.online_rotate``: A8 QuaRot), the GQA transform of v and
-o (``special.do_gqa_trans``: A8) and token reduction (``token_reduction``:
-A12) raise ``NotImplementedError``.  One process: the JAX package's
-cross-rank mean of the act qparams is the identity here (A14).
+Token reduction (``token_reduction``: ROADMAP A12) raises
+``NotImplementedError``.  One process: the JAX package's cross-rank mean of
+the act qparams is the identity here (A14).
 """
 
 from __future__ import annotations
@@ -33,10 +34,7 @@ from ...quant import (QuantSpec, fake_quant_act_dynamic,
 from ..blockwise import BlockwiseOpt
 
 # config key -> (what it is, the ROADMAP item that ports it)
-UNPORTED = {"kvcache": ("KV-cache quant", "A8 KV quant"),
-            "token_reduction": ("token reduction", "A12")}
-UNPORTED_SPECIAL = {"online_rotate": ("the online rotation", "A8 QuaRot"),
-                    "do_gqa_trans": ("the GQA transform of v and o", "A8")}
+UNPORTED = {"token_reduction": ("token reduction", "A12")}
 
 
 class BaseBlockwiseQuantization(BlockwiseOpt):
@@ -87,12 +85,24 @@ class BaseBlockwiseQuantization(BlockwiseOpt):
         self.quant_softmax = act.get("quant_softmax", False)
         self.quant_act_fn = act.get("quant_act_fn", False)
 
+        kvc = qc.get("kvcache")
+        self.quant_kvcache = bool(kvc)
+        self.kv_module = None
+        if kvc:
+            from ...registry import KV_REGISTRY
+
+            kvc = dict(kvc)
+            kvc["static"] = self.act_static
+            self.kv_module = KV_REGISTRY[kvc["method"]](
+                kvc.get("quant_type", "int-quant"), kvc,
+                self.model.num_blocks)
+
         special = qc.get("special", {})
         self.special_config = special
-        for key, (what, item) in UNPORTED_SPECIAL.items():
-            if special.get(key, False):
-                raise NotImplementedError(f"special.{key} ({what}) is not "
-                                          f"ported: ROADMAP {item}")
+        self.online_rotate = special.get("online_rotate", False)
+        self.do_gqa_trans = special.get("do_gqa_trans", False)
+        arch = self.model.arch
+        self.has_gqa = arch.num_kv_heads < arch.num_heads
         self.true_sequential = special.get("true_sequential", False)
         self.weight_clip = special.get("weight_clip", False)
         self.save_scale = special.get("save_scale", False)
@@ -167,10 +177,12 @@ class BaseBlockwiseQuantization(BlockwiseOpt):
         return fake_quant_act_dynamic(x, self.aspec)
 
     def fq_linear_fn(self, block_idx: int) -> A.LinearFn:
-        """The fake-quant linear: act qdq, then weight qdq per call."""
+        """The fake-quant linear: online rotation, act qdq, then weight
+        qdq per call."""
 
         def lf(name, w, b, x):
-            x = self.a_qdq(x, block_idx, name)
+            x = self.a_qdq(self.model.apply_online_rotate(name, x),
+                           block_idx, name)
             return A.default_linear(name, self.w_qdq(w, block_idx, name), b,
                                     x)
 
@@ -179,6 +191,14 @@ class BaseBlockwiseQuantization(BlockwiseOpt):
     # ------------------------------------------------------------------
     # equivalent-transform primitives on the params tree
     # ------------------------------------------------------------------
+    def repeat_gqa_scales(self, scales: torch.Tensor) -> torch.Tensor:
+        """Per-KV-head scales (kv_dim) repeated over each head's group of
+        query heads (hidden)."""
+        arch = self.model.arch
+        return scales.reshape(arch.num_kv_heads, arch.head_dim) \
+            .repeat_interleave(arch.num_heads // arch.num_kv_heads,
+                               dim=0).reshape(-1)
+
     def scale_ln_fcs(self, bp: Dict, ln_name: str, fc_names: List[str],
                      scales: torch.Tensor) -> None:
         """ln /= s, each fc's input columns *= s (in f32, back to each
@@ -196,18 +216,23 @@ class BaseBlockwiseQuantization(BlockwiseOpt):
 
     def scale_fc_fc(self, bp: Dict, fc1_name: str, fc2_name: str,
                     scales: torch.Tensor) -> None:
-        """fc1's output rows /= s, fc2's input columns *= s."""
+        """fc1's output rows /= s, fc2's input columns *= s; under GQA
+        with ``do_gqa_trans``, v's rows by the kv_dim s and o's columns by
+        s repeated over each KV head's query heads."""
         fc1, fc2 = resolve(bp, fc1_name), resolve(bp, fc2_name)
         s = scales.float()
         out1, in2 = fc1["weight"].shape[0], fc2["weight"].shape[1]
+        s2 = s
         if out1 != in2:
-            raise ValueError(f"cannot scale fc-fc: {fc1_name}({out1}) -> "
-                             f"{fc2_name}({in2})")
+            if not (self.has_gqa and self.do_gqa_trans):
+                raise ValueError(f"cannot scale fc-fc: {fc1_name}({out1}) "
+                                 f"-> {fc2_name}({in2})")
+            s2 = self.repeat_gqa_scales(scales).float()
         fc1["weight"] = (fc1["weight"].float() / s[:, None]).to(
             fc1["weight"].dtype)
         if fc1.get("bias") is not None:
             fc1["bias"] = (fc1["bias"].float() / s).to(fc1["bias"].dtype)
-        fc2["weight"] = (fc2["weight"].float() * s[None, :]).to(
+        fc2["weight"] = (fc2["weight"].float() * s2[None, :]).to(
             fc2["weight"].dtype)
         self._assert_finite(bp, [fc1_name, fc2_name])
 
@@ -275,9 +300,12 @@ class BaseBlockwiseQuantization(BlockwiseOpt):
                         f"equivalent transform")
 
     def update_input_feat(self, feats: Dict[str, List[torch.Tensor]],
-                          subset: Subset, scales: torch.Tensor) -> None:
+                          subset: Subset, scales: torch.Tensor,
+                          is_gqa: bool = False) -> None:
         """Divide the cached inputs of the subset's layers by the applied
-        scale."""
+        scale (repeated over the query heads where ``is_gqa``)."""
+        if is_gqa:
+            scales = self.repeat_gqa_scales(scales)
         for lname in subset.layers:
             if lname in feats:
                 feats[lname] = [x / scales for x in feats[lname]]
@@ -303,6 +331,10 @@ class BaseBlockwiseQuantization(BlockwiseOpt):
             self.input_batches = outs
         self.block_transform(block_idx, feats)
         self.register_act_qparams(block_idx, feats)
+        kvs = getattr(self, "_last_kv_states", None)
+        if self.quant_kvcache and self.kv_module.static and kvs:
+            self.kv_module.calibrate(block_idx, [kv[0] for kv in kvs],
+                                     [kv[1] for kv in kvs])
         if self.quant_out:
             self.input_batches = self.block_forward_batches(
                 block_idx, linear_fn=self.fq_linear_fn(block_idx))
@@ -326,11 +358,12 @@ class BaseBlockwiseQuantization(BlockwiseOpt):
     # ------------------------------------------------------------------
     def deploy(self, mode: str = "fake_quant") -> None:
         """'origin_float' / 'transformed': the float forward of the
-        current (transformed) params; 'fake_quant' / 'fake_quant_wo_kv'
-        (the same here, KV quant not being ported): ``w_qdq`` baked into a
+        current (transformed) params; 'fake_quant': ``w_qdq`` baked into a
         copy of every block's linears (the float blocks kept for
-        ``restore_float``), the act quant as each block's linear function,
-        and the attention's quant hooks under ``quant_attn``."""
+        ``restore_float``), the online rotation and act quant as each
+        block's linear function, the KV-cache fake quant as each block's
+        KV hook, and the attention's quant hooks under ``quant_attn``;
+        'fake_quant_wo_kv': the same without the KV hooks."""
         model = self.model
         if mode in ("origin_float", "transformed"):
             model.deploy_float()
@@ -349,6 +382,9 @@ class BaseBlockwiseQuantization(BlockwiseOpt):
         model.set_param_blocks(new_blocks)
         model.linear_fns = None if self.w_only else [
             self._act_linear_fn(idx) for idx in range(model.num_blocks)]
+        model.kv_hooks = [self.kv_module.make_hook(idx)
+                          for idx in range(model.num_blocks)] \
+            if self.quant_kvcache and mode == "fake_quant" else None
         if self.quant_attn and self.aspec is not None:
             aspec = self.aspec
 
@@ -365,6 +401,7 @@ class BaseBlockwiseQuantization(BlockwiseOpt):
 
     def _act_linear_fn(self, block_idx: int) -> A.LinearFn:
         def lf(name, w, b, x):
+            x = self.model.apply_online_rotate(name, x)
             return A.default_linear(name, w, b,
                                     self.a_qdq(x, block_idx, name))
 

@@ -260,11 +260,15 @@ class GPTQ(BaseBlockwiseQuantization):
         self.seconds: Dict[str, float] = {}
 
     # ------------------------------------------------------------------
-    def compute_hessian(self, x_batches: List[torch.Tensor]) -> torch.Tensor:
-        """H = 2/n_seq · Σ XᵀX over the calibration tokens, in f32."""
+    def compute_hessian(self, x_batches: List[torch.Tensor],
+                        name: str = "") -> torch.Tensor:
+        """H = 2/n_seq · Σ XᵀX over the calibration tokens, in f32; a
+        linear with an online rotation sees its rotated input."""
         n_seq = 0
         H = None
         for x in x_batches:
+            if name:
+                x = self.model.apply_online_rotate(name, x)
             n_seq += x.shape[0]
             x2 = x.reshape(-1, x.shape[-1]).float()
             h = x2.T @ x2
@@ -286,7 +290,7 @@ class GPTQ(BaseBlockwiseQuantization):
                                         gs)
                 continue
             t0 = time.time()
-            H = self.compute_hessian(input_feat[name])
+            H = self.compute_hessian(input_feat[name], name)
             sync(H.device)
             self.seconds["hessian"] = self.seconds.get("hessian", 0.0) \
                 + time.time() - t0

@@ -326,9 +326,12 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _attention(arch: ArchSpec, ap: Dict, h1: torch.Tensor, cos, sin,
                mask: Optional[torch.Tensor], linear_fn: LinearFn,
-               hooks: Tuple = (None, None)):
+               hooks: Tuple = (None, None),
+               kv_hook: Optional[Callable] = None):
     """q/k/v, qk_norm, rope and attention on the normed x; returns the
-    context (B, T, nh*hd) before ``attn.o`` and the post-rope (k, v)."""
+    context (B, T, nh*hd) before ``attn.o`` and the post-rope (k, v).
+    ``kv_hook(k, v) -> (k, v)`` (the KV-cache fake quant) changes the K/V
+    the attention reads, not the returned ones."""
     B, T, _ = h1.shape
     nh, nkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
     q, k, v = (_call(linear_fn, "attn." + n, ap[n], h1)
@@ -337,8 +340,11 @@ def _attention(arch: ArchSpec, ap: Dict, h1: torch.Tensor, cos, sin,
     q, k = qk_normed(arch, ap, q, k)
     if cos is not None:
         q, k = apply_rope(q, k, cos, sin)
+    kv = (k, v)
+    if kv_hook is not None:
+        k, v = kv_hook(k, v)
     ctx = sdpa(q, k, v, mask, nh // nkv, *hooks)
-    return ctx.transpose(1, 2).reshape(B, T, nh * hd), (k, v)
+    return ctx.transpose(1, 2).reshape(B, T, nh * hd), kv
 
 
 def _mlp_tail(arch: ArchSpec, bp: Dict, h: torch.Tensor,
@@ -353,16 +359,18 @@ def _mlp_tail(arch: ArchSpec, bp: Dict, h: torch.Tensor,
 def block_forward(arch: ArchSpec, bp: Dict, x: torch.Tensor, cos, sin,
                   mask: Optional[torch.Tensor],
                   linear_fn: LinearFn = default_linear,
-                  hooks: Tuple = (None, None)):
+                  hooks: Tuple = (None, None),
+                  kv_hook: Optional[Callable] = None):
     """One block on (B, T, H).  Returns (y, feats, (k, v)): ``feats`` maps
     each linear's canonical name to its input, k/v are post-rope.
-    ``hooks``: the attention's (matmul_hook, softmax_hook)."""
+    ``hooks``: the attention's (matmul_hook, softmax_hook); ``kv_hook``:
+    the KV-cache fake quant."""
     feats: Dict[str, torch.Tensor] = {}
     h1 = apply_norm(x, bp["ln1"], arch)
     for n in ("attn.q", "attn.k", "attn.v"):
         feats[n] = h1
     ctx, kv = _attention(arch, bp["attn"], h1, cos, sin, mask, linear_fn,
-                         hooks)
+                         hooks, kv_hook)
     feats["attn.o"] = ctx
     h = x + _call(linear_fn, "attn.o", bp["attn"]["o"], ctx)
     return _mlp_tail(arch, bp, h, linear_fn, feats), feats, kv
@@ -503,11 +511,13 @@ def embed_forward(arch: ArchSpec, params: Dict,
 def model_forward(arch: ArchSpec, params: Dict, input_ids: torch.Tensor,
                   linear_fns: Optional[List[LinearFn]] = None,
                   matmul_hook: Optional[Callable] = None,
-                  softmax_hook: Optional[Callable] = None
+                  softmax_hook: Optional[Callable] = None,
+                  kv_hooks: Optional[List[Optional[Callable]]] = None
                   ) -> torch.Tensor:
     """Full causal-LM forward returning float32 logits (B, T, V);
-    ``linear_fns`` gives each block its ``LinearFn``; the hooks quantize
-    inside every attention (``sdpa``)."""
+    ``linear_fns`` gives each block its ``LinearFn``, ``kv_hooks`` each
+    its KV-cache fake quant; the hooks quantize inside every attention
+    (``sdpa``)."""
     T = input_ids.shape[1]
     dev = input_ids.device
     x = embed_forward(arch, params, input_ids)
@@ -515,6 +525,7 @@ def model_forward(arch: ArchSpec, params: Dict, input_ids: torch.Tensor,
     cos, sin = rope_cos_sin(arch, torch.arange(T, device=dev))
     for idx, bp in enumerate(params["blocks"]):
         lf = linear_fns[idx] if linear_fns is not None else default_linear
+        kh = kv_hooks[idx] if kv_hooks is not None else None
         x = block_forward(arch, bp, x, cos, sin, mask, lf,
-                          (matmul_hook, softmax_hook))[0]
+                          (matmul_hook, softmax_hook), kh)[0]
     return head_forward(arch, params, x)

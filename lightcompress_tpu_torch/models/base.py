@@ -31,6 +31,7 @@ class Subset:
     prev_type: Optional[str]  # 'norm' | 'linear' | None
     input: str  # key into the collected feats
     inspect: str  # 'attn' | 'mlp' | a single linear name
+    is_mlp: bool = False  # QuaRot: the down projection's online rotation
 
 
 # llama.py:52-91 topology, canonical names
@@ -40,9 +41,9 @@ LLAMA_SUBSETS = (
     Subset(layers=("attn.o",), prev_op="attn.v", prev_type="linear",
            input="attn.o", inspect="attn.o"),
     Subset(layers=("mlp.gate", "mlp.up"), prev_op="ln2", prev_type="norm",
-           input="mlp.gate", inspect="mlp"),
+           input="mlp.gate", inspect="mlp", is_mlp=True),
     Subset(layers=("mlp.down",), prev_op="mlp.up", prev_type="linear",
-           input="mlp.down", inspect="mlp.down"),
+           input="mlp.down", inspect="mlp.down", is_mlp=True),
 )
 
 # a MoE block: the router and every expert's gate/up (and the shared
@@ -51,11 +52,11 @@ LLAMA_SUBSETS = (
 MOE_SUBSETS = LLAMA_SUBSETS[:2] + (
     Subset(layers=("mlp.router", "mlp.gate", "mlp.up", "mlp.shared_gate",
                    "mlp.shared_up"), prev_op="ln2", prev_type="norm",
-           input="mlp.gate", inspect="mlp"),
+           input="mlp.gate", inspect="mlp", is_mlp=True),
     LLAMA_SUBSETS[3],
     Subset(layers=("mlp.shared_down",), prev_op="mlp.shared_up",
            prev_type="linear", input="mlp.shared_down",
-           inspect="mlp.shared_down"),
+           inspect="mlp.shared_down", is_mlp=True),
 )
 
 
@@ -75,9 +76,36 @@ class BaseModel:
         # per-block deployed linear_fn (None = default_linear); the
         # weight-only deployments bake their weights instead
         self.linear_fns: Optional[List[A.LinearFn]] = None
+        # per-block KV-cache fake quant ``(k, v) -> (k, v)``
+        self.kv_hooks: Optional[List[Optional[Callable]]] = None
+        # QuaRot's online rotations: linear name -> ("full", 0) or
+        # ("head", head_dim)
+        self.rotate_cfg: Dict[str, Tuple[str, int]] = {}
         # the act-quant hooks inside attention (``quant_attn``)
         self.attn_matmul_hook: Optional[Callable] = None
         self.attn_softmax_hook: Optional[Callable] = None
+
+    # -- online rotation ---------------------------------------------------
+    def apply_online_rotate(self, name: str, x: torch.Tensor
+                            ) -> torch.Tensor:
+        """The online Hadamard of ``name``'s input, if QuaRot set one."""
+        cfg = self.rotate_cfg.get(name)
+        if cfg is None:
+            return x
+        from ..ops.hadamard import online_rotate
+
+        return online_rotate(x, *cfg)
+
+    def default_linear_fn(self) -> Optional[A.LinearFn]:
+        """The float linear with the online rotations (None without)."""
+        if not self.rotate_cfg:
+            return None
+
+        def lf(name, w, b, x):
+            return A.default_linear(name, w, b,
+                                    self.apply_online_rotate(name, x))
+
+        return lf
 
     # -- topology ----------------------------------------------------------
     @property
@@ -141,7 +169,8 @@ class BaseModel:
         cos, sin = self.rope_tables(T, x.device)
         mask = A.causal_mask(T, T, device=x.device)
         return A.block_forward(self.arch, bp, x, cos, sin, mask,
-                               linear_fn or A.default_linear)
+                               linear_fn or self.default_linear_fn()
+                               or A.default_linear)
 
     def inspect_forward(self, block_idx: int, subset: Subset,
                         x: torch.Tensor,
@@ -152,7 +181,7 @@ class BaseModel:
         ``inspect_module``)."""
         bp = block_params if block_params is not None else \
             self.blocks[block_idx]
-        lf = linear_fn or A.default_linear
+        lf = linear_fn or self.default_linear_fn() or A.default_linear
         if subset.inspect == "attn":
             T = x.shape[1]
             cos, sin = self.rope_tables(T, x.device)
@@ -164,43 +193,45 @@ class BaseModel:
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         """f32 logits of the current deployment."""
+        lfs = self.linear_fns
+        if lfs is None and self.rotate_cfg:
+            lfs = [self.default_linear_fn()] * self.num_blocks
         return A.model_forward(self.arch, self.params,
                                input_ids.to(self.device).long(),
-                               linear_fns=self.linear_fns,
+                               linear_fns=lfs,
                                matmul_hook=self.attn_matmul_hook,
-                               softmax_hook=self.attn_softmax_hook)
+                               softmax_hook=self.attn_softmax_hook,
+                               kv_hooks=self.kv_hooks)
 
     # -- deploy ------------------------------------------------------------
     def deploy_float(self) -> None:
         self.linear_fns = None
+        self.kv_hooks = None
 
     def deploy_fake_quant(self, w_qdq_fns: List[Dict[str, Callable]],
                           a_qdq_fns: Optional[List[Dict[str, Callable]]]
                           = None, kv_hooks=None) -> None:
         """Bake each block's weight qdq (``{name: fn(w, name)}``) into its
-        params once, and install each block's act qdq (``{name: fn(x)}``)
-        as its linear function.  KV quant is not ported (ROADMAP A8 KV
-        quant)."""
-        if kv_hooks is not None:
-            raise NotImplementedError(
-                "KV fake quant is not ported: ROADMAP A8 KV quant")
+        params once, install each block's online rotations and act qdq
+        (``{name: fn(x)}``) as its linear function and ``kv_hooks`` (one
+        ``(k, v) -> (k, v)`` a block, or None) as its KV fake quant."""
         for idx, bp in enumerate(self.params["blocks"]):
             fns = w_qdq_fns[idx] if idx < len(w_qdq_fns) else {}
             for name, fn in fns.items():
                 node = resolve(bp, name)
                 node["weight"] = fn(node["weight"], name)
-        self.linear_fns = None
-        if a_qdq_fns is None:
-            return
+        self.kv_hooks = kv_hooks
 
         def make_fn(afns):
             def lf(name, w, b, x):
+                x = self.apply_online_rotate(name, x)
                 if name in afns:
                     x = afns[name](x)
                 return A.default_linear(name, w, b, x)
 
             return lf
 
+        a_qdq_fns = a_qdq_fns or []
         self.linear_fns = [make_fn((a_qdq_fns[i] if i < len(a_qdq_fns)
                                     else {}) or {})
                            for i in range(self.num_blocks)]

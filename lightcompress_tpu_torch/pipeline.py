@@ -7,8 +7,9 @@ eval -> token consistency against a freshly loaded origin model.
 runs on the card unless ``--device cpu`` asks for the CPU, and prints
 ``RESULT <name> = <value>`` per eval result.
 
-Ported: the ``ppl`` eval on ``synthetic`` data (``n_tokens`` random ids
-from the eval ``seed``) and the token consistency; ``save_trans`` and
+Ported: the ``ppl`` and ``decode_ppl`` evals on ``synthetic`` data
+(``n_tokens`` random ids from the eval ``seed``) and the token
+consistency; ``save_trans`` and
 ``save_fake``; ``base.profile_out``, the JSON of the run's phase timer
 (``utils.profiling.PhaseTimer``: ``load_model``, ``eval/<pos>``,
 ``calib_data``, ``block_loop/<method>`` and ``block_loop/<method>/block``,
@@ -38,7 +39,8 @@ from . import compression  # noqa: F401  (registers the algorithms)
 from .config import DotDict, get_compress_config, get_modalities, load_config
 from .data import CalibDataset
 from .device import DeviceLike, resolve_device
-from .eval import PerplexityEval, TokenConsistencyEval
+from .eval import (DecodePerplexityEval, PerplexityEval,
+                   TokenConsistencyEval)
 from .export import run_exports
 from .models.hf_loader import load_model
 from .registry import ALGO_REGISTRY
@@ -64,6 +66,11 @@ def _load_testenc(model, ec, name) -> np.ndarray:
 
 def _build_one_eval(model, ec, name):
     etype = ec.get("type", "ppl")
+    if etype == "decode_ppl":
+        # the first num_eval_tokens + 1 ids, one token a step
+        n = ec.get("num_eval_tokens", 256)
+        return DecodePerplexityEval(_load_testenc(model, ec, name)[:, :n + 1],
+                                    num_eval_tokens=n), etype
     if etype != "ppl":
         raise NotImplementedError(f"eval type {etype!r} is not ported: "
                                   f"ROADMAP A13")

@@ -1,6 +1,6 @@
 """String-keyed factory registries (port of lightcompress_tpu/registry.py):
-the pipeline looks up models, algorithms and calibration preprocessors by
-the names a config gives."""
+the pipeline looks up models, algorithms, calibration preprocessors and
+KV-cache quantizers by the names a config gives."""
 
 from __future__ import annotations
 
@@ -36,3 +36,4 @@ class Register(dict):
 MODEL_REGISTRY = Register("MODEL_REGISTRY")
 ALGO_REGISTRY = Register("ALGO_REGISTRY")
 PREPROC_REGISTRY = Register("PREPROC_REGISTRY")
+KV_REGISTRY = Register("KV_REGISTRY")

@@ -117,5 +117,13 @@ def test_model_deploy_with_act_qdq(tiny_ckpt):
     got = tm.forward(torch.from_numpy(ids)).numpy()
     diff, top = np.abs(got - want), np.abs(want).max()
     assert diff.max() <= 1e-2 * top and diff.mean() <= 1e-4 * top
-    with pytest.raises(NotImplementedError, match="A8 KV quant"):
-        tm.deploy_fake_quant([], kv_hooks=[None, None])
+    # the KV hooks (the KV-cache fake quant) are installed and run, one
+    # call a block
+    calls = []
+    tm.deploy_fake_quant(
+        [], [{n: (lambda x: TQ.fake_quant_act_dynamic(x, ta))
+              for n in names}] * 2,
+        kv_hooks=[lambda k, v: (calls.append(k.shape), (k, v))[1]] * 2)
+    assert torch.equal(tm.forward(torch.from_numpy(ids)),
+                       torch.from_numpy(got))
+    assert len(calls) == 2

@@ -268,11 +268,8 @@ def test_config_and_data_pieces():
 
 
 @pytest.mark.parametrize("change,item", [
-    ({"kvcache": {"method": "Naive"}}, "A8 KV quant"),
     ({"token_reduction": {"method": "ToMe"}}, "A12"),
-    ({"weight": {"bit": 4, "ste": True}}, "A8"),
-    ({"special": {"online_rotate": True}}, "A8 QuaRot"),
-    ({"special": {"do_gqa_trans": True}}, "A8")])
+    ({"weight": {"bit": 4, "ste": True}}, "A8")])
 def test_unported_options_raise(tiny_ckpt, change, item):
     tm = load_model(tiny_ckpt, dtype=torch.float32, device="cpu")
     quant = copy.deepcopy(AWQ)

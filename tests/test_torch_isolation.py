@@ -56,7 +56,15 @@ def test_port_imports_with_jax_blocked():
                 "pipeline", "models.hf_loader", "models.st_io",
                 "compression.quantization.awq", "eval.ppl", "data.dataset",
                 "ops.scaled_matmul", "serving.checkpoint", "export",
-                "__main__"):
+                "__main__", "ops.hadamard",
+                "compression.quantization.quarot",
+                "compression.quantization.kvquant",
+                "compression.quantization.osplus",
+                "compression.quantization.llmint8",
+                "compression.quantization.quik",
+                "compression.quantization.adadim",
+                "compression.quantization.spqr",
+                "compression.quantization.dgq"):
         assert f"lightcompress_tpu_torch.{mod}" in mods
     code = _BLOCKER.format(blocked=BLOCKED, modules=mods)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
